@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA package on one NVIDIA Hopper card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --kernels-only]
 
 Builds the package's CUDA kernels from csrc/, holds each against its plain
 PyTorch version on the card, drives the scan (track -> culled fuse ->
@@ -17,6 +17,10 @@ CPU path.  The last line is
 With --profile one more phase traces a short scan with torch.profiler and
 prints the card's busy share of it and the kernels that take the most device
 time; the run is otherwise the same.
+
+With --kernels-only the run stops after the kernels phase (build, checks
+and times of the kernels, about ten seconds): a quick look at a changed
+kernel.  It drives no path, so it prints no final "ok" line and exits with 3.
 
 Imports numpy, torch and the package; needs no image decoder and no network.
 """
@@ -261,6 +265,74 @@ def _make(gen, n, r, cap, dtype, idx_dtype, misalign=False):
     return table, idx, rows, identical
 
 
+# one fused frame writes back five row tables with one index vector: dist,
+# grad, weight, colour and the frame's visibility word (core/volume.py)
+FRAME_TABLES = [(128, "float32"), (384, "float32"), (128, "float32"),
+                (384, "float32"), (128, "int32")]
+SCATTERS = {"scatter_rows_dma": "scatter_tables_dma",
+            "scatter_rows": "scatter_tables"}
+
+
+def _make_tables(gen, n, cap, specs, idx_dtype, misaligned=(), pattern="random"):
+    """A list of tables [n, r] of the (r, dtype) in `specs` with one idx
+    [cap], per-slot `rows`, `identical` rows (see _make) and the count of
+    live slots (None: all).  Tables whose position is in `misaligned` start
+    4 bytes off 16-byte alignment.
+    pattern "random": random indices, the second half repeats the first.
+    pattern "unique": every slot names a row of its own.
+    pattern "fusion": what the culled fusion sends, ascending distinct rows,
+    then padding slots that all repeat the first, and the count of the
+    former as `live`."""
+    import torch
+
+    made = [_make(gen, n, r, cap, getattr(torch, dt), idx_dtype,
+                  misalign=pos in misaligned)
+            for pos, (r, dt) in enumerate(specs)]
+    idx, live = made[0][1], None
+    if pattern == "unique":
+        idx = torch.randperm(n, generator=gen, device="cuda")[:cap].to(idx_dtype)
+    if pattern == "fusion":
+        n_live = (3 * cap) // 4
+        distinct = torch.randperm(n, generator=gen, device="cuda")[:n_live]
+        idx = torch.cat([distinct.sort().values,
+                         distinct.min().expand(cap - n_live)]).to(idx_dtype)
+        live = torch.tensor(n_live, dtype=torch.int64, device="cuda")
+    # identical rows follow the shared idx: slot i carries row idx[i] of a pool
+    identical = [_make(gen, n, r, 1, getattr(torch, dt), idx_dtype)[0]
+                 [idx.long()].contiguous() for r, dt in specs]
+    return [m[0] for m in made], idx, [m[2] for m in made], identical, live
+
+
+def _check_tables_case(rowcopy, what, tables, idx, rows, identical, live):
+    """Both multi-table scatters on copies of `tables` against their plain
+    versions, bit for bit -> cases checked.  With a count of live slots the
+    kernels must also leave out the slots past it: they are then given
+    per-slot rows there, and held against the plain version of the live
+    slots alone."""
+    import torch
+
+    n = 0
+    for name, multi in SCATTERS.items():
+        runs = [(identical if name == "scatter_rows_dma" else rows, None, idx)]
+        if live is not None:
+            k = int(live)
+            mixed = [torch.cat([a[:k], b[k:]]) for a, b in zip(identical, rows)]
+            runs = [(identical, live, idx), (mixed, live, idx[:k])]
+        for src, lv, plain_idx in runs:
+            want = getattr(rowcopy, multi + "_plain")(
+                [t.clone() for t in tables], plain_idx,
+                [r[: plain_idx.shape[0]] for r in src])
+            got = getattr(rowcopy, multi)(
+                [t.clone() for t in tables], idx, src, live=lv)
+            torch.cuda.synchronize()
+            for pos, (g, w) in enumerate(zip(got, want)):
+                check(_bits_equal(g, w),
+                      f"{multi} disagrees with its plain version on table "
+                      f"{pos} of {what}")
+            n += 1
+    return n
+
+
 def check_kernels(rowcopy):
     """All four kernels against their plain versions on the card, bit for
     bit, at the main path's shapes and at awkward ones; times at the main
@@ -271,8 +343,7 @@ def check_kernels(rowcopy):
     gen.manual_seed(SEED)
     flush = torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     n_main, cap_main = GRID * GRID, GRID * GRID // 2
-    # one fused frame moves five row tables: dist, weight (f32, R=128), the
-    # visibility word (int32, R=128), grad and colour (f32, R=384)
+    # the three distinct (width, type) pairs among a frame's five tables
     frame_tables = [(128, torch.float32, 2), (128, torch.int32, 1),
                     (384, torch.float32, 2)]
     cases = [(n_main, r, cap_main, dt, torch.int32, False)
@@ -299,37 +370,64 @@ def check_kernels(rowcopy):
                   f"CAP={cap} {dt} idx {it} misaligned={mis}")
             worst[name] = max(worst[name], _abs_err(got, want))
             n_checked += 1
-    # last slot wins, stated outright: every slot names row 3
-    table = torch.zeros((8, 33), device="cuda")
-    rows = torch.arange(5, device="cuda", dtype=torch.float32)[:, None].repeat(1, 33)
-    rowcopy.scatter_rows(table, torch.full((5,), 3, device="cuda",
-                                           dtype=torch.int32), rows)
-    torch.cuda.synchronize()
-    check(bool((table[3] == 4).all()) and float(table.abs().sum()) == 4 * 33,
-          "scatter_rows: the last slot did not win")
 
-    # times at the main path's shapes, summed over one fused frame's tables
+    # the multi-table scatters
+    i32, i64 = torch.int32, torch.int64
+    lists = [("the frame's five tables", n_main, cap_main, FRAME_TABLES, i32, ()),
+             ("the frame's five tables, fusion's indices", n_main, cap_main,
+              FRAME_TABLES, i32, ())]
+    for t in (1, 2, 8):
+        lists.append((f"T={t}", 300, 513, (FRAME_TABLES * 2)[:t], i64, ()))
+    for r in (1, 33, 96):
+        for cap in (1, 7, 513):
+            spec = [(r, "float32"), (r, "int32"), (r, "float32")]
+            lists.append((f"three tables R={r} CAP={cap}", 40, cap, spec,
+                          i64 if cap == 7 else i32, ()))
+    lists.append(("a misaligned base", 40, 513, [(8, "float32")] * 2, i32, (0, 1)))
+    lists.append(("aligned and unaligned tables mixed", 200, 513,
+                  [(128, "float32"), (33, "int32"), (96, "float32"),
+                   (1, "float32"), (384, "float32")], i32, (2,)))
+    lists.append(("rows of 20 KB", 64, 37, [(5120, "float32"), (4, "int32")],
+                  i32, ()))
+    for k, (what, n, cap, spec, it, mis) in enumerate(lists):
+        made = _make_tables(gen, n, cap, spec, it, mis,
+                            pattern="fusion" if k == 1 else "random")
+        n_checked += _check_tables_case(rowcopy, what, *made)
+
+    # last slot wins, stated outright: every slot names row 3
+    specs = [(33, torch.float32), (128, torch.int32), (1, torch.float32),
+             (384, torch.float32), (96, torch.int32)]
+    idx = torch.full((5,), 3, device="cuda", dtype=torch.int32)
+    one = torch.zeros((8, 33), device="cuda")
+    rowcopy.scatter_rows(one, idx, torch.arange(
+        5, device="cuda", dtype=torch.float32)[:, None].repeat(1, 33))
+    tables = [torch.zeros((8, r), device="cuda", dtype=dt) for r, dt in specs]
+    rowcopy.scatter_tables(
+        tables, idx,
+        [torch.arange(5, device="cuda")[:, None].repeat(1, r).to(dt)
+         for r, dt in specs])
+    torch.cuda.synchronize()
+    for t in [one] + tables:
+        check(bool((t[3] == 4).all())
+              and float(t.abs().sum()) == 4 * t.shape[1],
+              "scatter_rows: the last slot did not win")
+
+    # times at the main path's shapes.  Gathers: per table, summed over one
+    # fused frame's tables.  Scatters: ONE call on the frame's five tables.
     out = {}
     shapes = {k: [] for k in KERNELS}
-    for name in KERNELS:
+    for name in ("gather_rows_dma", "gather_rows"):
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
         for r, dt, count in frame_tables:
             table, idx, rows, identical = _make(
                 gen, n_main, r, cap_main, dt, torch.int32)
             idx64 = idx.long()
-            if name.startswith("gather"):
-                kern = lambda: getattr(rowcopy, name)(table, idx)
-                plain = lambda: rowcopy.gather_rows_plain(table, idx)
-                lib = lambda: torch.index_select(table, 0, idx64)
-            else:
-                pfn = (rowcopy.scatter_rows_dma_plain
-                       if name == "scatter_rows_dma" else rowcopy.scatter_rows_plain)
-                kern = lambda: getattr(rowcopy, name)(table, idx, identical)
-                plain = lambda: pfn(table, idx, identical)
-                lib = lambda: table.index_copy_(0, idx64, identical)
             one = dict(
-                ms=_time_ms(kern, flush), plain_ms=_time_ms(plain, flush),
-                library_ms=_time_ms(lib, flush),
+                ms=_time_ms(lambda: getattr(rowcopy, name)(table, idx), flush),
+                plain_ms=_time_ms(
+                    lambda: rowcopy.gather_rows_plain(table, idx), flush),
+                library_ms=_time_ms(
+                    lambda: torch.index_select(table, 0, idx64), flush),
                 # rows read once and written once, the indices read once
                 bound_ms=(2 * cap_main * r * 4 + cap_main * 4)
                 / HBM_BYTES_PER_S * 1e3)
@@ -338,6 +436,42 @@ def check_kernels(rowcopy):
             for k in tot:
                 tot[k] += count * one[k]
         out[name] = tot
+
+    sum_r = sum(r for r, _ in FRAME_TABLES)
+    for pattern in ("random", "unique", "fusion"):
+        tables, idx, _, identical, live = _make_tables(
+            gen, n_main, cap_main, FRAME_TABLES, torch.int32, pattern=pattern)
+        idx64 = idx.long()
+        distinct = int(torch.unique(idx64).numel())
+        # what this run's data needs: for every DISTINCT destination row one
+        # slot's rows read and the row written (the other slots that name it
+        # lose, or carry the same bytes), and the indices read ONCE
+        bound = (2 * distinct * sum_r * 4 + cap_main * 4) / HBM_BYTES_PER_S * 1e3
+        src = torch.cat([r.view(torch.int32).reshape(-1) for r in identical])
+        dst = torch.empty_like(src)
+
+        def library():
+            for t, rows in zip(tables, identical):
+                t.index_copy_(0, idx64, rows)
+
+        for name, multi in SCATTERS.items():
+            one = dict(
+                indices=pattern, distinct_rows=distinct,
+                slots_moved=distinct if name == "scatter_rows" or live is not None
+                else cap_main,
+                ms=_time_ms(lambda: getattr(rowcopy, multi)(
+                    tables, idx, identical, live=live), flush),
+                plain_ms=_time_ms(lambda: getattr(rowcopy, multi + "_plain")(
+                    tables, idx, identical), flush),
+                library_ms=_time_ms(library, flush), bound_ms=bound,
+                # for scale: one contiguous device copy of all slots' bytes
+                contiguous_copy_ms=_time_ms(lambda: dst.copy_(src), flush))
+            one["share_of_bound"] = bound / one["ms"]
+            shapes[name].append(dict(
+                tables=[f"R={r} {dt}" for r, dt in FRAME_TABLES], **one))
+            if pattern == "random":    # as the gathers and the earlier records
+                out[name] = {k: one[k] for k in
+                             ("ms", "plain_ms", "library_ms", "bound_ms")}
     return out, shapes, worst, n_checked
 
 
@@ -494,7 +628,9 @@ def main():
     # ---- kernels against their plain versions
     times, shapes, worst, n_checked = check_kernels(rowcopy)
     emit("kernels", ok=True, cases_checked=n_checked, card=card,
-         reps=KERNEL_REPS, shapes=shapes)
+         reps=KERNEL_REPS, times=times, shapes=shapes)
+    if "--kernels-only" in sys.argv[1:]:
+        return 3
 
     # ---- the main path
     seq = make_sequence(FRAMES)
@@ -503,9 +639,11 @@ def main():
         facts = check_scan(main_run, seq, FRAMES)
         counts = main_run["counts"]
         calls = main_run["pipe"].fuse_culled_calls
-        for name in ("gather_rows_dma", "scatter_rows_dma"):
-            check(counts[name] == 5 * calls,
-                  f"{name}: {counts[name]} launches, expected 5 x {calls}")
+        # a culled fusion gathers its five tables one by one and writes them
+        # back with one scatter
+        for name, per_call in (("gather_rows_dma", 5), ("scatter_rows_dma", 1)):
+            check(counts[name] == per_call * calls,
+                  f"{name}: {counts[name]} launches, expected {per_call} x {calls}")
         for name in ("gather_rows", "scatter_rows"):
             check(counts[name] == 0, f"{name} launched on the default path")
         emit("scan", ok=True, card=card, frames=FRAMES,
@@ -523,9 +661,10 @@ def main():
                 for impl in ("dma", "staged", "plain")}
         staged = runs["staged"]
         calls_s = staged["pipe"].fuse_culled_calls
-        for name in ("gather_rows", "scatter_rows"):
-            check(staged["counts"][name] == 5 * calls_s,
-                  f"{name}: {staged['counts'][name]} launches, expected 5 x {calls_s}")
+        for name, per_call in (("gather_rows", 5), ("scatter_rows", 1)):
+            check(staged["counts"][name] == per_call * calls_s,
+                  f"{name}: {staged['counts'][name]} launches, expected "
+                  f"{per_call} x {calls_s}")
         check(all(v == 0 for v in runs["plain"]["counts"].values()),
               "plain row movement launched a kernel")
         for impl in ("staged", "plain"):
@@ -555,7 +694,12 @@ def main():
              bound_ms=times[name]["bound_ms"], bound_by="bytes",
              library_ms=times[name]["library_ms"],
              work="one fused frame: CAP=8192 rows of each of the five state "
-                  "tables (3 x R=128, 2 x R=384, 4-byte elements) out of N=16384")
+                  "tables (3 x R=128, 2 x R=384, 4-byte elements) out of "
+                  "N=16384; " + (
+                      "one call on the five tables, random indices of which "
+                      "the second half repeats the first; the bound counts "
+                      "the distinct rows only"
+                      if name in SCATTERS else "five calls, summed"))
         for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

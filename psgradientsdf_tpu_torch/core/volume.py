@@ -401,13 +401,15 @@ def _gather(table2d, idx, impl):
     return rowcopy.gather_rows_plain(table2d, idx)
 
 
-def _scatter(table2d, idx, rows, impl):
-    rows = rows.contiguous()
+def _scatter(tables2d, idx, rows_list, live, impl):
+    """One call writes back all the tables that share `idx`; the slots at or
+    past `live` repeat slot 0."""
+    rows_list = [rows.contiguous() for rows in rows_list]
     if impl == "dma":
-        return rowcopy.scatter_rows_dma(table2d, idx, rows)
+        return rowcopy.scatter_tables_dma(tables2d, idx, rows_list, live=live)
     if impl == "staged":
-        return rowcopy.scatter_rows(table2d, idx, rows)
-    return rowcopy.scatter_rows_dma_plain(table2d, idx, rows)
+        return rowcopy.scatter_tables(tables2d, idx, rows_list, live=live)
+    return rowcopy.scatter_tables_dma_plain(tables2d, idx, rows_list)
 
 
 def fuse_frame_culled(
@@ -440,8 +442,8 @@ def fuse_frame_culled(
       2. The surviving rows are compacted to a STATIC row_capacity
          (`compact_active`), their state rows are gathered from the five row
          tables (dist, grad, weight, color and the frame's visibility word),
-         the exact per-voxel update runs on them, and the rows are scattered
-         back.
+         the exact per-voxel update runs on them, and the rows of all five
+         tables are scattered back by one call.
 
     rows_impl picks the row-movement kernels (ops/rowcopy.py): "dma" (direct
     gather / direct scatter, the default and what the pipeline uses) or
@@ -449,8 +451,9 @@ def fuse_frame_culled(
     the plain PyTorch versions instead — the yardstick the kernels are held
     against, not a path the pipeline takes.  All three give the same volume
     bit for bit: capacity padding slots DUPLICATE the first compacted row,
-    compute its update again (identical bytes) and scatter it again, so the
-    movement stays a pure indexed row copy and write order cannot matter.
+    compute its update again (identical bytes) and may scatter it again (the
+    kernels are told the live count and skip them), so the movement stays a
+    pure indexed row copy and write order cannot matter.
 
     The scatter writes IN PLACE.  With inplace=False (default) the update is
     applied to a clone and `vol` is left as it was — the functional contract
@@ -524,11 +527,13 @@ def fuse_frame_culled(
     )
     nvw = vw_r | vis_or
 
-    _scatter(t_dist, safe_rows, nd, rows_impl)
-    _scatter(t_grad, safe_rows, ng.reshape(row_capacity, S * 3), rows_impl)
-    _scatter(t_weight, safe_rows, nw, rows_impl)
-    _scatter(t_color, safe_rows, nc.reshape(row_capacity, S * 3), rows_impl)
-    _scatter(t_vis, safe_rows, nvw, rows_impl)
+    # the padding slots repeat slot 0, so the scatter may skip them; with no
+    # active row at all, slot 0 itself is padding and stays live
+    live = torch.clamp(n_active, min=1)
+    _scatter(
+        [t_dist, t_grad, t_weight, t_color, t_vis], safe_rows,
+        [nd, ng.reshape(row_capacity, S * 3), nw,
+         nc.reshape(row_capacity, S * 3), nvw], live, rows_impl)
     return out, overflow
 
 

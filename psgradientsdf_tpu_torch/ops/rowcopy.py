@@ -6,14 +6,26 @@ fusion (core/volume.py), hand-written for Hopper in csrc/rowcopy.cu.
   gather_rows(table, idx)                      -> rows[CAP,R]
   scatter_rows(table, idx, rows)               -> table   (IN PLACE, ordered)
 
+  scatter_tables_dma(tables, idx, rows_list)   -> tables  (IN PLACE)
+  scatter_tables(tables, idx, rows_list)       -> tables  (IN PLACE, ordered)
+
+The last two write back up to 8 tables that share one `idx` (widths and
+dtypes may differ) and compute on each table exactly what the one-table call
+computes; `scatter_rows_dma` and `scatter_rows` are their one-table case.
+
 Each replaces the function of the same name in the JAX package's
 ops/rowcopy.py (the Pallas kernels for the TPU):
 
   gather_rows_dma   HBM->HBM async row copies through a semaphore ring
                     -> one warp per output row copying global->global.
   scatter_rows_dma  the same ring writing into the donated table
-                    -> the mirror image, in place.  Duplicate indices race:
-                    callers give slots that share an index identical rows.
+                    -> ONE launch for all the tables of a call, laid out by
+                    slot: a warp owns a slot, reads its index once and moves
+                    the slot's segment of every table, all its loads started
+                    before the first store (16-byte lanes where a table's
+                    width and bases allow, 4-byte lanes otherwise, decided
+                    per table).  Duplicate indices race: callers give slots
+                    that share an index identical rows.
   gather_rows       scalar-prefetched indices, `group` rows per sequential
                     grid step staged through VMEM
                     -> a block stages a group of 8 rows through shared
@@ -21,15 +33,26 @@ ops/rowcopy.py (the Pallas kernels for the TPU):
   scatter_rows      one row per sequential grid step, so duplicates resolve
                     in slot order, LAST slot wins
                     -> blocks run in no order on a GPU, so the order is
-                    made explicit: pass 1 atomicMax(winner[idx[i]], i),
-                    pass 2 writes slot i only if it is the winner.
+                    made explicit: pass 1 atomicMax(winner[idx[i]], i), once
+                    per call for the shared index vector; pass 2 is the
+                    direct scatter's kernel with a predicate, slot i writes
+                    only if it is the winner.  Two launches a call.
 
-Bound on the card, all four: bytes.  CAP rows are read and CAP rows are
-written, 2*CAP*R*4 bytes plus the index vector, over the 3.35 TB/s of an
-H100's device memory (8192 rows of 128 floats: 2.5 us; of 384 floats:
-7.5 us); there is no arithmetic.  The design answer is wide coalesced
-accesses (16 bytes a thread when R*4 and the base pointers are 16-byte
-aligned, 4 bytes otherwise) with thousands of rows in flight.
+Both scatters take `live`, an optional int64 scalar tensor on the tables'
+device: the caller states that every slot at or past it repeats an earlier
+slot (the same index and the same rows), so the kernels skip those slots and
+the plain versions, which write them again, give the same tables.  The culled
+fusion pads its index vector that way and passes its count of live rows.
+
+Bound on the card, all four: bytes, no arithmetic.  A gather reads CAP rows
+and writes CAP rows, 2*CAP*R*4 bytes for each table plus the index vector,
+over the 3.35 TB/s of an H100's device memory (8192 rows of 128 floats:
+2.5 us; of 384 floats: 7.5 us).  A scatter must move only the rows that end
+up in the table: one slot's rows read and one row written for every DISTINCT
+index among the live slots (a fused frame's five tables with every slot
+distinct: 22.5 us).  The design answer is wide accesses with many bytes in
+flight: 16 bytes a thread when R*4 and the base pointers are 16-byte
+aligned, 4 bytes a thread otherwise.
 
 The Mosaic tiling rule R % 128 == 0 of the TPU kernels is gone: any R >= 1
 and any CAP >= 1 work.  `idx` in [0, N) stays the caller's contract.
@@ -44,13 +67,13 @@ went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 _LIB_NAME = "rowcopy"
 _INDEX_DTYPES = (torch.int32, torch.int64)
-
+MAX_TABLES = 8
 launch_counts: Dict[str, int] = {
     "gather_rows_dma": 0,
     "scatter_rows_dma": 0,
@@ -98,6 +121,18 @@ def scatter_rows_plain(table: torch.Tensor, idx: torch.Tensor,
     return table.index_copy_(0, idx[wins], rows[wins])
 
 
+def scatter_tables_dma_plain(tables: Sequence[torch.Tensor], idx: torch.Tensor,
+                             rows_list: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """scatter_rows_dma_plain on every table of the list."""
+    return [scatter_rows_dma_plain(t, idx, r) for t, r in zip(tables, rows_list)]
+
+
+def scatter_tables_plain(tables: Sequence[torch.Tensor], idx: torch.Tensor,
+                         rows_list: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """scatter_rows_plain on every table of the list."""
+    return [scatter_rows_plain(t, idx, r) for t, r in zip(tables, rows_list)]
+
+
 # ---------------------------------------------------------------------------
 # argument checks and the library binding
 # ---------------------------------------------------------------------------
@@ -136,6 +171,27 @@ def _check(name: str, table: torch.Tensor, idx: torch.Tensor,
             raise ValueError(f"{name}: rows must be contiguous")
 
 
+def _check_tables(name: str, tables, idx: torch.Tensor, rows_list,
+                  live: Optional[torch.Tensor]) -> None:
+    if len(tables) != len(rows_list):
+        raise ValueError(
+            f"{name}: {len(tables)} tables but {len(rows_list)} row blocks")
+    if not 1 <= len(tables) <= MAX_TABLES:
+        raise ValueError(
+            f"{name}: 1 to {MAX_TABLES} tables a call, got {len(tables)}")
+    for table, rows in zip(tables, rows_list):
+        _check(name, table, idx, rows)
+    if live is not None:
+        if (not isinstance(live, torch.Tensor) or live.dtype != torch.int64
+                or live.numel() != 1):
+            raise TypeError(
+                f"{name}: live must be a tensor of one int64 element, got "
+                f"{live!r}")
+        if live.device != idx.device:
+            raise ValueError(
+                f"{name}: live on {live.device}, idx on {idx.device}")
+
+
 _bound = None
 
 
@@ -148,12 +204,14 @@ def _library():
 
         lib = load_library(_LIB_NAME)
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in ("rowcopy_gather_direct", "rowcopy_scatter_direct",
-                   "rowcopy_gather_staged"):
+        for fn in ("rowcopy_gather_direct", "rowcopy_gather_staged"):
             getattr(lib, fn).argtypes = [p, p, p, i, i, i, p]
             getattr(lib, fn).restype = i
-        lib.rowcopy_scatter_ordered.argtypes = [p, p, p, p, i, i, i, p]
-        lib.rowcopy_scatter_ordered.restype = i
+        # tables[], rows[], r[], n_tables, idx, live, cap, idx64, winner, tag,
+        # stream
+        lib.rowcopy_scatter_tables.argtypes = [
+            p, p, p, i, p, p, i, i, p, ctypes.c_uint, p]
+        lib.rowcopy_scatter_tables.restype = i
         _bound = lib
     return _bound
 
@@ -190,20 +248,42 @@ def gather_rows_dma(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _launch_scatter(name: str, tables, idx: torch.Tensor, rows_list,
+                    live: Optional[torch.Tensor],
+                    winner: Optional[torch.Tensor], tag: int) -> None:
+    lib = _library()
+    n = len(tables)
+    tptr = (ctypes.c_void_p * n)(*[t.data_ptr() for t in tables])
+    rptr = (ctypes.c_void_p * n)(*[r.data_ptr() for r in rows_list])
+    widths = (ctypes.c_int * n)(*[t.shape[1] for t in tables])
+    dev = tables[0].device
+    with torch.cuda.device(dev):
+        _launch(name, lib.rowcopy_scatter_tables, tptr, rptr, widths, n,
+                idx.data_ptr(), None if live is None else live.data_ptr(),
+                idx.shape[0], int(idx.dtype == torch.int64),
+                None if winner is None else winner.data_ptr(), tag,
+                torch.cuda.current_stream(dev).cuda_stream)
+
+
+def scatter_tables_dma(tables: Sequence[torch.Tensor], idx: torch.Tensor,
+                       rows_list: Sequence[torch.Tensor], *,
+                       live: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """tables[t][idx[i]] = rows_list[t][i] IN PLACE for every table of the
+    list, in one kernel launch; returns the tables.  Duplicate indices race:
+    slots that share an index must carry identical rows.  `live`: see the
+    module docstring."""
+    _check_tables("scatter_rows_dma", tables, idx, rows_list, live)
+    if idx.device.type == "cpu":
+        return scatter_tables_dma_plain(tables, idx, rows_list)
+    _launch_scatter("scatter_rows_dma", tables, idx, rows_list, live, None, 0)
+    return list(tables)
+
+
 def scatter_rows_dma(table: torch.Tensor, idx: torch.Tensor,
                      rows: torch.Tensor) -> torch.Tensor:
     """table[idx[i]] = rows[i] IN PLACE; returns `table`.  Duplicate indices
     race: slots that share an index must carry identical rows."""
-    _check("scatter_rows_dma", table, idx, rows)
-    if table.device.type == "cpu":
-        return scatter_rows_dma_plain(table, idx, rows)
-    lib = _library()
-    cap, r, idx64, stream = _common(table, idx)
-    with torch.cuda.device(table.device):
-        _launch("scatter_rows_dma", lib.rowcopy_scatter_direct,
-                table.data_ptr(), idx.data_ptr(), rows.data_ptr(),
-                cap, r, idx64, stream)
-    return table
+    return scatter_tables_dma([table], idx, [rows])[0]
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -221,19 +301,53 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# The ordered scatter's winner scratch: one uint64 vector per (device, stream),
+# zeroed when it is made, never refilled, and made anew only when a call needs
+# more than its length (entries past a call's N are not looked at).  It lives
+# as long as the process: 8 bytes for each row of the largest table seen on
+# that stream.  A call tags its entries with a counter that grows from call to
+# call (high 32 bits; the slot sits in the low 32), so an older call's entries
+# lose every atomicMax.  That is sound as long as the calls that share a
+# scratch run one after the other on the device, which one stream guarantees;
+# hence a scratch per stream.  It is NOT sound under CUDA graph capture: a
+# replay would reuse the captured tag.
+_TAG_LIMIT = 2 ** 32 - 1
+_winner_scratch: Dict[Tuple[int, int], list] = {}
+
+
+def _winner_for(device: torch.device, n: int) -> Tuple[torch.Tensor, int]:
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "scatter_rows: the ordered scatter cannot be captured in a CUDA "
+            "graph (its call counter would be replayed)")
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    entry = _winner_scratch.get(key)
+    if entry is None or entry[0].numel() < n or entry[1] >= _TAG_LIMIT:
+        entry = [torch.zeros((n,), dtype=torch.int64, device=device), 0]
+        _winner_scratch[key] = entry
+    entry[1] += 1
+    return entry[0], entry[1]
+
+
+def scatter_tables(tables: Sequence[torch.Tensor], idx: torch.Tensor,
+                   rows_list: Sequence[torch.Tensor], *,
+                   live: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """tables[t][idx[i]] = rows_list[t][i] IN PLACE for every table of the
+    list, duplicates in slot order (the last slot wins on every table);
+    returns the tables.  Two launches: the winners of the shared index vector,
+    then the predicated write of all tables.  `live`: see the module
+    docstring."""
+    _check_tables("scatter_rows", tables, idx, rows_list, live)
+    if idx.device.type == "cpu":
+        return scatter_tables_plain(tables, idx, rows_list)
+    with torch.cuda.device(idx.device):
+        winner, tag = _winner_for(idx.device, max(t.shape[0] for t in tables))
+    _launch_scatter("scatter_rows", tables, idx, rows_list, live, winner, tag)
+    return list(tables)
+
+
 def scatter_rows(table: torch.Tensor, idx: torch.Tensor,
                  rows: torch.Tensor) -> torch.Tensor:
     """table[idx[i]] = rows[i] IN PLACE, duplicates in slot order (the last
     slot wins); returns `table`."""
-    _check("scatter_rows", table, idx, rows)
-    if table.device.type == "cpu":
-        return scatter_rows_plain(table, idx, rows)
-    lib = _library()
-    cap, r, idx64, stream = _common(table, idx)
-    winner = torch.full((table.shape[0],), -1, dtype=torch.int32,
-                        device=table.device)
-    with torch.cuda.device(table.device):
-        _launch("scatter_rows", lib.rowcopy_scatter_ordered,
-                table.data_ptr(), idx.data_ptr(), rows.data_ptr(),
-                winner.data_ptr(), cap, r, idx64, stream)
-    return table
+    return scatter_tables([table], idx, [rows])[0]

@@ -172,3 +172,197 @@ def test_wrappers_reject_bad_arguments(what, make, exc):
     for fn in (trow.scatter_rows_dma, trow.scatter_rows):
         with pytest.raises(exc):
             fn(table, idx, rows)
+
+
+# ---------------------------------------------------------------------------
+# the multi-table scatters: up to 8 tables that share one idx, one call
+# ---------------------------------------------------------------------------
+
+# one fused frame's five tables (dist, grad, weight, colour, visibility word)
+FRAME_TABLES = [(128, np.float32), (384, np.float32), (128, np.float32),
+                (384, np.float32), (128, np.int32)]
+
+
+def _lists(rng, n, cap, specs):
+    tables = [_table(rng, n, r, dt) for r, dt in specs]
+    rows = [_table(rng, cap, r, dt) for r, dt in specs]
+    return tables, rows
+
+
+def _torch_copies(arrays):
+    return [torch.from_numpy(a.copy()) for a in arrays]
+
+
+def _slot_order(tables, idx, rows):
+    ref = [t.copy() for t in tables]
+    for t, r in zip(ref, rows):
+        for i in range(len(idx)):
+            t[idx[i]] = r[i]
+    return ref
+
+
+def _prefix(t):
+    return [(FRAME_TABLES * 2)[k] for k in range(t)]
+
+
+@pytest.mark.parametrize("specs", [_prefix(t) for t in (1, 2, 5, 8)],
+                         ids=["T1", "T2", "T5_the_frame", "T8"])
+def test_scatter_tables_dma_matches_pallas_table_by_table(specs):
+    """One call on the list against the TPU kernel run on each table; slots
+    that share an index carry identical rows."""
+    rng = np.random.default_rng(11 + len(specs))
+    n, cap = 64, 16
+    idx = _idx_with_duplicates(rng, n, cap)
+    tables, rows = _lists(rng, n, cap, specs)
+    for r in rows:
+        r[cap // 2:] = r[: cap - cap // 2]
+    want = [np.asarray(jrow.scatter_rows_dma(
+        jnp.asarray(t), jnp.asarray(idx), jnp.asarray(r), interpret=True))
+        for t, r in zip(tables, rows)]
+    tt = _torch_copies(tables)
+    out = trow.scatter_tables_dma(tt, torch.from_numpy(idx), _torch_copies(rows))
+    assert len(out) == len(tt) and all(a is b for a, b in zip(out, tt))  # in place
+    for got, w, (_, dt) in zip(tt, want, specs):
+        np.testing.assert_array_equal(got.numpy(), w)
+        assert got.numpy().dtype == dt
+
+
+@pytest.mark.parametrize("specs", [_prefix(t) for t in (1, 2, 5, 8)],
+                         ids=["T1", "T2", "T5_the_frame", "T8"])
+def test_scatter_tables_ordered_matches_pallas_last_slot_wins(specs):
+    """Duplicates carry DIFFERENT rows: the last slot wins on every table, as
+    the TPU kernel's sequential grid has it on each."""
+    rng = np.random.default_rng(17 + len(specs))
+    n, cap = 64, 24
+    idx = rng.integers(0, 6, cap).astype(np.int32)     # heavy duplicates
+    tables, rows = _lists(rng, n, cap, specs)
+    want = [np.asarray(jrow.scatter_rows(
+        jnp.asarray(t), jnp.asarray(idx), jnp.asarray(r), interpret=True))
+        for t, r in zip(tables, rows)]
+    ref = _slot_order(tables, idx, rows)
+    tt = _torch_copies(tables)
+    out = trow.scatter_tables(tt, torch.from_numpy(idx), _torch_copies(rows))
+    assert all(a is b for a, b in zip(out, tt))
+    for got, w, r in zip(tt, want, ref):
+        np.testing.assert_array_equal(w, r)
+        np.testing.assert_array_equal(got.numpy(), r)
+
+
+@pytest.mark.parametrize("r", [1, 33, 96])
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64], ids=["i32", "i64"])
+def test_scatter_tables_any_width_against_numpy(r, idx_dtype):
+    """Widths off the TPU kernels' 128-multiple rule, mixed in one list with
+    a frame-sized one, both dtypes."""
+    rng = np.random.default_rng(2000 + r)
+    n, cap = 40, 97
+    specs = [(r, np.float32), (r, np.int32), (128, np.float32)]
+    idx = rng.integers(0, n, cap).astype(idx_dtype)
+    tables, rows = _lists(rng, n, cap, specs)
+    ref = _slot_order(tables, idx, rows)
+    ti = torch.from_numpy(idx)
+    tt = _torch_copies(tables)
+    trow.scatter_tables(tt, ti, _torch_copies(rows))
+    for got, want in zip(tt, ref):
+        np.testing.assert_array_equal(got.numpy(), want)
+    # direct: duplicates made identical first (its contract)
+    tt = _torch_copies(tables)
+    trow.scatter_tables_dma(tt, ti, [torch.from_numpy(w[idx]) for w in ref])
+    for got, want in zip(tt, ref):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["scatter_rows_dma", "scatter_rows"])
+def test_one_table_scatter_is_the_one_table_case(name):
+    rng = np.random.default_rng(23)
+    table = _table(rng, 32, 8, np.float32)
+    idx = rng.permutation(32)[:12].astype(np.int32)
+    rows = _table(rng, 12, 8, np.float32)
+    multi = {"scatter_rows_dma": trow.scatter_tables_dma,
+             "scatter_rows": trow.scatter_tables}[name]
+    a, b = torch.from_numpy(table.copy()), torch.from_numpy(table.copy())
+    getattr(trow, name)(a, torch.from_numpy(idx), torch.from_numpy(rows))
+    multi([b], torch.from_numpy(idx), [torch.from_numpy(rows)])
+    assert torch.equal(a, b)
+    want = table.copy()
+    want[idx] = rows
+    np.testing.assert_array_equal(a.numpy(), want)
+
+
+def test_multi_table_plain_versions_are_what_cpu_wrappers_run():
+    rng = np.random.default_rng(29)
+    idx = torch.from_numpy(rng.integers(0, 6, 24).astype(np.int32))
+    tables, rows = _lists(rng, 64, 24, FRAME_TABLES)
+    before = dict(trow.launch_counts)
+    got = trow.scatter_tables(_torch_copies(tables), idx, _torch_copies(rows))
+    want = trow.scatter_tables_plain(_torch_copies(tables), idx, _torch_copies(rows))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert trow.launch_counts == before and set(before) == {
+        "gather_rows_dma", "scatter_rows_dma", "gather_rows", "scatter_rows"}
+
+
+def _ok_lists(t, cap=4):
+    return ([torch.zeros(8, 4) for _ in range(t)],
+            torch.zeros(cap, dtype=torch.int32),
+            [torch.zeros(cap, 4) for _ in range(t)])
+
+
+BAD_LISTS = [
+    ("nine tables", lambda: _ok_lists(9), ValueError),
+    ("empty list", lambda: _ok_lists(0), ValueError),
+    ("unequal lengths", lambda: (_ok_lists(3)[0], _ok_lists(3)[1],
+                                 _ok_lists(2)[2]), ValueError),
+    ("CAP mismatch in one table", lambda: (
+        _ok_lists(3)[0], _ok_lists(3)[1],
+        [torch.zeros(4, 4), torch.zeros(5, 4), torch.zeros(4, 4)]), ValueError),
+    ("width mismatch in one table", lambda: (
+        _ok_lists(2)[0], _ok_lists(2)[1],
+        [torch.zeros(4, 4), torch.zeros(4, 8)]), ValueError),
+    ("dtype mismatch in one table", lambda: (
+        _ok_lists(2)[0], _ok_lists(2)[1],
+        [torch.zeros(4, 4), torch.zeros(4, 4, dtype=torch.int32)]), TypeError),
+    ("float64 table in the list", lambda: (
+        [torch.zeros(8, 4), torch.zeros(8, 4, dtype=torch.float64)],
+        _ok_lists(2)[1],
+        [torch.zeros(4, 4), torch.zeros(4, 4, dtype=torch.float64)]), TypeError),
+    ("strided rows in the list", lambda: (
+        _ok_lists(2)[0], _ok_lists(2)[1],
+        [torch.zeros(4, 4), torch.zeros(4, 8)[:, ::2]]), ValueError),
+]
+
+
+@pytest.mark.parametrize("what,make,exc", BAD_LISTS, ids=[b[0] for b in BAD_LISTS])
+def test_multi_table_wrappers_reject_bad_lists(what, make, exc):
+    tables, idx, rows = make()
+    for fn in (trow.scatter_tables_dma, trow.scatter_tables):
+        with pytest.raises(exc):
+            fn(tables, idx, rows)
+
+
+def test_multi_table_wrappers_take_a_live_count():
+    """Slots at or past `live` repeat an earlier slot (index and rows), so a
+    call that names the count writes the same tables as one that does not."""
+    rng = np.random.default_rng(31)
+    n, cap, live = 64, 24, 17
+    idx = np.sort(rng.permutation(n)[:cap]).astype(np.int32)
+    idx[live:] = idx[0]
+    tables, rows = _lists(rng, n, cap, FRAME_TABLES)
+    for r in rows:
+        r[live:] = r[0]
+    ref = _slot_order(tables, idx, rows)
+    for fn in (trow.scatter_tables_dma, trow.scatter_tables):
+        tt = _torch_copies(tables)
+        fn(tt, torch.from_numpy(idx), _torch_copies(rows),
+           live=torch.tensor(live, dtype=torch.int64))
+        for got, want in zip(tt, ref):
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("live,exc", [
+    (torch.tensor(3, dtype=torch.int32), TypeError),
+    (torch.tensor([3, 4], dtype=torch.int64), TypeError),
+    (3, TypeError)], ids=["int32", "two_elements", "python_int"])
+def test_multi_table_wrappers_reject_bad_live(live, exc):
+    tables, idx, rows = _ok_lists(2)
+    for fn in (trow.scatter_tables_dma, trow.scatter_tables):
+        with pytest.raises(exc):
+            fn(tables, idx, rows, live=live)
