@@ -19,7 +19,7 @@ prints the card's busy share of it and the kernels that take the most device
 time; the run is otherwise the same.
 
 With --kernels-only the run stops after the kernels phase (build, checks
-and times of the kernels, about ten seconds): a quick look at a changed
+and times of the kernels, about fifteen seconds): a quick look at a changed
 kernel.  It drives no path, so it prints no final "ok" line and exits with 3.
 
 Imports numpy, torch and the package; needs no image decoder and no network.
@@ -265,10 +265,13 @@ def _make(gen, n, r, cap, dtype, idx_dtype, misalign=False):
     return table, idx, rows, identical
 
 
-# one fused frame writes back five row tables with one index vector: dist,
-# grad, weight, colour and the frame's visibility word (core/volume.py)
+# one fused frame gathers, and writes back, five row tables with one index
+# vector: dist, grad, weight, colour and the frame's visibility word
+# (core/volume.py)
 FRAME_TABLES = [(128, "float32"), (384, "float32"), (128, "float32"),
                 (384, "float32"), (128, "int32")]
+GATHERS = {"gather_rows_dma": "gather_tables_dma",
+           "gather_rows": "gather_tables"}
 SCATTERS = {"scatter_rows_dma": "scatter_tables_dma",
             "scatter_rows": "scatter_tables"}
 
@@ -304,14 +307,25 @@ def _make_tables(gen, n, cap, specs, idx_dtype, misaligned=(), pattern="random")
 
 
 def _check_tables_case(rowcopy, what, tables, idx, rows, identical, live):
-    """Both multi-table scatters on copies of `tables` against their plain
-    versions, bit for bit -> cases checked.  With a count of live slots the
-    kernels must also leave out the slots past it: they are then given
-    per-slot rows there, and held against the plain version of the live
-    slots alone."""
+    """Both multi-table gathers on `tables`, and both multi-table scatters on
+    copies of them, against their plain versions, bit for bit -> cases
+    checked.  With a count of live slots the scatter kernels must also leave
+    out the slots past it: they are then given per-slot rows there, and held
+    against the plain version of the live slots alone."""
     import torch
 
     n = 0
+    want = rowcopy.gather_tables_plain(tables, idx)
+    for multi in GATHERS.values():
+        got = getattr(rowcopy, multi)(tables, idx)
+        torch.cuda.synchronize()
+        check(len(got) == len(tables), f"{multi}: {len(got)} row blocks")
+        for pos, (g, w) in enumerate(zip(got, want)):
+            check(g.dtype == w.dtype and g.shape == w.shape
+                  and g.is_contiguous() and _bits_equal(g, w),
+                  f"{multi} disagrees with its plain version on table "
+                  f"{pos} of {what}")
+        n += 1
     for name, multi in SCATTERS.items():
         runs = [(identical if name == "scatter_rows_dma" else rows, None, idx)]
         if live is not None:
@@ -344,10 +358,10 @@ def check_kernels(rowcopy):
     flush = torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     n_main, cap_main = GRID * GRID, GRID * GRID // 2
     # the three distinct (width, type) pairs among a frame's five tables
-    frame_tables = [(128, torch.float32, 2), (128, torch.int32, 1),
-                    (384, torch.float32, 2)]
+    frame_tables = [(128, torch.float32), (128, torch.int32),
+                    (384, torch.float32)]
     cases = [(n_main, r, cap_main, dt, torch.int32, False)
-             for r, dt, _ in frame_tables]
+             for r, dt in frame_tables]
     cases += [(40, r, cap, dt, it, False)
               for r in (1, 33, 96) for cap in (1, 7, 513)
               for dt, it in ((torch.float32, torch.int32),
@@ -371,7 +385,7 @@ def check_kernels(rowcopy):
             worst[name] = max(worst[name], _abs_err(got, want))
             n_checked += 1
 
-    # the multi-table scatters
+    # the multi-table gathers and scatters
     i32, i64 = torch.int32, torch.int64
     lists = [("the frame's five tables", n_main, cap_main, FRAME_TABLES, i32, ()),
              ("the frame's five tables, fusion's indices", n_main, cap_main,
@@ -412,64 +426,62 @@ def check_kernels(rowcopy):
               and float(t.abs().sum()) == 4 * t.shape[1],
               "scatter_rows: the last slot did not win")
 
-    # times at the main path's shapes.  Gathers: per table, summed over one
-    # fused frame's tables.  Scatters: ONE call on the frame's five tables.
+    # times at the main path's shapes: ONE call on the frame's five tables,
+    # per index pattern
     out = {}
     shapes = {k: [] for k in KERNELS}
-    for name in ("gather_rows_dma", "gather_rows"):
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-        for r, dt, count in frame_tables:
-            table, idx, rows, identical = _make(
-                gen, n_main, r, cap_main, dt, torch.int32)
-            idx64 = idx.long()
-            one = dict(
-                ms=_time_ms(lambda: getattr(rowcopy, name)(table, idx), flush),
-                plain_ms=_time_ms(
-                    lambda: rowcopy.gather_rows_plain(table, idx), flush),
-                library_ms=_time_ms(
-                    lambda: torch.index_select(table, 0, idx64), flush),
-                # rows read once and written once, the indices read once
-                bound_ms=(2 * cap_main * r * 4 + cap_main * 4)
-                / HBM_BYTES_PER_S * 1e3)
-            shapes[name].append(dict(R=r, dtype=str(dt).split(".")[-1],
-                                     tables_per_frame=count, **one))
-            for k in tot:
-                tot[k] += count * one[k]
-        out[name] = tot
-
-    sum_r = sum(r for r, _ in FRAME_TABLES)
+    row_bytes = 4 * sum(r for r, _ in FRAME_TABLES)
     for pattern in ("random", "unique", "fusion"):
         tables, idx, _, identical, live = _make_tables(
             gen, n_main, cap_main, FRAME_TABLES, torch.int32, pattern=pattern)
         idx64 = idx.long()
         distinct = int(torch.unique(idx64).numel())
-        # what this run's data needs: for every DISTINCT destination row one
-        # slot's rows read and the row written (the other slots that name it
-        # lose, or carry the same bytes), and the indices read ONCE
-        bound = (2 * distinct * sum_r * 4 + cap_main * 4) / HBM_BYTES_PER_S * 1e3
+        # what this run's data needs, the indices read ONCE.  A gather: each
+        # DISTINCT source row read (a second read of a row is served by the
+        # L2 cache and need not reach device memory) and every slot's row
+        # written.  A scatter: for every distinct destination row one slot's
+        # rows read and the row written (the other slots that name it lose,
+        # or carry the same bytes).
+        bounds = {
+            "gather": ((distinct + cap_main) * row_bytes + cap_main * 4)
+            / HBM_BYTES_PER_S * 1e3,
+            "scatter": (2 * distinct * row_bytes + cap_main * 4)
+            / HBM_BYTES_PER_S * 1e3}
         src = torch.cat([r.view(torch.int32).reshape(-1) for r in identical])
         dst = torch.empty_like(src)
 
-        def library():
+        def library_gather():
+            for t in tables:
+                torch.index_select(t, 0, idx64)
+
+        def library_scatter():
             for t, rows in zip(tables, identical):
                 t.index_copy_(0, idx64, rows)
 
-        for name, multi in SCATTERS.items():
+        for name in KERNELS:
+            if name in GATHERS:
+                multi, kind, library = GATHERS[name], "gather", library_gather
+                moved = cap_main
+                call = lambda: getattr(rowcopy, multi)(tables, idx)
+                plain = lambda: rowcopy.gather_tables_plain(tables, idx)
+            else:
+                multi, kind, library = SCATTERS[name], "scatter", library_scatter
+                moved = (distinct if name == "scatter_rows" or live is not None
+                         else cap_main)
+                call = lambda: getattr(rowcopy, multi)(
+                    tables, idx, identical, live=live)
+                plain = lambda: getattr(rowcopy, multi + "_plain")(
+                    tables, idx, identical)
             one = dict(
-                indices=pattern, distinct_rows=distinct,
-                slots_moved=distinct if name == "scatter_rows" or live is not None
-                else cap_main,
-                ms=_time_ms(lambda: getattr(rowcopy, multi)(
-                    tables, idx, identical, live=live), flush),
-                plain_ms=_time_ms(lambda: getattr(rowcopy, multi + "_plain")(
-                    tables, idx, identical), flush),
-                library_ms=_time_ms(library, flush), bound_ms=bound,
+                indices=pattern, distinct_rows=distinct, slots_moved=moved,
+                ms=_time_ms(call, flush), plain_ms=_time_ms(plain, flush),
+                library_ms=_time_ms(library, flush), bound_ms=bounds[kind],
                 # for scale: one contiguous device copy of all slots' bytes
                 contiguous_copy_ms=_time_ms(lambda: dst.copy_(src), flush))
-            one["share_of_bound"] = bound / one["ms"]
+            one["share_of_bound"] = one["bound_ms"] / one["ms"]
             shapes[name].append(dict(
                 tables=[f"R={r} {dt}" for r, dt in FRAME_TABLES], **one))
-            if pattern == "random":    # as the gathers and the earlier records
+            if pattern == "random":    # as in the earlier records
                 out[name] = {k: one[k] for k in
                              ("ms", "plain_ms", "library_ms", "bound_ms")}
     return out, shapes, worst, n_checked
@@ -639,11 +651,11 @@ def main():
         facts = check_scan(main_run, seq, FRAMES)
         counts = main_run["counts"]
         calls = main_run["pipe"].fuse_culled_calls
-        # a culled fusion gathers its five tables one by one and writes them
-        # back with one scatter
-        for name, per_call in (("gather_rows_dma", 5), ("scatter_rows_dma", 1)):
-            check(counts[name] == per_call * calls,
-                  f"{name}: {counts[name]} launches, expected {per_call} x {calls}")
+        # a culled fusion gathers its five tables with one call and writes
+        # them back with one
+        for name in ("gather_rows_dma", "scatter_rows_dma"):
+            check(counts[name] == calls,
+                  f"{name}: {counts[name]} launches, expected 1 x {calls}")
         for name in ("gather_rows", "scatter_rows"):
             check(counts[name] == 0, f"{name} launched on the default path")
         emit("scan", ok=True, card=card, frames=FRAMES,
@@ -661,10 +673,10 @@ def main():
                 for impl in ("dma", "staged", "plain")}
         staged = runs["staged"]
         calls_s = staged["pipe"].fuse_culled_calls
-        for name, per_call in (("gather_rows", 5), ("scatter_rows", 1)):
-            check(staged["counts"][name] == per_call * calls_s,
+        for name in ("gather_rows", "scatter_rows"):
+            check(staged["counts"][name] == calls_s,
                   f"{name}: {staged['counts'][name]} launches, expected "
-                  f"{per_call} x {calls_s}")
+                  f"1 x {calls_s}")
         check(all(v == 0 for v in runs["plain"]["counts"].values()),
               "plain row movement launched a kernel")
         for impl in ("staged", "plain"):
@@ -695,11 +707,10 @@ def main():
              library_ms=times[name]["library_ms"],
              work="one fused frame: CAP=8192 rows of each of the five state "
                   "tables (3 x R=128, 2 x R=384, 4-byte elements) out of "
-                  "N=16384; " + (
-                      "one call on the five tables, random indices of which "
-                      "the second half repeats the first; the bound counts "
-                      "the distinct rows only"
-                      if name in SCATTERS else "five calls, summed"))
+                  "N=16384; one call on the five tables, random indices of "
+                  "which the second half repeats the first; the bound counts "
+                  + ("the distinct rows only" if name in SCATTERS else
+                     "the distinct rows read and every slot written"))
         for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -393,12 +393,14 @@ def compact_active(active_flat: torch.Tensor, capacity: int):
     return buf[:capacity], csum[-1]
 
 
-def _gather(table2d, idx, impl):
+def _gather(tables2d, idx, impl):
+    """One call gathers the rows `idx` of all the tables -> list of [CAP, R]
+    row blocks."""
     if impl == "dma":
-        return rowcopy.gather_rows_dma(table2d, idx)
+        return rowcopy.gather_tables_dma(tables2d, idx)
     if impl == "staged":
-        return rowcopy.gather_rows(table2d, idx)
-    return rowcopy.gather_rows_plain(table2d, idx)
+        return rowcopy.gather_tables(tables2d, idx)
+    return rowcopy.gather_tables_plain(tables2d, idx)
 
 
 def _scatter(tables2d, idx, rows_list, live, impl):
@@ -441,9 +443,10 @@ def fuse_frame_culled(
          granularity: contiguous [1,1,X] lines, so state moves as whole rows.
       2. The surviving rows are compacted to a STATIC row_capacity
          (`compact_active`), their state rows are gathered from the five row
-         tables (dist, grad, weight, color and the frame's visibility word),
-         the exact per-voxel update runs on them, and the rows of all five
-         tables are scattered back by one call.
+         tables (dist, grad, weight, color and the frame's visibility word)
+         by one call, the exact per-voxel update runs on them, and the rows
+         of all five tables are scattered back by one call: two row-copy
+         launches a frame (three with the ordered scatter's winner pass).
 
     rows_impl picks the row-movement kernels (ops/rowcopy.py): "dma" (direct
     gather / direct scatter, the default and what the pipeline uses) or
@@ -504,11 +507,10 @@ def fuse_frame_culled(
     t_color = out.color.view(NSEG, S * 3)
     t_vis = out.vis[word].view(NSEG, S)
 
-    d_r = _gather(t_dist, safe_rows, rows_impl)
-    g_r = _gather(t_grad, safe_rows, rows_impl).view(row_capacity, S, 3)
-    w_r = _gather(t_weight, safe_rows, rows_impl)
-    c_r = _gather(t_color, safe_rows, rows_impl).view(row_capacity, S, 3)
-    vw_r = _gather(t_vis, safe_rows, rows_impl)
+    tables = [t_dist, t_grad, t_weight, t_color, t_vis]
+    d_r, g_r, w_r, c_r, vw_r = _gather(tables, safe_rows, rows_impl)
+    g_r = g_r.view(row_capacity, S, 3)
+    c_r = c_r.view(row_capacity, S, 3)
 
     rz = torch.div(safe_rows, Y * NS, rounding_mode="floor").to(torch.float32)
     ry = (torch.div(safe_rows, NS, rounding_mode="floor") % Y).to(torch.float32)
@@ -531,7 +533,7 @@ def fuse_frame_culled(
     # active row at all, slot 0 itself is padding and stays live
     live = torch.clamp(n_active, min=1)
     _scatter(
-        [t_dist, t_grad, t_weight, t_color, t_vis], safe_rows,
+        tables, safe_rows,
         [nd, ng.reshape(row_capacity, S * 3), nw,
          nc.reshape(row_capacity, S * 3), nvw], live, rows_impl)
     return out, overflow

@@ -6,30 +6,37 @@ fusion (core/volume.py), hand-written for Hopper in csrc/rowcopy.cu.
   gather_rows(table, idx)                      -> rows[CAP,R]
   scatter_rows(table, idx, rows)               -> table   (IN PLACE, ordered)
 
+  gather_tables_dma(tables, idx)               -> rows_list
   scatter_tables_dma(tables, idx, rows_list)   -> tables  (IN PLACE)
+  gather_tables(tables, idx)                   -> rows_list
   scatter_tables(tables, idx, rows_list)       -> tables  (IN PLACE, ordered)
 
-The last two write back up to 8 tables that share one `idx` (widths and
-dtypes may differ) and compute on each table exactly what the one-table call
-computes; `scatter_rows_dma` and `scatter_rows` are their one-table case.
+The last four move up to 8 tables that share one `idx` (widths and dtypes may
+differ) in one call and compute on each table exactly what the one-table
+call computes; the first four are their one-table case.
 
 Each replaces the function of the same name in the JAX package's
 ops/rowcopy.py (the Pallas kernels for the TPU):
 
   gather_rows_dma   HBM->HBM async row copies through a semaphore ring
-                    -> one warp per output row copying global->global.
-  scatter_rows_dma  the same ring writing into the donated table
                     -> ONE launch for all the tables of a call, laid out by
                     slot: a warp owns a slot, reads its index once and moves
-                    the slot's segment of every table, all its loads started
-                    before the first store (16-byte lanes where a table's
-                    width and bases allow, 4-byte lanes otherwise, decided
-                    per table).  Duplicate indices race: callers give slots
-                    that share an index identical rows.
+                    the slot's segment of every table global->global, all
+                    its loads started before the first store (16-byte lanes
+                    where a table's width and bases allow, 4-byte lanes
+                    otherwise, decided per table).  Default loads (table
+                    rows are read again), streaming stores.
+  scatter_rows_dma  the same ring writing into the donated table
+                    -> the same layout in the other direction, one launch.
+                    Duplicate indices race: callers give slots that share an
+                    index identical rows.
   gather_rows       scalar-prefetched indices, `group` rows per sequential
                     grid step staged through VMEM
-                    -> a block stages a group of 8 rows through shared
-                    memory (cp.async), tile by tile; CAP is free.
+                    -> one launch for all the tables; a warp per slot brings
+                    the slot's segment of every table into its own
+                    shared-memory buffer with cp.async copies, all in flight
+                    at once, and streams it out; wider segments go chunk by
+                    chunk through two buffers.  CAP is free.
   scatter_rows      one row per sequential grid step, so duplicates resolve
                     in slot order, LAST slot wins
                     -> blocks run in no order on a GPU, so the order is
@@ -42,26 +49,34 @@ Both scatters take `live`, an optional int64 scalar tensor on the tables'
 device: the caller states that every slot at or past it repeats an earlier
 slot (the same index and the same rows), so the kernels skip those slots and
 the plain versions, which write them again, give the same tables.  The culled
-fusion pads its index vector that way and passes its count of live rows.
+fusion pads its index vector that way and passes its count of live rows.  The
+gathers take no such count: every slot of their output is written.
 
-Bound on the card, all four: bytes, no arithmetic.  A gather reads CAP rows
-and writes CAP rows, 2*CAP*R*4 bytes for each table plus the index vector,
-over the 3.35 TB/s of an H100's device memory (8192 rows of 128 floats:
-2.5 us; of 384 floats: 7.5 us).  A scatter must move only the rows that end
-up in the table: one slot's rows read and one row written for every DISTINCT
-index among the live slots (a fused frame's five tables with every slot
-distinct: 22.5 us).  The design answer is wide accesses with many bytes in
-flight: 16 bytes a thread when R*4 and the base pointers are 16-byte
-aligned, 4 bytes a thread otherwise.
+Bound on the card, all four: bytes, no arithmetic, over the 3.35 TB/s of an
+H100's device memory, the index vector read once.  A gather must read each
+DISTINCT source row once (a second read of a row is served by the L2 cache
+and need not reach device memory) and write every slot's row:
+(distinct + CAP) * sum(R) * 4 + CAP * 4 bytes.  A scatter must move only the
+rows that end up in the table: one slot's rows read and one row written for
+every distinct index among the live slots, 2 * distinct * sum(R) * 4 + CAP * 4
+bytes.  A fused frame's five tables (sum(R) = 1152, CAP = 8192) with every
+slot distinct: 22.5 us for either.  The design answer is wide accesses with
+many bytes in flight: 16 bytes a thread when R*4 and the base pointers are
+16-byte aligned, 4 bytes a thread otherwise.
 
 The Mosaic tiling rule R % 128 == 0 of the TPU kernels is gone: any R >= 1
 and any CAP >= 1 work.  `idx` in [0, N) stays the caller's contract.
 
+The gathers and the direct scatter hand their tables to the kernel by value
+and keep no state between calls, so they may be captured in a CUDA graph.
+The ordered scatter may not (its winner scratch, below).
+
 Beside each kernel stands its plain PyTorch version (`*_plain`).  A wrapper
 takes the plain version ONLY for tensors that lie on the CPU; for CUDA
 tensors it launches the kernel or raises.  `launch_counts` counts kernel
-launches per wrapper (and nothing else), so a run can show that its path
-went through the kernels.
+launches per wrapper (and nothing else; a multi-table call counts one under
+its one-table name), so a run can show that its path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -95,6 +110,12 @@ def reset_launch_counts() -> None:
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """rows[i] = table[idx[i]] (duplicates are independent reads)."""
     return table.index_select(0, idx.long())
+
+
+def gather_tables_plain(tables: Sequence[torch.Tensor],
+                        idx: torch.Tensor) -> List[torch.Tensor]:
+    """gather_rows_plain on every table of the list."""
+    return [gather_rows_plain(t, idx) for t in tables]
 
 
 def scatter_rows_dma_plain(table: torch.Tensor, idx: torch.Tensor,
@@ -171,8 +192,11 @@ def _check(name: str, table: torch.Tensor, idx: torch.Tensor,
             raise ValueError(f"{name}: rows must be contiguous")
 
 
-def _check_tables(name: str, tables, idx: torch.Tensor, rows_list,
-                  live: Optional[torch.Tensor]) -> None:
+def _check_tables(name: str, tables, idx: torch.Tensor, rows_list=None,
+                  live: Optional[torch.Tensor] = None) -> None:
+    """A gather's tables (rows_list None) or a scatter's tables and rows."""
+    if rows_list is None:
+        rows_list = [None] * len(tables)
     if len(tables) != len(rows_list):
         raise ValueError(
             f"{name}: {len(tables)} tables but {len(rows_list)} row blocks")
@@ -204,8 +228,9 @@ def _library():
 
         lib = load_library(_LIB_NAME)
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in ("rowcopy_gather_direct", "rowcopy_gather_staged"):
-            getattr(lib, fn).argtypes = [p, p, p, i, i, i, p]
+        # tables[], rows[], r[], n_tables, idx, cap, idx64, stream
+        for fn in ("rowcopy_gather_tables", "rowcopy_gather_tables_staged"):
+            getattr(lib, fn).argtypes = [p, p, p, i, p, i, i, p]
             getattr(lib, fn).restype = i
         # tables[], rows[], r[], n_tables, idx, live, cap, idx64, winner, tag,
         # stream
@@ -223,29 +248,44 @@ def _launch(name: str, fn, *args) -> None:
     launch_counts[name] += 1
 
 
-def _common(table: torch.Tensor, idx: torch.Tensor):
-    return (idx.shape[0], table.shape[1], int(idx.dtype == torch.int64),
-            torch.cuda.current_stream(table.device).cuda_stream)
-
-
 # ---------------------------------------------------------------------------
 # the wrappers
 # ---------------------------------------------------------------------------
 
 
+def _pointers(tensors):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _launch_gather(name: str, c_name: str, tables,
+                   idx: torch.Tensor) -> List[torch.Tensor]:
+    lib = _library()
+    n, cap, dev = len(tables), idx.shape[0], idx.device
+    outs = [torch.empty((cap, t.shape[1]), dtype=t.dtype, device=dev)
+            for t in tables]
+    widths = (ctypes.c_int * n)(*[t.shape[1] for t in tables])
+    with torch.cuda.device(dev):
+        _launch(name, getattr(lib, c_name), _pointers(tables), _pointers(outs),
+                widths, n, idx.data_ptr(), cap, int(idx.dtype == torch.int64),
+                torch.cuda.current_stream(dev).cuda_stream)
+    return outs
+
+
+def gather_tables_dma(tables: Sequence[torch.Tensor],
+                      idx: torch.Tensor) -> List[torch.Tensor]:
+    """rows[t][i] = tables[t][idx[i]] for every table of the list, in one
+    launch of the direct kernel (global->global, a warp per slot); returns
+    the list of new contiguous [CAP, R] row blocks, each of its table's
+    dtype."""
+    _check_tables("gather_rows_dma", tables, idx)
+    if idx.device.type == "cpu":
+        return gather_tables_plain(tables, idx)
+    return _launch_gather("gather_rows_dma", "rowcopy_gather_tables", tables, idx)
+
+
 def gather_rows_dma(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """rows[i] = table[idx[i]] by direct global->global row copies."""
-    _check("gather_rows_dma", table, idx)
-    if table.device.type == "cpu":
-        return gather_rows_plain(table, idx)
-    lib = _library()
-    cap, r, idx64, stream = _common(table, idx)
-    out = torch.empty((cap, r), dtype=table.dtype, device=table.device)
-    with torch.cuda.device(table.device):
-        _launch("gather_rows_dma", lib.rowcopy_gather_direct,
-                table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                cap, r, idx64, stream)
-    return out
+    return gather_tables_dma([table], idx)[0]
 
 
 def _launch_scatter(name: str, tables, idx: torch.Tensor, rows_list,
@@ -253,12 +293,11 @@ def _launch_scatter(name: str, tables, idx: torch.Tensor, rows_list,
                     winner: Optional[torch.Tensor], tag: int) -> None:
     lib = _library()
     n = len(tables)
-    tptr = (ctypes.c_void_p * n)(*[t.data_ptr() for t in tables])
-    rptr = (ctypes.c_void_p * n)(*[r.data_ptr() for r in rows_list])
     widths = (ctypes.c_int * n)(*[t.shape[1] for t in tables])
     dev = tables[0].device
     with torch.cuda.device(dev):
-        _launch(name, lib.rowcopy_scatter_tables, tptr, rptr, widths, n,
+        _launch(name, lib.rowcopy_scatter_tables, _pointers(tables),
+                _pointers(rows_list), widths, n,
                 idx.data_ptr(), None if live is None else live.data_ptr(),
                 idx.shape[0], int(idx.dtype == torch.int64),
                 None if winner is None else winner.data_ptr(), tag,
@@ -286,19 +325,20 @@ def scatter_rows_dma(table: torch.Tensor, idx: torch.Tensor,
     return scatter_tables_dma([table], idx, [rows])[0]
 
 
+def gather_tables(tables: Sequence[torch.Tensor],
+                  idx: torch.Tensor) -> List[torch.Tensor]:
+    """Same function as gather_tables_dma, in one launch of the staged
+    kernel (the rows go through shared memory)."""
+    _check_tables("gather_rows", tables, idx)
+    if idx.device.type == "cpu":
+        return gather_tables_plain(tables, idx)
+    return _launch_gather("gather_rows", "rowcopy_gather_tables_staged",
+                          tables, idx)
+
+
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Same function as gather_rows_dma, staged through shared memory."""
-    _check("gather_rows", table, idx)
-    if table.device.type == "cpu":
-        return gather_rows_plain(table, idx)
-    lib = _library()
-    cap, r, idx64, stream = _common(table, idx)
-    out = torch.empty((cap, r), dtype=table.dtype, device=table.device)
-    with torch.cuda.device(table.device):
-        _launch("gather_rows", lib.rowcopy_gather_staged,
-                table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                cap, r, idx64, stream)
-    return out
+    return gather_tables([table], idx)[0]
 
 
 # The ordered scatter's winner scratch: one uint64 vector per (device, stream),

@@ -106,13 +106,14 @@ def test_kernel_wrappers_raise_on_cuda_tensors_instead_of_falling_back():
     assert "try:" not in src and "except" not in src
     wrappers = src.split("# the wrappers")[1]
     assert "index_select" not in wrappers and "index_copy_" not in wrappers
-    # the two gathers and the two multi-table scatters (the one-table
-    # scatters are their one-table case and have no branch of their own)
+    # the two multi-table gathers and the two multi-table scatters (the
+    # one-table calls are their one-table case and have no branch of their
+    # own)
     assert len(re.findall(r'if \w+\.device\.type == "cpu":', wrappers)) == 4
     # the hand-written kernels, built for sm_90a by nvcc at first use
     with open(os.path.join(PKG, "csrc", "rowcopy.cu")) as fh:
         cu = fh.read()
-    for k in ("gather_direct_kernel", "gather_staged_kernel",
+    for k in ("gather_tables_kernel", "gather_staged_kernel",
               "scatter_winner_kernel", "scatter_tables_kernel"):
         assert re.search(
             r"__global__ void\s+(__launch_bounds__\(\w+\)\s+)?" + k + r"\(", cu), k

@@ -366,3 +366,119 @@ def test_multi_table_wrappers_reject_bad_live(live, exc):
     for fn in (trow.scatter_tables_dma, trow.scatter_tables):
         with pytest.raises(exc):
             fn(tables, idx, rows, live=live)
+
+
+# ---------------------------------------------------------------------------
+# the multi-table gathers: up to 8 tables that share one idx, one call
+# ---------------------------------------------------------------------------
+
+MULTI_GATHERS = [
+    ("gather_tables_dma", jrow.gather_rows_dma, trow.gather_tables_dma),
+    ("gather_tables", jrow.gather_rows, trow.gather_tables),
+]
+
+
+@pytest.mark.parametrize("name,jfn,tfn", MULTI_GATHERS,
+                         ids=[g[0] for g in MULTI_GATHERS])
+@pytest.mark.parametrize("specs", [_prefix(t) for t in (1, 2, 5, 8)],
+                         ids=["T1", "T2", "T5_the_frame", "T8"])
+def test_gather_tables_match_pallas_table_by_table(name, jfn, tfn, specs):
+    """One call on the list against the TPU kernel run on each table."""
+    rng = np.random.default_rng(37 + len(specs))
+    n, cap = 64, 16
+    idx = _idx_with_duplicates(rng, n, cap)
+    tables, _ = _lists(rng, n, cap, specs)
+    want = [np.asarray(jfn(jnp.asarray(t), jnp.asarray(idx), interpret=True))
+            for t in tables]
+    got = tfn(_torch_copies(tables), torch.from_numpy(idx))
+    assert isinstance(got, list) and len(got) == len(specs)
+    for g, w, t, (r, dt) in zip(got, want, tables, specs):
+        assert g.is_contiguous() and tuple(g.shape) == (cap, r)
+        assert g.numpy().dtype == dt
+        np.testing.assert_array_equal(g.numpy(), w)
+        np.testing.assert_array_equal(g.numpy(), t[idx])
+
+
+@pytest.mark.parametrize("name,jfn,tfn", MULTI_GATHERS,
+                         ids=[g[0] for g in MULTI_GATHERS])
+@pytest.mark.parametrize("r", [1, 33, 96])
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64], ids=["i32", "i64"])
+def test_gather_tables_any_width_against_numpy(name, jfn, tfn, r, idx_dtype):
+    """Widths off the TPU kernels' 128-multiple rule, mixed in one list with
+    a frame-sized one, both dtypes; capacities off any group size."""
+    rng = np.random.default_rng(3000 + r)
+    n = 40
+    specs = [(r, np.float32), (r, np.int32), (128, np.float32)]
+    for cap in (1, 7, 97):
+        idx = rng.integers(0, n, cap).astype(idx_dtype)
+        tables, _ = _lists(rng, n, cap, specs)
+        got = tfn(_torch_copies(tables), torch.from_numpy(idx))
+        for g, t in zip(got, tables):
+            np.testing.assert_array_equal(g.numpy(), t[idx])
+            assert g.numpy().dtype == t.dtype
+
+
+@pytest.mark.parametrize("name", ["gather_rows_dma", "gather_rows"])
+def test_one_table_gather_is_the_one_table_case(name):
+    rng = np.random.default_rng(41)
+    table = _table(rng, 32, 8, np.int32)
+    idx = rng.integers(0, 32, 12).astype(np.int32)
+    multi = {"gather_rows_dma": trow.gather_tables_dma,
+             "gather_rows": trow.gather_tables}[name]
+    a = getattr(trow, name)(torch.from_numpy(table), torch.from_numpy(idx))
+    (b,) = multi([torch.from_numpy(table)], torch.from_numpy(idx))
+    assert torch.equal(a, b) and a.dtype == b.dtype == torch.int32
+    np.testing.assert_array_equal(a.numpy(), table[idx])
+
+
+def test_multi_table_gather_plain_versions_are_what_cpu_wrappers_run():
+    rng = np.random.default_rng(43)
+    idx = torch.from_numpy(rng.integers(0, 64, 24).astype(np.int32))
+    tables, _ = _lists(rng, 64, 24, FRAME_TABLES)
+    before = dict(trow.launch_counts)
+    want = trow.gather_tables_plain(_torch_copies(tables), idx)
+    for fn in (trow.gather_tables_dma, trow.gather_tables):
+        got = fn(_torch_copies(tables), idx)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [torch.equal(w, trow.gather_rows_plain(torch.from_numpy(t), idx))
+            for w, t in zip(want, tables)] == [True] * 5
+    # a CPU call launches no kernel and so counts none
+    assert trow.launch_counts == before
+
+
+BAD_GATHER_LISTS = [
+    ("nine tables", lambda: (_ok_lists(9)[0], _ok_lists(9)[1]), ValueError),
+    ("empty list", lambda: ([], torch.zeros(4, dtype=torch.int32)), ValueError),
+    ("mixed devices", lambda: (
+        [torch.zeros(8, 4), torch.zeros(8, 4, device="meta")],
+        torch.zeros(4, dtype=torch.int32)), ValueError),
+    ("idx on another device", lambda: (
+        _ok_lists(2)[0], torch.zeros(4, dtype=torch.int32, device="meta")),
+     ValueError),
+    ("strided table in the list", lambda: (
+        [torch.zeros(8, 4), torch.zeros(8, 8)[:, ::2]],
+        torch.zeros(4, dtype=torch.int32)), ValueError),
+    ("float64 table in the list", lambda: (
+        [torch.zeros(8, 4), torch.zeros(8, 4, dtype=torch.float64)],
+        torch.zeros(4, dtype=torch.int32)), TypeError),
+    ("float16 table in the list", lambda: (
+        [torch.zeros(8, 4, dtype=torch.float16)],
+        torch.zeros(4, dtype=torch.int32)), TypeError),
+    ("float idx", lambda: (_ok_lists(2)[0], torch.zeros(4)), TypeError),
+    ("int16 idx", lambda: (_ok_lists(2)[0],
+                           torch.zeros(4, dtype=torch.int16)), TypeError),
+    ("1-D table in the list", lambda: (
+        [torch.zeros(8, 4), torch.zeros(8)],
+        torch.zeros(4, dtype=torch.int32)), ValueError),
+    ("empty idx", lambda: (_ok_lists(2)[0],
+                           torch.zeros(0, dtype=torch.int32)), ValueError),
+]
+
+
+@pytest.mark.parametrize("what,make,exc", BAD_GATHER_LISTS,
+                         ids=[b[0] for b in BAD_GATHER_LISTS])
+def test_multi_table_gathers_reject_bad_lists(what, make, exc):
+    tables, idx = make()
+    for fn in (trow.gather_tables_dma, trow.gather_tables):
+        with pytest.raises(exc):
+            fn(tables, idx)

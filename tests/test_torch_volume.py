@@ -215,33 +215,37 @@ def test_fuse_frame_culled_engines_bit_identical_and_equal_full_grid():
 
 @pytest.mark.parametrize("t_impl", ["dma", "staged", "plain"])
 def test_fuse_frame_culled_scatters_five_tables_in_one_call(t_impl, monkeypatch):
-    """A culled fusion gathers its five tables one by one and writes them
-    back with ONE scatter call over all five; whichever engine moves the rows
-    the volume is the same bit for bit, and it is the JAX package's within
-    the file's tolerance."""
+    """A culled fusion gathers its five tables with ONE gather call and writes
+    them back with ONE scatter call over all five; whichever engine moves the
+    rows the volume is the same bit for bit, and it is the JAX package's
+    within the file's tolerance."""
     sc = _scene128()
     calls, depth = [], [0]
-    wrappers = ("scatter_tables_dma", "scatter_tables", "scatter_tables_dma_plain",
+    wrappers = ("gather_tables_dma", "gather_tables", "gather_tables_plain",
+                "gather_rows_dma", "gather_rows", "gather_rows_plain",
+                "scatter_tables_dma", "scatter_tables", "scatter_tables_dma_plain",
                 "scatter_rows_dma", "scatter_rows", "scatter_rows_dma_plain")
 
     def counted(name):
         fn = getattr(tvolume.rowcopy, name)
 
-        def wrapper(tables, idx, rows, **kw):
+        def wrapper(tables, idx, *rows, **kw):
             if depth[0] == 0:      # a call made by the fusion, not by a wrapper
                 calls.append((name, len(tables) if isinstance(tables, (list, tuple))
                               else None, idx.shape[0]))
             depth[0] += 1
             try:
-                return fn(tables, idx, rows, **kw)
+                return fn(tables, idx, *rows, **kw)
             finally:
                 depth[0] -= 1
         return wrapper
 
     for name in wrappers:
         monkeypatch.setattr(tvolume.rowcopy, name, counted(name))
-    multi = {"dma": "scatter_tables_dma", "staged": "scatter_tables",
-             "plain": "scatter_tables_dma_plain"}[t_impl]
+    gather = {"dma": "gather_tables_dma", "staged": "gather_tables",
+              "plain": "gather_tables_plain"}[t_impl]
+    scatter = {"dma": "scatter_tables_dma", "staged": "scatter_tables",
+               "plain": "scatter_tables_dma_plain"}[t_impl]
     culled = dict(row_capacity=640, j_impl="pallas", t_impl=t_impl)
     jv, tv = _fresh(sc)
     _, tv_plain = _fresh(sc)
@@ -250,8 +254,9 @@ def test_fuse_frame_culled_scatters_five_tables_in_one_call(t_impl, monkeypatch)
         del calls[:]
         jv, tv, _, _ = fuse_both(jv, tv, sc["jg"], sc["tg"], sc["fr"], sc["K"],
                                  pose, 28 + n, sc["T"], culled=culled)
-        # a fusion that still scattered table by table would show five calls
-        assert calls == [(multi, 5, 640)], calls
+        # a fusion that still moved its rows table by table would show five
+        # calls where there is one
+        assert calls == [(gather, 5, 640), (scatter, 5, 640)], calls
         assert_vol_close(tv, jv, _tol(sc, n), where=f"frame {n}")
         tv_plain, _ = tvolume.fuse_frame_culled(
             tv_plain, sc["tg"], *args, sc["K"], pose, 28 + n, truncation=sc["T"],
