@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA package on one NVIDIA Hopper card.
 
-    python3 chip_smoke.py [--profile | --kernels-only]
+    python3 chip_smoke.py [--profile | --kernels-only | --distributed-only]
 
 Builds the package's CUDA kernels and its host C++ libraries (PNG unfilter,
 marching cubes and PLY writers) from csrc/, holds each kernel against its
@@ -24,8 +24,11 @@ step; the LED model with the iteration-5 upsample at a smaller depth (64^3
 and --retries, with one failure injected in refinement iteration 3; the
 refinement on a 4x2 device mesh of the one card (the main run's keyframes,
 and the LED upsample run) against the one-device refinements, and the
-command line's whole recipe from the PNG files on a 2x2 mesh; and the
-host's marching cubes (C++ against numpy) at 128^3 and 256^3, with a periodic
+command line's whole recipe from the PNG files on a 2x2 mesh; that recipe
+and the LED upsample run again with one process a mesh row
+(parallel/distributed.py: two processes of this script over gloo on the one
+card, and over NCCL where there are two cards) against those one-process
+runs; and the host's marching cubes (C++ against numpy) at 128^3 and 256^3, with a periodic
 refinement dump synchronous and on its writer thread.
 
 Every phase prints one JSON object on a line of its own.  Any failed check,
@@ -40,12 +43,17 @@ the kernels that take the most device time.  The run is otherwise the same.
 With --kernels-only the run stops after the kernels phase (build, checks
 and times of the kernels, about fifteen seconds): a quick look at a changed
 kernel.  It drives no path, so it prints no final "ok" line and exits with 3.
+With --distributed-only it runs the kernels phase, then phase `distributed`
+and the one-process runs it is held to, and exits with 3 the same way: on a
+machine of several cards the look at NCCL across cards.
 
 Imports numpy, torch and the package; needs g++ and nvcc, no image library
 and no network.
 """
 
+import builtins
 import contextlib
+import hashlib
 import json
 import os
 import statistics
@@ -97,6 +105,15 @@ MESH_ATE_MM = 0.05
 # the command line's whole recipe from files on a 2x2 mesh
 MESH_REFINE = {"z": 4, "frames": 2}
 MESH_CLI = (2, 2)
+# distributed: the same recipes with one process a mesh row, over gloo on one
+# card (over NCCL too, one card a process, where there are DIST_WORLD
+# cards), held against mesh_refine's one-process runs; the LED upsample run
+# on DIST_LED_MESH.  A collective waits at most DIST_TIMEOUT seconds, a
+# process at most DIST_RANK_SECONDS
+DIST_WORLD = 2
+DIST_LED_MESH = {"z": 2, "frames": 1}
+DIST_TIMEOUT = 60
+DIST_RANK_SECONDS = 600
 # card against CPU, relative (see refine_parity): the updated state, and the
 # energies.  Seen on an H100: lights 5.8e-4, dist 8.0e-5, PS energy 3.3e-5.
 PARITY_TOL = {"state": 2e-3, "energy": 5e-4}
@@ -1429,34 +1446,54 @@ def profile_scan(tmp, seq, frames, plain_seconds):
 # ------------------------------------------------- the refinement on a mesh
 
 
-def _compare_refiners(got, want, what):
-    """A mesh refiner's result against a one-device refiner's: the same stop
-    and iteration count, each state tensor within PARITY_TOL["state"] of
-    its largest magnitude and every traced energy within
-    PARITY_TOL["energy"] (both on the card: the sums run in another order
-    on the mesh, and the scatter-adds are atomic)."""
-    check(got.stop_reason == want.stop_reason
-          and got.iterations_run == want.iterations_run,
-          f"{what}: stopped {got.stop_reason} after {got.iterations_run}, one "
-          f"device {want.stop_reason} after {want.iterations_run}")
-    check(got.prob.n_surface == want.prob.n_surface,
-          f"{what}: surface count {got.prob.n_surface}, one device "
-          f"{want.prob.n_surface}")
-    g, w = got.gathered(False, False), want.gathered(False, False)
-    seen = {}
-    for name, a, b in zip(("dist", "albedo", "grad_stored"), g[1:4], w[1:4]):
-        seen[name] = _rel(a, b.cpu())
-    seen["poses"] = _rel(got.poses, want.poses.cpu())
-    seen["lights"] = _rel(got.lights, want.lights.cpu())
-    gt, wt = got.energy_trace, want.energy_trace
-    check(len(gt) == len(wt), f"{what}: energy trace {len(gt)} records, "
-                              f"one device {len(wt)}")
-    seen["energy"] = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
-                         for a, b in zip(gt, wt) for k in ("total", "ps"))
+def _digest(tensors):
+    """sha256 of the tensors' bytes, in order: bit-for-bit equality across
+    processes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _refiner_state(ref):
+    """A refiner's result on the host: its stop, iterations, surface count,
+    gathered state and energy trace."""
+    _, dist, albedo, grad, _ = ref.gathered(False, False)
+    return dict(stop=ref.stop_reason, iterations=ref.iterations_run,
+                n_surface=ref.prob.n_surface, dist=dist.cpu(), albedo=albedo.cpu(),
+                grad_stored=grad.cpu(), poses=ref.poses.cpu(), lights=ref.lights.cpu(),
+                energy=[(r["total"], r["ps"]) for r in ref.energy_trace])
+
+
+STATE_TENSORS = ("dist", "albedo", "grad_stored", "poses", "lights")
+
+
+def _compare_states(got, want, what):
+    """A mesh refinement's result (_refiner_state) against a one-device or
+    one-process one: the same stop and iteration count, each state tensor
+    within PARITY_TOL["state"] of its largest magnitude and every traced
+    energy within PARITY_TOL["energy"] (both on the card: the sums run in
+    another order on the mesh, and the scatter-adds are atomic)."""
+    check(got["stop"] == want["stop"] and got["iterations"] == want["iterations"],
+          f"{what}: stopped {got['stop']} after {got['iterations']}, the "
+          f"reference {want['stop']} after {want['iterations']}")
+    check(got["n_surface"] == want["n_surface"],
+          f"{what}: surface count {got['n_surface']}, the reference "
+          f"{want['n_surface']}")
+    seen = {k: _rel(got[k], want[k]) for k in STATE_TENSORS}
+    ge, we = got["energy"], want["energy"]
+    check(len(ge) == len(we), f"{what}: energy trace {len(ge)} records, the "
+                              f"reference {len(we)}")
+    seen["energy"] = max(abs(a - b) / max(abs(b), 1e-12)
+                         for ga, wa in zip(ge, we) for a, b in zip(ga, wa))
     bad = {k: v for k, v in seen.items() if not v <= PARITY_TOL[
         "energy" if k == "energy" else "state"]}
-    check(not bad, f"{what}: mesh and one device disagree beyond {PARITY_TOL}: {bad}")
+    check(not bad, f"{what}: disagrees with its reference beyond {PARITY_TOL}: {bad}")
     return seen
+
+
+def _compare_refiners(got, want, what):
+    return _compare_states(_refiner_state(got), _refiner_state(want), what)
 
 
 def _check_sharded(ref, z, frames, what):
@@ -1472,6 +1509,57 @@ def _check_sharded(ref, z, frames, what):
           f"frames {lay.frames}")
 
 
+def cli_mesh_run(tmp, root):
+    """The command line with --mesh MESH_CLI over the PNG files in `root`,
+    the whole recipe, on the one card MESH_CLI[0] x MESH_CLI[1] times; the
+    pipeline keeps the digest of its scan's volume -> (the run, its wall
+    seconds)."""
+    import psgradientsdf_tpu_torch.pipeline as pipeline_mod
+    from psgradientsdf_tpu_torch import cli
+    from psgradientsdf_tpu_torch.ops import rowcopy
+
+    out = os.path.join(tmp, "cli_mesh") + "/"
+    cfg_path = os.path.join(tmp, "cli_mesh.json")
+    write_config(cfg_path, out, FRAMES - 1, refine=REFINE_SH1, input_dir=root + "/")
+    summary_path = os.path.join(tmp, "cli_mesh_summary.json")
+    made = []
+    real = pipeline_mod.ReconstructionPipeline
+
+    class Recorded(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+        def _run_refine_phase(self, summary):
+            self.scan_digest = _digest(self.vol)
+            super()._run_refine_phase(summary)
+
+    pipeline_mod.ReconstructionPipeline = Recorded
+    rowcopy.reset_launch_counts()            # just before the path is driven
+    t0 = time.perf_counter()
+    try:
+        with open(os.path.join(tmp, "cli_mesh_stdout.txt"), "w") as fh, \
+                contextlib.redirect_stdout(fh):
+            rc = cli.main([
+                "--config_file", cfg_path, "--summary-json", summary_path,
+                "--mesh", f"{MESH_CLI[0]}x{MESH_CLI[1]}",
+                "--mesh-devices", ",".join([DEVICE] * (MESH_CLI[0] * MESH_CLI[1])),
+                "--platform", "cpu" if DEVICE == "cpu" else "gpu"])
+        _sync()
+    finally:
+        pipeline_mod.ReconstructionPipeline = real
+    wall = time.perf_counter() - t0
+    counts = dict(rowcopy.launch_counts)     # and read just after
+    check(rc == 0 and len(made) == 1, f"the command line returned {rc}")
+    with open(summary_path) as fh:
+        summary = json.load(fh)
+    with open(os.path.join(out, "metrics.jsonl")) as fh:
+        cli_events = [json.loads(line) for line in fh]
+    cli_run = dict(pipe=made[0], summary=summary, counts=counts, out_dir=out,
+                   events=cli_events)
+    return cli_run, wall
+
+
 def mesh_refine(tmp, seq, main_run, led_run, led_seq, root):
     """The refinement on a device mesh whose every entry is the one card.
     (a) The main run's scan again (its trajectory, bit for bit) and its
@@ -1482,11 +1570,8 @@ def mesh_refine(tmp, seq, main_run, led_run, led_seq, root):
     surface count after the upsample.  (c) The command line with --mesh 2x2
     over the PNG files of dataset_files, the whole recipe: check_scan and
     check_refine, and each direct kernel launched once per slab per culled
-    fusion -> (launches of (c), what was measured)."""
+    fusion -> (launches of (c), what was measured, (c)'s run)."""
     import torch
-    import psgradientsdf_tpu_torch.pipeline as pipeline_mod
-    from psgradientsdf_tpu_torch import cli
-    from psgradientsdf_tpu_torch.ops import rowcopy
     from psgradientsdf_tpu_torch.parallel import mesh as pm
     from psgradientsdf_tpu_torch.pipeline import sample_keyframes
     from psgradientsdf_tpu_torch.refine.optimizer import PhotometricRefiner
@@ -1558,41 +1643,9 @@ def mesh_refine(tmp, seq, main_run, led_run, led_seq, root):
         seconds_per_iteration=_block_times(run["events"])[1])
 
     # (c)
-    out = os.path.join(tmp, "cli_mesh") + "/"
-    cfg_path = os.path.join(tmp, "cli_mesh.json")
-    write_config(cfg_path, out, FRAMES - 1, refine=REFINE_SH1, input_dir=root + "/")
-    summary_path = os.path.join(tmp, "cli_mesh_summary.json")
-    made = []
-    real = pipeline_mod.ReconstructionPipeline
-
-    class Recorded(real):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            made.append(self)
-
-    pipeline_mod.ReconstructionPipeline = Recorded
-    rowcopy.reset_launch_counts()            # just before the path is driven
-    t0 = time.perf_counter()
-    try:
-        with open(os.path.join(tmp, "cli_mesh_stdout.txt"), "w") as fh, \
-                contextlib.redirect_stdout(fh):
-            rc = cli.main([
-                "--config_file", cfg_path, "--summary-json", summary_path,
-                "--mesh", f"{MESH_CLI[0]}x{MESH_CLI[1]}",
-                "--mesh-devices", ",".join([DEVICE] * (MESH_CLI[0] * MESH_CLI[1])),
-                "--platform", "cpu" if DEVICE == "cpu" else "gpu"])
-        _sync()
-    finally:
-        pipeline_mod.ReconstructionPipeline = real
-    wall = time.perf_counter() - t0
-    counts = dict(rowcopy.launch_counts)     # and read just after
-    check(rc == 0 and len(made) == 1, f"the command line returned {rc}")
-    with open(summary_path) as fh:
-        summary = json.load(fh)
-    with open(os.path.join(out, "metrics.jsonl")) as fh:
-        cli_events = [json.loads(line) for line in fh]
-    cli_run = dict(pipe=made[0], summary=summary, counts=counts, out_dir=out,
-                   events=cli_events)
+    cli_run, wall = cli_mesh_run(tmp, root)
+    summary = cli_run["summary"]
+    made = [cli_run["pipe"]]
     facts = check_scan(cli_run, seq, FRAMES)
     _check_mesh_launches(cli_run, MESH_CLI[0], "(c) the command line on a mesh")
     _check_sharded(made[0].refiner, *MESH_CLI, "(c)")
@@ -1608,7 +1661,270 @@ def mesh_refine(tmp, seq, main_run, led_run, led_seq, root):
         refine_seconds=rfacts["refine_seconds"],
         seconds_per_iteration=rfacts["seconds_per_iteration"])
     return _dma_launches(cli_run), dict(sh1=facts_a, led_upsample=facts_b,
-                                        cli=facts_c)
+                                        cli=facts_c), cli_run
+
+
+# ------------------------------------------------ one process a mesh row
+
+
+def _record_writes(out_dir):
+    """Every file this process writes under out_dir (Python's open, the PLY,
+    SDF and trajectory writers) and every writer thread it starts -> the
+    list they are appended to."""
+    import psgradientsdf_tpu_torch.pipeline as pipeline_mod
+    import psgradientsdf_tpu_torch.refine.optimizer as optimizer_mod
+    from psgradientsdf_tpu_torch.io import ply, sdf_io, trajectory
+
+    seen = []
+    real_open = builtins.open
+
+    def spy_open(path, mode="r", *a, **k):
+        if any(c in mode for c in "wax") and str(path).startswith(out_dir):
+            seen.append(os.path.basename(str(path)))
+        return real_open(path, mode, *a, **k)
+
+    builtins.open = spy_open
+    for mod, names in ((ply, ("write_mesh_ply", "write_pointcloud_ply")),
+                       (sdf_io, ("write_sdf",)), (trajectory, ("write_trajectory",))):
+        for name in names:
+            def spy(path, *a, _fn=getattr(mod, name), **k):
+                if str(path).startswith(out_dir):
+                    seen.append(os.path.basename(str(path)))
+                return _fn(path, *a, **k)
+
+            setattr(mod, name, spy)
+    for mod in (pipeline_mod, optimizer_mod):
+        class Spied(mod.Writer):
+            def __init__(self, *a, **k):
+                seen.append("writer thread " + k.get("name", ""))
+                super().__init__(*a, **k)
+
+        mod.Writer = Spied
+    return seen
+
+
+def dist_rank(rank, job_path):
+    """One process of phase `distributed` (the phase starts it with
+    --dist-rank RANK JOB): joins the process group, runs the job's recipes
+    through ReconstructionPipeline on a mesh over the processes, and writes
+    what it saw for the phase to check."""
+    import torch
+    from psgradientsdf_tpu_torch.config import load_config
+    from psgradientsdf_tpu_torch.ops import rowcopy
+    from psgradientsdf_tpu_torch.parallel import distributed
+    from psgradientsdf_tpu_torch.parallel import mesh as pm
+    from psgradientsdf_tpu_torch.pipeline import ReconstructionPipeline
+    from psgradientsdf_tpu_torch.utils.metrics import MetricsLogger
+
+    with open(job_path) as fh:
+        job = json.load(fh)
+    distributed.initialize(num_processes=len(job["devices"]), process_id=rank,
+                           init_method="file://" + job["rendezvous"],
+                           backend=job["backend"], device=job["devices"][rank],
+                           timeout=DIST_TIMEOUT)
+
+    class ScanDigest(ReconstructionPipeline):
+        def _run_refine_phase(self, summary):
+            self.scan_digest = _digest(self.vol)
+            super()._run_refine_phase(summary)
+
+    seen = _record_writes(job["sh1"]["out"])
+    res = dict(rank=rank, backend=distributed.backend(), device=str(distributed.home()))
+    for run in ("sh1", "led"):
+        spec = job[run]
+        loader = None
+        if "frames" in spec:
+            z = np.load(spec["frames"])
+            loader = memory_loader(z["K"], z["colors"], z["depths"], z["poses"])
+        log = spec["metrics"][rank]
+        pipe = ScanDigest(load_config(spec["config"]), loader=loader,
+                          device=distributed.home(), metrics=MetricsLogger(log, echo=False))
+        slabs = sum(not pm.is_remote(d) for d in pipe.mesh.slab_devices)
+        rowcopy.reset_launch_counts()        # just before the path is driven
+        pm.reset_reduce_counts()
+        t0 = time.perf_counter()
+        summary = pipe.run(refine=True)
+        if distributed.home().type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(rowcopy.launch_counts)  # and read just after
+        moved = dict(pm.reduce_counts)
+        pipe.close()
+        with open(log) as fh:
+            events = [json.loads(line) for line in fh]
+        state = _refiner_state(pipe.refiner)
+        if rank == 0:
+            torch.save(state, spec["state"])
+        per_block, per_iter, cg = _block_times(events)
+        it = max(state["iterations"], 1)
+        res[run] = dict(
+            scan_digest=pipe.scan_digest,
+            keyframe_digest=_digest([torch.from_numpy(np.stack(pipe.key_poses))]),
+            state_digest=_digest([state[k] for k in STATE_TENSORS]),
+            energy=state["energy"], iterations=state["iterations"],
+            stopped=state["stop"], surface_voxels=state["n_surface"],
+            local_slabs=slabs, culled_fusions=pipe.fuse_culled_calls,
+            launches=counts, frames=summary["frames"], frames_per_s=summary["fps"],
+            refine_seconds=summary["refine_seconds"], wall_seconds=wall,
+            seconds_per_iteration=per_iter, seconds_per_block=per_block, cg_steps=cg,
+            moves=moved, moves_per_iteration={k: v / it for k, v in moved.items()
+                                              if k != "largest"},
+            writes=list(seen))
+        seen.clear()
+    distributed.shutdown()
+    with open(job["result"][rank], "w") as fh:
+        json.dump(res, fh, default=float)
+    return 0
+
+
+def _run_ranks(tmp, backend, devices, specs):
+    """Start DIST_WORLD processes of dist_rank on `devices` (one a rank) over
+    `backend` and wait for them -> their results.  A process that fails or
+    outlives DIST_RANK_SECONDS fails the phase; none outlives the call."""
+    tag = f"dist_{backend}"
+    job = dict(backend=backend, devices=devices,
+               rendezvous=os.path.join(tmp, tag + "_rendezvous"),
+               result=[os.path.join(tmp, f"{tag}_rank{r}.json")
+                       for r in range(len(devices))])
+    for run, spec in specs.items():
+        out = os.path.join(tmp, f"{tag}_{run}") + "/"
+        write_config(spec["config"], out, spec["last"], grid=spec.get("grid"),
+                     refine=spec["refine"], input_dir=spec.get("input", ""),
+                     config={"mesh shape": spec["mesh"]})
+        job[run] = dict(spec, out=out, state=os.path.join(tmp, f"{tag}_{run}_state.pt"),
+                        metrics=[os.path.join(tmp, f"{tag}_{run}_rank{r}.jsonl")
+                                 for r in range(len(devices))])
+    job_path = os.path.join(tmp, tag + ".json")
+    with open(job_path, "w") as fh:
+        json.dump(job, fh)
+    procs = []
+    try:
+        for r in range(len(devices)):
+            log = open(os.path.join(tmp, f"{tag}_rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
+                 job_path], stdout=log, stderr=subprocess.STDOUT), log))
+        t0 = time.perf_counter()
+        for r, (p, log) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, DIST_RANK_SECONDS - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                log.flush()
+                with open(log.name) as fh:
+                    tail = fh.read()[-3000:]
+                raise SmokeFailure(f"{backend} rank {r} ended with {rc}:\n{tail}")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    results = []
+    for path in job["result"]:
+        with open(path) as fh:
+            results.append(json.load(fh))
+    return job, results
+
+
+def distributed_phase(tmp, root, cli_run, led_run, led_seq):
+    """The whole recipe with one process a mesh row: DIST_WORLD processes
+    joined by gloo, every one on the one card (and by NCCL, one card a
+    process, where there are DIST_WORLD cards), run (1) mesh_refine (c)'s
+    command-line recipe from the PNG files on its 2x2 mesh through
+    ReconstructionPipeline, and (2) the LED upsample run on DIST_LED_MESH.
+    Checks: (1)'s scan volume, keyframe poses and trajectory equal (c)'s
+    one-process run bit for bit, its refinement (c)'s within PARITY_TOL with
+    the same stop and iterations; (2) refine_led_upsample's within
+    PARITY_TOL with the same surface count after the upsample; both
+    processes hold the same state and energies; each launches each direct
+    kernel once per culled fusion of its slab; process 0 alone writes the
+    outputs.  -> (the direct kernels' launches, what was measured)."""
+    import torch
+
+    K, colors, depths, poses = led_seq[:4]
+    frames = os.path.join(tmp, "dist_led_frames.npz")
+    np.savez(frames, K=K, colors=np.stack(colors[:LED_FRAMES]),
+             depths=np.stack(depths[:LED_FRAMES]), poses=np.stack(poses[:LED_FRAMES]))
+    specs = {
+        "sh1": dict(config=os.path.join(tmp, "dist_sh1.json"), last=FRAMES - 1,
+                    refine=REFINE_SH1, input=root + "/",
+                    mesh={"z": MESH_CLI[0], "frames": MESH_CLI[1]}),
+        "led": dict(config=os.path.join(tmp, "dist_led.json"), last=LED_FRAMES - 1,
+                    refine=REFINE_LED, grid=LED_GRID, frames=frames, mesh=DIST_LED_MESH)}
+    routes = [("gloo", ["cuda:0" if DEVICE == "cuda" else DEVICE] * DIST_WORLD)]
+    if DEVICE == "cuda" and torch.cuda.device_count() >= DIST_WORLD:
+        routes.append(("nccl", [f"cuda:{r}" for r in range(DIST_WORLD)]))
+    cli_pipe = cli_run["pipe"]
+    with open(os.path.join(cli_run["out_dir"], "tracking_poses.txt")) as fh:
+        cli_poses = fh.read()
+    want = {"sh1": _refiner_state(cli_pipe.refiner),
+            "led": _refiner_state(led_run["pipe"].refiner)}
+    cli_keyframes = _digest([torch.from_numpy(np.stack(cli_pipe.key_poses))])
+    launches = {"gather_rows_dma": 0, "scatter_rows_dma": 0}
+    facts = {}
+    for backend, devices in routes:
+        t0 = time.perf_counter()
+        job, ranks = _run_ranks(tmp, backend, devices, specs)
+        seconds = time.perf_counter() - t0
+        seen = {}
+        for r, res in enumerate(ranks):
+            check(res["backend"] == backend, f"rank {r} ran {res['backend']}")
+            for run in ("sh1", "led"):
+                g = res[run]
+                calls, slabs = g["culled_fusions"], g["local_slabs"]
+                for name, n in g["launches"].items():
+                    if name in launches:
+                        check(n == (calls * slabs if DEVICE == "cuda" else 0),
+                              f"{backend} rank {r} {run}: {name} {n} launches, "
+                              f"{slabs} slab x {calls} culled fusions")
+                        launches[name] += n
+                check(g["state_digest"] == ranks[0][run]["state_digest"]
+                      and g["energy"] == ranks[0][run]["energy"],
+                      f"{backend} {run}: the processes' poses, state or energies differ")
+        sh1 = ranks[0]["sh1"]
+        for r, res in enumerate(ranks):
+            check(res["sh1"]["scan_digest"] == cli_pipe.scan_digest,
+                  f"{backend} rank {r}: the scan volume differs from the one-process 2x2 run")
+            check(res["sh1"]["keyframe_digest"] == cli_keyframes,
+                  f"{backend} rank {r}: the keyframe poses differ from the one-process run")
+            check(res["sh1"]["culled_fusions"] == cli_pipe.fuse_culled_calls,
+                  f"{backend} rank {r}: {res['sh1']['culled_fusions']} culled fusions, "
+                  f"one process {cli_pipe.fuse_culled_calls}")
+        with open(os.path.join(job["sh1"]["out"], "tracking_poses.txt")) as fh:
+            check(fh.read() == cli_poses,
+                  f"{backend}: the trajectory differs from the one-process 2x2 run")
+        outputs = {"tracking_poses.txt", "init_mesh.ply", "init_pointcloud.ply",
+                   "init_sdf.sdf", "final_refined_mesh.ply", "final_refined_pointcloud.ply",
+                   "final_refined_poses.txt", "final_refined_sdf.sdf"}
+        written = set(ranks[0]["sh1"]["writes"])
+        check(outputs <= written and "writer thread initial-export" in written,
+              f"{backend}: process 0 wrote {sorted(written)}")
+        check(all(not res["sh1"]["writes"] for res in ranks[1:]),
+              f"{backend}: another process wrote {[res['sh1']['writes'] for res in ranks]}")
+        for run, what in (("sh1", "the one-process 2x2 CLI run"),
+                          ("led", "refine_led_upsample")):
+            got = torch.load(job[run]["state"], weights_only=False)
+            seen[run] = _compare_states(got, want[run], f"{backend} {run} against {what}")
+        facts[backend] = dict(
+            seconds=seconds, devices=devices, mesh=[MESH_CLI, [DIST_LED_MESH["z"], DIST_LED_MESH["frames"]]],
+            relative_difference=seen, frames=sh1["frames"],
+            culled_fusions=sh1["culled_fusions"],
+            iterations={run: ranks[0][run]["iterations"] for run in ("sh1", "led")},
+            stopped={run: ranks[0][run]["stopped"] for run in ("sh1", "led")},
+            surface_voxels={run: ranks[0][run]["surface_voxels"] for run in ("sh1", "led")},
+            one_process_seconds_per_iteration=_block_times(cli_run["events"])[1],
+            ranks=[dict(rank=res["rank"], backend=res["backend"], device=res["device"],
+                        **{run: {k: res[run][k] for k in (
+                            "local_slabs", "launches", "frames_per_s", "refine_seconds",
+                            "wall_seconds", "seconds_per_iteration", "seconds_per_block",
+                            "cg_steps", "moves_per_iteration")} for run in ("sh1", "led")})
+                   for res in ranks])
+    if len(routes) == 1:
+        facts["nccl"] = (f"unverified: {torch.cuda.device_count()} card(s) here, NCCL "
+                         f"takes one card a process and {DIST_WORLD} processes")
+    return launches, facts
 
 
 def main():
@@ -1651,6 +1967,18 @@ def main():
     emit("kernels", ok=True, cases_checked=n_checked, card=card,
          reps=KERNEL_REPS, times=times, shapes=shapes)
     if "--kernels-only" in sys.argv[1:]:
+        return 3
+    if "--distributed-only" in sys.argv[1:]:
+        # the distributed phase and the one-process runs it is held to
+        seq = make_sequence(FRAMES)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            root = os.path.join(tmp, "tum")
+            write_tum_dataset(root, *seq[:3])
+            cli_run, _ = cli_mesh_run(tmp, root)
+            led_run, led_seq, _ = run_led_upsample(tmp)
+            _, facts = distributed_phase(tmp, root, cli_run, led_run, led_seq)
+            emit("distributed", ok=True, card=card, **facts)
+        print(smi, flush=True)
         return 3
 
     # ---- the main path
@@ -1731,9 +2059,13 @@ def main():
              **resume_refine(tmp, root, main_run))
 
         # ---- the refinement on a mesh: 4x2 and the command line on 2x2
-        mesh_refine_launches, facts = mesh_refine(
+        mesh_refine_launches, facts, cli_run = mesh_refine(
             tmp, seq, main_run, led_run, led_seq, root)
         emit("mesh_refine", ok=True, card=card, **facts)
+
+        # ---- the same recipes with one process a mesh row
+        dist_launches, facts = distributed_phase(tmp, root, cli_run, led_run, led_seq)
+        emit("distributed", ok=True, card=card, **facts)
 
         # ---- the host's marching cubes and PLY writers
         emit("dumps", ok=True, card=card, **dumps(
@@ -1747,7 +2079,8 @@ def main():
 
     # the main run's launches, and the mesh phases' of the direct kernels
     launches = {k: counts[k] + mesh_launches.get(k, 0)
-                + mesh_refine_launches.get(k, 0) for k in counts}
+                + mesh_refine_launches.get(k, 0) + dist_launches.get(k, 0)
+                for k in counts}
     launches.update({k: staged["counts"][k] for k in ("gather_rows", "scatter_rows")})
     for name in KERNELS:
         check(launches[name] > 0, f"{name} was never launched on its path")
@@ -1773,4 +2106,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

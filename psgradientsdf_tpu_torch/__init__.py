@@ -16,9 +16,12 @@ and poses — and the host runtime around them: checkpoints and exact resume
 of the scan and of the refinement in the JAX package's file format
 (io/checkpoint.py), the command line's --retries, a PNG decoder that needs
 no image library (io/png.py), and C++ marching cubes and PLY writers
-(native.py, csrc/*.cpp, built with g++ at first use) — and the scan on a
-device mesh of Z-slabs (parallel/); the refinement on a mesh raises "not
-ported yet".
+(native.py, csrc/*.cpp, built with g++ at first use) — and the scan and
+the refinement on a device mesh (parallel/): the volume as Z-slabs, the
+refinement's surface set over "z" and its keyframes over "frames", driven
+by one process (parallel/mesh.make_mesh) or by one process a mesh row
+(parallel/distributed.py: distributed.initialize on every process, then the
+pipeline; every cross-process move a torch.distributed collective).
 
 Devices: every entry point runs on "cuda" unless the caller passes
 device="cpu"; with no card and no such request it raises (resolve_device).

@@ -25,6 +25,7 @@ import json
 import os
 from typing import Tuple
 
+from psgradientsdf_tpu_torch.parallel import distributed
 from psgradientsdf_tpu_torch.utils import robust
 
 SH1 = "SH1"
@@ -248,7 +249,8 @@ def parse_config(cfg: dict, save_copy: bool = True) -> PipelineConfig:
 
     pipe = PipelineConfig(tracking=trac, optimizer=opt, tpu=tpu)
 
-    if save_copy and trac.output:
+    # in a process group only process 0 writes files
+    if save_copy and trac.output and distributed.rank() == 0:
         # echo config to the results dir (ConfigLoader.h:161-165)
         try:
             os.makedirs(trac.output, exist_ok=True)

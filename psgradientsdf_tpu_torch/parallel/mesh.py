@@ -20,10 +20,19 @@ N-vector beside it).  Two axes, as in the JAX package:
 A mesh may name one device several times: on the CPU the one CPU device
 holds every shard (the counterpart of the JAX tests' eight virtual CPU
 devices), and several slabs may share one card.
+
+A mesh may also span processes (parallel/distributed.make_global_mesh):
+each process holds its own entries, an entry of another process is a
+`Remote`, and so is every slab, block or piece that lives there.  The
+callers build their lists in mesh order on every process, with the Remote
+entries in place; the moves below are then collectives of the process
+group that keep the one-process order of addition and report the same
+counts.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -31,6 +40,8 @@ import torch
 
 from psgradientsdf_tpu_torch import resolve_device
 from psgradientsdf_tpu_torch.core.volume import GradSdfVolume
+from psgradientsdf_tpu_torch.parallel import distributed as pd
+from psgradientsdf_tpu_torch.parallel.distributed import Remote, is_remote
 
 Z_AXIS = "z"
 FRAME_AXIS = "frames"
@@ -41,7 +52,10 @@ CPU_SHARDS = 8
 
 def _canonical(device) -> torch.device:
     """A device with its index ("cuda" -> "cuda:<current>"), so that devices
-    compare and hash as the tensors on them report theirs."""
+    compare and hash as the tensors on them report theirs (a Remote entry
+    stays as it is)."""
+    if is_remote(device):
+        return device
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -49,12 +63,15 @@ def _canonical(device) -> torch.device:
 
 
 class Mesh:
-    """An [n_z, n_frames] array of torch devices (entries may repeat)."""
+    """An [n_z, n_frames] array of torch devices (entries may repeat), and
+    Remote entries where the mesh spans processes; `home` is this
+    process's device (by default the first entry)."""
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray, home=None):
         self.devices = devices
         self.shape: Dict[str, int] = {Z_AXIS: devices.shape[0],
                                       FRAME_AXIS: devices.shape[1]}
+        self.home = devices[0, 0] if home is None else home
 
     @property
     def slab_devices(self) -> List[torch.device]:
@@ -63,8 +80,9 @@ class Mesh:
 
     @property
     def first_device(self) -> torch.device:
-        """Where reductions land and the replicated work runs."""
-        return self.devices[0, 0]
+        """Where reductions land and the replicated work runs: the first
+        entry's device, or on a mesh over processes each process's own."""
+        return self.home
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape[Z_AXIS]}x{self.shape[FRAME_AXIS]}, "
@@ -76,7 +94,11 @@ def make_mesh(n_z: int = 0, n_frames: int = 1, devices=None, device=None) -> Mes
 
     With no `devices`: the CUDA devices cuda:0 ... cuda:{count-1}, or on the
     CPU (device="cpu") the CPU device CPU_SHARDS times.  An explicit list may
-    repeat a device (several slabs on one card)."""
+    repeat a device (several slabs on one card).  Inside a process group of
+    several processes the mesh is distributed.make_global_mesh's."""
+    if pd.active():
+        raise ValueError("a process group of several processes runs on "
+                         "distributed.make_global_mesh, not make_mesh")
     if devices is None:
         dev = resolve_device(device)
         if dev.type == "cuda":
@@ -107,7 +129,8 @@ class ShardedVolume(NamedTuple):
     interleaved: bool
 
     def clone(self) -> "ShardedVolume":
-        return ShardedVolume(tuple(s.clone() for s in self.slabs), self.interleaved)
+        return ShardedVolume(tuple(local_map(GradSdfVolume.clone, self.slabs)),
+                             self.interleaved)
 
 
 def _permute_z(vol: GradSdfVolume, n_z: int, inverse: bool) -> GradSdfVolume:
@@ -162,6 +185,9 @@ def shard_volume(vol: GradSdfVolume, mesh: Mesh,
     Zl = Z // n_z
     slabs = []
     for k, dev in enumerate(mesh.slab_devices):
+        if is_remote(dev):
+            slabs.append(dev)
+            continue
         sl = slice(k * Zl, (k + 1) * Zl)
         slabs.append(GradSdfVolume(
             dist=_own(vol.dist[sl], dev), grad=_own(vol.grad[sl], dev),
@@ -172,11 +198,15 @@ def shard_volume(vol: GradSdfVolume, mesh: Mesh,
 
 def gather_volume(svol: ShardedVolume, device) -> GradSdfVolume:
     """The whole volume on one device, in logical plane order (the
-    counterpart of np.asarray of a sharded array)."""
+    counterpart of np.asarray of a sharded array); over processes an
+    all-gather of the slabs, after which every process holds it."""
     dev = _canonical(device)
 
     def cat(name, axis):
-        return torch.cat([getattr(s, name).to(dev) for s in svol.slabs], dim=axis)
+        parts = [s if is_remote(s) else getattr(s, name) for s in svol.slabs]
+        if pd.active():
+            parts = pd.exchange(parts, dev)
+        return torch.cat([p.to(dev) for p in parts], dim=axis)
 
     vol = GradSdfVolume(dist=cat("dist", 0), grad=cat("grad", 0),
                         weight=cat("weight", 0), color=cat("color", 0),
@@ -186,12 +216,24 @@ def gather_volume(svol: ShardedVolume, device) -> GradSdfVolume:
     return vol
 
 
+def local_map(fn, *seqs) -> list:
+    """fn over the positions of mesh-ordered lists whose entries are all
+    local; a position held by another process keeps its Remote."""
+    out = []
+    for xs in zip(*seqs):
+        far = next((x for x in xs if is_remote(x)), None)
+        out.append(far if far is not None else fn(*xs))
+    return out
+
+
 # every cross-device move of the scan and the refinement goes through
 # reduce_to_first, all_gather or reduce_scatter; these count what a mesh of
 # distinct devices moves for them: every shard's piece, the ones already on
 # their destination included (an upper bound).  "calls", "elements" and
 # "largest" (the most elements of one moved tensor) add up all three kinds;
-# the other keys count each kind's calls
+# the other keys count each kind's calls.  Over processes every process
+# counts every piece, its own and the others', so that each reports what
+# the one-process mesh reports
 reduce_counts: Dict[str, int] = {"calls": 0, "elements": 0, "largest": 0,
                                  "reduces": 0, "all_gathers": 0,
                                  "reduce_scatters": 0}
@@ -202,49 +244,72 @@ def reset_reduce_counts() -> None:
         reduce_counts[k] = 0
 
 
-def _count(kind: str, moved: Sequence[torch.Tensor]) -> None:
+def _count(kind: str, sizes: Sequence[int]) -> None:
+    """One move of `kind` whose pieces hold `sizes` elements."""
     reduce_counts[kind] += 1
     reduce_counts["calls"] += 1
-    reduce_counts["elements"] += sum(t.numel() for t in moved)
-    reduce_counts["largest"] = max(reduce_counts["largest"],
-                                   max(t.numel() for t in moved))
+    reduce_counts["elements"] += sum(sizes)
+    reduce_counts["largest"] = max(reduce_counts["largest"], max(sizes))
 
 
-def reduce_to_first(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The sum of the shards' tensors (one shape), on the first one's
-    device, added in shard order."""
-    dev = tensors[0].device
-    total = tensors[0]
-    for t in tensors[1:]:
+def _add(pieces: Sequence[torch.Tensor], dev) -> torch.Tensor:
+    """The pieces added in order on `dev`."""
+    total = pieces[0].to(dev)
+    for t in pieces[1:]:
         total = total + t.to(dev)
-    _count("reduces", tensors)
     return total
+
+
+def reduce_to_first(tensors: Sequence[torch.Tensor], dest=None) -> torch.Tensor:
+    """The sum of the shards' tensors (one shape), on the first one's
+    device, added in shard order.
+
+    Over processes the pieces are all-gathered and added in the same order:
+    with dest=None on every process (on its own device: the replicated
+    work reads it there), else only on the process that holds `dest` (a
+    device, or a Remote that the others get back)."""
+    if not pd.active():
+        _count("reduces", [t.numel() for t in tensors])
+        return _add(tensors, tensors[0].device)
+    to = pd.home() if dest is None or is_remote(dest) else _canonical(dest)
+    pieces = pd.exchange(tensors, to)
+    _count("reduces", [t.numel() for t in pieces])
+    return dest if is_remote(dest) else _add(pieces, to)
 
 
 def all_gather(chunks: Sequence[torch.Tensor], devices) -> Dict[torch.device, torch.Tensor]:
     """The shards' chunks of an N-vector joined in shard order, once on each
-    distinct device of `devices`: {device: [N, ...]}.  Counted as a mesh of
+    distinct device of `devices` (this process's, over processes, where
+    the chunks are all-gathered): {device: [N, ...]}.  Counted as a mesh of
     distinct devices moves it: one copy for every entry of `devices`."""
     devices = list(devices)
+    if pd.active():
+        chunks = pd.exchange(chunks, pd.home())
     out = {d: (chunks[0].to(d) if len(chunks) == 1
                else torch.cat([c.to(d) for c in chunks]))
-           for d in dict.fromkeys(devices)}
-    _count("all_gathers", list(chunks) * len(devices))
+           for d in dict.fromkeys(devices) if not is_remote(d)}
+    _count("all_gathers", [c.numel() for c in chunks] * len(devices))
     return out
 
 
 def reduce_scatter(partials: Sequence[torch.Tensor], bounds: Sequence[int],
                    devices) -> List[torch.Tensor]:
     """Chunk k (rows bounds[k]:bounds[k+1], on devices[k]) of the sum of
-    full-length partials, added in partial order."""
+    full-length partials, added in partial order.  Over processes each
+    process receives its chunks' slices of the others' partials (one
+    all-to-all) and adds them in the same order; a chunk of another process
+    is its Remote."""
     n = len(bounds) - 1
-    _count("reduce_scatters",
-           [p[bounds[k]:bounds[k + 1]] for k in range(n) for p in partials])
-    out = []
-    for k, dev in enumerate(devices):
-        sl = slice(bounds[k], bounds[k + 1])
-        total = partials[0][sl].to(dev)
-        for p in partials[1:]:
-            total = total + p[sl].to(dev)
-        out.append(total)
-    return out
+    if not pd.active():
+        shape = partials[0].shape
+        slices = {k: [p[bounds[k]:bounds[k + 1]] for p in partials]
+                  for k in range(n)}
+    else:
+        slices, shape = pd.scatter_slices(
+            partials, bounds, [d.rank if is_remote(d) else pd.rank()
+                               for d in devices], pd.home())
+    tail = math.prod(shape[1:])
+    _count("reduce_scatters", [(bounds[k + 1] - bounds[k]) * tail
+                               for k in range(n) for _ in partials])
+    return [dev if is_remote(dev) else _add(slices[k], dev)
+            for k, dev in enumerate(devices)]

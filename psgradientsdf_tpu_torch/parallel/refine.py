@@ -43,6 +43,13 @@ joint distance+pose matvec also one [F,6] reduction.  The functions below
 have the signatures of refine/optimizer.py's RefineOps over a ShardedProblem,
 ShardedImages, row-chunked N-vectors (tuples, chunk k on row device k) and
 MeshResiduals; OPS bundles them for the refiner.
+
+On a mesh over processes (parallel/distributed.py) each process holds its
+mesh rows' chunks and blocks, and the others' are their Remote entries, in
+place in every tuple; every function visits every block on every process
+(local_map, _each) so that the moves are called alike everywhere.  The
+sums of kinds 1 and 5 reach every process with the same bits: each runs
+the small solves itself, and the CG stops at the same step everywhere.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ import torch
 
 from psgradientsdf_tpu_torch.config import LED
 from psgradientsdf_tpu_torch.parallel import mesh as pm
+from psgradientsdf_tpu_torch.parallel.mesh import is_remote, local_map
 from psgradientsdf_tpu_torch.parallel.shard import (
     ShardedImages,
     ShardedProblem,
@@ -119,6 +127,9 @@ def _blocks(sp: ShardedProblem, images: Optional[ShardedImages], dist: Rows,
            (("poses", poses), ("K", K), ("lights", lights)) if x is not None}
     out = []
     for k, row in enumerate(lay.devices):
+        if is_remote(row[0]):                # a row of another process
+            out.append(row)
+            continue
         lo, hi = lay.rows[k], lay.rows[k + 1]
         grads = replicate(grad[k], row)
         if not views:
@@ -153,17 +164,25 @@ def _flat(blocks):
     return [(k, j, b) for k, row in enumerate(blocks) for j, b in enumerate(row)]
 
 
+def _each(blocks, fn) -> list:
+    """fn(k, j, block) of every block in mesh order; a block of another
+    process gives its Remote."""
+    return [b if is_remote(b) else fn(k, j, b) for k, j, b in _flat(blocks)]
+
+
 def _frame_sum(parts: Sequence[Tuple[Block, torch.Tensor]]) -> torch.Tensor:
     """Per-frame partials [F_j, ...] of every block, summed over N into
     [F, ...] on the first device (move kind 1): each block's frames placed
     at their offset, one reduction."""
-    return pm.reduce_to_first([solvers._place(t, b.frames) for b, t in parts])
+    return pm.reduce_to_first(local_map(
+        lambda p: solvers._place(p[1], p[0].frames), parts))
 
 
-def _row_sum(blocks, fn) -> List[torch.Tensor]:
+def _row_sum(lay, blocks, fn) -> List[torch.Tensor]:
     """fn(k, j, block) summed over the blocks of each mesh row (over
     "frames"), on the row device (move kind 2)."""
-    return [pm.reduce_to_first([fn(k, j, b) for j, b in enumerate(row)])
+    return [pm.reduce_to_first([b if is_remote(b) else fn(k, j, b)
+                                for j, b in enumerate(row)], dest=lay.devices[k][0])
             for k, row in enumerate(blocks)]
 
 
@@ -174,7 +193,7 @@ def compute_residuals(sp: ShardedProblem, geom, dist: Rows, albedo: Rows,
                       lights, *, model, order, loss, lam, voxel_size) -> MeshResiduals:
     blocks = _blocks(sp, images, dist, albedo, grad_stored, poses, K, lights)
     rd = tuple(tuple(
-        render.compute_residuals(
+        b if is_remote(b) else render.compute_residuals(
             b.view, geom, b.dist, b.albedo, b.grad, b.poses, b.images, b.K,
             b.lights, model=model, order=order, loss=loss, lam=lam,
             voxel_size=voxel_size)
@@ -187,25 +206,24 @@ def energy_from_rd(sp: ShardedProblem, rd: MeshResiduals, dist, albedo, *,
     """(E_ps, E_normal, E_laplacian, E_rho) [4] on the first device: every
     block's sums, the per-voxel ones on the row's first block only, in one
     reduction, over the GLOBAL surface count."""
-    parts = []
-    for k, j, b in _flat(rd.blocks):
+    def part(k, j, b):
         ps = render.ps_energy_sum(rd.rd[k][j], loss=loss, lam=lam)
         if j == 0:
-            parts.append(torch.stack([
+            return torch.stack([
                 ps,
                 render.normal_energy_sum(b.view, b.dist, voxel_size),
                 render.laplacian_energy_sum(b.view, b.dist, voxel_size),
-                render.albedo_reg_energy_sum(b.view, b.albedo, voxel_size)]))
-        else:
-            parts.append(torch.cat([ps[None], ps.new_zeros(3)]))
-    return pm.reduce_to_first(parts) / max(float(sp.n_surface), 1.0)
+                render.albedo_reg_energy_sum(b.view, b.albedo, voxel_size)])
+        return torch.cat([ps[None], ps.new_zeros(3)])
+
+    return pm.reduce_to_first(_each(rd.blocks, part)) / max(float(sp.n_surface), 1.0)
 
 
 # ---------------------------------------------------------------------- CG
 
 def _dot(xs: Rows, ys: Rows) -> torch.Tensor:
     """The dot product of two row-chunked vectors, on the first device."""
-    return pm.reduce_to_first([solvers._vdot(x, y) for x, y in zip(xs, ys)])
+    return pm.reduce_to_first(local_map(solvers._vdot, xs, ys))
 
 
 def _solve_cg(matvec, b, d_safe, steps_out, maxiter: int = 100, tol: float = 1e-6):
@@ -213,16 +231,32 @@ def _solve_cg(matvec, b, d_safe, steps_out, maxiter: int = 100, tol: float = 1e-
     refine/solvers.solve_*'s defaults (100 steps at most, tol 1e-6, the
     polled stop rule) and every dot product reduced over the shards (move
     kind 5), so that the stop rule reads the reduced value and the shards
-    stop together."""
-    devs = [c.device for c in b]
+    stop together.  cg_chunks works on this process's chunks; the matvec
+    and the dots see them in mesh order, with the others' Remote entries."""
+    mine = [k for k, c in enumerate(b) if not is_remote(c)]
+
+    def full(xs):
+        out = list(b)
+        for k, x in zip(mine, xs):
+            out[k] = x
+        return out
+
+    def local(xs):
+        return [xs[k] for k in mine]
+
+    devs = [b[k].device for k in mine]
+    d_loc = local(d_safe)
 
     def spread(s):
         rep = replicate(s, devs)
         return [rep[d] for d in devs]
 
-    return solvers.cg_chunks(matvec, b, lambda rs: [r / d for r, d in zip(rs, d_safe)],
-                             maxiter, tol, steps_out=steps_out, dot=_dot,
-                             spread=spread)
+    x = solvers.cg_chunks(lambda xs: local(matvec(full(xs))), local(b),
+                          lambda rs: [r / d for r, d in zip(rs, d_loc)],
+                          maxiter, tol, steps_out=steps_out,
+                          dot=lambda xs, ys: _dot(full(xs), full(ys)),
+                          spread=spread)
+    return full(x)
 
 
 # ------------------------------------------------------------ albedo block
@@ -242,64 +276,66 @@ def _albedo(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
             J = jacobians.albedo_jacobian_sh(b.view, b.grad, b.lights, order)
         return torch.stack(solvers.albedo_data_terms(rd.rd[k][j], J))
 
-    terms = _row_sum(rd.blocks, data)                # [2, n_k, 3] a row
-    b = [t[0] for t in terms]
-    diag_ps = [t[1] for t in terms]
+    terms = _row_sum(lay, rd.blocks, data)           # [2, n_k, 3] a row
+    b = local_map(lambda t: t[0], terms)
+    diag_ps = local_map(lambda t: t[1], terms)
     diag = list(diag_ps)
     use_reg = reg_weight_rho != 0.0
     if use_reg:
-        regs = []
-        for k, row in enumerate(rd.blocks):
-            p, bl = sp.rows[k], row[0]
-            regs.append(solvers.albedo_reg_operator(bl.view, bl.albedo, voxel_size)
-                        ._replace(nbr_idx=p.nbr_idx, safe=torch.clamp(p.nbr_idx, min=0)))
+        regs = local_map(
+            lambda p, bl: solvers.albedo_reg_operator(bl.view, bl.albedo, voxel_size)
+            ._replace(nbr_idx=p.nbr_idx, safe=torch.clamp(p.nbr_idx, min=0)),
+            sp.rows, [row[0] for row in rd.blocks])
         rows = [(lay.rows[k], N) for k in range(len(regs))]
-        rhs = pm.reduce_scatter(
-            [torch.stack([solvers.albedo_reg_apply_T(op.r, op, rw),
-                          solvers.albedo_reg_diag(op, rw)])
-             .permute(1, 0, 2) for op, rw in zip(regs, rows)], lay.rows, rdev)
-        b = [bk + reg_weight_rho * t[:, 0] for bk, t in zip(b, rhs)]
-        diag = [dk + reg_weight_rho * t[:, 1] for dk, t in zip(diag, rhs)]
-    valid_c = [p.valid[:, None] for p in sp.rows]
+        rhs = pm.reduce_scatter(local_map(
+            lambda op, rw: torch.stack([solvers.albedo_reg_apply_T(op.r, op, rw),
+                                        solvers.albedo_reg_diag(op, rw)])
+            .permute(1, 0, 2), regs, rows), lay.rows, rdev)
+        b = local_map(lambda bk, t: bk + reg_weight_rho * t[:, 0], b, rhs)
+        diag = local_map(lambda dk, t: dk + reg_weight_rho * t[:, 1], diag, rhs)
+    valid_c = local_map(lambda p: p.valid[:, None], sp.rows)
 
     def matvec(xs):
+        reg_x = xs
         if use_reg:
             full = pm.all_gather(xs, rdev)
-            reg_x = pm.reduce_scatter(
-                [solvers.albedo_reg_apply_T(
-                    solvers.albedo_reg_apply(x, op, src=full[x.device]), op, rw)
-                 for x, op, rw in zip(xs, regs, rows)], lay.rows, rdev)
-        out = []
-        for k, x in enumerate(xs):
-            o = diag_ps[k] * x
-            if use_reg:
-                o = o + reg_weight_rho * reg_x[k]
-            o = o + damping * diag[k] * x
-            out.append(torch.where(valid_c[k], o, x))
-        return out
+            reg_x = pm.reduce_scatter(local_map(
+                lambda x, op, rw: solvers.albedo_reg_apply_T(
+                    solvers.albedo_reg_apply(x, op, src=full[x.device]), op, rw),
+                xs, regs, rows), lay.rows, rdev)
 
-    d_safe = [solvers.jacobi_diag(v, d, damping) for v, d in zip(valid_c, diag)]
-    b = [torch.where(v, bk, 0.0) for v, bk in zip(valid_c, b)]
+        def one(x, dp, d, v, rx):
+            o = dp * x
+            if use_reg:
+                o = o + reg_weight_rho * rx
+            o = o + damping * d * x
+            return torch.where(v, o, x)
+
+        return local_map(one, xs, diag_ps, diag, valid_c, reg_x)
+
+    d_safe = local_map(lambda v, d: solvers.jacobi_diag(v, d, damping), valid_c, diag)
+    b = local_map(lambda v, bk: torch.where(v, bk, 0.0), valid_c, b)
     delta = _solve_cg(matvec, b, d_safe, steps_out)
-    return tuple(solvers.update_albedo(p, a, torch.where(v, dl, 0.0))
-                 for p, a, v, dl in zip(sp.rows, albedo, valid_c, delta))
+    return tuple(local_map(
+        lambda p, a, v, dl: solvers.update_albedo(p, a, torch.where(v, dl, 0.0)),
+        sp.rows, albedo, valid_c, delta))
 
 
 # ------------------------------------------------------------- light block
 
 def _light(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
            *, model, order, damping, **_):
-    parts = []
-    for k, j, b in _flat(rd.blocks):
+    def part(k, j, b):
         r = rd.rd[k][j]
         if model == LED:
             J = jacobians.light_jacobian_led(b.view, geom, b.dist, b.grad,
                                              b.albedo, b.poses)
-            parts.append(torch.stack(solvers.light_normal_eqs_led(r, J)))
-        else:
-            J = jacobians.light_jacobian_sh(b.view, b.albedo, b.grad, order)
-            H, g = solvers.light_normal_eqs_sh(r, J)
-            parts.append((b, torch.cat([H, g[..., None]], dim=-1)))   # [F_j,B,B+1]
+            return torch.stack(solvers.light_normal_eqs_led(r, J))
+        J = jacobians.light_jacobian_sh(b.view, b.albedo, b.grad, order)
+        H, g = solvers.light_normal_eqs_sh(r, J)
+        return b, torch.cat([H, g[..., None]], dim=-1)               # [F_j,B,B+1]
+
+    parts = _each(rd.blocks, part)
     if model == LED:
         H, g = pm.reduce_to_first(parts)
         return lights - solvers.solve_light_led_from_normal_eqs(H, g, damping)
@@ -311,12 +347,12 @@ def _light(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
 
 def _pose(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
           *, model, damping, **_):
-    parts = []
-    for k, j, b in _flat(rd.blocks):
+    def part(k, j, b):
         H, g = opt.pose_normal_eqs_chunked(rd.rd[k][j], b.K, b.poses, b.albedo,
                                            b.grad, b.lights, model)
-        parts.append((b, torch.cat([H, g[..., None]], dim=-1)))        # [F_j,6,7]
-    Hg = _frame_sum(parts)
+        return b, torch.cat([H, g[..., None]], dim=-1)                 # [F_j,6,7]
+
+    Hg = _frame_sum(_each(rd.blocks, part))
     delta = solvers.solve_pose_from_normal_eqs(Hg[..., :-1], Hg[..., -1], damping)
     return solvers.update_poses(poses, delta)
 
@@ -324,23 +360,22 @@ def _pose(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
 # ---------------------------------------------------------- distance blocks
 
 def _dist_jacobians(geom, rd: MeshResiduals, model, order, voxel_size):
-    return [[opt._dist_jacobian(b.view, geom, rd.rd[k][j], b.dist, b.albedo,
-                                b.grad, b.poses, b.K, b.lights, model, order,
-                                voxel_size) for j, b in enumerate(row)]
-            for k, row in enumerate(rd.blocks)]
+    return [[b if is_remote(b) else opt._dist_jacobian(
+        b.view, geom, rd.rd[k][j], b.dist, b.albedo, b.grad, b.poses, b.K,
+        b.lights, model, order, voxel_size) for j, b in enumerate(row)]
+        for k, row in enumerate(rd.blocks)]
 
 
 def _reg_ops(sp, rd: MeshResiduals, voxel_size, rw, laplacian_diag_only):
     """Each row's Eikonal / Laplacian operator: values from the row's view,
     stencil columns from its problem."""
-    out = []
-    for k, row in enumerate(rd.blocks):
-        p, bl = sp.rows[k], row[0]
+    def one(p, bl):
         eik, lap = solvers.reg_operators(bl.view, bl.dist, voxel_size, **rw,
                                          laplacian_diag_only=laplacian_diag_only)
-        out.append((None if eik is None else eik._replace(nbr_idx=p.nbr_idx),
-                    None if lap is None else lap._replace(lap_idx=p.lap_idx)))
-    return out
+        return (None if eik is None else eik._replace(nbr_idx=p.nbr_idx),
+                None if lap is None else lap._replace(lap_idx=p.lap_idx))
+
+    return local_map(one, sp.rows, [row[0] for row in rd.blocks])
 
 
 def _distance_system(sp, rd: MeshResiduals, DJ, regs, rw, damping, minus=None):
@@ -354,29 +389,27 @@ def _distance_system(sp, rd: MeshResiduals, DJ, regs, rw, damping, minus=None):
     def reg(k, j):
         return regs[k] if j == 0 else (None, None)
 
-    bd = pm.reduce_scatter(
-        [torch.stack(solvers.distance_rhs(
-            b.prob, rd.rd[k][j], DJ[k][j][1], *reg(k, j), **rw, rows=b.rows), -1)
-         for k, j, b in _flat(rd.blocks)], lay.rows, rdev)
-    b_d = [t[:, 0] for t in bd]
-    diag = [t[:, 1] for t in bd]
+    bd = pm.reduce_scatter(_each(rd.blocks, lambda k, j, b: torch.stack(
+        solvers.distance_rhs(b.prob, rd.rd[k][j], DJ[k][j][1], *reg(k, j), **rw,
+                             rows=b.rows), -1)), lay.rows, rdev)
+    b_d = local_map(lambda t: t[:, 0], bd)
+    diag = local_map(lambda t: t[:, 1], bd)
 
     def matvec(xs):
         full = pm.all_gather(xs, lay.block_devices)
         pre = None if minus is None else minus(None, None, None, full)
-        parts = []
-        for k, j, b in _flat(rd.blocks):
+
+        def part(k, j, b):
             lo, hi = b.rows[0], b.rows[0] + b.prob.valid.shape[0]
             src = full[b.dist.device]
-            part = solvers.distance_hx(
+            out = solvers.distance_hx(
                 src[lo:hi], b.prob, rd.rd[k][j].w, DJ[k][j][1], *reg(k, j),
                 **rw, src=src, rows=b.rows)
-            if minus is not None:
-                part = part - minus(k, j, b, pre)
-            parts.append(part)
-        hx = pm.reduce_scatter(parts, lay.rows, rdev)
-        return [torch.where(p.valid, h + damping * d * x, x)
-                for p, h, d, x in zip(sp.rows, hx, diag, xs)]
+            return out if minus is None else out - minus(k, j, b, pre)
+
+        hx = pm.reduce_scatter(_each(rd.blocks, part), lay.rows, rdev)
+        return local_map(lambda p, h, d, x: torch.where(p.valid, h + damping * d * x, x),
+                         sp.rows, hx, diag, xs)
 
     return b_d, diag, matvec
 
@@ -385,11 +418,11 @@ def _accept(sp, geom, dist, delta, voxel_size):
     """d -= delta where accepted, then the FD gradient of the new distances
     (their neighbours all-gathered)."""
     lay = sp.layout
-    new = tuple(solvers.accept_distance(p, d, torch.where(p.valid, dl, 0.0), voxel_size)
-                for p, d, dl in zip(sp.rows, dist, delta))
+    new = tuple(local_map(lambda p, d, dl: solvers.accept_distance(
+        p, d, torch.where(p.valid, dl, 0.0), voxel_size), sp.rows, dist, delta))
     full = pm.all_gather(new, lay.row_devices)
-    grad = tuple(geometry.fd_grad(_dist_view(p, full[d.device]), d, voxel_size)
-                 for p, d in zip(sp.rows, new))
+    grad = tuple(local_map(lambda p, d: geometry.fd_grad(
+        _dist_view(p, full[d.device]), d, voxel_size), sp.rows, new))
     return new, grad
 
 
@@ -400,8 +433,9 @@ def _distance(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
     DJ = _dist_jacobians(geom, rd, model, order, voxel_size)
     regs = _reg_ops(sp, rd, voxel_size, rw, laplacian_diag_only)
     b, diag, matvec = _distance_system(sp, rd, DJ, regs, rw, damping)
-    d_safe = [solvers.jacobi_diag(p.valid, d, damping) for p, d in zip(sp.rows, diag)]
-    b = [torch.where(p.valid, bk, 0.0) for p, bk in zip(sp.rows, b)]
+    d_safe = local_map(lambda p, d: solvers.jacobi_diag(p.valid, d, damping),
+                       sp.rows, diag)
+    b = local_map(lambda p, bk: torch.where(p.valid, bk, 0.0), sp.rows, b)
     delta = _solve_cg(matvec, b, d_safe, steps_out)
     return _accept(sp, geom, dist, delta, voxel_size)
 
@@ -416,13 +450,15 @@ def _joint_dp(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
     rdev = lay.row_devices
     rw = dict(reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l)
     DJ = _dist_jacobians(geom, rd, model, order, voxel_size)
-    Jc, wm, pose_parts = {}, {}, []
-    for k, j, b in _flat(rd.blocks):
+    Jc, wm = {}, {}
+
+    def pose_part(k, j, b):
         Jc[k, j] = opt._pose_jacobian(DJ[k][j][0], rd.rd[k][j], b.poses, b.albedo,
                                       b.grad, b.lights, model)
         wm[k, j], H, g = solvers.joint_pose_terms(b.prob, rd.rd[k][j], Jc[k, j])
-        pose_parts.append((b, torch.cat([H, g[..., None]], dim=-1)))
-    Hg = _frame_sum(pose_parts)
+        return b, torch.cat([H, g[..., None]], dim=-1)
+
+    Hg = _frame_sum(_each(rd.blocks, pose_part))
     g_p = Hg[..., -1]
     chol = solvers.pose_factor(Hg[..., :-1], damping)
 
@@ -430,10 +466,9 @@ def _joint_dp(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
         return torch.cholesky_solve(y[..., None], chol)[..., 0]
 
     def hpd(full):                                       # -> [F,6], first device
-        return _frame_sum([(b, solvers.hpd_apply(
+        return _frame_sum(_each(rd.blocks, lambda k, j, b: (b, solvers.hpd_apply(
             full[b.dist.device][b.rows[0]:b.rows[0] + b.prob.valid.shape[0]],
-            b.prob, DJ[k][j][1], Jc[k, j], wm[k, j], src=full[b.dist.device]))
-            for k, j, b in _flat(rd.blocks)])
+            b.prob, DJ[k][j][1], Jc[k, j], wm[k, j], src=full[b.dist.device]))))
 
     def hdp(k, j, b, y):                                 # y: {device: [F,6]}
         return solvers.hdp_apply(y[b.dist.device][b.frames[0]:b.frames[0] + b.poses.shape[0]],
@@ -447,12 +482,14 @@ def _joint_dp(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
     regs = _reg_ops(sp, rd, voxel_size, rw, laplacian_diag_only)
     b_d, diag, matvec = _distance_system(sp, rd, DJ, regs, rw, damping, minus=schur)
     y0 = replicate(hpp_solve(g_p), lay.block_devices)
-    hdp0 = pm.reduce_scatter([hdp(k, j, b, y0) for k, j, b in _flat(rd.blocks)],
+    hdp0 = pm.reduce_scatter(_each(rd.blocks, lambda k, j, b: hdp(k, j, b, y0)),
                              lay.rows, rdev)
-    b_red = [torch.where(p.valid, bk - h, 0.0) for p, bk, h in zip(sp.rows, b_d, hdp0)]
-    d_safe = [solvers.jacobi_diag(p.valid, d, damping) for p, d in zip(sp.rows, diag)]
+    b_red = local_map(lambda p, bk, h: torch.where(p.valid, bk - h, 0.0),
+                      sp.rows, b_d, hdp0)
+    d_safe = local_map(lambda p, d: solvers.jacobi_diag(p.valid, d, damping),
+                       sp.rows, diag)
     delta_d = _solve_cg(matvec, b_red, d_safe, steps_out)
-    delta_d = [torch.where(p.valid, d, 0.0) for p, d in zip(sp.rows, delta_d)]
+    delta_d = local_map(lambda p, d: torch.where(p.valid, d, 0.0), sp.rows, delta_d)
     delta_xi = hpp_solve(g_p - hpd(pm.all_gather(delta_d, lay.block_devices)))
     new_dist, new_grad = _accept(sp, geom, dist, delta_d, voxel_size)
     return new_dist, new_grad, solvers.update_poses(poses, delta_xi)
@@ -494,15 +531,15 @@ def init_albedo(sp: ShardedProblem, geom, dist: Rows, grad_stored: Rows, poses,
         s, cnt = opt.albedo_sums(b.prob, geom, b.dist, b.grad, b.poses, b.images, b.K)
         return torch.cat([s, cnt[:, None]], dim=-1)            # [n_k, 4]
 
-    return tuple(opt.albedo_mean(t[:, :3], t[:, 3]) for t in _row_sum(blocks, sums))
+    return tuple(local_map(lambda t: opt.albedo_mean(t[:, :3], t[:, 3]),
+                           _row_sum(sp.layout, blocks, sums)))
 
 
 def led_light_sums(sp: ShardedProblem, geom, rd: MeshResiduals, dist, albedo,
                    grad_stored, poses, lights, voxel_size):
-    obs, ren = pm.reduce_to_first([
-        torch.stack(opt.led_light_sums(b.view, geom, rd.rd[k][j], b.dist, b.albedo,
-                                       b.grad, b.poses, b.lights, voxel_size))
-        for k, j, b in _flat(rd.blocks)])
+    obs, ren = pm.reduce_to_first(_each(rd.blocks, lambda k, j, b: torch.stack(
+        opt.led_light_sums(b.view, geom, rd.rd[k][j], b.dist, b.albedo, b.grad,
+                           b.poses, b.lights, voxel_size))))
     return obs, ren
 
 

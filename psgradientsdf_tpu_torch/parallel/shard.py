@@ -30,6 +30,14 @@ frustum scenes.
 Inputs that every shard reads (a frame's images, K, the pose, the gate) go
 to each distinct slab device once: `replicate`; the functions take either a
 tensor or what replicate returned.
+
+On a mesh over processes (parallel/distributed.py) each process runs the
+bodies of its own slabs, and a slab of another process is its Remote: the
+loops below visit every shard on every process, so that each calls the
+moves of parallel/mesh.py in the same order.  The sums that steer the scan
+(the overflow flags, the tracker's Grams) reach every process with the same
+bits, so every process redoes the same chunk and takes the same
+Gauss-Newton steps.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from psgradientsdf_tpu_torch.core.volume import (
     pack_pixel_payload,
     pack_tracking_payload,
 )
+from psgradientsdf_tpu_torch.parallel import distributed as pd
 from psgradientsdf_tpu_torch.parallel.halo import padded_slab
 from psgradientsdf_tpu_torch.parallel.mesh import (
     FRAME_AXIS,
@@ -54,6 +63,8 @@ from psgradientsdf_tpu_torch.parallel.mesh import (
     ShardedVolume,
     _canonical,
     _own,
+    is_remote,
+    local_map,
     reduce_to_first,
 )
 from psgradientsdf_tpu_torch.refine.problem import RefineProblem
@@ -68,12 +79,13 @@ Replicated = Dict[torch.device, torch.Tensor]
 
 
 def replicate(x: Union[torch.Tensor, Replicated], devices) -> Replicated:
-    """`x` on each distinct device of `devices`, moved once per device (a
-    dict passes through: it is already replicated)."""
+    """`x` on each distinct device of `devices` that this process holds,
+    moved once per device (a dict passes through: it is already
+    replicated)."""
     if isinstance(x, dict):
         return x
     x = torch.as_tensor(x)
-    return {d: x.to(d) for d in dict.fromkeys(devices)}
+    return {d: x.to(d) for d in dict.fromkeys(devices) if not is_remote(d)}
 
 
 def _slab_shape(mesh: Mesh, geom: GridGeometry) -> Tuple[int, int]:
@@ -117,6 +129,9 @@ def sharded_fuse_frame(mesh: Mesh, geom: GridGeometry, **static_kwargs):
         gates = None if gate is None else replicate(gate, devs)
         out = []
         for k, (slab, dev) in enumerate(zip(svol.slabs, devs)):
+            if is_remote(slab):
+                out.append(slab)
+                continue
             z0, z_map = _planes(k, n_z, Zl, svol.interleaved, dev)
             out.append(fuse_frame(
                 slab, geom, *(x[dev] for x in ins), frame_idx,
@@ -163,6 +178,9 @@ def sharded_fuse_frame_culled_fn(
         payload = {}
         flags = []
         for k, (slab, dev) in enumerate(zip(svol.slabs, devs)):
+            if is_remote(slab):
+                flags.append(slab)
+                continue
             z0, z_map = _planes(k, n_z, Zl, interleave_z, dev)
             active = _row_activity(
                 geom, depth[dev], K[dev], pose[dev], truncation=truncation,
@@ -223,11 +241,12 @@ def sharded_tracker_fn(
     def track(svol: ShardedVolume, depth, K, init_pose) -> TrackResult:
         _check_layout(svol, interleave_z)
         depth, K = replicate(depth, devs), replicate(K, devs)
-        if tuple(depth[devs[0]].shape) != tuple(img_shape):
-            raise ValueError(f"depth {tuple(depth[devs[0]].shape)}, tracker "
-                             f"made for {tuple(img_shape)}")
+        for d in depth.values():
+            if tuple(d.shape) != tuple(img_shape):
+                raise ValueError(f"depth {tuple(d.shape)}, tracker made for "
+                                 f"{tuple(img_shape)}")
         cams = {d: camera_points(depth[d], K[d], stride, zmin, zmax) for d in depth}
-        payloads = [pack_tracking_payload(s) for s in svol.slabs]
+        payloads = local_map(pack_tracking_payload, svol.slabs)
 
         def gather_records(pose):
             """Slab-local frozen records: shard k fetches records only for
@@ -235,6 +254,9 @@ def sharded_tracker_fn(
             folds into ok)."""
             recs = []
             for k, dev in enumerate(devs):
+                if is_remote(dev):
+                    recs.append(dev)
+                    continue
                 pose_k = pose.to(dev)
                 pts_cam, valid_z = cams[dev]
                 p_w = pts_cam @ pose_k[:3, :3].T + pose_k[:3, 3]
@@ -256,9 +278,8 @@ def sharded_tracker_fn(
             return recs
 
         def masked_gram(pose, recs):
-            S = reduce_to_first([
-                gram(cams[dev][0], pose.to(dev), rec)
-                for dev, rec in zip(devs, recs)])
+            S = reduce_to_first(local_map(
+                lambda dev, rec: gram(cams[dev][0], pose.to(dev), rec), devs, recs))
             return S[6, 6], S[:6, 6], S[:6, :6], S[7, 7]
 
         init_pose = torch.as_tensor(init_pose, dtype=torch.float32, device=first)
@@ -289,6 +310,10 @@ def make_sharded_eikonal_energy(mesh: Mesh, geom: GridGeometry,
     def energy(dist_slabs):
         nums, cnts = [], []
         for d, padded in zip(dist_slabs, padded_slab(dist_slabs, fill=0.0)):
+            if is_remote(d):
+                nums.append(d)
+                cnts.append(d)
+                continue
             dz = (padded[2:] - d) * inv_h                 # uses the halo above
             dy = (torch.roll(d, -1, dims=1) - d) * inv_h
             dx = (torch.roll(d, -1, dims=2) - d) * inv_h
@@ -310,7 +335,9 @@ class RefineLayout(NamedTuple):
     keyframe chunk j) on devices[k][j]; row k's N-vectors on devices[k][0].
     `rows` / `frames` are the chunks' bounds.  An axis whose length the
     mesh does not divide (N by "z"; F by "frames", or "frames" of 1) is not
-    split, as the JAX package's n_spec replicates such an array."""
+    split, as the JAX package's n_spec replicates such an array.  On a mesh
+    over processes the entries of other processes are Remote, and a row
+    belongs to one process (distributed.make_global_mesh)."""
     devices: Tuple[Tuple[torch.device, ...], ...]
     rows: Tuple[int, ...]
     frames: Tuple[int, ...]
@@ -358,15 +385,19 @@ class ShardedImages(NamedTuple):
 
 
 def shard_rows(x: torch.Tensor, layout: RefineLayout) -> Tuple[torch.Tensor, ...]:
-    """An N-vector's chunks, each copied onto its row device."""
+    """An N-vector's chunks, each copied onto its row device (this
+    process's rows; the others' are their Remote)."""
     r = layout.rows
-    return tuple(_own(x[r[k]:r[k + 1]], d)
+    return tuple(d if is_remote(d) else _own(x[r[k]:r[k + 1]], d)
                  for k, d in enumerate(layout.row_devices))
 
 
 def gather_rows(chunks: Sequence[torch.Tensor], device) -> torch.Tensor:
-    """The whole N-vector on `device` (chunks joined in shard order)."""
+    """The whole N-vector on `device` (chunks joined in shard order; over
+    processes all-gathered, on every process)."""
     dev = _canonical(device)
+    if pd.active():
+        chunks = pd.exchange(chunks, dev)
     return torch.cat([c.to(dev) for c in chunks])
 
 
@@ -381,7 +412,7 @@ def shard_refine_arrays(mesh: Mesh, prob: RefineProblem,
     r, fb = layout.rows, layout.frames
     rows = []
     for k, dev in enumerate(layout.row_devices):
-        rows.append(RefineProblem(*(
+        rows.append(dev if is_remote(dev) else RefineProblem(*(
             _own(a[r[k]:r[k + 1]], dev) for a in prob[:-1]), prob.n_surface))
 
     def vis_block(k, j):
@@ -390,7 +421,7 @@ def shard_refine_arrays(mesh: Mesh, prob: RefineProblem,
         return v if dev == layout.devices[k][0] else _own(v, dev)
 
     blocks = tuple(
-        tuple(RefineProblem(*(
+        tuple(dev if is_remote(dev) else RefineProblem(*(
             a if dev == layout.devices[k][0] else _own(a, dev)
             for a in rows[k][:-1]), prob.n_surface)._replace(vis=vis_block(k, j))
             for j, dev in enumerate(layout.devices[k]))
@@ -400,8 +431,8 @@ def shard_refine_arrays(mesh: Mesh, prob: RefineProblem,
         col = replicate(images[fb[j]:fb[j + 1]],
                         [layout.devices[k][j] for k in range(len(rows))])
         img.append(col)
-    img_blocks = tuple(tuple(img[j][layout.devices[k][j]]
-                             for j in range(len(fb) - 1))
+    img_blocks = tuple(tuple(dev if is_remote(dev) else img[j][dev]
+                             for j, dev in enumerate(layout.devices[k]))
                        for k in range(len(rows)))
     return (ShardedProblem(layout, tuple(rows), blocks, prob.n_surface),
             ShardedImages(img_blocks))
@@ -409,10 +440,17 @@ def shard_refine_arrays(mesh: Mesh, prob: RefineProblem,
 
 def gather_problem(sprob: ShardedProblem, device) -> RefineProblem:
     """The whole RefineProblem on `device`: the rows joined in shard order."""
-    return RefineProblem(*(gather_rows(a, device) for a in zip(*(
-        p[:-1] for p in sprob.rows))), sprob.n_surface)
+    fields = range(len(RefineProblem._fields) - 1)
+    return RefineProblem(*(gather_rows([p if is_remote(p) else p[f]
+                                        for p in sprob.rows], device)
+                           for f in fields), sprob.n_surface)
 
 
 def gather_images(simg: ShardedImages, device) -> torch.Tensor:
-    """The keyframe images [F,H,W,3] on `device`."""
-    return torch.cat([im.to(_canonical(device)) for im in simg.blocks[0]])
+    """The keyframe images [F,H,W,3] on `device` (mesh row 0's blocks; over
+    processes all-gathered from its process)."""
+    dev = _canonical(device)
+    blocks = list(simg.blocks[0])
+    if pd.active():
+        blocks = pd.exchange(blocks, dev)
+    return torch.cat([im.to(dev) for im in blocks])

@@ -26,6 +26,15 @@ then runs on the same mesh (parallel/refine.py): the problem is extracted
 from the gathered volume on the first device, as the JAX package extracts
 one global array, and placed on the mesh (PhotometricRefiner.place_on_mesh),
 its surface set over "z" and its keyframes over "frames".
+
+Inside a process group of several processes (parallel/distributed.initialize
+on every process before the pipeline is made) the mesh spans the processes
+(distributed.make_global_mesh): each process holds its own mesh rows, slabs
+and refinement blocks, and every cross-process move is a collective.  Every
+process reads the frames, joins the volume's all-gather at the scan's end
+and extracts the same problem; only process 0 writes the output files and
+runs the writer threads.  Checkpoints and resume across processes raise
+ValueError (ROADMAP).
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from psgradientsdf_tpu_torch.io.loaders import ImageLoader, make_loader
 from psgradientsdf_tpu_torch.io.prefetch import PrefetchLoader
 from psgradientsdf_tpu_torch.ops.marching_cubes import extract_mesh_from_volume
 from psgradientsdf_tpu_torch.ops.normals import FalsCache, build_fals_cache, compute_normals
+from psgradientsdf_tpu_torch.parallel import distributed
 from psgradientsdf_tpu_torch.parallel.mesh import (
     ShardedVolume,
     gather_volume,
@@ -123,7 +133,11 @@ class ReconstructionPipeline:
     1x1 the scan and the refinement run on a mesh of `mesh_devices` (a list that may name one
     device several times), by default every CUDA device, or on the CPU the
     CPU device for every shard (parallel/mesh.make_mesh); the mesh's first
-    device takes the place of `device`."""
+    device takes the place of `device`.  In a process group of several
+    processes the mesh is distributed.make_global_mesh's, and
+    `mesh_devices` names this process's entries (by default its device,
+    once for each of its share of the mesh's entries: one mesh row a
+    process when there are as many processes as rows)."""
 
     def __init__(self, cfg: PipelineConfig, loader: Optional[ImageLoader] = None,
                  metrics: Optional[MetricsLogger] = None, prefetch: bool = True,
@@ -131,13 +145,24 @@ class ReconstructionPipeline:
                  device=None, rows_impl: str = "dma", mesh_devices=None):
         self.device = resolve_device(device)
         tpu = cfg.tpu
+        if distributed.active() and (checkpoint_every or resume):
+            raise ValueError("checkpoints and resume across processes are not "
+                             "ported yet (ROADMAP section 1)")
+        # in a process group only process 0 writes files
+        self.writes = distributed.rank() == 0
         self.mesh = None
         if tpu.mesh_z * tpu.mesh_frames > 1:
             if tpu.grid_dim[2] % tpu.mesh_z != 0:
                 raise ValueError(f"grid Z={tpu.grid_dim[2]} not divisible by "
                                  f"mesh z={tpu.mesh_z}")
-            self.mesh = make_mesh(tpu.mesh_z, tpu.mesh_frames,
-                                  devices=mesh_devices, device=self.device)
+            if distributed.active():
+                share = max(1, tpu.mesh_z * tpu.mesh_frames // distributed.world())
+                self.mesh = distributed.make_global_mesh(
+                    tpu.mesh_z, tpu.mesh_frames,
+                    devices=mesh_devices or [self.device] * share)
+            else:
+                self.mesh = make_mesh(tpu.mesh_z, tpu.mesh_frames,
+                                      devices=mesh_devices, device=self.device)
             self.device = self.mesh.first_device
         if tpu.mesh_interleave_z and (self.mesh is None or tpu.fuse_rows <= 0):
             raise ValueError(
@@ -159,7 +184,7 @@ class ReconstructionPipeline:
             os.makedirs(out, exist_ok=True)
         self._own_metrics = metrics is None
         self.metrics = metrics or MetricsLogger(
-            os.path.join(out, "metrics.jsonl") if out else None
+            os.path.join(out, "metrics.jsonl") if out and self.writes else None
         )
         self.timer = Timer(verbose=False)
         self.vol: Optional[GradSdfVolume] = None
@@ -513,7 +538,7 @@ class ReconstructionPipeline:
         )
 
         out = tr.output
-        if out:
+        if out and self.writes:
             with open(os.path.join(out, "tracking_poses.txt"), "w") as fh:
                 fh.write("\n".join(pose_lines) + "\n")
             self._export_initial_async(out)

@@ -39,7 +39,12 @@ and the keyframe images are placed after every extraction (place_on_mesh:
 N over "z", keyframes over "frames") and each step runs through
 parallel/refine.py's functions, which have the single-device ones'
 signatures (RefineOps); the exports, the upsample and the checkpoints work
-on the gathered arrays, on the mesh's first device.
+on the gathered arrays, on the mesh's first device.  On a mesh over
+processes (parallel/distributed.py) every process runs this loop on its own
+device: each stop decision reads energies and CG dots that reach every
+process with the same bits, the gathers of the exports are all-gathers in
+which every process joins, and only process 0 writes files (`writes`);
+mid-run checkpoints across processes are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from psgradientsdf_tpu_torch.core.grid import GridGeometry
 from psgradientsdf_tpu_torch.core.volume import GradSdfVolume
 from psgradientsdf_tpu_torch.io import ply, sdf_io, trajectory
 from psgradientsdf_tpu_torch.ops.marching_cubes import extract_mesh_from_volume
+from psgradientsdf_tpu_torch.parallel import distributed
 from psgradientsdf_tpu_torch.refine import geometry, jacobians, render, solvers
 from psgradientsdf_tpu_torch.refine.problem import RefineProblem, extract_problem, writeback
 from psgradientsdf_tpu_torch.refine.upsample import upsample_volume
@@ -388,6 +394,9 @@ class PhotometricRefiner:
                              f"mesh's first device is {mesh.first_device}")
         self.K = torch.as_tensor(np.asarray(K), dtype=torch.float32).to(self.device)
         self.save_path = save_path
+        # in a process group only process 0 writes files; every process
+        # joins the gathers that come before a write
+        self.writes = distributed.rank() == 0
         self._dump_writer: Optional[Writer] = None   # the periodic dump's thread
         self._dump_tag = ""
         self.truncation = truncation
@@ -569,6 +578,9 @@ class PhotometricRefiner:
     def alternating_optimize(
         self, light: bool, albedo: bool, distance: bool, pose: bool
     ) -> bool:
+        if self.checkpoint_every and self.checkpoint_path and distributed.active():
+            raise ValueError("refinement checkpoints across processes are not "
+                             "ported yet (ROADMAP section 1)")
         try:
             return self._optimize(light, albedo, distance, pose)
         finally:
@@ -820,15 +832,19 @@ class PhotometricRefiner:
             return
         t0 = time.perf_counter()
         self._join_dump()
-        os.makedirs(self.save_path, exist_ok=True)
+        if self.writes:
+            os.makedirs(self.save_path, exist_ok=True)
         if not asynchronous:
             self.extract_mesh(tag)
             self.save_pointcloud(tag)
-            self.metrics.log("artifact_dump", tag=tag,
-                             seconds=time.perf_counter() - t0)
+            if self.writes:
+                self.metrics.log("artifact_dump", tag=tag,
+                                 seconds=time.perf_counter() - t0)
             return
         self.sync_to_volume()
         pts, ghat, albedo = self._surface_points_dev()
+        if not self.writes:
+            return
         staged = HostCopies(dict(
             dist=self.vol.dist, weight=self.vol.weight, color=self.vol.color,
             pts=pts, ghat=ghat, albedo=albedo))
@@ -850,6 +866,8 @@ class PhotometricRefiner:
 
     def extract_mesh(self, tag: str) -> bool:
         self.sync_to_volume()
+        if not self.writes:
+            return False
         mesh = extract_mesh_from_volume(
             self.vol.dist.cpu().numpy(), self.vol.weight.cpu().numpy(),
             self.vol.color.cpu().numpy(), self.geom.voxel_size, self.geom.origin,
@@ -875,12 +893,14 @@ class PhotometricRefiner:
 
     def save_pointcloud(self, tag: str) -> bool:
         pts, ghat, cols = self.surface_points()
+        if not self.writes:
+            return False
         return ply.write_pointcloud_ply(
             os.path.join(self.save_path, f"{tag}_pointcloud.ply"), pts, ghat, cols
         )
 
     def save_poses(self, tag: str) -> bool:
-        if not self.save_path:
+        if not self.save_path or not self.writes:
             return False
         os.makedirs(self.save_path, exist_ok=True)
         return trajectory.write_trajectory(
@@ -891,6 +911,8 @@ class PhotometricRefiner:
 
     def save_sdf(self, tag: str) -> bool:
         self.sync_to_volume()
+        if not self.writes:
+            return False
         dist = self.vol.dist.cpu().numpy()
         band = np.abs(dist) <= np.sqrt(3.0) * self.geom.voxel_size
         if not band.any():

@@ -24,7 +24,11 @@ With `mesh` (parallel/mesh.py) the volume is a ShardedVolume of Z-slabs: the
 chunk is preprocessed once on the mesh's first device, each frame's inputs
 go to every distinct slab device once, and the frame is tracked by the
 summed-Gram tracker and fused by the per-slab culled (or dense) fusion of
-parallel/shard.py, the culled capacity split across the Z shards.
+parallel/shard.py, the culled capacity split across the Z shards.  On a
+mesh over processes (parallel/distributed.py) every process preprocesses
+the chunk and tracks each frame on its own device, with the Gram sums of
+every slab, and fuses its own slabs: the results are the same on every
+process.
 """
 
 from __future__ import annotations
