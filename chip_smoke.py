@@ -14,7 +14,12 @@ sequence of a shaded scene made with numpy from a fixed seed, and checks the
 result.  Then: the scan again on the staged and the plain row movement; the
 scan on a device mesh of four Z-slabs, all on the one card (GT poses against
 the one-device volume bit for bit, tracked with contiguous and interleaved
-slabs, and the whole sequence on two slabs); the sequence written as a TUM
+slabs, and the whole sequence on two slabs); the packed, K-batched and
+chunk-resident volume state (core/volume.PackedVolume, fuse_frames_culled,
+core/resident.py: a tracked loop on the packed state against the SoA one,
+K = 8 batched ground-truth fusion against frame-by-frame, 512^3 on all three
+layouts, and the resident stream against the packed one, bit for bit, with
+their ms a frame and the row kernels at the packed widths); the sequence written as a TUM
 RGB-D directory of PNG files (the package's encoder, io/png.write_png),
 decoded and scanned from the files; a scan stopped at a checkpoint and
 resumed; one refinement iteration on the card against the same iteration on
@@ -74,6 +79,17 @@ DEPTH_UNIT = 1.0 / 5000.0           # uint16 depth wire format, as TUM RGB-D
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 KERNEL_REPS = 20
 DEVICE = "cuda"                     # a rehearsal of the phases sets "cpu"
+
+# packed: the K of the batched ground-truth fusion; the 512^3 grid and its
+# frames; the resident stream's frames (chunks of CHUNK), its admission
+# margins (pixels of reprojection, metres of depth: the inter-frame motion of
+# the orbit) and the ATE it may differ from the canonical tracked stream by
+PACKED_K = 8
+PACKED_BIG_GRID = 512
+PACKED_BIG_FRAMES = 8
+RESIDENT_FRAMES = 2 * CHUNK + 1
+RESIDENT_MARGIN = (16.0, 0.05)
+RESIDENT_ATE_MM = 0.01
 
 # the refinement of the main run: SH1 with the weights of
 # configs/sokrates.json, the iteration budget cut from 100 to fit the run
@@ -609,7 +625,58 @@ def check_kernels(rowcopy):
             if pattern == "random":    # as in the earlier records
                 out[name] = {k: one[k] for k in
                              ("ms", "plain_ms", "library_ms", "bound_ms")}
-    return out, shapes, worst, n_checked
+    n_packed, packed = check_packed_widths(rowcopy, gen, flush)
+    return out, shapes, worst, n_checked + n_packed, packed
+
+
+def check_packed_widths(rowcopy, gen, flush):
+    """All four kernels on the packed fusion's two tables at 128^3 (R = 1024
+    + 128) and at 512^3 (R = 4096 + 512), N = the grid's rows, CAP = half of
+    them, with the fusion's index pattern (ascending distinct rows, then
+    padding that repeats the first, and `live`): bit for bit against their
+    plain versions, then timed beside their byte bound -> (cases checked,
+    times by grid).  A row of the payload holds a grid row's 8 floats a
+    voxel (core/volume.PackedVolume), beside the row of its visibility
+    word."""
+    import torch
+
+    n_checked, widths = 0, {}
+    for g in (GRID, PACKED_BIG_GRID):
+        n, cap = g * g, g * g // 2
+        spec = [(8 * g, "float32"), (g, "int32")]
+        made = _make_tables(gen, n, cap, spec, torch.int32, pattern="fusion")
+        n_checked += _check_tables_case(rowcopy, f"the packed tables at {g}^3", *made)
+        tables, idx, _, identical, live = made
+        del made
+        idx64 = idx.long()
+        distinct = int(live)
+        row_bytes = 4 * 9 * g
+        bounds = {"gather": ((distinct + cap) * row_bytes + cap * 4) / HBM_BYTES_PER_S * 1e3,
+                  "scatter": (2 * distinct * row_bytes + cap * 4) / HBM_BYTES_PER_S * 1e3}
+        entry = dict(tables=[f"R={r} {dt}" for r, dt in spec], rows=n, slots=cap,
+                     live_rows=distinct)
+        for name in KERNELS:
+            if name in GATHERS:
+                kind, multi = "gather", GATHERS[name]
+                call = lambda: getattr(rowcopy, multi)(tables, idx)
+                plain = lambda: rowcopy.gather_tables_plain(tables, idx)
+                library = lambda: [torch.index_select(t, 0, idx64) for t in tables]
+            else:
+                kind, multi = "scatter", SCATTERS[name]
+                call = lambda: getattr(rowcopy, multi)(tables, idx, identical,
+                                                       live=live)
+                plain = lambda: getattr(rowcopy, multi + "_plain")(
+                    tables, idx, identical)
+                library = lambda: [t.index_copy_(0, idx64, r)
+                                   for t, r in zip(tables, identical)]
+            one = dict(ms=_time_ms(call, flush), plain_ms=_time_ms(plain, flush),
+                       library_ms=_time_ms(library, flush), bound_ms=bounds[kind])
+            one["share_of_bound"] = one["bound_ms"] / one["ms"]
+            entry[name] = one
+        widths[f"{g}^3"] = entry
+        del tables, idx, identical, idx64
+        torch.cuda.empty_cache()
+    return n_checked, widths
 
 
 # ----------------------------------------------------------------- the scan
@@ -1106,6 +1173,452 @@ def mesh_scan(tmp, seq, short, single):
                         ate_mm=one_facts["ate_mm"],
                         mean_gn_iterations=one_facts["mean_gn_iterations"]),
         tracked=tracked, ate_tolerance_mm=MESH_ATE_MM)
+
+
+# ------------------------- the packed, K-batched and resident volume state
+
+
+def _stream_setup(tmp, seq, n):
+    """The main run's recipe (its config, its volume placement, its FALS
+    cache) and the first n frames on the device as the scan preprocesses
+    them -> dict: geom, cfg, truncation, the tracker's keywords, K, metric
+    depths and colours, FALS normals, n_sq_inv, the frame cap and the culled
+    fusion's row capacity ("fuse rows" of the rows)."""
+    import torch
+    from psgradientsdf_tpu_torch.config import load_config
+    from psgradientsdf_tpu_torch.core.grid import GridGeometry
+    from psgradientsdf_tpu_torch.ops.normals import build_fals_cache
+    from psgradientsdf_tpu_torch.pipeline import compute_centroid
+    from psgradientsdf_tpu_torch.tracking.stream import _preprocess, upload_frames
+
+    K, colors, depths = seq[:3]
+    path = os.path.join(tmp, "packed.json")
+    write_config(path, os.path.join(tmp, "packed") + "/", n - 1)
+    cfg = load_config(path)
+    tr, tpu = cfg.tracking, cfg.tpu
+    depth0 = depths[0].astype(np.float32) * np.float32(DEPTH_UNIT)
+    geom = GridGeometry(dims=tuple(tpu.grid_dim), voxel_size=tr.voxel_size,
+                        shift=tuple(float(v) for v in compute_centroid(
+                            K, depth0, np.eye(4, dtype=np.float32))))
+    fals = build_fals_cache(H, W, K, window=11, device=DEVICE)
+    d, c, nrm, _ = _preprocess(
+        upload_frames(np.stack(depths[:n]), DEVICE),
+        upload_frames(np.stack(colors[:n]), DEVICE), fals, window=11,
+        depth_unit=DEPTH_UNIT)
+    zy = geom.dims[2] * geom.dims[1]
+    return dict(
+        geom=geom, truncation=cfg.truncation,
+        zkw=dict(truncation=cfg.truncation, zmin=tr.zmin, zmax=tr.zmax),
+        gn=dict(num_iterations=tr.num_iterations,
+                conv_threshold_sq=tr.conv_threshold ** 2, damping=tr.damping,
+                stride=tpu.track_stride, regather_every=tpu.track_regather,
+                early_exit=not tpu.track_static),
+        K=torch.as_tensor(K, dtype=torch.float32, device=DEVICE),
+        depths=d, colors=c, normals=nrm, n_sq_inv=fals.n_sq_inv,
+        frame_cap=-(-n // 32) * 32,
+        cap=min(zy, max(256, -(-int(zy * tpu.fuse_rows) // 256) * 256)),
+        gt=[torch.as_tensor(p, dtype=torch.float32, device=DEVICE)
+            for p in seq[3][:n]])
+
+
+def _frame(st, f):
+    return (st["colors"][f], st["depths"][f], st["normals"][f], st["n_sq_inv"],
+            st["K"])
+
+
+def _fresh(st, layout, geom=None, truncation=None):
+    from psgradientsdf_tpu_torch.core.volume import PackedVolume, make_volume
+
+    vol = make_volume(geom or st["geom"], truncation or st["truncation"],
+                      st["frame_cap"], device=DEVICE)
+    return PackedVolume.from_volume(vol) if layout == "packed" else vol
+
+
+def _fuse_fn(layout):
+    from psgradientsdf_tpu_torch.core import volume as V
+
+    return V.fuse_frame_culled_packed if layout == "packed" else V.fuse_frame_culled
+
+
+def _on_card(n):
+    """The launches a path makes: none on the CPU of a rehearsal, where the
+    wrappers run their plain versions."""
+    return n if DEVICE == "cuda" else 0
+
+
+def _counted(fn):
+    """Run fn with the launch counts set to 0 just before and read just
+    after -> (fn's result, counts, wall seconds to the device's end)."""
+    from psgradientsdf_tpu_torch.ops import rowcopy
+
+    _sync()
+    rowcopy.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, dict(rowcopy.launch_counts), time.perf_counter() - t0
+
+
+def _tracked_loop(st, n, layout, rows_impl):
+    """Frame 0 at the identity, then track_frame + culled fusion (gated by
+    convergence, in place) for frames 1..n-1, on the SoA or the packed
+    layout -> (volume, poses [n,4,4] numpy, converged, any overflow)."""
+    import torch
+    from psgradientsdf_tpu_torch.tracking.tracker import track_frame
+
+    fuse = _fuse_fn(layout)
+    kw = dict(row_capacity=st["cap"], rows_impl=rows_impl, inplace=True,
+              device=DEVICE, **st["zkw"])
+    vol = _fresh(st, layout)
+    pose = torch.eye(4, dtype=torch.float32, device=DEVICE)
+    vol, ov = fuse(vol, st["geom"], *_frame(st, 0), pose, 0, **kw)
+    poses, conv, flags = [pose], [], [ov]
+    for f in range(1, n):
+        res = track_frame(vol, st["geom"], st["depths"][f], st["K"], pose,
+                          device=DEVICE, **st["zkw"], **st["gn"])
+        pose = res.pose
+        vol, ov = fuse(vol, st["geom"], *_frame(st, f), pose, f, res.converged,
+                       **kw)
+        poses.append(pose)
+        conv.append(res.converged)
+        flags.append(ov)
+    return (vol, torch.stack(poses).cpu().numpy(),
+            bool(torch.stack(conv).all()), bool(torch.stack(flags).any()))
+
+
+def _gt_loop(st, frames, layout, cap, geom=None, truncation=None):
+    """Culled fusion frame after frame at the ground-truth poses."""
+    fuse = _fuse_fn(layout)
+    vol = _fresh(st, layout, geom, truncation)
+    flags = []
+    for f in frames:
+        vol, ov = fuse(vol, geom or st["geom"], *_frame(st, f), st["gt"][f], f,
+                       row_capacity=cap, inplace=True, device=DEVICE,
+                       **dict(st["zkw"], truncation=truncation or st["truncation"]))
+        flags.append(bool(ov))
+    check(not any(flags), f"{layout} GT fusion overflowed its capacity {cap}")
+    return vol
+
+
+def _turns(tags):
+    """Each path twice, in turns: A B C C B A."""
+    return tags + tags[::-1]
+
+
+def _batches(first, last, k):
+    return [list(range(s, min(s + k, last + 1))) for s in range(first, last + 1, k)]
+
+
+def _union_rows(st, frames, geom=None, truncation=None, margins=(0.0, 0.0)):
+    """The number of rows in the union of the frames' culls at their
+    ground-truth poses (one host read): the capacity a batch needs."""
+    import torch
+    from psgradientsdf_tpu_torch.core.volume import _row_activity
+
+    act = None
+    for f in frames:
+        a = _row_activity(geom or st["geom"], st["depths"][f], st["K"],
+                          st["gt"][f],
+                          **dict(st["zkw"], truncation=truncation or st["truncation"]),
+                          margin_px=margins[0], margin_t=margins[1])
+        act = a if act is None else act | a
+    return int(torch.sum(act))
+
+
+def _batched_gt(st, batches, cap, geom=None, truncation=None):
+    """Frame 0 alone, as the pipeline fuses it when it places the volume,
+    then fuse_frames_culled on each batch."""
+    import torch
+    from psgradientsdf_tpu_torch.core.volume import fuse_frames_culled
+
+    geom, truncation = geom or st["geom"], truncation or st["truncation"]
+    zkw = dict(st["zkw"], truncation=truncation)
+    vol = _gt_loop(st, [0], "soa", cap, geom, truncation) if batches[0][0] else \
+        _fresh(st, "soa", geom, truncation)
+    for b in batches:
+        vol, flag = fuse_frames_culled(
+            vol, geom, st["colors"][b], st["depths"][b], st["normals"][b],
+            st["n_sq_inv"].expand(len(b), -1, -1), st["K"],
+            torch.stack([st["gt"][f] for f in b]), b, row_capacity=cap,
+            inplace=True, device=DEVICE, **zkw)
+        check(not bool(flag), f"batch {b[0]}..{b[-1]}: overflow or word span")
+    return vol
+
+
+def _packed_equal(pvol, vol):
+    return _equal_volumes(pvol.to_volume(), vol)
+
+
+def _row_kernel_times(st, geom, truncation, cap):
+    """The direct and staged kernels on the 512^3 packed tables, with the
+    index vector of frame 0's cull (duplicate-first padding, `live`), beside
+    their byte bound -> dict.  Launches made here are not counted."""
+    import torch
+    from psgradientsdf_tpu_torch.core.volume import (
+        _compact_padded, _row_activity)
+    from psgradientsdf_tpu_torch.ops import rowcopy
+
+    pvol = _fresh(st, "packed", geom, truncation)
+    X, Y, Z = geom.dims
+    tables = [pvol.payload.view(Z * Y, 8 * X), pvol.vis[0].view(Z * Y, X)]
+    act = _row_activity(geom, st["depths"][0], st["K"], st["gt"][0],
+                        **dict(st["zkw"], truncation=truncation))
+    idx, live, _ = _compact_padded(act.reshape(-1), cap)
+    rows = rowcopy.gather_tables_dma(tables, idx)
+    distinct = int(live)
+    row_bytes = 4 * 9 * X
+    bound = {"gather": ((distinct + cap) * row_bytes + cap * 4) / HBM_BYTES_PER_S * 1e3,
+             "scatter": (2 * distinct * row_bytes + cap * 4) / HBM_BYTES_PER_S * 1e3}
+    flush = torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+    calls = {
+        "gather_rows_dma": lambda: rowcopy.gather_tables_dma(tables, idx),
+        "gather_rows": lambda: rowcopy.gather_tables(tables, idx),
+        "scatter_rows_dma": lambda: rowcopy.scatter_tables_dma(
+            tables, idx, rows, live=live),
+        "scatter_rows": lambda: rowcopy.scatter_tables(tables, idx, rows, live=live),
+    }
+    out = {}
+    for name, call in calls.items():
+        kind = "gather" if name in GATHERS else "scatter"
+        ms = _time_ms(call, flush)
+        out[name] = dict(ms=ms, bound_ms=bound[kind], share_of_bound=bound[kind] / ms)
+    return dict(tables=[f"R={8 * X} float32", f"R={X} int32"], slots=cap,
+                live_rows=distinct, **out)
+
+
+def packed_phase(tmp, seq):
+    """The packed, K-batched and resident volume state of core/volume.py and
+    core/resident.py, driven through their entry points on the card.
+    (a) 128^3, the main sequence: a tracked loop of track_frame on a
+    PackedVolume + fuse_frame_culled_packed against the same loop on the SoA
+    volume with fuse_frame_culled: trajectory and volume bit for bit, and on
+    the staged kernels too; one launch of each kernel a fused frame.
+    (b) 128^3 at ground-truth poses: fuse_frames_culled, K = PACKED_K, after
+    frame 0 alone, against 48 sequential culled fusions, bit for bit; one
+    gather and one scatter launch a batch.  (c) 512^3 at ground-truth poses,
+    PACKED_BIG_FRAMES frames: packed, SoA and batched bit for bit, ms a
+    frame, peak memory, the row kernels on its tables beside their bound.
+    (d) core/resident.py over RESIDENT_FRAMES frames in chunks of CHUNK: the
+    fusion-only stream at ground-truth poses against the packed canonical
+    stream (visibility exact, floats bit for bit), the tracked stream
+    against (a)'s canonical trajectory (ATE within RESIDENT_ATE_MM), flags 0.
+    -> (launches by kernel, facts)."""
+    import torch
+    from psgradientsdf_tpu_torch.core import resident as R
+    from psgradientsdf_tpu_torch.core.grid import GridGeometry
+    from psgradientsdf_tpu_torch.io.trajectory import ate_rmse
+
+    launches = {k: 0 for k in KERNELS}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    st = _stream_setup(tmp, seq, FRAMES)
+    n = FRAMES
+    facts = {"row_capacity": st["cap"]}
+
+    # (a) the tracked loop on both layouts, in turns (A B C C B A): each
+    # path's ms a frame twice, the first runs held against each other and
+    # every second run against its first
+    loops = {}
+    plans = {"soa": ("soa", "dma"), "packed": ("packed", "dma"),
+             "packed_staged": ("packed", "staged")}
+    for tag in _turns(list(plans)):
+        layout, impl = plans[tag]
+        out, counts, secs = _counted(lambda: _tracked_loop(st, n, layout, impl))
+        vol, poses, conv, ov = out
+        check(conv, f"{tag}: a frame did not converge")
+        check(not ov, f"{tag}: a fusion overflowed its capacity {st['cap']}")
+        name = "gather_rows_dma" if impl == "dma" else "gather_rows"
+        scat = "scatter_rows_dma" if impl == "dma" else "scatter_rows"
+        check(counts[name] == _on_card(n) == counts[scat]
+              and sum(counts.values()) == _on_card(2 * n),
+              f"{tag}: launches {counts}, one gather and one scatter a frame")
+        add(counts)
+        if tag in loops:
+            check(np.array_equal(poses, loops[tag]["poses"])
+                  and _equal_volumes(vol, loops[tag]["vol"]),
+                  f"{tag}: the second run differs from the first")
+            loops[tag]["ms"].append(secs * 1e3 / n)
+            continue
+        loops[tag] = dict(vol=vol, poses=poses, ms=[secs * 1e3 / n], counts=counts)
+    soa = loops["soa"]
+    for tag in ("packed", "packed_staged"):
+        check(np.array_equal(loops[tag]["poses"], soa["poses"]),
+              f"{tag}: the trajectory differs from the SoA loop's")
+        check(_packed_equal(loops[tag]["vol"], soa["vol"]),
+              f"{tag}: the volume differs from the SoA loop's")
+    ate = ate_rmse(list(loops["packed"]["poses"]), seq[3][:n])
+    check(ate < 0.5 * VOXEL, f"packed loop: ATE {ate * 1e3:.3f} mm")
+    facts["tracked"] = dict(
+        frames=n, bit_identical=True, ate_mm=ate * 1e3,
+        ms_per_frame={k: v["ms"] for k, v in loops.items()},
+        launches_per_run={k: v["counts"] for k, v in loops.items()})
+    canonical_poses = loops["packed"]["poses"]
+    loops.clear()
+
+    # (b) K-batched fusion at ground-truth poses against sequential fusion,
+    # in turns
+    batches = _batches(1, n - 1, PACKED_K)
+    cap_b = min(GRID * GRID, -(-max(_union_rows(st, b) for b in batches) // 256) * 256)
+    runs = {"sequential": lambda: _gt_loop(st, range(n), "soa", st["cap"]),
+            "batched": lambda: _batched_gt(st, batches, cap_b)}
+    want = {"sequential": n, "batched": len(batches) + 1}
+    vols, ms = {}, {k: [] for k in runs}
+    for tag in _turns(list(runs)):
+        vol, counts, secs = _counted(runs[tag])
+        check(counts["gather_rows_dma"] == _on_card(want[tag])
+              == counts["scatter_rows_dma"],
+              f"{tag}: launches {counts}, one gather and one scatter a "
+              f"{'batch' if tag == 'batched' else 'frame'}")
+        add(counts)
+        ms[tag].append(secs * 1e3 / n)
+        check(_equal_volumes(vol, vols.setdefault(tag, vol)),
+              f"{tag}: the second run differs from the first")
+    check(_equal_volumes(vols["batched"], vols["sequential"]),
+          "batched fusion != sequential fusion")
+    facts["batched"] = dict(
+        frames=n, k=PACKED_K, batches=len(batches), batch_capacity=cap_b,
+        bit_identical=True, launches_per_run=want if DEVICE == "cuda" else 0,
+        ms_per_frame=ms)
+    vols.clear()
+
+    # (c) 512^3 at ground-truth poses, in turns
+    g = st["geom"]
+    big = GridGeometry(dims=(PACKED_BIG_GRID,) * 3,
+                       voxel_size=g.voxel_size * g.dims[0] / PACKED_BIG_GRID,
+                       shift=g.shift)
+    t_big = st["truncation"] * g.dims[0] / PACKED_BIG_GRID
+    frames = list(range(PACKED_BIG_FRAMES))
+    zy = PACKED_BIG_GRID ** 2
+    cap_f = max(st["cap"] * zy // (GRID * GRID), -(-max(
+        _union_rows(st, [f], big, t_big) for f in frames) // 1024) * 1024)
+    cap_u = -(-_union_rows(st, frames, big, t_big) // 1024) * 1024
+    big_facts = dict(grid=PACKED_BIG_GRID, frames=len(frames),
+                     row_capacity=cap_f, batch_capacity=cap_u,
+                     ms_per_frame={}, peak_gb={})
+    runs = {"soa": lambda: _gt_loop(st, frames, "soa", cap_f, big, t_big),
+            "packed": lambda: _gt_loop(st, frames, "packed", cap_f, big, t_big),
+            "batched": lambda: _batched_gt(st, [frames], cap_u, big, t_big)}
+    for tag in _turns(list(runs)):
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        vol, counts, secs = _counted(runs[tag])
+        add(counts)
+        want = _on_card(1 if tag == "batched" else len(frames))
+        check(counts["gather_rows_dma"] == want == counts["scatter_rows_dma"],
+              f"512^3 {tag}: launches {counts}")
+        big_facts["ms_per_frame"].setdefault(tag, []).append(secs * 1e3 / len(frames))
+        if tag in vols:
+            check(_equal_volumes(vol, vols[tag]),
+                  f"512^3 {tag}: the second run differs from the first")
+            continue
+        vols[tag] = vol
+        if DEVICE == "cuda":
+            # the path's own peak: its volume and its temporaries, above what
+            # the earlier paths' volumes hold
+            big_facts["peak_gb"][tag] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        del vol
+    check(_packed_equal(vols["packed"], vols["soa"]), "512^3: packed != SoA")
+    check(_equal_volumes(vols["batched"], vols["soa"]), "512^3: batched != SoA")
+    big_facts["bit_identical"] = True
+    big_facts["observed_voxels"] = int((vols["soa"].weight > 0).sum())
+    vols.clear()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        big_facts["row_kernels"] = _row_kernel_times(st, big, t_big, cap_f)
+        torch.cuda.empty_cache()
+    facts["big"] = big_facts
+
+    # (d) the resident state, RESIDENT_FRAMES frames in chunks of CHUNK
+    m = RESIDENT_FRAMES
+    chunks = _batches(1, m - 1, CHUNK)
+    nseg = GRID * GRID
+    capr = min(nseg, -(-int(1.1 * max(_union_rows(st, c, margins=RESIDENT_MARGIN)
+                                      for c in chunks)) // 1024) * 1024)
+    delta = nseg // 4
+    zkw = st["zkw"]
+
+    def resident_stream(tracked):
+        pvol, _ = _fuse_fn("packed")(
+            _fresh(st, "packed"), st["geom"], *_frame(st, 0),
+            st["gt"][0] if not tracked else torch.eye(4, device=DEVICE), 0,
+            row_capacity=st["cap"], inplace=True, device=DEVICE, **zkw)
+        pose = torch.eye(4, dtype=torch.float32, device=DEVICE)
+        poses, flags, misses = [pose], [], []
+        rkw = dict(inplace=True, device=DEVICE, **zkw)
+
+        def body():
+            nonlocal pvol, pose
+            for c in chunks:
+                p0 = pose if tracked else st["gt"][c[0]]
+                res = R.resident_refresh(
+                    pvol, st["geom"], st["depths"][c[0]], st["K"], p0,
+                    capacity=capr, margin_px=RESIDENT_MARGIN[0],
+                    margin_t=RESIDENT_MARGIN[1], device=DEVICE, **zkw)
+                for f in c:
+                    gate = None
+                    if tracked:
+                        res = R.resident_alloc(
+                            res, pvol, st["geom"], st["depths"][f], st["K"], pose,
+                            delta_capacity=delta, margin_px=RESIDENT_MARGIN[0],
+                            margin_t=RESIDENT_MARGIN[1], **rkw)
+                        tr, miss = R.track_frame_resident(
+                            res, st["geom"], st["depths"][f], st["K"], pose,
+                            device=DEVICE, **zkw, **st["gn"])
+                        pose, gate = tr.pose, tr.converged
+                        misses.append(miss)
+                        poses.append(pose)
+                    else:
+                        pose = st["gt"][f]
+                    res = R.resident_alloc(res, pvol, st["geom"], st["depths"][f],
+                                           st["K"], pose, delta_capacity=delta,
+                                           **rkw)
+                    res = R.fuse_frame_resident(res, st["geom"], *_frame(st, f),
+                                                pose, f, gate, **rkw)
+                flags.append(res.flags)
+                pvol = R.resident_flush(res, pvol, inplace=True)
+            return pvol
+
+        _, counts, secs = _counted(body)
+        flag = int(torch.stack(flags).max())
+        miss = bool(torch.stack(misses).any()) if misses else False
+        return (pvol, np.stack([p.cpu().numpy() for p in poses]), flag, miss,
+                counts, secs * 1e3 / (m - 1))
+
+    canon = _gt_loop(st, range(m), "packed", st["cap"])
+    fused, _, flag, _, counts, ms_fuse = resident_stream(tracked=False)
+    check(flag == 0, f"resident GT stream: flags {flag}")
+    check(torch.equal(fused.vis, canon.vis), "resident GT stream: vis differs")
+    diff = float((fused.payload - canon.payload).abs().max())
+    check(torch.equal(fused.payload, canon.payload),
+          f"resident GT stream: payload differs by up to {diff}")
+    allocs = _on_card(len(chunks) + (m - 1))
+    check(counts["gather_rows_dma"] == allocs == counts["scatter_rows_dma"],
+          f"resident GT stream: launches {counts}, {allocs} expected")
+    add(counts)
+    _, poses, flag, miss, counts_t, ms_track = resident_stream(tracked=True)
+    check(flag == 0 and not miss, f"resident tracked stream: flags {flag}, miss {miss}")
+    allocs = _on_card(len(chunks) + 2 * (m - 1))
+    check(counts_t["gather_rows_dma"] == allocs == counts_t["scatter_rows_dma"],
+          f"resident tracked stream: launches {counts_t}, {allocs} expected")
+    ate_res = ate_rmse(list(poses), seq[3][:m])
+    ate_can = ate_rmse(list(canonical_poses[:m]), seq[3][:m])
+    check(abs(ate_res - ate_can) * 1e3 <= RESIDENT_ATE_MM,
+          f"resident tracked ATE {ate_res * 1e3:.4f} mm, canonical "
+          f"{ate_can * 1e3:.4f} mm")
+    add(counts_t)
+    facts["resident"] = dict(
+        frames=m, chunk=CHUNK, capacity=capr, delta_capacity=delta,
+        margins=RESIDENT_MARGIN, flags=0, vis_exact=True,
+        payload_max_abs_diff=diff, launches={"gt": counts, "tracked": counts_t},
+        ate_mm={"resident": ate_res * 1e3, "canonical": ate_can * 1e3},
+        poses_bit_identical=bool(np.array_equal(poses, canonical_poses[:m])),
+        ms_per_frame={"gt_fusion": ms_fuse, "tracked": ms_track,
+                      "canonical_tracked": facts["tracked"]["ms_per_frame"]["packed"]})
+    return launches, facts
 
 
 # --------------------------------------------- files, checkpoints, retries
@@ -1963,9 +2476,10 @@ def main():
          libraries=[os.path.relpath(kernels.library_path(n)) for n in LIBRARIES])
 
     # ---- kernels against their plain versions
-    times, shapes, worst, n_checked = check_kernels(rowcopy)
+    times, shapes, worst, n_checked, packed_widths = check_kernels(rowcopy)
     emit("kernels", ok=True, cases_checked=n_checked, card=card,
-         reps=KERNEL_REPS, times=times, shapes=shapes)
+         reps=KERNEL_REPS, times=times, shapes=shapes,
+         packed_widths=packed_widths)
     if "--kernels-only" in sys.argv[1:]:
         return 3
     if "--distributed-only" in sys.argv[1:]:
@@ -2038,6 +2552,12 @@ def main():
         mesh_launches, facts = mesh_scan(tmp, seq, short, runs["dma"])
         emit("mesh_scan", ok=True, card=card, launches=mesh_launches, **facts)
 
+        # ---- the packed, K-batched and resident volume state
+        t0 = time.perf_counter()
+        packed_launches, facts = packed_phase(tmp, seq)
+        emit("packed", ok=True, card=card, launches=packed_launches,
+             seconds=time.perf_counter() - t0, **facts)
+
         # ---- the sequence as PNG files, decoded and scanned from them
         root, facts = dataset_files(tmp, seq, short, runs["dma"])
         emit("dataset_files", ok=True, card=card, **facts)
@@ -2077,11 +2597,13 @@ def main():
             emit("profile_refine", card=card, **profile_refine(
                 main_run["pipe"].refiner))
 
-    # the main run's launches, and the mesh phases' of the direct kernels
+    # the main run's launches, the mesh phases' of the direct kernels, and
+    # phase packed's of all four
     launches = {k: counts[k] + mesh_launches.get(k, 0)
                 + mesh_refine_launches.get(k, 0) + dist_launches.get(k, 0)
-                for k in counts}
-    launches.update({k: staged["counts"][k] for k in ("gather_rows", "scatter_rows")})
+                + packed_launches[k] for k in counts}
+    launches.update({k: staged["counts"][k] + packed_launches[k]
+                     for k in ("gather_rows", "scatter_rows")})
     for name in KERNELS:
         check(launches[name] > 0, f"{name} was never launched on its path")
     print(smi, flush=True)

@@ -21,7 +21,11 @@ the refinement on a device mesh (parallel/): the volume as Z-slabs, the
 refinement's surface set over "z" and its keyframes over "frames", driven
 by one process (parallel/mesh.make_mesh) or by one process a mesh row
 (parallel/distributed.py: distributed.initialize on every process, then the
-pipeline; every cross-process move a torch.distributed collective).
+pipeline; every cross-process move a torch.distributed collective) — and
+the volume state's other layouts: the packed [Z,Y,X,8] state the tracker
+reads with no copy (core/volume.PackedVolume, fuse_frame_culled_packed),
+K frames fused at given poses with one row move (fuse_frames_culled), and
+the chunk-resident compact state of core/resident.py.
 
 Devices: every entry point runs on "cuda" unless the caller passes
 device="cpu"; with no card and no such request it raises (resolve_device).
@@ -65,3 +69,7 @@ def device_constant(values: tuple, dtype, device) -> "_torch.Tensor":
 
 
 from psgradientsdf_tpu_torch.config import PipelineConfig, load_config  # noqa: E402,F401
+from psgradientsdf_tpu_torch.core.resident import ResidentVolume  # noqa: E402,F401
+from psgradientsdf_tpu_torch.core.volume import (  # noqa: E402,F401
+    GradSdfVolume, PackedVolume, fuse_frame_culled_packed, fuse_frames_culled,
+)

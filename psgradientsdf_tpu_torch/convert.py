@@ -1,7 +1,8 @@
 """State carried across the numpy boundary.
 
-This system has no learned weights; the volume, the FALS cache, the poses
-and the grid geometry are its state.  These functions build that state from
+This system has no learned weights; the volume (in its SoA, packed or
+chunk-resident layout), the FALS cache, the poses and the grid geometry are
+its state.  These functions build that state from
 numpy arrays in the JAX package's layouts and hand it back as numpy, so a
 volume made by either package can be continued by the other from identical
 values.  The same holds for the refinement: a problem extracted by either
@@ -27,7 +28,8 @@ import torch
 
 from psgradientsdf_tpu_torch import resolve_device
 from psgradientsdf_tpu_torch.core.grid import GridGeometry
-from psgradientsdf_tpu_torch.core.volume import GradSdfVolume
+from psgradientsdf_tpu_torch.core.resident import ResidentVolume
+from psgradientsdf_tpu_torch.core.volume import GradSdfVolume, PackedVolume
 from psgradientsdf_tpu_torch.ops.normals import FalsCache
 from psgradientsdf_tpu_torch.refine.problem import RefineProblem
 
@@ -37,25 +39,73 @@ def _f32(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(dev)
 
 
-def volume_from_numpy(dist, grad, weight, color, vis, device=None) -> GradSdfVolume:
-    """dist [Z,Y,X], grad [Z,Y,X,3], weight [Z,Y,X], color [Z,Y,X,3] float32
-    and vis [W,Z,Y,X] uint32 -> a contiguous GradSdfVolume on `device`."""
-    dev = resolve_device(device)
+def _words(vis, dev) -> torch.Tensor:
+    """Visibility words (uint32, or their int32 bit patterns) as int32 bit
+    patterns on `dev`."""
     vis = np.array(vis, order="C")
     if vis.dtype == np.uint32:
         vis = vis.view(np.int32)
     elif vis.dtype != np.int32:
         raise TypeError(f"visibility words must be uint32 or int32, got {vis.dtype}")
+    return torch.from_numpy(vis).to(dev)
+
+
+def _words_np(vis: torch.Tensor) -> np.ndarray:
+    return vis.detach().cpu().numpy().view(np.uint32)
+
+
+def volume_from_numpy(dist, grad, weight, color, vis, device=None) -> GradSdfVolume:
+    """dist [Z,Y,X], grad [Z,Y,X,3], weight [Z,Y,X], color [Z,Y,X,3] float32
+    and vis [W,Z,Y,X] uint32 -> a contiguous GradSdfVolume on `device`."""
+    dev = resolve_device(device)
     return GradSdfVolume(
         dist=_f32(dist, dev), grad=_f32(grad, dev), weight=_f32(weight, dev),
-        color=_f32(color, dev), vis=torch.from_numpy(vis).to(dev))
+        color=_f32(color, dev), vis=_words(vis, dev))
 
 
 def volume_to_numpy(vol: GradSdfVolume) -> Dict[str, np.ndarray]:
     """The volume as numpy arrays; vis as uint32 words."""
     out = {k: getattr(vol, k).detach().cpu().numpy()
            for k in ("dist", "grad", "weight", "color")}
-    out["vis"] = vol.vis.detach().cpu().numpy().view(np.uint32)
+    out["vis"] = _words_np(vol.vis)
+    return out
+
+
+def packed_volume_from_numpy(payload, vis, device=None) -> PackedVolume:
+    """payload [Z,Y,X,8] (or a streaming [NSEG, S*8]) float32 and vis
+    [W,Z,Y,X] (or [W, NSEG, S]) uint32 -> a PackedVolume on `device`."""
+    dev = resolve_device(device)
+    return PackedVolume(payload=_f32(payload, dev), vis=_words(vis, dev))
+
+
+def packed_volume_to_numpy(pvol: PackedVolume) -> Dict[str, np.ndarray]:
+    """The packed volume as numpy arrays; vis as uint32 words."""
+    return dict(payload=pvol.payload.detach().cpu().numpy(),
+                vis=_words_np(pvol.vis))
+
+
+def resident_from_numpy(rows, vis_rows, row_slot, slot_rows, n_used,
+                        fused_ever, flags, device=None) -> ResidentVolume:
+    """A ResidentVolume from numpy arrays in the JAX package's dtypes:
+    float32 rows, uint32 vis_rows, int32 row_slot / slot_rows and the 0-d
+    int32 n_used / flags, bool fused_ever."""
+    dev = resolve_device(device)
+
+    def i32(a):
+        return torch.from_numpy(np.array(a, dtype=np.int32, order="C")).to(dev)
+
+    return ResidentVolume(
+        rows=_f32(rows, dev), vis_rows=_words(vis_rows, dev),
+        row_slot=i32(row_slot), slot_rows=i32(slot_rows), n_used=i32(n_used),
+        fused_ever=torch.from_numpy(np.array(fused_ever, dtype=np.bool_)).to(dev),
+        flags=i32(flags))
+
+
+def resident_to_numpy(res: ResidentVolume) -> Dict[str, np.ndarray]:
+    """The resident state as numpy arrays keyed by its field names, in the
+    JAX package's dtypes (vis_rows as uint32 words)."""
+    out = {k: getattr(res, k).detach().cpu().numpy() for k in res._fields}
+    out["vis_rows"] = _words_np(res.vis_rows)
     return out
 
 

@@ -100,6 +100,12 @@ class GridGeometry:
         return self.voxel2world(idx)
 
 
+def gather_zyx(vol: torch.Tensor, idx_xyz: torch.Tensor) -> torch.Tensor:
+    """Gather from a [Z,Y,X,...] tensor at (...,3) (x,y,z) integer indices."""
+    return vol[idx_xyz[..., 2].long(), idx_xyz[..., 1].long(),
+               idx_xyz[..., 0].long()]
+
+
 def trilinear(vol: torch.Tensor, geom: GridGeometry, pts: torch.Tensor,
               extrap: float) -> torch.Tensor:
     """Trilinear interpolation of a scalar [Z,Y,X] grid at world points,

@@ -20,7 +20,13 @@ Fusion (`fuse_frame`) evaluates the reference's per-voxel update
 to the nearest pixel, gate (z-range / fusion weight / normal validity /
 viewing angle), then masked running-mean updates.  `fuse_frame_culled` does
 the same on the rows that survive a conservative cull, moving their state
-rows with the row-copy kernels (ops/rowcopy.py).
+rows with the row-copy kernels (ops/rowcopy.py); `fuse_frames_culled` fuses
+K frames at given poses with one row move for the batch.
+
+`PackedVolume` holds the same state as one [Z,Y,X,8] payload (dist, grad,
+weight, colour) beside the visibility words: the layout the tracker reads
+with no copy, fused by `fuse_frame_culled_packed` (and chunk-resident in
+core/resident.py).
 
 Nothing in the fusion functions reads a value back to the host.
 """
@@ -278,6 +284,8 @@ def _row_activity(
                                            # plane (interleaved slabs;
                                            # overrides z0)
     seg_x: Optional[int] = None,      # X-segment length (None = whole row)
+    margin_px: float = 0.0,           # extra pixel margin on the image test
+    margin_t: float = 0.0,            # extra meters on the carve/behind tests
 ) -> torch.Tensor:
     """Level-1 cull of fuse_frame_culled: conservative activity mask at
     X-row granularity ([Z, Y], seg_x=None) or X-SEGMENT granularity
@@ -293,7 +301,14 @@ def _row_activity(
     per-image-row max table with a sparse table for O(1) range maxima).  All
     tests carry float-safety margins, so the mask is a strict SUPERSET of
     the active set.  Same arithmetic, in the same order, as the JAX package's
-    _row_activity: the two masks are compared exactly in the tests."""
+    _row_activity: the two masks are compared exactly in the tests.
+
+    margin_px / margin_t widen the image-footprint and depth-band tests, so
+    the mask stays a superset of the active set while the pose moves by up
+    to about margin_px pixels of reprojection and margin_t meters of
+    camera depth: the resident allocator (core/resident.py) admits with them
+    the rows a tracking solve may query as it moves the pose from its seed.
+    Zero margins give the exact-frame cull, bit for bit."""
     dev = depth.device
     H, W = depth.shape
     X, Y, Zd = geom.dims
@@ -325,7 +340,7 @@ def _row_activity(
     p0x, p0y, pz0 = endpoint_cam(sx)
     p1x, p1y, pz1 = endpoint_cam(sx + (S - 1))
     eps_z = 1e-5 * (pz0.abs() + pz1.abs()) + 1e-6
-    both_behind = (pz0 <= eps_z) & (pz1 <= eps_z)
+    both_behind = (pz0 <= eps_z - margin_t) & (pz1 <= eps_z - margin_t)
     both_front = (pz0 > eps_z) & (pz1 > eps_z)
     mixed = ~both_behind & ~both_front
 
@@ -336,8 +351,8 @@ def _row_activity(
     u1 = cx + fx * p1x / sz1
     v0 = cy + fy * p0y / sz0
     v1 = cy + fy * p1y / sz1
-    mu = 0.01 + 1e-5 * (u0.abs() + u1.abs())
-    mv_ = 0.01 + 1e-5 * (v0.abs() + v1.abs())
+    mu = 0.01 + 1e-5 * (u0.abs() + u1.abs()) + margin_px
+    mv_ = 0.01 + 1e-5 * (v0.abs() + v1.abs()) + margin_px
     u_min = torch.minimum(u0, u1) - mu
     u_max = torch.maximum(u0, u1) + mu
     v_min = torch.minimum(v0, v1) - mv_
@@ -373,7 +388,7 @@ def _row_activity(
     z_fp_max = torch.where(mixed, torch.max(row_max), z_fp_max)
 
     pz_min = torch.minimum(pz0, pz1) - eps_z
-    carve_ok = pz_min - truncation <= z_fp_max              # -inf -> cull
+    carve_ok = pz_min - truncation - margin_t <= z_fp_max   # -inf -> cull
 
     act = ~both_behind & (img_possible | mixed) & carve_ok
     if seg_x is None:
@@ -434,14 +449,71 @@ def _gather(tables2d, idx, impl):
 
 
 def _scatter(tables2d, idx, rows_list, live, impl):
-    """One call writes back all the tables that share `idx`; the slots at or
-    past `live` repeat slot 0."""
+    """One call writes the slots before `live` of all the tables that share
+    `idx` (the culled fusion's slots past it repeat slot 0, so writing them
+    too would give the same tables)."""
     rows_list = [rows.contiguous() for rows in rows_list]
     if impl == "dma":
         return rowcopy.scatter_tables_dma(tables2d, idx, rows_list, live=live)
     if impl == "staged":
         return rowcopy.scatter_tables(tables2d, idx, rows_list, live=live)
-    return rowcopy.scatter_tables_dma_plain(tables2d, idx, rows_list)
+    return rowcopy.scatter_tables_dma_plain(tables2d, idx, rows_list, live)
+
+
+def _check_rows_impl(rows_impl: str) -> None:
+    if rows_impl not in ROWS_IMPLS:
+        raise ValueError(f"rows_impl {rows_impl!r} is not one of {ROWS_IMPLS}")
+
+
+def _compact_padded(active_flat: torch.Tensor, capacity: int):
+    """Level-2 compaction with duplicate-first padding -> (safe_rows int32
+    [capacity], live int64 scalar, overflow bool scalar).
+
+    The capacity slots past the active rows repeat the FIRST compacted row:
+    they gather it again, compute its update again (identical bytes) and
+    may write it again, so the movement stays a pure indexed row copy and
+    write order cannot matter.  `live` is the count of slots the scatter
+    must write (the kernels skip the rest); with no active row at all, slot
+    0 itself is padding (the grid's last row, whose update is the identity)
+    and stays live."""
+    nseg = active_flat.shape[0]
+    rows_idx, n_active = compact_active(active_flat, capacity)
+    first = torch.clamp(rows_idx[0], max=nseg - 1)
+    safe_rows = torch.where(rows_idx < nseg,
+                            torch.clamp(rows_idx, max=nseg - 1), first)
+    return (safe_rows.to(torch.int32).contiguous(),
+            torch.clamp(n_active, min=1), n_active > capacity)
+
+
+def _row_world_coords(geom: GridGeometry, safe_rows: torch.Tensor,
+                      z0: Optional[int], S: int, NS: int,
+                      z_map: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """World coordinates [CAP,S,3] of the voxels of compacted rows (or
+    S-voxel X-segments, NS of them a row): the index arithmetic every culled
+    path shares, so that all of them round the voxel centres alike.  Row r
+    of a slab lies on its local plane r // (Y*NS): global plane z0 + local
+    (a contiguous slab; z0 None: the whole grid) or z_map[local] (an
+    interleaved one)."""
+    dev = safe_rows.device
+    Y = geom.dims[1]
+    cap = safe_rows.shape[0]
+    origin = geom.origin_tensor(dev)
+    h = geom.voxel_size
+    rz_l = torch.div(safe_rows, Y * NS, rounding_mode="floor")   # slab-local z
+    if z_map is not None:
+        rz = z_map[torch.clamp(rz_l, max=z_map.shape[0] - 1).long()].to(torch.float32)
+    else:
+        rz = rz_l.to(torch.float32)
+        if z0 is not None:
+            rz = rz + float(z0)
+    ry = (torch.div(safe_rows, NS, rounding_mode="floor") % Y).to(torch.float32)
+    rx0 = (safe_rows % NS).to(torch.float32) * S            # segment x origin
+    rx = rx0[:, None] + torch.arange(S, dtype=torch.float32, device=dev)[None, :]
+    return torch.stack(
+        [origin[0] + h * rx,
+         (origin[1] + h * ry)[:, None].expand(cap, S),
+         (origin[2] + h * rz)[:, None].expand(cap, S)],
+        dim=-1)
 
 
 def fuse_frame_culled(
@@ -500,6 +572,22 @@ def fuse_frame_culled(
     retry with a larger capacity (the stream executor surfaces the flag per
     frame; the pipeline re-runs the chunk from its kept pre-chunk volume).
     """
+    active, pix_payload, K, pose, gate, img_hw = _culled_frame(
+        geom, color, depth, normals, n_sq_inv, K, pose, gate,
+        truncation=truncation, zmin=zmin, zmax=zmax, seg_x=seg_x,
+        device=device)
+    return _fuse_culled_slab(
+        vol if inplace else vol.clone(), geom, None, geom.dims[2], active,
+        pix_payload, K, pose, img_hw, frame_idx, gate,
+        truncation=truncation, zmin=zmin, zmax=zmax,
+        cos_thresh_sq=cos_thresh_sq, row_capacity=row_capacity, seg_x=seg_x,
+        rows_impl=rows_impl)
+
+
+def _culled_frame(geom, color, depth, normals, n_sq_inv, K, pose, gate, *,
+                  truncation, zmin, zmax, seg_x, device):
+    """A frame's inputs on the device, its level-1 cull (gated) and its
+    packed pixel payload -> (active, pix_payload, K, pose, gate, (H, W))."""
     dev = resolve_device(device)
     color, depth, normals, n_sq_inv, K, pose = _on(
         dev, color, depth, normals, n_sq_inv, K, pose)
@@ -510,12 +598,7 @@ def fuse_frame_culled(
     if gate is not None:
         active = active & gate
     pix_payload = pack_pixel_payload(color, depth, normals, n_sq_inv)
-    return _fuse_culled_slab(
-        vol if inplace else vol.clone(), geom, None, geom.dims[2], active,
-        pix_payload, K, pose, depth.shape, frame_idx, gate,
-        truncation=truncation, zmin=zmin, zmax=zmax,
-        cos_thresh_sq=cos_thresh_sq, row_capacity=row_capacity, seg_x=seg_x,
-        rows_impl=rows_impl)
+    return active, pix_payload, K, pose, gate, tuple(depth.shape)
 
 
 def _fuse_culled_slab(
@@ -547,24 +630,14 @@ def _fuse_culled_slab(
     Shared by the single-device fuse_frame_culled (z0=None, z_rows=Z) and
     the per-slab body of parallel/shard.py.  The slab's tables are views of
     its own contiguous storage, and the row indices are local to it."""
-    if rows_impl not in ROWS_IMPLS:
-        raise ValueError(f"rows_impl {rows_impl!r} is not one of {ROWS_IMPLS}")
-    dev = pix_payload.device
+    _check_rows_impl(rows_impl)
     H, W = img_hw
     X, Y = geom.dims[0], geom.dims[1]
     S = X if seg_x is None else seg_x
     NS = X // S
     NSEG = z_rows * Y * NS
-    origin = geom.origin_tensor(dev)
-    h = geom.voxel_size
 
-    rows_idx, n_active = compact_active(active.reshape(-1), row_capacity)
-    overflow = n_active > row_capacity
-    slot_ok = rows_idx < NSEG
-    # duplicate-first-active padding (see fuse_frame_culled)
-    first = torch.clamp(rows_idx[0], max=NSEG - 1)
-    safe_rows = torch.where(slot_ok, torch.clamp(rows_idx, max=NSEG - 1), first)
-    safe_rows = safe_rows.to(torch.int32).contiguous()
+    safe_rows, live, overflow = _compact_padded(active.reshape(-1), row_capacity)
 
     word, bit = _vis_word_bit(frame_idx)
     t_dist = vol.dist.view(NSEG, S)
@@ -578,21 +651,7 @@ def _fuse_culled_slab(
     g_r = g_r.view(row_capacity, S, 3)
     c_r = c_r.view(row_capacity, S, 3)
 
-    rz_l = torch.div(safe_rows, Y * NS, rounding_mode="floor")   # slab-local z
-    if z_map is not None:
-        rz = z_map[torch.clamp(rz_l, max=z_rows - 1).long()].to(torch.float32)
-    else:
-        rz = rz_l.to(torch.float32)
-        if z0 is not None:
-            rz = rz + float(z0)
-    ry = (torch.div(safe_rows, NS, rounding_mode="floor") % Y).to(torch.float32)
-    rx0 = (safe_rows % NS).to(torch.float32) * S            # segment x origin
-    rx = rx0[:, None] + torch.arange(S, dtype=torch.float32, device=dev)[None, :]
-    p_w = torch.stack(
-        [origin[0] + h * rx,
-         (origin[1] + h * ry)[:, None].expand(row_capacity, S),
-         (origin[2] + h * rz)[:, None].expand(row_capacity, S)],
-        dim=-1)
+    p_w = _row_world_coords(geom, safe_rows, z0, S, NS, z_map)
 
     nd, ng, nw, nc, vis_or = _fuse_voxel_update(
         p_w, d_r, g_r, w_r, c_r, pix_payload, K, pose, (H, W), bit, gate,
@@ -601,14 +660,217 @@ def _fuse_culled_slab(
     )
     nvw = vw_r | vis_or
 
-    # the padding slots repeat slot 0, so the scatter may skip them; with no
-    # active row at all, slot 0 itself is padding and stays live
-    live = torch.clamp(n_active, min=1)
     _scatter(
         tables, safe_rows,
         [nd, ng.reshape(row_capacity, S * 3), nw,
          nc.reshape(row_capacity, S * 3), nvw], live, rows_impl)
     return vol, overflow
+
+
+class PackedVolume(NamedTuple):
+    """The volume state in the gather-native layout of the tracked stream:
+
+        payload [Z,Y,X,8] f32:  dist, grad(3), weight, color(3)
+        vis     [W,Z,Y,X] int32: bit-packed per-frame visibility (as
+                                 GradSdfVolume.vis)
+
+    Slots 0, 1:4 and 4 line up with pack_tracking_payload's layout, so the
+    tracker reads `payload.view(-1, 8)` as its [V,8] record table with no
+    copy, where a GradSdfVolume has one built on every track_frame call;
+    sdf_records_packed reads slots 0:5 only, and slots 5:8 carry the running
+    mean colour.  A culled fusion moves one [S*8]-float row a row (or
+    segment) in place of four tables.  Convert at phase boundaries (scan
+    start, the hand-over to the refinement) with from_volume / to_volume;
+    both copy, so the two states never share storage."""
+
+    payload: torch.Tensor   # [Z,Y,X,8] f32
+    vis: torch.Tensor       # [W,Z,Y,X] int32 bit patterns of uint32 words
+
+    @classmethod
+    def from_volume(cls, vol: GradSdfVolume) -> "PackedVolume":
+        payload = torch.cat(
+            [vol.dist[..., None], vol.grad, vol.weight[..., None], vol.color],
+            dim=-1)
+        return cls(payload=payload, vis=vol.vis.clone())
+
+    def to_volume(self) -> GradSdfVolume:
+        p = self.payload
+        return GradSdfVolume(
+            dist=p[..., 0].contiguous(), grad=p[..., 1:4].contiguous(),
+            weight=p[..., 4].contiguous(), color=p[..., 5:8].contiguous(),
+            vis=self.vis.clone())
+
+    def clone(self) -> "PackedVolume":
+        return PackedVolume(self.payload.clone(), self.vis.clone())
+
+
+def fuse_frame_culled_packed(
+    pvol: PackedVolume,
+    geom: GridGeometry,
+    color,
+    depth,
+    normals,
+    n_sq_inv,
+    K,
+    pose,
+    frame_idx: int,
+    gate=None,
+    *,
+    truncation: float,
+    zmin: float,
+    zmax: float,
+    cos_thresh_sq: float = 0.25 * 0.25,
+    row_capacity: int,
+    seg_x: Optional[int] = None,
+    rows_impl: str = "dma",
+    inplace: bool = False,
+    device=None,
+) -> Tuple[PackedVolume, torch.Tensor]:
+    """fuse_frame_culled on PackedVolume state: the same level-1 cull, the
+    same padding and the same per-voxel update (shared _row_activity,
+    _compact_padded, _row_world_coords, _fuse_voxel_update), so the volume
+    is fuse_frame_culled's bit for bit; but the level-2 move is ONE gather
+    call and ONE scatter call over two tables, the payload's [S*8]-float
+    rows and the frame's visibility word, and the tracking payload stays up
+    to date for free (see PackedVolume).
+
+    rows_impl, inplace, seg_x, device and the returned overflow flag are
+    fuse_frame_culled's."""
+    _check_rows_impl(rows_impl)
+    active, pix_payload, K, pose, gate, img_hw = _culled_frame(
+        geom, color, depth, normals, n_sq_inv, K, pose, gate,
+        truncation=truncation, zmin=zmin, zmax=zmax, seg_x=seg_x,
+        device=device)
+    if not inplace:
+        pvol = pvol.clone()
+    X, Y, Zd = geom.dims
+    S = X if seg_x is None else seg_x
+    NS = X // S
+    NSEG = Zd * Y * NS
+    cap = row_capacity
+
+    safe_rows, live, overflow = _compact_padded(active.reshape(-1), cap)
+    word, bit = _vis_word_bit(frame_idx)
+    tables = [pvol.payload.view(NSEG, S * 8), pvol.vis[word].view(NSEG, S)]
+    rows, vw_r = _gather(tables, safe_rows, rows_impl)
+    rows = rows.view(cap, S, 8)
+    p_w = _row_world_coords(geom, safe_rows, None, S, NS)
+    nd, ng, nw, nc, vis_or = _fuse_voxel_update(
+        p_w, rows[..., 0], rows[..., 1:4], rows[..., 4], rows[..., 5:8],
+        pix_payload, K, pose, img_hw, bit, gate,
+        truncation=truncation, zmin=zmin, zmax=zmax,
+        cos_thresh_sq=cos_thresh_sq,
+    )
+    new_rows = torch.cat([nd[..., None], ng, nw[..., None], nc], dim=-1)
+    _scatter(tables, safe_rows, [new_rows.view(cap, S * 8), vw_r | vis_or],
+             live, rows_impl)
+    return pvol, overflow
+
+
+def fuse_frames_culled(
+    vol: GradSdfVolume,
+    geom: GridGeometry,
+    colors,                 # [K,H,W,3]
+    depths,                 # [K,H,W]
+    normals,                # [K,H,W,3]
+    n_sq_invs,              # [K,H,W]
+    K,
+    poses,                  # [K,4,4]
+    frame_ids,              # K host integers, ascending, within two words
+    gates=None,             # [K] bool
+    *,
+    truncation: float,
+    zmin: float,
+    zmax: float,
+    cos_thresh_sq: float = 0.25 * 0.25,
+    row_capacity: int,
+    rows_impl: str = "dma",
+    inplace: bool = False,
+    device=None,
+) -> Tuple[GradSdfVolume, torch.Tensor]:
+    """K-frame batched row-culled fusion at given poses (the ground-truth
+    path, main_ps.cpp:216-220: no tracker between the frames): K sequential
+    fuse_frame_culled calls bit for bit, with ONE gather call and ONE
+    scatter call for the batch.
+
+    The cull is the UNION of the K frames' row culls (each gated), compacted
+    and padded as in fuse_frame_culled; row_capacity must cover the union.
+    The rows of dist, grad, weight, colour and of the two visibility words
+    the batch writes are gathered once (six tables), the K per-voxel updates
+    are applied IN ORDER on them — a row of the union that a frame does not
+    reach passes none of that frame's per-voxel gates (the cull is a
+    superset frame by frame), so its update is the identity — and the rows
+    are scattered back once.
+
+    Visibility bits go to at most two words: word_lo of frame_ids[0] and
+    the next, which takes every frame of another word (as in the JAX
+    package; its bits land in the wrong word when the ids span more than two
+    words, and the flag says so).  When word_lo is the volume's last word
+    the next word does not exist and the bits of other words are dropped;
+    the plane is then moved once (five tables), since two tables of one
+    call may not alias.  The words are decided on the host from the frame
+    ids.
+
+    Returns (new_volume, flag): flag = overflow | ids spanning more than two
+    words; either leaves the update incomplete.  rows_impl, inplace and
+    device are fuse_frame_culled's."""
+    _check_rows_impl(rows_impl)
+    dev = resolve_device(device)
+    colors, depths, normals, n_sq_invs, K, poses = _on(
+        dev, colors, depths, normals, n_sq_invs, K, poses)
+    fids = [int(f) for f in frame_ids]
+    KF, H, W = depths.shape
+    if len(fids) != KF:
+        raise ValueError(f"{len(fids)} frame ids for {KF} frames")
+    gates = None if gates is None else _gate_tensor(gates, dev)
+    X, Y, Zd = geom.dims
+    S, NSEG, cap = X, Zd * Y, row_capacity
+
+    n_words = vol.vis.shape[0]
+    word_lo = fids[0] // 32
+    if not 0 <= word_lo < n_words:
+        raise ValueError(f"frame {fids[0]} is past the volume's "
+                         f"{32 * n_words} visibility bits")
+    w_hi = min(word_lo + 1, n_words - 1)
+    bad_words = any(f // 32 not in (word_lo, word_lo + 1) for f in fids)
+
+    active = None
+    for k in range(KF):
+        a = _row_activity(geom, depths[k], K, poses[k], truncation=truncation,
+                          zmin=zmin, zmax=zmax)
+        if gates is not None:
+            a = a & gates[k]
+        active = a if active is None else active | a
+    safe_rows, live, overflow = _compact_padded(active.reshape(-1), cap)
+
+    if not inplace:
+        vol = vol.clone()
+    planes = [word_lo] if w_hi == word_lo else [word_lo, w_hi]
+    tables = [vol.dist.view(NSEG, S), vol.grad.view(NSEG, S * 3),
+              vol.weight.view(NSEG, S), vol.color.view(NSEG, S * 3)]
+    tables += [vol.vis[w].view(NSEG, S) for w in planes]
+    rows = _gather(tables, safe_rows, rows_impl)
+    d, w = rows[0], rows[2]
+    g, c = rows[1].view(cap, S, 3), rows[3].view(cap, S, 3)
+    p_w = _row_world_coords(geom, safe_rows, None, S, 1)
+
+    acc = [rows[4], rows[5] if len(planes) == 2 else None]
+    for k in range(KF):
+        word, bit = _vis_word_bit(fids[k])
+        pixp = pack_pixel_payload(colors[k], depths[k], normals[k], n_sq_invs[k])
+        d, g, w, c, vis_or = _fuse_voxel_update(
+            p_w, d, g, w, c, pixp, K, poses[k], (H, W), bit,
+            None if gates is None else gates[k],
+            truncation=truncation, zmin=zmin, zmax=zmax,
+            cos_thresh_sq=cos_thresh_sq,
+        )
+        j = 0 if word == word_lo else 1
+        if acc[j] is not None:
+            acc[j] = acc[j] | vis_or
+    new_rows = [d, g.reshape(cap, S * 3), w, c.reshape(cap, S * 3)]
+    new_rows += acc[:len(planes)]
+    _scatter(tables, safe_rows, new_rows, live, rows_impl)
+    return vol, overflow | bad_words
 
 
 def vis_bit(vis: torch.Tensor, frame_idx: int) -> torch.Tensor:

@@ -46,11 +46,13 @@ ops/rowcopy.py (the Pallas kernels for the TPU):
                     only if it is the winner.  Two launches a call.
 
 Both scatters take `live`, an optional int64 scalar tensor on the tables'
-device: the caller states that every slot at or past it repeats an earlier
-slot (the same index and the same rows), so the kernels skip those slots and
-the plain versions, which write them again, give the same tables.  The culled
-fusion pads its index vector that way and passes its count of live rows.  The
-gathers take no such count: every slot of their output is written.
+device: only the slots before it are written, the kernels skip the others,
+and so do the plain versions when they are given it (they read it back to
+the host to cut their slots).  Every slot's index must still lie in [0, N).
+The culled fusion pads its index vector by repeating slot 0 (the same index
+and the same rows) and passes its count of live rows; the resident state
+(core/resident.py) writes back its first n_used slots.  The gathers take no
+such count: every slot of their output is written.
 
 Bound on the card, all four: bytes, no arithmetic, over the 3.35 TB/s of an
 H100's device memory, the index vector read once.  A gather must read each
@@ -118,19 +120,34 @@ def gather_tables_plain(tables: Sequence[torch.Tensor],
     return [gather_rows_plain(t, idx) for t in tables]
 
 
+def _live_slots(idx, rows, live):
+    """The first `live` slots of idx and rows (all of them for None); the
+    count is read back to the host."""
+    if live is None:
+        return idx, rows
+    k = max(0, min(int(live), idx.shape[0]))
+    return idx[:k], rows[:k]
+
+
 def scatter_rows_dma_plain(table: torch.Tensor, idx: torch.Tensor,
-                           rows: torch.Tensor) -> torch.Tensor:
-    """table[idx[i]] = rows[i] in place; slots that share an index must carry
-    identical rows (index_copy_ resolves duplicates in no fixed order)."""
+                           rows: torch.Tensor,
+                           live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """table[idx[i]] = rows[i] in place for the slots before `live`; slots
+    that share an index must carry identical rows (index_copy_ resolves
+    duplicates in no fixed order)."""
+    idx, rows = _live_slots(idx, rows, live)
     return table.index_copy_(0, idx.long(), rows)
 
 
 def scatter_rows_plain(table: torch.Tensor, idx: torch.Tensor,
-                       rows: torch.Tensor) -> torch.Tensor:
-    """table[idx[i]] = rows[i] in place, duplicates in slot order: the LAST
-    slot wins.  The winner of every row is found first (a max-reduction over
-    slot numbers, which is ordered by value, not by execution), then only the
-    winning slots are written — no two of them share an index."""
+                       rows: torch.Tensor,
+                       live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """table[idx[i]] = rows[i] in place for the slots before `live`,
+    duplicates in slot order: the LAST slot wins.  The winner of every row is
+    found first (a max-reduction over slot numbers, which is ordered by
+    value, not by execution), then only the winning slots are written — no
+    two of them share an index."""
+    idx, rows = _live_slots(idx, rows, live)
     cap = idx.shape[0]
     idx = idx.long()
     slots = torch.arange(cap, dtype=torch.int64, device=idx.device)
@@ -143,15 +160,18 @@ def scatter_rows_plain(table: torch.Tensor, idx: torch.Tensor,
 
 
 def scatter_tables_dma_plain(tables: Sequence[torch.Tensor], idx: torch.Tensor,
-                             rows_list: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+                             rows_list: Sequence[torch.Tensor],
+                             live: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """scatter_rows_dma_plain on every table of the list."""
-    return [scatter_rows_dma_plain(t, idx, r) for t, r in zip(tables, rows_list)]
+    return [scatter_rows_dma_plain(t, idx, r, live)
+            for t, r in zip(tables, rows_list)]
 
 
 def scatter_tables_plain(tables: Sequence[torch.Tensor], idx: torch.Tensor,
-                         rows_list: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+                         rows_list: Sequence[torch.Tensor],
+                         live: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """scatter_rows_plain on every table of the list."""
-    return [scatter_rows_plain(t, idx, r) for t, r in zip(tables, rows_list)]
+    return [scatter_rows_plain(t, idx, r, live) for t, r in zip(tables, rows_list)]
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +333,7 @@ def scatter_tables_dma(tables: Sequence[torch.Tensor], idx: torch.Tensor,
     module docstring."""
     _check_tables("scatter_rows_dma", tables, idx, rows_list, live)
     if idx.device.type == "cpu":
-        return scatter_tables_dma_plain(tables, idx, rows_list)
+        return scatter_tables_dma_plain(tables, idx, rows_list, live)
     _launch_scatter("scatter_rows_dma", tables, idx, rows_list, live, None, 0)
     return list(tables)
 
@@ -379,7 +399,7 @@ def scatter_tables(tables: Sequence[torch.Tensor], idx: torch.Tensor,
     docstring."""
     _check_tables("scatter_rows", tables, idx, rows_list, live)
     if idx.device.type == "cpu":
-        return scatter_tables_plain(tables, idx, rows_list)
+        return scatter_tables_plain(tables, idx, rows_list, live)
     with torch.cuda.device(idx.device):
         winner, tag = _winner_for(idx.device, max(t.shape[0] for t in tables))
     _launch_scatter("scatter_rows", tables, idx, rows_list, live, winner, tag)

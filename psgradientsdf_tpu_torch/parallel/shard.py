@@ -283,7 +283,7 @@ def sharded_tracker_fn(
             return S[6, 6], S[:6, 6], S[:6, :6], S[7, 7]
 
         init_pose = torch.as_tensor(init_pose, dtype=torch.float32, device=first)
-        pose, conv, fail, E_mean, count, iters = run_gn_rounds(
+        pose, conv, fail, E_mean, count, iters, _ = run_gn_rounds(
             geom, gather_records, masked_gram, init_pose,
             num_iterations=num_iterations, conv_threshold_sq=conv_threshold_sq,
             damping=damping, regather_every=regather_every, early_exit=early_exit)

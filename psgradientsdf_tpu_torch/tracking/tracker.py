@@ -29,6 +29,7 @@ from psgradientsdf_tpu_torch import resolve_device
 from psgradientsdf_tpu_torch.core.grid import GridGeometry
 from psgradientsdf_tpu_torch.core.volume import (
     GradSdfVolume,
+    PackedVolume,
     pack_tracking_payload,
     sdf_query,
     sdf_records_packed,
@@ -86,14 +87,21 @@ def run_gn_rounds(
     damping: float,
     regather_every: int = 1,
     early_exit: bool = True,
+    records_flagged: bool = False,
 ):
     """The frozen-correspondence GN loop.
 
     gather_records(pose) -> rec (opaque tuple of frozen correspondences);
     masked_gram(pose, rec) -> (E, g[6], H[6,6], count).
 
-    Returns (pose, converged, failed, E_mean, count, iters).  See track_frame
-    for the semantics of rounds / freshness / trust region.
+    With records_flagged=True, gather_records returns (rec, flag) and the
+    loop ORs the flag of every round it runs into the returned `flag` (the
+    resident tracker's exactness bit, core/resident.py): under early_exit
+    the rounds after the exit are run masked and their flags left out, as
+    the JAX package's while loop never runs them.
+
+    Returns (pose, converged, failed, E_mean, count, iters, flag).  See
+    track_frame for the semantics of rounds / freshness / trust region.
     """
     dev = init_pose.device
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
@@ -156,14 +164,20 @@ def run_gn_rounds(
             iters + counted.to(torch.int32),
         )
 
-    def round_body(carry):
+    def round_body(carry, flag):
         """One gather + `regather_every` frozen GN steps."""
-        rec = gather_records(carry[0])
+        if records_flagged:
+            rec, rflag = gather_records(carry[0])
+            if early_exit:
+                rflag = rflag & ((carry[6] < num_iterations) & ~carry[1] & ~carry[2])
+            flag = flag | rflag
+        else:
+            rec = gather_records(carry[0])
         carry = gn_step(carry, rec, fresh=True)
         for _ in range(regather_every - 1):
             carry = gn_step(carry, rec, fresh=False)
         # clear the round-local stall flag
-        return carry[:3] + (false,) + carry[4:]
+        return carry[:3] + (false,) + carry[4:], flag
 
     carry = (
         init_pose,
@@ -174,11 +188,12 @@ def run_gn_rounds(
         torch.zeros((), dtype=torch.int32, device=dev),
         torch.zeros((), dtype=torch.int32, device=dev),
     )
+    flag = false
     if early_exit:
         # every active round consumes at least its fresh iteration, so
         # num_iterations rounds always exhaust the budget
         for r in range(num_iterations):
-            carry = round_body(carry)
+            carry, flag = round_body(carry, flag)
             if (r + 1) % POLL_EVERY == 0 and r + 1 < num_iterations:
                 done = (carry[6] >= num_iterations) | carry[1] | carry[2]
                 if bool(done):          # the one host read per poll
@@ -190,9 +205,9 @@ def run_gn_rounds(
         # finishes early at the stalled iterate.  Nothing is read back.
         n_rounds = -(-num_iterations // regather_every)
         for _ in range(n_rounds):
-            carry = round_body(carry)
+            carry, flag = round_body(carry, flag)
     pose, conv, fail, _, E_mean, count, iters = carry
-    return pose, conv, fail, E_mean, count, iters
+    return pose, conv, fail, E_mean, count, iters, flag
 
 
 def camera_points(depth: torch.Tensor, K: torch.Tensor, stride: int,
@@ -233,7 +248,7 @@ def gram(pts_cam: torch.Tensor, pose: torch.Tensor, rec) -> torch.Tensor:
 
 
 def track_frame(
-    vol: GradSdfVolume,
+    vol,                  # GradSdfVolume or PackedVolume
     geom: GridGeometry,
     depth,                # [H,W]
     K,                    # [3,3]
@@ -264,7 +279,11 @@ def track_frame(
     itself piecewise-linear in p with pieces = nearest-voxel cells
     (VolumetricGradSdf.h:76-87), a frozen iteration is EXACT whenever no
     pixel's nearest voxel changes within the round.  R=1 reproduces the
-    reference's semantics."""
+    reference's semantics.
+
+    `vol` is a GradSdfVolume or a PackedVolume; the solve is the same bit
+    for bit, but a PackedVolume's payload IS the tracker's [V,8] record
+    table, where a GradSdfVolume has one built (pack_tracking_payload)."""
     dev = resolve_device(device)
     depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
     K = torch.as_tensor(K, dtype=torch.float32, device=dev)
@@ -275,8 +294,13 @@ def track_frame(
         depth = depth[::stride, ::stride]
     pts_cam, valid_z = camera_points(depth, K, stride, zmin, zmax)
 
-    # one row-gatherable [V,8] (dist, grad, weight) table
-    payload = pack_tracking_payload(vol)
+    # one row-gatherable [V,8] (dist, grad, weight) table: a PackedVolume
+    # stores its float state in exactly this layout (slots 5:8, its colour,
+    # are never read), a GradSdfVolume pays one concatenation per call
+    if isinstance(vol, PackedVolume):
+        payload = vol.payload.view(-1, 8)
+    else:
+        payload = pack_tracking_payload(vol)
 
     def gather_records(pose):
         """The hot gather: per-pixel nearest-voxel records at `pose`.
@@ -294,7 +318,7 @@ def track_frame(
         S = gram(pts_cam, pose, rec)
         return S[6, 6], S[:6, 6], S[:6, :6], S[7, 7]
 
-    pose, conv, fail, E_mean, count, iters = run_gn_rounds(
+    pose, conv, fail, E_mean, count, iters, _ = run_gn_rounds(
         geom, gather_records, masked_gram, init_pose,
         num_iterations=num_iterations, conv_threshold_sq=conv_threshold_sq,
         damping=damping, regather_every=regather_every, early_exit=early_exit,

@@ -33,7 +33,7 @@ def test_import_brings_in_no_jax_and_builds_nothing():
     mods = _modules()
     assert len(mods) > 25 and "psgradientsdf_tpu_torch.ops.rowcopy" in mods
     for new in ("native", "io.png", "io.checkpoint", "parallel.refine",
-                "parallel.distributed"):
+                "parallel.distributed", "core.resident"):
         assert "psgradientsdf_tpu_torch." + new in mods
     code = (
         "import importlib, os, sys\n"

@@ -357,6 +357,47 @@ def test_multi_table_wrappers_take_a_live_count():
             np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("past_live", ["repeat_slot_0", "free"])
+def test_packed_width_with_live_against_pallas_and_numpy(past_live):
+    """The packed fusion's two tables (payload rows of 1024 floats beside a
+    128-wide int32 visibility word) with its index vector: ascending
+    distinct rows, then padding that repeats the first, and `live`.  The
+    gathers equal the TPU kernels and numpy; both scatters, and their plain
+    versions told `live`, write the live slots alone — whether the slots
+    past it repeat slot 0 (the fusion) or hold other rows (the resident
+    state's free slots, core/resident.py)."""
+    rng = np.random.default_rng(37)
+    specs = [(1024, np.float32), (128, np.int32)]
+    n, cap, live = 96, 40, 29
+    idx = np.sort(rng.permutation(n)[:cap]).astype(np.int32)
+    idx[live:] = idx[0]
+    tables, rows = _lists(rng, n, cap, specs)
+    if past_live == "repeat_slot_0":
+        for r in rows:
+            r[live:] = r[0]
+    ti = torch.from_numpy(idx)
+    for name, jfn in (("gather_tables_dma", jrow.gather_rows_dma),
+                      ("gather_tables", jrow.gather_rows)):
+        got = getattr(trow, name)(_torch_copies(tables), ti)
+        for g, t in zip(got, tables):
+            np.testing.assert_array_equal(g.numpy(), t[idx])
+            np.testing.assert_array_equal(
+                g.numpy(), np.asarray(jfn(jnp.asarray(t), jnp.asarray(idx),
+                                          interpret=True)))
+    ref = _slot_order(tables, idx[:live], [r[:live] for r in rows])
+    pallas = [np.asarray(jrow.scatter_rows_dma(
+        jnp.asarray(t), jnp.asarray(idx[:live]), jnp.asarray(r[:live]),
+        interpret=True)) for t, r in zip(tables, rows)]
+    lv = torch.tensor(live, dtype=torch.int64)
+    for fn in (trow.scatter_tables_dma, trow.scatter_tables,
+               trow.scatter_tables_dma_plain, trow.scatter_tables_plain):
+        tt = _torch_copies(tables)
+        fn(tt, ti, _torch_copies(rows), live=lv)
+        for got, want, p in zip(tt, ref, pallas):
+            np.testing.assert_array_equal(got.numpy(), want)
+            np.testing.assert_array_equal(got.numpy(), p)
+
+
 @pytest.mark.parametrize("live,exc", [
     (torch.tensor(3, dtype=torch.int32), TypeError),
     (torch.tensor([3, 4], dtype=torch.int64), TypeError),
