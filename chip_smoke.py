@@ -45,10 +45,17 @@ With --profile two more phases trace a short scan, and two warm refinement
 iterations, with torch.profiler and print the card's busy share of each and
 the kernels that take the most device time.  The run is otherwise the same.
 
-With --kernels-only the run stops after the kernels phase (build, checks
-and times of the kernels, about fifteen seconds): a quick look at a changed
-kernel.  It drives no path, so it prints no final "ok" line and exits with 3.
-With --distributed-only it runs the kernels phase, then phase `distributed`
+Phase scan_kernels follows the kernels phase: the two kernels of the
+scan's jit-fused programs (the fusion update, one launch a fused frame, and
+the Gauss-Newton step, one launch a step) against their plain versions on
+the real rows and frames of the sequence, and 48 frames tracked through
+each; the scan phase then checks that every GN step and every update of the
+main run went through them.
+
+With --kernels-only the run stops after the kernels and scan_kernels phases
+(build, checks and times of the kernels): a quick look at a changed kernel.
+It drives no path, so it prints no final "ok" line and exits with 3.
+With --distributed-only it runs those phases, then phase `distributed`
 and the one-process runs it is held to, and exits with 3 the same way: on a
 machine of several cards the look at NCCL across cards.
 
@@ -147,9 +154,24 @@ KERNELS = {
     "scatter_rows": "psgradientsdf_tpu/ops/rowcopy.py:142",
 }
 SOURCE = "psgradientsdf_tpu_torch/csrc/rowcopy.cu"
+# the kernels of the scan's two jit-fused programs: wrapper -> (its source,
+# the JAX function it replaces, by file:line)
+SCAN_KERNELS = {
+    "gn_step": ("psgradientsdf_tpu_torch/csrc/gn.cu",
+                "psgradientsdf_tpu/tracking/tracker.py:112"),
+    "fuse_rows": ("psgradientsdf_tpu_torch/csrc/fuse.cu",
+                  "psgradientsdf_tpu/core/volume.py:104"),
+}
+# scan_kernels: one GN step's S against the plain Gram, relative to max|S|;
+# the tracked poses, kernel against plain (metres and radians); a plain step
+# norm this close to the threshold (relative) may end the solve one step
+# apart
+GN_S_TOL = 1e-5
+GN_POSE_TOL = 1e-5
+GN_EDGE = 0.01
 # everything the run builds: the CUDA kernels (nvcc) and the host libraries
-# of the PNG decoder and of the exports (g++)
-LIBRARIES = ("rowcopy", "png_unfilter", "mc")
+# of the PNG decoder and of the exports (g++), all started together
+LIBRARIES = ("rowcopy", "gn", "fuse", "png_unfilter", "mc")
 
 
 class SmokeFailure(Exception):
@@ -679,6 +701,256 @@ def check_packed_widths(rowcopy, gen, flush):
     return n_checked, widths
 
 
+# -------------------------------------------- the scan programs' two kernels
+
+
+def _reset_scan_counts():
+    """Launch counts of the scan's two program kernels, and the GN steps
+    track_frame ran, set to 0."""
+    from psgradientsdf_tpu_torch.ops import fuse, gn
+    from psgradientsdf_tpu_torch.tracking import tracker
+
+    gn.reset_launch_counts()
+    fuse.reset_launch_counts()
+    tracker.steps_run["track_frame"] = 0
+
+
+def _scan_counts():
+    from psgradientsdf_tpu_torch.ops import fuse, gn
+    from psgradientsdf_tpu_torch.tracking import tracker
+
+    return dict(gn.launch_counts, **fuse.launch_counts,
+                gn_steps_run=tracker.steps_run["track_frame"])
+
+
+def _fuse_capacity(geom):
+    """The pipeline's culled-fusion capacity at "fuse rows" 0.5."""
+    zy = geom.dims[2] * geom.dims[1]
+    return min(zy, max(256, -(-int(zy * 0.5) // 256) * 256))
+
+
+def _update_case(st, vol, layout, geom, truncation, f, flush):
+    """fuse_rows against its plain version on the rows frame f's cull
+    gathers from `vol` at its generating pose: bit for bit on the live
+    slots, the padding slots left as gathered -> dict."""
+    import torch
+    from psgradientsdf_tpu_torch.core import volume as V
+    from psgradientsdf_tpu_torch.ops import fuse as F, rowcopy
+
+    X, Y, Z = geom.dims
+    depth, K, pose = st["depths"][f], st["K"], st["gt"][f]
+    kz = dict(st["zkw"], truncation=truncation)
+    cap = _fuse_capacity(geom)
+    act = V._row_activity(geom, depth, K, pose, **kz)
+    idx, live, overflow = V._compact_padded(act.reshape(-1), cap)
+    check(not bool(overflow), f"frame {f} at {X}^3: the cull overflows {cap}")
+    word, bit = V._vis_word_bit(f)
+    if layout == "soa":
+        tables = [vol.dist.view(Z * Y, X), vol.grad.view(Z * Y, 3 * X),
+                  vol.weight.view(Z * Y, X), vol.color.view(Z * Y, 3 * X)]
+    else:
+        tables = [vol.payload.view(Z * Y, 8 * X)]
+    tables.append(vol.vis[word].view(Z * Y, X))
+    rows = rowcopy.gather_tables_dma(tables, idx)
+    pix = V.pack_pixel_payload(st["colors"][f], depth, st["normals"][f],
+                               st["n_sq_inv"])
+
+    def fields(r):
+        if layout == "soa":
+            return r[0], r[1].view(cap, X, 3), r[2], r[3].view(cap, X, 3), r[4]
+        r8 = r[0].view(cap, X, 8)
+        return r8[..., 0], r8[..., 1:4], r8[..., 4], r8[..., 5:8], r[1]
+
+    kw = dict(geom=geom, S=X, rows=idx, live=live, cos_thresh_sq=0.25 * 0.25, **kz)
+    got, want = [r.clone() for r in rows], [r.clone() for r in rows]
+    F.fuse_rows(*fields(got), pix, K, pose, tuple(depth.shape), bit, None, **kw)
+    F.fuse_rows_plain(*fields(want), pix, K, pose, tuple(depth.shape), bit,
+                      None, **kw)
+    _sync()
+    n = int(live)
+    for a, b, r in zip(got, want, rows):
+        check(_bits_equal(a[:n], b[:n]),
+              f"fuse_rows differs from its plain version: frame {f}, {X}^3, "
+              f"{layout}, by up to {_abs_err(a[:n], b[:n])}")
+        check(_bits_equal(a[n:], r[n:]), "fuse_rows wrote a padding slot")
+    out = dict(grid=X, frame=f, layout=layout, slots=cap, live_rows=n,
+               updated_voxels=int(((got[-1][:n] & bit) != 0).sum()),
+               bit_identical=True)
+    if DEVICE == "cuda":
+        H, W = depth.shape
+        # each live voxel reads and writes its 36 bytes of state, the pixel
+        # table is read at most once, the row ids once
+        out["bound_ms"] = (n * X * 72 + min(n * X, H * W) * 32 + cap * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        out["ms"] = _time_ms(lambda: F.fuse_rows(
+            *fields(got), pix, K, pose, (H, W), bit, None, **kw), flush)
+        out["plain_ms"] = _time_ms(lambda: F.fuse_rows_plain(
+            *fields(want), pix, K, pose, (H, W), bit, None, **kw), flush)
+        out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def _step_norms(grams, damping):
+    """||xi|| of every plain GN step, solved again in float64 from its Gram
+    (with gn_update's jitter)."""
+    out = []
+    for S in grams:
+        S = S.astype(np.float64)
+        H, g = S[:6, :6], S[:6, 6]
+        Hj = H + (1e-6 * np.trace(H) / 6.0 + 1e-12) * np.eye(6)
+        out.append(float(np.linalg.norm(damping * np.linalg.solve(Hj, g))))
+    return out
+
+
+def _rot_angle(a, b):
+    """Angle of the rotation between two poses' rotations (radians)."""
+    R = np.asarray(a, np.float64)[:3, :3] @ np.asarray(b, np.float64)[:3, :3].T
+    v = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return float(np.arcsin(min(1.0, np.linalg.norm(v) / 2)))
+
+
+def scan_kernels(tmp, seq):
+    """The two kernels of the scan's jit-fused programs against their plain
+    versions on the card, at the main path's shapes.
+    (a) fuse_rows against fuse_voxel_update on row_world_coords, bit for
+        bit on the live slots, on the real rows of frames 0 and 24 at 128^3
+        (frame 24 on the volume fused at the generating poses of frames
+        0-23) and of frame 0 at 512^3, in the SoA and the packed layout;
+        ms, plain_ms and bound_ms of each.
+    (b) gn_step from one carry: a fresh step that keeps its records, a
+        frozen step on them, and the Gram alone (gn_gram), each against the
+        plain Gram of the same pose and records: S within GN_S_TOL of
+        max|S|; the fresh step's ms, plain_ms and bound_ms.
+    (c) the FRAMES frames tracked on the volume fused at every generating
+        pose, each from the previous frame's generating pose: track_frame
+        (the kernel) against run_gn_rounds_plain: iterations equal except
+        on frames whose plain step norm lies within GN_EDGE of the
+        threshold (listed); the poses of the frames with equal iterations
+        within GN_POSE_TOL metres and radians.
+    Launches made here are on no path.  -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.core.grid import GridGeometry
+    from psgradientsdf_tpu_torch.ops import gn as G
+    from psgradientsdf_tpu_torch.tracking import tracker as T
+
+    st = _stream_setup(tmp, seq, FRAMES)
+    geom, zkw = st["geom"], st["zkw"]
+    flush = (torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+             if DEVICE == "cuda" else None)
+    facts = {"update": []}
+
+    # (a) the update
+    g0 = st["geom"]
+    big = GridGeometry(dims=(PACKED_BIG_GRID,) * 3,
+                       voxel_size=g0.voxel_size * g0.dims[0] / PACKED_BIG_GRID,
+                       shift=g0.shift)
+    t_big = st["truncation"] * g0.dims[0] / PACKED_BIG_GRID
+    for layout in ("soa", "packed"):
+        vol = _fresh(st, layout)
+        facts["update"].append(_update_case(st, vol, layout, geom,
+                                            st["truncation"], 0, flush))
+        vol = _gt_loop(st, range(24), layout, st["cap"])
+        facts["update"].append(_update_case(st, vol, layout, geom,
+                                            st["truncation"], 24, flush))
+        del vol
+        vol = _fresh(st, layout, big, t_big)
+        facts["update"].append(_update_case(st, vol, layout, big, t_big, 0, flush))
+        del vol
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+
+    # (b) one step from one carry
+    vol = _gt_loop(st, range(FRAMES), "soa", st["cap"])
+    f = 24
+    frame = G.GnFrame(geom, st["depths"][f], st["K"], stride=1,
+                      zmin=zkw["zmin"], zmax=zkw["zmax"], vol=vol)
+    seed = st["gt"][f - 1]
+    # every step active: no threshold to meet, budget to spare
+    active = dict(num_iterations=10 ** 6, conv_threshold_sq=0.0,
+                  damping=st["gn"]["damping"])
+    pts = frame.points()[0]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    carry = G.new_carry(seed)
+    recs = torch.empty((frame.n, 8), dtype=torch.float32, device=DEVICE)
+    G.gn_step(frame, carry, recs, fresh=True, **active)
+    S_fresh = G.gram_plain(pts, seed, G.frame_records(frame, seed))
+    pose1 = carry[:16].view(4, 4).clone()
+    S_frozen = G.gram_plain(pts, pose1, G.unpack_records(recs))
+    err = {"fresh": rel(carry[G.S0:].view(8, 8), S_fresh)}
+    ok_plain = G.frame_records(frame, seed)[3]
+    ok_differ = int((ok_plain != (recs[:, 7] != 0)).sum())
+    frozen = carry.clone()
+    G.gn_step(frame, frozen, recs, fresh=False, **active)
+    err["frozen"] = rel(frozen[G.S0:].view(8, 8), S_frozen)
+    err["gram"] = rel(G.gram(frame, pose1, recs), S_frozen)
+    for k, e in err.items():
+        check(e <= GN_S_TOL, f"gn {k} step: S differs by {e:.3g} of max|S|")
+    step = dict(frame=f, pixels=frame.n, valid_pixels=int(S_fresh[7, 7]),
+                relative_error=err, max_abs_err=float(
+                    (carry[G.S0:].view(8, 8) - S_fresh).abs().max()),
+                ok_flags_differing=ok_differ, tolerance=GN_S_TOL)
+    if DEVICE == "cuda":
+        idx, valid = geom.nearest_info(pts @ seed[:3, :3].T + seed[:3, 3])
+        X, Y = geom.dims[0], geom.dims[1]
+        lin = ((idx[..., 2] * Y + idx[..., 1]) * X + idx[..., 0])[valid]
+        distinct = int(torch.unique(lin).numel())
+        # the depth map once, each distinct voxel record once
+        step["distinct_records"] = distinct
+        step["bound_ms"] = (frame.n * 4 + distinct * 32) / HBM_BYTES_PER_S * 1e3
+        c_k, c_p = G.new_carry(seed), G.new_carry(seed)
+        step["ms"] = _time_ms(lambda: G.gn_step(frame, c_k, None, fresh=True,
+                                                **active), flush)
+        step["plain_ms"] = _time_ms(lambda: G.gn_step_plain(
+            frame, c_p, None, fresh=True, **active), flush)
+        step["share_of_bound"] = step["bound_ms"] / step["ms"]
+    facts["gn_step"] = step
+
+    # (c) the frames tracked, kernel against plain
+    gnkw = st["gn"]
+    thr = gnkw["conv_threshold_sq"] ** 0.5
+    per_frame, edge, checked = [], [], []
+    for f in range(FRAMES):
+        seed = st["gt"][max(f - 1, 0)]
+        grams = []
+        k = T.track_frame(vol, geom, st["depths"][f], st["K"], seed,
+                          device=DEVICE, **zkw, **gnkw)
+        p = T.run_gn_rounds_plain(vol, geom, st["depths"][f], st["K"], seed,
+                                  device=DEVICE, on_gram=grams.append,
+                                  **zkw, **gnkw)
+        norms = _step_norms(torch.stack(grams).cpu().numpy(), gnkw["damping"])
+        near = any(abs(n - thr) <= GN_EDGE * thr for n in norms)
+        pk, pp = k.pose.cpu().numpy(), p.pose.cpu().numpy()
+        row = dict(frame=f, iterations=[int(k.iterations), int(p.iterations)],
+                   converged=[bool(k.converged), bool(p.converged)],
+                   dt_m=float(np.abs(pk[:3, 3] - pp[:3, 3]).max()),
+                   dr_rad=_rot_angle(pk, pp), near_threshold=near)
+        per_frame.append(row)
+        if near:
+            edge.append(f)
+        if row["iterations"][0] != row["iterations"][1]:
+            check(near, f"frame {f}: {row['iterations'][0]} GN iterations on "
+                        f"the kernel, {row['iterations'][1]} plain")
+            continue
+        checked.append(f)
+        check(row["converged"][0] == row["converged"][1],
+              f"frame {f}: converged {row['converged']}")
+        check(row["dt_m"] <= GN_POSE_TOL and row["dr_rad"] <= GN_POSE_TOL,
+              f"frame {f}: poses differ by {row['dt_m']:.3g} m, "
+              f"{row['dr_rad']:.3g} rad")
+    facts["tracking"] = dict(
+        frames=FRAMES, frames_checked=len(checked), near_threshold_frames=edge,
+        iterations_differ=[r["frame"] for r in per_frame
+                           if r["iterations"][0] != r["iterations"][1]],
+        max_dt_m=max(per_frame[f]["dt_m"] for f in checked),
+        max_dr_rad=max(per_frame[f]["dr_rad"] for f in checked),
+        mean_iterations=float(np.mean([r["iterations"][0] for r in per_frame])),
+        tolerance=GN_POSE_TOL, per_frame=per_frame)
+    return facts
+
+
 # ----------------------------------------------------------------- the scan
 
 
@@ -731,17 +1003,20 @@ def run_scan(tmp, tag, seq, last, rows_impl, refine=None, grid=None,
         metrics=MetricsLogger(os.path.join(out_dir, "metrics.jsonl"), echo=False),
         device=DEVICE, rows_impl=rows_impl, **pipe_kw)
     rowcopy.reset_launch_counts()            # just before the path is driven
+    _reset_scan_counts()
     t0 = time.perf_counter()
     summary = pipe.run(refine=refine is not None)
     _sync()
     seconds = time.perf_counter() - t0
     counts = dict(rowcopy.launch_counts)     # and read just after
+    scan_counts = _scan_counts()
     with open(os.path.join(out_dir, "tracking_poses.txt")) as fh:
         pose_text = fh.read()
     with open(os.path.join(out_dir, "metrics.jsonl")) as fh:
         events = [json.loads(line) for line in fh]
-    return dict(pipe=pipe, summary=summary, counts=counts, seconds=seconds,
-                out_dir=out_dir, pose_text=pose_text, events=events)
+    return dict(pipe=pipe, summary=summary, counts=counts,
+                scan_counts=scan_counts, seconds=seconds, out_dir=out_dir,
+                pose_text=pose_text, events=events)
 
 
 def check_scan(run, seq, n_frames):
@@ -1952,6 +2227,7 @@ def profile_scan(tmp, seq, frames, plain_seconds):
         traced_scan_seconds=traced["summary"]["seconds"],
         device_busy_share=busy / plain_seconds,
         device_kernels=int(sum(r[1] for r in rows)),
+        device_ops_per_frame=int(sum(r[1] for r in rows)) / frames,
         top=[dict(name=k[:80], launches=c, device_ms=us * 1e-3)
              for us, c, k in rows[:12]])
 
@@ -2465,7 +2741,8 @@ def main():
     started = {name: kernels.start_build(name) for name in LIBRARIES}
     for name, job in started.items():
         kernels.finish_build(name, job)
-    kernels.load_library("rowcopy")
+    for name in ("rowcopy", "gn", "fuse"):
+        kernels.load_library(name)
     native.library(native.PNG_LIB)
     native.library(native.MC_LIB)
     rowcopy.gather_rows_dma(torch.zeros((2, 4), device="cuda"),
@@ -2480,11 +2757,14 @@ def main():
     emit("kernels", ok=True, cases_checked=n_checked, card=card,
          reps=KERNEL_REPS, times=times, shapes=shapes,
          packed_widths=packed_widths)
+    seq = make_sequence(FRAMES)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        scan_facts = scan_kernels(tmp, seq)
+    emit("scan_kernels", ok=True, card=card, reps=KERNEL_REPS, **scan_facts)
     if "--kernels-only" in sys.argv[1:]:
         return 3
     if "--distributed-only" in sys.argv[1:]:
         # the distributed phase and the one-process runs it is held to
-        seq = make_sequence(FRAMES)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             root = os.path.join(tmp, "tum")
             write_tum_dataset(root, *seq[:3])
@@ -2496,7 +2776,6 @@ def main():
         return 3
 
     # ---- the main path
-    seq = make_sequence(FRAMES)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         main_run = run_scan(tmp, "scan", seq, FRAMES - 1, "dma",
                             refine=REFINE_SH1)
@@ -2510,6 +2789,17 @@ def main():
                   f"{name}: {counts[name]} launches, expected 1 x {calls}")
         for name in ("gather_rows", "scatter_rows"):
             check(counts[name] == 0, f"{name} launched on the default path")
+        # every GN step a launch, every update a launch: the culled fusions
+        # and frame 0's fusion of the whole grid
+        scan_counts = main_run["scan_counts"]
+        check(scan_counts["gn_steps_run"] > 0 and scan_counts["gn_step"]
+              == _on_card(scan_counts["gn_steps_run"]),
+              f"gn_step: {scan_counts['gn_step']} launches, "
+              f"{scan_counts['gn_steps_run']} GN steps run")
+        check(scan_counts["fuse_rows"] == _on_card(calls + 1),
+              f"fuse_rows: {scan_counts['fuse_rows']} launches, expected "
+              f"{calls} culled fusions + 1")
+        check(scan_counts["gn_gram"] == 0, "gn_gram launched on the default path")
         emit("scan", ok=True, card=card, frames=FRAMES,
              seconds=main_run["summary"]["seconds"],
              frames_per_s=main_run["summary"]["fps"],
@@ -2521,7 +2811,7 @@ def main():
              keyframes=main_run["summary"]["keyframes"],
              overflow_redos=main_run["summary"]["overflow_redos"],
              fuse_capacity=main_run["summary"]["fuse_capacity"],
-             launches=counts, **facts)
+             launches=dict(counts, **scan_counts), **facts)
         emit("refine", ok=True, card=card,
              **check_refine(main_run, seq, MIN_PS_DROP))
 
@@ -2608,7 +2898,32 @@ def main():
         check(launches[name] > 0, f"{name} was never launched on its path")
     print(smi, flush=True)
     emit("total", seconds=time.perf_counter() - t_all)
+    # the scan programs' kernels: the main run's launches, the update's
+    # times on frame 24's rows at 128^3 (SoA), the GN step's on one fresh step
+    update = next(u for u in scan_facts["update"]
+                  if u["grid"] == GRID and u["frame"] == 24 and u["layout"] == "soa")
+    scan_rows = {
+        "gn_step": dict(scan_facts["gn_step"],
+                        work=f"one fresh GN step of frame 24: {W}x{H} pixels "
+                             "against the 128^3 SoA volume; the bound counts the "
+                             "depth map and each distinct voxel record once"),
+        "fuse_rows": dict(update, max_abs_err=0.0,
+                          work=f"frame 24's update at 128^3 on the gathered SoA "
+                               f"rows: {update['live_rows']} live rows of "
+                               f"{update['slots']} slots, 128 voxels a row; the "
+                               "bound counts 72 bytes a live voxel, the pixel "
+                               "table and the row ids once")}
+    for name in SCAN_KERNELS:
+        check(scan_counts[name] > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=SCAN_KERNELS[name][0],
+             replaces=SCAN_KERNELS[name][1], launches=scan_counts[name],
+             max_abs_err=scan_rows[name]["max_abs_err"],
+             ms=scan_rows[name]["ms"], plain_ms=scan_rows[name]["plain_ms"],
+             bound_ms=scan_rows[name]["bound_ms"], bound_by="bytes",
+             library_ms=None, library_note="no single PyTorch call computes it",
+             work=scan_rows[name]["work"])
+        for name in SCAN_KERNELS] + [
         dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
              launches=launches[name], max_abs_err=worst[name],
              ms=times[name]["ms"], plain_ms=times[name]["plain_ms"],

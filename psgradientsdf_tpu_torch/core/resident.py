@@ -72,18 +72,16 @@ from psgradientsdf_tpu_torch.core.grid import GridGeometry
 from psgradientsdf_tpu_torch.core.volume import (
     PackedVolume,
     _check_rows_impl,
-    _fuse_voxel_update,
     _gather,
     _on,
     _gate_tensor,
     _row_activity,
-    _row_world_coords,
     _scatter,
     _vis_word_bit,
     compact_active,
     pack_pixel_payload,
 )
-from psgradientsdf_tpu_torch.ops import rowcopy
+from psgradientsdf_tpu_torch.ops import fuse, rowcopy
 
 FLAG_CAPACITY = 1      # resident row capacity exhausted
 FLAG_DELTA = 2         # per-frame delta capacity exhausted
@@ -348,12 +346,12 @@ def fuse_frame_resident(
     device=None,
 ) -> ResidentVolume:
     """One frame fused IN PLACE on the resident rows: the exact per-voxel
-    update (the shared _fuse_voxel_update, on voxel centres from the shared
-    _row_world_coords, so it is the canonical fusion's bit for bit on the
-    resident rows), gated per slot by this frame's level-1 cull.  An active
-    row that is not resident raises FLAG_COVERAGE (the update is incomplete;
-    the caller must redo on the canonical path).  No row moves; the
-    fused_ever ledger gains the rows whose update stored weight."""
+    update (the shared ops/fuse.fuse_rows over every slot, so it is the
+    canonical fusion's bit for bit on the resident rows), gated per slot by
+    this frame's level-1 cull.  An active row that is not resident raises
+    FLAG_COVERAGE (the update is incomplete; the caller must redo on the
+    canonical path).  No row moves; the fused_ever ledger gains the rows
+    whose update stored weight."""
     dev = resolve_device(device)
     color, depth, normals, n_sq_inv, K, pose = _on(
         dev, color, depth, normals, n_sq_inv, K, pose)
@@ -375,17 +373,15 @@ def fuse_frame_resident(
     row_gate = (slot_act & (slot_rows < NSEG))[:, None]
 
     pixp = pack_pixel_payload(color, depth, normals, n_sq_inv)
-    p_w = _row_world_coords(geom, torch.clamp(res.slot_rows, max=NSEG - 1),
-                            None, S, X // S)
     word, bit = _vis_word_bit(frame_idx)
     rows = res.rows.view(CAPR, S, 8)
-    nd, ng, nw, nc, vis_or = _fuse_voxel_update(
-        p_w, rows[..., 0], rows[..., 1:4], rows[..., 4], rows[..., 5:8],
-        pixp, K, pose, tuple(depth.shape), bit, row_gate,
+    vis_or = torch.zeros((CAPR, S), dtype=torch.int32, device=dev)
+    fuse.fuse_rows(
+        rows[..., 0], rows[..., 1:4], rows[..., 4], rows[..., 5:8], vis_or,
+        pixp, K, pose, tuple(depth.shape), bit, row_gate, geom=geom, S=S,
+        NS=X // S, rows=torch.clamp(res.slot_rows, max=NSEG - 1),
         truncation=truncation, zmin=zmin, zmax=zmax,
-        cos_thresh_sq=cos_thresh_sq,
-    )
-    rows.copy_(torch.cat([nd[..., None], ng, nw[..., None], nc], dim=-1))
+        cos_thresh_sq=cos_thresh_sq)
     res.vis_rows[word] |= vis_or
 
     # the exact ledger: rows whose update stored weight this frame
@@ -444,29 +440,28 @@ def track_frame_resident(
     device=None,
 ):
     """track_frame against the resident rows (tracking/tracker.py semantics,
-    reads of the compact rows only).  Returns (TrackResult, miss) — miss is
+    reads of the compact rows only; the Gram through ops/gn.gram, one
+    launch a step on the card).  Returns (TrackResult, miss) — miss is
     the OR over every gather round's exactness flag (a bool tensor)."""
-    from psgradientsdf_tpu_torch.tracking.tracker import (
-        TrackResult, camera_points, gram, run_gn_rounds,
-    )
+    from psgradientsdf_tpu_torch.ops import gn
+    from psgradientsdf_tpu_torch.tracking.tracker import TrackResult, run_gn_rounds
 
     dev = resolve_device(device)
     depth, K, init_pose = _on(dev, depth, K, init_pose)
-    if stride > 1:
-        depth = depth[::stride, ::stride]
-    pts_cam, valid_z = camera_points(depth, K, stride, zmin, zmax)
+    frame = gn.GnFrame(geom, depth[::stride, ::stride], K, stride=stride,
+                       zmin=zmin, zmax=zmax)
 
     def gather_records(pose):
+        pts_cam, valid_z = frame.points()
         R = pose[:3, :3]
         t = pose[:3, 3]
         p_w = pts_cam @ R.T + t
         d, ghat, c_v, w, valid, miss_px = resident_records(res, geom, p_w)
         ok = valid & (w > 0.0) & valid_z
-        return (d, ghat, c_v, ok), (miss_px & valid_z).any()
+        return gn.pack_records(d, ghat, c_v, ok), (miss_px & valid_z).any()
 
     def masked_gram(pose, rec):
-        S_ = gram(pts_cam, pose, rec)
-        return S_[6, 6], S_[:6, 6], S_[:6, :6], S_[7, 7]
+        return gn.split_gram(gn.gram(frame, pose, rec))
 
     pose, conv, fail, E_mean, count, iters, miss = run_gn_rounds(
         geom, gather_records, masked_gram, init_pose,

@@ -21,7 +21,10 @@ to the nearest pixel, gate (z-range / fusion weight / normal validity /
 viewing angle), then masked running-mean updates.  `fuse_frame_culled` does
 the same on the rows that survive a conservative cull, moving their state
 rows with the row-copy kernels (ops/rowcopy.py); `fuse_frames_culled` fuses
-K frames at given poses with one row move for the batch.
+K frames at given poses with one row move for the batch.  Every path runs
+the update itself through ops/fuse.fuse_rows, in place on rows of state: one
+kernel launch a frame on the card (csrc/fuse.cu), the plain PyTorch version
+on the CPU.
 
 `PackedVolume` holds the same state as one [Z,Y,X,8] payload (dist, grad,
 weight, colour) beside the visibility words: the layout the tracker reads
@@ -40,7 +43,9 @@ import torch
 
 from psgradientsdf_tpu_torch import device_constant, resolve_device
 from psgradientsdf_tpu_torch.core.grid import GridGeometry
-from psgradientsdf_tpu_torch.ops import rowcopy
+from psgradientsdf_tpu_torch.ops import fuse, rowcopy
+# fusion_weight stays importable from here, beside the volume it weighs
+from psgradientsdf_tpu_torch.ops.fuse import fusion_weight, rot_apply  # noqa: F401
 
 ROWS_IMPLS = ("dma", "staged", "plain")
 
@@ -72,15 +77,6 @@ def make_volume(geom: GridGeometry, truncation: float, frame_cap: int = 256,
     )
 
 
-def fusion_weight(sdf: torch.Tensor, T: float) -> torch.Tensor:
-    """Asymmetric fusion weight (Sdf.h:48-66): 1 in front of the surface
-    (sdf >= 0), linear ramp 1 + sdf/T on [-T, 0), 0 behind."""
-    one = torch.ones_like(sdf)
-    return torch.where(
-        sdf >= 0.0, one,
-        torch.where(sdf >= -T, 1.0 + sdf / T, torch.zeros_like(sdf)))
-
-
 def _vis_word_bit(frame_idx: int) -> Tuple[int, int]:
     """(word, bit value as an int32 bit pattern) for a frame's visibility
     bit; bit 31 is the sign bit of the int32 word."""
@@ -90,101 +86,6 @@ def _vis_word_bit(frame_idx: int) -> Tuple[int, int]:
     if b == 31:
         bit -= 1 << 32
     return frame_idx // 32, bit
-
-
-def _rot_apply(R: torch.Tensor, x, y, z, transpose: bool):
-    """(R or R^T) applied to the vector field (x, y, z), written out as
-    multiply-adds in a fixed order so every caller and every device rounds
-    alike (no library matrix product on the fusion path)."""
-    if transpose:
-        return (R[0, 0] * x + R[1, 0] * y + R[2, 0] * z,
-                R[0, 1] * x + R[1, 1] * y + R[2, 1] * z,
-                R[0, 2] * x + R[1, 2] * y + R[2, 2] * z)
-    return (R[0, 0] * x + R[0, 1] * y + R[0, 2] * z,
-            R[1, 0] * x + R[1, 1] * y + R[1, 2] * z,
-            R[2, 0] * x + R[2, 1] * y + R[2, 2] * z)
-
-
-def _fuse_voxel_update(
-    p_w: torch.Tensor,        # [...,3] voxel-center world coords
-    dist: torch.Tensor,       # [...] current state (same leading shape)
-    grad: torch.Tensor,       # [...,3]
-    weight: torch.Tensor,     # [...]
-    color_v: torch.Tensor,    # [...,3]
-    pix_payload: torch.Tensor,  # [H*W,8] packed (depth, normal, color, nsq)
-    K: torch.Tensor,
-    pose: torch.Tensor,
-    img_hw: Tuple[int, int],
-    bit: int,                 # visibility bit value (int32 bit pattern)
-    gate: Optional[torch.Tensor],
-    *,
-    truncation: float,
-    zmin: float,
-    zmax: float,
-    cos_thresh_sq: float,
-):
-    """The per-voxel fusion update (VolumetricGradSdf.cpp:78-134) on an
-    arbitrary-shaped batch of voxels — shared verbatim by the full-grid
-    function (fuse_frame) and the row-culled one (fuse_frame_culled), so the
-    two are arithmetically identical by construction.
-
-    Returns (new_dist, new_grad, new_weight, new_color, vis_or [int32])."""
-    H, W = img_hw
-    fx, fy = K[0, 0], K[1, 1]
-    cx, cy = K[0, 2], K[1, 2]
-    R = pose[:3, :3]
-    t = pose[:3, 3]
-
-    d = p_w - t
-    pcx, pcy, pz = _rot_apply(R, d[..., 0], d[..., 1], d[..., 2], transpose=True)
-    in_front = pz > 0.0
-
-    safe_z = torch.where(in_front, pz, torch.ones_like(pz))
-    # nearest-pixel projection with +0.5 rounding via int cast
-    # (VolumetricGradSdf.cpp:87-88 static_cast<int> truncates toward zero,
-    # which accepts the [-0.5, 0) sliver as pixel 0 — floor would not)
-    u = (cx + fx * pcx / safe_z + 0.5).to(torch.int32)
-    v = (cy + fy * pcy / safe_z + 0.5).to(torch.int32)
-    in_img = (u >= 0) & (u < W) & (v >= 0) & (v < H)
-    uc = torch.clamp(u, 0, W - 1)
-    vc = torch.clamp(v, 0, H - 1)
-
-    # all eight per-pixel quantities ride ONE row gather of a packed payload
-    rows = pix_payload[(vc * W + uc).long()]            # [...,8]
-    z = rows[..., 0]
-    n_img = rows[..., 1:4]
-    col = rows[..., 4:7]
-    nsq = rows[..., 7]
-
-    z_ok = (z > zmin) & (z < zmax)
-
-    sdf = z - pz
-    w = fusion_weight(sdf, truncation)
-
-    nx, ny, nz = n_img[..., 0], n_img[..., 1], n_img[..., 2]
-    n_valid = (nx * nx + ny * ny + nz * nz) >= 0.1
-
-    # viewing-angle gate: cos^2(angle between normal and ray) >= cos_thresh_sq
-    # (VolumetricGradSdf.cpp:114-116)
-    ndot = nx * (pcx / safe_z) + ny * (pcy / safe_z) + nz * (pz / safe_z)
-    angle_ok = ndot * ndot * nsq >= cos_thresh_sq
-
-    mask = in_front & in_img & z_ok & (w > 0.0) & n_valid & angle_ok
-    if gate is not None:
-        mask = mask & gate
-    wm = torch.where(mask, w, torch.zeros_like(w))
-
-    new_weight = weight + wm
-    safe_W = torch.clamp(new_weight, min=1e-12)
-    tr_sdf = torch.clamp(sdf, -truncation, truncation)
-    new_dist = dist + (tr_sdf - dist) * wm / safe_W
-    # normals are inward-pointing -> accumulate -w * R * n (cpp:123)
-    nwx, nwy, nwz = _rot_apply(R, nx, ny, nz, transpose=False)
-    n_world = torch.stack([nwx, nwy, nwz], dim=-1)
-    new_grad = grad - wm[..., None] * n_world
-    new_color = color_v + (col - color_v) * (wm / safe_W)[..., None]
-    vis_or = mask.to(torch.int32) * bit
-    return new_dist, new_grad, new_weight, new_color, vis_or
 
 
 def pack_pixel_payload(color, depth, normals, n_sq_inv) -> torch.Tensor:
@@ -234,27 +135,26 @@ def fuse_frame(
     host having to read the flag.  A slab (`vol` of Zl planes, the dense
     path of parallel/shard.sharded_fuse_frame) names the global planes it
     holds: z0 + [0, Zl) for a contiguous slab, `z_map` [Zl] for an
-    interleaved one."""
+    interleaved one.
+
+    The update runs in place on a clone, a grid row a slot, through the
+    fusion kernel (ops/fuse.fuse_rows)."""
     dev = resolve_device(device)
     color, depth, normals, n_sq_inv, K, pose = _on(
         dev, color, depth, normals, n_sq_inv, K, pose)
     gate = _gate_tensor(gate, dev)
-    H, W = depth.shape
     pix_payload = pack_pixel_payload(color, depth, normals, n_sq_inv)
-    p_w = geom.world_coords(dev, _slab_planes(vol.dist.shape[0], z0, z_map, dev))
-
+    X, Y = geom.dims[0], geom.dims[1]
+    nseg = vol.dist.shape[0] * Y
     word, bit = _vis_word_bit(frame_idx)
-    new_dist, new_grad, new_weight, new_color, vis_or = _fuse_voxel_update(
-        p_w, vol.dist, vol.grad, vol.weight, vol.color, pix_payload, K, pose,
-        (H, W), bit, gate,
-        truncation=truncation, zmin=zmin, zmax=zmax,
-        cos_thresh_sq=cos_thresh_sq,
-    )
-    new_vis = vol.vis.clone()
-    new_vis[word] |= vis_or
-    return GradSdfVolume(
-        dist=new_dist, grad=new_grad, weight=new_weight, color=new_color,
-        vis=new_vis)
+    new = vol.clone()
+    fuse.fuse_rows(
+        new.dist.view(nseg, X), new.grad.view(nseg, X, 3),
+        new.weight.view(nseg, X), new.color.view(nseg, X, 3),
+        new.vis[word].view(nseg, X), pix_payload, K, pose, tuple(depth.shape),
+        bit, gate, geom=geom, S=X, z0=z0, z_map=z_map, truncation=truncation,
+        zmin=zmin, zmax=zmax, cos_thresh_sq=cos_thresh_sq)
+    return new
 
 
 def _slab_planes(z_rows: int, z0: Optional[int], z_map: Optional[torch.Tensor],
@@ -334,7 +234,7 @@ def _row_activity(
         px = (origin[0] + h * x_idx).expand(z_rows, Y, NS)
         py = (origin[1] + h * yi).expand(z_rows, Y, NS)
         pz_w = (origin[2] + h * zi).expand(z_rows, Y, NS)
-        return _rot_apply(R, px - t[0], py - t[1], pz_w - t[2], transpose=True)
+        return rot_apply(R, px - t[0], py - t[1], pz_w - t[2], transpose=True)
 
     sx = torch.arange(NS, **f32)[None, None, :] * S
     p0x, p0y, pz0 = endpoint_cam(sx)
@@ -485,37 +385,6 @@ def _compact_padded(active_flat: torch.Tensor, capacity: int):
             torch.clamp(n_active, min=1), n_active > capacity)
 
 
-def _row_world_coords(geom: GridGeometry, safe_rows: torch.Tensor,
-                      z0: Optional[int], S: int, NS: int,
-                      z_map: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """World coordinates [CAP,S,3] of the voxels of compacted rows (or
-    S-voxel X-segments, NS of them a row): the index arithmetic every culled
-    path shares, so that all of them round the voxel centres alike.  Row r
-    of a slab lies on its local plane r // (Y*NS): global plane z0 + local
-    (a contiguous slab; z0 None: the whole grid) or z_map[local] (an
-    interleaved one)."""
-    dev = safe_rows.device
-    Y = geom.dims[1]
-    cap = safe_rows.shape[0]
-    origin = geom.origin_tensor(dev)
-    h = geom.voxel_size
-    rz_l = torch.div(safe_rows, Y * NS, rounding_mode="floor")   # slab-local z
-    if z_map is not None:
-        rz = z_map[torch.clamp(rz_l, max=z_map.shape[0] - 1).long()].to(torch.float32)
-    else:
-        rz = rz_l.to(torch.float32)
-        if z0 is not None:
-            rz = rz + float(z0)
-    ry = (torch.div(safe_rows, NS, rounding_mode="floor") % Y).to(torch.float32)
-    rx0 = (safe_rows % NS).to(torch.float32) * S            # segment x origin
-    rx = rx0[:, None] + torch.arange(S, dtype=torch.float32, device=dev)[None, :]
-    return torch.stack(
-        [origin[0] + h * rx,
-         (origin[1] + h * ry)[:, None].expand(cap, S),
-         (origin[2] + h * rz)[:, None].expand(cap, S)],
-        dim=-1)
-
-
 def fuse_frame_culled(
     vol: GradSdfVolume,
     geom: GridGeometry,
@@ -626,7 +495,9 @@ def _fuse_culled_slab(
 ) -> Tuple[GradSdfVolume, torch.Tensor]:
     """Level 2 of the culled fusion on a Z-slab, IN PLACE on `vol`: compact
     the active rows (or S-voxel X-segments) to the static capacity, gather
-    their state rows, run the exact per-voxel update, scatter them back.
+    their state rows, run the exact per-voxel update on them in place
+    (ops/fuse.fuse_rows: one kernel launch on the card, the live slots
+    only), scatter them back.
     Shared by the single-device fuse_frame_culled (z0=None, z_rows=Z) and
     the per-slab body of parallel/shard.py.  The slab's tables are views of
     its own contiguous storage, and the row indices are local to it."""
@@ -648,22 +519,12 @@ def _fuse_culled_slab(
 
     tables = [t_dist, t_grad, t_weight, t_color, t_vis]
     d_r, g_r, w_r, c_r, vw_r = _gather(tables, safe_rows, rows_impl)
-    g_r = g_r.view(row_capacity, S, 3)
-    c_r = c_r.view(row_capacity, S, 3)
-
-    p_w = _row_world_coords(geom, safe_rows, z0, S, NS, z_map)
-
-    nd, ng, nw, nc, vis_or = _fuse_voxel_update(
-        p_w, d_r, g_r, w_r, c_r, pix_payload, K, pose, (H, W), bit, gate,
-        truncation=truncation, zmin=zmin, zmax=zmax,
-        cos_thresh_sq=cos_thresh_sq,
-    )
-    nvw = vw_r | vis_or
-
-    _scatter(
-        tables, safe_rows,
-        [nd, ng.reshape(row_capacity, S * 3), nw,
-         nc.reshape(row_capacity, S * 3), nvw], live, rows_impl)
+    fuse.fuse_rows(
+        d_r, g_r.view(row_capacity, S, 3), w_r, c_r.view(row_capacity, S, 3),
+        vw_r, pix_payload, K, pose, (H, W), bit, gate, geom=geom, S=S, NS=NS,
+        rows=safe_rows, live=live, z0=z0, z_map=z_map, truncation=truncation,
+        zmin=zmin, zmax=zmax, cos_thresh_sq=cos_thresh_sq)
+    _scatter(tables, safe_rows, [d_r, g_r, w_r, c_r, vw_r], live, rows_impl)
     return vol, overflow
 
 
@@ -675,10 +536,10 @@ class PackedVolume(NamedTuple):
                                  GradSdfVolume.vis)
 
     Slots 0, 1:4 and 4 line up with pack_tracking_payload's layout, so the
-    tracker reads `payload.view(-1, 8)` as its [V,8] record table with no
-    copy, where a GradSdfVolume has one built on every track_frame call;
-    sdf_records_packed reads slots 0:5 only, and slots 5:8 carry the running
-    mean colour.  A culled fusion moves one [S*8]-float row a row (or
+    tracker's plain version reads `payload.view(-1, 8)` as its [V,8] record
+    table with no copy, where a GradSdfVolume has one built a frame (the GN
+    kernel reads either layout's fields in place); sdf_records_packed reads
+    slots 0:5 only, and slots 5:8 carry the running mean colour.  A culled fusion moves one [S*8]-float row a row (or
     segment) in place of four tables.  Convert at phase boundaries (scan
     start, the hand-over to the refinement) with from_volume / to_volume;
     both copy, so the two states never share storage."""
@@ -728,11 +589,12 @@ def fuse_frame_culled_packed(
 ) -> Tuple[PackedVolume, torch.Tensor]:
     """fuse_frame_culled on PackedVolume state: the same level-1 cull, the
     same padding and the same per-voxel update (shared _row_activity,
-    _compact_padded, _row_world_coords, _fuse_voxel_update), so the volume
-    is fuse_frame_culled's bit for bit; but the level-2 move is ONE gather
+    _compact_padded, ops/fuse.fuse_rows), so the volume is
+    fuse_frame_culled's bit for bit; but the level-2 move is ONE gather
     call and ONE scatter call over two tables, the payload's [S*8]-float
-    rows and the frame's visibility word, and the tracking payload stays up
-    to date for free (see PackedVolume).
+    rows and the frame's visibility word, the update reads and writes the
+    gathered payload rows in place through their stride-8 fields, and the
+    tracking payload stays up to date for free (see PackedVolume).
 
     rows_impl, inplace, seg_x, device and the returned overflow flag are
     fuse_frame_culled's."""
@@ -753,17 +615,13 @@ def fuse_frame_culled_packed(
     word, bit = _vis_word_bit(frame_idx)
     tables = [pvol.payload.view(NSEG, S * 8), pvol.vis[word].view(NSEG, S)]
     rows, vw_r = _gather(tables, safe_rows, rows_impl)
-    rows = rows.view(cap, S, 8)
-    p_w = _row_world_coords(geom, safe_rows, None, S, NS)
-    nd, ng, nw, nc, vis_or = _fuse_voxel_update(
-        p_w, rows[..., 0], rows[..., 1:4], rows[..., 4], rows[..., 5:8],
-        pix_payload, K, pose, img_hw, bit, gate,
-        truncation=truncation, zmin=zmin, zmax=zmax,
-        cos_thresh_sq=cos_thresh_sq,
-    )
-    new_rows = torch.cat([nd[..., None], ng, nw[..., None], nc], dim=-1)
-    _scatter(tables, safe_rows, [new_rows.view(cap, S * 8), vw_r | vis_or],
-             live, rows_impl)
+    r8 = rows.view(cap, S, 8)
+    fuse.fuse_rows(
+        r8[..., 0], r8[..., 1:4], r8[..., 4], r8[..., 5:8], vw_r, pix_payload,
+        K, pose, img_hw, bit, gate, geom=geom, S=S, NS=NS, rows=safe_rows,
+        live=live, truncation=truncation, zmin=zmin, zmax=zmax,
+        cos_thresh_sq=cos_thresh_sq)
+    _scatter(tables, safe_rows, [rows, vw_r], live, rows_impl)
     return pvol, overflow
 
 
@@ -850,26 +708,19 @@ def fuse_frames_culled(
               vol.weight.view(NSEG, S), vol.color.view(NSEG, S * 3)]
     tables += [vol.vis[w].view(NSEG, S) for w in planes]
     rows = _gather(tables, safe_rows, rows_impl)
-    d, w = rows[0], rows[2]
     g, c = rows[1].view(cap, S, 3), rows[3].view(cap, S, 3)
-    p_w = _row_world_coords(geom, safe_rows, None, S, 1)
-
-    acc = [rows[4], rows[5] if len(planes) == 2 else None]
     for k in range(KF):
         word, bit = _vis_word_bit(fids[k])
         pixp = pack_pixel_payload(colors[k], depths[k], normals[k], n_sq_invs[k])
-        d, g, w, c, vis_or = _fuse_voxel_update(
-            p_w, d, g, w, c, pixp, K, poses[k], (H, W), bit,
-            None if gates is None else gates[k],
-            truncation=truncation, zmin=zmin, zmax=zmax,
-            cos_thresh_sq=cos_thresh_sq,
-        )
-        j = 0 if word == word_lo else 1
-        if acc[j] is not None:
-            acc[j] = acc[j] | vis_or
-    new_rows = [d, g.reshape(cap, S * 3), w, c.reshape(cap, S * 3)]
-    new_rows += acc[:len(planes)]
-    _scatter(tables, safe_rows, new_rows, live, rows_impl)
+        # frame k's bits go to the first word of the call or to the second
+        # (none when the volume has no second word)
+        j = 4 if word == word_lo else 5
+        fuse.fuse_rows(
+            rows[0], g, rows[2], c, rows[j] if j < len(rows) else None, pixp,
+            K, poses[k], (H, W), bit, None if gates is None else gates[k],
+            geom=geom, S=S, rows=safe_rows, live=live, truncation=truncation,
+            zmin=zmin, zmax=zmax, cos_thresh_sq=cos_thresh_sq)
+    _scatter(tables, safe_rows, rows, live, rows_impl)
     return vol, overflow | bad_words
 
 

@@ -1,7 +1,8 @@
 """Builds and loads the package's hand-written native code.
 
 Each source under csrc/ becomes a shared library with a plain C interface,
-loaded with ctypes: a CUDA source (.cu) is compiled with nvcc for sm_90a,
+loaded with ctypes: a CUDA source (.cu: the row copies, the Gauss-Newton
+step, the fusion update) is compiled with nvcc for sm_90a,
 a host C++ source (.cpp: the PNG unfilter, marching cubes and the PLY
 writers) with g++.  The build happens at first use, from the sources in this
 package and nothing else, into build/ beside them (ignored by git); the
@@ -36,6 +37,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+
+# the package's CUDA kernels, one source each (csrc/<name>.cu): the first of
+# them asked for starts nvcc on every one not yet built, all together
+CUDA_LIBRARIES = ("rowcopy", "gn", "fuse")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -138,11 +143,15 @@ def finish_build(name: str, started) -> str:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The ctypes library built from csrc/<name>.cu or .cpp (built on first
-    call)."""
+    call; a CUDA library's first call builds the other CUDA_LIBRARIES
+    beside it, one nvcc process a source)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            path = finish_build(name, start_build(name))
+            group = CUDA_LIBRARIES if name in CUDA_LIBRARIES else (name,)
+            started = {n: start_build(n) for n in group}
+            built = {n: finish_build(n, job) for n, job in started.items()}
+            path = built[name]
             try:
                 lib = ctypes.CDLL(path)
             except OSError as e:

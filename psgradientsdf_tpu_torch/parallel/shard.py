@@ -67,13 +67,9 @@ from psgradientsdf_tpu_torch.parallel.mesh import (
     local_map,
     reduce_to_first,
 )
+from psgradientsdf_tpu_torch.ops import gn
 from psgradientsdf_tpu_torch.refine.problem import RefineProblem
-from psgradientsdf_tpu_torch.tracking.tracker import (
-    TrackResult,
-    camera_points,
-    gram,
-    run_gn_rounds,
-)
+from psgradientsdf_tpu_torch.tracking.tracker import TrackResult, run_gn_rounds
 
 Replicated = Dict[torch.device, torch.Tensor]
 
@@ -245,12 +241,13 @@ def sharded_tracker_fn(
             if tuple(d.shape) != tuple(img_shape):
                 raise ValueError(f"depth {tuple(d.shape)}, tracker made for "
                                  f"{tuple(img_shape)}")
-        cams = {d: camera_points(depth[d], K[d], stride, zmin, zmax) for d in depth}
+        frames = {d: gn.GnFrame(geom, depth[d], K[d], stride=stride,
+                                zmin=zmin, zmax=zmax) for d in depth}
         payloads = local_map(pack_tracking_payload, svol.slabs)
 
         def gather_records(pose):
-            """Slab-local frozen records: shard k fetches records only for
-            the pixels whose nearest voxel lies in its slab (`in_slab`
+            """Slab-local frozen records [N,8]: shard k fetches records only
+            for the pixels whose nearest voxel lies in its slab (`in_slab`
             folds into ok)."""
             recs = []
             for k, dev in enumerate(devs):
@@ -258,7 +255,7 @@ def sharded_tracker_fn(
                     recs.append(dev)
                     continue
                 pose_k = pose.to(dev)
-                pts_cam, valid_z = cams[dev]
+                pts_cam, valid_z = frames[dev].points()
                 p_w = pts_cam @ pose_k[:3, :3].T + pose_k[:3, 3]
                 idx, valid = geom.nearest_info(p_w)
                 zi = idx[..., 2]
@@ -274,13 +271,16 @@ def sharded_tracker_fn(
                 ghat = g / torch.clamp(
                     torch.linalg.vector_norm(g, dim=-1, keepdim=True), min=1e-12)
                 ok = valid & in_slab & (rows[..., 4] > 0.0) & valid_z
-                recs.append((rows[..., 0], ghat, geom.voxel2world(idx), ok))
+                recs.append(gn.pack_records(rows[..., 0], ghat,
+                                            geom.voxel2world(idx), ok))
             return recs
 
         def masked_gram(pose, recs):
+            """Each shard's Gram (ops/gn.gram: one launch on a card), summed
+            onto the first device in shard order."""
             S = reduce_to_first(local_map(
-                lambda dev, rec: gram(cams[dev][0], pose.to(dev), rec), devs, recs))
-            return S[6, 6], S[:6, 6], S[:6, :6], S[7, 7]
+                lambda dev, rec: gn.gram(frames[dev], pose.to(dev), rec), devs, recs))
+            return gn.split_gram(S)
 
         init_pose = torch.as_tensor(init_pose, dtype=torch.float32, device=first)
         pose, conv, fail, E_mean, count, iters, _ = run_gn_rounds(

@@ -2,21 +2,29 @@
 
 Redesign of RigidPointOptimizer (cpp/include/sdf_tracker/
 RigidPointOptimizer.cpp:12-124).  The reference's serial per-pixel loop
-becomes dense tensor passes per GN iteration:
+becomes one pass over the pixels per GN step:
 
     per pixel: backproject -> world -> Gradient-SDF query psi, ghat
                J_xi = [ghat; p x ghat]
     reduce:    E = sum psi^2, g = sum psi*J, H = sum J J^T   (one masked
                8x8 Gram product)
+    solve:     6x6 Cholesky, the step rules, pose <- exp(-xi) pose
 
 with the reference's early exit (||xi||^2 < conv_threshold^2 checked *after*
 the solve, *before* the pose update — RigidPointOptimizer.cpp:66-74).
 
-Early exit in eager PyTorch: every GN step is masked once the solve has
-converged, failed or run out of budget, so extra rounds change nothing.  The
-loop therefore runs on the device without reading anything back and only
-POLLS the done flag every few rounds (one host read each); the results are
-the ones an exit right at the flag would give.
+track_frame runs each step through ops/gn.gn_step: ONE kernel launch a step
+on the card, the loop's carry (pose, flags, energy, counts) in a small
+device buffer; the plain PyTorch ops on the CPU.  run_gn_rounds is the same
+loop over callables in eager PyTorch: the plain version track_frame is held
+against (run_gn_rounds_plain), and the loop of the summed-Gram mesh tracker
+and of the resident tracker, whose Gram goes through ops/gn.gram.
+
+Early exit: every GN step is masked once the solve has converged, failed or
+run out of budget, so extra rounds change nothing.  The loop therefore runs
+on the device without reading anything back and only POLLS the done flag
+every few rounds (one host read each); the results are the ones an exit
+right at the flag would give.
 """
 
 from __future__ import annotations
@@ -27,17 +35,16 @@ import torch
 
 from psgradientsdf_tpu_torch import resolve_device
 from psgradientsdf_tpu_torch.core.grid import GridGeometry
-from psgradientsdf_tpu_torch.core.volume import (
-    GradSdfVolume,
-    PackedVolume,
-    pack_tracking_payload,
-    sdf_query,
-    sdf_records_packed,
-)
-from psgradientsdf_tpu_torch.utils import se3
+from psgradientsdf_tpu_torch.core.volume import GradSdfVolume, sdf_query
+from psgradientsdf_tpu_torch.ops import gn
 
 # rounds between two polls of the done flag under early_exit
 POLL_EVERY = 4
+
+# GN steps track_frame has run since the last reset, counted by the host
+# loop: on the card each is one ops/gn launch, so a run can hold the two
+# counts against each other
+steps_run = {"track_frame": 0}
 
 
 class TrackResult(NamedTuple):
@@ -104,81 +111,10 @@ def run_gn_rounds(
     track_frame for the semantics of rounds / freshness / trust region.
     """
     dev = init_pose.device
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    # trust region for frozen correspondences: a frozen step is only applied
-    # while it moves every point by well under a voxel (displacement bound
-    # ||v|| + lever * ||w||); larger steps end the round so the next gather
-    # refreshes the correspondences.  Valid points lie inside the grid, so
-    # the grid bounding sphere is the rotation lever.
-    lever = (
-        sum(s * s for s in geom.shift) ** 0.5
-        + 0.867 * max(geom.dims) * geom.voxel_size
-    )
+    consts = dict(num_iterations=num_iterations,
+                  conv_threshold_sq=conv_threshold_sq, damping=damping,
+                  lever=gn.trust_lever(geom), voxel_size=geom.voxel_size)
     false = torch.zeros((), dtype=torch.bool, device=dev)
-    true = torch.ones((), dtype=torch.bool, device=dev)
-
-    # GN step: updates are MASKED once converged/failed/out-of-budget (pose
-    # frozen at the first converged iterate, step not applied — matching the
-    # reference's return-before-update, RigidPointOptimizer.cpp:66-74).
-    #
-    # `fresh` marks the iteration right after a correspondence gather.
-    # GLOBAL convergence may only be declared on fresh iterations: a frozen
-    # round solves its piecewise-linear subproblem exactly, so a non-fresh
-    # ||xi|| ~ 0 merely says the *subproblem* is done ("stalled") — the next
-    # round regathers and re-checks against fresh correspondences.
-    def gn_step(carry, rec, fresh):
-        pose, conv, fail, stalled, E_mean, count, iters = carry
-        active = (~conv) & (~fail) & (~stalled) & (iters < num_iterations)
-        E, g, Hm, cnt = masked_gram(pose, rec)
-        fail_now = cnt < 0.5
-        # Gauss-Newton step via Cholesky (cpp:66); relative jitter guards
-        # PD-ness on degenerate scenes (the reference's bare llt would
-        # silently produce garbage there).
-        Hj = Hm + (1e-6 * torch.trace(Hm) / 6.0 + 1e-12) * eye6
-        chol, _ = torch.linalg.cholesky_ex(Hj)      # no error read-back
-        xi = damping * torch.cholesky_solve(g[:, None], chol)[:, 0]
-        small = torch.sum(xi * xi) < conv_threshold_sq
-        if fresh:
-            conv_now = small
-            stall_now = false
-            trust = true
-        else:
-            disp = (torch.linalg.vector_norm(xi[:3])
-                    + lever * torch.linalg.vector_norm(xi[3:]))
-            trust = disp < 0.25 * geom.voxel_size
-            conv_now = false
-            stall_now = small | ~trust
-        # converged -> keep pose (reference returns before applying the step)
-        step_ok = active & trust & ~(small | fail_now)
-        new_pose = torch.where(step_ok, se3.se3_exp(-xi) @ pose, pose)
-        # a stalling frozen iteration performs no reference-visible work:
-        # it does not consume GN budget
-        counted = active & ~stall_now
-        return (
-            new_pose,
-            torch.where(active, conv_now, conv),
-            torch.where(active, fail_now, fail),
-            torch.where(active, stall_now, stalled),
-            torch.where(counted, E / torch.clamp(cnt, min=1.0), E_mean),
-            torch.where(counted, cnt.to(torch.int32), count),
-            iters + counted.to(torch.int32),
-        )
-
-    def round_body(carry, flag):
-        """One gather + `regather_every` frozen GN steps."""
-        if records_flagged:
-            rec, rflag = gather_records(carry[0])
-            if early_exit:
-                rflag = rflag & ((carry[6] < num_iterations) & ~carry[1] & ~carry[2])
-            flag = flag | rflag
-        else:
-            rec = gather_records(carry[0])
-        carry = gn_step(carry, rec, fresh=True)
-        for _ in range(regather_every - 1):
-            carry = gn_step(carry, rec, fresh=False)
-        # clear the round-local stall flag
-        return carry[:3] + (false,) + carry[4:], flag
-
     carry = (
         init_pose,
         false,   # converged
@@ -189,62 +125,50 @@ def run_gn_rounds(
         torch.zeros((), dtype=torch.int32, device=dev),
     )
     flag = false
-    if early_exit:
-        # every active round consumes at least its fresh iteration, so
-        # num_iterations rounds always exhaust the budget
-        for r in range(num_iterations):
-            carry, flag = round_body(carry, flag)
-            if (r + 1) % POLL_EVERY == 0 and r + 1 < num_iterations:
-                done = (carry[6] >= num_iterations) | carry[1] | carry[2]
-                if bool(done):          # the one host read per poll
-                    break
-    else:
-        # fixed-trip: ceil(num/R) rounds exhaust the budget when no round
-        # stalls (always true at conv_threshold_sq=0); with a nonzero
-        # threshold a stalled round under-consumes budget and the solve
-        # finishes early at the stalled iterate.  Nothing is read back.
-        n_rounds = -(-num_iterations // regather_every)
-        for _ in range(n_rounds):
-            carry, flag = round_body(carry, flag)
+
+    def run_round():
+        """One gather + `regather_every` GN steps (gn.gn_update), then the
+        round-local stall flag cleared."""
+        nonlocal carry, flag
+        if records_flagged:
+            rec, rflag = gather_records(carry[0])
+            if early_exit:
+                rflag = rflag & ((carry[6] < num_iterations) & ~carry[1] & ~carry[2])
+            flag = flag | rflag
+        else:
+            rec = gather_records(carry[0])
+        for k in range(regather_every):
+            carry = gn.gn_update(carry, *masked_gram(carry[0], rec),
+                                 fresh=k == 0, **consts)
+        carry = carry[:3] + (false,) + carry[4:]
+
+    def done():
+        return bool((carry[6] >= num_iterations) | carry[1] | carry[2])
+
+    drive_rounds(run_round, done, num_iterations=num_iterations,
+                 regather_every=regather_every, early_exit=early_exit)
     pose, conv, fail, _, E_mean, count, iters = carry
     return pose, conv, fail, E_mean, count, iters, flag
 
 
-def camera_points(depth: torch.Tensor, K: torch.Tensor, stride: int,
-                  zmin: float, zmax: float):
-    """Back-projected pixels of a (sub-sampled) depth map -> (pts_cam [N,3],
-    valid_z [N] depth-range mask); `stride` restores the original pixel
-    coordinates of a map sub-sampled by it."""
-    dev = depth.device
-    H_img, W_img = depth.shape
-    fx, fy = K[0, 0], K[1, 1]
-    cx, cy = K[0, 2], K[1, 2]
-    cols = (torch.arange(W_img, dtype=torch.float32, device=dev) * stride)[None, :]
-    rows = (torch.arange(H_img, dtype=torch.float32, device=dev) * stride)[:, None]
-    x0 = (cols - cx) / fx
-    y0 = (rows - cy) / fy
-    z = depth
-    pts_cam = torch.stack([x0 * z, y0 * z, z], dim=-1).reshape(-1, 3)
-    valid_z = ((z > zmin) & (z < zmax)).reshape(-1)
-    return pts_cam, valid_z
-
-
-def gram(pts_cam: torch.Tensor, pose: torch.Tensor, rec) -> torch.Tensor:
-    """The masked 8x8 Gram product of frozen records (d, ghat, c_v, ok) at
-    `pose`: G rows = mask * [ghat(3), p x ghat(3), psi, 1]; S = G^T G packs
-    H = S[:6,:6], g = S[:6,6], E = S[6,6], count = S[7,7]."""
-    d, ghat, c_v, ok = rec
-    R = pose[:3, :3]
-    t = pose[:3, 3]
-    p_w = pts_cam @ R.T + t
-    psi = d + torch.sum(ghat * (c_v - p_w), dim=-1)
-    mf = ok.to(psi.dtype)
-    G = torch.cat(
-        [ghat, torch.linalg.cross(p_w, ghat), psi[:, None],
-         torch.ones_like(psi)[:, None]],
-        dim=-1,
-    ) * mf[:, None]
-    return G.T @ G
+def drive_rounds(run_round, done, *, num_iterations: int, regather_every: int,
+                 early_exit: bool) -> None:
+    """The round loop of every tracker.  early_exit: up to num_iterations
+    rounds (every active round consumes at least its fresh iteration, so
+    that many always exhaust the budget), `done()` — the one host read —
+    polled every POLL_EVERY rounds.  Otherwise fixed-trip: ceil(num/R)
+    rounds exhaust the budget when no round stalls (always true at
+    conv_threshold_sq=0); with a nonzero threshold a stalled round
+    under-consumes budget and the solve finishes early at the stalled
+    iterate.  Nothing is read back."""
+    if early_exit:
+        for r in range(num_iterations):
+            run_round()
+            if (r + 1) % POLL_EVERY == 0 and r + 1 < num_iterations and done():
+                break
+    else:
+        for _ in range(-(-num_iterations // regather_every)):
+            run_round()
 
 
 def track_frame(
@@ -282,54 +206,87 @@ def track_frame(
     reference's semantics.
 
     `vol` is a GradSdfVolume or a PackedVolume; the solve is the same bit
-    for bit, but a PackedVolume's payload IS the tracker's [V,8] record
-    table, where a GradSdfVolume has one built (pack_tracking_payload)."""
+    for bit.  Each step is one ops/gn.gn_step (one kernel launch on the
+    card, which reads either layout's fields in place); the carry stays in
+    a device buffer, read by the host only to poll."""
+    frame, init_pose = _frame(vol, geom, depth, K, init_pose, stride=stride,
+                              zmin=zmin, zmax=zmax, device=device)
+    carry = gn.new_carry(init_pose)
+    records = None
+    if regather_every > 1:
+        records = torch.empty((frame.n, 8), dtype=torch.float32,
+                              device=frame.device)
+    kw = dict(num_iterations=num_iterations,
+              conv_threshold_sq=conv_threshold_sq, damping=damping)
+
+    def run_round():
+        for k in range(regather_every):
+            gn.gn_step(frame, carry, records, fresh=k == 0, **kw)
+        steps_run["track_frame"] += regather_every
+
+    def done():
+        conv, fail, iters = carry[[gn.CONV, gn.FAIL, gn.ITERS]].tolist()
+        return iters >= num_iterations or conv != 0 or fail != 0
+
+    drive_rounds(run_round, done, num_iterations=num_iterations,
+                 regather_every=regather_every, early_exit=early_exit)
+    pose, conv, fail, _, E_mean, count, iters, _ = gn.unpack_carry(carry)
+    return TrackResult(pose=pose, converged=conv & (~fail), iterations=iters,
+                       energy=E_mean, num_valid=count)
+
+
+def _frame(vol, geom, depth, K, init_pose, *, stride, zmin, zmax, device):
+    """The frame's inputs on the device -> (GnFrame, init_pose)."""
     dev = resolve_device(device)
     depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
     K = torch.as_tensor(K, dtype=torch.float32, device=dev)
     init_pose = torch.as_tensor(init_pose, dtype=torch.float32, device=dev)
-    if stride > 1:
-        # pixel sub-sampling (optimize_sampled's `sampling` knob); the
-        # original pixel coordinates are reconstructed via `* stride`
-        depth = depth[::stride, ::stride]
-    pts_cam, valid_z = camera_points(depth, K, stride, zmin, zmax)
+    # pixel sub-sampling (optimize_sampled's `sampling` knob): a strided
+    # view; the original pixel coordinates are reconstructed via `* stride`
+    frame = gn.GnFrame(geom, depth[::stride, ::stride], K, stride=stride,
+                       zmin=zmin, zmax=zmax, vol=vol)
+    return frame, init_pose
 
-    # one row-gatherable [V,8] (dist, grad, weight) table: a PackedVolume
-    # stores its float state in exactly this layout (slots 5:8, its colour,
-    # are never read), a GradSdfVolume pays one concatenation per call
-    if isinstance(vol, PackedVolume):
-        payload = vol.payload.view(-1, 8)
-    else:
-        payload = pack_tracking_payload(vol)
 
-    def gather_records(pose):
-        """The hot gather: per-pixel nearest-voxel records at `pose`.
-
-        Returns (d, ghat, c_v, ok) — everything psi/J need; ok folds the
-        grid-validity and w>0 gates (RigidPointOptimizer.cpp:47-50)."""
-        R = pose[:3, :3]
-        t = pose[:3, 3]
-        p_w = pts_cam @ R.T + t
-        d, ghat, c_v, w, valid = sdf_records_packed(payload, geom, p_w)
-        ok = valid & (w > 0.0) & valid_z
-        return d, ghat, c_v, ok
+def run_gn_rounds_plain(
+    vol,
+    geom: GridGeometry,
+    depth,
+    K,
+    init_pose,
+    *,
+    truncation: float,
+    zmin: float,
+    zmax: float,
+    num_iterations: int = 50,
+    conv_threshold_sq: float = 1e-6,
+    damping: float = 1.0,
+    stride: int = 1,
+    early_exit: bool = True,
+    regather_every: int = 1,
+    device=None,
+    on_gram=None,
+) -> TrackResult:
+    """track_frame's solve in eager PyTorch on any device: run_gn_rounds over
+    the plain records and Gram of ops/gn (frame_records, gram_plain), the
+    plain version track_frame's kernel is held against.  `on_gram(S)`, when
+    given, sees every step's 8x8 Gram."""
+    frame, init_pose = _frame(vol, geom, depth, K, init_pose, stride=stride,
+                              zmin=zmin, zmax=zmax, device=device)
 
     def masked_gram(pose, rec):
-        S = gram(pts_cam, pose, rec)
-        return S[6, 6], S[:6, 6], S[:6, :6], S[7, 7]
+        S = gn.gram_plain(frame.points()[0], pose, rec)
+        if on_gram is not None:
+            on_gram(S)
+        return gn.split_gram(S)
 
     pose, conv, fail, E_mean, count, iters, _ = run_gn_rounds(
-        geom, gather_records, masked_gram, init_pose,
-        num_iterations=num_iterations, conv_threshold_sq=conv_threshold_sq,
-        damping=damping, regather_every=regather_every, early_exit=early_exit,
-    )
-    return TrackResult(
-        pose=pose,
-        converged=conv & (~fail),
-        iterations=iters,
-        energy=E_mean,
-        num_valid=count,
-    )
+        geom, lambda pose: gn.frame_records(frame, pose), masked_gram,
+        init_pose, num_iterations=num_iterations,
+        conv_threshold_sq=conv_threshold_sq, damping=damping,
+        regather_every=regather_every, early_exit=early_exit)
+    return TrackResult(pose=pose, converged=conv & (~fail), iterations=iters,
+                       energy=E_mean, num_valid=count)
 
 
 def energy(

@@ -33,7 +33,7 @@ def test_import_brings_in_no_jax_and_builds_nothing():
     mods = _modules()
     assert len(mods) > 25 and "psgradientsdf_tpu_torch.ops.rowcopy" in mods
     for new in ("native", "io.png", "io.checkpoint", "parallel.refine",
-                "parallel.distributed", "core.resident"):
+                "parallel.distributed", "core.resident", "ops.gn", "ops.fuse"):
         assert "psgradientsdf_tpu_torch." + new in mods
     code = (
         "import importlib, os, sys\n"
@@ -130,3 +130,25 @@ def test_kernel_wrappers_raise_on_cuda_tensors_instead_of_falling_back():
     assert "torch/extension.h" not in cu
     with open(os.path.join(PKG, "kernels.py")) as fh:
         assert "arch=compute_90a,code=sm_90a" in fh.read()
+
+
+@pytest.mark.parametrize("module,kernels", [
+    ("gn", ("gn_kernel",)), ("fuse", ("fuse_rows_kernel",))])
+def test_scan_program_wrappers_raise_on_cuda_tensors_instead_of_falling_back(
+        module, kernels):
+    """ops/gn.py and ops/fuse.py take the plain version only for CPU tensors:
+    no try/except around a launch, one CPU branch a wrapper, and their
+    kernels hand-written in csrc/ with a plain C interface."""
+    with open(os.path.join(PKG, "ops", module + ".py")) as fh:
+        src = fh.read()
+    assert "try:" not in src and "except" not in src
+    wrappers = src.split("# the wrapper")[1]
+    n_wrappers = len(re.findall(r"^def \w+\(", wrappers, flags=re.M))
+    assert n_wrappers >= 1
+    assert len(re.findall(r'if \w+\.device\.type == "cpu":', wrappers)) == n_wrappers
+    with open(os.path.join(PKG, "csrc", module + ".cu")) as fh:
+        cu = fh.read()
+    for k in kernels:
+        assert re.search(r"__global__ void\s+(__launch_bounds__\(\w+\)\s+)?"
+                         + k + r"\(", cu), k
+    assert "torch/extension.h" not in cu and 'extern "C"' in cu
