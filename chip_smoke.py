@@ -45,11 +45,13 @@ With --profile two more phases trace a short scan, and two warm refinement
 iterations, with torch.profiler and print the card's busy share of each and
 the kernels that take the most device time.  The run is otherwise the same.
 
-Phase scan_kernels follows the kernels phase: the two kernels of the
-scan's jit-fused programs (the fusion update, one launch a fused frame, and
-the Gauss-Newton step, one launch a step) against their plain versions on
-the real rows and frames of the sequence, and 48 frames tracked through
-each; the scan phase then checks that every GN step and every update of the
+Phase scan_kernels follows the kernels phase: the kernels of the scan's
+jit-fused programs (the fusion update, one launch a fused frame; a frame's
+whole Gauss-Newton solve, one cooperative launch a frame, its records on
+chip or, for a 1280x960 frame, in device memory; the Gram alone of the mesh
+trackers) against their plain versions on the real rows and frames of the
+sequence, and 48 frames tracked under each named tracker configuration; the
+scan phase then checks that every tracked frame and every update of the
 main run went through them.
 
 With --kernels-only the run stops after the kernels and scan_kernels phases
@@ -157,8 +159,10 @@ SOURCE = "psgradientsdf_tpu_torch/csrc/rowcopy.cu"
 # the kernels of the scan's two jit-fused programs: wrapper -> (its source,
 # the JAX function it replaces, by file:line)
 SCAN_KERNELS = {
-    "gn_step": ("psgradientsdf_tpu_torch/csrc/gn.cu",
-                "psgradientsdf_tpu/tracking/tracker.py:112"),
+    "gn_solve": ("psgradientsdf_tpu_torch/csrc/gn.cu",
+                 "psgradientsdf_tpu/tracking/tracker.py:76"),
+    "gn_gram": ("psgradientsdf_tpu_torch/csrc/gn.cu",
+                "psgradientsdf_tpu/tracking/tracker.py:286"),
     "fuse_rows": ("psgradientsdf_tpu_torch/csrc/fuse.cu",
                   "psgradientsdf_tpu/core/volume.py:104"),
 }
@@ -705,8 +709,8 @@ def check_packed_widths(rowcopy, gen, flush):
 
 
 def _reset_scan_counts():
-    """Launch counts of the scan's two program kernels, and the GN steps
-    track_frame ran, set to 0."""
+    """Launch counts of the scan's program kernels, and the frames
+    track_frame solved, set to 0."""
     from psgradientsdf_tpu_torch.ops import fuse, gn
     from psgradientsdf_tpu_torch.tracking import tracker
 
@@ -720,7 +724,7 @@ def _scan_counts():
     from psgradientsdf_tpu_torch.tracking import tracker
 
     return dict(gn.launch_counts, **fuse.launch_counts,
-                gn_steps_run=tracker.steps_run["track_frame"])
+                frames_solved=tracker.steps_run["track_frame"])
 
 
 def _fuse_capacity(geom):
@@ -790,18 +794,6 @@ def _update_case(st, vol, layout, geom, truncation, f, flush):
     return out
 
 
-def _step_norms(grams, damping):
-    """||xi|| of every plain GN step, solved again in float64 from its Gram
-    (with gn_update's jitter)."""
-    out = []
-    for S in grams:
-        S = S.astype(np.float64)
-        H, g = S[:6, :6], S[:6, 6]
-        Hj = H + (1e-6 * np.trace(H) / 6.0 + 1e-12) * np.eye(6)
-        out.append(float(np.linalg.norm(damping * np.linalg.solve(Hj, g))))
-    return out
-
-
 def _rot_angle(a, b):
     """Angle of the rotation between two poses' rotations (radians)."""
     R = np.asarray(a, np.float64)[:3, :3] @ np.asarray(b, np.float64)[:3, :3].T
@@ -817,16 +809,17 @@ def scan_kernels(tmp, seq):
         (frame 24 on the volume fused at the generating poses of frames
         0-23) and of frame 0 at 512^3, in the SoA and the packed layout;
         ms, plain_ms and bound_ms of each.
-    (b) gn_step from one carry: a fresh step that keeps its records, a
-        frozen step on them, and the Gram alone (gn_gram), each against the
-        plain Gram of the same pose and records: S within GN_S_TOL of
-        max|S|; the fresh step's ms, plain_ms and bound_ms.
-    (c) the FRAMES frames tracked on the volume fused at every generating
-        pose, each from the previous frame's generating pose: track_frame
-        (the kernel) against run_gn_rounds_plain: iterations equal except
-        on frames whose plain step norm lies within GN_EDGE of the
-        threshold (listed); the poses of the frames with equal iterations
-        within GN_POSE_TOL metres and radians.
+        Then the callers' other paths, bit for bit (_update_variants).
+    (b) frame 24 (640x480): one fresh step (gn_solve, num_iterations=1),
+        a fresh and a frozen step on its on-chip records, and the Gram alone
+        (gn_gram), each against the plain Gram of the same pose and records:
+        S within GN_S_TOL of max|S|; the REFERENCE solve's ms, plain_ms,
+        bound_ms and latency floor; gn_gram's ms, plain_ms and bound_ms.
+    (c) the FRAMES frames tracked under each named configuration
+        (_track_configs): the kernel twice, bit for bit, and against the
+        plain loop within GN_POSE_TOL.
+    (d) frame 24 at 1280x960, whose records go to device memory
+        (_big_frame).
     Launches made here are on no path.  -> facts."""
     import torch
     from psgradientsdf_tpu_torch.core.grid import GridGeometry
@@ -859,96 +852,318 @@ def scan_kernels(tmp, seq):
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
 
-    # (b) one step from one carry
+    facts["update_variants"] = _update_variants(st)
+
+    # (b) one step, one round, the Gram alone, and the solve's time
     vol = _gt_loop(st, range(FRAMES), "soa", st["cap"])
     f = 24
     frame = G.GnFrame(geom, st["depths"][f], st["K"], stride=1,
                       zmin=zkw["zmin"], zmax=zkw["zmax"], vol=vol)
     seed = st["gt"][f - 1]
-    # every step active: no threshold to meet, budget to spare
-    active = dict(num_iterations=10 ** 6, conv_threshold_sq=0.0,
-                  damping=st["gn"]["damping"])
+    # every step active: no threshold to meet
+    active = dict(conv_threshold_sq=0.0, damping=st["gn"]["damping"])
+    step = dict(frame=f, pixels=frame.n, tolerance=GN_S_TOL,
+                **_gn_step_checks(frame, seed, active))
+    ref = _solve_kw("REFERENCE")
+    if DEVICE == "cuda":
+        blocks, on_chip = G.solve_plan(frame.device, frame.n, 1)
+        c = G.new_carry(seed)
+        G.gn_solve(frame, c, **ref)
+        iters = int(c[G.ITERS])
+        # the depth map once, each fresh step's distinct voxel records once
+        distinct = _distinct_records(frame, seed, {
+            k: ref[k] for k in ("num_iterations", "conv_threshold_sq", "damping")})
+        carries = iter([G.new_carry(seed) for _ in range(2 * KERNEL_REPS + 6)])
+        step.update(
+            config="REFERENCE", blocks=blocks, tile_on_chip=on_chip,
+            iterations=iters, distinct_records=distinct,
+            bound_ms=(frame.n * 4 + sum(distinct) * 32) / HBM_BYTES_PER_S * 1e3,
+            ms=_time_ms(lambda: G.gn_solve(frame, next(carries), **ref), flush),
+            plain_ms=_time_ms(lambda: G.gn_solve_plain(frame, next(carries), **ref),
+                              flush),
+            # an empty cooperative kernel on the same grid, crossing as many
+            # grid barriers as the solve ran steps
+            latency_floor_ms=_time_ms(lambda: G.barrier_floor(frame, 1, iters), flush),
+            library_ms=None)
+        step["share_of_bound"] = step["bound_ms"] / step["ms"]
+        # the Gram alone at 640x480 (gn_gram, the mesh / resident trackers')
+        recs = G.pack_records(*G.frame_records(frame, seed))
+        facts["gn_gram"] = dict(
+            frame=f, pixels=frame.n, max_abs_err=step["gram_max_abs_err"],
+            ms=_time_ms(lambda: G.gram(frame, seed, recs), flush),
+            plain_ms=_time_ms(lambda: G.gram_plain(
+                frame.points()[0], seed, G.unpack_records(recs)), flush),
+            # the depth map and the records read once, S written
+            bound_ms=(frame.n * (4 + 32) + 256) / HBM_BYTES_PER_S * 1e3,
+            library_ms=None)
+        facts["gn_gram"]["share_of_bound"] = (facts["gn_gram"]["bound_ms"]
+                                              / facts["gn_gram"]["ms"])
+    facts["gn_solve"] = step
+
+    # (c) the frames tracked under each named configuration, kernel against
+    # plain, and the kernel against itself
+    facts["tracking"] = {name: _track_configs(st, vol, geom, name)
+                         for name in GN_CONFIGS}
+
+    # (d) a 1280x960 frame: the records do not fit on chip
+    facts["big_frame"] = _big_frame(st, vol, f)
+    return facts
+
+
+GN_CONFIGS = ("REFERENCE", "STREAMING", "PARITY", "STREAMING_FAST")
+
+
+def _solve_kw(name):
+    """A named tracker configuration as gn_solve's keywords."""
+    from psgradientsdf_tpu_torch.tracking import configs
+
+    kw = dict(getattr(configs, name))
+    del kw["stride"]
+    return kw
+
+
+def _gn_step_checks(frame, seed, active):
+    """One fresh step (gn_solve, num_iterations=1), a fresh and a frozen
+    step on its records (num_iterations=2, regather_every=2) and the Gram
+    alone (gn_gram), each against the plain Gram of the same pose and
+    records: S within GN_S_TOL of max|S| -> dict."""
+    from psgradientsdf_tpu_torch.ops import gn as G
+
     pts = frame.points()[0]
-
-    def rel(a, b):
-        return float((a - b).abs().max() / b.abs().max())
-
-    carry = G.new_carry(seed)
-    recs = torch.empty((frame.n, 8), dtype=torch.float32, device=DEVICE)
-    G.gn_step(frame, carry, recs, fresh=True, **active)
-    S_fresh = G.gram_plain(pts, seed, G.frame_records(frame, seed))
-    pose1 = carry[:16].view(4, 4).clone()
-    S_frozen = G.gram_plain(pts, pose1, G.unpack_records(recs))
-    err = {"fresh": rel(carry[G.S0:].view(8, 8), S_fresh)}
-    ok_plain = G.frame_records(frame, seed)[3]
-    ok_differ = int((ok_plain != (recs[:, 7] != 0)).sum())
-    frozen = carry.clone()
-    G.gn_step(frame, frozen, recs, fresh=False, **active)
-    err["frozen"] = rel(frozen[G.S0:].view(8, 8), S_frozen)
-    err["gram"] = rel(G.gram(frame, pose1, recs), S_frozen)
+    rec = G.frame_records(frame, seed)
+    S_fresh = G.gram_plain(pts, seed, rec)
+    one = G.new_carry(seed)
+    G.gn_solve(frame, one, num_iterations=1, **active)
+    pose1 = one[:16].view(4, 4).clone()
+    S_frozen = G.gram_plain(pts, pose1, rec)
+    two = G.new_carry(seed)
+    G.gn_solve(frame, two, num_iterations=2, regather_every=2, early_exit=False,
+               **active)
+    gram = G.gram(frame, pose1, G.pack_records(*rec))
+    err = {"fresh": _rel(one[G.S0:].view(8, 8), S_fresh.cpu()),
+           "frozen": _rel(two[G.S0:].view(8, 8), S_frozen.cpu()),
+           "gram": _rel(gram, S_frozen.cpu())}
     for k, e in err.items():
         check(e <= GN_S_TOL, f"gn {k} step: S differs by {e:.3g} of max|S|")
-    step = dict(frame=f, pixels=frame.n, valid_pixels=int(S_fresh[7, 7]),
-                relative_error=err, max_abs_err=float(
-                    (carry[G.S0:].view(8, 8) - S_fresh).abs().max()),
-                ok_flags_differing=ok_differ, tolerance=GN_S_TOL)
-    if DEVICE == "cuda":
-        idx, valid = geom.nearest_info(pts @ seed[:3, :3].T + seed[:3, 3])
-        X, Y = geom.dims[0], geom.dims[1]
-        lin = ((idx[..., 2] * Y + idx[..., 1]) * X + idx[..., 0])[valid]
-        distinct = int(torch.unique(lin).numel())
-        # the depth map once, each distinct voxel record once
-        step["distinct_records"] = distinct
-        step["bound_ms"] = (frame.n * 4 + distinct * 32) / HBM_BYTES_PER_S * 1e3
-        c_k, c_p = G.new_carry(seed), G.new_carry(seed)
-        step["ms"] = _time_ms(lambda: G.gn_step(frame, c_k, None, fresh=True,
-                                                **active), flush)
-        step["plain_ms"] = _time_ms(lambda: G.gn_step_plain(
-            frame, c_p, None, fresh=True, **active), flush)
-        step["share_of_bound"] = step["bound_ms"] / step["ms"]
-    facts["gn_step"] = step
+    return dict(valid_pixels=int(S_fresh[7, 7]), relative_error=err,
+                max_abs_err=float((one[G.S0:].view(8, 8) - S_fresh).abs().max()),
+                gram_max_abs_err=float((gram - S_frozen).abs().max()))
 
-    # (c) the frames tracked, kernel against plain
-    gnkw = st["gn"]
-    thr = gnkw["conv_threshold_sq"] ** 0.5
-    per_frame, edge, checked = [], [], []
+
+def _distinct_records(frame, seed, kw):
+    """The distinct voxel records each fresh step of the plain solve reads
+    (a regather_every=1 solve: every active step is fresh)."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import gn as G
+
+    geom, pts = frame.geom, frame.points()[0]
+    X, Y = geom.dims[0], geom.dims[1]
+    carry, out = G.new_carry(seed), []
+    n_iter = kw["num_iterations"]
+    while True:
+        conv, fail, iters = carry[[G.CONV, G.FAIL, G.ITERS]].tolist()
+        if iters >= n_iter or conv or fail:
+            return out
+        pose = carry[:16].view(4, 4)
+        idx, valid = geom.nearest_info(pts @ pose[:3, :3].T + pose[:3, 3])
+        lin = ((idx[..., 2] * Y + idx[..., 1]) * X + idx[..., 0])[valid]
+        out.append(int(torch.unique(lin).numel()))
+        G.gn_step_plain(frame, carry, None, fresh=True, **kw)
+
+
+def _gn_edges(grams, damping, thr):
+    """Does any step of the plain solve have a step norm within GN_EDGE of
+    the threshold (solved again in float64 from each Gram, with gn_update's
+    jitter)?"""
+    for S in grams:
+        S = S.astype(np.float64)
+        H, g = S[:6, :6], S[:6, 6]
+        Hj = H + (1e-6 * np.trace(H) / 6.0 + 1e-12) * np.eye(6)
+        xi = damping * np.linalg.solve(Hj, g)
+        if abs(np.linalg.norm(xi) - thr) <= GN_EDGE * thr:
+            return True
+    return False
+
+
+def _track_pair(st, vol, geom, depth, seed, kw):
+    """One frame solved by the kernel twice (bit for bit) and by the plain
+    loop -> (kernel result, plain result, near a knife edge)."""
+    import torch
+    from psgradientsdf_tpu_torch.tracking import tracker as T
+
+    zkw = st["zkw"]
+    grams = []
+    k = T.track_frame(vol, geom, depth, st["K"], seed, device=DEVICE, **zkw, **kw)
+    again = T.track_frame(vol, geom, depth, st["K"], seed, device=DEVICE, **zkw, **kw)
+    for a, b in zip(k, again):
+        check(bool(torch.equal(a, b)), "gn_solve: two runs of a frame differ")
+    p = T.run_gn_rounds_plain(vol, geom, depth, st["K"], seed, device=DEVICE,
+                              on_gram=grams.append, **zkw, **kw)
+    near = _gn_edges(torch.stack(grams).cpu().numpy(), kw["damping"],
+                     kw["conv_threshold_sq"] ** 0.5)
+    return k, p, near
+
+
+def _compare_tracked(f, k, p, near, per_frame, checked):
+    pk, pp = k.pose.cpu().numpy(), p.pose.cpu().numpy()
+    row = dict(frame=f, iterations=[int(k.iterations), int(p.iterations)],
+               converged=[bool(k.converged), bool(p.converged)],
+               dt_m=float(np.abs(pk[:3, 3] - pp[:3, 3]).max()),
+               dr_rad=_rot_angle(pk, pp), near_edge=near)
+    per_frame.append(row)
+    if row["iterations"][0] != row["iterations"][1]:
+        check(near, f"frame {f}: {row['iterations'][0]} GN iterations on "
+                    f"the kernel, {row['iterations'][1]} plain")
+        return
+    checked.append(f)
+    check(row["converged"][0] == row["converged"][1],
+          f"frame {f}: converged {row['converged']}")
+    check(row["dt_m"] <= GN_POSE_TOL and row["dr_rad"] <= GN_POSE_TOL,
+          f"frame {f}: poses differ by {row['dt_m']:.3g} m, "
+          f"{row['dr_rad']:.3g} rad")
+
+
+def _track_configs(st, vol, geom, name):
+    """The FRAMES frames tracked on the volume fused at every generating
+    pose, each from the previous frame's generating pose, under the named
+    configuration: the kernel twice (bit for bit) and the plain loop;
+    iterations equal except on frames near a knife edge (_gn_edges,
+    listed); the poses of the frames with equal iterations within
+    GN_POSE_TOL metres and radians -> dict."""
+    kw = dict(_solve_kw(name), stride=1)
+    per_frame, checked = [], []
     for f in range(FRAMES):
-        seed = st["gt"][max(f - 1, 0)]
-        grams = []
-        k = T.track_frame(vol, geom, st["depths"][f], st["K"], seed,
-                          device=DEVICE, **zkw, **gnkw)
-        p = T.run_gn_rounds_plain(vol, geom, st["depths"][f], st["K"], seed,
-                                  device=DEVICE, on_gram=grams.append,
-                                  **zkw, **gnkw)
-        norms = _step_norms(torch.stack(grams).cpu().numpy(), gnkw["damping"])
-        near = any(abs(n - thr) <= GN_EDGE * thr for n in norms)
-        pk, pp = k.pose.cpu().numpy(), p.pose.cpu().numpy()
-        row = dict(frame=f, iterations=[int(k.iterations), int(p.iterations)],
-                   converged=[bool(k.converged), bool(p.converged)],
-                   dt_m=float(np.abs(pk[:3, 3] - pp[:3, 3]).max()),
-                   dr_rad=_rot_angle(pk, pp), near_threshold=near)
-        per_frame.append(row)
-        if near:
-            edge.append(f)
-        if row["iterations"][0] != row["iterations"][1]:
-            check(near, f"frame {f}: {row['iterations'][0]} GN iterations on "
-                        f"the kernel, {row['iterations'][1]} plain")
-            continue
-        checked.append(f)
-        check(row["converged"][0] == row["converged"][1],
-              f"frame {f}: converged {row['converged']}")
-        check(row["dt_m"] <= GN_POSE_TOL and row["dr_rad"] <= GN_POSE_TOL,
-              f"frame {f}: poses differ by {row['dt_m']:.3g} m, "
-              f"{row['dr_rad']:.3g} rad")
-    facts["tracking"] = dict(
-        frames=FRAMES, frames_checked=len(checked), near_threshold_frames=edge,
+        k, p, near = _track_pair(st, vol, geom, st["depths"][f],
+                                 st["gt"][max(f - 1, 0)], kw)
+        _compare_tracked(f, k, p, near, per_frame, checked)
+    return dict(
+        frames=FRAMES, frames_checked=len(checked), bit_identical_runs=True,
+        near_edge_frames=[r["frame"] for r in per_frame if r["near_edge"]],
         iterations_differ=[r["frame"] for r in per_frame
                            if r["iterations"][0] != r["iterations"][1]],
         max_dt_m=max(per_frame[f]["dt_m"] for f in checked),
         max_dr_rad=max(per_frame[f]["dr_rad"] for f in checked),
         mean_iterations=float(np.mean([r["iterations"][0] for r in per_frame])),
         tolerance=GN_POSE_TOL, per_frame=per_frame)
-    return facts
+
+
+def _big_frame(st, vol, f):
+    """Frame f at 1280x960 (each pixel twice in each direction, the
+    intrinsics doubled), where a tile's records do not fit in shared memory
+    and go to the [N, 8] buffer: one fresh and one frozen step's S within
+    GN_S_TOL, and the STREAMING solve (two runs bit for bit) against the
+    plain one -> dict."""
+    from psgradientsdf_tpu_torch.ops import gn as G
+
+    geom, zkw = st["geom"], st["zkw"]
+    depth = st["depths"][f].repeat_interleave(2, 0).repeat_interleave(2, 1)
+    K = st["K"].clone()
+    K[0, 0], K[1, 1] = 2 * K[0, 0], 2 * K[1, 1]
+    K[0, 2], K[1, 2] = 2 * K[0, 2] + 0.5, 2 * K[1, 2] + 0.5
+    big = dict(st, K=K)
+    frame = G.GnFrame(geom, depth, K, stride=1, zmin=zkw["zmin"], zmax=zkw["zmax"],
+                      vol=vol)
+    seed = st["gt"][f - 1]
+    out = dict(frame=f, height=int(depth.shape[0]), width=int(depth.shape[1]))
+    if DEVICE == "cuda":
+        blocks, on_chip = G.solve_plan(frame.device, frame.n, 4)
+        check(not on_chip, "the 1280x960 frame's records stayed on chip")
+        out.update(blocks=blocks, records_on_chip=on_chip)
+    out.update(_gn_step_checks(frame, seed, dict(conv_threshold_sq=0.0,
+                                                 damping=st["gn"]["damping"])))
+    per_frame, checked = [], []
+    k, p, near = _track_pair(big, vol, geom, depth, seed,
+                             dict(_solve_kw("STREAMING"), stride=1))
+    _compare_tracked(f, k, p, near, per_frame, checked)
+    out.update(config="STREAMING", tracked=per_frame[0], bit_identical_runs=True)
+    return out
+
+
+def _update_variants(st):
+    """fuse_rows against its plain version, bit for bit, on the paths of the
+    callers that the row cases of _update_case do not take: the whole grid
+    in place (a row a slot, rows None; SoA and packed), a contiguous Z-slab
+    (z0), interleaved planes (z_map), S-voxel segments (NS > 1, the
+    resident rows), one gate a slot and a scalar gate; frame 24 at its
+    generating pose on the 128^3 volume fused over frames 0-23 -> the cases
+    checked."""
+    import torch
+    from psgradientsdf_tpu_torch.core import volume as V
+    from psgradientsdf_tpu_torch.ops import fuse as F
+
+    geom, f = st["geom"], 24
+    X, Y, Z = geom.dims
+    vol = _gt_loop(st, range(f), "soa", st["cap"])
+    packed = V.PackedVolume.from_volume(vol)
+    depth, K, pose = st["depths"][f], st["K"], st["gt"][f]
+    word, bit = V._vis_word_bit(f)
+    pix = V.pack_pixel_payload(st["colors"][f], depth, st["normals"][f],
+                               st["n_sq_inv"])
+    kw = dict(geom=geom, cos_thresh_sq=0.25 * 0.25, **st["zkw"])
+    act = V._row_activity(geom, depth, K, pose, **st["zkw"])
+    idx, live, _ = V._compact_padded(act.reshape(-1), st["cap"])
+    n = int(live)
+    NS, S = 4, X // 4
+
+    def soa(sel):
+        """The SoA fields of grid rows `sel` (row ids, or every row) as
+        [R, X] copies -> (tensors, fuse_rows' fields)."""
+        t = [vol.dist.view(Z * Y, X)[sel].clone(),
+             vol.grad.view(Z * Y, X, 3)[sel].clone(),
+             vol.weight.view(Z * Y, X)[sel].clone(),
+             vol.color.view(Z * Y, X, 3)[sel].clone(),
+             vol.vis[word].view(Z * Y, X)[sel].clone()]
+        return t, t
+
+    def segments():
+        r = seg_rows.long()
+        t = [vol.dist.view(-1, S)[r].clone(), vol.grad.view(-1, S, 3)[r].clone(),
+             vol.weight.view(-1, S)[r].clone(), vol.color.view(-1, S, 3)[r].clone(),
+             vol.vis[word].view(-1, S)[r].clone()]
+        return t, t
+
+    def packed_grid():
+        p8 = packed.payload.clone().view(Z * Y, X, 8)
+        v = packed.vis[word].clone().view(Z * Y, X)
+        return [p8, v], (p8[..., 0], p8[..., 1:4], p8[..., 4], p8[..., 5:8], v)
+
+    def rows_of(planes):
+        return (planes[:, None] * Y + torch.arange(Y, device=DEVICE)).reshape(-1)
+
+    z0 = Z // 4
+    planes_z0 = torch.arange(z0, 2 * z0, device=DEVICE)
+    planes_map = torch.arange(3, Z, 4, device=DEVICE)
+    # the segments of the live rows, then 7 padding slots that repeat slot 0
+    seg_rows = (idx[:n, None].long() * NS + torch.arange(NS, device=DEVICE)).reshape(-1)
+    seg_rows = torch.cat([seg_rows, seg_rows[:1].expand(7)]).to(torch.int32)
+    culled = dict(S=X, rows=idx, live=live)
+    cases = {
+        "whole grid SoA": (lambda: soa(slice(None)), None, dict(S=X)),
+        "whole grid packed": (packed_grid, None, dict(S=X)),
+        "z0 slab": (lambda: soa(rows_of(planes_z0)), None, dict(S=X, z0=z0)),
+        "z_map planes": (lambda: soa(rows_of(planes_map)), None,
+                         dict(S=X, z_map=planes_map.to(torch.int32))),
+        "segments NS=4": (segments, None, dict(
+            S=S, NS=NS, rows=seg_rows, live=torch.tensor(n * NS, device=DEVICE))),
+        "slot gate": (lambda: soa(idx.long()),
+                      torch.arange(idx.shape[0], device=DEVICE) % 3 != 0, culled),
+        "scalar gate false": (lambda: soa(idx.long()),
+                              torch.tensor(False, device=DEVICE), culled),
+        "scalar gate true": (lambda: soa(idx.long()),
+                             torch.tensor(True, device=DEVICE), culled),
+    }
+    done = []
+    for name, (make, gate, extra) in cases.items():
+        (got, fg), (want, fw) = make(), make()
+        F.fuse_rows(*fg, pix, K, pose, tuple(depth.shape), bit, gate, **kw, **extra)
+        F.fuse_rows_plain(*fw, pix, K, pose, tuple(depth.shape), bit, gate,
+                          **kw, **extra)
+        _sync()
+        for a, b in zip(got, want):
+            check(_bits_equal(a, b), f"fuse_rows differs from its plain version: "
+                                     f"{name}, by up to {_abs_err(a, b)}")
+        done.append(name)
+    return dict(frame=f, grid=X, cases=done, bit_identical=True)
 
 
 # ----------------------------------------------------------------- the scan
@@ -1432,6 +1647,8 @@ def mesh_scan(tmp, seq, short, single):
                   f"{ref_facts['ate_mm']:.4f} mm")
         for k, v in _dma_launches(run).items():
             launches[k] += v
+        # the summed-Gram tracker: one gn_gram launch a slab a GN step
+        launches["gn_gram"] = launches.get("gn_gram", 0) + run["scan_counts"]["gn_gram"]
         tracked[tag] = dict(slabs=slabs, frames=n,
                             frames_per_s=run["summary"]["fps"],
                             overflow_redos=run["summary"]["overflow_redos"],
@@ -2789,13 +3006,14 @@ def main():
                   f"{name}: {counts[name]} launches, expected 1 x {calls}")
         for name in ("gather_rows", "scatter_rows"):
             check(counts[name] == 0, f"{name} launched on the default path")
-        # every GN step a launch, every update a launch: the culled fusions
-        # and frame 0's fusion of the whole grid
+        # every tracked frame ONE solve launch, every update a launch: the
+        # culled fusions and frame 0's fusion of the whole grid
         scan_counts = main_run["scan_counts"]
-        check(scan_counts["gn_steps_run"] > 0 and scan_counts["gn_step"]
-              == _on_card(scan_counts["gn_steps_run"]),
-              f"gn_step: {scan_counts['gn_step']} launches, "
-              f"{scan_counts['gn_steps_run']} GN steps run")
+        solved = scan_counts["frames_solved"]
+        check(solved >= FRAMES - 1 and scan_counts["gn_solve"] == _on_card(solved),
+              f"gn_solve: {scan_counts['gn_solve']} launches, {solved} frames "
+              f"solved, {FRAMES - 1} tracked")
+        check("gn_step" not in scan_counts, "a per-step GN launch still exists")
         check(scan_counts["fuse_rows"] == _on_card(calls + 1),
               f"fuse_rows: {scan_counts['fuse_rows']} launches, expected "
               f"{calls} culled fusions + 1")
@@ -2898,15 +3116,27 @@ def main():
         check(launches[name] > 0, f"{name} was never launched on its path")
     print(smi, flush=True)
     emit("total", seconds=time.perf_counter() - t_all)
-    # the scan programs' kernels: the main run's launches, the update's
-    # times on frame 24's rows at 128^3 (SoA), the GN step's on one fresh step
+    # the scan programs' kernels: the main run's launches (gn_gram: the
+    # tracked mesh scans', its path), the update's times on frame 24's rows
+    # at 128^3 (SoA), the solve's on frame 24 under REFERENCE, the Gram's on
+    # frame 24's records
     update = next(u for u in scan_facts["update"]
                   if u["grid"] == GRID and u["frame"] == 24 and u["layout"] == "soa")
+    scan_counts = dict(scan_counts, gn_gram=mesh_launches["gn_gram"])
+    solve = scan_facts["gn_solve"]
     scan_rows = {
-        "gn_step": dict(scan_facts["gn_step"],
-                        work=f"one fresh GN step of frame 24: {W}x{H} pixels "
-                             "against the 128^3 SoA volume; the bound counts the "
-                             "depth map and each distinct voxel record once"),
+        "gn_solve": dict(solve, work=(
+            f"frame 24's whole REFERENCE solve ({solve['iterations']} GN steps, "
+            f"one launch, {solve['blocks']} blocks): {W}x{H} pixels against "
+            "the 128^3 SoA volume; the bound counts the depth map once and "
+            "each fresh step's distinct voxel records once; latency_floor_ms "
+            "is an empty cooperative kernel on the same grid crossing as many "
+            "grid barriers")),
+        "gn_gram": dict(scan_facts["gn_gram"], work=(
+            f"the masked Gram of frame 24's frozen records at {W}x{H} (the "
+            "summed-Gram mesh tracker's and the resident tracker's pass; "
+            "launches: the tracked mesh scans'); the bound counts the depth "
+            "map and the [N, 8] records once")),
         "fuse_rows": dict(update, max_abs_err=0.0,
                           work=f"frame 24's update at 128^3 on the gathered SoA "
                                f"rows: {update['live_rows']} live rows of "
@@ -2922,6 +3152,8 @@ def main():
              ms=scan_rows[name]["ms"], plain_ms=scan_rows[name]["plain_ms"],
              bound_ms=scan_rows[name]["bound_ms"], bound_by="bytes",
              library_ms=None, library_note="no single PyTorch call computes it",
+             **({"latency_floor_ms": solve["latency_floor_ms"]}
+                if name == "gn_solve" else {}),
              work=scan_rows[name]["work"])
         for name in SCAN_KERNELS] + [
         dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],

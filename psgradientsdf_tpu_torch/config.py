@@ -100,7 +100,8 @@ class TpuConfig:
     mesh_z: int = 1               # voxel-grid Z-slab sharding axis size
     mesh_frames: int = 1          # keyframe sharding axis size
     mesh_interleave_z: bool = False  # strided plane assignment for a
-                                  # multi-device scan (not ported yet)
+                                  # scan on a mesh (parallel/mesh.py
+                                  # interleave_volume)
     track_stride: int = 1         # pixel sub-sampling in tracking
     track_regather: int = 1       # GN iterations per correspondence gather
     track_static: bool = False    # fixed-trip masked GN (no early exit);

@@ -1,43 +1,67 @@
-// One Gauss-Newton step of the camera tracker for Hopper (sm_90a): one
-// launch per step, the loop's carry held on the device.
+// The camera tracker's Gauss-Newton solve for Hopper (sm_90a): a frame's
+// whole GN loop in ONE cooperative launch (gn_solve), and the masked Gram
+// of frozen records at a given pose in one launch (gn_gram).
 //
-// Replaces the JAX package's jit-fused tracker step: psgradientsdf_tpu/
-// tracking/tracker.py `gn_step` (:112-157) with its records
-// (`gather_records` :274-284, through core/volume.py `sdf_records_packed`
-// :1007) and its Gram (`masked_gram` :286-301), which XLA fuses into a few
-// device programs inside a lax.while_loop.  The port's plain version
-// (ops/gn.py: frame_records, gram_plain, gn_update) is some sixty eager
-// PyTorch ops a step.
+// gn_solve replaces the JAX package's track_frame program: psgradientsdf_tpu/
+// tracking/tracker.py `run_gn_rounds` (:76-207), its `gn_step` (:112-157)
+// with the records (`gather_records` :274-284, through core/volume.py
+// `sdf_records_packed` :1007) and the Gram (`masked_gram` :286-301), inside
+// the lax.while_loop (:183, early_exit) or the unrolled lax.fori_loop
+// (:197, fixed trip) that XLA keeps on the device.  The port's plain
+// version (ops/gn.py gn_solve_plain: the round loop over gn_step_plain) is
+// some sixty eager PyTorch ops a step and reads the done flag back.
 //
-// Per pixel of the (strided) depth map, one thread:
-//   * backprojects the pixel (camera_points) and moves it by the pose;
-//   * fresh step: finds the nearest voxel with the border test
-//     (nearest_info), reads d, g and w in place through a pointer and a
-//     voxel stride per field (a PackedVolume payload or the SoA fields, no
-//     packed copy), forms ghat = g / max(|g|, 1e-12), the voxel centre c_v
-//     and ok = inside & w > 0 & depth in range, and stores (d, ghat, c_v,
-//     ok) in the [N, 8] record buffer when the caller keeps one (frozen
-//     steps follow);
-//   * frozen step: reads those records back;
-//   * forms the row mask * [ghat, p x ghat, psi, 1], psi = d + ghat.(c_v - p),
-//     and adds its 36 distinct products to the thread's sums.
-// Each block reduces its threads' sums in a fixed order (warp shuffles, then
-// the warps in order) into its own partial; the last block to finish (a
-// __threadfence and a ticket, which it resets) adds the partials in block
-// order.  No float atomics: a step gives the same bits on every run.
+// The grid: the SM count x the occupancy the runtime reports, launched
+// cooperatively, so every block is resident and may wait at a grid barrier.
+// Each block owns a fixed tile of pixels for the whole launch.  The rounds:
+// with early_exit up to num_iterations, ending once the carry is no longer
+// active (converged, failed or out of budget); without it
+// ceil(num_iterations / regather_every).  Each round is one fresh step and
+// regather_every - 1 frozen steps.  A step whose carry is not active is a
+// masked no-op and runs no pass (a fresh one still clears the round-local
+// stall flag).  Per active step:
+//   * per pixel (kPix of a thread's pixels at a time, their reads issued
+//     first): the camera point moved by the pose; a fresh step finds the
+//     nearest voxel with the border test (nearest_info), reads d, g and w
+//     in place through a pointer and a voxel stride per field (a
+//     PackedVolume payload or the SoA fields), forms ghat = g / max(|g|,
+//     1e-12), the voxel centre c_v and ok = inside & w > 0 & depth in
+//     range, and keeps the record (d, ghat, c_v, ok) when frozen steps
+//     follow; a frozen step reads it back; then the row mask * [ghat,
+//     p x ghat, psi, 1], psi = d + ghat.(c_v - p), and its 36 distinct
+//     products added to the thread's sums;
+//   * each block adds its threads' sums in a fixed order (each thread's
+//     row in shared memory, then 14 interleaved groups of rows, then the
+//     groups in order) and writes them to the partials buffer of the
+//     step's parity; one grid barrier;
+//   * EVERY block adds all blocks' partials in the same fixed order, so
+//     every block holds the same S, and thread 0 runs the solve (solve_step)
+//     on the block's own copy of the carry in shared memory.  Every block
+//     therefore takes the same branch at every loop test: the exit is
+//     uniform and no block waits at a barrier the others skip.
+// Block 0 writes the carry back at the end.  No float atomics: a frame
+// gives the same bits on every run (on a given card: the grid is a
+// function of its SM count and the frame's size).
 //
-// The solve tail (kSolve, in that last block): the 8x8 S packs H = S[:6,:6],
-// g = S[:6,6], E = S[6,6] and the count S[7,7]; add the relative jitter,
-// factor the 6x6 system (Cholesky), solve, damp; then the small-step,
-// trust-region and fresh-step rules and the masked carry update of gn_step,
-// and pose <- se3_exp(-xi) @ pose.  A fresh step clears the round-local
-// stall flag first.  A step whose carry is no longer active (converged,
-// failed, stalled or out of budget) is a no-op, so its blocks skip the
-// pixels.
+// The frame on chip: the block's camera points (backprojected once a
+// launch from the depth tile) and, when frozen steps follow, its records
+// (d, ghat, c_v, ok) stay in shared memory for the launch, 44 bytes a pixel
+// (100 KB a block at 640x480 on 132 SMs, beside the 74 KB of the block
+// sum's rows); a frozen step then reads nothing from device memory.  When
+// the tile does not fit the shared-memory budget (1280x960 at stride 1 with
+// frozen steps) the depth is read and backprojected at every step and the
+// records go to the caller's [N, 8] buffer.  Chosen by size, not by a
+// switch.
 //
-// Without kSolve the kernel forms the Gram of frozen records at a given
-// pose and writes S: the summed-Gram mesh tracker and the resident tracker
-// keep their own PyTorch solve around it.
+// The solve (solve_step, one thread): the 8x8 S packs H = S[:6,:6], g =
+// S[:6,6], E = S[6,6] and the count S[7,7]; add the relative jitter, factor
+// the 6x6 system (Cholesky), solve, damp; then the small-step, trust-region
+// and fresh-step rules and the masked carry update of gn_step, and pose <-
+// se3_exp(-xi) @ pose.
+//
+// gn_gram is the pass alone on frozen records [N, 8] at a given pose, with
+// its own grid and a last-block ticket: the summed-Gram mesh tracker and the
+// resident tracker sum it across shards and keep their own PyTorch solve.
 //
 // The carry buffer (float32, see ops/gn.py): pose [0:16] row-major,
 // converged 16, failed 17, stalled 18, E_mean 19, count 20, iterations 21,
@@ -50,17 +74,32 @@
 // the plain version's matrix products: S agrees to float32 rounding, not
 // bit for bit.
 //
-// Bound on the card: bytes.  Per pixel 4 bytes of depth and one 32-byte
-// record sector (a fresh step), plus 32 bytes of frozen record written by a
-// fresh step that keeps them and read by a frozen one: 11 MB at 640x480,
-// 3.3 us at 3.35 TB/s.  A step is bound by launch latency before either.
+// Bound on the card: bytes, per kind of step, at 640x480 (N = 307200):
+//   * a fresh step without records (regather_every 1): the depth map once
+//     (4 N bytes) and one 32-byte sector per DISTINCT voxel record it reads
+//     (12353 at frame 24: 1.23 MB + 0.40 MB, 0.48 us at 3.35 TB/s);
+//   * a fresh step that writes records: the same, plus 32 N bytes of
+//     records written when they do not fit on chip (9.83 MB more), nothing
+//     more when they stay in shared memory;
+//   * a frozen step: nothing when the depth and records stay on chip; else
+//     the depth and the records read again (4 N + 32 N bytes, 11.06 MB,
+//     3.3 us).
+// A frame on chip: the depth once and each fresh step's distinct records.
+// The loop is bound by latency before either: a step is the pass, the
+// block sum, a grid barrier, the partials' sum and the one-thread solve,
+// one after the other (chip_smoke.py times an empty cooperative kernel that
+// crosses as many barriers: the latency floor).
 //
-// Plain C interface (loaded with ctypes): gn_step() and gn_gram() launch on
-// the stream they are given, do not synchronise, allocate nothing and
-// return cudaGetLastError() as an int.
+// Plain C interface (loaded with ctypes): gn_solve_plan() picks the grid,
+// gn_solve(), gn_barriers() and gn_gram() launch on the stream they are
+// given, do not synchronise, allocate nothing and return cudaGetLastError()
+// (or the error of the failed call) as an int.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 // The C interface's argument block: every field 8 bytes wide, in this order
 // (ops/gn.py builds the same block with ctypes).  Strides are in elements.
@@ -74,28 +113,36 @@ struct GnArgs {
   const float* weight;  int64_t weight_vs;
   int64_t X, Y, Z;
   double origin_x, origin_y, origin_z, voxel;
-  float* records;        // [N, 8] (d, ghat, c_v, ok), or null
-  int64_t fresh;
-  float* carry;          // kSolve: the carry; else null
-  const float* pose;     // without kSolve: [4, 4]
-  float* gram_out;       // without kSolve: [8, 8]
-  float* partials;       // [blocks, 36]
-  unsigned int* ticket;  // one counter, 0 between launches
-  int64_t num_iterations;
+  float* records;        // [N, 8] (d, ghat, c_v, ok): gn_gram's input;
+                         // gn_solve's when they do not fit on chip; else null
+  float* carry;          // gn_solve: the carry
+  const float* pose;     // gn_gram: [4, 4]
+  float* gram_out;       // gn_gram: [8, 8]
+  float* partials;       // gn_gram: [blocks, 36]; gn_solve: [2, blocks, 36]
+  unsigned int* ticket;  // gn_gram: one counter, 0 between launches
+  int64_t num_iterations, regather_every, early_exit;
+  int64_t blocks, on_chip;   // gn_solve: its plan (gn_solve_plan)
   double conv_threshold_sq, damping, lever;
 };
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;            // gn_gram
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlocks = 528;          // four a streaming multiprocessor
 constexpr int kTerms = 36;               // distinct products of the 8x8 Gram
 constexpr int kGroups = 7;               // final sum: 7 x 36 = 252 threads
+constexpr int kSolveThreads = 512;       // gn_solve: one block an SM
+constexpr int kSolveGroups = kSolveThreads / kTerms;   // 14 x 36 = 504
+constexpr int kPix = 2;                  // pixels a thread reads together
+constexpr int kRedStride = kTerms + 1;   // a thread's row of the block sum
+constexpr int kSumBatch = 10;            // partials a thread loads together
+// gn_solve's dynamic shared memory before the tile: the block sum's rows
+constexpr int64_t kRedBytes = int64_t{4} * kSolveThreads * kRedStride;
 
 // carry layout
 constexpr int kConv = 16, kFail = 17, kStalled = 18, kEMean = 19, kCount = 20,
-              kIters = 21, kS = 24;
+              kIters = 21, kS = 24, kCarry = kS + 64;
 
 
 struct GnParams {
@@ -110,14 +157,20 @@ struct GnParams {
   int X, Y, Z;
   float ox, oy, oz, h_vox, inv_h;
   float* records;
-  int fresh;
   float* carry;
   const float* pose;
   float* gram_out;
   float* partials;
   unsigned int* ticket;
-  int num_iterations;
+  int num_iterations, regather_every, early_exit;
+  int tile, on_chip;
   float conv_sq, damping, lever, trust_radius;
+};
+
+// a pixel's frozen record
+struct Rec {
+  float d, gx, gy, gz, cx, cy, cz;
+  bool ok;
 };
 
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
@@ -139,69 +192,198 @@ __device__ __forceinline__ bool carry_active(const float* c, bool fresh,
          c[kIters] < static_cast<float>(num_iterations);
 }
 
-// A pixel's Gram row g[8] (zero when masked): backprojection, the pose, and
-// the fresh or the frozen record.  Returns false for a masked pixel.
-__device__ __forceinline__ bool pixel_row(const GnParams& p, const float* P,
-                                          int i, float g[8]) {
-  const int row = i / p.w, col = i - (i / p.w) * p.w;
+// pixel i backprojected (camera_points): ((u - cx) / fx * z, (v - cy) / fy
+// * z, z), with Kc = (fx, cx, fy, cy)
+__device__ __forceinline__ float3 camera_point(const GnParams& p, const float Kc[4],
+                                               int i) {
+  const int row = i / p.w, col = i - row * p.w;
   const float z = p.depth[row * p.depth_rs + col * p.depth_cs];
-  const float fx = p.K[0], cx = p.K[2], fy = p.K[4], cy = p.K[5];
   const float u = fmul(static_cast<float>(col), p.coord_stride);
   const float v = fmul(static_cast<float>(row), p.coord_stride);
-  const float xc = fmul(fdiv(fsub(u, cx), fx), z);
-  const float yc = fmul(fdiv(fsub(v, cy), fy), z);
-  const float px = fadd(dot3(P[0], P[1], P[2], xc, yc, z), P[3]);
-  const float py = fadd(dot3(P[4], P[5], P[6], xc, yc, z), P[7]);
-  const float pz = fadd(dot3(P[8], P[9], P[10], xc, yc, z), P[11]);
+  return make_float3(fmul(fdiv(fsub(u, Kc[1]), Kc[0]), z),
+                     fmul(fdiv(fsub(v, Kc[3]), Kc[2]), z), z);
+}
 
-  float d, gx, gy, gz, cvx, cvy, cvz;
-  bool ok;
-  if (p.fresh) {
-    const bool valid_z = (z > p.zmin) & (z < p.zmax);
-    // nearest_info: (p - origin) / h, strictly inside (0, dim - 1)
-    const float fxv = fmul(fsub(px, p.ox), p.inv_h);
-    const float fyv = fmul(fsub(py, p.oy), p.inv_h);
-    const float fzv = fmul(fsub(pz, p.oz), p.inv_h);
-    const bool inside = (fxv > 0.0f) & (fxv < static_cast<float>(p.X - 1)) &
-                        (fyv > 0.0f) & (fyv < static_cast<float>(p.Y - 1)) &
-                        (fzv > 0.0f) & (fzv < static_cast<float>(p.Z - 1));
-    const int ix = min(max(static_cast<int>(floorf(fadd(fxv, 0.5f))), 0), p.X - 1);
-    const int iy = min(max(static_cast<int>(floorf(fadd(fyv, 0.5f))), 0), p.Y - 1);
-    const int iz = min(max(static_cast<int>(floorf(fadd(fzv, 0.5f))), 0), p.Z - 1);
-    const int64_t lin = (static_cast<int64_t>(iz) * p.Y + iy) * p.X + ix;
-    d = p.dist[lin * p.dist_vs];
-    const float* gp = p.grad + lin * p.grad_vs;
-    const float g0 = gp[0], g1 = gp[1], g2 = gp[2];
-    const float wv = p.weight[lin * p.weight_vs];
-    const float gn = fmaxf(sqrtf(fadd(fadd(fmul(g0, g0), fmul(g1, g1)), fmul(g2, g2))),
-                           1e-12f);
-    gx = fdiv(g0, gn); gy = fdiv(g1, gn); gz = fdiv(g2, gn);
-    cvx = fadd(p.ox, fmul(p.h_vox, static_cast<float>(ix)));
-    cvy = fadd(p.oy, fmul(p.h_vox, static_cast<float>(iy)));
-    cvz = fadd(p.oz, fmul(p.h_vox, static_cast<float>(iz)));
-    ok = inside & (wv > 0.0f) & valid_z;
-    if (p.records != nullptr) {
-      float4* rec = reinterpret_cast<float4*>(p.records) + 2 * static_cast<int64_t>(i);
-      rec[0] = make_float4(d, gx, gy, gz);
-      rec[1] = make_float4(cvx, cvy, cvz, ok ? 1.0f : 0.0f);
-    }
-  } else {
-    const float4* rec = reinterpret_cast<const float4*>(p.records) + 2 * static_cast<int64_t>(i);
-    const float4 a = rec[0], b = rec[1];
-    d = a.x; gx = a.y; gy = a.z; gz = a.w;
-    cvx = b.x; cvy = b.y; cvz = b.z;
-    ok = b.w != 0.0f;
-  }
-  if (!ok) return false;
-  const float psi = fadd(d, fadd(fadd(fmul(gx, fsub(cvx, px)), fmul(gy, fsub(cvy, py))),
-                                 fmul(gz, fsub(cvz, pz))));
-  g[0] = gx; g[1] = gy; g[2] = gz;
-  g[3] = fsub(fmul(py, gz), fmul(pz, gy));
-  g[4] = fsub(fmul(pz, gx), fmul(px, gz));
-  g[5] = fsub(fmul(px, gy), fmul(py, gx));
+// a camera point moved by the pose P (row-major 3x4)
+__device__ __forceinline__ void world_point(const float* P, float3 q, float& px,
+                                            float& py, float& pz) {
+  px = fadd(dot3(P[0], P[1], P[2], q.x, q.y, q.z), P[3]);
+  py = fadd(dot3(P[4], P[5], P[6], q.x, q.y, q.z), P[7]);
+  pz = fadd(dot3(P[8], P[9], P[10], q.x, q.y, q.z), P[11]);
+}
+
+// the nearest voxel of world point p and its raw fields (a fresh step's
+// reads, issued before any of them is used)
+struct Raw {
+  float d, g0, g1, g2, w;
+  int ix, iy, iz;
+  bool inside;
+};
+
+__device__ __forceinline__ Raw voxel_read(const GnParams& p, float px, float py,
+                                          float pz) {
+  Raw v;
+  // nearest_info: (p - origin) / h, strictly inside (0, dim - 1)
+  const float fxv = fmul(fsub(px, p.ox), p.inv_h);
+  const float fyv = fmul(fsub(py, p.oy), p.inv_h);
+  const float fzv = fmul(fsub(pz, p.oz), p.inv_h);
+  v.inside = (fxv > 0.0f) & (fxv < static_cast<float>(p.X - 1)) &
+             (fyv > 0.0f) & (fyv < static_cast<float>(p.Y - 1)) &
+             (fzv > 0.0f) & (fzv < static_cast<float>(p.Z - 1));
+  v.ix = min(max(static_cast<int>(floorf(fadd(fxv, 0.5f))), 0), p.X - 1);
+  v.iy = min(max(static_cast<int>(floorf(fadd(fyv, 0.5f))), 0), p.Y - 1);
+  v.iz = min(max(static_cast<int>(floorf(fadd(fzv, 0.5f))), 0), p.Z - 1);
+  const int64_t lin = (static_cast<int64_t>(v.iz) * p.Y + v.iy) * p.X + v.ix;
+  v.d = p.dist[lin * p.dist_vs];
+  const float* gp = p.grad + lin * p.grad_vs;
+  v.g0 = gp[0]; v.g1 = gp[1]; v.g2 = gp[2];
+  v.w = p.weight[lin * p.weight_vs];
+  return v;
+}
+
+// the record of a voxel read at depth z
+__device__ __forceinline__ Rec voxel_record(const GnParams& p, const Raw& v, float z) {
+  Rec r;
+  const bool valid_z = (z > p.zmin) & (z < p.zmax);
+  const float gn = fmaxf(sqrtf(fadd(fadd(fmul(v.g0, v.g0), fmul(v.g1, v.g1)),
+                                 fmul(v.g2, v.g2))), 1e-12f);
+  r.d = v.d;
+  r.gx = fdiv(v.g0, gn); r.gy = fdiv(v.g1, gn); r.gz = fdiv(v.g2, gn);
+  r.cx = fadd(p.ox, fmul(p.h_vox, static_cast<float>(v.ix)));
+  r.cy = fadd(p.oy, fmul(p.h_vox, static_cast<float>(v.iy)));
+  r.cz = fadd(p.oz, fmul(p.h_vox, static_cast<float>(v.iz)));
+  r.ok = v.inside & (v.w > 0.0f) & valid_z;
+  return r;
+}
+
+__device__ __forceinline__ void store_record(float* records, int64_t i, const Rec& r) {
+  float4* rec = reinterpret_cast<float4*>(records) + 2 * i;
+  rec[0] = make_float4(r.d, r.gx, r.gy, r.gz);
+  rec[1] = make_float4(r.cx, r.cy, r.cz, r.ok ? 1.0f : 0.0f);
+}
+
+__device__ __forceinline__ Rec load_record(const float* records, int64_t i) {
+  const float4* rec = reinterpret_cast<const float4*>(records) + 2 * i;
+  const float4 a = rec[0], b = rec[1];
+  return Rec{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w != 0.0f};
+}
+
+// the record in shared memory: field f of local pixel l at s[f * tile + l]
+__device__ __forceinline__ void store_record_smem(float* s, int tile, int l, const Rec& r) {
+  s[l] = r.d; s[tile + l] = r.gx; s[2 * tile + l] = r.gy; s[3 * tile + l] = r.gz;
+  s[4 * tile + l] = r.cx; s[5 * tile + l] = r.cy; s[6 * tile + l] = r.cz;
+  s[7 * tile + l] = r.ok ? 1.0f : 0.0f;
+}
+
+__device__ __forceinline__ Rec load_record_smem(const float* s, int tile, int l) {
+  return Rec{s[l], s[tile + l], s[2 * tile + l], s[3 * tile + l], s[4 * tile + l],
+             s[5 * tile + l], s[6 * tile + l], s[7 * tile + l] != 0.0f};
+}
+
+// a pixel's 36 Gram products (none when masked) added to acc
+__device__ __forceinline__ void add_row(const Rec& r, float px, float py,
+                                        float pz, float acc[kTerms]) {
+  if (!r.ok) return;
+  const float psi = fadd(r.d, fadd(fadd(fmul(r.gx, fsub(r.cx, px)),
+                                        fmul(r.gy, fsub(r.cy, py))),
+                                   fmul(r.gz, fsub(r.cz, pz))));
+  float g[8];
+  g[0] = r.gx; g[1] = r.gy; g[2] = r.gz;
+  g[3] = fsub(fmul(py, r.gz), fmul(pz, r.gy));
+  g[4] = fsub(fmul(pz, r.gx), fmul(px, r.gz));
+  g[5] = fsub(fmul(px, r.gy), fmul(py, r.gx));
   g[6] = psi;
   g[7] = 1.0f;
-  return true;
+  int k = 0;
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = a; b < 8; ++b) acc[k++] += g[a] * g[b];
+}
+
+// gn_gram's block sums of its threads' acc (a shuffle tree in each warp,
+// then the warps in order), returned in threads 0..35.
+__device__ __forceinline__ float block_sum(const float acc[kTerms],
+                                           float (*warp_sums)[kTerms]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kTerms; ++k) {
+    float s = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) warp_sums[warp][k] = s;
+  }
+  __syncthreads();
+  float s = 0.0f;
+  if (threadIdx.x < kTerms)
+    for (int w = 0; w < kWarps; ++w) s += warp_sums[w][threadIdx.x];
+  return s;
+}
+
+// gn_solve's block sums, through shared memory: each thread writes its 36
+// sums to its row of `red`, then kSolveGroups x 36 threads each add one
+// term over every kSolveGroups-th row in order, then 36 threads add the
+// groups in order -> the block's sums in threads 0..35.
+__device__ __forceinline__ float block_sum_rows(const float acc[kTerms], float* red,
+                                                float (*group_sums)[kTerms]) {
+  float* mine = red + threadIdx.x * kRedStride;
+#pragma unroll
+  for (int k = 0; k < kTerms; ++k) mine[k] = acc[k];
+  __syncthreads();
+  if (threadIdx.x < kSolveGroups * kTerms) {
+    const int k = threadIdx.x % kTerms, grp = threadIdx.x / kTerms;
+    constexpr int kRows = (kSolveThreads + kSolveGroups - 1) / kSolveGroups;
+    float v[kRows];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int t = grp + q * kSolveGroups;
+      v[q] = t < kSolveThreads ? red[t * kRedStride + k] : 0.0f;
+    }
+    float s = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) s += v[q];
+    group_sums[grp][k] = s;
+  }
+  __syncthreads();
+  float s = 0.0f;
+  if (threadIdx.x < kTerms)
+    for (int grp = 0; grp < kSolveGroups; ++grp) s += group_sums[grp][threadIdx.x];
+  return s;
+}
+
+// The partials of `blocks` blocks (rows of 36) added in block order (kG
+// interleaved groups, kSumBatch loads of a group issued together, then the
+// groups in order) into the symmetric S.
+template <int kG>
+__device__ __forceinline__ void sum_partials(const float* partials, int blocks,
+                                             float (*group_sums)[kTerms], float* S) {
+  if (threadIdx.x < kG * kTerms) {
+    const int k = threadIdx.x % kTerms, grp = threadIdx.x / kTerms;
+    float s = 0.0f;
+    for (int b0 = grp; b0 < blocks; b0 += kG * kSumBatch) {
+      float v[kSumBatch];
+#pragma unroll
+      for (int q = 0; q < kSumBatch; ++q) {
+        const int b = b0 + q * kG;
+        v[q] = b < blocks ? __ldcg(partials + b * kTerms + k) : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < kSumBatch; ++q) s += v[q];
+    }
+    group_sums[grp][k] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < kTerms) {
+    float s = 0.0f;
+    for (int grp = 0; grp < kG; ++grp) s += group_sums[grp][threadIdx.x];
+    // term k -> (a, b), a <= b
+    int k = threadIdx.x, a = 0;
+    while (k >= 8 - a) { k -= 8 - a; ++a; }
+    const int b = a + k;
+    S[a * 8 + b] = s;
+    S[b * 8 + a] = s;
+  }
+  __syncthreads();
 }
 
 // se3_exp(xi) @ pose, xi = [rho, omega] (utils/se3.se3_exp), into pose.
@@ -241,17 +423,16 @@ __device__ void se3_exp_left(const float xi[6], float pose[16]) {
   for (int k = 0; k < 16; ++k) pose[k] = out[k];
 }
 
-// The blocks a step of n pixels launches (the partials buffer's rows): a
+// The blocks gn_gram launches for n pixels (the partials buffer's rows): a
 // function of n alone, so the sums run in the same order on every run.
 int blocks_for(int n) {
   const int want = (n + kThreads - 1) / kThreads;
   return want < 1 ? 1 : (want > kMaxBlocks ? kMaxBlocks : want);
 }
 
-// The solve and the masked carry update of gn_step (one thread).
-__device__ void solve_step(const GnParams& p, const float* S) {
-  float* c = p.carry;
-  const bool fresh = p.fresh != 0;
+// The solve and the masked carry update of gn_step (one thread), on the
+// carry c.
+__device__ void solve_step(const GnParams& p, float* c, bool fresh, const float* S) {
   const bool active = carry_active(c, fresh, p.num_iterations);
   if (fresh) c[kStalled] = 0.0f;              // the round-local flag
   const float E = S[6 * 8 + 6], cnt = S[7 * 8 + 7];
@@ -325,7 +506,115 @@ __device__ void solve_step(const GnParams& p, const float* S) {
     for (int k = 0; k < 64; ++k) c[kS + k] = S[k];
 }
 
-template <bool kSolve>
+// A frame's whole GN loop (see the header).  Dynamic shared memory: the
+// block sum's rows [kSolveThreads][kRedStride], then, on chip, the camera
+// points [3][tile] and the records [8][tile] when frozen steps follow.
+__global__ void __launch_bounds__(kSolveThreads)
+gn_solve_kernel(const __grid_constant__ GnParams p) {
+  extern __shared__ float dyn[];
+  __shared__ float group_sums[kSolveGroups][kTerms];
+  __shared__ float S[64];
+  __shared__ float c[kCarry];
+  cg::grid_group grid = cg::this_grid();
+
+  const int tid = threadIdx.x;
+  const int begin = blockIdx.x * p.tile;
+  const int count = max(0, min(p.tile, p.n - begin));
+  const bool keep = p.regather_every > 1;     // frozen steps follow
+  const float Kc[4] = {p.K[0], p.K[2], p.K[4], p.K[5]};
+  float* red = dyn;
+  float* s_cam = dyn + kSolveThreads * kRedStride;    // [3][tile]
+  float* s_rec = s_cam + 3 * p.tile;                  // [8][tile]
+  if (p.on_chip)
+    for (int l = tid; l < count; l += kSolveThreads) {
+      const float3 q = camera_point(p, Kc, begin + l);
+      s_cam[l] = q.x; s_cam[p.tile + l] = q.y; s_cam[2 * p.tile + l] = q.z;
+    }
+  for (int k = tid; k < kCarry; k += kSolveThreads) c[k] = p.carry[k];
+  __syncthreads();
+
+  const int rounds = p.early_exit
+      ? p.num_iterations
+      : (p.num_iterations + p.regather_every - 1) / p.regather_every;
+  int executed = 0;                           // steps that crossed a barrier
+  for (int r = 0; r < rounds; ++r) {
+    // the while_loop's test: budget left, neither converged nor failed
+    if (p.early_exit && !(c[kIters] < static_cast<float>(p.num_iterations) &&
+                          c[kConv] == 0.0f && c[kFail] == 0.0f))
+      break;
+    for (int k = 0; k < p.regather_every; ++k) {
+      const bool fresh = k == 0;
+      float P[12];
+#pragma unroll
+      for (int q = 0; q < 12; ++q) P[q] = c[q];
+      const bool active = carry_active(c, fresh, p.num_iterations);
+      __syncthreads();                        // every thread has read the carry
+      if (!active) {                          // a masked no-op
+        if (fresh && tid == 0) c[kStalled] = 0.0f;
+        __syncthreads();
+        continue;
+      }
+      float acc[kTerms];
+#pragma unroll
+      for (int q = 0; q < kTerms; ++q) acc[q] = 0.0f;
+      // kPix pixels a thread at a time: their reads first, then their rows
+      for (int l0 = tid; l0 < count; l0 += kSolveThreads * kPix) {
+        float z[kPix], px[kPix], py[kPix], pz[kPix];
+        Raw raw[kPix];
+        Rec rec[kPix];
+#pragma unroll
+        for (int q = 0; q < kPix; ++q) {
+          const int l = l0 + q * kSolveThreads;
+          if (l >= count) continue;
+          const float3 cam = p.on_chip
+              ? make_float3(s_cam[l], s_cam[p.tile + l], s_cam[2 * p.tile + l])
+              : camera_point(p, Kc, begin + l);
+          z[q] = cam.z;
+          world_point(P, cam, px[q], py[q], pz[q]);
+          if (fresh) raw[q] = voxel_read(p, px[q], py[q], pz[q]);
+          else rec[q] = p.on_chip ? load_record_smem(s_rec, p.tile, l)
+                                  : load_record(p.records, begin + l);
+        }
+#pragma unroll
+        for (int q = 0; q < kPix; ++q) {
+          const int l = l0 + q * kSolveThreads;
+          if (l >= count) continue;
+          if (fresh) {
+            rec[q] = voxel_record(p, raw[q], z[q]);
+            if (keep) {
+              if (p.on_chip) store_record_smem(s_rec, p.tile, l, rec[q]);
+              else store_record(p.records, begin + l, rec[q]);
+            }
+          }
+          add_row(rec[q], px[q], py[q], pz[q], acc);
+        }
+      }
+      const float mine = block_sum_rows(acc, red, group_sums);
+      float* part = p.partials + static_cast<int64_t>(executed & 1) * gridDim.x * kTerms;
+      if (tid < kTerms) part[blockIdx.x * kTerms + tid] = mine;
+      grid.sync();
+      sum_partials<kSolveGroups>(part, gridDim.x, group_sums, S);
+      if (tid == 0) solve_step(p, c, fresh, S);
+      __syncthreads();
+      ++executed;
+    }
+  }
+  // with no step run, no barrier has yet shown that every block read the
+  // carry before block 0 writes it
+  if (executed == 0) grid.sync();
+  if (blockIdx.x == 0)
+    for (int k = tid; k < kCarry; k += kSolveThreads) p.carry[k] = c[k];
+}
+
+// An empty cooperative kernel on gn_solve's grid that crosses `barriers`
+// grid barriers: the latency floor of a frame's loop.
+__global__ void __launch_bounds__(kSolveThreads)
+gn_barrier_kernel(int barriers) {
+  cg::grid_group grid = cg::this_grid();
+  for (int k = 0; k < barriers; ++k) grid.sync();
+}
+
+// The masked Gram of frozen records at p.pose, written to p.gram_out.
 __global__ void __launch_bounds__(kThreads)
 gn_kernel(const __grid_constant__ GnParams p) {
   __shared__ float warp_sums[kWarps][kTerms];
@@ -336,39 +625,19 @@ gn_kernel(const __grid_constant__ GnParams p) {
   float acc[kTerms];
 #pragma unroll
   for (int k = 0; k < kTerms; ++k) acc[k] = 0.0f;
-
-  const float* P = kSolve ? p.carry : p.pose;
-  const bool run = !kSolve || carry_active(p.carry, p.fresh != 0, p.num_iterations);
-  if (run) {
-    float pose[12];
+  float P[12];
 #pragma unroll
-    for (int k = 0; k < 12; ++k) pose[k] = P[k];
-    for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.n;
-         i += gridDim.x * kThreads) {
-      float g[8];
-      if (!pixel_row(p, pose, i, g)) continue;
-      int k = 0;
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int b = a; b < 8; ++b) acc[k++] += g[a] * g[b];
-    }
+  for (int k = 0; k < 12; ++k) P[k] = p.pose[k];
+  const float Kc[4] = {p.K[0], p.K[2], p.K[4], p.K[5]};
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.n;
+       i += gridDim.x * kThreads) {
+    float px, py, pz;
+    world_point(P, camera_point(p, Kc, i), px, py, pz);
+    add_row(load_record(p.records, i), px, py, pz, acc);
   }
-
-  // the block's sums: a shuffle tree in each warp, then the warps in order
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kTerms; ++k) {
-    float s = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) warp_sums[warp][k] = s;
-  }
-  __syncthreads();
+  const float mine = block_sum(acc, warp_sums);
   if (threadIdx.x < kTerms) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += warp_sums[w][threadIdx.x];
-    p.partials[blockIdx.x * kTerms + threadIdx.x] = s;
+    p.partials[blockIdx.x * kTerms + threadIdx.x] = mine;
     __threadfence();
   }
   __syncthreads();
@@ -379,39 +648,16 @@ gn_kernel(const __grid_constant__ GnParams p) {
   __syncthreads();
   if (!last) return;
 
-  // the last block: the partials in block order (seven interleaved groups,
-  // then the groups in order)
+  // the last block: the partials in block order
   __threadfence();
-  if (threadIdx.x < kGroups * kTerms) {
-    const int k = threadIdx.x % kTerms, grp = threadIdx.x / kTerms;
-    float s = 0.0f;
-    for (int b = grp; b < static_cast<int>(gridDim.x); b += kGroups)
-      s += __ldcg(p.partials + b * kTerms + k);
-    group_sums[grp][k] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < kTerms) {
-    float s = 0.0f;
-    for (int grp = 0; grp < kGroups; ++grp) s += group_sums[grp][threadIdx.x];
-    // term k -> (a, b), a <= b
-    int k = threadIdx.x, a = 0;
-    while (k >= 8 - a) { k -= 8 - a; ++a; }
-    const int b = a + k;
-    S[a * 8 + b] = s;
-    S[b * 8 + a] = s;
-  }
-  __syncthreads();
+  sum_partials<kGroups>(p.partials, gridDim.x, group_sums, S);
   if (threadIdx.x == 0) {
     *p.ticket = 0u;                            // ready for the next launch
-    if (kSolve) {
-      solve_step(p, S);
-    } else {
-      for (int k = 0; k < 64; ++k) p.gram_out[k] = S[k];
-    }
+    for (int k = 0; k < 64; ++k) p.gram_out[k] = S[k];
   }
 }
 
-int launch(const GnArgs* a, void* stream, bool solve) {
+GnParams params(const GnArgs* a) {
   GnParams p;
   p.depth = a->depth;  p.depth_rs = a->depth_rs;  p.depth_cs = a->depth_cs;
   p.h = static_cast<int>(a->h);
@@ -433,30 +679,96 @@ int launch(const GnArgs* a, void* stream, bool solve) {
   p.h_vox = static_cast<float>(a->voxel);
   p.inv_h = 1.0f / p.h_vox;
   p.records = a->records;
-  p.fresh = static_cast<int>(a->fresh);
   p.carry = a->carry;
   p.pose = a->pose;
   p.gram_out = a->gram_out;
   p.partials = a->partials;
   p.ticket = a->ticket;
   p.num_iterations = static_cast<int>(a->num_iterations);
+  p.regather_every = static_cast<int>(a->regather_every);
+  p.early_exit = static_cast<int>(a->early_exit);
+  p.tile = 0;
+  p.on_chip = static_cast<int>(a->on_chip);
   p.conv_sq = static_cast<float>(a->conv_threshold_sq);
   p.damping = static_cast<float>(a->damping);
   p.lever = static_cast<float>(a->lever);
   p.trust_radius = static_cast<float>(0.25 * a->voxel);
-  const int blocks = blocks_for(p.n);
-  if (solve) {
-    gn_kernel<true><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  } else {
-    gn_kernel<false><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return p;
+}
+
+// shared memory a pixel of gn_solve's tile takes on chip
+int64_t tile_bytes(int64_t regather_every) { return regather_every > 1 ? 44 : 12; }
+
+}  // namespace
+
+// gn_solve's grid for n pixels on the current device: blocks = the SM count
+// x the occupancy the runtime reports (for the tile that one block an SM
+// would hold), and whether the tile stays on chip -> 0 or a CUDA error.
+extern "C" int gn_solve_plan(int64_t n, int64_t regather_every, int64_t* blocks,
+                             int64_t* on_chip) {
+  int dev = 0, sms = 0, coop = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, gn_solve_kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  const int64_t budget = static_cast<int64_t>(optin) - static_cast<int64_t>(fa.sharedSizeBytes);
+  e = cudaFuncSetAttribute(gn_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(budget));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t want = kRedBytes + (n + sms - 1) / sms * tile_bytes(regather_every);
+  const bool chip = want <= budget;
+  int occ = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, gn_solve_kernel, kSolveThreads, static_cast<size_t>(chip ? want : kRedBytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *blocks = static_cast<int64_t>(sms) * occ;
+  *on_chip = chip ? 1 : 0;
+  return 0;
+}
+
+extern "C" int gn_solve(const GnArgs* a, void* stream) {
+  GnParams p = params(a);
+  const int blocks = static_cast<int>(a->blocks);
+  if (p.n < 1 || blocks < 1 || p.num_iterations < 1 || p.regather_every < 1 ||
+      (!p.on_chip && p.regather_every > 1 && p.records == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.tile = (p.n + blocks - 1) / blocks;
+  const size_t smem = static_cast<size_t>(
+      kRedBytes + (p.on_chip ? int64_t{p.tile} * tile_bytes(p.regather_every) : 0));
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(gn_solve_kernel), dim3(blocks), dim3(kSolveThreads),
+      args, smem, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    cudaGetLastError();                        // not sticky: clear it
+    return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+extern "C" int gn_barriers(int64_t blocks, int64_t barriers, void* stream) {
+  int b = static_cast<int>(barriers);
+  void* args[] = {&b};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(gn_barrier_kernel), dim3(static_cast<int>(blocks)),
+      dim3(kSolveThreads), args, 0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int gn_blocks(int n) { return blocks_for(n); }
 
-extern "C" int gn_step(const GnArgs* a, void* stream) { return launch(a, stream, true); }
-
-extern "C" int gn_gram(const GnArgs* a, void* stream) { return launch(a, stream, false); }
+extern "C" int gn_gram(const GnArgs* a, void* stream) {
+  const GnParams p = params(a);
+  gn_kernel<<<blocks_for(p.n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -232,7 +232,7 @@ class _FuseArgs(ctypes.Structure):
            ("pix", ctypes.c_void_p), ("K", ctypes.c_void_p),
            ("pose", ctypes.c_void_p)]
         + [(n, ctypes.c_int64) for n in
-           ("cap", "S", "NS", "Y", "H", "W", "bit", "has_z0")]
+           ("cap", "S", "NS", "Y", "H", "W", "bit", "has_z0", "packed")]
         + [(n, ctypes.c_double) for n in
            ("z0", "origin_x", "origin_y", "origin_z", "voxel", "truncation",
             "zmin", "zmax", "cos_thresh_sq")])
@@ -296,6 +296,18 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _is_packed(dist, grad, weight, color) -> bool:
+    """Are the four fields the slots 0, 1:4, 4 and 5:8 of [CAP, S, 8] rows
+    (a PackedVolume payload's views), 16-byte aligned: the kernel then moves
+    a voxel's 32 bytes as two float4s."""
+    base, rs = dist.data_ptr(), dist.stride(0)
+    return (base % 16 == 0 and rs % 4 == 0
+            and all(t.stride(0) == rs and t.stride(1) == 8
+                    for t in (dist, grad, weight, color))
+            and [t.data_ptr() - base for t in (grad, weight, color)]
+            == [4, 16, 20])
+
+
 # ---------------------------------------------------------------------------
 # the wrapper
 # ---------------------------------------------------------------------------
@@ -344,6 +356,7 @@ def fuse_rows(dist, grad, weight, color, vis, pix_payload, K, pose, img_hw,
         a.z_map, a.z_map_len = z_map.data_ptr(), z_map.shape[0]
     a.cap, a.S, a.NS, a.Y, a.H, a.W = dist.shape[0], S, NS, geom.dims[1], H, W
     a.bit, a.has_z0, a.z0 = int(bit), int(z0 is not None), float(z0 or 0)
+    a.packed = int(_is_packed(dist, grad, weight, color))
     a.origin_x, a.origin_y, a.origin_z = geom.origin
     a.voxel, a.truncation, a.zmin, a.zmax, a.cos_thresh_sq = (
         geom.voxel_size, truncation, zmin, zmax, cos_thresh_sq)

@@ -1,38 +1,44 @@
-"""One Gauss-Newton step of the camera tracker in one launch of the
-hand-written Hopper kernel in csrc/gn.cu, or its plain PyTorch version for
-CPU tensors; and the masked Gram of frozen records in one launch.
+"""The camera tracker's Gauss-Newton solve: a frame's whole GN loop in ONE
+launch of the hand-written Hopper kernel in csrc/gn.cu, or its plain
+PyTorch version for CPU tensors; and the masked Gram of frozen records in
+one launch.
 
-  gn_step(frame, carry, records, fresh=, ...)   the step, IN PLACE on carry
+  gn_solve(frame, carry, num_iterations=, regather_every=, early_exit=, ...)
+                                                the solve, IN PLACE on carry
   gram(frame, pose, records) -> S [8,8]         the Gram alone
 
 A GnFrame holds one frame's tracking inputs: the (strided) depth map, the
-intrinsics, the depth range and, for gn_step, the volume's record fields
+intrinsics, the depth range and, for gn_solve, the volume's record fields
 (the dist, grad and weight of a GradSdfVolume, or the slots 0, 1:4 and 4 of
 a PackedVolume's payload, read in place).  The carry is one float32 device
 buffer of CARRY_SIZE (new_carry / unpack_carry): the pose, the converged,
 failed and stalled flags, the mean energy, the pixel count, the iteration
 count, and the 8x8 Gram S of the last step that was still active.  The
-host reads it only to poll.
+host reads nothing of it during the solve.
 
-gn_step replaces the JAX package's jit-fused tracker step
-(psgradientsdf_tpu/tracking/tracker.py gn_step :112-157 over gather_records
-:274-284 and masked_gram :286-301, core/volume.py sdf_records_packed
-:1007).  A fresh step gathers each pixel's nearest-voxel record and, when
-`records` is given ([N,8]: d, ghat, c_v, ok), keeps it for the frozen steps
-that follow; a frozen step reads them back.  gram() is the kernel without
-its solve, for trackers that keep their own (parallel/shard.py,
-core/resident.py).
+gn_solve replaces the JAX package's tracking program
+(psgradientsdf_tpu/tracking/tracker.py run_gn_rounds :76-207: gn_step
+:112-157 over gather_records :274-284 and masked_gram :286-301,
+core/volume.py sdf_records_packed :1007, inside the while_loop :183 or the
+fori_loop :197).  Each round gathers each pixel's nearest-voxel record in
+its fresh step and keeps it (d, ghat, c_v, ok) for the regather_every - 1
+frozen steps that follow.  A single step is gn_solve(num_iterations=1).
+gram() is the pass without the solve, for trackers that keep their own
+(parallel/shard.py, core/resident.py).
 
 The plain versions are the tracker's eager PyTorch ops (camera_points,
-frame_records, gram_plain, gn_update), which tracking/tracker.run_gn_rounds
-runs as well: on the CPU a step through this module equals a step of
-run_gn_rounds bit for bit.  On the card the kernel's sums and its 6x6 solve
-run in another order than the plain matrix products, so S agrees to float32
-rounding (chip_smoke.py holds it within 1e-5 of max|S|).
+frame_records, gram_plain, gn_update): gn_solve_plain runs the round loop
+over gn_step_plain and reads the done flag back as the JAX while_loop
+tests it (tracking/tracker.run_gn_rounds, the loop of the mesh and
+resident trackers, gives the same bits over the same plain records and
+Gram).  On the card the kernel's sums and its 6x6 solve run in another order than the
+plain matrix products, so S agrees to float32 rounding (chip_smoke.py holds
+it within 1e-5 of max|S|).
 
 A wrapper takes the plain version ONLY for tensors that lie on the CPU; for
-CUDA tensors it launches the kernel or raises.  `launch_counts` counts
-kernel launches and nothing else.
+CUDA tensors it launches the kernel or raises (a refused cooperative launch
+too: nothing falls back to steps).  `launch_counts` counts kernel launches
+and nothing else.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from psgradientsdf_tpu_torch.core.volume import (
 from psgradientsdf_tpu_torch.utils import se3
 
 _LIB_NAME = "gn"
-launch_counts: Dict[str, int] = {"gn_step": 0, "gn_gram": 0}
+launch_counts: Dict[str, int] = {"gn_solve": 0, "gn_gram": 0}
 
 # the carry buffer: pose [0:16] row-major, then these slots, then S [24:88]
 CONV, FAIL, STALLED, E_MEAN, COUNT, ITERS, S0 = 16, 17, 18, 19, 20, 21, 24
@@ -74,7 +80,7 @@ class GnFrame:
 
     depth: [h,w] (a strided view is read in place: depth[::s, ::s]);
     stride: the factor that gives a pixel's coordinates in the full image;
-    vol: a GradSdfVolume or a PackedVolume (gn_step), or None (gram)."""
+    vol: a GradSdfVolume or a PackedVolume (gn_solve), or None (gram)."""
 
     def __init__(self, geom: Optional[GridGeometry], depth: torch.Tensor,
                  K: torch.Tensor, *, stride: int, zmin: float, zmax: float,
@@ -86,6 +92,7 @@ class GnFrame:
         self._points = None
         self._payload = None
         self._scratch = None
+        self._records = None
 
     @property
     def device(self) -> torch.device:
@@ -116,12 +123,20 @@ class GnFrame:
         v = self.vol
         return v.dist.view(-1), v.grad.view(-1, 3), v.weight.view(-1)
 
-    def scratch(self, blocks: int):
-        """The kernel's per-block partial sums and its ticket (zero between
-        launches: the last block resets it)."""
-        if self._scratch is None:
+    def records(self) -> torch.Tensor:
+        """gn_solve's [N,8] record buffer in device memory, for a frame whose
+        records do not fit on chip (made once a frame)."""
+        if self._records is None:
+            self._records = torch.empty((self.n, 8), dtype=torch.float32,
+                                        device=self.device)
+        return self._records
+
+    def scratch(self, rows: int):
+        """The kernels' partial sums (`rows` of 36) and gn_gram's ticket
+        (zero between launches: its last block resets it)."""
+        if self._scratch is None or self._scratch[0].numel() < rows * 36:
             self._scratch = (
-                torch.empty((blocks * 36,), dtype=torch.float32, device=self.device),
+                torch.empty((rows * 36,), dtype=torch.float32, device=self.device),
                 torch.zeros((1,), dtype=torch.int32, device=self.device))
         return self._scratch
 
@@ -290,9 +305,11 @@ def gn_update(carry, E, g, Hm, cnt, *, fresh: bool, num_iterations: int,
 def gn_step_plain(frame: GnFrame, carry: torch.Tensor,
                   records: Optional[torch.Tensor], *, fresh: bool,
                   num_iterations: int, conv_threshold_sq: float,
-                  damping: float) -> None:
-    """gn_step with eager PyTorch ops (frame_records, gram_plain,
-    gn_update), in place on the carry and the records."""
+                  damping: float, on_gram=None) -> None:
+    """One GN step with eager PyTorch ops (frame_records, gram_plain,
+    gn_update), in place on the carry and, in a fresh step that is given
+    them, the records; a frozen step reads the round's records.
+    `on_gram(S)`, when given, sees the step's 8x8 Gram."""
     pose, conv, fail, stalled, E_mean, count, iters, S_old = unpack_carry(carry)
     if fresh:
         stalled = torch.zeros_like(stalled)       # the round-local flag
@@ -302,6 +319,8 @@ def gn_step_plain(frame: GnFrame, carry: torch.Tensor,
     else:
         rec = unpack_records(records)
     S = gram_plain(frame.points()[0], pose, rec)
+    if on_gram is not None:
+        on_gram(S)
     new = gn_update(
         (pose, conv, fail, stalled, E_mean, count, iters), *split_gram(S),
         fresh=fresh, num_iterations=num_iterations,
@@ -309,6 +328,37 @@ def gn_step_plain(frame: GnFrame, carry: torch.Tensor,
         lever=trust_lever(frame.geom), voxel_size=frame.geom.voxel_size)
     active = (~conv) & (~fail) & (~stalled) & (iters < num_iterations)
     pack_carry(carry, *new, torch.where(active, S, S_old))
+
+
+def solve_rounds(num_iterations: int, regather_every: int,
+                 early_exit: bool) -> int:
+    """The rounds of a solve: up to num_iterations under early_exit (every
+    active round consumes at least its fresh iteration, so that many always
+    exhaust the budget), else ceil(num_iterations / regather_every)."""
+    return num_iterations if early_exit else -(-num_iterations // regather_every)
+
+
+def gn_solve_plain(frame: GnFrame, carry: torch.Tensor, *, num_iterations: int,
+                   conv_threshold_sq: float, damping: float,
+                   regather_every: int = 1, early_exit: bool = True,
+                   on_gram=None) -> None:
+    """gn_solve with eager PyTorch ops: the rounds of gn_step_plain, one
+    fresh step and regather_every - 1 frozen ones each; under early_exit
+    the done flag is read back before every round, as the JAX while_loop
+    tests it.  `on_gram(S)`, when given, sees every step's 8x8 Gram."""
+    records = None
+    if regather_every > 1:
+        records = torch.empty((frame.n, 8), dtype=torch.float32, device=frame.device)
+    kw = dict(num_iterations=num_iterations,
+              conv_threshold_sq=conv_threshold_sq, damping=damping,
+              on_gram=on_gram)
+    for _ in range(solve_rounds(num_iterations, regather_every, early_exit)):
+        if early_exit:
+            conv, fail, iters = carry[[CONV, FAIL, ITERS]].tolist()
+            if iters >= num_iterations or conv != 0 or fail != 0:
+                break
+        for k in range(regather_every):
+            gn_step_plain(frame, carry, records, fresh=k == 0, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -325,9 +375,10 @@ class _GnArgs(ctypes.Structure):
         ("dist", _p), ("dist_vs", _i), ("grad", _p), ("grad_vs", _i),
         ("weight", _p), ("weight_vs", _i), ("X", _i), ("Y", _i), ("Z", _i),
         ("origin_x", _d), ("origin_y", _d), ("origin_z", _d), ("voxel", _d),
-        ("records", _p), ("fresh", _i), ("carry", _p), ("pose", _p),
-        ("gram_out", _p), ("partials", _p), ("ticket", _p),
-        ("num_iterations", _i), ("conv_threshold_sq", _d), ("damping", _d),
+        ("records", _p), ("carry", _p), ("pose", _p), ("gram_out", _p),
+        ("partials", _p), ("ticket", _p), ("num_iterations", _i),
+        ("regather_every", _i), ("early_exit", _i), ("blocks", _i),
+        ("on_chip", _i), ("conv_threshold_sq", _d), ("damping", _d),
         ("lever", _d)]
 
 
@@ -349,6 +400,7 @@ def _check(frame: GnFrame, records: Optional[torch.Tensor], *tensors) -> None:
 
 
 _bound = None
+_plans: Dict[tuple, tuple] = {}
 
 
 def _library():
@@ -357,16 +409,51 @@ def _library():
         from psgradientsdf_tpu_torch.kernels import load_library
 
         lib = load_library(_LIB_NAME)
-        for fn in (lib.gn_step, lib.gn_gram):
+        for fn in (lib.gn_solve, lib.gn_gram):
             fn.argtypes = [ctypes.POINTER(_GnArgs), ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.gn_blocks.argtypes = [ctypes.c_int]
         lib.gn_blocks.restype = ctypes.c_int
+        lib.gn_solve_plan.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                      ctypes.POINTER(ctypes.c_int64),
+                                      ctypes.POINTER(ctypes.c_int64)]
+        lib.gn_solve_plan.restype = ctypes.c_int
+        lib.gn_barriers.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+        lib.gn_barriers.restype = ctypes.c_int
         _bound = lib
     return _bound
 
 
-def _launch(name: str, frame: GnFrame, records, **fields) -> None:
+def solve_plan(dev: torch.device, n: int, regather_every: int):
+    """gn_solve's grid for n pixels on `dev`, found once: (blocks, whether
+    the tiles' depth and records stay in shared memory)."""
+    key = (dev.index, n, regather_every > 1)
+    if key not in _plans:
+        blocks, on_chip = ctypes.c_int64(), ctypes.c_int64()
+        with torch.cuda.device(dev):
+            rc = _library().gn_solve_plan(n, regather_every, ctypes.byref(blocks),
+                                          ctypes.byref(on_chip))
+        if rc != 0:
+            raise RuntimeError(f"gn_solve: no cooperative grid for {n} pixels "
+                               f"on {dev}, CUDA error {rc}")
+        _plans[key] = (blocks.value, bool(on_chip.value))
+    return _plans[key]
+
+
+def barrier_floor(frame: GnFrame, regather_every: int, barriers: int) -> None:
+    """Launch an empty cooperative kernel on gn_solve's grid for the frame
+    that crosses `barriers` grid barriers (the solve's latency floor; not a
+    kernel of any path, so not counted)."""
+    blocks, _ = solve_plan(frame.device, frame.n, regather_every)
+    dev = frame.device
+    with torch.cuda.device(dev):
+        rc = _library().gn_barriers(blocks, barriers,
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gn_barriers: launch failed, CUDA error {rc}")
+
+
+def _launch(name: str, frame: GnFrame, records, partial_rows: int, **fields) -> None:
     lib = _library()
     a = _GnArgs()
     d = frame.depth
@@ -375,7 +462,7 @@ def _launch(name: str, frame: GnFrame, records, **fields) -> None:
     a.coord_stride, a.K, a.zmin, a.zmax = (
         float(frame.stride), frame.K.data_ptr(), frame.zmin, frame.zmax)
     a.records = None if records is None else records.data_ptr()
-    partials, ticket = frame.scratch(lib.gn_blocks(frame.n))
+    partials, ticket = frame.scratch(partial_rows)
     a.partials, a.ticket = partials.data_ptr(), ticket.data_ptr()
     for k, v in fields.items():
         setattr(a, k, v)
@@ -393,34 +480,47 @@ def _launch(name: str, frame: GnFrame, records, **fields) -> None:
 # ---------------------------------------------------------------------------
 
 
-def gn_step(frame: GnFrame, carry: torch.Tensor,
-            records: Optional[torch.Tensor], *, fresh: bool,
-            num_iterations: int, conv_threshold_sq: float,
-            damping: float) -> None:
-    """One GN step IN PLACE on `carry` (and, in a fresh step, on `records`
-    when given): one kernel launch on the card, the plain version on the
-    CPU.  A frozen step (fresh=False) needs the records of the round's fresh
-    step."""
+def gn_solve(frame: GnFrame, carry: torch.Tensor, *, num_iterations: int,
+             conv_threshold_sq: float, damping: float, regather_every: int = 1,
+             early_exit: bool = True) -> None:
+    """A frame's whole GN solve IN PLACE on `carry`: one cooperative kernel
+    launch on the card, gn_solve_plain on the CPU.  Rounds of one fresh
+    step and regather_every - 1 frozen steps on its records; under
+    early_exit up to num_iterations rounds, ending once the carry is done,
+    else ceil(num_iterations / regather_every)."""
     if tuple(carry.shape) != (CARRY_SIZE,) or carry.dtype != torch.float32:
-        raise ValueError(f"gn_step: carry must be a float32 [{CARRY_SIZE}]")
-    if not fresh and records is None:
-        raise ValueError("gn_step: a frozen step reads the fresh step's records")
-    _check(frame, records, carry)
-    kw = dict(num_iterations=num_iterations,
-              conv_threshold_sq=conv_threshold_sq, damping=damping)
+        raise ValueError(f"gn_solve: carry must be a float32 [{CARRY_SIZE}]")
+    if not carry.is_contiguous():
+        raise ValueError("gn_solve: carry must be contiguous")
+    if regather_every < 1:
+        raise ValueError("gn_solve: every round starts with a fresh step "
+                         f"(regather_every >= 1, got {regather_every})")
+    if num_iterations < 1:
+        raise ValueError(f"gn_solve: num_iterations must be >= 1, got {num_iterations}")
+    _check(frame, None, carry)
+    kw = dict(num_iterations=num_iterations, conv_threshold_sq=conv_threshold_sq,
+              damping=damping, regather_every=regather_every,
+              early_exit=early_exit)
     if frame.device.type == "cpu":
-        return gn_step_plain(frame, carry, records, fresh=fresh, **kw)
+        return gn_solve_plain(frame, carry, **kw)
     dist, grad, weight = frame.fields()
     g = frame.geom
     if grad.stride(-1) != 1:
-        raise ValueError("gn_step: grad's three components must be adjacent")
+        raise ValueError("gn_solve: grad's three components must be adjacent")
+    blocks, on_chip = solve_plan(frame.device, frame.n, regather_every)
+    records = None
+    if regather_every > 1 and not on_chip:
+        records = frame.records()
     _launch(
-        "gn_step", frame, records, dist=dist.data_ptr(), dist_vs=dist.stride(0),
-        grad=grad.data_ptr(), grad_vs=grad.stride(0), weight=weight.data_ptr(),
-        weight_vs=weight.stride(0), X=g.dims[0], Y=g.dims[1], Z=g.dims[2],
-        origin_x=g.origin[0], origin_y=g.origin[1], origin_z=g.origin[2],
-        voxel=g.voxel_size, fresh=int(fresh), carry=carry.data_ptr(),
-        lever=trust_lever(g), **kw)
+        "gn_solve", frame, records, 2 * blocks, dist=dist.data_ptr(),
+        dist_vs=dist.stride(0), grad=grad.data_ptr(), grad_vs=grad.stride(0),
+        weight=weight.data_ptr(), weight_vs=weight.stride(0), X=g.dims[0],
+        Y=g.dims[1], Z=g.dims[2], origin_x=g.origin[0], origin_y=g.origin[1],
+        origin_z=g.origin[2], voxel=g.voxel_size, carry=carry.data_ptr(),
+        lever=trust_lever(g), blocks=blocks, on_chip=int(on_chip),
+        num_iterations=num_iterations, conv_threshold_sq=conv_threshold_sq,
+        damping=damping, regather_every=regather_every,
+        early_exit=int(early_exit))
 
 
 def gram(frame: GnFrame, pose: torch.Tensor, records: torch.Tensor) -> torch.Tensor:
@@ -431,6 +531,6 @@ def gram(frame: GnFrame, pose: torch.Tensor, records: torch.Tensor) -> torch.Ten
         return gram_plain(frame.points()[0], pose, unpack_records(records))
     pose = pose.to(torch.float32).contiguous()
     out = torch.empty((8, 8), dtype=torch.float32, device=frame.device)
-    _launch("gn_gram", frame, records, pose=pose.data_ptr(),
-            gram_out=out.data_ptr())
+    _launch("gn_gram", frame, records, _library().gn_blocks(frame.n),
+            pose=pose.data_ptr(), gram_out=out.data_ptr())
     return out

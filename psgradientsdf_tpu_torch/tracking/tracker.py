@@ -13,18 +13,21 @@ becomes one pass over the pixels per GN step:
 with the reference's early exit (||xi||^2 < conv_threshold^2 checked *after*
 the solve, *before* the pose update — RigidPointOptimizer.cpp:66-74).
 
-track_frame runs each step through ops/gn.gn_step: ONE kernel launch a step
-on the card, the loop's carry (pose, flags, energy, counts) in a small
-device buffer; the plain PyTorch ops on the CPU.  run_gn_rounds is the same
-loop over callables in eager PyTorch: the plain version track_frame is held
-against (run_gn_rounds_plain), and the loop of the summed-Gram mesh tracker
-and of the resident tracker, whose Gram goes through ops/gn.gram.
+track_frame runs a frame's whole solve through ops/gn.gn_solve: ONE kernel
+launch a frame on the card, which runs every round and step and ends the
+loop on the device, the carry (pose, flags, energy, counts) in a small
+device buffer that the host does not read; on the CPU the plain round loop
+(gn.gn_solve_plain, which run_gn_rounds_plain runs on any device: the
+plain version track_frame is held against).  run_gn_rounds is the same
+loop over callables in eager PyTorch: the loop of the summed-Gram mesh
+tracker and of the resident tracker, whose Gram goes through ops/gn.gram
+and whose sums across shards sit outside any one launch.
 
-Early exit: every GN step is masked once the solve has converged, failed or
-run out of budget, so extra rounds change nothing.  The loop therefore runs
-on the device without reading anything back and only POLLS the done flag
-every few rounds (one host read each); the results are the ones an exit
-right at the flag would give.
+Early exit in run_gn_rounds: every GN step is masked once the solve has
+converged, failed or run out of budget, so extra rounds change nothing.
+That loop therefore runs without reading anything back and only POLLS the
+done flag every few rounds (one host read each); the results are the ones
+an exit right at the flag would give.
 """
 
 from __future__ import annotations
@@ -41,9 +44,9 @@ from psgradientsdf_tpu_torch.ops import gn
 # rounds between two polls of the done flag under early_exit
 POLL_EVERY = 4
 
-# GN steps track_frame has run since the last reset, counted by the host
-# loop: on the card each is one ops/gn launch, so a run can hold the two
-# counts against each other
+# frames track_frame has solved since the last reset: on the card each is
+# one ops/gn.gn_solve launch, so a run can hold the two counts against each
+# other
 steps_run = {"track_frame": 0}
 
 
@@ -153,7 +156,8 @@ def run_gn_rounds(
 
 def drive_rounds(run_round, done, *, num_iterations: int, regather_every: int,
                  early_exit: bool) -> None:
-    """The round loop of every tracker.  early_exit: up to num_iterations
+    """The round loop of run_gn_rounds (the plain tracker, the summed-Gram
+    mesh tracker and the resident tracker).  early_exit: up to num_iterations
     rounds (every active round consumes at least its fresh iteration, so
     that many always exhaust the budget), `done()` — the one host read —
     polled every POLL_EVERY rounds.  Otherwise fixed-trip: ceil(num/R)
@@ -161,14 +165,12 @@ def drive_rounds(run_round, done, *, num_iterations: int, regather_every: int,
     conv_threshold_sq=0); with a nonzero threshold a stalled round
     under-consumes budget and the solve finishes early at the stalled
     iterate.  Nothing is read back."""
-    if early_exit:
-        for r in range(num_iterations):
-            run_round()
-            if (r + 1) % POLL_EVERY == 0 and r + 1 < num_iterations and done():
-                break
-    else:
-        for _ in range(-(-num_iterations // regather_every)):
-            run_round()
+    rounds = gn.solve_rounds(num_iterations, regather_every, early_exit)
+    for r in range(rounds):
+        run_round()
+        if (early_exit and (r + 1) % POLL_EVERY == 0 and r + 1 < rounds
+                and done()):
+            break
 
 
 def track_frame(
@@ -192,9 +194,9 @@ def track_frame(
     """Full GN tracking solve for one frame (optimize_sampled, cpp:12-79).
 
     `early_exit=True` (default) stops at the reference's ||xi||^2 < eps exit
-    (RigidPointOptimizer.cpp:68-71), polled as the module docstring says;
-    `early_exit=False` runs a fixed number of masked rounds and reads
-    nothing back.  Both give identical results.
+    (RigidPointOptimizer.cpp:68-71), tested on the device before every
+    round as the JAX while_loop tests it; `early_exit=False` runs a fixed
+    number of masked rounds.  Both give identical results.
 
     `regather_every=R` (frozen-correspondence GN): the per-pixel voxel
     payload gather runs once per R iterations; the R-1 intermediate
@@ -206,30 +208,20 @@ def track_frame(
     reference's semantics.
 
     `vol` is a GradSdfVolume or a PackedVolume; the solve is the same bit
-    for bit.  Each step is one ops/gn.gn_step (one kernel launch on the
+    for bit.  The solve is one ops/gn.gn_solve (one kernel launch on the
     card, which reads either layout's fields in place); the carry stays in
-    a device buffer, read by the host only to poll."""
+    a device buffer and nothing is read back."""
     frame, init_pose = _frame(vol, geom, depth, K, init_pose, stride=stride,
                               zmin=zmin, zmax=zmax, device=device)
     carry = gn.new_carry(init_pose)
-    records = None
-    if regather_every > 1:
-        records = torch.empty((frame.n, 8), dtype=torch.float32,
-                              device=frame.device)
-    kw = dict(num_iterations=num_iterations,
-              conv_threshold_sq=conv_threshold_sq, damping=damping)
+    gn.gn_solve(frame, carry, num_iterations=num_iterations,
+                conv_threshold_sq=conv_threshold_sq, damping=damping,
+                regather_every=regather_every, early_exit=early_exit)
+    steps_run["track_frame"] += 1
+    return _result(carry)
 
-    def run_round():
-        for k in range(regather_every):
-            gn.gn_step(frame, carry, records, fresh=k == 0, **kw)
-        steps_run["track_frame"] += regather_every
 
-    def done():
-        conv, fail, iters = carry[[gn.CONV, gn.FAIL, gn.ITERS]].tolist()
-        return iters >= num_iterations or conv != 0 or fail != 0
-
-    drive_rounds(run_round, done, num_iterations=num_iterations,
-                 regather_every=regather_every, early_exit=early_exit)
+def _result(carry) -> TrackResult:
     pose, conv, fail, _, E_mean, count, iters, _ = gn.unpack_carry(carry)
     return TrackResult(pose=pose, converged=conv & (~fail), iterations=iters,
                        energy=E_mean, num_valid=count)
@@ -267,26 +259,17 @@ def run_gn_rounds_plain(
     device=None,
     on_gram=None,
 ) -> TrackResult:
-    """track_frame's solve in eager PyTorch on any device: run_gn_rounds over
-    the plain records and Gram of ops/gn (frame_records, gram_plain), the
-    plain version track_frame's kernel is held against.  `on_gram(S)`, when
-    given, sees every step's 8x8 Gram."""
+    """track_frame's solve in eager PyTorch on any device: gn.gn_solve_plain
+    on a fresh carry, the plain version track_frame's kernel is held
+    against.  `on_gram(S)`, when given, sees every step's 8x8 Gram."""
     frame, init_pose = _frame(vol, geom, depth, K, init_pose, stride=stride,
                               zmin=zmin, zmax=zmax, device=device)
-
-    def masked_gram(pose, rec):
-        S = gn.gram_plain(frame.points()[0], pose, rec)
-        if on_gram is not None:
-            on_gram(S)
-        return gn.split_gram(S)
-
-    pose, conv, fail, E_mean, count, iters, _ = run_gn_rounds(
-        geom, lambda pose: gn.frame_records(frame, pose), masked_gram,
-        init_pose, num_iterations=num_iterations,
-        conv_threshold_sq=conv_threshold_sq, damping=damping,
-        regather_every=regather_every, early_exit=early_exit)
-    return TrackResult(pose=pose, converged=conv & (~fail), iterations=iters,
-                       energy=E_mean, num_valid=count)
+    carry = gn.new_carry(init_pose)
+    gn.gn_solve_plain(frame, carry, num_iterations=num_iterations,
+                      conv_threshold_sq=conv_threshold_sq, damping=damping,
+                      regather_every=regather_every, early_exit=early_exit,
+                      on_gram=on_gram)
+    return _result(carry)
 
 
 def energy(

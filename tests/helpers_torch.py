@@ -284,3 +284,26 @@ def assert_problem_equal(tprob, jprob):
 
 def t2n(x):
     return x.detach().cpu().numpy()
+
+
+def gn_rounds_over_plain_callables(vol, geom, depth, K, init_pose, *, zmin,
+                                   zmax, stride=1, device=None, truncation=None,
+                                   **solve_kw):
+    """A frame's plain tracking solve through tracking/tracker.run_gn_rounds,
+    the round loop of the summed-Gram mesh tracker and the resident tracker,
+    over ops/gn's plain records and Gram -> TrackResult."""
+    from psgradientsdf_tpu_torch.ops import gn as tgn
+    from psgradientsdf_tpu_torch.tracking import tracker as ttracker
+
+    frame = tgn.GnFrame(geom, torch.as_tensor(depth, dtype=torch.float32,
+                                              device=device)[::stride, ::stride],
+                        torch.as_tensor(K, dtype=torch.float32, device=device),
+                        stride=stride, zmin=zmin, zmax=zmax, vol=vol)
+    pose, conv, fail, E_mean, count, iters, _ = ttracker.run_gn_rounds(
+        geom, lambda pose: tgn.frame_records(frame, pose),
+        lambda pose, rec: tgn.split_gram(
+            tgn.gram_plain(frame.points()[0], pose, rec)),
+        torch.as_tensor(init_pose, dtype=torch.float32, device=device),
+        **solve_kw)
+    return ttracker.TrackResult(pose=pose, converged=conv & (~fail),
+                                iterations=iters, energy=E_mean, num_valid=count)

@@ -133,7 +133,7 @@ def test_kernel_wrappers_raise_on_cuda_tensors_instead_of_falling_back():
 
 
 @pytest.mark.parametrize("module,kernels", [
-    ("gn", ("gn_kernel",)), ("fuse", ("fuse_rows_kernel",))])
+    ("gn", ("gn_solve_kernel", "gn_kernel")), ("fuse", ("fuse_rows_kernel",))])
 def test_scan_program_wrappers_raise_on_cuda_tensors_instead_of_falling_back(
         module, kernels):
     """ops/gn.py and ops/fuse.py take the plain version only for CPU tensors:
@@ -149,6 +149,6 @@ def test_scan_program_wrappers_raise_on_cuda_tensors_instead_of_falling_back(
     with open(os.path.join(PKG, "csrc", module + ".cu")) as fh:
         cu = fh.read()
     for k in kernels:
-        assert re.search(r"__global__ void\s+(__launch_bounds__\(\w+\)\s+)?"
+        assert re.search(r"__global__ void\s+(__launch_bounds__\([\w, ]+\)\s+)?"
                          + k + r"\(", cu), k
     assert "torch/extension.h" not in cu and 'extern "C"' in cu

@@ -1,20 +1,22 @@
 """The scan programs' two kernel modules of the PyTorch package, on the CPU,
 where their wrappers run the plain versions: ops/fuse.py (the fusion update
-in place on rows of state, through per-field strides) and ops/gn.py (one
-Gauss-Newton step on a device carry, and the Gram of frozen records).
+in place on rows of state, through per-field strides) and ops/gn.py (a
+frame's whole Gauss-Newton solve on a device carry, and the Gram of frozen
+records).
 
 Against the JAX package, on the same numpy inputs: fuse_rows on SoA row
 blocks, on packed [CAP,S,8] rows, on the whole grid and on Z-slabs against
 the JAX package's _fuse_voxel_update on _row_world_coords and its
-fuse_frame; track_frame (through ops/gn.gn_step) against the JAX package's
+fuse_frame; track_frame (through ops/gn.gn_solve) against the JAX package's
 track_frame for the four named tracker configurations.  Tolerances are
 those of tests/test_torch_volume.py (visibility exact, float fields within
 helpers_torch.field_tolerances at 4 float32 ULPs of the scene's depth per
 fused frame) and of tests/test_torch_tracker.py (iterations, converged and
 valid pixels equal, pose atol 1e-5, energy rtol 1e-4).  Within the PyTorch
-package: track_frame equals run_gn_rounds_plain bit for bit, slots at or
-past `live` and slots with a false gate keep their state, the carry buffer
-holds its values exactly, and no CPU call launches a kernel.
+package: track_frame equals run_gn_rounds_plain and the mesh trackers'
+round loop (run_gn_rounds over the plain records and Gram) bit for bit,
+slots at or past `live` and slots with a false gate keep their state, the
+carry buffer holds its values exactly, and no CPU call launches a kernel.
 """
 
 import functools
@@ -36,7 +38,8 @@ from psgradientsdf_tpu_torch.tracking import configs as tconfigs
 from psgradientsdf_tpu_torch.tracking import tracker as ttracker
 
 from helpers_torch import (
-    CPU, field_tolerances, fuse_both, se3_exp_np, to_torch_vol, vol_to_numpy_j,
+    CPU, field_tolerances, fuse_both, gn_rounds_over_plain_callables,
+    se3_exp_np, to_torch_vol, vol_to_numpy_j,
 )
 from test_torch_tracker import INITS, ZKW as TRACK_ZKW, _assert_same
 from test_torch_tracker import scene as track_scene  # noqa: F401 (fixture)
@@ -252,7 +255,7 @@ def test_fuse_rows_checks_its_arguments():
         tfuse.fuse_rows(d, g, w, c, v, args[0][:-1], *args[1:], **kw)
 
 
-# ------------------------------------------------------------- the GN step
+# ------------------------------------------------------------ the GN solve
 
 
 def _track_kw(config):
@@ -269,8 +272,11 @@ def test_track_frame_through_gn_step_equals_run_gn_rounds_bit_for_bit(
         a = ttracker.track_frame(sc["tv"], sc["tg"], sc["depth"], sc["K"], seed, **kw)
         b = ttracker.run_gn_rounds_plain(sc["tv"], sc["tg"], sc["depth"], sc["K"],
                                          seed, **kw)
-        for x, y in zip(a, b):
+        c = gn_rounds_over_plain_callables(sc["tv"], sc["tg"], sc["depth"],
+                                           sc["K"], seed, **kw)
+        for x, y, z in zip(a, b, c):
             assert x.dtype == y.dtype and torch.equal(x, y), (config, init)
+            assert x.dtype == z.dtype and torch.equal(x, z), (config, init)
 
 
 @pytest.mark.parametrize("config", CONFIGS)
@@ -326,27 +332,35 @@ def test_records_round_trip_and_the_gram_of_frozen_records(track_scene):
     assert torch.equal(tgn.gram(frame, pose, packed), S)
     assert int(S[7, 7]) == int(rec[3].sum()) > 1000
 
-    kw = dict(num_iterations=10, conv_threshold_sq=1e-12, damping=1.0)
-    carry, records = tgn.new_carry(pose), torch.empty((frame.n, 8))
-    tgn.gn_step(frame, carry, records, fresh=True, **kw)
+    kw = dict(conv_threshold_sq=1e-12, damping=1.0)
+    # a fresh step that keeps its records (the plain step)
+    records = torch.empty((frame.n, 8))
+    tgn.gn_step_plain(frame, tgn.new_carry(pose), records, fresh=True,
+                      num_iterations=10, **kw)
     assert torch.equal(records, packed)
+    # one step: gn_solve(num_iterations=1)
+    carry = tgn.new_carry(pose)
+    tgn.gn_solve(frame, carry, num_iterations=1, **kw)
     zero_b = torch.tensor(False)
     want = tgn.gn_update(
         (pose, zero_b, zero_b, zero_b, torch.tensor(0.0),
          torch.tensor(0, dtype=torch.int32), torch.tensor(0, dtype=torch.int32)),
         *tgn.split_gram(S), fresh=True, lever=tgn.trust_lever(sc["tg"]),
-        voxel_size=sc["tg"].voxel_size, **kw)
+        voxel_size=sc["tg"].voxel_size, num_iterations=1, **kw)
     got = tgn.unpack_carry(carry)
     for a, b in zip(got[:7], want):
         assert torch.equal(a, b)
     assert torch.equal(got[7], S)
     assert int(got[6]) == 1
     pose1 = got[0]
-    tgn.gn_step(frame, carry, records, fresh=False, **kw)
+    # a fresh and a frozen step on its records: the frozen step's S
+    carry = tgn.new_carry(pose)
+    tgn.gn_solve(frame, carry, num_iterations=2, regather_every=2,
+                 early_exit=False, **kw)
     S1 = tgn.gram_plain(frame.points()[0], pose1, rec)
     assert torch.equal(tgn.unpack_carry(carry)[7], S1)
-    with pytest.raises(ValueError, match="frozen"):
-        tgn.gn_step(frame, carry, None, fresh=False, **kw)
+    with pytest.raises(ValueError, match="fresh"):
+        tgn.gn_solve(frame, carry, num_iterations=2, regather_every=0, **kw)
 
 
 def test_cpu_calls_launch_nothing(track_scene):
@@ -357,8 +371,8 @@ def test_cpu_calls_launch_nothing(track_scene):
     ttracker.track_frame(sc["tv"], sc["tg"], sc["depth"], sc["K"],
                          se3_exp_np(INITS["near"]), device=CPU, **TRACK_ZKW,
                          **_track_kw("STREAMING"))
-    # STREAMING: two rounds of four steps, fixed-trip
-    assert ttracker.steps_run["track_frame"] == 8
+    # one solve a frame (STREAMING: two rounds of four steps, fixed-trip)
+    assert ttracker.steps_run["track_frame"] == 1
     s2, state, pose, pix, rows, live = _state()
     _, fields = _rows_fields(state, rows, "packed", s2, 1)
     tfuse.fuse_rows(*fields, torch.from_numpy(pix), torch.from_numpy(s2["K"]),
@@ -367,7 +381,7 @@ def test_cpu_calls_launch_nothing(track_scene):
                     live=torch.tensor(live), truncation=s2["T"],
                     cos_thresh_sq=COS_SQ, **ZKW)
     assert tfuse.launch_counts == {"fuse_rows": 0}
-    assert tgn.launch_counts == {"gn_step": 0, "gn_gram": 0}
+    assert tgn.launch_counts == {"gn_solve": 0, "gn_gram": 0}
 
 
 def test_culled_fusion_launch_pattern_goes_through_fuse_rows(monkeypatch):
