@@ -54,6 +54,17 @@ sequence, and 48 frames tracked under each named tracker configuration; the
 scan phase then checks that every tracked frame and every update of the
 main run went through them.
 
+The refinement's two kernels (the residual pass and the distance block's
+Jacobian, csrc/residual.cu) are held the same way: phases refine and
+refine_led_upsample check that every residual pass and every distance
+block of those runs went through them, and phase refine_kernels (after
+refine_led_upsample) holds both against their plain versions bit for bit
+on the main run's problem (SH1 and SH2), the LED run's, a keyframe moved
+past the surface and one turned off the image, and 34 keyframes of
+1709x1139, under every robust loss, with their times.  In mesh_refine the
+4x2 mesh's first residual pass is held against one device's, bit for bit,
+and the albedo block replays the main run's accept decisions.
+
 With --kernels-only the run stops after the kernels and scan_kernels phases
 (build, checks and times of the kernels): a quick look at a changed kernel.
 It drives no path, so it prints no final "ok" line and exits with 3.
@@ -173,9 +184,27 @@ SCAN_KERNELS = {
 GN_S_TOL = 1e-5
 GN_POSE_TOL = 1e-5
 GN_EDGE = 0.01
+# the kernels of the refinement's two jit-fused programs: wrapper -> (its
+# source, the JAX function it replaces, by file:line)
+REFINE_KERNELS = {
+    "residual_pass": ("psgradientsdf_tpu_torch/csrc/residual.cu",
+                      "psgradientsdf_tpu/refine/render.py:127"),
+    "dist_jacobian": ("psgradientsdf_tpu_torch/csrc/residual.cu",
+                      "psgradientsdf_tpu/refine/jacobians.py:193"),
+}
+# refine_kernels: the megapixel case (sokrates' image size, its keyframe
+# count), and the robust losses by their configuration names
+MEGA_W, MEGA_H, MEGA_F = 1709, 1139, 34
+LOSS_NAMES = ("l2", "cauchy", "huber", "tukey", "trunc_l2")
+# mesh_refine (a): the one-device run's albedo decisions are replayed on the
+# mesh; a decision that differs must have its candidate within ALBEDO_EDGE
+# of 0 or 1 on both runs, and at most ALBEDO_SHARE of a block's surface
+# voxel-channels may differ
+ALBEDO_EDGE = 1e-4
+ALBEDO_SHARE = 1e-4
 # everything the run builds: the CUDA kernels (nvcc) and the host libraries
 # of the PNG decoder and of the exports (g++), all started together
-LIBRARIES = ("rowcopy", "gn", "fuse", "png_unfilter", "mc")
+LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "png_unfilter", "mc")
 
 
 class SmokeFailure(Exception):
@@ -727,6 +756,53 @@ def _scan_counts():
                 frames_solved=tracker.steps_run["track_frame"])
 
 
+def _reset_refine_counts():
+    """Launch counts of the refinement's two kernels, set to 0."""
+    from psgradientsdf_tpu_torch.ops import residual
+
+    residual.reset_launch_counts()
+
+
+def _refine_counts():
+    from psgradientsdf_tpu_torch.ops import residual
+
+    return dict(residual.launch_counts)
+
+
+@contextlib.contextmanager
+def _refine_calls():
+    """While the body runs, count the calls of ops/residual.py's two
+    wrappers (a residual pass, a distance Jacobian, kernel or plain) and the
+    plain residual pass's calls on tensors on the card -> the dict of
+    counts.  The module functions are wrapped from outside; the package has
+    no switch for it."""
+    from psgradientsdf_tpu_torch.ops import residual
+
+    calls = dict(residual_pass=0, dist_jacobian=0, plain_residual_pass_on_card=0)
+    real = {n: getattr(residual, n)
+            for n in ("residual_pass", "dist_jacobian", "residual_pass_plain")}
+
+    def counted(name):
+        def fn(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return fn
+
+    def plain(*a, **kw):
+        if a[2].device.type != "cpu":
+            calls["plain_residual_pass_on_card"] += 1
+        return real["residual_pass_plain"](*a, **kw)
+
+    residual.residual_pass = counted("residual_pass")
+    residual.dist_jacobian = counted("dist_jacobian")
+    residual.residual_pass_plain = plain
+    try:
+        yield calls
+    finally:
+        for n, fn in real.items():
+            setattr(residual, n, fn)
+
+
 def _fuse_capacity(geom):
     """The pipeline's culled-fusion capacity at "fuse rows" 0.5."""
     zy = geom.dims[2] * geom.dims[1]
@@ -1219,18 +1295,22 @@ def run_scan(tmp, tag, seq, last, rows_impl, refine=None, grid=None,
         device=DEVICE, rows_impl=rows_impl, **pipe_kw)
     rowcopy.reset_launch_counts()            # just before the path is driven
     _reset_scan_counts()
+    _reset_refine_counts()
     t0 = time.perf_counter()
-    summary = pipe.run(refine=refine is not None)
-    _sync()
+    with _refine_calls() as refine_calls:
+        summary = pipe.run(refine=refine is not None)
+        _sync()
     seconds = time.perf_counter() - t0
     counts = dict(rowcopy.launch_counts)     # and read just after
     scan_counts = _scan_counts()
+    refine_counts = _refine_counts()
     with open(os.path.join(out_dir, "tracking_poses.txt")) as fh:
         pose_text = fh.read()
     with open(os.path.join(out_dir, "metrics.jsonl")) as fh:
         events = [json.loads(line) for line in fh]
     return dict(pipe=pipe, summary=summary, counts=counts,
-                scan_counts=scan_counts, seconds=seconds, out_dir=out_dir,
+                scan_counts=scan_counts, refine_counts=refine_counts,
+                refine_calls=refine_calls, seconds=seconds, out_dir=out_dir,
                 pose_text=pose_text, events=events)
 
 
@@ -1397,6 +1477,37 @@ def check_refine(run, seq, min_drop):
         peak_memory_bytes=summary["refine_peak_memory_bytes"],
         keyframe_ate_mm=ate * 1e3, surface_error_mm=[err0 * 1e3, err1 * 1e3],
         refined_mesh_vertices=mesh[0], refined_mesh_faces=mesh[1])
+
+
+def check_refine_launches(run):
+    """The refinement of `run` went through the two kernels: a residual pass
+    launch for each residual pass the loop made (the LED light's
+    initialisation, one before the loop, then a fused iteration's leading
+    pass and one after each block, and one at the upsample), a distance Jacobian launch for each distance or joint
+    block, and no plain residual pass on the card -> the launches."""
+    from psgradientsdf_tpu_torch.refine.optimizer import block_names
+
+    ref, summary = run["pipe"].refiner, run["summary"]
+    cfg = ref.cfg
+    names = block_names(cfg.opt_light, cfg.opt_albedo, cfg.opt_distance,
+                        cfg.opt_pose, cfg.joint_dp)
+    iters = summary["refine_iterations"]
+    upsampled = sum(1 for r in ref.energy_trace if r["block"] == "upsample")
+    # the LED light's initialisation makes one more
+    passes = 1 + (cfg.model == "LED") + iters * (1 + len(names)) + upsampled
+    jacobians = iters * sum(1 for n in names if n in ("distance", "joint_dp"))
+    calls, launches = run["refine_calls"], run["refine_counts"]
+    check(calls["residual_pass"] == passes
+          and launches["residual_pass"] == _on_card(passes),
+          f"residual_pass: {launches['residual_pass']} launches, "
+          f"{calls['residual_pass']} passes, expected {passes}")
+    check(calls["dist_jacobian"] == jacobians
+          and launches["dist_jacobian"] == _on_card(jacobians),
+          f"dist_jacobian: {launches['dist_jacobian']} launches, "
+          f"{calls['dist_jacobian']} calls, expected {jacobians}")
+    check(calls["plain_residual_pass_on_card"] == 0,
+          f"{calls['plain_residual_pass_on_card']} plain residual passes on the card")
+    return dict(launches, residual_passes=passes, distance_blocks=jacobians)
 
 
 def _one_iteration(ref):
@@ -1580,6 +1691,203 @@ def run_led_upsample(tmp):
         refine_seconds=summary["refine_seconds"],
         peak_memory_bytes=summary["refine_peak_memory_bytes"],
         scan_seconds=summary["seconds"])
+
+
+# ------------------------------------------- the refinement's two kernels
+
+
+def _bits_same(a, b):
+    """Bit for bit, bool tensors too."""
+    import torch
+
+    if a.dtype == torch.bool:
+        return bool(torch.equal(a, b))
+    return _bits_equal(a, b)
+
+
+def _distinct_pixels(uv, H, W):
+    """The distinct (frame, row, column) pixels that the residual pass's 3x3
+    patches read (eight of nine entries: the first row's first is unused),
+    with the patch fetch's clipping -> count."""
+    import torch
+
+    dev = uv.device
+    F = uv.shape[1]
+    r0 = torch.floor(uv[..., 1]).long()
+    c0 = torch.clamp(torch.floor(uv[..., 0]).long(), 0, W - 1)
+    d = torch.arange(-1, 2, device=dev)
+    rows = torch.clamp(r0[..., None] + d, 0, H - 1)                 # [N,F,3]
+    cols = torch.clamp(c0[..., None] + d, 0, W - 1)
+    f = torch.arange(F, device=dev)[None, :, None, None]
+    lin = (f * H + rows[..., :, None]) * W + cols[..., None, :]      # [N,F,3,3]
+    used = torch.ones(3, 3, dtype=torch.bool, device=dev)
+    used[0, 0] = False
+    return int(torch.unique(lin[..., used]).numel())
+
+
+def _refine_case(what, args, kw, flush, timed=False):
+    """Both kernels against their plain versions on the same inputs
+    (args: prob, geom, dist, albedo, grad_stored, poses, images, K, lights;
+    kw: the residual pass's model, order, loss, lam, voxel_size): every
+    output bit for bit, the Jacobian with G.  With `timed`, on the card:
+    each kernel's ms, plain_ms and its byte bound -> dict."""
+    from psgradientsdf_tpu_torch.ops import residual as RS
+
+    prob, geom, dist, albedo, grad, poses, images, K, lights = args
+    got = RS.residual_pass(*args, **kw)
+    want = RS.residual_pass_plain(*args, **kw)
+    _sync()
+    for name, a, b in zip(got._fields, got, want):
+        check(_bits_same(a, b), f"residual_pass differs from its plain version: "
+                                f"{what}, {name}, by up to {_abs_err(a, b)}")
+    jkw = dict(model=kw["model"], order=kw["order"], voxel_size=kw["voxel_size"])
+    jargs = (prob, geom, got, dist, albedo, grad, poses, K, lights)
+    G1, D1 = RS.dist_jacobian(*jargs, **jkw, with_G=True)
+    G2, D2 = RS.dist_jacobian_plain(*jargs, **jkw, with_G=True)
+    _sync()
+    for name, a, b in (("G", G1, G2), ("J0", D1.J0, D2.J0), ("Ji", D1.Ji, D2.Ji)):
+        check(_bits_same(a, b), f"dist_jacobian differs from its plain version: "
+                                f"{what}, {name}, by up to {_abs_err(a, b)}")
+    N, F, H, W = got.r.shape[0], got.r.shape[1], images.shape[1], images.shape[2]
+    z = got.p_cam[..., 2]
+    u, v = got.uv[..., 0], got.uv[..., 1]
+    inside = (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    out = dict(case=what, model=kw["model"], loss=kw["loss"], voxels=N,
+               keyframes=F, image=[W, H], pairs=N * F,
+               counted=int(got.mask.sum()), off_image=int((~inside).sum()),
+               behind_camera=int((z <= 0).sum()),
+               near_plane=int((z.abs() <= 1e-12).sum()), bit_identical=True,
+               max_abs_err=0.0)
+    if timed and DEVICE == "cuda":
+        B = lights.numel() // F if kw["model"] != "LED" else 0
+        pixels = _distinct_pixels(got.uv, H, W)
+        # outputs 69 bytes a pair, vis 1; a voxel's inputs (idx, dist,
+        # albedo, grad, nbr_idx, nbr_dist_const, nbr_dir, valid) 89 bytes;
+        # the frames' poses and lights, K; the distinct pixels read once
+        res_bytes = (N * F * 70 + N * 89 + F * (64 + 4 * B) + 36 + pixels * 12)
+        # p_cam and g_img read, J0 and Ji written: 84 bytes a pair; a voxel's
+        # inputs (dist, albedo, grad, nbr_idx, nbr_dist_const, nbr_dir) 76
+        jac_bytes = N * F * 84 + N * 76 + F * (64 + 4 * B) + 36
+        rargs = (prob, geom, dist, albedo, grad, poses, images, K, lights)
+        out["residual_pass"] = dict(
+            distinct_pixels=pixels, bytes=res_bytes,
+            bound_ms=res_bytes / HBM_BYTES_PER_S * 1e3,
+            ms=_time_ms(lambda: RS.residual_pass(*rargs, **kw), flush),
+            plain_ms=_time_ms(lambda: RS.residual_pass_plain(*rargs, **kw), flush),
+            library_ms=None)
+        out["dist_jacobian"] = dict(
+            bytes=jac_bytes, bound_ms=jac_bytes / HBM_BYTES_PER_S * 1e3,
+            ms=_time_ms(lambda: RS.dist_jacobian(*jargs, **jkw), flush),
+            plain_ms=_time_ms(lambda: RS.dist_jacobian_plain(*jargs, **jkw), flush),
+            library_ms=None)
+        for k in ("residual_pass", "dist_jacobian"):
+            out[k]["share_of_bound"] = out[k]["bound_ms"] / out[k]["ms"]
+    return out
+
+
+def _sh2_lights(lights, seed):
+    """[F,9] SH2 lights: the SH1 lights [F,4] and small seeded quadratic
+    coefficients."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    quad = 0.05 * torch.randn((lights.shape[0], 5), generator=gen)
+    return torch.cat([lights, quad.to(lights.device)], dim=1)
+
+
+def _megapixel(args):
+    """The main run's problem seen at MEGA_W x MEGA_H over its first MEGA_F
+    keyframes: K scaled to the image (pixel centres kept), the keyframe
+    images resampled bilinearly -> args of _refine_case."""
+    import torch
+
+    prob, geom, dist, albedo, grad, poses, images, K, lights = args
+    H, W = images.shape[1], images.shape[2]
+    sx, sy = MEGA_W / W, MEGA_H / H
+    K2 = K.clone()
+    K2[0, 0], K2[1, 1] = K[0, 0] * sx, K[1, 1] * sy
+    K2[0, 2], K2[1, 2] = (K[0, 2] + 0.5) * sx - 0.5, (K[1, 2] + 0.5) * sy - 0.5
+    big = torch.nn.functional.interpolate(
+        images[:MEGA_F].permute(0, 3, 1, 2), size=(MEGA_H, MEGA_W),
+        mode="bilinear", align_corners=False).permute(0, 2, 3, 1).contiguous()
+    return (prob._replace(vis=prob.vis[:, :MEGA_F]), geom, dist, albedo, grad,
+            poses[:MEGA_F].contiguous(), big, K2, lights[:MEGA_F].contiguous())
+
+
+def _off_image_poses(args, rd):
+    """The problem's poses with keyframe 1 moved forward along its optical
+    axis by the median depth of its surface points (about half of them then
+    lie behind the camera) and keyframe 2 turned by 0.5 rad about its y axis
+    (most projections leave the image)."""
+    import torch
+
+    poses = args[5].clone()
+    z = rd.p_cam[:, 1, 2][args[0].valid]
+    poses[1, :3, 3] += poses[1, :3, 2] * torch.median(z)
+    c, s_ = float(np.cos(0.5)), float(np.sin(0.5))
+    turn = torch.tensor([[c, 0, s_], [0, 1, 0], [-s_, 0, c]], dtype=poses.dtype,
+                        device=poses.device)
+    poses[2, :3, :3] = poses[2, :3, :3] @ turn
+    return args[:5] + (poses,) + args[6:]
+
+
+def refine_kernels(main_run, led_run):
+    """The refinement's two kernels (csrc/residual.cu) against their plain
+    versions on the card, bit for bit, at the main path's shapes:
+    (a) the main run's problem at its final state (40 keyframes of 640x480,
+        SH1) under every loss, and with SH2 lights under every loss;
+    (b) the LED run's problem after the upsample under every loss;
+    (c) the main problem with one keyframe moved past the surface (points
+        behind the camera) and one turned (projections off the image);
+    (d) the megapixel case: MEGA_F keyframes of MEGA_W x MEGA_H (the plain
+        version's per-frame patch path).
+    Timed (median of KERNEL_REPS, L2 flushed): (a) SH1 and SH2 under the
+    main run's loss, (b), (c) and (d).  Launches made here are on no path.
+    -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.refine import patches
+    from psgradientsdf_tpu_torch.utils.robust import loss_from_name
+
+    flush = (torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+             if DEVICE == "cuda" else None)
+    ref = main_run["pipe"].refiner
+    args = ref._args()
+    skw = ref._static_kwargs()
+    cases = []
+    sh2 = args[:8] + (_sh2_lights(args[8], SEED),)
+    for lights_args, order, model in ((args, 1, "SH1"), (sh2, 2, "SH2")):
+        for name in LOSS_NAMES:
+            kw = dict(skw, model=model, order=order, loss=loss_from_name(name))
+            cases.append(_refine_case(f"main {model} {name}", lights_args, kw, flush,
+                                      timed=kw["loss"] == skw["loss"]))
+    led = led_run["pipe"].refiner
+    lkw = led._static_kwargs()
+    for name in LOSS_NAMES:
+        kw = dict(lkw, loss=loss_from_name(name))
+        cases.append(_refine_case(f"LED {name}", led._args(), kw, flush,
+                                  timed=kw["loss"] == lkw["loss"]))
+    from psgradientsdf_tpu_torch.ops import residual as RS
+
+    off = _off_image_poses(args, RS.residual_pass_plain(*args, **skw))
+    case = _refine_case("off the image and behind the camera", off, skw, flush,
+                        timed=True)
+    check(case["behind_camera"] > 1000 and case["off_image"] > 0.05 * case["pairs"],
+          f"the off-image case: {case['behind_camera']} pairs behind the camera, "
+          f"{case['off_image']} off the image")
+    cases.append(case)
+    mega = _megapixel(args)
+    F, Hm, Wm = mega[6].shape[0], mega[6].shape[1], mega[6].shape[2]
+    check(F * Hm * Wm * 9 * 4 > patches._SPAN_BYTES_LIMIT,
+          "the megapixel case would not take the plain version's per-frame path")
+    case = _refine_case(f"megapixel {Wm}x{Hm}", mega, skw, flush, timed=True)
+    case["image_bytes"] = int(mega[6].numel() * 4)
+    check(case["counted"] > 0.5 * int((mega[0].vis & mega[0].valid[:, None]).sum()),
+          f"megapixel: {case['counted']} pairs counted, most should land inside")
+    del mega
+    cases.append(case)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return dict(cases=cases, checked=len(cases))
 
 
 # ------------------------------------------------------ the scan on a mesh
@@ -2566,6 +2874,111 @@ def cli_mesh_run(tmp, root):
     return cli_run, wall
 
 
+@contextlib.contextmanager
+def _albedo_decisions():
+    """While the body runs, record each call of refine/solvers.update_albedo
+    (the albedo block's (0, 1) acceptance): its candidates rho - delta and
+    its accept mask, on the device -> the list of (candidates, accepted)."""
+    from psgradientsdf_tpu_torch.refine import solvers
+
+    real, seen = solvers.update_albedo, []
+
+    def recording(prob, albedo, delta):
+        cand = albedo - delta
+        seen.append((cand.clone(), (cand > 0.0) & (cand < 1.0) & prob.valid[:, None]))
+        return real(prob, albedo, delta)
+
+    solvers.update_albedo = recording
+    try:
+        yield seen
+    finally:
+        solvers.update_albedo = real
+
+
+@contextlib.contextmanager
+def _replayed_albedo(decisions):
+    """While the body runs, refine/solvers.update_albedo takes the recorded
+    one-device decisions (_albedo_decisions) in place of its own: the mesh
+    calls it once a row chunk in mesh order, so call after call walks the
+    records' rows.  Each call counts the voxel-channels whose own decision
+    differs from the record, and the largest distance of such a candidate
+    from 0 or 1 on either run -> facts, filled as the body runs."""
+    import torch
+    from psgradientsdf_tpu_torch.refine import solvers
+
+    real = solvers.update_albedo
+    facts = dict(differing=[0] * len(decisions), worst_edge_distance=0.0)
+    at = dict(block=0, offset=0)
+
+    def edge(c):
+        return torch.minimum(c.abs(), (c - 1.0).abs())
+
+    def replay(prob, albedo, delta):
+        check(at["block"] < len(decisions),
+              "(a): the mesh ran more albedo blocks than the one-device run")
+        cand1, ok1 = decisions[at["block"]]
+        lo, n = at["offset"], prob.valid.shape[0]
+        c1, o1 = cand1[lo:lo + n].to(albedo.device), ok1[lo:lo + n].to(albedo.device)
+        cand = albedo - delta
+        ok = (cand > 0.0) & (cand < 1.0) & prob.valid[:, None]
+        diff = ok != o1
+        n_diff = int(diff.sum())
+        if n_diff:
+            far = float(torch.maximum(edge(cand[diff]), edge(c1[diff])).max())
+            facts["worst_edge_distance"] = max(facts["worst_edge_distance"], far)
+        facts["differing"][at["block"]] += n_diff
+        at["offset"] += n
+        if at["offset"] >= cand1.shape[0]:
+            check(at["offset"] == cand1.shape[0], "(a): the mesh's row chunks "
+                  "do not tile the one-device run's rows")
+            at["block"], at["offset"] = at["block"] + 1, 0
+        return torch.where(o1, cand, albedo)
+
+    solvers.update_albedo = replay
+    try:
+        yield facts
+    finally:
+        solvers.update_albedo = real
+    facts["blocks_replayed"] = at["block"]
+    check(at["block"] == len(decisions) and at["offset"] == 0,
+          f"(a): {at['block']} albedo blocks replayed of {len(decisions)}")
+
+
+def _held_first_pass(residuals, facts):
+    """A mesh's residual pass (parallel/refine.compute_residuals) whose
+    first call is also held against the one-device residual pass on the
+    gathered inputs: every block's r, w, mask, p_cam, uv and g_img equal to
+    the one-device pass's rows and frames, bit for bit (facts filled)."""
+    from psgradientsdf_tpu_torch.ops import residual as RS
+    from psgradientsdf_tpu_torch.parallel import shard
+
+    def wrapped(sp, geom, dist, albedo, grad, poses, images, K, lights, **kw):
+        mrd = residuals(sp, geom, dist, albedo, grad, poses, images, K, lights, **kw)
+        if facts:
+            return mrd
+        dev = poses.device
+        one = RS.residual_pass(
+            shard.gather_problem(sp, dev), geom, shard.gather_rows(dist, dev),
+            shard.gather_rows(albedo, dev), shard.gather_rows(grad, dev), poses,
+            shard.gather_images(images, dev), K, lights, **kw)
+        blocks = 0
+        for k, row in enumerate(mrd.blocks):
+            for j, b in enumerate(row):
+                rows = slice(b.rows[0], b.rows[0] + b.prob.valid.shape[0])
+                frames = slice(b.frames[0], b.frames[0] + b.poses.shape[0])
+                for name, a, w in zip(one._fields, mrd.rd[k][j], one):
+                    check(_bits_same(a, w[rows, frames].contiguous()),
+                          f"(a): block [{k}][{j}]'s first residual pass differs "
+                          f"from one device's in {name}, by up to "
+                          f"{_abs_err(a, w[rows, frames])}")
+                blocks += 1
+        facts.update(bit_identical=True, blocks=blocks,
+                     pairs=int(one.mask.numel()))
+        return mrd
+
+    return wrapped
+
+
 def mesh_refine(tmp, seq, main_run, led_run, led_seq, root):
     """The refinement on a device mesh whose every entry is the one card.
     (a) The main run's scan again (its trajectory, bit for bit) and its
@@ -2576,7 +2989,12 @@ def mesh_refine(tmp, seq, main_run, led_run, led_seq, root):
     surface count after the upsample.  (c) The command line with --mesh 2x2
     over the PNG files of dataset_files, the whole recipe: check_scan and
     check_refine, and each direct kernel launched once per slab per culled
-    fusion -> (launches of (c), what was measured, (c)'s run)."""
+    fusion -> (launches of (c), what was measured, (c)'s run).
+    In (a) the albedo block takes the main run's own accept decisions
+    (_replayed_albedo: a candidate at the reference's (0, 1) edge may be
+    kept on one path and refused on the other), and the loop's first
+    residual pass is held against one device's on the same rows, bit for
+    bit (_held_first_pass)."""
     import torch
     from psgradientsdf_tpu_torch.parallel import mesh as pm
     from psgradientsdf_tpu_torch.pipeline import sample_keyframes
@@ -2604,13 +3022,24 @@ def mesh_refine(tmp, seq, main_run, led_run, led_seq, root):
     ref.init()
     _sync()
     t_init = time.perf_counter() - t0
+    first = {}
+    ref.ops = ref.ops._replace(residuals=_held_first_pass(ref.ops.residuals, first))
     pm.reset_reduce_counts()
     t0 = time.perf_counter()
-    ref.alternating_optimize(opt.opt_light, opt.opt_albedo, opt.opt_distance,
-                             opt.opt_pose)
+    with _replayed_albedo(main_run["albedo_decisions"]) as albedo:
+        ref.alternating_optimize(opt.opt_light, opt.opt_albedo, opt.opt_distance,
+                                 opt.opt_pose)
     _sync()
     t_loop = time.perf_counter() - t0
     moved = dict(pm.reduce_counts)
+    check(first.get("bit_identical"), "(a): the first residual pass was not held")
+    channels = 3 * ref.prob.n_surface
+    check(max(albedo["differing"]) <= ALBEDO_SHARE * channels,
+          f"(a): {albedo['differing']} albedo decisions differ from one device's, "
+          f"more than {ALBEDO_SHARE} of {channels} voxel-channels")
+    check(albedo["worst_edge_distance"] <= ALBEDO_EDGE,
+          f"(a): a differing albedo decision's candidate lies "
+          f"{albedo['worst_edge_distance']:.3g} from 0 or 1 (limit {ALBEDO_EDGE})")
     metrics.close()
     with open(log) as fh:
         events = [json.loads(line) for line in fh]
@@ -2624,6 +3053,9 @@ def mesh_refine(tmp, seq, main_run, led_run, led_seq, root):
         surface_voxels=ref.prob.n_surface, capacity=ref.prob.capacity,
         iterations=ref.iterations_run, stopped=ref.stop_reason,
         relative_difference=seen_a, tolerance=PARITY_TOL,
+        first_residual_pass=first,
+        albedo_decisions=dict(albedo, voxel_channels=channels,
+                              share_limit=ALBEDO_SHARE, edge_limit=ALBEDO_EDGE),
         init_seconds=t_init, refine_seconds=t_loop,
         one_device_refine_seconds=main_run["summary"]["refine_seconds"],
         seconds_per_iteration=per_iter, seconds_per_block=per_block,
@@ -2958,7 +3390,7 @@ def main():
     started = {name: kernels.start_build(name) for name in LIBRARIES}
     for name, job in started.items():
         kernels.finish_build(name, job)
-    for name in ("rowcopy", "gn", "fuse"):
+    for name in kernels.CUDA_LIBRARIES:
         kernels.load_library(name)
     native.library(native.PNG_LIB)
     native.library(native.MC_LIB)
@@ -2994,8 +3426,10 @@ def main():
 
     # ---- the main path
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        main_run = run_scan(tmp, "scan", seq, FRAMES - 1, "dma",
-                            refine=REFINE_SH1)
+        with _albedo_decisions() as decisions:
+            main_run = run_scan(tmp, "scan", seq, FRAMES - 1, "dma",
+                                refine=REFINE_SH1)
+        main_run["albedo_decisions"] = decisions
         facts = check_scan(main_run, seq, FRAMES)
         counts = main_run["counts"]
         calls = main_run["pipe"].fuse_culled_calls
@@ -3030,7 +3464,8 @@ def main():
              overflow_redos=main_run["summary"]["overflow_redos"],
              fuse_capacity=main_run["summary"]["fuse_capacity"],
              launches=dict(counts, **scan_counts), **facts)
-        emit("refine", ok=True, card=card,
+        refine_launches = check_refine_launches(main_run)
+        emit("refine", ok=True, card=card, launches=refine_launches,
              **check_refine(main_run, seq, MIN_PS_DROP))
 
         # ---- the second pass: staged kernels, and plain row movement
@@ -3080,7 +3515,12 @@ def main():
 
         # ---- the LED model and the upsample, at a smaller depth
         led_run, led_seq, facts = run_led_upsample(tmp)
-        emit("refine_led_upsample", ok=True, card=card, **facts)
+        emit("refine_led_upsample", ok=True, card=card,
+             launches=check_refine_launches(led_run), **facts)
+
+        # ---- the refinement's two kernels against their plain versions
+        refine_facts = refine_kernels(main_run, led_run)
+        emit("refine_kernels", ok=True, card=card, reps=KERNEL_REPS, **refine_facts)
 
         # ---- the command line on the files, a failure mid-refinement, retry
         emit("resume_refine", ok=True, card=card,
@@ -3145,7 +3585,33 @@ def main():
                                "table and the row ids once")}
     for name in SCAN_KERNELS:
         check(scan_counts[name] > 0, f"{name} was never launched on its path")
+    # the refinement's kernels: the main run's launches, the times on its
+    # problem (SH1 under its loss)
+    main_case = next(c for c in refine_facts["cases"]
+                     if c["case"] == f"main SH1 {REFINE_SH1['loss function']}")
+    refine_rows = {name: dict(main_case[name], work=(
+        f"the main run's residual pass at its final state: "
+        f"{main_case['voxels']} surface-voxel slots x {main_case['keyframes']} "
+        f"keyframes of {W}x{H}, SH1, {REFINE_SH1['loss function']} loss; the "
+        "bound counts 70 bytes a pair written (and vis read), the per-voxel "
+        f"inputs once and the {main_case['residual_pass']['distinct_pixels']} "
+        "distinct pixels the patches read once"
+        if name == "residual_pass" else
+        "the main run's distance Jacobian from that pass (no G, as the "
+        "distance block asks): p_cam and g_img read, J0 and Ji written (84 "
+        "bytes a pair), the per-voxel inputs once"))
+        for name in REFINE_KERNELS}
+    for name in REFINE_KERNELS:
+        check(refine_launches[name] > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=REFINE_KERNELS[name][0],
+             replaces=REFINE_KERNELS[name][1], launches=refine_launches[name],
+             max_abs_err=main_case["max_abs_err"], ms=refine_rows[name]["ms"],
+             plain_ms=refine_rows[name]["plain_ms"],
+             bound_ms=refine_rows[name]["bound_ms"], bound_by="bytes",
+             library_ms=None, library_note="no single PyTorch call computes it",
+             work=refine_rows[name]["work"])
+        for name in REFINE_KERNELS] + [
         dict(name=name, route="cuda", source=SCAN_KERNELS[name][0],
              replaces=SCAN_KERNELS[name][1], launches=scan_counts[name],
              max_abs_err=scan_rows[name]["max_abs_err"],

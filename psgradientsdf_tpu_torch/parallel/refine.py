@@ -59,6 +59,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from psgradientsdf_tpu_torch.config import LED
+from psgradientsdf_tpu_torch.ops import residual
 from psgradientsdf_tpu_torch.parallel import mesh as pm
 from psgradientsdf_tpu_torch.parallel.mesh import is_remote, local_map
 from psgradientsdf_tpu_torch.parallel.shard import (
@@ -359,10 +360,14 @@ def _pose(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
 
 # ---------------------------------------------------------- distance blocks
 
-def _dist_jacobians(geom, rd: MeshResiduals, model, order, voxel_size):
-    return [[b if is_remote(b) else opt._dist_jacobian(
+def _dist_jacobians(geom, rd: MeshResiduals, model, order, voxel_size,
+                    with_G=False):
+    """Each local block's (G or None, DistJacobian): one kernel launch a
+    block on the card."""
+    return [[b if is_remote(b) else residual.dist_jacobian(
         b.view, geom, rd.rd[k][j], b.dist, b.albedo, b.grad, b.poses, b.K,
-        b.lights, model, order, voxel_size) for j, b in enumerate(row)]
+        b.lights, model=model, order=order, voxel_size=voxel_size, with_G=with_G)
+        for j, b in enumerate(row)]
         for k, row in enumerate(rd.blocks)]
 
 
@@ -449,7 +454,7 @@ def _joint_dp(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
     lay = sp.layout
     rdev = lay.row_devices
     rw = dict(reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l)
-    DJ = _dist_jacobians(geom, rd, model, order, voxel_size)
+    DJ = _dist_jacobians(geom, rd, model, order, voxel_size, with_G=True)
     Jc, wm = {}, {}
 
     def pose_part(k, j, b):

@@ -8,6 +8,11 @@ computeAlbedoGrad:396-460), the 6-point Laplacian (computeDistLaplacian:
 All functions are dense over [N] compacted surface voxels; frozen
 (non-surface) stencil neighbors come from precomputed constants in
 RefineProblem — no searches, no scatter, pure gathers.
+
+Every sum over the three axes is written out as (a0 b0 + a1 b1) + a2 b2
+(dot3; a norm's as a fused multiply-add chain, norm3), never a library
+reduction, so that every device rounds it alike and the residual kernels
+(csrc/residual.cu) can equal these functions on the card bit for bit.
 """
 
 from __future__ import annotations
@@ -48,8 +53,28 @@ def fd_laplacian(prob: RefineProblem, dist: torch.Tensor, voxel_size: float) -> 
     return (torch.sum(d_nbr, dim=-1) - 6.0 * dist) / (voxel_size * voxel_size)
 
 
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b over a last axis of 3 (broadcast): (a0 b0 + a1 b1) + a2 b2."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def norm3(v: torch.Tensor) -> torch.Tensor:
+    """The Euclidean norm over a last axis of 3 as the CPU's vector_norm
+    (and XLA's) evaluates it: the squares summed as the fused multiply-add
+    chain s = fma(v2, v2, fma(v1, v1, v0 v0)), then the correctly rounded
+    root.  Each fma is the exact product plus s in float64 and the root is
+    taken in float64, each rounded once to v's type (the CPU's float32
+    torch.sqrt is not correctly rounded), so that every device rounds it
+    alike."""
+    w = v.double()
+    s = v[..., 0] * v[..., 0]
+    s = (w[..., 1] * w[..., 1] + s.double()).to(v.dtype)
+    s = (w[..., 2] * w[..., 2] + s.double()).to(v.dtype)
+    return torch.sqrt(s.double()).to(v.dtype)
+
+
 def normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=eps)
+    return v / torch.clamp(norm3(v), min=eps)[..., None]
 
 
 def normal_jacobian(
@@ -65,11 +90,10 @@ def normal_jacobian(
     grad, direction: [...,3].
     """
     n_d = -direction / voxel_size
-    gnorm = torch.linalg.vector_norm(grad, dim=-1, keepdim=True)
-    N_inv = 1.0 / torch.clamp(gnorm, min=1e-3)
+    N_inv = 1.0 / torch.clamp(norm3(grad), min=1e-3)[..., None]
     if lag:
         return N_inv * n_d
-    dN = (N_inv ** 3) * torch.sum(n_d * grad, dim=-1, keepdim=True)
+    dN = (N_inv * N_inv * N_inv) * dot3(n_d, grad)[..., None]
     return N_inv * n_d - dN * grad
 
 

@@ -12,6 +12,12 @@ Shared pieces:
   image_pi_grad [N,F,3,3]: dI/dx = (image gradient at the reprojection) o
   (projection Jacobian) — PsOptimizerJa.cpp:78-90.
 
+The distance block's Jacobian (dist_jacobian_sh / _led, over
+_reprojection_terms) writes every sum out in a fixed order (geometry.dot3,
+sh.irradiance), so that csrc/residual.cu's dist_jacobian_kernel equals it on
+the card bit for bit; ops/residual.dist_jacobian is the call that picks the
+kernel on the card and these functions on the CPU.
+
 Deviations from the reference (documented, deliberate):
   * LED distance Jacobian: the reference flips the sign of the neighbor
     normal-perturbation directions vs the SH path (LedOptimizerJa.cpp:
@@ -32,6 +38,8 @@ from psgradientsdf_tpu_torch.refine import geometry
 from psgradientsdf_tpu_torch.refine.problem import RefineProblem
 from psgradientsdf_tpu_torch.refine.render import (
     ResidualData,
+    led_reflectance,
+    rotate,
     surface_points_world,
     world_to_cam,
 )
@@ -120,8 +128,7 @@ def albedo_jacobian_sh(
     """J_rho [N,F] scalar (same for all channels): -l_f . SH(ghat_stored)
     (PsOptimizerJa.cpp:118-122)."""
     n = geometry.normalize(grad_stored)
-    basis = sh.sh_basis(n, order)               # [N,B]
-    return -(basis @ lights.T)
+    return -sh.irradiance(sh.sh_basis(n, order), lights)
 
 
 def albedo_jacobian_led(
@@ -163,14 +170,9 @@ def light_jacobian_led(
 
 def _led_reflectance(prob, geom, dist, grad_stored, poses):
     """(n^T R p) / |p|^3 with n = ghat_stored (LedOptimizerJa.cpp:93-95)."""
-    n = geometry.normalize(grad_stored)
     pts_w = surface_points_world(prob, geom, dist, grad_stored)
-    R = poses[:, :3, :3]
-    p_cam = world_to_cam(pts_w, poses)
-    Rp = torch.einsum("fij,nfj->nfi", R, p_cam)
-    num = torch.einsum("ni,nfi->nf", n, Rp)
-    pn = torch.linalg.vector_norm(p_cam, dim=-1)
-    return num / torch.clamp(pn, min=1e-12) ** 3
+    return led_reflectance(geometry.normalize(grad_stored),
+                           world_to_cam(pts_w, poses), poses)
 
 
 class DistJacobian(NamedTuple):
@@ -181,17 +183,19 @@ class DistJacobian(NamedTuple):
 def _reprojection_terms(prob, dist, grad_stored, G, poses, voxel_size):
     """The part both shading models share: how the reprojected intensity
     moves with the stencil's distances -> (grad_fd, dn_d0, dn_di, dx_d0,
-    dx_di, dI0 [N,F,3], dIi [N,3,F,3])."""
+    dx_di, dI0 [N,F,3], dIi [N,3,F,3]).  G R^T is formed first, then each
+    dI is its product with dx, every sum over the last axis in dot3's
+    order."""
     grad_fd = geometry.fd_grad(prob, dist, voxel_size)        # [N,3]
     dn_d0, dn_di = geometry.dn_stencil(prob, grad_fd, voxel_size)  # [N,3], [N,3,3]
     ghat_stored = geometry.normalize(grad_stored)
-    R = poses[:, :3, :3]
-    GRt = torch.einsum("nfcx,fyx->nfcy", G, R)                # G R^T
+    # (G R^T)[c, y] = G[c, :] . R[y, :]
+    GRt = geometry.dot3(G[..., :, None, :], poses[None, :, None, :3, :3])
 
     dx_d0 = -ghat_stored - dist[:, None] * dn_d0              # [N,3]
-    dI0 = torch.einsum("nfcy,ny->nfc", GRt, dx_d0)
+    dI0 = geometry.dot3(GRt, dx_d0[:, None, None, :])         # [N,F,3]
     dx_di = -dist[:, None, None] * dn_di                      # [N,3(axis),3]
-    dIi = torch.einsum("nfcy,nay->nafc", GRt, dx_di)          # [N,3,F,3]
+    dIi = geometry.dot3(GRt[:, None], dx_di[:, :, None, None, :])   # [N,3,F,3]
     return grad_fd, dn_d0, dn_di, dx_d0, dx_di, dI0, dIi
 
 
@@ -214,14 +218,16 @@ def dist_jacobian_sh(
 
     if order == 1:
         # d(l . SH1(n)) = l[1:4] . dn, times rho_c
-        dS0 = dn_d0 @ lights[:, 1:4].T                         # [N,F]
-        dSi = torch.einsum("nay,fy->naf", dn_di, lights[:, 1:4])
+        l13 = lights[:, 1:4]
+        dS0 = geometry.dot3(dn_d0[:, None, :], l13)                   # [N,F]
+        dSi = geometry.dot3(dn_di[:, :, None, :], l13)                # [N,3,F]
     else:
-        dsh = sh.dsh_dn(geometry.normalize(grad_fd), 2)        # [N,3,9]
-        dSH0 = torch.einsum("nyb,ny->nb", dsh, dn_d0)          # [N,9]
-        dSHi = torch.einsum("nyb,nay->nab", dsh, dn_di)        # [N,3,9]
-        dS0 = dSH0 @ lights.T                                  # [N,F]
-        dSi = torch.einsum("nab,fb->naf", dSHi, lights)        # [N,3,F]
+        # dSH = dsh^T dn (over y), then l . dSH (over b)
+        dshT = sh.dsh_dn(geometry.normalize(grad_fd), 2).transpose(-1, -2)  # [N,9,3]
+        dSH0 = geometry.dot3(dshT, dn_d0[:, None, :])                 # [N,9]
+        dSHi = geometry.dot3(dshT[:, None], dn_di[:, :, None, :])     # [N,3,9]
+        dS0 = sh.irradiance(dSH0, lights)                             # [N,F]
+        dSi = sh.irradiance(dSHi, lights)                             # [N,3,F]
     shade0 = albedo[:, None, :] * dS0[..., None]               # [N,F,3]
     shadei = albedo[:, None, None, :] * dSi[..., None]         # [N,3,F,3]
 
@@ -246,22 +252,20 @@ def dist_jacobian_led(
         prob, dist, grad_stored, G, poses, voxel_size)
     n_fd = geometry.normalize(grad_fd)
 
-    R = poses[:, :3, :3]
-    pts_w = surface_points_world(prob, geom, dist, grad_stored)
-    p_cam = world_to_cam(pts_w, poses)
-    Rp = torch.einsum("fij,nfj->nfi", R, p_cam)               # [N,F,3]
-    pn = torch.clamp(torch.linalg.vector_norm(p_cam, dim=-1), min=1e-12)
-    radius = pn ** 3
-    m_val = torch.einsum("ni,nfi->nf", n_fd, Rp)              # n_fd^T R p
+    p_cam = world_to_cam(surface_points_world(prob, geom, dist, grad_stored), poses)
+    Rp = rotate(poses, p_cam, transpose=False)                # [N,F,3]
+    pn = torch.clamp(geometry.norm3(p_cam), min=1e-12)
+    radius = pn * pn * pn
+    pn5 = radius * pn * pn
+    m_val = geometry.dot3(n_fd[:, None, :], Rp)               # n_fd^T R p
 
     def m_terms(dn, dx):
         # dn [N,3], dx [N,3] -> dm [N,F]
-        t1 = torch.einsum("ny,nfy->nf", dn, Rp)
-        t2 = torch.sum(n_fd * dx, dim=-1)[:, None]
+        t1 = geometry.dot3(dn[:, None, :], Rp)
+        t2 = geometry.dot3(n_fd, dx)[:, None]
         num = t1 + t2
         # radius part: -3 (p^T R^T dx)/|p|^5 = -3 (Rp . dx)/|p|^5
-        pRtdx = torch.einsum("nfi,ni->nf", Rp, dx)
-        rad = -3.0 * pRtdx / pn ** 5
+        rad = -3.0 * geometry.dot3(Rp, dx[:, None, :]) / pn5
         return num / radius + rad * m_val
 
     dm0 = m_terms(dn_d0, dx_d0)

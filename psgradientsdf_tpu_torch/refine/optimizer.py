@@ -61,6 +61,7 @@ from psgradientsdf_tpu_torch.config import LED, OptimizerConfig
 from psgradientsdf_tpu_torch.core.grid import GridGeometry
 from psgradientsdf_tpu_torch.core.volume import GradSdfVolume
 from psgradientsdf_tpu_torch.io import ply, sdf_io, trajectory
+from psgradientsdf_tpu_torch.ops import residual
 from psgradientsdf_tpu_torch.ops.marching_cubes import extract_mesh_from_volume
 from psgradientsdf_tpu_torch.parallel import distributed
 from psgradientsdf_tpu_torch.refine import geometry, jacobians, render, solvers
@@ -113,21 +114,12 @@ def _light_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
     return lights - delta
 
 
-def _dist_jacobian(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
-                   model, order, voxel_size):
-    G = jacobians.image_pi_grad(rd, K)
-    if model == LED:
-        return G, jacobians.dist_jacobian_led(
-            prob, geom, dist, albedo, grad_stored, lights, G, poses, voxel_size)
-    return G, jacobians.dist_jacobian_sh(
-        prob, geom, dist, albedo, grad_stored, lights, G, poses, voxel_size, order)
-
-
 def _dist_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
                *, model, order, loss, lam, voxel_size, reg_weight_n,
                reg_weight_l, damping, laplacian_diag_only, steps_out=None):
-    _, DJ = _dist_jacobian(prob, geom, rd, dist, albedo, grad_stored, poses, K,
-                           lights, model, order, voxel_size)
+    _, DJ = residual.dist_jacobian(prob, geom, rd, dist, albedo, grad_stored,
+                                   poses, K, lights, model=model, order=order,
+                                   voxel_size=voxel_size)
     delta = solvers.solve_distance(
         prob, rd, DJ, dist, voxel_size,
         reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l, damping=damping,
@@ -191,8 +183,9 @@ def _joint_dp_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
     """Joint distance+pose GN update with Schur-complement pose elimination
     (solvers.solve_joint_dist_pose) — an extension over the reference's
     alternating distance-then-pose blocks."""
-    G, DJ = _dist_jacobian(prob, geom, rd, dist, albedo, grad_stored, poses, K,
-                           lights, model, order, voxel_size)
+    G, DJ = residual.dist_jacobian(prob, geom, rd, dist, albedo, grad_stored,
+                                   poses, K, lights, model=model, order=order,
+                                   voxel_size=voxel_size, with_G=True)
     J_c = _pose_jacobian(G, rd, poses, albedo, grad_stored, lights, model)
     delta_d, delta_xi = solvers.solve_joint_dist_pose(
         prob, rd, DJ, J_c, dist, voxel_size,

@@ -27,6 +27,13 @@ Memory: when the all-frames span table would be large (megapixel keyframe
 sets), `sample_patch_all` walks the frames one at a time, keeping exactly
 ONE [H*W, 9] span table live and emitting only the small [N,3]-shaped
 per-frame results.
+
+This module is the plain version's patch fetch (ops/residual.py
+residual_pass_plain), which serves the CPU.  On the card the residual pass
+is csrc/residual.cu's kernel: it reads the patches from the [F,H,W,3]
+images directly, with the same edge replication and arithmetic, and builds
+no span table; `_SPAN_BYTES_LIMIT`'s per-frame walk concerns the plain
+version alone.
 """
 
 from __future__ import annotations

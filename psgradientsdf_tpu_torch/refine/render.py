@@ -23,9 +23,9 @@ from typing import NamedTuple, Tuple
 import torch
 
 from psgradientsdf_tpu_torch.core.grid import GridGeometry
+from psgradientsdf_tpu_torch.ops.fuse import rot_apply
 from psgradientsdf_tpu_torch.ops.image import bilinear_rgb, image_gradient_rgb
 from psgradientsdf_tpu_torch.refine import geometry
-from psgradientsdf_tpu_torch.refine.patches import sample_patch_all
 from psgradientsdf_tpu_torch.refine.problem import RefineProblem
 from psgradientsdf_tpu_torch.utils import robust, sh
 
@@ -49,11 +49,17 @@ def surface_points_world(prob: RefineProblem, geom: GridGeometry, dist: torch.Te
     return c_v - dist[:, None] * ghat
 
 
+def rotate(poses: torch.Tensor, p: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """R_f p (or R_f^T p) for every (point, frame): p [N,F,3] -> [N,F,3],
+    as ops/fuse.rot_apply's multiply-adds in its fixed order."""
+    R = poses[:, :3, :3].permute(1, 2, 0)         # R[i, j] -> [F]
+    return torch.stack(rot_apply(R, p[..., 0], p[..., 1], p[..., 2], transpose),
+                       dim=-1)
+
+
 def world_to_cam(pts_w: torch.Tensor, poses: torch.Tensor) -> torch.Tensor:
     """R_f^T (x_n - t_f) for every (point, frame) -> [N,F,3]."""
-    R = poses[:, :3, :3]
-    t = poses[:, :3, 3]
-    return torch.einsum("fji,nfj->nfi", R, pts_w[:, None, :] - t[None, :, :])
+    return rotate(poses, pts_w[:, None, :] - poses[None, :, :3, 3], transpose=True)
 
 
 def project_to_frames(
@@ -100,9 +106,17 @@ def rendered_intensity_sh(
 ) -> torch.Tensor:
     """rho_c * (l_f . SH(n_hat)) -> [N,F,3] (PsOptimizerJa.cpp:30-40)."""
     n = geometry.normalize(geometry.fd_grad(prob, dist, voxel_size))
-    basis = sh.sh_basis(n, order)                      # [N,B]
-    irr = basis @ lights.T                             # [N,F]
+    irr = sh.irradiance(sh.sh_basis(n, order), lights)   # [N,F]
     return albedo[:, None, :] * irr[..., None]
+
+
+def led_reflectance(n: torch.Tensor, p_cam: torch.Tensor,
+                    poses: torch.Tensor) -> torch.Tensor:
+    """(n^T R p) / max(|p|, 1e-12)^3 -> [N,F] for normals n [N,3] and
+    camera points p [N,F,3] (LedOptimizerJa.cpp:15-29, 93-95)."""
+    num = geometry.dot3(n[:, None, :], rotate(poses, p_cam, transpose=False))
+    pn = torch.clamp(geometry.norm3(p_cam), min=1e-12)
+    return num / (pn * pn * pn)
 
 
 def rendered_intensity_led(
@@ -116,14 +130,9 @@ def rendered_intensity_led(
     voxel_size: float,
 ) -> torch.Tensor:
     """rho_c * l_c * (-n^T R p / |p|^3) -> [N,F,3] (LedOptimizerJa.cpp:15-29)."""
-    pts_w = surface_points_world(prob, geom, dist, grad_stored)
-    R = poses[:, :3, :3]
-    p_cam = world_to_cam(pts_w, poses)
+    p_cam = world_to_cam(surface_points_world(prob, geom, dist, grad_stored), poses)
     n = geometry.normalize(geometry.fd_grad(prob, dist, voxel_size))
-    Rp = torch.einsum("fij,nfj->nfi", R, p_cam)        # R p (world direction)
-    num = -torch.einsum("ni,nfi->nf", n, Rp)
-    pn = torch.linalg.vector_norm(p_cam, dim=-1)
-    irr = num / torch.clamp(pn, min=1e-12) ** 3
+    irr = -led_reflectance(n, p_cam, poses)
     return albedo[:, None, :] * light[None, None, :] * irr[..., None]
 
 
@@ -144,25 +153,14 @@ def compute_residuals(
     lam: float,
     voxel_size: float,
 ) -> ResidualData:
-    """The fused residual/weight/mask pass (PsOptimizerJa.cpp:567-626)."""
-    H, W = images.shape[1], images.shape[2]
-    pts_w = surface_points_world(prob, geom, dist, grad_stored)
-    p_cam, uv, in_img = project_to_frames(pts_w, poses, K, (H, W))
-    # fused 3x3-patch fetch: intensity + image gradients in 3 gathers/pair
-    # instead of ~16 (identical values — see refine/patches.py)
-    I, g_img = sample_patch_all(images, uv)
+    """The fused residual/weight/mask pass (PsOptimizerJa.cpp:567-626): one
+    launch of ops/residual.py's kernel on the card, its plain version on the
+    CPU."""
+    from psgradientsdf_tpu_torch.ops import residual
 
-    if model == "LED":
-        rendered = rendered_intensity_led(
-            prob, geom, dist, albedo, grad_stored, lights, poses, voxel_size
-        )
-    else:
-        rendered = rendered_intensity_sh(prob, dist, albedo, lights, voxel_size, order)
-
-    mask = prob.vis & in_img & prob.valid[:, None]
-    r = torch.where(mask[..., None], I - rendered, 0.0)
-    w = torch.where(mask[..., None], robust.irls_weight(r, loss, lam), 0.0)
-    return ResidualData(r=r, w=w, mask=mask, p_cam=p_cam, uv=uv, g_img=g_img)
+    return residual.residual_pass(
+        prob, geom, dist, albedo, grad_stored, poses, images, K, lights,
+        model=model, order=order, loss=loss, lam=lam, voxel_size=voxel_size)
 
 
 def _per_surface(prob: RefineProblem, total: torch.Tensor) -> torch.Tensor:

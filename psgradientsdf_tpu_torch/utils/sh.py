@@ -7,6 +7,11 @@ Replicates the reference basis layout exactly
                         nx^2 - ny^2, nx^2 - nz^2]
 and the order-2 basis derivative dSH/dn
 (cpp/include/ps_optimizer/PsOptimizerJa.cpp:244-250).
+
+Both are elementwise in a fixed order, and `irradiance` writes the
+basis-light product out as a sum in coefficient order: the residual kernels
+(csrc/residual.cu) evaluate the same operations, so that they equal these
+functions on the card bit for bit.
 """
 
 from __future__ import annotations
@@ -40,6 +45,15 @@ def sh_basis(n: torch.Tensor, order: int) -> torch.Tensor:
             dim=-1,
         )
     raise ValueError(f"unsupported SH order {order}")
+
+
+def irradiance(basis: torch.Tensor, lights: torch.Tensor) -> torch.Tensor:
+    """l_f . SH for every (row, frame): basis [...,B], lights [F,B] ->
+    [...,F], summed from coefficient 0 up (no library matrix product)."""
+    out = basis[..., 0:1] * lights[:, 0]
+    for b in range(1, basis.shape[-1]):
+        out = out + basis[..., b:b + 1] * lights[:, b]
+    return out
 
 
 def dsh_dn(n: torch.Tensor, order: int) -> torch.Tensor:
