@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA package on one NVIDIA Hopper card.
 
-    python3 chip_smoke.py [--profile | --kernels-only | --distributed-only]
+    python3 chip_smoke.py [--profile | --kernels-only | --refine-only |
+                           --distributed-only] [--residual-parent <residual.cu>]
 
 Builds the package's CUDA kernels and its host C++ libraries (PNG unfilter,
 marching cubes and PLY writers) from csrc/, holds each kernel against its
@@ -61,13 +62,22 @@ block of those runs went through them, and phase refine_kernels (after
 refine_led_upsample) holds both against their plain versions bit for bit
 on the main run's problem (SH1 and SH2), the LED run's, a keyframe moved
 past the surface and one turned off the image, and 34 keyframes of
-1709x1139, under every robust loss, with their times.  In mesh_refine the
-4x2 mesh's first residual pass is held against one device's, bit for bit,
-and the albedo block replays the main run's accept decisions.
+1709x1139, under every robust loss, with their times, and on the tiles'
+edges (one keyframe, an odd count, keyframes past a tile's pairs on few
+and on many voxels, one voxel and one past each kernel's tile of voxels); it
+records the tile plans and the blocks an SM holds, and times the pass on
+small images; with --residual-parent <residual.cu> it also times the main
+case on that earlier source of the same C interface, in turns with this
+one.  In mesh_refine the 4x2 mesh's first residual pass is held against one
+device's, bit for bit, and the albedo block replays the main run's accept
+decisions.
 
 With --kernels-only the run stops after the kernels and scan_kernels phases
 (build, checks and times of the kernels): a quick look at a changed kernel.
 It drives no path, so it prints no final "ok" line and exits with 3.
+With --refine-only it runs the main run and phases refine,
+refine_led_upsample and refine_kernels only, and exits with 3 the same way:
+the quick look at the refinement's kernels.
 With --distributed-only it runs those phases, then phase `distributed`
 and the one-process runs it is held to, and exits with 3 the same way: on a
 machine of several cards the look at NCCL across cards.
@@ -196,6 +206,18 @@ REFINE_KERNELS = {
 # count), and the robust losses by their configuration names
 MEGA_W, MEGA_H, MEGA_F = 1709, 1139, 34
 LOSS_NAMES = ("l2", "cauchy", "huber", "tukey", "trunc_l2")
+# refine_kernels: the tile edges: keyframes past a frame-range tile's P (the
+# main run's keyframes repeated), an odd keyframe count, the rows of the
+# frame-range cases (from the middle of the surface set): a few, whose tiles
+# a block takes one each, and more than the grid's blocks take in one turn
+EDGE_RANGE_EXTRA = 37
+EDGE_ODD_F = 33
+EDGE_RANGE_ROWS = (3, 1000)
+# refine_kernels: the keyframe images cut to this size, whose patches stay
+# in the L1 cache (the residual pass's time without most of its pixel
+# traffic); --residual-parent <path> times an earlier residual.cu of the same
+# C interface against this one
+SMALL_IMAGES = (64, 48)
 # mesh_refine (a): the one-device run's albedo decisions are replayed on the
 # mesh; a decision that differs must have its candidate within ALBEDO_EDGE
 # of 0 or 1 on both runs, and at most ALBEDO_SHARE of a block's surface
@@ -1840,10 +1862,13 @@ def refine_kernels(main_run, led_run):
     (c) the main problem with one keyframe moved past the surface (points
         behind the camera) and one turned (projections off the image);
     (d) the megapixel case: MEGA_F keyframes of MEGA_W x MEGA_H (the plain
-        version's per-frame patch path).
+        version's per-frame patch path);
+    (e) the tiles' edges (_edge_cases).
     Timed (median of KERNEL_REPS, L2 flushed): (a) SH1 and SH2 under the
-    main run's loss, (b), (c) and (d).  Launches made here are on no path.
-    -> facts."""
+    main run's loss, (b), (c) and (d); the main case's tile plans and the
+    blocks an SM holds (_plans); the pass on small images (_small_images);
+    with --residual-parent, the main case on an earlier source in turns
+    (_parent_ab).  Launches made here are on no path.  -> facts."""
     import torch
     from psgradientsdf_tpu_torch.refine import patches
     from psgradientsdf_tpu_torch.utils.robust import loss_from_name
@@ -1885,9 +1910,187 @@ def refine_kernels(main_run, led_run):
           f"megapixel: {case['counted']} pairs counted, most should land inside")
     del mega
     cases.append(case)
+    cases += _edge_cases(args, skw, flush)
+    facts = dict(cases=cases, checked=len(cases))
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
-    return dict(cases=cases, checked=len(cases))
+        facts["plan"] = _plans(args)
+        kw = dict(skw, model="SH1", order=1)
+        facts["small_images"] = _small_images(args, kw, flush)
+        if "--residual-parent" in sys.argv[1:]:
+            facts["parent"] = _parent_ab(args, kw, flush)
+        torch.cuda.empty_cache()
+    return facts
+
+
+def _row_subset(args, rows):
+    """The problem's rows `rows` alone, every stencil neighbour's distance
+    frozen into nbr_dist_const (as a mesh block's view) -> args."""
+    import torch
+
+    prob, geom, dist, albedo, grad, poses, images, K, lights = args
+    idx = prob.nbr_idx[rows]
+    frozen = torch.where(idx >= 0, dist[idx.clamp(min=0)], prob.nbr_dist_const[rows])
+    sub = prob._replace(
+        valid=prob.valid[rows], idx_xyz=prob.idx_xyz[rows], dist=dist[rows],
+        albedo=albedo[rows], grad_stored=grad[rows], vis=prob.vis[rows],
+        nbr_dir=prob.nbr_dir[rows], nbr_idx=torch.full_like(idx, -1),
+        nbr_dist_const=frozen, nbr_albedo_const=prob.nbr_albedo_const[rows],
+        lap_idx=torch.full_like(prob.lap_idx[rows], -1),
+        lap_dist_const=prob.lap_dist_const[rows], n_surface=int(rows.numel()))
+    return (sub, geom, dist[rows], albedo[rows], grad[rows], poses, images, K, lights)
+
+
+def _frame_subset(args, frames):
+    """The problem seen from keyframes `frames` (indices into the keyframes,
+    repeats allowed) -> args."""
+    prob, geom, dist, albedo, grad, poses, images, K, lights = args
+    return (prob._replace(vis=prob.vis[:, frames].contiguous()), geom, dist, albedo,
+            grad, poses[frames].contiguous(), images[frames].contiguous(), K,
+            lights[frames].contiguous())
+
+
+def _edge_cases(args, skw, flush):
+    """The tiles' edges, both kernels bit for bit with G: one keyframe, an
+    odd keyframe count (spans off 16-byte multiples), one voxel, one voxel
+    past a multiple of each kernel's V, and keyframes past P (frame-range
+    tiles) on a few rows under SH1 and on more rows than the grid takes in
+    one turn under SH1 and SH2 (a block's later tiles reload the frame
+    terms) -> cases."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import residual as RS
+
+    prob = args[0]
+    N, F = prob.vis.shape
+    dev = prob.vis.device
+    mid = N // 2 + int(torch.nonzero(prob.valid[N // 2:])[0])
+    P = max(RS.PAIRS_PER_TILE.values())
+    long_f = torch.arange(P + EDGE_RANGE_EXTRA, device=dev) % F
+    sh2 = args[:8] + (_sh2_lights(args[8], SEED),)
+
+    def rows(n):
+        return torch.arange(mid, mid + n, device=dev)
+
+    specs = [
+        ("F=1", _frame_subset(args, torch.arange(1, device=dev)), 1),
+        (f"F={EDGE_ODD_F}", _frame_subset(args, torch.arange(EDGE_ODD_F, device=dev) % F), 1),
+        ("N=1", _row_subset(args, rows(1)), 1),
+    ]
+    for kernel in ("residual", "jacobian"):
+        V = RS._tile_plan(N, F, kernel=kernel).voxels
+        specs.append((f"N={V + 1} ({kernel} V={V})", _row_subset(args, rows(V + 1)), 1))
+    few, many = EDGE_RANGE_ROWS
+    specs += [
+        (f"frame-range F={long_f.numel()}, N={few}",
+         _frame_subset(_row_subset(args, rows(few)), long_f), 1),
+        (f"frame-range F={long_f.numel()}, N={many}",
+         _frame_subset(_row_subset(args, rows(many)), long_f), 1),
+        (f"frame-range F={long_f.numel()}, N={many}, SH2",
+         _frame_subset(_row_subset(sh2, rows(many)), long_f), 2),
+    ]
+    cases = []
+    for what, case_args, order in specs:
+        kw = dict(skw, model="SH1" if order == 1 else "SH2", order=order)
+        n, f = case_args[0].vis.shape
+        case = _refine_case(f"edge {what}", case_args, kw, flush)
+        case["tile"] = {k: RS._tile_plan(n, f, kernel=k)._asdict()
+                        for k in ("residual", "jacobian")}
+        if DEVICE == "cuda":
+            case["grid"] = {k: _sm_count() * RS.blocks_per_sm(
+                                k, RS._tile_plan(n, f, kernel=k), DEVICE)
+                            for k in ("residual", "jacobian")}
+            if n == many:
+                check(all(case["tile"][k]["tiles"] > case["grid"][k] for k in case["grid"]),
+                      f"{what}: fewer tiles than the grid's blocks")
+        cases.append(case)
+    return cases
+
+
+def _sm_count():
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _plans(args):
+    """The main case's tile plans, each kernel's shared memory a block and
+    the blocks an SM holds."""
+    from psgradientsdf_tpu_torch.ops import residual as RS
+
+    N, F = args[0].vis.shape
+    out = {}
+    for kernel in ("residual", "jacobian"):
+        plan = RS._tile_plan(N, F, kernel=kernel)
+        out[kernel] = dict(
+            pairs_per_tile=RS.PAIRS_PER_TILE[kernel], voxels=plan.voxels,
+            frames=plan.frames, tiles=plan.tiles, smem_bytes=plan.smem_bytes,
+            blocks_per_sm=RS.blocks_per_sm(kernel, plan, DEVICE),
+            threads_per_block=RS.BLOCK_THREADS)
+    return out
+
+
+def _small_images(args, kw, flush):
+    """The residual pass of the main case on its keyframe images cut to
+    SMALL_IMAGES (its patches in the L1 cache), bit for bit against the
+    plain version, and timed: the pass without most of its pixel traffic."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import residual as RS
+
+    images = args[6]
+    small = torch.nn.functional.interpolate(
+        images.permute(0, 3, 1, 2), size=SMALL_IMAGES[::-1]).permute(0, 2, 3, 1).contiguous()
+    sargs = args[:6] + (small,) + args[7:]
+    check(all(_bits_same(a, b) for a, b in zip(RS.residual_pass(*sargs, **kw),
+                                                RS.residual_pass_plain(*sargs, **kw))),
+          "residual_pass differs on the small images")
+    return dict(size=list(SMALL_IMAGES), residual_pass=_time_ms(
+        lambda: RS.residual_pass(*sargs, **kw), flush))
+
+
+def _parent_ab(args, kw, flush):
+    """The main case on this residual.cu and on the --residual-parent
+    source (an earlier residual.cu of the same C interface, built here into
+    a temporary directory), each held bit for bit against the plain
+    version, timed in turns: this, the parent, the parent, this
+    -> {"this"|"parent": {kernel: [ms, ms]}}."""
+    import ctypes
+    from psgradientsdf_tpu_torch import kernels
+    from psgradientsdf_tpu_torch.ops import residual as RS
+
+    src = sys.argv[sys.argv.index("--residual-parent") + 1]
+    prob, geom, dist, albedo, grad, poses, images, K, lights = args
+    want = RS.residual_pass_plain(*args, **kw)
+    jkw = dict(model=kw["model"], order=kw["order"], voxel_size=kw["voxel_size"])
+    jargs = (prob, geom, want, dist, albedo, grad, poses, K, lights)
+    _, want_j = RS.dist_jacobian_plain(*jargs, **jkw)
+    times = {name: {"residual_pass": [], "dist_jacobian": []} for name in ("this", "parent")}
+    with tempfile.TemporaryDirectory(prefix="residual_parent_") as tmp:
+        lib = os.path.join(tmp, "libresidual_parent.so")
+        proc = subprocess.run([kernels._find_nvcc(), *kernels.NVCC_FLAGS, "-o", lib, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        check(proc.returncode == 0, f"nvcc on {src} failed:\n{proc.stdout}")
+        parent = ctypes.CDLL(lib)
+        parent.residual_pass.argtypes = [ctypes.POINTER(RS._ResidualArgs), ctypes.c_void_p]
+        parent.dist_jacobian.argtypes = [ctypes.POINTER(RS._JacobianArgs), ctypes.c_void_p]
+        libs = dict(this=RS._library(), parent=parent)
+        saved = RS._bound
+        try:
+            for name in ("this", "parent", "parent", "this"):
+                RS._bound = libs[name]
+                got, got_j = RS.residual_pass(*args, **kw), RS.dist_jacobian(*jargs, **jkw)[1]
+                _sync()
+                for field, a, b in zip(got._fields, got, want):
+                    check(_bits_same(a, b), f"{name}: residual_pass {field} differs")
+                for field in ("J0", "Ji"):
+                    check(_bits_same(getattr(got_j, field), getattr(want_j, field)),
+                          f"{name}: dist_jacobian {field} differs")
+                times[name]["residual_pass"].append(
+                    _time_ms(lambda: RS.residual_pass(*args, **kw), flush))
+                times[name]["dist_jacobian"].append(
+                    _time_ms(lambda: RS.dist_jacobian(*jargs, **jkw), flush))
+        finally:
+            RS._bound = saved
+    return times
 
 
 # ------------------------------------------------------ the scan on a mesh
@@ -3402,14 +3605,15 @@ def main():
          libraries=[os.path.relpath(kernels.library_path(n)) for n in LIBRARIES])
 
     # ---- kernels against their plain versions
-    times, shapes, worst, n_checked, packed_widths = check_kernels(rowcopy)
-    emit("kernels", ok=True, cases_checked=n_checked, card=card,
-         reps=KERNEL_REPS, times=times, shapes=shapes,
-         packed_widths=packed_widths)
     seq = make_sequence(FRAMES)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        scan_facts = scan_kernels(tmp, seq)
-    emit("scan_kernels", ok=True, card=card, reps=KERNEL_REPS, **scan_facts)
+    if "--refine-only" not in sys.argv[1:]:
+        times, shapes, worst, n_checked, packed_widths = check_kernels(rowcopy)
+        emit("kernels", ok=True, cases_checked=n_checked, card=card,
+             reps=KERNEL_REPS, times=times, shapes=shapes,
+             packed_widths=packed_widths)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            scan_facts = scan_kernels(tmp, seq)
+        emit("scan_kernels", ok=True, card=card, reps=KERNEL_REPS, **scan_facts)
     if "--kernels-only" in sys.argv[1:]:
         return 3
     if "--distributed-only" in sys.argv[1:]:
@@ -3430,6 +3634,17 @@ def main():
             main_run = run_scan(tmp, "scan", seq, FRAMES - 1, "dma",
                                 refine=REFINE_SH1)
         main_run["albedo_decisions"] = decisions
+        if "--refine-only" in sys.argv[1:]:
+            # the refinement's kernels on the main run and the LED run
+            emit("refine", ok=True, card=card, launches=check_refine_launches(main_run),
+                 **check_refine(main_run, seq, MIN_PS_DROP))
+            led_run, _, facts = run_led_upsample(tmp)
+            emit("refine_led_upsample", ok=True, card=card,
+                 launches=check_refine_launches(led_run), **facts)
+            emit("refine_kernels", ok=True, card=card, reps=KERNEL_REPS,
+                 **refine_kernels(main_run, led_run))
+            print(smi, flush=True)
+            return 3
         facts = check_scan(main_run, seq, FRAMES)
         counts = main_run["counts"]
         calls = main_run["pipe"].fuse_culled_calls

@@ -24,6 +24,13 @@ which must be the residual pass at the same state (as in the refiner's
 loop); G, the image gradient composed with the projection, is computed on
 the way and returned only when asked for (the joint step's pose Jacobian).
 
+On the card the work is cut into tiles planned here (`_tile_plan`): V
+consecutive voxels x all F keyframes, or one voxel x a range of keyframes
+where F is large, so that a tile's pairs are one contiguous span of each
+output; the residual pass stages a tile's outputs in shared memory and
+writes each span with one bulk copy.  It reads the keyframe images as they
+are, [F,H,W,3].
+
 A wrapper takes the plain version ONLY for tensors that lie on the CPU; for
 CUDA tensors it launches the kernel or raises.  `launch_counts` counts
 kernel launches and nothing else.
@@ -32,7 +39,7 @@ kernel launches and nothing else.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -99,8 +106,106 @@ def dist_jacobian_plain(prob: RefineProblem, geom: GridGeometry,
 
 
 # ---------------------------------------------------------------------------
+# the tile plan
+# ---------------------------------------------------------------------------
+
+# pairs a tile, at most (P), and voxels a tile, at most.  A block is 8
+# consumer warps (256 threads) and 2 service warps; its shared memory holds
+# four buffers of the voxel terms and two of the frame terms (and of the
+# pass's staged outputs), so that a service warp fills one tile's while the
+# consumers run the other.  The plan asks for the shared-memory carveout
+# that holds BLOCKS_PER_SM blocks and leaves the rest of the SM's 256 KB to
+# the L1 cache, which the pass's pixel reads hit: the pass takes P = 256 (a
+# pair a consumer thread, 33 KB of staging) at three blocks an SM, the
+# Jacobian P = 512 (it stages nothing, reads no pixel, and its service
+# warps' per-voxel terms are the longer) at two, the best of both on an H100
+# (PERF.md).  Every plan fits a block: at most 78,912 bytes for the pass and
+# 86,976 for the Jacobian (frame-range tiles).
+PAIRS_PER_TILE = {"residual": 256, "jacobian": 512}
+BLOCKS_PER_SM = {"residual": 3, "jacobian": 2}
+BLOCK_THREADS = 320              # csrc/residual.cu kThreads
+MAX_TILE_VOXELS = 64
+SMEM_PER_BLOCK = 232448          # an H100 block's shared memory, at most
+SMEM_PER_SM = 233472             # an H100 SM's shared memory, at most
+_SMEM_RESERVED = 1024            # the system's shared memory a block
+_BARRIER_BYTES = 64              # the four mbarriers (32 bytes), at offset 0
+# floats a voxel's terms take in shared memory (an odd stride: no bank
+# conflicts when a warp spans several voxels), and a frame's (R, t and an
+# SH light of up to 9 coefficients; odd too)
+_VOX_FLOATS = {"residual": 17, "jacobian": 53}
+_VOX_BUFFERS = 4                 # csrc/residual.cu kVoxBuffers
+_FRAME_FLOATS = 21
+# bytes a pair of each of the pass's staged outputs, in the kernel's order:
+# r, w, mask, p_cam, uv, g_img
+_OUT_BYTES = (12, 12, 1, 12, 8, 24)
+
+
+class TilePlan(NamedTuple):
+    """csrc/residual.cu TilePlan: the tiles, and the byte offsets of a
+    block's shared-memory regions (every region 16-byte aligned; a span is
+    staged at its global address modulo 16, so a staged output's region
+    holds its pairs and 16 bytes more)."""
+    voxels: int            # V: voxels a tile (1 for a frame-range tile)
+    frames: int            # FT: frames a tile (F, or a range when V = 1)
+    tiles: int
+    smem_bytes: int
+    vox: int               # the voxel terms (_VOX_BUFFERS buffers: a service
+                           # warp writes a tile's while its last tile's are read)
+    vox_bytes: int
+    frm: int               # the frame terms (two buffers)
+    frm_bytes: int
+    stage: int             # the pass's staged outputs (two buffers; the
+    stage_bytes: int       # Jacobian: 0, 0)
+    outputs: Tuple[int, ...]           # six regions in a staging buffer
+    carveout: int          # shared memory asked of the SM, percent of SMEM_PER_SM
+
+
+def _up16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _tile_plan(N: int, F: int, *, kernel: str = "residual") -> TilePlan:
+    """The tiles of N voxels x F keyframes for `kernel` ("residual" or
+    "jacobian") and a block's shared memory.  A tile is V = min(P // F,
+    MAX_TILE_VOXELS, N) whole voxels x all F frames when F <= P, else one
+    voxel x P frames (the last range shorter): in both cases a tile's pairs
+    are one contiguous span of the [N, F] layout."""
+    P = PAIRS_PER_TILE[kernel]
+    if F <= P:
+        V, FT = max(1, min(MAX_TILE_VOXELS, P // F, N)), F
+    else:
+        V, FT = 1, P
+    off = _BARRIER_BYTES
+    vox, vox_bytes = off, _up16(V * _VOX_FLOATS[kernel] * 4)
+    off += _VOX_BUFFERS * vox_bytes
+    frm, frm_bytes = off, _up16(FT * _FRAME_FLOATS * 4)
+    off += 2 * frm_bytes
+    stage, stage_bytes, outputs = 0, 0, [0] * len(_OUT_BYTES)
+    if kernel == "residual":
+        stage = off
+        for k, per_pair in enumerate(_OUT_BYTES):
+            outputs[k] = stage_bytes
+            stage_bytes += _up16(V * FT * per_pair + 16)
+        off += 2 * stage_bytes
+    need = min(BLOCKS_PER_SM[kernel] * (off + _SMEM_RESERVED), SMEM_PER_SM)
+    return TilePlan(V, FT, -(-N // V) * -(-F // FT), off, vox, vox_bytes, frm,
+                    frm_bytes, stage, stage_bytes, tuple(outputs),
+                    -(-100 * need // SMEM_PER_SM))
+
+
+# ---------------------------------------------------------------------------
 # argument checks and the library binding
 # ---------------------------------------------------------------------------
+
+
+class _TilePlan(ctypes.Structure):
+    """csrc/residual.cu TilePlan, field for field."""
+    _fields_ = ([(n, ctypes.c_int64) for n in TilePlan._fields[:10]]
+                + [("outputs", ctypes.c_int64 * 6), ("carveout", ctypes.c_int64)])
+
+
+def _c_plan(plan: TilePlan) -> _TilePlan:
+    return _TilePlan(*plan[:10], tuple(plan.outputs), plan.carveout)
 
 
 class _ResidualArgs(ctypes.Structure):
@@ -112,7 +217,8 @@ class _ResidualArgs(ctypes.Structure):
           "mask", "p_cam", "uv", "g_img")]
         + [(n, ctypes.c_int64) for n in ("N", "F", "H", "W", "led", "basis", "loss")]
         + [(n, ctypes.c_double) for n in
-           ("origin_x", "origin_y", "origin_z", "voxel", "lam")])
+           ("origin_x", "origin_y", "origin_z", "voxel", "lam")]
+        + [("plan", _TilePlan)])
 
 
 class _JacobianArgs(ctypes.Structure):
@@ -122,7 +228,7 @@ class _JacobianArgs(ctypes.Structure):
          ("dist", "albedo", "grad", "nbr_idx", "nbr_dist_const", "nbr_dir",
           "p_cam", "g_img", "poses", "lights", "K", "J0", "Ji", "G")]
         + [(n, ctypes.c_int64) for n in ("N", "F", "led", "basis")]
-        + [("voxel", ctypes.c_double)])
+        + [("voxel", ctypes.c_double), ("plan", _TilePlan)])
 
 
 def _check(what: str, dev, tensors) -> None:
@@ -159,18 +265,40 @@ def _lights_shape(model: str, order: int, F: int):
 _bound = None
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C interface's argument types on a library built from
+    csrc/residual.cu."""
+    lib.residual_pass.argtypes = [ctypes.POINTER(_ResidualArgs), ctypes.c_void_p]
+    lib.residual_pass.restype = ctypes.c_int
+    lib.dist_jacobian.argtypes = [ctypes.POINTER(_JacobianArgs), ctypes.c_void_p]
+    lib.dist_jacobian.restype = ctypes.c_int
+    lib.residual_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                                           ctypes.POINTER(ctypes.c_int)]
+    lib.residual_blocks_per_sm.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _bound
     if _bound is None:
         from psgradientsdf_tpu_torch.kernels import load_library
 
-        lib = load_library(_LIB_NAME)
-        lib.residual_pass.argtypes = [ctypes.POINTER(_ResidualArgs), ctypes.c_void_p]
-        lib.residual_pass.restype = ctypes.c_int
-        lib.dist_jacobian.argtypes = [ctypes.POINTER(_JacobianArgs), ctypes.c_void_p]
-        lib.dist_jacobian.restype = ctypes.c_int
-        _bound = lib
+        _bound = _bind(load_library(_LIB_NAME))
     return _bound
+
+
+def blocks_per_sm(kernel: str, plan: TilePlan, device) -> int:
+    """The blocks of `kernel` ("residual" or "jacobian") an SM of `device`
+    holds at the plan's shared memory and carveout."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _library().residual_blocks_per_sm(int(kernel == "jacobian"),
+                                               plan.smem_bytes, plan.carveout,
+                                               ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: {plan.smem_bytes} bytes of shared memory "
+                           f"refused, CUDA error {rc}")
+    return out.value
 
 
 def _launch(fn, args, dev, name: str) -> None:
@@ -233,6 +361,7 @@ def residual_pass(prob: RefineProblem, geom: GridGeometry, dist, albedo,
     a.led, a.basis, a.loss = int(model == LED), B, int(loss)
     a.origin_x, a.origin_y, a.origin_z = geom.origin
     a.voxel, a.lam = float(voxel_size), float(lam)
+    a.plan = _c_plan(_tile_plan(N, F, kernel="residual"))
     _launch(_library().residual_pass, a, dev, "residual_pass")
     return out
 
@@ -272,5 +401,6 @@ def dist_jacobian(prob: RefineProblem, geom: GridGeometry, rd: ResidualData,
     a.G = None if G is None else G.data_ptr()
     a.N, a.F, a.led, a.basis = N, F, int(model == LED), B
     a.voxel = float(voxel_size)
+    a.plan = _c_plan(_tile_plan(N, F, kernel="jacobian"))
     _launch(_library().dist_jacobian, a, dev, "dist_jacobian")
     return G, DistJacobian(J0=J0, Ji=Ji)

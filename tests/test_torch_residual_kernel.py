@@ -20,7 +20,13 @@ fixed-order plain functions against the library reductions they replaced
 rounding; the wrappers on CPU tensors are the plain versions and launch
 nothing; and a residual pass on a 2x2 mesh of CPU "devices" equals the
 one-device pass on the same rows and frames bit for bit (the property the
-kernel is held to on the card).
+kernel is held to on the card).  The kernels' tile plan (`_tile_plan`, the
+host half of the card's design): for every keyframe count and voxel count
+of the edge cases, the tiles cover every (voxel, frame) pair once, each
+tile's pairs are one contiguous span of the [N, F] layout, and a block's
+shared-memory regions are aligned, disjoint, large enough and within an
+H100 block's 232,448 bytes; the ctypes argument blocks have the C side's
+layout.
 """
 
 import functools
@@ -366,3 +372,91 @@ def test_mesh_residual_pass_equals_the_one_device_pass_bit_for_bit(model):
             assert torch.equal(D.Ji, DJ.Ji[rows, :, frames]), (k, j)
             n_blocks += 1
     assert n_blocks == 4
+
+
+# ------------------------------------------------------------ the tile plan
+
+PLAN_F = (1, 3, 8, 34, 40, 300, 5000)
+PLAN_N = (1, 7, 49152)
+
+
+def _tile_bounds(plan, N, F, t):
+    """(n0, nv, f0, nf) of tiles t as csrc/residual.cu's tile_at decodes
+    them: voxel group t // ceil(F / FT), frame range t mod it."""
+    frame_tiles = -(-F // plan.frames)
+    g, ft = np.divmod(np.asarray(t, dtype=np.int64), frame_tiles)
+    n0, f0 = g * plan.voxels, ft * plan.frames
+    return n0, np.minimum(plan.voxels, N - n0), f0, np.minimum(plan.frames, F - f0)
+
+
+def _regions(plan, kernel):
+    """[(offset, bytes needed)] of a block's shared memory under the plan:
+    the mbarriers; every buffer of the voxel terms, both of the frame terms
+    and, in the pass, of the staged outputs (each output its largest span
+    and 15 bytes of alignment shift)."""
+    cap = plan.voxels * plan.frames
+    out = [(0, 64)]
+    for b in range(tres._VOX_BUFFERS):
+        out.append((plan.vox + b * plan.vox_bytes,
+                    tres._VOX_FLOATS[kernel] * 4 * plan.voxels))
+    for b in range(2):
+        out.append((plan.frm + b * plan.frm_bytes, tres._FRAME_FLOATS * 4 * plan.frames))
+        if kernel == "residual":
+            for k, per_pair in enumerate(tres._OUT_BYTES):
+                out.append((plan.stage + b * plan.stage_bytes + plan.outputs[k],
+                            cap * per_pair + 15))
+    return out
+
+
+@pytest.mark.parametrize("N", PLAN_N)
+@pytest.mark.parametrize("F", PLAN_F)
+def test_tile_plan_covers_every_pair_once_in_contiguous_spans(F, N):
+    for kernel in ("residual", "jacobian"):
+        plan = tres._tile_plan(N, F, kernel=kernel)
+        assert plan.voxels * plan.frames <= tres.PAIRS_PER_TILE[kernel]
+        assert plan.frames == F or plan.voxels == 1
+        n0, nv, f0, nf = _tile_bounds(plan, N, F, np.arange(plan.tiles))
+        assert (nv >= 1).all() and (nf >= 1).all()
+        assert (nv <= plan.voxels).all() and (nf <= plan.frames).all()
+        # a tile's pairs are one span: whole voxels, or one voxel's frames
+        assert ((nf == F) | (nv == 1)).all()
+        start, length = n0 * F + f0, nv * nf
+        # the spans follow each other from pair 0 to pair N F - 1: every
+        # pair in exactly one tile
+        assert start[0] == 0
+        assert (start[1:] == start[:-1] + length[:-1]).all()
+        assert int(length.sum()) == N * F
+        # shared memory: aligned, disjoint regions within the block's limit;
+        # the carveout holds the blocks an SM asked for
+        assert plan.smem_bytes <= tres.SMEM_PER_BLOCK
+        blocks = tres.BLOCKS_PER_SM[kernel]
+        assert (plan.carveout * tres.SMEM_PER_SM / 100
+                >= min(blocks * (plan.smem_bytes + 1024), tres.SMEM_PER_SM))
+        regions = sorted(_regions(plan, kernel))
+        for (off, need), (nxt, _) in zip(regions, regions[1:] + [(plan.smem_bytes, 0)]):
+            assert off % 16 == 0 and off + need <= nxt, (kernel, off, need, nxt)
+        assert max(length) <= plan.voxels * plan.frames
+
+
+@pytest.mark.parametrize("kernel", ["residual", "jacobian"])
+def test_c_argument_blocks_have_the_kernels_layout(kernel):
+    """Every field 8 bytes, the plan last (csrc/residual.cu's structs), and
+    the plan passed field for field."""
+    import ctypes
+
+    assert ctypes.sizeof(tres._TilePlan) == 17 * 8
+    assert ctypes.sizeof(tres._ResidualArgs) == (19 + 7 + 5) * 8 + 17 * 8
+    assert ctypes.sizeof(tres._JacobianArgs) == (14 + 4 + 1) * 8 + 17 * 8
+    assert tres._ResidualArgs.plan.offset == (19 + 7 + 5) * 8
+    assert tres._JacobianArgs.plan.offset == (14 + 4 + 1) * 8
+    plan = tres._tile_plan(7, 5000, kernel=kernel)
+    c = tres._c_plan(plan)
+    P = tres.PAIRS_PER_TILE[kernel]
+    assert (c.voxels, c.frames, c.tiles) == (1, P, 7 * -(-5000 // P))
+    assert (c.smem_bytes, c.vox, c.vox_bytes, c.frm, c.frm_bytes) == (
+        plan.smem_bytes, plan.vox, plan.vox_bytes, plan.frm, plan.frm_bytes)
+    assert (c.stage, c.stage_bytes) == (plan.stage, plan.stage_bytes)
+    assert tuple(c.outputs) == plan.outputs
+    assert c.carveout == plan.carveout and 0 < plan.carveout <= 100
+    # only the pass stages its outputs
+    assert (plan.stage_bytes > 0) == (kernel == "residual")
