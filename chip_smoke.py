@@ -42,9 +42,12 @@ build error or exception ends the run with a non-zero exit code; there is no
 CPU path.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}.
 
-With --profile two more phases trace a short scan, and two warm refinement
+With --profile more phases trace a short scan, and two warm refinement
 iterations, with torch.profiler and print the card's busy share of each and
-the kernels that take the most device time.  The run is otherwise the same.
+the kernels that take the most device time, and trace each block of the
+main refinement's iteration 0 (its one-time costs) on the host and the
+card.  The run is otherwise the same (its refinement seconds then include
+the tracing of iteration 0).
 
 Phase scan_kernels follows the kernels phase: the kernels of the scan's
 jit-fused programs (the fusion update, one launch a fused frame; a frame's
@@ -72,11 +75,22 @@ one.  In mesh_refine the 4x2 mesh's first residual pass is held against one
 device's, bit for bit, and the albedo block replays the main run's accept
 decisions.
 
+The distance block's two kernels (its assembled rows and its whole CG,
+csrc/distcg.cu) are held the same way: phases refine and
+refine_led_upsample check that every distance block of those runs launched
+each once and ran no plain distance solve on the card, and phase
+dist_cg_kernels holds the rows bit for bit and the CG against the plain
+solve (its steps, delta within DIST_CG_TOL) on the main run's and the LED
+run's final problems under both stop rules and on the edges (one row, a row
+whose neighbours are all frozen, no valid row), times both, and traces one
+distance block through them, which must run no index_add_ kernel.
+
 With --kernels-only the run stops after the kernels and scan_kernels phases
 (build, checks and times of the kernels): a quick look at a changed kernel.
 It drives no path, so it prints no final "ok" line and exits with 3.
 With --refine-only it runs the main run and phases refine,
-refine_led_upsample and refine_kernels only, and exits with 3 the same way:
+refine_led_upsample, refine_kernels and dist_cg_kernels only (with
+--profile also the refinement's traces), and exits with 3 the same way:
 the quick look at the refinement's kernels.
 With --distributed-only it runs those phases, then phase `distributed`
 and the one-process runs it is held to, and exits with 3 the same way: on a
@@ -224,9 +238,24 @@ SMALL_IMAGES = (64, 48)
 # voxel-channels may differ
 ALBEDO_EDGE = 1e-4
 ALBEDO_SHARE = 1e-4
+# the distance block's solve (csrc/distcg.cu): wrapper -> (its source, the
+# JAX function it replaces, by file:line)
+DIST_KERNELS = {
+    "dist_system": ("psgradientsdf_tpu_torch/csrc/distcg.cu",
+                    "psgradientsdf_tpu/refine/solvers.py:207"),
+    "dist_cg": ("psgradientsdf_tpu_torch/csrc/distcg.cu",
+                "psgradientsdf_tpu/refine/solvers.py:265"),
+}
+# dist_cg_kernels: the kernel's delta against the plain solve's, relative to
+# max|delta| (a float32 CG whose dots the kernel sums in another order than
+# torch.sum: the tolerance the CPU tests hold the port's CG to the JAX
+# package's by); a plain r.r this close to the threshold (relative) may end
+# the solve one step apart
+DIST_CG_TOL = 2e-4
+DIST_CG_EDGE = 0.01
 # everything the run builds: the CUDA kernels (nvcc) and the host libraries
 # of the PNG decoder and of the exports (g++), all started together
-LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "png_unfilter", "mc")
+LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "png_unfilter", "mc")
 
 
 class SmokeFailure(Exception):
@@ -779,30 +808,36 @@ def _scan_counts():
 
 
 def _reset_refine_counts():
-    """Launch counts of the refinement's two kernels, set to 0."""
-    from psgradientsdf_tpu_torch.ops import residual
+    """Launch counts of the refinement's four kernels, set to 0."""
+    from psgradientsdf_tpu_torch.ops import distcg, residual
 
     residual.reset_launch_counts()
+    distcg.reset_launch_counts()
 
 
 def _refine_counts():
-    from psgradientsdf_tpu_torch.ops import residual
+    from psgradientsdf_tpu_torch.ops import distcg, residual
 
-    return dict(residual.launch_counts)
+    return dict(residual.launch_counts, **distcg.launch_counts)
 
 
 @contextlib.contextmanager
 def _refine_calls():
     """While the body runs, count the calls of ops/residual.py's two
-    wrappers (a residual pass, a distance Jacobian, kernel or plain) and the
-    plain residual pass's calls on tensors on the card -> the dict of
-    counts.  The module functions are wrapped from outside; the package has
-    no switch for it."""
-    from psgradientsdf_tpu_torch.ops import residual
+    wrappers (a residual pass, a distance Jacobian, kernel or plain) and of
+    ops/distcg.py's two (the distance block's rows and its CG), and the
+    plain residual passes and plain distance solves (rows or CG) on tensors
+    on the card -> the dict of counts.  The module functions are wrapped
+    from outside; the package has no switch for it."""
+    from psgradientsdf_tpu_torch.ops import distcg, residual
 
-    calls = dict(residual_pass=0, dist_jacobian=0, plain_residual_pass_on_card=0)
-    real = {n: getattr(residual, n)
-            for n in ("residual_pass", "dist_jacobian", "residual_pass_plain")}
+    calls = dict(residual_pass=0, dist_jacobian=0, dist_system=0, dist_cg=0,
+                 plain_residual_pass_on_card=0, plain_distance_solve_on_card=0)
+    modules = {"residual_pass": residual, "dist_jacobian": residual,
+               "residual_pass_plain": residual, "dist_system": distcg,
+               "dist_cg": distcg, "dist_system_plain": distcg,
+               "dist_cg_plain": distcg}
+    real = {n: getattr(m, n) for n, m in modules.items()}
 
     def counted(name):
         def fn(*a, **kw):
@@ -810,19 +845,26 @@ def _refine_calls():
             return real[name](*a, **kw)
         return fn
 
-    def plain(*a, **kw):
-        if a[2].device.type != "cpu":
-            calls["plain_residual_pass_on_card"] += 1
-        return real["residual_pass_plain"](*a, **kw)
+    def plain(name, tensor_arg, key):
+        def fn(*a, **kw):
+            if tensor_arg(a).device.type != "cpu":
+                calls[key] += 1
+            return real[name](*a, **kw)
+        return fn
 
-    residual.residual_pass = counted("residual_pass")
-    residual.dist_jacobian = counted("dist_jacobian")
-    residual.residual_pass_plain = plain
+    for n in ("residual_pass", "dist_jacobian", "dist_system", "dist_cg"):
+        setattr(modules[n], n, counted(n))
+    residual.residual_pass_plain = plain(
+        "residual_pass_plain", lambda a: a[2], "plain_residual_pass_on_card")
+    distcg.dist_system_plain = plain(
+        "dist_system_plain", lambda a: a[0].w, "plain_distance_solve_on_card")
+    distcg.dist_cg_plain = plain(
+        "dist_cg_plain", lambda a: a[0], "plain_distance_solve_on_card")
     try:
         yield calls
     finally:
         for n, fn in real.items():
-            setattr(residual, n, fn)
+            setattr(modules[n], n, fn)
 
 
 def _fuse_capacity(geom):
@@ -1486,6 +1528,10 @@ def check_refine(run, seq, min_drop):
 
     per_block, per_iter, cg = _block_times(run["events"])
     dumps = [e["seconds"] for e in run["events"] if e["event"] == "artifact_dump"]
+    by_iter = {}
+    for e in run["events"]:
+        if e["event"] == "block":
+            by_iter.setdefault(e["iter"], {})[e["block"]] = e["seconds"]
     return dict(
         surface_voxels=prob.n_surface, capacity=int(prob.valid.shape[0]),
         keyframes=len(kf), iterations=summary["refine_iterations"],
@@ -1493,8 +1539,12 @@ def check_refine(run, seq, min_drop):
         energy_trace=[dict(iter=r["iter"], block=r["block"], total=r["total"],
                            ps=r["ps"]) for r in trace],
         ps_energy_ratio=ps1 / ps0, seconds_per_block=per_block,
-        seconds_per_iteration=per_iter, cg_steps=cg,
-        artifact_dump_seconds=dumps,
+        seconds_per_iteration=per_iter,
+        seconds_by_iteration_and_block=[by_iter[i] for i in sorted(by_iter)],
+        cg_steps=cg, artifact_dump_seconds=dumps,
+        # the initial export's writer thread, which overlaps the refinement
+        export_thread_seconds=[e["seconds"] for e in run["events"]
+                               if e["event"] == "export"],
         refine_seconds=summary["refine_seconds"],
         peak_memory_bytes=summary["refine_peak_memory_bytes"],
         keyframe_ate_mm=ate * 1e3, surface_error_mm=[err0 * 1e3, err1 * 1e3],
@@ -1502,11 +1552,13 @@ def check_refine(run, seq, min_drop):
 
 
 def check_refine_launches(run):
-    """The refinement of `run` went through the two kernels: a residual pass
-    launch for each residual pass the loop made (the LED light's
+    """The refinement of `run` went through its four kernels: a residual
+    pass launch for each residual pass the loop made (the LED light's
     initialisation, one before the loop, then a fused iteration's leading
-    pass and one after each block, and one at the upsample), a distance Jacobian launch for each distance or joint
-    block, and no plain residual pass on the card -> the launches."""
+    pass and one after each block, and one at the upsample), a distance
+    Jacobian launch for each distance or joint block, a dist_system and a
+    dist_cg launch for each distance block, no plain residual pass and no
+    plain distance solve on the card -> the launches."""
     from psgradientsdf_tpu_torch.refine.optimizer import block_names
 
     ref, summary = run["pipe"].refiner, run["summary"]
@@ -1529,7 +1581,15 @@ def check_refine_launches(run):
           f"{calls['dist_jacobian']} calls, expected {jacobians}")
     check(calls["plain_residual_pass_on_card"] == 0,
           f"{calls['plain_residual_pass_on_card']} plain residual passes on the card")
-    return dict(launches, residual_passes=passes, distance_blocks=jacobians)
+    blocks = iters * names.count("distance")
+    for name in DIST_KERNELS:
+        check(calls[name] == blocks and launches[name] == _on_card(blocks),
+              f"{name}: {launches[name]} launches, {calls[name]} calls, "
+              f"expected {blocks} distance blocks")
+    check(calls["plain_distance_solve_on_card"] == 0,
+          f"{calls['plain_distance_solve_on_card']} plain distance solves on the card")
+    return dict(launches, residual_passes=passes, distance_blocks=blocks,
+                distance_or_joint_blocks=jacobians)
 
 
 def _one_iteration(ref):
@@ -1542,7 +1602,8 @@ def _one_iteration(ref):
         *ref._args(), **ref._static_kwargs(), reg_weight_n=cfg.reg_weight_n,
         reg_weight_l=cfg.reg_weight_l, reg_weight_rho=cfg.reg_weight_rho,
         damping=cfg.damping, laplacian_diag_only=False, do_light=True,
-        do_albedo=True, do_distance=True, do_pose=True, joint_dp=False)
+        do_albedo=True, do_distance=True, do_pose=True, joint_dp=False,
+        stencil=ref.stencil)
 
 
 def refine_parity(scan, refine_cfg):
@@ -2091,6 +2152,349 @@ def _parent_ab(args, kw, flush):
         finally:
             RS._bound = saved
     return times
+
+
+# ------------------------------------------- the distance block's solve
+
+
+def _loop_weights(ref):
+    """The regularizer weights the refiner's loop used last (normalised by
+    E / E_reg before the loop): from the last energy record and the
+    energies at the final state -> (w_n, w_l)."""
+    last = ref.energy_trace[-1]
+    _, E_n, E_l, _ = ref.energies()
+    w_n = last["normal_reg"] / E_n if E_n > 0 else 0.0
+    w_l = last["laplacian_reg"] / E_l if E_l > 0 else 0.0
+    return w_n, w_l
+
+
+def _dist_inputs(ref, w_n, w_l, diag_only=False):
+    """The refiner's distance block at its state: the residual pass, the
+    distance Jacobian, the regularizer operators (the Laplacian's diagonal
+    alone with `diag_only`) and the refiner's reverse stencil table ->
+    dict."""
+    from psgradientsdf_tpu_torch.ops import residual as RS
+    from psgradientsdf_tpu_torch.refine import solvers
+
+    args = ref._args()
+    skw = ref._static_kwargs()
+    prob, geom, dist, albedo, grad, poses, images, K, lights = args
+    rd = RS.residual_pass(*args, **skw)
+    _, DJ = RS.dist_jacobian(prob, geom, rd, dist, albedo, grad, poses, K, lights,
+                             model=skw["model"], order=skw["order"],
+                             voxel_size=skw["voxel_size"])
+    eik, lap = solvers.reg_operators(prob, dist, skw["voxel_size"], reg_weight_n=w_n,
+                                     reg_weight_l=w_l, laplacian_diag_only=diag_only)
+    return dict(prob=prob, rd=rd, DJ=DJ, eik=eik, lap=lap, stencil=ref.stencil,
+                w_n=w_n, w_l=w_l, damping=float(ref.cfg.damping))
+
+
+def _rows_alone(c, rows):
+    """The rows `rows` of a distance block alone, every stencil link cut
+    (their neighbours frozen) -> dict."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distcg
+
+    p = c["prob"]
+    cut = lambda t: torch.full_like(t[rows], -1)
+    prob = p._replace(valid=p.valid[rows], idx_xyz=p.idx_xyz[rows],
+                      nbr_idx=cut(p.nbr_idx), lap_idx=cut(p.lap_idx))
+    sub = lambda nt: None if nt is None else nt._replace(
+        **{k: v[rows].contiguous() for k, v in nt._asdict().items()
+           if isinstance(v, torch.Tensor) and k not in ("nbr_idx", "lap_idx")})
+    return dict(c, prob=prob, rd=sub(c["rd"]), DJ=sub(c["DJ"]), eik=sub(c["eik"]),
+                lap=sub(c["lap"]), stencil=distcg.stencil_reverse(prob))
+
+
+def _cg_check(what, A, t, valid, st, lap, kw):
+    """dist_cg twice (bit for bit) and against the plain solve: the same
+    steps unless the plain r.r lies within DIST_CG_EDGE of the threshold at
+    the test where they part, delta within DIST_CG_TOL of max|delta| ->
+    the facts."""
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    s1, s2, sp, trace = [], [], [], []
+    d1 = DC.dist_cg(A, t, valid, st, lap, **kw, steps_out=s1)
+    d2 = DC.dist_cg(A, t, valid, st, lap, **kw, steps_out=s2)
+    dp = DC.dist_cg_plain(A, t, valid, st, lap, **kw, steps_out=sp, trace=trace)
+    _sync()
+    k1, kp = int(s1[0]), int(sp[0])
+    check(_bits_same(d1, d2) and k1 == int(s2[0]),
+          f"dist_cg: two kernel runs differ ({what})")
+    edge = None
+    if k1 != kp:
+        rr, thr = trace[min(k1, kp)]
+        edge = abs(rr - thr) / thr
+        check(edge <= DIST_CG_EDGE, f"dist_cg: {k1} steps, the plain solve {kp}, "
+                                    f"r.r {rr:.6g} against {thr:.6g} ({what})")
+    scale = float(dp.abs().max())
+    err = _abs_err(d1, dp)
+    check(err <= DIST_CG_TOL * scale, f"dist_cg: delta off the plain solve's by "
+                                      f"{err:.3g} of max {scale:.3g} ({what})")
+    return dict(case=what, rows=A.shape[0], valid_rows=int(valid.sum()),
+                static=kw["cg_static"], laplacian=lap is not None,
+                steps=k1, plain_steps=kp, threshold_edge=edge,
+                dist_cg_runs_bit_identical=True, max_abs_err=err,
+                max_abs_delta=scale, relative_err=err / scale if scale > 0 else 0.0)
+
+
+def _dist_case(what, c, static, flush, timed=False):
+    """dist_system against its plain version bit for bit, then dist_cg
+    (_cg_check).  With `timed`, on the card: both kernels' ms, plain_ms,
+    library_ms and byte bounds, and dist_cg's barrier floor -> dict."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    rd, DJ, eik, lap, st = c["rd"], c["DJ"], c["eik"], c["lap"], c["stencil"]
+    valid = c["prob"].valid
+    skw = dict(reg_weight_n=c["w_n"])
+    A, t = DC.dist_system(rd, DJ, eik, **skw)
+    A2, t2 = DC.dist_system_plain(rd, DJ, eik, **skw)
+    _sync()
+    for name, a, b in (("A", A, A2), ("t", t, t2)):
+        check(_bits_same(a, b), f"dist_system differs from its plain version: "
+                                f"{what}, {name}, by up to {_abs_err(a, b)}")
+    kw = dict(reg_weight_l=c["w_l"], damping=c["damping"], cg_iters=100,
+              cg_tol=1e-6, cg_static=static)
+    out = _cg_check(what, A, t, valid, st, lap, kw)
+    k1 = out["steps"]
+    N, F = rd.w.shape[0], rd.w.shape[1]
+    out.update(keyframes=F, w_n=c["w_n"], w_l=c["w_l"],
+               dist_system_bit_identical=True)
+    if timed and DEVICE == "cuda":
+        dev = A.device
+        J = 3 * F
+        # w, r, J0 and Ji read once (24 bytes a pair), the Eikonal row (20
+        # bytes), A and t written (56 bytes a row)
+        sys_bytes = N * J * 24 + (N * 20 if eik is not None else 0) + N * 56
+        a = torch.stack([DJ.J0.reshape(N, J), *DJ.Ji.reshape(N, 3, J).unbind(1)], -1)
+        wa = rd.w.reshape(N, J, 1) * a
+        out["dist_system"] = dict(
+            bytes=sys_bytes, bound_ms=sys_bytes / HBM_BYTES_PER_S * 1e3,
+            ms=_time_ms(lambda: DC.dist_system(rd, DJ, eik, **skw), flush),
+            plain_ms=_time_ms(lambda: DC.dist_system_plain(rd, DJ, eik, **skw), flush),
+            library_ms=_time_ms(lambda: torch.einsum("nji,njk->nik", wa, a), flush),
+            library_call="torch.einsum('nji,njk->nik', w a, a) over [N, F*3, 4]")
+        del wa, a
+        # A, t, nbr and rev (int32) and the mask read once, delta written
+        # once; the Laplacian's residual where it is on, and lap_idx only
+        # where its neighbour term is read (the kernel's lap_nbr)
+        cg_bytes = N * (40 + 16 + 12 + 24 + 1 + 4)
+        if lap is not None:
+            cg_bytes += N * 4 + (N * 24 if lap.nbr_coef != 0.0 else 0)
+        barriers = 1 + 3 * k1
+        out["dist_cg"] = dict(
+            bytes=cg_bytes, bound_ms=cg_bytes / HBM_BYTES_PER_S * 1e3,
+            ms=_time_ms(lambda: DC.dist_cg(A, t, valid, st, lap, **kw), flush),
+            plain_ms=_time_ms(lambda: DC.dist_cg_plain(A, t, valid, st, lap, **kw), flush),
+            library_ms=None, blocks=DC.cg_blocks(dev, N), grid_barriers=barriers,
+            barrier_floor_ms=_time_ms(lambda: DC.barrier_floor(dev, N, barriers), flush))
+        for k in ("dist_system", "dist_cg"):
+            out[k]["share_of_bound"] = out[k]["bound_ms"] / out[k]["ms"]
+    return out
+
+
+def _kernel_rows(prof):
+    """(device us, launches, name) of each kernel a trace saw."""
+    return [(_device_us(e), e.count, e.key) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+
+
+def _is_index_add(name):
+    return "indexFunc" in name or "index_add" in name
+
+
+def _distance_block_traces(ref, w_n, w_l):
+    """One distance block from the main run's final state through
+    ops/distcg.py (optimizer._dist_core on the refiner's table), traced ->
+    its device kernels, index_add_ kernels (none may run), device time and
+    host seconds (median of 3 untraced)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from psgradientsdf_tpu_torch.ops import residual as RS
+    from psgradientsdf_tpu_torch.refine import optimizer
+
+    args = ref._args()
+    skw = ref._static_kwargs()
+    prob, geom, dist, albedo, grad, poses, images, K, lights = args
+    rd = RS.residual_pass(*args, **skw)
+
+    def block():
+        return optimizer._dist_core(
+            prob, geom, rd, dist, albedo, grad, poses, K, lights, **skw,
+            reg_weight_n=w_n, reg_weight_l=w_l, damping=float(ref.cfg.damping),
+            laplacian_diag_only=False, stencil=ref.stencil)
+
+    block()
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        block()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        block()
+        torch.cuda.synchronize()
+    rows = sorted(_kernel_rows(prof), reverse=True)
+    out = dict(
+        seconds=statistics.median(secs),
+        device_kernels=int(sum(r[1] for r in rows)),
+        index_add_kernels=int(sum(r[1] for r in rows if _is_index_add(r[2]))),
+        device_ms=sum(r[0] for r in rows) * 1e-3,
+        top=[dict(name=k[:80], launches=n, device_ms=us * 1e-3)
+             for us, n, k in rows[:8]])
+    check(out["device_kernels"] > 0, "the profiler saw no kernel of a distance block")
+    check(out["index_add_kernels"] == 0,
+          f"the distance block ran {out['index_add_kernels']} index_add_ kernels")
+    return out
+
+
+def _tiled_cg_case(c, copies, flush):
+    """dist_cg on `copies` disjoint copies of a distance block's system (the
+    stencil tables offset by the rows before each copy): more rows than the
+    grid holds at a row a thread, so each thread walks several (_cg_check)."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    A, t = DC.dist_system(c["rd"], c["DJ"], c["eik"], reg_weight_n=c["w_n"])
+    N = A.shape[0]
+    st = c["stencil"]
+    off = lambda ix: torch.cat([torch.where(ix >= 0, ix + k * N, ix)
+                                for k in range(copies)])
+    tiled = DC.StencilReverse(off(st.nbr), off(st.rev), off(st.lap), st.source)
+    kw = dict(reg_weight_l=0.0, damping=c["damping"], cg_iters=100, cg_tol=1e-6,
+              cg_static=False)
+    out = _cg_check(f"{copies} copies of the main system", A.repeat(copies, 1),
+                    t.repeat(copies, 1), c["prob"].valid.repeat(copies), tiled,
+                    None, kw)
+    if DEVICE == "cuda":
+        blocks = DC.cg_blocks(A.device, copies * N)
+        out.update(blocks=blocks, rows_per_block=-(-copies * N // blocks))
+        check(out["rows_per_block"] > 256, "the tiled case holds a row a thread")
+    return out
+
+
+def dist_cg_kernels(main_run, led_run):
+    """The distance block's two kernels (csrc/distcg.cu) against their plain
+    versions on the card, at the main path's shapes: the main run's problem
+    at its final state (SH1, the Eikonal weight its loop used) and the LED
+    run's after the upsample (the Laplacian on), each under scipy's stop
+    rule and cg_static's, the LED run's also with a Laplacian weight 100
+    times its loop's and with the Laplacian's diagonal alone; then the
+    edges: one row alone, a row whose three neighbours are all frozen, four
+    copies of the main system (several rows a thread), every row invalid
+    (under both rules).
+    Timed (median of KERNEL_REPS, L2 flushed): the main case and the LED
+    case under scipy's rule, and the one-row launch (dist_cg's latency
+    floor).  Then one distance block traced through the kernels
+    (_distance_block_traces).  Launches made here are on no path.
+    -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distcg
+
+    flush = (torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+             if DEVICE == "cuda" else None)
+    ref, led = main_run["pipe"].refiner, led_run["pipe"].refiner
+    main_w, led_w = _loop_weights(ref), _loop_weights(led)
+    check(main_w[0] > 0 and led_w[1] > 0, f"the loops' weights: {main_w}, {led_w}")
+    main = _dist_inputs(ref, *main_w)
+    cases = []
+    for static in (False, True):
+        cases.append(_dist_case("main SH1", main, static, flush, timed=not static))
+    lc = _dist_inputs(led, *led_w)
+    for static in (False, True):
+        cases.append(_dist_case("LED after the upsample", lc, static, flush,
+                                timed=not static))
+    cases.append(_dist_case("LED, the Laplacian's weight x 100",
+                            dict(lc, w_l=100.0 * led_w[1]), False, flush))
+    cases.append(_dist_case("LED, the Laplacian's diagonal alone",
+                            _dist_inputs(led, *led_w, diag_only=True), False, flush))
+    del lc
+    p = main["prob"]
+    row = int(torch.nonzero(p.valid)[len(torch.nonzero(p.valid)) // 2, 0])
+    one = _dist_case("one row", _rows_alone(main, torch.tensor([row], device=p.valid.device)),
+                     False, flush, timed=True)
+    check(one["steps"] == 1, f"one row: {one['steps']} steps")
+    cases.append(one)
+    nbr = p.nbr_idx.clone()
+    nbr[row] = -1
+    cut = p._replace(nbr_idx=nbr)
+    cases.append(_dist_case("a row with three frozen neighbours",
+                            dict(main, prob=cut, stencil=distcg.stencil_reverse(cut)),
+                            False, flush))
+    cases.append(_tiled_cg_case(main, 4, flush))
+    none = p._replace(valid=torch.zeros_like(p.valid))
+    for static in (False, True):
+        case = _dist_case("every row invalid", dict(main, prob=none), static, flush)
+        check(case["steps"] == 0 and case["max_abs_delta"] == 0.0,
+              "every row invalid: a step or a nonzero delta")
+        cases.append(case)
+    facts = dict(cases=cases, checked=len(cases))
+    if DEVICE == "cuda":
+        facts["latency_floor_ms"] = one["dist_cg"]["ms"]
+        facts["distance_block"] = _distance_block_traces(ref, *main_w)
+        torch.cuda.empty_cache()
+    return facts
+
+
+# the block cores of refine/optimizer.py that _first_iteration_blocks traces
+FIRST_BLOCKS = {"albedo": "_albedo_core", "light": "_light_core",
+                "distance": "_dist_core", "pose": "_pose_core"}
+
+
+@contextlib.contextmanager
+def _first_iteration_blocks(enabled):
+    """With `enabled`, trace the first call of each block the body's
+    refinement runs (refine/optimizer.py's block cores, wrapped from
+    outside), each in its own torch.profiler session on the host and the
+    card, the profiler started once beforehand so that its own set-up is
+    in no block -> {block: its seconds, device kernels and device time, the
+    operations that took the most host and device time}."""
+    facts = {}
+    if not enabled:
+        yield facts
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from psgradientsdf_tpu_torch.refine import optimizer
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    real = {b: getattr(optimizer, f) for b, f in FIRST_BLOCKS.items()}
+
+    def traced(block):
+        def fn(*a, **kw):
+            if block in facts:
+                return real[block](*a, **kw)
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                out = real[block](*a, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            kernels = sorted(_kernel_rows(prof), reverse=True)
+            host = sorted(((e.self_cpu_time_total, e.count, e.key)
+                           for e in prof.key_averages()
+                           if not str(e.device_type).endswith("CUDA")), reverse=True)
+            facts[block] = dict(
+                seconds=wall, device_kernels=int(sum(r[1] for r in kernels)),
+                device_ms=sum(r[0] for r in kernels) * 1e-3,
+                top_host=[dict(name=k[:80], calls=n, self_host_ms=us * 1e-3)
+                          for us, n, k in host[:8]],
+                top_device=[dict(name=k[:80], launches=n, device_ms=us * 1e-3)
+                            for us, n, k in kernels[:4]])
+            return out
+        return fn
+
+    for b, f in FIRST_BLOCKS.items():
+        setattr(optimizer, f, traced(b))
+    try:
+        yield facts
+    finally:
+        for b, f in FIRST_BLOCKS.items():
+            setattr(optimizer, f, real[b])
 
 
 # ------------------------------------------------------ the scan on a mesh
@@ -2904,8 +3308,9 @@ def dumps(ref, truncation, main_run):
 
 def profile_refine(ref):
     """Trace two warm refinement iterations from the state the main run
-    ended in -> the card's busy share of them, device operations per
-    iteration, the operations by device time."""
+    ended in -> the card's busy share of them, device operations (kernels,
+    copies, fills) and the host's CUDA runtime calls per iteration, the
+    operations by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2917,14 +3322,16 @@ def profile_refine(ref):
             _one_iteration(ref)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = sorted(((_device_us(e), e.count, e.key) for e in prof.key_averages()),
-                  reverse=True)
+    rows = sorted(_kernel_rows(prof), reverse=True)
+    runtime = sum(e.count for e in prof.key_averages()
+                  if not str(e.device_type).endswith("CUDA"))
     busy = sum(r[0] for r in rows) * 1e-6
     check(busy > 0.0, "the profiler saw no device time")
     return dict(
         iterations=2, traced_wall_seconds=wall, device_busy_seconds=busy,
         device_busy_share=busy / wall,
         device_ops_per_iteration=int(sum(r[1] for r in rows)) // 2,
+        runtime_calls_per_iteration=int(runtime) // 2,
         top=[dict(name=k[:80], launches=c, device_ms=us * 1e-3)
              for us, c, k in rows[:10]])
 
@@ -2937,7 +3344,8 @@ def _device_us(e):
 def profile_scan(tmp, seq, frames, plain_seconds):
     """Trace one more scan of `frames` frames (kernels only, so the host is
     slowed as little as may be) -> the card's busy time in it, its share of
-    the untraced run's `plain_seconds`, and the kernels by device time."""
+    the untraced run's `plain_seconds`, device operations and the host's
+    CUDA runtime calls a frame, and the kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2945,8 +3353,9 @@ def profile_scan(tmp, seq, frames, plain_seconds):
         traced = run_scan(tmp, "traced", seq, frames - 1, "dma")
         torch.cuda.synchronize()
 
-    rows = sorted(((_device_us(e), e.count, e.key) for e in prof.key_averages()),
-                  reverse=True)
+    rows = sorted(_kernel_rows(prof), reverse=True)
+    runtime = sum(e.count for e in prof.key_averages()
+                  if not str(e.device_type).endswith("CUDA"))
     busy = sum(r[0] for r in rows) * 1e-6
     check(busy > 0.0, "the profiler saw no device time")
     return dict(
@@ -2956,6 +3365,7 @@ def profile_scan(tmp, seq, frames, plain_seconds):
         device_busy_share=busy / plain_seconds,
         device_kernels=int(sum(r[1] for r in rows)),
         device_ops_per_frame=int(sum(r[1] for r in rows)) / frames,
+        runtime_calls_per_frame=runtime / frames,
         top=[dict(name=k[:80], launches=c, device_ms=us * 1e-3)
              for us, c, k in rows[:12]])
 
@@ -3630,7 +4040,8 @@ def main():
 
     # ---- the main path
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        with _albedo_decisions() as decisions:
+        with _albedo_decisions() as decisions, _first_iteration_blocks(
+                "--profile" in sys.argv[1:]) as first_blocks:
             main_run = run_scan(tmp, "scan", seq, FRAMES - 1, "dma",
                                 refine=REFINE_SH1)
         main_run["albedo_decisions"] = decisions
@@ -3643,6 +4054,12 @@ def main():
                  launches=check_refine_launches(led_run), **facts)
             emit("refine_kernels", ok=True, card=card, reps=KERNEL_REPS,
                  **refine_kernels(main_run, led_run))
+            emit("dist_cg_kernels", ok=True, card=card, reps=KERNEL_REPS,
+                 **dist_cg_kernels(main_run, led_run))
+            if "--profile" in sys.argv[1:]:
+                emit("profile_refine", card=card, **profile_refine(
+                    main_run["pipe"].refiner))
+                emit("profile_first_iteration", card=card, blocks=first_blocks)
             print(smi, flush=True)
             return 3
         facts = check_scan(main_run, seq, FRAMES)
@@ -3737,6 +4154,10 @@ def main():
         refine_facts = refine_kernels(main_run, led_run)
         emit("refine_kernels", ok=True, card=card, reps=KERNEL_REPS, **refine_facts)
 
+        # ---- the distance block's solve against its plain version
+        dist_facts = dist_cg_kernels(main_run, led_run)
+        emit("dist_cg_kernels", ok=True, card=card, reps=KERNEL_REPS, **dist_facts)
+
         # ---- the command line on the files, a failure mid-refinement, retry
         emit("resume_refine", ok=True, card=card,
              **resume_refine(tmp, root, main_run))
@@ -3759,6 +4180,7 @@ def main():
                 tmp, seq, short, runs["dma"]["summary"]["seconds"]))
             emit("profile_refine", card=card, **profile_refine(
                 main_run["pipe"].refiner))
+            emit("profile_first_iteration", card=card, blocks=first_blocks)
 
     # the main run's launches, the mesh phases' of the direct kernels, and
     # phase packed's of all four
@@ -3818,7 +4240,41 @@ def main():
         for name in REFINE_KERNELS}
     for name in REFINE_KERNELS:
         check(refine_launches[name] > 0, f"{name} was never launched on its path")
+    # the distance block's solve: the main run's launches, the times on its
+    # final problem (SH1, scipy's stop rule)
+    dist_case = next(c for c in dist_facts["cases"]
+                     if c["case"] == "main SH1" and not c["static"])
+    dist_rows = {
+        "dist_system": dict(dist_case["dist_system"], max_abs_err=0.0, work=(
+            f"the main run's distance block at its final state: "
+            f"{dist_case['rows']} surface-voxel slots x {dist_case['keyframes']} "
+            "keyframes; the bound counts w, r, J0 and Ji read once (24 bytes a "
+            "pair), the Eikonal row and A, t written (56 bytes a row); "
+            "library_ms is the one einsum that forms A from [N, F*3, 4]")),
+        "dist_cg": dict(dist_case["dist_cg"], max_abs_err=dist_case["max_abs_err"],
+                        latency_floor_ms=dist_facts["latency_floor_ms"], work=(
+            f"that block's whole Jacobi-PCG ({dist_case['steps']} steps, one "
+            f"cooperative launch, {dist_case['dist_cg']['blocks']} blocks); the "
+            "bound counts A, t, nbr and rev (int32) and the mask read once and "
+            "delta written once (the Laplacian's residual and lap_idx only "
+            "where the kernel reads them, off here); latency_floor_ms is the same launch on "
+            "one row (one step), barrier_floor_ms an empty cooperative kernel "
+            "on the same grid crossing as many grid barriers"))}
+    for name in DIST_KERNELS:
+        check(refine_launches[name] > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=DIST_KERNELS[name][0],
+             replaces=DIST_KERNELS[name][1], launches=refine_launches[name],
+             max_abs_err=dist_rows[name]["max_abs_err"], ms=dist_rows[name]["ms"],
+             plain_ms=dist_rows[name]["plain_ms"],
+             bound_ms=dist_rows[name]["bound_ms"], bound_by="bytes",
+             library_ms=dist_rows[name]["library_ms"],
+             **({"latency_floor_ms": dist_rows[name]["latency_floor_ms"],
+                 "barrier_floor_ms": dist_rows[name]["barrier_floor_ms"],
+                 "library_note": "no single PyTorch call computes it"}
+                if name == "dist_cg" else {}),
+             work=dist_rows[name]["work"])
+        for name in DIST_KERNELS] + [
         dict(name=name, route="cuda", source=REFINE_KERNELS[name][0],
              replaces=REFINE_KERNELS[name][1], launches=refine_launches[name],
              max_abs_err=main_case["max_abs_err"], ms=refine_rows[name]["ms"],

@@ -262,6 +262,7 @@ def load_refine_state(path: str, refiner) -> None:
                 device=dev)
         else:       # an older layout without the frozen active set
             refiner.prob = extract_problem(vol, geom, refiner.keyframe_indices)
+        refiner.rebuild_stencil()
         refiner.dist = tensor(data["dist"])
         refiner.albedo = tensor(data["albedo"])
         refiner.grad_stored = tensor(data["grad_stored"])

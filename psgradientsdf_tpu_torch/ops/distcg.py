@@ -1,0 +1,488 @@
+"""The distance block's solve: its normal equations assembled per row in
+gather form, and the whole Jacobi-preconditioned CG, one launch each of the
+hand-written Hopper kernels in csrc/distcg.cu, or their plain PyTorch
+versions for CPU tensors.
+
+  stencil_reverse(prob) -> StencilReverse(nbr, rev, lap, source)
+  dist_system(rd, DJ, eik, *, reg_weight_n) -> (A [N,10], t [N,4])
+  dist_cg(A, t, valid, stencil, lap, *, reg_weight_l, damping, cg_iters,
+          cg_tol, cg_static, atol=0.0, steps_out=None) -> delta [N]
+
+Together they replace the JAX package's distance solve as
+psgradientsdf_tpu/refine/optimizer.py `_dist_block` (:186) runs it:
+refine/solvers.py `solve_distance` (:265) with jax.scipy.sparse.linalg.cg
+(:301) or `pcg_fixed` (:39) over `_distance_system` (:207), which XLA keeps
+in one device program; that system is built from `stencil_apply` /
+`stencil_apply_T` / `stencil_diag` (:84, :100, :113), `eikonal_operator`
+(:135), `laplacian_operator` (:157) and `lap_apply` / `lap_apply_T` /
+`lap_diag` (:175, :184, :194).
+
+The assembled form.  A photometric residual (n, f, c) touches x[n] and x at
+n's three stencil neighbours nbr_idx[n, :], so J^T W J is the sum over rows
+of P_n^T A_n P_n: P_n picks (x[n], x[nbr0], x[nbr1], x[nbr2]) (a frozen
+neighbour, -1, gives a zero column) and
+
+  A_n = sum_{f,c} w a a^T + reg_weight_n e e^T,   t_n = sum w r a + reg_weight_n r_e e,
+
+with a = (J0, Ji_0, Ji_1, Ji_2)[n, f, c] and e the Eikonal row
+(eik.J0[n], eik.Ji[n, :]), which uses the same stencil.  A_n is symmetric:
+10 floats a row in the order of A_IDX; t_n holds the row's four partial
+gradients.  Then, with s_n = A_n P_n x,
+
+  (H x)[m] = s_m[0]  + s_n[1 + ax] over the rows n that name m along ax,
+  b[m]     = t_m[0]  + t_n[1 + ax] over the same rows,
+  diag[m]  = A_m[00] + A_n[(1+ax)(1+ax)] over them.
+
+The rows that name m come from the reverse table (stencil_reverse): along an
+axis a row is named by at most two rows, the one below it and the one above
+it (a row at the grid's low border whose forward neighbour is not in the set
+names itself: the stencil's clipped border), column 2 ax + (0 below or
+itself, 1 above), -1 where none.  The Laplacian's lap_idx (x+, x-, y+, y-,
+z+, z-) is symmetric between compact rows: lap_idx[m, k] = n names m back
+through column k ^ 1, or n = m at a clipped border, so its transpose gathers
+through lap_idx itself.  stencil_reverse checks both properties and raises
+where either fails.  No scatter-add is left: every sum runs in one fixed
+order, and a solve gives the same bits on every run.
+
+dist_system sums a row's F*3 pairs as a warp does on the card: lane l adds
+the pairs j = l, l + 32, ... in order, then the 32 lane sums are added
+pairwise (lane l and l ^ 16, then ^ 8, ^ 4, ^ 2, ^ 1); every product and sum
+is rounded once, and the kernel (_rn intrinsics) equals the plain version
+bit for bit.  dist_cg runs `solvers.cg_chunks`' preconditioned CG on the
+assembled operator with both of its stop rules (scipy's, and cg_static's
+fixed trip count), decided on the device; the kernel sums its dots from
+per-block partials in one fixed order, the plain version with torch.sum, so
+the two agree to float32 rounding.
+
+A wrapper takes the plain version ONLY for tensors that lie on the CPU; for
+CUDA tensors it launches the kernel or raises.  `launch_counts` counts
+kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from psgradientsdf_tpu_torch.refine.problem import RefineProblem
+
+_LIB_NAME = "distcg"
+launch_counts: Dict[str, int] = {"dist_system": 0, "dist_cg": 0}
+
+LANES = 32
+# the entries of a row's symmetric 4x4 A_n, as stored [N, 10]
+A_IDX = ((0, 0), (0, 1), (0, 2), (0, 3), (1, 1), (1, 2), (1, 3), (2, 2),
+         (2, 3), (3, 3))
+_I = [i for i, _ in A_IDX]
+_K = [k for _, k in A_IDX]
+_DIAG = [A_IDX.index((i, i)) for i in range(4)]
+_FULL = [[A_IDX.index((min(i, k), max(i, k))) for k in range(4)] for i in range(4)]
+# lap_idx's columns x+, x-, y+, y-, z+, z-: a column's opposite direction
+_OPPOSITE = [1, 0, 3, 2, 5, 4]
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+class StencilReverse(NamedTuple):
+    """The stencils of a problem as the kernels read them."""
+    nbr: torch.Tensor      # [N,3] int32: nbr_idx
+    rev: torch.Tensor      # [N,6] int32: the row naming m along ax, column 2 ax + side
+    lap: torch.Tensor      # [N,6] int32: lap_idx
+    source: torch.Tensor   # the problem's nbr_idx the table was built from
+
+
+def stencil_reverse(prob: RefineProblem) -> StencilReverse:
+    """The reverse table of a (whole, one-device) problem's stencil, and
+    int32 copies of nbr_idx and lap_idx.  Raises ValueError where a row
+    would be named twice in one column, or where lap_idx is not symmetric
+    (one read of the device)."""
+    nbr, lap = prob.nbr_idx, prob.lap_idx
+    N = nbr.shape[0]
+    dev = nbr.device
+    xyz = prob.idx_xyz.long()
+    rows = torch.arange(N, device=dev)
+    axes = torch.arange(3, device=dev).expand(N, 3)
+    named = nbr >= 0
+    tgt = nbr.clamp(min=0)
+    above = xyz > xyz[tgt, axes]                   # source above its target
+    key = (tgt * 6 + 2 * axes + above.long())[named]
+    src = rows[:, None].expand(N, 3)[named]
+    twice = torch.bincount(key, minlength=6 * N) > 1
+    back = lap[lap.clamp(min=0), torch.tensor(_OPPOSITE, device=dev).expand(N, 6)]
+    asym = (lap >= 0) & (lap != rows[:, None]) & (back != rows[:, None])
+    bad = torch.stack([twice.any(), asym.any()]).tolist()
+    if bad[0]:
+        raise ValueError("stencil_reverse: a row is named twice along one side "
+                         "of an axis; nbr_idx is not a one-sided FD stencil")
+    if bad[1]:
+        raise ValueError("stencil_reverse: lap_idx is not symmetric between "
+                         "compact rows")
+    rev = torch.full((6 * N,), -1, dtype=torch.int32, device=dev)
+    rev[key] = src.to(torch.int32)
+    return StencilReverse(nbr.to(torch.int32), rev.view(N, 6),
+                          lap.to(torch.int32), nbr)
+
+
+# ---------------------------------------------------------------------------
+# the plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _lane_sum(acc: torch.Tensor) -> torch.Tensor:
+    """[N, 32, k] lane sums -> [N, k], added as the warp's xor butterfly."""
+    s = LANES // 2
+    while s >= 1:
+        acc = acc[:, :s] + acc[:, s:2 * s]
+        s //= 2
+    return acc[:, 0]
+
+
+def _by_lane(x: torch.Tensor, N: int, J: int) -> torch.Tensor:
+    """[N, J, ...] -> [N, ceil(J/32), 32, ...], zero-padded past J."""
+    Q = -(-J // LANES)
+    out = x.new_zeros((N, Q * LANES) + tuple(x.shape[2:]))
+    out[:, :J] = x
+    return out.view((N, Q, LANES) + tuple(x.shape[2:]))
+
+
+def dist_system_plain(rd, DJ, eik, *, reg_weight_n: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(A [N,10], t [N,4]) with eager PyTorch ops, in the kernel's order:
+    a row's pairs summed lane by lane, the lanes pairwise, then the
+    Eikonal row added (eik None: none)."""
+    w, r, J0, Ji = rd.w, rd.r, DJ.J0, DJ.Ji
+    N = w.shape[0]
+    J = w[0].numel()
+    a = torch.stack([J0.reshape(N, J), *Ji.reshape(N, 3, J).unbind(1)], dim=-1)
+    a, wv, rv = _by_lane(a, N, J), _by_lane(w.reshape(N, J), N, J), _by_lane(r.reshape(N, J), N, J)
+    accA = w.new_zeros((N, LANES, 10))
+    acct = w.new_zeros((N, LANES, 4))
+    for q in range(a.shape[1]):
+        aq, wq = a[:, q], wv[:, q]
+        wa = wq[..., None] * aq
+        accA = accA + wa[..., _I] * aq[..., _K]
+        acct = acct + (wq * rv[:, q])[..., None] * aq
+    A, t = _lane_sum(accA), _lane_sum(acct)
+    if eik is not None:
+        lam = torch.full((), reg_weight_n, dtype=torch.float32, device=w.device)
+        e = torch.cat([eik.J0[:, None], eik.Ji], dim=-1)            # [N,4]
+        we = lam * e
+        A = A + we[:, _I] * e[:, _K]
+        t = t + (lam * eik.r)[:, None] * e
+    return A, t
+
+
+def _gather(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """v[idx] where idx >= 0, else 0."""
+    return torch.where(idx >= 0, v[idx.clamp(min=0).long()], 0.0)
+
+
+def _transpose(u: torch.Tensor, st: StencilReverse) -> torch.Tensor:
+    """Per row m: u[m, 0] plus u[n, 1 + ax] over the rows n naming m, in
+    the table's column order (u [N,4])."""
+    out = u[:, 0]
+    for col in range(6):
+        out = out + _gather(u[:, 1 + col // 2], st.rev[:, col])
+    return out
+
+
+def _lap_apply(v: torch.Tensor, valid: torch.Tensor, st: StencilReverse, lap) -> torch.Tensor:
+    """solvers.lap_apply in gather order; on a vector that is 0 on invalid
+    rows it is lap_apply_T too (lap_idx symmetric)."""
+    out = lap.diag_coef * v
+    if lap.nbr_coef != 0.0:
+        nb = _gather(v, st.lap[:, 0])
+        for k in range(1, 6):
+            nb = nb + _gather(v, st.lap[:, k])
+        out = out + lap.nbr_coef * nb
+    return torch.where(valid, out, 0.0)
+
+
+def _lap_diag(valid: torch.Tensor, st: StencilReverse, lap) -> torch.Tensor:
+    """solvers.lap_diag in gather order."""
+    diag = torch.where(valid, lap.diag_coef ** 2, 0.0).to(torch.float32)
+    if lap.nbr_coef != 0.0:
+        contrib = torch.where(valid, lap.nbr_coef ** 2, 0.0).to(torch.float32)
+        for k in range(6):
+            diag = diag + _gather(contrib, st.lap[:, k])
+    return diag
+
+
+def distance_rhs_plain(A, t, valid, st: StencilReverse, lap, *,
+                       reg_weight_l: float):
+    """(b, diag) of the distance system from the assembled rows, as
+    solvers.distance_rhs gives them (b not yet masked)."""
+    b = _transpose(t, st)
+    diag = _transpose(A[:, _DIAG], st)
+    if lap is not None:
+        r = torch.where(valid, lap.r, 0.0)
+        b = b + reg_weight_l * _lap_apply(r, valid, st, lap)
+        diag = diag + reg_weight_l * _lap_diag(valid, st, lap)
+    return b, diag
+
+
+def operator_apply(A, x, valid, st: StencilReverse, lap, *,
+                   reg_weight_l: float) -> torch.Tensor:
+    """(J^T W J + regularizers) x from the assembled rows, the damping term
+    left out (solvers.distance_hx): s_n = A_n P_n x, then the gather-form
+    transpose, then the Laplacian's L^T L x."""
+    v = [x] + [_gather(x, st.nbr[:, ax]) for ax in range(3)]
+    s = []
+    for i in range(4):
+        si = A[:, _FULL[i][0]] * v[0]
+        for k in range(1, 4):
+            si = si + A[:, _FULL[i][k]] * v[k]
+        s.append(si)
+    out = _transpose(torch.stack(s, dim=-1), st)
+    if lap is not None:
+        out = out + reg_weight_l * _lap_apply(_lap_apply(x, valid, st, lap),
+                                              valid, st, lap)
+    return out
+
+
+def jacobi_diag(valid: torch.Tensor, diag: torch.Tensor, damping: float) -> torch.Tensor:
+    """The Jacobi preconditioner's safe diagonal (refine/solvers.jacobi_diag)."""
+    d_total = (1.0 + damping) * diag
+    return torch.where(valid & (d_total > 0.0), d_total, 1.0)
+
+
+def dist_cg_plain(A, t, valid, stencil: StencilReverse, lap, *,
+                  reg_weight_l: float, damping: float, cg_iters: int,
+                  cg_tol: float, cg_static: bool, atol: float = 0.0,
+                  steps_out: Optional[List] = None,
+                  trace: Optional[List] = None) -> torch.Tensor:
+    """The distance block's Jacobi-PCG from x0 = 0 with eager PyTorch ops
+    on the assembled rows; the stop test r.r > thr is read back before
+    every step.  cg_static=False: thr = max(tol^2 b.b, atol^2), at most
+    cg_iters steps (scipy's rule); True: thr = tol^2 b.b and the clamped
+    divisions of solvers.pcg_fixed (the iterate stays frozen once the test
+    fails, so stopping there gives its result).  `steps_out` receives the
+    steps taken (a 0-dim int64 tensor), `trace` each test's (r.r, thr)."""
+    st = stencil
+    b, diag = distance_rhs_plain(A, t, valid, st, lap, reg_weight_l=reg_weight_l)
+    d_safe = jacobi_diag(valid, diag, damping)
+    b = torch.where(valid, b, 0.0)
+    bb = torch.sum(b * b)
+    thr = ((cg_tol * cg_tol) * bb if cg_static
+           else torch.clamp((cg_tol * cg_tol) * bb, min=atol * atol))
+    x = torch.zeros_like(b)
+    r = b
+    z = r / d_safe
+    p = z
+    gamma = torch.sum(r * z)
+    rr = bb
+    steps = 0
+    for _ in range(cg_iters):
+        if trace is not None:
+            trace.append((float(rr), float(thr)))
+        if not bool(rr > thr):
+            break
+        hp = operator_apply(A, p, valid, st, lap, reg_weight_l=reg_weight_l)
+        Ap = torch.where(valid, hp + damping * diag * p, p)
+        pAp = torch.sum(p * Ap)
+        alpha = gamma / (torch.clamp(pAp, min=1e-30) if cg_static else pAp)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = r / d_safe
+        gamma_n = torch.sum(r * z)
+        rr = torch.sum(r * r)
+        beta = gamma_n / (torch.clamp(gamma, min=1e-30) if cg_static else gamma)
+        gamma = gamma_n
+        p = z + beta * p
+        steps += 1
+    if steps_out is not None:
+        steps_out.append(torch.tensor(steps, dtype=torch.int64, device=b.device))
+    return torch.where(valid, x, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# argument checks and the library binding
+# ---------------------------------------------------------------------------
+
+
+class _SystemArgs(ctypes.Structure):
+    """csrc/distcg.cu SystemArgs, field for field (every field 8 bytes)."""
+    _p, _i, _d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    _fields_ = [("w", _p), ("r", _p), ("J0", _p), ("Ji", _p), ("eik_r", _p),
+                ("eik_J0", _p), ("eik_Ji", _p), ("A", _p), ("t", _p),
+                ("n", _i), ("pairs", _i), ("eik", _i), ("reg_weight_n", _d)]
+
+
+class _CgArgs(ctypes.Structure):
+    """csrc/distcg.cu CgArgs, field for field (every field 8 bytes)."""
+    _p, _i, _d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    _fields_ = [("A", _p), ("t", _p), ("nbr", _p), ("rev", _p), ("lap", _p),
+                ("valid", _p), ("lap_r", _p), ("delta", _p), ("steps", _p),
+                ("work", _p), ("partials", _p), ("n", _i), ("blocks", _i),
+                ("maxiter", _i), ("fixed", _i), ("use_lap", _i), ("lap_nbr", _i),
+                ("reg_weight_l", _d), ("diag_coef", _d), ("nbr_coef", _d),
+                ("diag_coef_sq", _d), ("nbr_coef_sq", _d), ("damping", _d),
+                ("tol_sq", _d), ("atol_sq", _d)]
+
+
+# float vectors of N in dist_cg's work buffer: x, r, z, p (two), s (four),
+# the Laplacian rows, A p, diag, the safe diagonal
+WORK_VECTORS = 13
+
+
+def _check(what: str, dev, named) -> None:
+    for name, t, shape, dtype in named:
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} on {t.device}, expected {dev}")
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{what}: {name} must be {dtype} {tuple(shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+_bound = None
+_plans: Dict[tuple, int] = {}
+
+
+def _library():
+    global _bound
+    if _bound is None:
+        from psgradientsdf_tpu_torch.kernels import load_library
+
+        lib = load_library(_LIB_NAME)
+        lib.dist_system.argtypes = [ctypes.POINTER(_SystemArgs), ctypes.c_void_p]
+        lib.dist_system.restype = ctypes.c_int
+        lib.dist_cg.argtypes = [ctypes.POINTER(_CgArgs), ctypes.c_void_p]
+        lib.dist_cg.restype = ctypes.c_int
+        lib.dist_cg_plan.argtypes = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+        lib.dist_cg_plan.restype = ctypes.c_int
+        lib.dist_barriers.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+        lib.dist_barriers.restype = ctypes.c_int
+        _bound = lib
+    return _bound
+
+
+def cg_blocks(dev: torch.device, n: int) -> int:
+    """dist_cg's cooperative grid for n rows on `dev`, found once."""
+    key = (dev.index, n)
+    if key not in _plans:
+        blocks = ctypes.c_int64()
+        with torch.cuda.device(dev):
+            rc = _library().dist_cg_plan(n, ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"dist_cg: no cooperative grid for {n} rows on "
+                               f"{dev}, CUDA error {rc}")
+        _plans[key] = blocks.value
+    return _plans[key]
+
+
+def barrier_floor(dev: torch.device, n: int, barriers: int) -> None:
+    """Launch an empty cooperative kernel on dist_cg's grid for n rows that
+    crosses `barriers` grid barriers (the solve's latency floor; not a
+    kernel of any path, so not counted)."""
+    blocks = cg_blocks(dev, n)
+    with torch.cuda.device(dev):
+        rc = _library().dist_barriers(blocks, barriers,
+                                      torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dist_barriers: launch failed, CUDA error {rc}")
+
+
+def _launch(name: str, args, dev) -> None:
+    with torch.cuda.device(dev):
+        rc = getattr(_library(), name)(ctypes.byref(args),
+                                       torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {rc}")
+    launch_counts[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
+
+def dist_system(rd, DJ, eik, *, reg_weight_n: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The distance block's rows (A [N,10], t [N,4]) from the residual pass
+    rd (w, r [N,F,3]), the distance Jacobian DJ (J0 [N,F,3], Ji [N,3,F,3])
+    and the Eikonal operator (r, J0 [N], Ji [N,3]; None when its weight is
+    0): one kernel launch on the card, dist_system_plain on the CPU."""
+    w = rd.w
+    if w.device.type == "cpu":
+        return dist_system_plain(rd, DJ, eik, reg_weight_n=reg_weight_n)
+    N, F = w.shape[0], w.shape[1]
+    f32 = torch.float32
+    named = [("rd.w", w, (N, F, 3), f32), ("rd.r", rd.r, (N, F, 3), f32),
+             ("DJ.J0", DJ.J0, (N, F, 3), f32), ("DJ.Ji", DJ.Ji, (N, 3, F, 3), f32)]
+    if eik is not None:
+        named += [("eik.r", eik.r, (N,), f32), ("eik.J0", eik.J0, (N,), f32),
+                  ("eik.Ji", eik.Ji, (N, 3), f32)]
+    _check("dist_system", w.device, named)
+    A = torch.empty((N, 10), dtype=f32, device=w.device)
+    t = torch.empty((N, 4), dtype=f32, device=w.device)
+    a = _SystemArgs()
+    a.w, a.r, a.J0, a.Ji = (w.data_ptr(), rd.r.data_ptr(), DJ.J0.data_ptr(),
+                            DJ.Ji.data_ptr())
+    if eik is not None:
+        a.eik_r, a.eik_J0, a.eik_Ji = (eik.r.data_ptr(), eik.J0.data_ptr(),
+                                       eik.Ji.data_ptr())
+    a.A, a.t = A.data_ptr(), t.data_ptr()
+    a.n, a.pairs, a.eik = N, F * 3, int(eik is not None)
+    a.reg_weight_n = float(reg_weight_n)
+    _launch("dist_system", a, w.device)
+    return A, t
+
+
+def dist_cg(A: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
+            stencil: StencilReverse, lap, *, reg_weight_l: float,
+            damping: float, cg_iters: int, cg_tol: float, cg_static: bool,
+            atol: float = 0.0, steps_out: Optional[List] = None) -> torch.Tensor:
+    """The distance step delta [N] (0 on invalid rows) from the assembled
+    rows: the whole Jacobi-PCG in ONE cooperative launch on the card, its
+    stop decided there (nothing read back; `steps_out` receives the step
+    count as a 0-dim int64 tensor on the card), dist_cg_plain on the CPU.
+    `lap` is the Laplacian operator (r [N], diag_coef, nbr_coef), None when
+    its weight is 0."""
+    if A.device.type == "cpu":
+        return dist_cg_plain(A, t, valid, stencil, lap, reg_weight_l=reg_weight_l,
+                             damping=damping, cg_iters=cg_iters, cg_tol=cg_tol,
+                             cg_static=cg_static, atol=atol, steps_out=steps_out)
+    N = A.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    named = [("A", A, (N, 10), f32), ("t", t, (N, 4), f32),
+             ("valid", valid, (N,), torch.bool),
+             ("stencil.nbr", stencil.nbr, (N, 3), i32),
+             ("stencil.rev", stencil.rev, (N, 6), i32),
+             ("stencil.lap", stencil.lap, (N, 6), i32)]
+    if lap is not None:
+        named.append(("lap.r", lap.r, (N,), f32))
+    _check("dist_cg", A.device, named)
+    if cg_iters < 0:
+        raise ValueError(f"dist_cg: cg_iters must be >= 0, got {cg_iters}")
+    dev = A.device
+    blocks = cg_blocks(dev, N)
+    delta = torch.empty((N,), dtype=f32, device=dev)
+    steps = torch.empty((1,), dtype=torch.int64, device=dev)
+    work = torch.empty((WORK_VECTORS * N,), dtype=f32, device=dev)
+    partials = torch.empty((4 * blocks,), dtype=f32, device=dev)
+    a = _CgArgs()
+    a.A, a.t, a.valid = A.data_ptr(), t.data_ptr(), valid.data_ptr()
+    a.nbr, a.rev, a.lap = (stencil.nbr.data_ptr(), stencil.rev.data_ptr(),
+                           stencil.lap.data_ptr())
+    a.delta, a.steps = delta.data_ptr(), steps.data_ptr()
+    a.work, a.partials = work.data_ptr(), partials.data_ptr()
+    a.n, a.blocks, a.maxiter, a.fixed = N, blocks, cg_iters, int(cg_static)
+    if lap is not None:
+        a.lap_r, a.use_lap = lap.r.data_ptr(), 1
+        a.lap_nbr = int(lap.nbr_coef != 0.0)
+        a.reg_weight_l = float(reg_weight_l)
+        a.diag_coef, a.nbr_coef = float(lap.diag_coef), float(lap.nbr_coef)
+        a.diag_coef_sq, a.nbr_coef_sq = lap.diag_coef ** 2, lap.nbr_coef ** 2
+    a.damping = float(damping)
+    a.tol_sq, a.atol_sq = cg_tol * cg_tol, atol * atol
+    _launch("dist_cg", a, dev)
+    if steps_out is not None:
+        steps_out.append(steps.view(()))
+    return delta

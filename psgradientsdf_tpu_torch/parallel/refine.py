@@ -502,9 +502,11 @@ def _joint_dp(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
 
 def run_block(name, prob: ShardedProblem, geom, rd: MeshResiduals, dist, albedo,
               grad_stored, poses, K, lights, *, kw, reg_weight_n, reg_weight_l,
-              reg_weight_rho, damping, laplacian_diag_only, steps_out=None):
+              reg_weight_rho, damping, laplacian_diag_only, steps_out=None,
+              stencil=None):
     """refine/optimizer._run_block on the mesh -> (dist, albedo,
-    grad_stored, poses, lights)."""
+    grad_stored, poses, lights).  `stencil` is None: the mesh's distance
+    CG keeps its scatter-add transposes (refine/solvers.py)."""
     args = (prob, geom, rd, dist, albedo, grad_stored, poses, K, lights)
     bkw = dict(kw, reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l,
                reg_weight_rho=reg_weight_rho, damping=damping,

@@ -20,13 +20,15 @@ Reference behaviors carried over:
   * artifact dumps every 3 iterations (PsOptimizer.cpp:419-423)
 
 Host reads: the four energies after every block (one small copy), the CG
-stop flag every few steps (refine/solvers.py), and the dense factorisations'
-status.  The periodic every-3-iteration dumps (PsOptimizer.cpp:419-423) run
-on a writer thread (utils/writer.py): the loop starts the device->host
-copies of what the dump reads and goes on, the thread runs marching cubes
-and writes the PLY files; the next dump, the end of the loop and a failure
-join it, and a failed dump is logged as `artifact_dump_error` without
-stopping the refinement.  The upsample and terminal dumps are synchronous.
+stop flag every few steps (refine/solvers.py; the distance block's CG on
+one device decides its stop on the card, ops/distcg.py), and the dense
+factorisations' status.  The periodic every-3-iteration dumps
+(PsOptimizer.cpp:419-423) run on a writer thread (utils/writer.py): the
+loop starts the device->host copies of what the dump reads and goes on,
+the thread runs marching cubes and writes the PLY files; the next dump,
+the end of the loop and a failure join it, and a failed dump is logged as
+`artifact_dump_error` without stopping the refinement.  The upsample and
+terminal dumps are synchronous.
 
 Mid-run checkpoints: the loop records its scalar state (`loop_state`) at
 every iteration boundary and, with `checkpoint_every` and `checkpoint_path`
@@ -61,7 +63,7 @@ from psgradientsdf_tpu_torch.config import LED, OptimizerConfig
 from psgradientsdf_tpu_torch.core.grid import GridGeometry
 from psgradientsdf_tpu_torch.core.volume import GradSdfVolume
 from psgradientsdf_tpu_torch.io import ply, sdf_io, trajectory
-from psgradientsdf_tpu_torch.ops import residual
+from psgradientsdf_tpu_torch.ops import distcg, residual
 from psgradientsdf_tpu_torch.ops.marching_cubes import extract_mesh_from_volume
 from psgradientsdf_tpu_torch.parallel import distributed
 from psgradientsdf_tpu_torch.refine import geometry, jacobians, render, solvers
@@ -116,7 +118,11 @@ def _light_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
 
 def _dist_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
                *, model, order, loss, lam, voxel_size, reg_weight_n,
-               reg_weight_l, damping, laplacian_diag_only, steps_out=None):
+               reg_weight_l, damping, laplacian_diag_only, stencil,
+               steps_out=None):
+    """Distance GN update: the Jacobian, then the assembled system and its
+    CG (ops/distcg.py through solvers.solve_distance) over the problem's
+    reverse stencil table `stencil`."""
     _, DJ = residual.dist_jacobian(prob, geom, rd, dist, albedo, grad_stored,
                                    poses, K, lights, model=model, order=order,
                                    voxel_size=voxel_size)
@@ -124,6 +130,7 @@ def _dist_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
         prob, rd, DJ, dist, voxel_size,
         reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l, damping=damping,
         laplacian_diag_only=laplacian_diag_only, steps_out=steps_out,
+        stencil=stencil,
     )
     return solvers.update_distance(prob, dist, delta, voxel_size)
 
@@ -221,9 +228,10 @@ def block_names(light, albedo, distance, pose, joint_dp) -> List[str]:
 
 def _run_block(name, prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
                *, kw, reg_weight_n, reg_weight_l, reg_weight_rho, damping,
-               laplacian_diag_only, steps_out=None):
+               laplacian_diag_only, steps_out=None, stencil=None):
     """One block's update from the residual pass `rd` at the current state
-    -> (dist, albedo, grad_stored, poses, lights)."""
+    -> (dist, albedo, grad_stored, poses, lights); `stencil` is the
+    problem's reverse stencil table for the distance block."""
     args = (prob, geom, rd, dist, albedo, grad_stored, poses, K, lights)
     dkw = dict(reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l,
                damping=damping, laplacian_diag_only=laplacian_diag_only,
@@ -236,7 +244,7 @@ def _run_block(name, prob, geom, rd, dist, albedo, grad_stored, poses, K, lights
     elif name == "joint_dp":
         dist, grad_stored, poses = _joint_dp_core(*args, **kw, **dkw)
     elif name == "distance":
-        dist, grad_stored = _dist_core(*args, **kw, **dkw)
+        dist, grad_stored = _dist_core(*args, **kw, **dkw, stencil=stencil)
     elif name == "pose":
         poses = _pose_core(*args, **kw, damping=damping)
     else:
@@ -249,7 +257,8 @@ def _iteration_core(prob, geom, dist, albedo, grad_stored, poses, images, K,
                     reg_weight_n, reg_weight_l, reg_weight_rho, damping,
                     laplacian_diag_only, do_light, do_albedo, do_distance,
                     do_pose, joint_dp, steps_out=None,
-                    block_done: Optional[Callable] = None, ops=None):
+                    block_done: Optional[Callable] = None, ops=None,
+                    stencil=None):
     """ONE full alternating iteration — every enabled block plus its
     residual refresh and post-block energies — from the state alone: it
     makes its own leading residual pass, where the per-block path of the
@@ -262,7 +271,9 @@ def _iteration_core(prob, geom, dist, albedo, grad_stored, poses, images, K,
     block, in block order.  `block_done(name, energies)` is called after each
     block's refresh (the loop times blocks with it); `steps_out` collects the
     CG step counts.  `ops` (RefineOps) are the functions it is made of: the
-    single-device ones by default, a mesh's from parallel/refine.py.
+    single-device ones by default, a mesh's from parallel/refine.py;
+    `stencil` is the problem's reverse stencil table (ops/distcg.py), which
+    a distance block on one device needs; a mesh's ops take none.
     """
     ops = SINGLE if ops is None else ops
     kw = dict(model=model, order=order, loss=loss, lam=lam,
@@ -281,7 +292,8 @@ def _iteration_core(prob, geom, dist, albedo, grad_stored, poses, images, K,
             name, prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
             kw=kw, reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l,
             reg_weight_rho=reg_weight_rho, damping=damping,
-            laplacian_diag_only=laplacian_diag_only, steps_out=steps_out)
+            laplacian_diag_only=laplacian_diag_only, steps_out=steps_out,
+            stencil=stencil)
         rd, e = refresh()
         energies.append(e)
         if block_done is not None:
@@ -403,6 +415,9 @@ class PhotometricRefiner:
         self.keyframe_indices: List[int] = []
         self.timestamps: List[str] = []
         self.prob: Optional[RefineProblem] = None
+        # the problem's reverse stencil table (ops/distcg.py), rebuilt with
+        # every problem on one device (None on a mesh)
+        self.stencil: Optional[distcg.StencilReverse] = None
         self.lights = None
         self.dist = None
         self.albedo = None
@@ -453,6 +468,7 @@ class PhotometricRefiner:
                          keyframes=len(self.keyframe_indices),
                          extract_seconds=t_extract)
         self.place_on_mesh()
+        self.rebuild_stencil()
 
         if self.cfg.model == LED:
             self.lights = torch.ones(3, dtype=torch.float32, device=self.device)
@@ -482,6 +498,13 @@ class PhotometricRefiner:
         for name in ("dist", "albedo", "grad_stored"):
             setattr(self, name, shard.shard_rows(getattr(self, name),
                                                  self.prob.layout))
+
+    def rebuild_stencil(self) -> None:
+        """The reverse stencil table of the refiner's problem, for the
+        distance block on one device: called wherever the problem is set
+        (init, the upsample, io/checkpoint.load_refine_state)."""
+        self.stencil = (None if self.mesh is not None or self.prob is None
+                        else distcg.stencil_reverse(self.prob))
 
     def _sharded(self) -> bool:
         return not isinstance(self.prob, (RefineProblem, type(None)))
@@ -681,7 +704,8 @@ class PhotometricRefiner:
                     *self._args(), **skw, **weights(),
                     do_light=light, do_albedo=albedo, do_distance=distance,
                     do_pose=pose, joint_dp=cfg.joint_dp, steps_out=steps,
-                    block_done=lambda name, e: book(name, e, steps), ops=self.ops)
+                    block_done=lambda name, e: book(name, e, steps), ops=self.ops,
+                    stencil=self.stencil)
                 self._set_state(out[:5])
                 rd = None   # stale; the per-block path recomputes on demand
             else:
@@ -693,7 +717,7 @@ class PhotometricRefiner:
                     self._set_state(self.ops.run_block(
                         name, self.prob, self.geom, rd, *self._state()[:4],
                         self.K, self.lights, kw=skw, **weights(),
-                        steps_out=steps))
+                        steps_out=steps, stencil=self.stencil))
                     rd, e = refresh()
                     book(name, e, steps)
 
@@ -794,6 +818,7 @@ class PhotometricRefiner:
             capacity=int(self.prob.valid.shape[0]),
         )
         self.place_on_mesh()
+        self.rebuild_stencil()
 
     # ------------------------------------------------------------ exports
 

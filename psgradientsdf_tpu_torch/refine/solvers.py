@@ -16,7 +16,10 @@ Replaces the reference's Eigen sparse-triplet assembly + ConjugateGradient
 
 The scatter-adds are `index_add_`.  On a CUDA device it adds with atomics in
 no fixed order, so two runs there agree to rounding, not bit for bit, and
-the device is held against the CPU by tolerance.
+the device is held against the CPU by tolerance.  The distance block's
+solve on one device has none: `solve_distance` assembles the normal
+equations per row and runs the whole CG through ops/distcg.py (one kernel
+launch each on the card), with the transposes in gather form.
 
 On a device mesh (parallel/refine.py) every operator runs on one shard's
 rows: `src=` names the full N-vector that neighbours are read from (the
@@ -39,6 +42,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from psgradientsdf_tpu_torch.ops import distcg
+from psgradientsdf_tpu_torch.ops.distcg import jacobi_diag
 from psgradientsdf_tpu_torch.refine import geometry
 from psgradientsdf_tpu_torch.refine.jacobians import DistJacobian
 from psgradientsdf_tpu_torch.refine.problem import RefineProblem
@@ -365,11 +370,6 @@ def _distance_system(
     return b, diag, hdd_mv
 
 
-def jacobi_diag(valid: torch.Tensor, diag: torch.Tensor, damping: float) -> torch.Tensor:
-    d_total = (1.0 + damping) * diag
-    return torch.where(valid & (d_total > 0.0), d_total, 1.0)
-
-
 def solve_distance(
     prob: RefineProblem,
     rd: ResidualData,
@@ -385,23 +385,27 @@ def solve_distance(
     cg_tol: float = 1e-6,
     cg_static: bool = False,
     steps_out: Optional[List] = None,
+    stencil: distcg.StencilReverse,
 ) -> torch.Tensor:
     """CG on (J^T W J + reg + damping diag) dd = J^T W r + reg terms
-    (PsOptimizer.cpp:124-172). Returns the GN step delta_d [N]."""
-    b, diag, hdd_mv = _distance_system(
-        prob, rd, DJ, dist, voxel_size,
-        reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l, damping=damping,
-        laplacian_diag_only=laplacian_diag_only,
-    )
+    (PsOptimizer.cpp:124-172). Returns the GN step delta_d [N].
 
-    def matvec(x):
-        # keep padded rows inert (identity) so CG is well-posed
-        return torch.where(prob.valid, hdd_mv(x), x)
-
-    d_safe = jacobi_diag(prob.valid, diag, damping)
-    b = torch.where(prob.valid, b, 0.0)
-    delta = _solve_cg(matvec, b, d_safe, cg_iters, cg_tol, cg_static, steps_out)
-    return torch.where(prob.valid, delta, 0.0)
+    The system is assembled per row (distcg.dist_system) and solved by
+    distcg.dist_cg with the stop rule of `cg` (cg_static: `pcg_fixed`'s);
+    `stencil` is the problem's distcg.stencil_reverse table, which the
+    refiner builds with the problem.  `steps_out` receives the steps taken,
+    under either rule."""
+    if stencil is None or stencil.source is not prob.nbr_idx:
+        raise ValueError("solve_distance: the stencil table is missing or "
+                         "was built for another problem")
+    eik, lap = reg_operators(prob, dist, voxel_size, reg_weight_n=reg_weight_n,
+                             reg_weight_l=reg_weight_l,
+                             laplacian_diag_only=laplacian_diag_only)
+    A, t = distcg.dist_system(rd, DJ, eik, reg_weight_n=reg_weight_n)
+    return distcg.dist_cg(A, t, prob.valid, stencil, lap,
+                          reg_weight_l=reg_weight_l, damping=damping,
+                          cg_iters=cg_iters, cg_tol=cg_tol,
+                          cg_static=cg_static, steps_out=steps_out)
 
 
 def accept_distance(prob: RefineProblem, dist: torch.Tensor,

@@ -131,10 +131,11 @@ def _torch_block(model, block, F, mesh_shape):
     ref.prob, ref.lights = tref.prob, tref.lights
     ref.dist, ref.albedo, ref.grad_stored = tref.dist, tref.albedo, tref.grad_stored
     ref.place_on_mesh()
+    ref.rebuild_stencil()
     rd = ref._rd()
     ref._set_state(ref.ops.run_block(
         block, ref.prob, ref.geom, rd, *ref._state()[:4], ref.K, ref.lights,
-        kw=ref._static_kwargs(), **weights))
+        kw=ref._static_kwargs(), stencil=ref.stencil, **weights))
     _, dist, albedo, grad, _ = ref.gathered(False, False)
     state = dict(dist=dist, albedo=albedo, grad_stored=grad, poses=ref.poses,
                  lights=ref.lights)

@@ -74,7 +74,7 @@ def _block(ref, name, rd=None, **weights):
     rd = ref._rd() if rd is None else rd
     ref._set_state(topt._run_block(
         name, ref.prob, ref.geom, rd, *ref._state()[:4], ref.K, ref.lights,
-        kw=ref._static_kwargs(), **kw))
+        kw=ref._static_kwargs(), stencil=ref.stencil, **kw))
 
 
 def _gt_albedo(ref):

@@ -17,6 +17,7 @@ from psgradientsdf_tpu.refine import problem as jproblem
 from psgradientsdf_tpu.refine import render as jrender
 from psgradientsdf_tpu.refine import solvers as jsolvers
 from psgradientsdf_tpu.utils import robust
+from psgradientsdf_tpu_torch.ops.distcg import stencil_reverse
 from psgradientsdf_tpu_torch.refine import jacobians as tjac
 from psgradientsdf_tpu_torch.refine import problem as tproblem
 from psgradientsdf_tpu_torch.refine import render as trender
@@ -229,7 +230,8 @@ def test_solve_and_update_distance(lin, w_n, w_l, static):
     J, T = lin["J"], lin["T"]
     kw = dict(reg_weight_n=w_n, reg_weight_l=w_l, damping=1.0, cg_static=static)
     steps = []
-    td = tsolvers.solve_distance(T["p"], T["rd"], T["DJ"], T["dist"], H_VOX, steps_out=steps, **kw)
+    td = tsolvers.solve_distance(T["p"], T["rd"], T["DJ"], T["dist"], H_VOX, steps_out=steps,
+                                 stencil=stencil_reverse(T["p"]), **kw)
     jd = jsolvers.solve_distance(J["p"], J["rd"], J["DJ"], J["dist"], H_VOX, **kw)
     assert float(td.abs().max()) > 1e-4               # a real step
     assert (ht.t2n(td)[~ht.t2n(T["p"].valid)] == 0).all()
