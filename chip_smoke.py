@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile | --kernels-only | --refine-only |
                            --distributed-only] [--residual-parent <residual.cu>]
+                          [--distcg-parent <distcg.cu>]
 
 Builds the package's CUDA kernels and its host C++ libraries (PNG unfilter,
 marching cubes and PLY writers) from csrc/, holds each kernel against its
@@ -82,8 +83,12 @@ each once and ran no plain distance solve on the card, and phase
 dist_cg_kernels holds the rows bit for bit and the CG against the plain
 solve (its steps, delta within DIST_CG_TOL) on the main run's and the LED
 run's final problems under both stop rules and on the edges (one row, a row
-whose neighbours are all frozen, no valid row), times both, and traces one
-distance block through them, which must run no index_add_ kernel.
+whose neighbours are all frozen, copies of the main system in each layout
+of the CG's host plan, no valid row), times both, and traces one distance
+block through them, which must run no index_add_ kernel; with
+--distcg-parent <distcg.cu> it also times the CG of the main and LED cases
+on that earlier source (the C interface before the host plan), in turns
+with this one.
 
 With --kernels-only the run stops after the kernels and scan_kernels phases
 (build, checks and times of the kernels): a quick look at a changed kernel.
@@ -102,6 +107,7 @@ and no network.
 
 import builtins
 import contextlib
+import ctypes
 import hashlib
 import json
 import os
@@ -1028,6 +1034,7 @@ def scan_kernels(tmp, seq):
         step["share_of_bound"] = step["bound_ms"] / step["ms"]
         # the Gram alone at 640x480 (gn_gram, the mesh / resident trackers')
         recs = G.pack_records(*G.frame_records(frame, seed))
+        rows = _gram_rows(frame.points()[0], seed, G.unpack_records(recs))
         facts["gn_gram"] = dict(
             frame=f, pixels=frame.n, max_abs_err=step["gram_max_abs_err"],
             ms=_time_ms(lambda: G.gram(frame, seed, recs), flush),
@@ -1035,7 +1042,9 @@ def scan_kernels(tmp, seq):
                 frame.points()[0], seed, G.unpack_records(recs)), flush),
             # the depth map and the records read once, S written
             bound_ms=(frame.n * (4 + 32) + 256) / HBM_BYTES_PER_S * 1e3,
-            library_ms=None)
+            library_ms=_time_ms(lambda: torch.einsum("ni,nk->ik", rows, rows), flush),
+            library_call="torch.einsum('ni,nk->ik', G, G) over the masked [N, 8] rows")
+        del rows
         facts["gn_gram"]["share_of_bound"] = (facts["gn_gram"]["bound_ms"]
                                               / facts["gn_gram"]["ms"])
     facts["gn_solve"] = step
@@ -1051,6 +1060,19 @@ def scan_kernels(tmp, seq):
 
 
 GN_CONFIGS = ("REFERENCE", "STREAMING", "PARITY", "STREAMING_FAST")
+
+
+def _gram_rows(pts_cam, pose, rec):
+    """The masked rows G [N, 8] of ops/gn.gram_plain (ghat, p x ghat, psi,
+    1, times the mask), whose Gram G^T G one einsum forms: gn_gram's
+    one-call yardstick."""
+    import torch
+
+    d, ghat, c_v, ok = rec
+    p_w = pts_cam @ pose[:3, :3].T + pose[:3, 3]
+    psi = d + torch.sum(ghat * (c_v - p_w), dim=-1)
+    return torch.cat([ghat, torch.linalg.cross(p_w, ghat), psi[:, None],
+                      torch.ones_like(psi)[:, None]], dim=-1) * ok.to(psi.dtype)[:, None]
 
 
 def _solve_kw(name):
@@ -2235,7 +2257,26 @@ def _cg_check(what, A, t, valid, st, lap, kw):
                 static=kw["cg_static"], laplacian=lap is not None,
                 steps=k1, plain_steps=kp, threshold_edge=edge,
                 dist_cg_runs_bit_identical=True, max_abs_err=err,
-                max_abs_delta=scale, relative_err=err / scale if scale > 0 else 0.0)
+                max_abs_delta=scale, relative_err=err / scale if scale > 0 else 0.0,
+                plan=_cg_plan_facts(_cg_plan_of(A, lap)))
+
+
+def _cg_plan_of(A, lap):
+    """dist_cg's plan for these rows: the card's (cg_plan); in a CPU
+    rehearsal the plan for an H100's 132 SMs."""
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    kw = dict(use_lap=lap is not None, lap_nbr=lap is not None and lap.nbr_coef != 0.0)
+    if DEVICE == "cuda":
+        return DC.cg_plan(A.device, A.shape[0], **kw)
+    return DC._cg_plan(A.shape[0], sms=132, **kw)
+
+
+def _cg_plan_facts(plan):
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    return dict(blocks=plan.blocks, rows_per_block=plan.tile, mode=DC.MODES[plan.mode],
+                smem_bytes=plan.smem_bytes, barriers_per_step=plan.barriers)
 
 
 def _dist_case(what, c, static, flush, timed=False):
@@ -2282,13 +2323,18 @@ def _dist_case(what, c, static, flush, timed=False):
         cg_bytes = N * (40 + 16 + 12 + 24 + 1 + 4)
         if lap is not None:
             cg_bytes += N * 4 + (N * 24 if lap.nbr_coef != 0.0 else 0)
-        barriers = 1 + 3 * k1
+        # the prologue's grid.sync and the plan's barriers a step
+        plan = _cg_plan_of(A, lap)
+        barriers = 1 + plan.barriers * k1
         out["dist_cg"] = dict(
             bytes=cg_bytes, bound_ms=cg_bytes / HBM_BYTES_PER_S * 1e3,
             ms=_time_ms(lambda: DC.dist_cg(A, t, valid, st, lap, **kw), flush),
             plain_ms=_time_ms(lambda: DC.dist_cg_plain(A, t, valid, st, lap, **kw), flush),
-            library_ms=None, blocks=DC.cg_blocks(dev, N), grid_barriers=barriers,
-            barrier_floor_ms=_time_ms(lambda: DC.barrier_floor(dev, N, barriers), flush))
+            library_ms=None, blocks=plan.blocks, grid_barriers=barriers,
+            barrier_floor_ms=_time_ms(lambda: DC.barrier_floor(dev, plan, barriers), flush),
+            # the same count of grid.syncs alone (the parent's barrier)
+            grid_sync_floor_ms=_time_ms(
+                lambda: DC.barrier_floor(dev, plan, barriers, kind=0), flush))
         for k in ("dist_system", "dist_cg"):
             out[k]["share_of_bound"] = out[k]["bound_ms"] / out[k]["ms"]
     return out
@@ -2350,28 +2396,169 @@ def _distance_block_traces(ref, w_n, w_l):
     return out
 
 
-def _tiled_cg_case(c, copies, flush):
-    """dist_cg on `copies` disjoint copies of a distance block's system (the
-    stencil tables offset by the rows before each copy): more rows than the
-    grid holds at a row a thread, so each thread walks several (_cg_check)."""
+def _tiled_inputs(c, rows):
+    """`rows` rows of disjoint copies of a distance block's system (the
+    stencil tables offset by the rows before each copy; the links into rows
+    past the cut cut too) -> (A, t, valid, stencil)."""
     import torch
     from psgradientsdf_tpu_torch.ops import distcg as DC
 
     A, t = DC.dist_system(c["rd"], c["DJ"], c["eik"], reg_weight_n=c["w_n"])
     N = A.shape[0]
+    copies = -(-rows // N)
     st = c["stencil"]
-    off = lambda ix: torch.cat([torch.where(ix >= 0, ix + k * N, ix)
-                                for k in range(copies)])
-    tiled = DC.StencilReverse(off(st.nbr), off(st.rev), off(st.lap), st.source)
+    tile = lambda ix: torch.cat([torch.where(ix >= 0, ix + k * N, ix)
+                                 for k in range(copies)])[:rows]
+    cut = lambda ix: torch.where(ix < rows, ix, -1).contiguous()
+    tiled = DC.StencilReverse(cut(tile(st.nbr)), cut(tile(st.rev)), cut(tile(st.lap)),
+                              st.source)
+    return (A.repeat(copies, 1)[:rows].contiguous(), t.repeat(copies, 1)[:rows].contiguous(),
+            c["prob"].valid.repeat(copies)[:rows].contiguous(), tiled)
+
+
+def _tiled_cg_case(c, what, rows, mode, flush, timed=False):
+    """dist_cg on `rows` rows of copies of a distance block's system
+    (_tiled_inputs, scipy's stop rule, _cg_check), whose plan must take
+    layout `mode` (None: any); with `timed`, on the card, its ms beside its
+    bound."""
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    A, t, valid, st = _tiled_inputs(c, rows)
     kw = dict(reg_weight_l=0.0, damping=c["damping"], cg_iters=100, cg_tol=1e-6,
               cg_static=False)
-    out = _cg_check(f"{copies} copies of the main system", A.repeat(copies, 1),
-                    t.repeat(copies, 1), c["prob"].valid.repeat(copies), tiled,
-                    None, kw)
-    if DEVICE == "cuda":
-        blocks = DC.cg_blocks(A.device, copies * N)
-        out.update(blocks=blocks, rows_per_block=-(-copies * N // blocks))
-        check(out["rows_per_block"] > 256, "the tiled case holds a row a thread")
+    out = _cg_check(what, A, t, valid, st, None, kw)
+    check(mode in (None, out["plan"]["mode"]),
+          f"{what}: the {out['plan']['mode']} layout, expected {mode}")
+    if timed and DEVICE == "cuda":
+        cg_bytes = rows * (40 + 16 + 12 + 24 + 1 + 4)
+        out.update(bound_ms=cg_bytes / HBM_BYTES_PER_S * 1e3,
+                   ms=_time_ms(lambda: DC.dist_cg(A, t, valid, st, None, **kw), flush))
+    return out
+
+
+def _ptxas(src):
+    """nvcc -Xptxas -v on a CUDA source -> {kernel: (registers, spill
+    stores)} of its entry functions (the mangled names shortened)."""
+    import re
+    from psgradientsdf_tpu_torch import kernels
+
+    with tempfile.TemporaryDirectory(prefix="ptxas_") as tmp:
+        proc = subprocess.run(
+            [kernels._find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v",
+             "-o", os.path.join(tmp, "k.cubin"), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    check(proc.returncode == 0, f"nvcc -Xptxas -v on {src} failed:\n{proc.stdout}")
+    out, name, spills = {}, None, 0
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            for short, pat in (("dist_cg_kernel<tile>", "dist_cg_kernelILi0E"),
+                               ("dist_cg_kernel<vectors>", "dist_cg_kernelILi1E"),
+                               ("dist_cg_kernel<global>", "dist_cg_kernelILi2E"),
+                               ("dist_barrier_kernel", "dist_barrier_kernel"),
+                               ("dist_system_kernel", "dist_system_kernel")):
+                if pat in name:
+                    name = short
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = dict(registers=int(m.group(1)), spill_stores=spills)
+    return out
+
+
+# the parent's dist_cg C interface (csrc/distcg.cu before the host plan):
+# CgArgs with the grid and the partials, dist_cg_plan(n, &blocks)
+class _ParentCgArgs(ctypes.Structure):
+    _p, _i, _d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    _fields_ = [("A", _p), ("t", _p), ("nbr", _p), ("rev", _p), ("lap", _p),
+                ("valid", _p), ("lap_r", _p), ("delta", _p), ("steps", _p),
+                ("work", _p), ("partials", _p), ("n", _i), ("blocks", _i),
+                ("maxiter", _i), ("fixed", _i), ("use_lap", _i), ("lap_nbr", _i),
+                ("reg_weight_l", _d), ("diag_coef", _d), ("nbr_coef", _d),
+                ("diag_coef_sq", _d), ("nbr_coef_sq", _d), ("damping", _d),
+                ("tol_sq", _d), ("atol_sq", _d)]
+
+
+def _parent_library(path):
+    """The parent's distcg library (its C interface) at `path`."""
+    parent = ctypes.CDLL(path)
+    parent.dist_cg.argtypes = [ctypes.POINTER(_ParentCgArgs), ctypes.c_void_p]
+    parent.dist_cg_plan.argtypes = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+    return parent
+
+
+def _parent_solve(parent, A, t, valid, st, lap, kw):
+    """A callable that runs the parent's dist_cg on these inputs (scipy's
+    stop rule, kw's tolerance and damping) -> (delta, steps)."""
+    import torch
+
+    N = A.shape[0]
+    blocks = ctypes.c_int64()
+    check(parent.dist_cg_plan(N, ctypes.byref(blocks)) == 0, "the parent's plan")
+
+    def run():
+        delta = torch.empty((N,), dtype=torch.float32, device=A.device)
+        steps = torch.empty((1,), dtype=torch.int64, device=A.device)
+        work = torch.empty((13 * N,), dtype=torch.float32, device=A.device)
+        part = torch.empty((4 * blocks.value,), dtype=torch.float32, device=A.device)
+        a = _ParentCgArgs(
+            A=A.data_ptr(), t=t.data_ptr(), nbr=st.nbr.data_ptr(), rev=st.rev.data_ptr(),
+            lap=st.lap.data_ptr(), valid=valid.data_ptr(), delta=delta.data_ptr(),
+            steps=steps.data_ptr(), work=work.data_ptr(), partials=part.data_ptr(), n=N,
+            blocks=blocks.value, maxiter=kw["cg_iters"], fixed=0, damping=kw["damping"],
+            tol_sq=kw["cg_tol"] ** 2, atol_sq=0.0)
+        if lap is not None:
+            a.lap_r, a.use_lap = lap.r.data_ptr(), 1
+            a.lap_nbr = int(lap.nbr_coef != 0.0)
+            a.reg_weight_l = float(kw["reg_weight_l"])
+            a.diag_coef, a.nbr_coef = float(lap.diag_coef), float(lap.nbr_coef)
+            a.diag_coef_sq, a.nbr_coef_sq = lap.diag_coef ** 2, lap.nbr_coef ** 2
+        rc = parent.dist_cg(ctypes.byref(a), torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the parent's dist_cg: CUDA error {rc}")
+        return delta, steps
+    return run
+
+
+def _distcg_parent_ab(cases, flush):
+    """dist_cg on this distcg.cu and on the --distcg-parent source (the
+    parent's C interface, built here into a temporary directory; its
+    launches are on no path and not counted), each held against the plain
+    solve (its steps, DIST_CG_TOL), timed in turns: this, the parent, the
+    parent, this -> {case: {"this"|"parent": [ms, ms]}}."""
+    from psgradientsdf_tpu_torch import kernels
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    src = sys.argv[sys.argv.index("--distcg-parent") + 1]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="distcg_parent_") as tmp:
+        lib = os.path.join(tmp, "libdistcg_parent.so")
+        proc = subprocess.run([kernels._find_nvcc(), *kernels.NVCC_FLAGS, "-o", lib, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        check(proc.returncode == 0, f"nvcc on {src} failed:\n{proc.stdout}")
+        parent = _parent_library(lib)
+        for what, c in cases:
+            A, t = DC.dist_system(c["rd"], c["DJ"], c["eik"], reg_weight_n=c["w_n"])
+            valid, st, lap = c["prob"].valid, c["stencil"], c["lap"]
+            kw = dict(reg_weight_l=c["w_l"], damping=c["damping"], cg_iters=100,
+                      cg_tol=1e-6, cg_static=False)
+            run_parent = _parent_solve(parent, A, t, valid, st, lap, kw)
+            sp = []
+            dp = DC.dist_cg_plain(A, t, valid, st, lap, **kw, steps_out=sp)
+            delta, steps = run_parent()
+            _sync()
+            scale = float(dp.abs().max())
+            check(int(steps[0]) == int(sp[0]) and _abs_err(delta, dp) <= DIST_CG_TOL * scale,
+                  f"the parent's dist_cg differs from the plain solve ({what})")
+            runs = dict(this=lambda: DC.dist_cg(A, t, valid, st, lap, **kw),
+                        parent=run_parent)
+            times = {"this": [], "parent": []}
+            for name in ("this", "parent", "parent", "this"):
+                times[name].append(_time_ms(runs[name], flush))
+            out[what] = dict(times, steps=int(sp[0]))
     return out
 
 
@@ -2382,13 +2569,20 @@ def dist_cg_kernels(main_run, led_run):
     run's after the upsample (the Laplacian on), each under scipy's stop
     rule and cg_static's, the LED run's also with a Laplacian weight 100
     times its loop's and with the Laplacian's diagonal alone; then the
-    edges: one row alone, a row whose three neighbours are all frozen, four
-    copies of the main system (several rows a thread), every row invalid
-    (under both rules).
+    edges: one row alone, a row whose three neighbours are all frozen, the
+    rows of copies of the main system (_tiled_cg_case) in each of the
+    plan's layouts (four copies, several rows a thread; the tile at the
+    resident limit and the first row count past it; eight copies; the
+    first row count past the vectors' limit), every row invalid (under both
+    rules); each case's plan.
     Timed (median of KERNEL_REPS, L2 flushed): the main case and the LED
-    case under scipy's rule, and the one-row launch (dist_cg's latency
-    floor).  Then one distance block traced through the kernels
-    (_distance_block_traces).  Launches made here are on no path.
+    case under scipy's rule with both barrier floors, the four-, eight- and
+    the past-the-vectors' copies, and the one-row launch (dist_cg's latency
+    floor).  Then the kernels' registers (nvcc -Xptxas -v), with
+    --distcg-parent <distcg.cu> the main and LED cases on that earlier
+    source in turns with this one (_distcg_parent_ab), and one distance
+    block traced through the kernels (_distance_block_traces).  Launches
+    made here are on no path.
     -> facts."""
     import torch
     from psgradientsdf_tpu_torch.ops import distcg
@@ -2423,15 +2617,43 @@ def dist_cg_kernels(main_run, led_run):
     cases.append(_dist_case("a row with three frozen neighbours",
                             dict(main, prob=cut, stencil=distcg.stencil_reverse(cut)),
                             False, flush))
-    cases.append(_tiled_cg_case(main, 4, flush))
+    N = p.valid.shape[0]
+    sms = _sm_count() if DEVICE == "cuda" else 132
+    at_limit = sms * distcg.resident_tile_limit(False)
+    past_vectors = sms * distcg.vector_tile_limit(False) + 1
+    for what, rows, mode, timed in (
+            ("four copies of the main system", 4 * N, None, True),
+            ("the tile at the resident limit", at_limit, "tile", False),
+            ("the first row count past it", at_limit + 1, "vectors", False),
+            ("eight copies of the main system", 8 * N, None, True),
+            ("the first row count past the vectors' limit", past_vectors, "global", True)):
+        case = _tiled_cg_case(main, what, rows, mode, flush, timed=timed)
+        if rows == at_limit:
+            check(case["plan"]["rows_per_block"] == distcg.resident_tile_limit(False),
+                  f"{what}: {case['plan']['rows_per_block']} rows a block")
+        cases.append(case)
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
     none = p._replace(valid=torch.zeros_like(p.valid))
     for static in (False, True):
         case = _dist_case("every row invalid", dict(main, prob=none), static, flush)
         check(case["steps"] == 0 and case["max_abs_delta"] == 0.0,
               "every row invalid: a step or a nonzero delta")
         cases.append(case)
+    led_case = next(c for c in cases if c["case"] == "LED after the upsample")
+    check(led_case["plan"]["barriers_per_step"] == 3,
+          "the LED case runs without the Laplacian's third barrier")
+    check({c["plan"]["mode"] for c in cases} == set(distcg.MODES),
+          "a layout of dist_cg was not exercised")
     facts = dict(cases=cases, checked=len(cases))
     if DEVICE == "cuda":
+        from psgradientsdf_tpu_torch import kernels
+
+        facts["ptxas"] = _ptxas(kernels.source_path("distcg"))
+        if "--distcg-parent" in sys.argv[1:]:
+            facts["parent"] = _distcg_parent_ab(
+                [("main SH1", main), ("LED after the upsample", _dist_inputs(led, *led_w))],
+                flush)
         facts["latency_floor_ms"] = one["dist_cg"]["ms"]
         facts["distance_block"] = _distance_block_traces(ref, *main_w)
         torch.cuda.empty_cache()
@@ -4254,12 +4476,16 @@ def main():
         "dist_cg": dict(dist_case["dist_cg"], max_abs_err=dist_case["max_abs_err"],
                         latency_floor_ms=dist_facts["latency_floor_ms"], work=(
             f"that block's whole Jacobi-PCG ({dist_case['steps']} steps, one "
-            f"cooperative launch, {dist_case['dist_cg']['blocks']} blocks); the "
+            f"cooperative launch, {dist_case['plan']['blocks']} blocks of "
+            f"{dist_case['plan']['rows_per_block']} rows, the "
+            f"{dist_case['plan']['mode']} layout, "
+            f"{dist_case['plan']['barriers_per_step']} grid barriers a step); the "
             "bound counts A, t, nbr and rev (int32) and the mask read once and "
             "delta written once (the Laplacian's residual and lap_idx only "
             "where the kernel reads them, off here); latency_floor_ms is the same launch on "
             "one row (one step), barrier_floor_ms an empty cooperative kernel "
-            "on the same grid crossing as many grid barriers"))}
+            "on the same grid crossing as many of its barriers, "
+            "grid_sync_floor_ms as many grid.syncs"))}
     for name in DIST_KERNELS:
         check(refine_launches[name] > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [
@@ -4271,6 +4497,7 @@ def main():
              library_ms=dist_rows[name]["library_ms"],
              **({"latency_floor_ms": dist_rows[name]["latency_floor_ms"],
                  "barrier_floor_ms": dist_rows[name]["barrier_floor_ms"],
+                 "grid_sync_floor_ms": dist_rows[name]["grid_sync_floor_ms"],
                  "library_note": "no single PyTorch call computes it"}
                 if name == "dist_cg" else {}),
              work=dist_rows[name]["work"])
@@ -4288,7 +4515,9 @@ def main():
              max_abs_err=scan_rows[name]["max_abs_err"],
              ms=scan_rows[name]["ms"], plain_ms=scan_rows[name]["plain_ms"],
              bound_ms=scan_rows[name]["bound_ms"], bound_by="bytes",
-             library_ms=None, library_note="no single PyTorch call computes it",
+             library_ms=scan_rows[name].get("library_ms"),
+             library_note=scan_rows[name].get(
+                 "library_call", "no single PyTorch call computes it"),
              **({"latency_floor_ms": solve["latency_floor_ms"]}
                 if name == "gn_solve" else {}),
              work=scan_rows[name]["work"])

@@ -32,37 +32,80 @@
 // (24 bytes a pair: 141.6 MB at N = 49152, F = 40, 0.042 ms at 3.35 TB/s)
 // and 56 bytes a row written.
 //
-// dist_cg_kernel: the grid is the SM count x the occupancy the runtime
-// reports, at most a row a thread, launched cooperatively so that every
-// block is resident and may wait at a grid barrier.  Each block owns a
-// contiguous tile of rows for the whole launch.  The prologue forms b and
-// diag in gather form (plus the Laplacian's L^T r_l and diagonal), the
-// masks and the safe Jacobi diagonal, x = 0, r = b, z = p = r / d; then
-// each CG step is
-//   phase 1, per row n: p (from z and the last p: p = z + beta p_old, at
-//            the row and its stencil neighbours, so no barrier is spent on
-//            it), s_n = A_n P_n p and the Laplacian row lap(p)_n; barrier;
-//   phase 2, per row m: (H p)[m] gathered, + w_l L^T lap(p), + damping diag
-//            p, where(valid, ., p); the block's part of p.Ap; barrier;
-//   every block sums the partials (one fixed order, so every block holds
-//            the same alpha and takes the same branch), then per row x, r,
-//            z = r / d and the block's parts of r.z and r.r; barrier;
-//   beta, and the stop test r.r > thr before the next step (scipy's rule
-//            thr = max(tol^2 b.b, atol^2), or cg_static's tol^2 b.b with its
-//            clamped divisions), decided on the device.
-// Three grid barriers a step, one in the prologue.  delta (masked by valid)
-// and the step count go to device memory; nothing is read back.  The dots
-// are summed in another order than the plain version's torch.sum, so the
-// two agree to float32 rounding.  Vectors written inside the launch are read
-// across blocks with ld.global.cg (L2), never through the non-coherent path.
-// Bound by bytes: A, t, the tables and the mask read once, delta written
-// once (97 bytes a row without the Laplacian, 1.4 us at N = 49152); a step
-// moves about 10 MB through L2, and the time is set by its grid barriers
-// (chip_smoke.py times an empty cooperative kernel crossing as many).
+// dist_cg_kernel: ONE cooperative launch runs the whole PCG.  The host plan
+// (ops/distcg._cg_plan) gives each block a contiguous tile of rows whose
+// start is a multiple of 16 rows, one block an SM and kCgThreads threads,
+// and one of three layouts, the kernel's template parameter:
+//   kTile     the tile's A, nbr, rev, valid and, under the Laplacian's
+//             neighbour term, lap_idx are copied into shared memory in the
+//             prologue, one 1-D bulk copy an array (cp.async.bulk completing
+//             on an mbarrier; the last tile's ragged tails by the threads),
+//             and the block's rows' s = A P p and its vectors x, r, z, A p,
+//             p, the safe diagonal, damping diag (and its Laplacian rows)
+//             live there for the whole launch: 121 bytes a row, 149 under
+//             the neighbour term (at N = 49152, 128 blocks of 384 rows,
+//             46.6 KB);
+//   kVectors  a tile too large for that (ops/distcg.resident_tile_limit):
+//             s and the vectors stay in shared memory, the rows and tables
+//             are read from global memory;
+//   kGlobal   a tile whose vectors do not fit either: they live in device
+//             memory too, each block's own range.
+// Device memory holds only what other tiles read: the block's rows' z and
+// last p as one float2 pair (another tile's p is z + beta p_old from one
+// load), their Laplacian rows, and under kTile each row's A row 1 + ax and
+// its neighbours along the other two axes, per axis (written once, in the
+// prologue); they are read across blocks with ld.global.cg after a
+// barrier, and a block never reads its own rows back from there.
+// The prologue forms b and diag in gather form (plus the Laplacian's
+// L^T r_l and diagonal), the safe Jacobi diagonal, x = 0, r = b,
+// z = p = r / d (solvers.distance_rhs's arithmetic, _rn intrinsics in the
+// plain version's order); one grid.sync.  A step is
+//   p = z + beta p_old of the block's rows (not at step 0), and under the
+//       Laplacian's neighbour term its rows lap(p)_m; barrier;
+//   H p with no grid barrier inside: each row n forms s_n = A_n P_n p into
+//       shared memory; then row m adds s_m[0] and, for each row n that
+//       names m (the reverse table), s_n[1 + ax]: a row of the tile's from
+//       shared memory, another tile's formed here from its A row, its
+//       stencil (whose neighbour along ax is m) and p there (z + beta p_old
+//       from the published pairs), with the same products and sums in the
+//       same order, so H p keeps operator_apply's bits
+//       (ops/distcg.hp_gather_plain emulates it); + w_l L^T lap(p),
+//       + damping diag p, where(valid, ., p); the block's part of p.Ap;
+//       barrier;
+//   alpha; x, r, z = r / d and the block's parts of r.z and r.r; barrier;
+//       beta, and the stop test r.r > thr before the next step (scipy's
+//       rule thr = max(tol^2 b.b, atol^2), or cg_static's tol^2 b.b with
+//       its clamped divisions), decided on the device.
+// A row's loads of other tiles' data are predicated instructions with no
+// branch around them, so its six slots' loads are in flight together (with
+// a branch a slot, nvcc waited for each slot's loads in turn).
+// Two grid barriers a step (three under the neighbour term, whose L^T L p
+// needs lap(p) at six neighbours), one grid.sync in the prologue; the
+// classic PCG recurrence of the plain version.  Each barrier carries its
+// sum: thread 0 writes the block's partials and arrives on one counter
+// (red.release.gpu), warp 0 polls the counter (ld.acquire.gpu) until every
+// block of this barrier has arrived, then reads all the partials in one
+// parallel load and adds them in one fixed order, the same in every block,
+// so every block holds the same alpha and beta and takes the same branch.
+// Two sets of partials, alternating, suffice: a block cannot write barrier
+// e + 2's before every block has passed e + 1.  (On the H100 this was the
+// fastest barrier with its sum measured: grid.sync and the same load, and
+// each block's partials tagged with the barrier's number and polled by
+// every block, were slower; tools/distcg_tune.py, PERF.md.)  The counter
+// is the only atomic and holds no value that is summed: two runs give the
+// same bits.  The dots are summed in another order than the plain
+// version's torch.sum, so the two agree to float32 rounding.  delta
+// (masked by valid) and the step count go to device memory; nothing is
+// read back.  Bound by bytes: A, t,
+// the tables and the mask read once, delta written once (97 bytes a row
+// without the Laplacian, 1.4 us at N = 49152); the time is set by the
+// steps' scattered loads and their barriers (chip_smoke.py times an empty
+// cooperative kernel crossing as many).
 //
 // Plain C interface (loaded with ctypes): dist_system() and dist_cg() launch
-// on the stream they are given; dist_cg_plan() picks the grid.  Each returns
-// 0 or the CUDA error code.
+// on the stream they are given; dist_cg_occupancy() checks the plan's
+// layout on the current device; dist_barriers() launches the empty kernel.
+// Each returns 0 or the CUDA error code.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -84,6 +127,12 @@ struct SystemArgs {            // ops/distcg.py _SystemArgs, field for field
   double reg_weight_n;
 };
 
+struct CgPlan {                // ops/distcg.py CgPlan, field for field
+  int64_t blocks, tile, mode, smem_bytes, barriers;
+  // byte offsets of the tile's regions in shared memory (0: not there)
+  int64_t A, nbr, rev, lap, valid, vec;
+};
+
 struct CgArgs {                // ops/distcg.py _CgArgs, field for field
   const float* A;
   const float* t;
@@ -94,11 +143,12 @@ struct CgArgs {                // ops/distcg.py _CgArgs, field for field
   const float* lap_r;
   float* delta;
   int64_t* steps;
-  float* work;
-  float* partials;
-  int64_t n, blocks, maxiter, fixed, use_lap, lap_nbr;
+  float* work;                 // kPublished floats a row, then kTile's tables or kGlobal's rows
+  uint32_t* sync;              // the barriers' counter (4 words), [2][blocks][2] floats
+  int64_t n, maxiter, fixed, use_lap, lap_nbr;
   double reg_weight_l, diag_coef, nbr_coef, diag_coef_sq, nbr_coef_sq,
       damping, tol_sq, atol_sq;
+  CgPlan plan;
 };
 
 namespace {
@@ -106,8 +156,6 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSysThreads = 256;
 constexpr int kUnroll = 4;        // pairs a lane has in flight
-constexpr int kCgThreads = 256;
-constexpr int kCgWarps = kCgThreads / 32;
 
 // A's 10 entries in the order 00 01 02 03 11 12 13 22 23 33: entry q is
 // (pair_i(q), pair_k(q)), and (i, k) is entry sym(i, k) for any i, k (all
@@ -210,6 +258,28 @@ dist_system_kernel(const __grid_constant__ SystemParams p) {
 
 // ---------------------------------------------------------------- dist_cg
 
+constexpr int kCgThreads = 512;
+constexpr int kCgWarps = kCgThreads / 32;
+// a block's layouts (ops/distcg.py TILE, VECTORS, GLOBAL)
+constexpr int kTile = 0, kVectors = 1, kGlobal = 2;
+// the block's own rows' s = A P p, 4 floats a row, then its vectors, `tile`
+// floats each, in shared memory (kGlobal: [N][4] and [N] each in work after
+// the published ones): x, r, z, A p, p, the safe diagonal, damping diag,
+// the Laplacian rows (its neighbour term only)
+constexpr int kX = 0, kR = 1, kZ = 2, kAp = 3, kP = 4, kDsafe = 5, kDd = 6, kLx = 7;
+// what other blocks read, at the start of work: the (z, p_old) pairs
+// [2][N] (float2; step k reads set k & 1, writes set (k + 1) & 1) and the
+// Laplacian rows [N], 5 floats a row; then, from a 16-byte boundary,
+// kTile's each row's A row 1 + ax [3][N] (float4) and its neighbours along
+// the two other axes [3][N] (int2), written in the prologue (16-byte loads
+// in place of six 4-byte gathers from 40- and 12-byte rows), or kGlobal's
+// own rows (ops/distcg.py _work_floats)
+constexpr int kPublished = 5;
+// shared memory before the plan's regions: the mbarrier (16 bytes), the
+// warps' sums [kCgWarps][2] and the grid's sums (16 bytes) (ops/distcg.py
+// _HEADER)
+constexpr int kHeader = 16 + kCgWarps * 2 * 4 + 16;
+
 struct CgParams {
   const float* __restrict__ A;          // read-only inputs
   const float* __restrict__ t;
@@ -220,11 +290,15 @@ struct CgParams {
   const float* __restrict__ lap_r;
   float* delta;
   int64_t* steps;
-  // vectors written inside the launch (read across blocks with ld.global.cg)
-  float *x, *r, *z, *p0, *p1, *s, *lapx, *ap, *diag, *dsafe;
-  float* part_a;                        // [blocks]: p.Ap
-  float* part_b;                        // [blocks][2]: (r.z, r.r), the prologue's (b.b, r.z)
-  int n, tile, maxiter, fixed, use_lap, lap_nbr;
+  float4* arow;                         // published: read across blocks with ld.global.cg
+  int2* onbr;
+  float2* zp;
+  float* lapx;
+  float* own;                           // kGlobal: the blocks' s [N][4], vectors [8][N]
+  uint32_t* counter;                    // the barriers' arrivals
+  float* part;                          // [2][blocks][2]: the blocks' partials
+  int n, tile, blocks, maxiter, fixed, use_lap, lap_nbr;
+  int off_A, off_nbr, off_rev, off_lap, off_valid, off_vec;
   float w_l, dc, nc, dc2, nc2, damping, one_plus_damping, tol2, atol2;
 };
 
@@ -234,239 +308,611 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The block's sums of K values in one fixed order (each thread's, then the
-// warp's butterfly, then the warps in order) -> thread 0's v.
+// The block's sum of every thread's g[q] in one fixed order (each warp's xor
+// butterfly, then warp 0's butterfly over the warps' sums) -> out[q] in
+// every lane of warp 0.  buf: [kCgWarps][2] floats of shared memory.
 template <int K>
-__device__ void block_sums(float (&v)[K], float (*red)[K]) {
+__device__ __forceinline__ void block_sum(const float (&g)[K], float (&out)[K], float* buf) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int q = 0; q < K; ++q) v[q] = warp_sum(v[q]);
-  if (lane == 0)
-#pragma unroll
-    for (int q = 0; q < K; ++q) red[warp][q] = v[q];
+  for (int q = 0; q < K; ++q) {
+    const float v = warp_sum(g[q]);
+    if (lane == 0) buf[2 * warp + q] = v;
+  }
   __syncthreads();
-  if (threadIdx.x == 0)
+  if (warp == 0)
 #pragma unroll
-    for (int q = 0; q < K; ++q) {
-      float s = red[0][q];
-      for (int k = 1; k < kCgWarps; ++k) s += red[k][q];
-      v[q] = s;
-    }
-  __syncthreads();
+    for (int q = 0; q < K; ++q) out[q] = warp_sum(lane < kCgWarps ? buf[2 * lane + q] : 0.0f);
 }
 
-// All blocks' partials [blocks][K] summed in one fixed order (the same in
-// every block) -> out, in every thread.
+// All blocks' partials part[blocks][2] summed in one fixed order, the same
+// in every block (lane l of warp 0 adds blocks l, l + 32, ..., then the
+// butterfly) -> out[q] in every thread.  Warp 0 reads them after its
+// acquire; bc: 2 floats of shared memory.
 template <int K>
-__device__ void grid_sums(const float* part, int blocks, float (&out)[K], float* bcast) {
+__device__ __forceinline__ void grid_sum(const float* part, int blocks, float (&out)[K],
+                                         float* bc) {
   if (threadIdx.x < 32) {
     float s[K];
 #pragma unroll
     for (int q = 0; q < K; ++q) s[q] = 0.0f;
-    for (int b = threadIdx.x; b < blocks; b += 32)
+    for (int i = threadIdx.x; i < blocks; i += 32)
 #pragma unroll
-      for (int q = 0; q < K; ++q) s[q] += __ldcg(part + b * K + q);
+      for (int q = 0; q < K; ++q) s[q] += __ldcg(part + 2 * i + q);
 #pragma unroll
-    for (int q = 0; q < K; ++q) s[q] = warp_sum(s[q]);
-    if (threadIdx.x == 0)
-#pragma unroll
-      for (int q = 0; q < K; ++q) bcast[q] = s[q];
+    for (int q = 0; q < K; ++q) {
+      s[q] = warp_sum(s[q]);
+      if (threadIdx.x == 0) bc[q] = s[q];
+    }
   }
   __syncthreads();
 #pragma unroll
-  for (int q = 0; q < K; ++q) out[q] = bcast[q];
+  for (int q = 0; q < K; ++q) out[q] = bc[q];
+}
+
+// ------------------------------------------ shared-memory copies, barriers
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// arrive, expecting `bytes` of bulk copies to complete on bar
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` of bar has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_load(void* s, const void* g, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_addr(s)),
+      "l"(g), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// An array's tile, `count` elements: its whole 16-byte chunks -> the bytes
+// of its bulk copy; the rest the threads copy (copy_tail).
+template <typename T>
+__device__ __forceinline__ uint32_t body_bytes(int count) {
+  return static_cast<uint32_t>(count * static_cast<int>(sizeof(T))) & ~15u;
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_tail(T* s, const T* g, int count) {
+  for (int i = body_bytes<T>(count) / sizeof(T) + threadIdx.x; i < count; i += kCgThreads)
+    s[i] = g[i];
+}
+
+// Loads made only where `c` holds (a predicated instruction, no branch, so
+// the loads of a row's slots are all in flight together); elsewhere 0 (-1
+// for indices).  ld.global.nc: data read-only for the whole launch;
+// ld.global.cg: data written inside it by other blocks.
+__device__ __forceinline__ float ldg_if(bool c, const float* a) {
+  float v = 0.0f;
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t@q ld.global.nc.f32 %0, [%1];\n\t}"
+      : "+f"(v)
+      : "l"(a), "r"(static_cast<unsigned>(c)));
+  return v;
+}
+
+__device__ __forceinline__ int ldg_if(bool c, const int32_t* a) {
+  int v = -1;
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t@q ld.global.nc.b32 %0, [%1];\n\t}"
+      : "+r"(v)
+      : "l"(a), "r"(static_cast<unsigned>(c)));
+  return v;
+}
+
+__device__ __forceinline__ float ldcg_if(bool c, const float* a) {
+  float v = 0.0f;
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t@q ld.global.cg.f32 %0, [%1];\n\t}"
+      : "+f"(v)
+      : "l"(a), "r"(static_cast<unsigned>(c)));
+  return v;
+}
+
+__device__ __forceinline__ float4 ldcg_if(bool c, const float4* a) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %5, 0;\n\t"
+      "@q ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "+f"(v.x), "+f"(v.y), "+f"(v.z), "+f"(v.w)
+      : "l"(a), "r"(static_cast<unsigned>(c)));
+  return v;
+}
+
+__device__ __forceinline__ int2 ldcg_if(bool c, const int2* a) {
+  int2 v = make_int2(-1, -1);
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %3, 0;\n\t@q ld.global.cg.v2.b32 {%0, %1}, [%2];\n\t}"
+      : "+r"(v.x), "+r"(v.y)
+      : "l"(a), "r"(static_cast<unsigned>(c)));
+  return v;
+}
+
+__device__ __forceinline__ float2 ldcg_if(bool c, const float2* a) {
+  float2 v = make_float2(0.0f, 0.0f);
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %3, 0;\n\t@q ld.global.cg.v2.f32 {%0, %1}, [%2];\n\t}"
+      : "+f"(v.x), "+f"(v.y)
+      : "l"(a), "r"(static_cast<unsigned>(c)));
+  return v;
+}
+
+__device__ __forceinline__ void red_release(uint32_t* a, uint32_t v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(a), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_acquire(const uint32_t* a) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(a) : "memory");
+  return v;
+}
+
+// Grid barrier number `epoch` (1, 2, ...), warp 0's part: thread 0 writes
+// the block's K partials (held by every lane of warp 0) into the epoch's
+// set and arrives; every lane waits for all blocks' arrivals.  Call after a
+// __syncthreads that follows the block's last writes to global memory; the
+// block's other warps wait at the __syncthreads that follows.
+template <int K>
+__device__ __forceinline__ void arrive_and_wait(const CgParams& p, uint32_t epoch,
+                                                const float* mine) {
+  if (threadIdx.x == 0) {
+    float* part = p.part + static_cast<size_t>(epoch & 1) * p.blocks * 2;
+#pragma unroll
+    for (int q = 0; q < K; ++q) part[2 * blockIdx.x + q] = mine[q];
+    red_release(p.counter, 1u);
+  }
+  const uint32_t want = epoch * static_cast<uint32_t>(p.blocks);
+  while (ld_acquire(p.counter) < want) {
+  }
+}
+
+// Barrier `epoch` and the grid's sums of each thread's g[q] -> out[q] in
+// every thread.
+template <int K>
+__device__ __forceinline__ void barrier_sum(const CgParams& p, uint32_t epoch,
+                                            const float (&g)[K], float (&out)[K], float* buf,
+                                            float* bc) {
+  float mine[K];
+  block_sum<K>(g, mine, buf);
+  if (threadIdx.x < 32) arrive_and_wait<K>(p, epoch, mine);
+  grid_sum<K>(p.part + static_cast<size_t>(epoch & 1) * p.blocks * 2, p.blocks, out, bc);
+}
+
+// Barrier `epoch` alone.
+__device__ __forceinline__ void barrier(const CgParams& p, uint32_t epoch) {
+  __syncthreads();
+  if (threadIdx.x < 32) arrive_and_wait<0>(p, epoch, nullptr);
   __syncthreads();
 }
 
 // torch.clamp(v, min=1e-30): NaN passes through
 __device__ __forceinline__ float clamp30(float v) { return v < 1e-30f ? 1e-30f : v; }
 
-__global__ void __launch_bounds__(kCgThreads)
+template <int kMode>
+__global__ void __launch_bounds__(kCgThreads, 1)
 dist_cg_kernel(const __grid_constant__ CgParams p) {
-  __shared__ float red[kCgWarps][2];
-  __shared__ float red1[kCgWarps][1];
-  __shared__ float bcast[2];
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* buf = reinterpret_cast<float*>(smem + 16);         // the warps' sums
+  float* bc = buf + 2 * kCgWarps;                           // the grid's sums
   cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
   const int begin = blockIdx.x * p.tile;
-  const int end = min(p.n, begin + p.tile);
+  const int rows = min(p.n - begin, p.tile);
+
+  // ---- the tile: A, nbr, rev, lap, valid of the block's rows
+  const float* tA;
+  const int32_t *tNbr, *tRev, *tLap;
+  const unsigned char* tValid;
+  if constexpr (kMode == kTile) {
+    float* sA = reinterpret_cast<float*>(smem + p.off_A);
+    int32_t* sNbr = reinterpret_cast<int32_t*>(smem + p.off_nbr);
+    int32_t* sRev = reinterpret_cast<int32_t*>(smem + p.off_rev);
+    int32_t* sLap = reinterpret_cast<int32_t*>(smem + p.off_lap);
+    unsigned char* sValid = smem + p.off_valid;
+    const float* gA = p.A + 10 * static_cast<size_t>(begin);
+    const int32_t* gNbr = p.nbr + 3 * static_cast<size_t>(begin);
+    const int32_t* gRev = p.rev + 6 * static_cast<size_t>(begin);
+    const int32_t* gLap = p.lap + 6 * static_cast<size_t>(begin);
+    const unsigned char* gValid = p.valid + begin;
+    if (tid == 0) {
+      const uint32_t bA = body_bytes<float>(10 * rows), bN = body_bytes<int32_t>(3 * rows),
+                     bR = body_bytes<int32_t>(6 * rows),
+                     bL = p.lap_nbr ? body_bytes<int32_t>(6 * rows) : 0u,
+                     bV = body_bytes<unsigned char>(rows);
+      mbar_init(bar, 1);
+      mbar_arrive_expect_tx(bar, bA + bN + bR + bL + bV);
+      if (bA) bulk_load(sA, gA, bA, bar);
+      if (bN) bulk_load(sNbr, gNbr, bN, bar);
+      if (bR) bulk_load(sRev, gRev, bR, bar);
+      if (bL) bulk_load(sLap, gLap, bL, bar);
+      if (bV) bulk_load(sValid, gValid, bV, bar);
+    }
+    copy_tail(sA, gA, 10 * rows);
+    copy_tail(sNbr, gNbr, 3 * rows);
+    copy_tail(sRev, gRev, 6 * rows);
+    if (p.lap_nbr) copy_tail(sLap, gLap, 6 * rows);
+    copy_tail(sValid, gValid, rows);
+    __syncthreads();                    // the mbarrier is set up, the tails are in
+    mbar_wait(bar, 0);
+    tA = sA;  tNbr = sNbr;  tRev = sRev;  tLap = sLap;  tValid = sValid;
+  } else {
+    tA = p.A + 10 * static_cast<size_t>(begin);
+    tNbr = p.nbr + 3 * static_cast<size_t>(begin);
+    tRev = p.rev + 6 * static_cast<size_t>(begin);
+    tLap = p.lap + 6 * static_cast<size_t>(begin);
+    tValid = p.valid + begin;
+  }
+  float *vs, *vec;
+  int vstride;
+  if constexpr (kMode == kGlobal) {
+    vs = p.own + 4 * static_cast<size_t>(begin);
+    vec = p.own + 4 * static_cast<size_t>(p.n) + begin;
+    vstride = p.n;
+  } else {
+    vs = reinterpret_cast<float*>(smem + p.off_vec);
+    vec = vs + 4 * p.tile;
+    vstride = p.tile;
+  }
+  float* vx = vec + kX * vstride;
+  float* vr = vec + kR * vstride;
+  float* vz = vec + kZ * vstride;
+  float* vap = vec + kAp * vstride;
+  float* vp = vec + kP * vstride;
+  float* vds = vec + kDsafe * vstride;
+  float* vdd = vec + kDd * vstride;
+  float* vlx = vec + kLx * vstride;
+
+  // A_j[q], valid_j and the Laplacian row of any row: the tile's copy for a
+  // row on it, global memory's for another tile's
+  auto on = [&](int j) { return static_cast<unsigned>(j - begin) < static_cast<unsigned>(rows); };
+  auto a_at = [&](int j, int q) -> float {
+    if constexpr (kMode == kTile)
+      return *(on(j) ? tA + 10 * (j - begin) + q : p.A + 10 * static_cast<size_t>(j) + q);
+    return __ldg(p.A + 10 * static_cast<size_t>(j) + q);
+  };
+  auto valid_at = [&](int j) -> bool {
+    if constexpr (kMode == kTile) return *(on(j) ? tValid + (j - begin) : p.valid + j) != 0;
+    return __ldg(p.valid + j) != 0;
+  };
+  auto lapx_at = [&](int j) -> float {
+    const bool o = on(j);
+    const float mine = vlx[o ? j - begin : 0];
+    const float other = ldcg_if(!o, p.lapx + j);
+    return o ? mine : other;
+  };
 
   // ---- the prologue: b, diag, the safe diagonal, x = 0, r = b, z = p = r / d
   float acc[2] = {0.0f, 0.0f};
-  for (int m = begin + threadIdx.x; m < end; m += kCgThreads) {
-    float bm = __ldg(p.t + 4 * m);
-    float dm = __ldg(p.A + 10 * m);
+  for (int l = tid; l < rows; l += kCgThreads) {
+    const int m = begin + l;
+    float bm = __ldg(p.t + 4 * static_cast<size_t>(m));
+    float dm = tA[10 * l];
 #pragma unroll
     for (int c = 0; c < 6; ++c) {
-      const int n = __ldg(p.rev + 6 * m + c);
-      if (n >= 0) {
-        const int ax = 1 + (c >> 1);
-        bm += __ldg(p.t + 4 * n + ax);
-        dm += __ldg(p.A + 10 * n + sym(ax, ax));
-      }
+      const int n = tRev[6 * l + c];
+      const int ax = 1 + (c >> 1);
+      const float tn = n >= 0 ? __ldg(p.t + 4 * static_cast<size_t>(n) + ax) : 0.0f;
+      const float an = n >= 0 ? a_at(n, sym(ax, ax)) : 0.0f;
+      bm = __fadd_rn(bm, tn);
+      dm = __fadd_rn(dm, an);
     }
-    const bool v = p.valid[m] != 0;
+    const bool v = tValid[l] != 0;
     if (p.use_lap) {
-      float lt = p.dc * (v ? __ldg(p.lap_r + m) : 0.0f);
+      // b += w_l lap(where(valid, r_l, 0)), diag += w_l lap_diag
+      float lt = __fmul_rn(p.dc, v ? __ldg(p.lap_r + m) : 0.0f);
       float ld = v ? p.dc2 : 0.0f;
       if (p.lap_nbr) {
         float nb = 0.0f;
 #pragma unroll
         for (int k = 0; k < 6; ++k) {
-          const int n = __ldg(p.lap + 6 * m + k);
-          const bool vn = n >= 0 && p.valid[n] != 0;
-          const float rn = vn ? __ldg(p.lap_r + n) : 0.0f;
-          nb = k == 0 ? rn : nb + rn;
-          ld += vn ? p.nc2 : 0.0f;
+          const int j = tLap[6 * l + k];
+          const bool vj = j >= 0 && valid_at(j);
+          const float rj = vj ? __ldg(p.lap_r + j) : 0.0f;
+          nb = k == 0 ? rj : __fadd_rn(nb, rj);
+          ld = __fadd_rn(ld, vj ? p.nc2 : 0.0f);
         }
-        lt = lt + p.nc * nb;
+        lt = __fadd_rn(lt, __fmul_rn(p.nc, nb));
       }
-      bm += p.w_l * (v ? lt : 0.0f);
-      dm += p.w_l * ld;
+      bm = __fadd_rn(bm, __fmul_rn(p.w_l, v ? lt : 0.0f));
+      dm = __fadd_rn(dm, __fmul_rn(p.w_l, ld));
     }
-    const float dt = p.one_plus_damping * dm;
+    const float dt = __fmul_rn(p.one_plus_damping, dm);
     const float ds = (v && dt > 0.0f) ? dt : 1.0f;
     bm = v ? bm : 0.0f;
-    const float zm = bm / ds;
-    p.x[m] = 0.0f;
-    p.r[m] = bm;
-    p.z[m] = zm;
-    p.p0[m] = zm;
-    p.diag[m] = dm;
-    p.dsafe[m] = ds;
+    const float zm = __fdiv_rn(bm, ds);
+    vx[l] = 0.0f;
+    vr[l] = bm;
+    vz[l] = zm;
+    vp[l] = zm;
+    vds[l] = ds;
+    vdd[l] = __fmul_rn(p.damping, dm);
+    p.zp[m] = make_float2(zm, 0.0f);              // step 0 reads z: p = z
+    p.zp[p.n + m].y = zm;                         // step 1 reads p_0
+    // kTile: what another tile needs to form this row's s[1 + ax], one
+    // float4 and one int2 an axis (the other layouts read A and nbr)
+    if constexpr (kMode == kTile) {
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        p.arow[static_cast<size_t>(ax) * p.n + m] =
+            make_float4(tA[10 * l + sym(1 + ax, 0)], tA[10 * l + sym(1 + ax, 1)],
+                        tA[10 * l + sym(1 + ax, 2)], tA[10 * l + sym(1 + ax, 3)]);
+        p.onbr[static_cast<size_t>(ax) * p.n + m] =
+            make_int2(tNbr[3 * l + (ax == 0 ? 1 : 0)], tNbr[3 * l + (ax == 2 ? 1 : 2)]);
+      }
+    }
     acc[0] += bm * bm;
     acc[1] += bm * zm;
   }
-  block_sums<2>(acc, red);
-  if (threadIdx.x == 0) {
-    p.part_b[2 * blockIdx.x] = acc[0];
-    p.part_b[2 * blockIdx.x + 1] = acc[1];
+  // the prologue's sums through set 0 and one grid.sync; the counter set
+  // to 0 before any block arrives
+  float mine[2], g[2];
+  block_sum<2>(acc, mine, buf);
+  if (tid == 0) {
+    p.part[2 * blockIdx.x] = mine[0];
+    p.part[2 * blockIdx.x + 1] = mine[1];
+    if (blockIdx.x == 0) *p.counter = 0;
   }
   grid.sync();
-  float g[2];
-  grid_sums<2>(p.part_b, gridDim.x, g, bcast);
+  grid_sum<2>(p.part, p.blocks, g, bc);
   const float bb = g[0];
   float gamma = g[1], rr = bb, beta = 0.0f;
   const float thr = p.fixed ? p.tol2 * bb : fmaxf(p.tol2 * bb, p.atol2);
 
+  uint32_t epoch = 0;
   int steps = 0;
   for (int k = 0; k < p.maxiter; ++k) {
     if (!(rr > thr)) break;                       // the same in every block
-    float* pk = (k & 1) ? p.p1 : p.p0;            // this step's p
-    const float* pold = (k & 1) ? p.p0 : p.p1;    // the last step's
-    // p at any row: written in the prologue (k = 0), else z + beta p_old
-    auto pval = [&](int j) -> float {
-      return k == 0 ? __ldcg(pk + j) : __ldcg(p.z + j) + beta * __ldcg(pold + j);
+    const float2* zp_now = p.zp + static_cast<size_t>(k & 1) * p.n;   // (z_k, p_k-1)
+    float2* zp_next = p.zp + static_cast<size_t>((k + 1) & 1) * p.n;
+    // p at any row: the block's own from its vector, another tile's from
+    // the pair that block published, in one load (step 0: p = z, else
+    // z + beta p_old: the bits its owner forms)
+    auto p_at = [&](int j) -> float {
+      const bool o = on(j);
+      const float mine = vp[o ? j - begin : 0];
+      const float2 v = ldcg_if(!o, zp_now + j);
+      const float other = k == 0 ? v.x : __fadd_rn(v.x, __fmul_rn(beta, v.y));
+      return o ? mine : other;
     };
 
-    // ---- phase 1: s_n = A_n P_n p and the Laplacian row
-    for (int n = begin + threadIdx.x; n < end; n += kCgThreads) {
-      float v[4];
-      v[0] = pval(n);
+    // ---- p of the block's rows, and their Laplacian rows
+    if (k > 0)
+      for (int l = tid; l < rows; l += kCgThreads) {
+        const float pl = __fadd_rn(vz[l], __fmul_rn(beta, vp[l]));
+        vp[l] = pl;
+        zp_next[begin + l].y = pl;
+      }
+    __syncthreads();
+    if (p.lap_nbr) {
+      for (int l = tid; l < rows; l += kCgThreads) {
+        int j[6];
+        float pj[6];
+#pragma unroll
+        for (int kk = 0; kk < 6; ++kk) j[kk] = tLap[6 * l + kk];
+#pragma unroll
+        for (int kk = 0; kk < 6; ++kk) pj[kk] = p_at(j[kk] >= 0 ? j[kk] : begin + l);
+        float nb = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < 6; ++kk) {
+          const float g = j[kk] >= 0 ? pj[kk] : 0.0f;
+          nb = kk == 0 ? g : __fadd_rn(nb, g);
+        }
+        const float lx =
+            tValid[l] != 0 ? __fadd_rn(__fmul_rn(p.dc, vp[l]), __fmul_rn(p.nc, nb)) : 0.0f;
+        vlx[l] = lx;
+        p.lapx[begin + l] = lx;
+      }
+      barrier(p, ++epoch);
+    }
+
+    // ---- H p in one phase (no grid barrier inside), the block's part of
+    // p.Ap.  First every row n of the tile forms its s_n = A_n P_n p.
+    for (int l = tid; l < rows; l += kCgThreads) {
+      float u[4];
+      int j[3];
+      u[0] = vp[l];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) j[a] = tNbr[3 * l + a];
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        const int j = __ldg(p.nbr + 3 * n + a);
-        v[1 + a] = j >= 0 ? pval(j) : 0.0f;
+        const float g = p_at(j[a] >= 0 ? j[a] : begin + l);
+        u[1 + a] = j[a] >= 0 ? g : 0.0f;
       }
       float Arow[10];
 #pragma unroll
-      for (int q = 0; q < 10; ++q) Arow[q] = __ldg(p.A + 10 * n + q);
+      for (int q = 0; q < 10; ++q) Arow[q] = tA[10 * l + q];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        float si = Arow[sym(i, 0)] * v[0];
+        float si = __fmul_rn(Arow[sym(i, 0)], u[0]);
 #pragma unroll
-        for (int kk = 1; kk < 4; ++kk) si += Arow[sym(i, kk)] * v[kk];
-        p.s[4 * n + i] = si;
+        for (int kk = 1; kk < 4; ++kk) si = __fadd_rn(si, __fmul_rn(Arow[sym(i, kk)], u[kk]));
+        vs[4 * l + i] = si;
       }
-      if (p.use_lap) {
-        float lx = p.dc * v[0];
-        if (p.lap_nbr) {
-          float nb = 0.0f;
-#pragma unroll
-          for (int kk = 0; kk < 6; ++kk) {
-            const int j = __ldg(p.lap + 6 * n + kk);
-            const float pj = j >= 0 ? pval(j) : 0.0f;
-            nb = kk == 0 ? pj : nb + pj;
-          }
-          lx = lx + p.nc * nb;
-        }
-        p.lapx[n] = p.valid[n] != 0 ? lx : 0.0f;
-      }
-      if (k > 0) pk[n] = v[0];
     }
-    grid.sync();
-
-    // ---- phase 2: (H p)[m] in gather form, the block's part of p.Ap
+    __syncthreads();
+    // Then row m gathers s_n[1 + ax] of the rows n naming it along ax, in
+    // the table's order: a row of the tile's from shared memory, another
+    // tile's formed here from its A, its stencil (whose neighbour along ax
+    // is m) and p there; the same products and sums in the same order, so
+    // the same bits.  The loads go in two levels with no branch around
+    // them.
     float pa[1] = {0.0f};
-    for (int m = begin + threadIdx.x; m < end; m += kCgThreads) {
-      const float pm = pk[m];
-      float hx = p.s[4 * m];
+    for (int l = tid; l < rows; l += kCgThreads) {
+      const int m = begin + l;
+      const float pm = vp[l];
+      const bool vm = tValid[l] != 0;
+      int rv[6];
+      bool off[6];
 #pragma unroll
       for (int c = 0; c < 6; ++c) {
-        const int n = __ldg(p.rev + 6 * m + c);
-        if (n >= 0) hx += __ldcg(p.s + 4 * n + 1 + (c >> 1));
+        rv[c] = tRev[6 * l + c];
+        off[c] = rv[c] >= 0 && !on(rv[c]);
+      }
+      // the first level: s of the tile's naming rows; another tile's row
+      // of A, its two other neighbours and its p; the Laplacian rows at
+      // m's six neighbours
+      float sn[6], an[6][4], pn[6], lq[6];
+      int no[6][2];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        const int ax = c >> 1;
+        const int n = off[c] ? rv[c] : m;           // m: unused
+        const float sv = vs[4 * ((rv[c] >= 0 && !off[c] ? rv[c] : m) - begin) + 1 + ax];
+        sn[c] = rv[c] >= 0 && !off[c] ? sv : 0.0f;
+        if constexpr (kMode == kTile) {
+          const float4 av = ldcg_if(off[c], p.arow + static_cast<size_t>(ax) * p.n + n);
+          const int2 ov = ldcg_if(off[c], p.onbr + static_cast<size_t>(ax) * p.n + n);
+          an[c][0] = av.x;
+          an[c][1] = av.y;
+          an[c][2] = av.z;
+          an[c][3] = av.w;
+          no[c][0] = ov.x;
+          no[c][1] = ov.y;
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            an[c][kk] = ldg_if(off[c], p.A + 10 * static_cast<size_t>(n) + sym(1 + ax, kk));
+          no[c][0] = ldg_if(off[c], p.nbr + 3 * static_cast<size_t>(n) + (ax == 0 ? 1 : 0));
+          no[c][1] = ldg_if(off[c], p.nbr + 3 * static_cast<size_t>(n) + (ax == 2 ? 1 : 2));
+        }
+        const float pv = p_at(n);
+        pn[c] = off[c] ? pv : 0.0f;
+      }
+      if (p.lap_nbr)
+#pragma unroll
+        for (int kk = 0; kk < 6; ++kk) {
+          const int j = tLap[6 * l + kk];
+          const float g = lapx_at(j >= 0 ? j : m);
+          lq[kk] = j >= 0 ? g : 0.0f;
+        }
+      // the second level: p at another tile's naming rows' other neighbours
+      float pq[6][2];
+#pragma unroll
+      for (int c = 0; c < 6; ++c)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float g = p_at(no[c][i] >= 0 ? no[c][i] : m);
+          pq[c][i] = no[c][i] >= 0 ? g : 0.0f;
+        }
+      float hx = vs[4 * l];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        const int ax = c >> 1;
+        float w[4];
+        w[0] = pn[c];
+#pragma unroll
+        for (int a = 0, i = 0; a < 3; ++a) {
+          if (a == ax) {
+            w[1 + a] = pm;
+          } else {
+            w[1 + a] = pq[c][i];
+            ++i;
+          }
+        }
+        float so = __fmul_rn(an[c][0], w[0]);
+#pragma unroll
+        for (int kk = 1; kk < 4; ++kk) so = __fadd_rn(so, __fmul_rn(an[c][kk], w[kk]));
+        hx = __fadd_rn(hx, off[c] ? so : sn[c]);
       }
       if (p.use_lap) {
-        float lt = p.dc * p.lapx[m];
+        float lt;
         if (p.lap_nbr) {
-          float nb = 0.0f;
+          float nb = lq[0];
 #pragma unroll
-          for (int kk = 0; kk < 6; ++kk) {
-            const int j = __ldg(p.lap + 6 * m + kk);
-            const float lj = j >= 0 ? __ldcg(p.lapx + j) : 0.0f;
-            nb = kk == 0 ? lj : nb + lj;
-          }
-          lt = lt + p.nc * nb;
+          for (int kk = 1; kk < 6; ++kk) nb = __fadd_rn(nb, lq[kk]);
+          lt = __fadd_rn(__fmul_rn(p.dc, vlx[l]), __fmul_rn(p.nc, nb));
+        } else {
+          lt = __fmul_rn(p.dc, vm ? __fmul_rn(p.dc, pm) : 0.0f);
         }
-        hx += p.w_l * (p.valid[m] != 0 ? lt : 0.0f);
+        hx = __fadd_rn(hx, __fmul_rn(p.w_l, vm ? lt : 0.0f));
       }
-      hx += p.damping * p.diag[m] * pm;
-      const float am = p.valid[m] != 0 ? hx : pm;
-      p.ap[m] = am;
+      const float am = vm ? __fadd_rn(hx, __fmul_rn(vdd[l], pm)) : pm;
+      vap[l] = am;
       pa[0] += pm * am;
     }
-    block_sums<1>(pa, red1);
-    if (threadIdx.x == 0) p.part_a[blockIdx.x] = pa[0];
-    grid.sync();
     float pAp[1];
-    grid_sums<1>(p.part_a, gridDim.x, pAp, bcast);
+    barrier_sum<1>(p, ++epoch, pa, pAp, buf, bc);
     const float alpha = gamma / (p.fixed ? clamp30(pAp[0]) : pAp[0]);
 
     // ---- the update: x, r, z and the block's parts of r.z and r.r
     float acc2[2] = {0.0f, 0.0f};
-    for (int m = begin + threadIdx.x; m < end; m += kCgThreads) {
-      const float xm = p.x[m] + alpha * pk[m];
-      const float rm = p.r[m] - alpha * p.ap[m];
-      const float zm = rm / p.dsafe[m];
-      p.x[m] = xm;
-      p.r[m] = rm;
-      p.z[m] = zm;
-      acc2[0] += rm * zm;
-      acc2[1] += rm * rm;
+    for (int l = tid; l < rows; l += kCgThreads) {
+      const float xl = __fadd_rn(vx[l], __fmul_rn(alpha, vp[l]));
+      const float rl = __fsub_rn(vr[l], __fmul_rn(alpha, vap[l]));
+      const float zl = __fdiv_rn(rl, vds[l]);
+      vx[l] = xl;
+      vr[l] = rl;
+      vz[l] = zl;
+      zp_next[begin + l].x = zl;
+      acc2[0] += rl * zl;
+      acc2[1] += rl * rl;
     }
-    block_sums<2>(acc2, red);
-    if (threadIdx.x == 0) {
-      p.part_b[2 * blockIdx.x] = acc2[0];
-      p.part_b[2 * blockIdx.x + 1] = acc2[1];
-    }
-    grid.sync();
     float gr[2];
-    grid_sums<2>(p.part_b, gridDim.x, gr, bcast);
+    barrier_sum<2>(p, ++epoch, acc2, gr, buf, bc);
     beta = gr[0] / (p.fixed ? clamp30(gamma) : gamma);
     gamma = gr[0];
     rr = gr[1];
     steps = k + 1;
   }
 
-  for (int m = begin + threadIdx.x; m < end; m += kCgThreads)
-    p.delta[m] = p.valid[m] != 0 ? p.x[m] : 0.0f;
-  if (blockIdx.x == 0 && threadIdx.x == 0) *p.steps = steps;
+  for (int l = tid; l < rows; l += kCgThreads)
+    p.delta[begin + l] = tValid[l] != 0 ? vx[l] : 0.0f;
+  if (blockIdx.x == 0 && tid == 0) *p.steps = steps;
 }
 
-// An empty cooperative kernel on dist_cg's grid that crosses `barriers`
-// grid barriers: the latency floor of a solve.
-__global__ void __launch_bounds__(kCgThreads) dist_barrier_kernel(int barriers) {
+// An empty cooperative kernel on dist_cg's grid: kind 0 crosses `barriers`
+// grid.syncs; kind 1 one grid.sync (the prologue's) and `barriers` - 1 of
+// dist_cg's barriers, each with its two-value sums: the latency floor of a
+// solve of that many barriers, and the two kinds of barrier side by side.
+__global__ void __launch_bounds__(kCgThreads, 1)
+dist_barrier_kernel(const __grid_constant__ CgParams p, int barriers, int kind) {
+  __shared__ float buf[2 * kCgWarps + 4];
   cg::grid_group grid = cg::this_grid();
-  for (int k = 0; k < barriers; ++k) grid.sync();
+  if (kind == 0) {
+    for (int k = 0; k < barriers; ++k) grid.sync();
+    return;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *p.counter = 0;
+  grid.sync();
+  float g[2] = {1.0f, static_cast<float>(threadIdx.x)}, out[2];
+  for (int e = 1; e < barriers; ++e) {
+    barrier_sum<2>(p, static_cast<uint32_t>(e), g, out, buf, buf + 2 * kCgWarps);
+    g[0] = out[0];
+  }
+}
+
+const void* cg_kernel(int64_t mode) {
+  if (mode == kTile) return reinterpret_cast<const void*>(dist_cg_kernel<kTile>);
+  if (mode == kVectors) return reinterpret_cast<const void*>(dist_cg_kernel<kVectors>);
+  return reinterpret_cast<const void*>(dist_cg_kernel<kGlobal>);
 }
 
 int device_sms(int* sms) {
@@ -474,6 +920,33 @@ int device_sms(int* sms) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   return static_cast<int>(e);
+}
+
+void cg_params(CgParams& p, const CgPlan& plan, uint32_t* sync) {
+  p.counter = sync;
+  p.part = reinterpret_cast<float*>(sync + 4);
+  p.tile = static_cast<int>(plan.tile);
+  p.blocks = static_cast<int>(plan.blocks);
+  p.off_A = static_cast<int>(plan.A);
+  p.off_nbr = static_cast<int>(plan.nbr);
+  p.off_rev = static_cast<int>(plan.rev);
+  p.off_lap = static_cast<int>(plan.lap);
+  p.off_valid = static_cast<int>(plan.valid);
+  p.off_vec = static_cast<int>(plan.vec);
+}
+
+int cooperative(const void* kernel, int64_t blocks, int64_t smem, void** args, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)),
+                                    dim3(kCgThreads), args, static_cast<size_t>(smem),
+                                    static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    cudaGetLastError();                        // not sticky: clear it
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -503,45 +976,57 @@ extern "C" int dist_system(const SystemArgs* a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// dist_cg's grid for n rows on the current device: the SM count x the
-// occupancy the runtime reports, at most one block a kCgThreads rows.
-extern "C" int dist_cg_plan(int64_t n, int64_t* blocks) {
-  int sms = 0, coop = 0, dev = 0, occ = 0;
+// Whether the plan's layout (mode, its shared memory) runs cooperatively on
+// the current device: the blocks an SM holds at that shared memory (which
+// the launch asks for the same way) -> per_sm.
+extern "C" int dist_cg_occupancy(int64_t mode, int64_t smem_bytes, int64_t* per_sm) {
+  if (mode < kTile || mode > kGlobal || smem_bytes < kHeader)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, coop = 0, occ = 0;
+  const void* kernel = cg_kernel(mode);
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, dist_cg_kernel, kCgThreads, 0);
-  if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_bytes));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kCgThreads,
+                                                      static_cast<size_t>(smem_bytes));
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(e);
+  }
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  if (occ < 1 || n < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int64_t cap = static_cast<int64_t>(sms) * occ;
-  const int64_t want = (n + kCgThreads - 1) / kCgThreads;
-  *blocks = want < cap ? want : cap;
+  *per_sm = occ;
   return 0;
 }
 
 extern "C" int dist_cg(const CgArgs* a, void* stream) {
-  const int64_t n = a->n, blocks = a->blocks;
-  if (n < 1 || blocks < 1 || a->maxiter < 0 || n > (int64_t{1} << 30) / 16 ||
-      (a->use_lap && a->lap_r == nullptr))
+  const int64_t n = a->n;
+  const CgPlan& plan = a->plan;
+  if (n < 1 || a->maxiter < 0 || n > (int64_t{1} << 30) / 16 ||
+      (a->use_lap && a->lap_r == nullptr) || plan.mode < kTile || plan.mode > kGlobal ||
+      plan.tile < 16 || plan.tile % 16 != 0 || plan.blocks < 1 ||
+      (plan.blocks - 1) * plan.tile >= n || plan.blocks * plan.tile < n ||
+      plan.smem_bytes < kHeader)
     return static_cast<int>(cudaErrorInvalidValue);
   CgParams p;
   p.A = a->A;  p.t = a->t;  p.nbr = a->nbr;  p.rev = a->rev;  p.lap = a->lap;
   p.valid = a->valid;  p.lap_r = a->lap_r;
   p.delta = a->delta;  p.steps = a->steps;
   float* w = a->work;
-  p.x = w;          p.r = w + n;      p.z = w + 2 * n;   p.p0 = w + 3 * n;
-  p.p1 = w + 4 * n; p.s = w + 5 * n;  p.lapx = w + 9 * n; p.ap = w + 10 * n;
-  p.diag = w + 11 * n;  p.dsafe = w + 12 * n;
-  p.part_a = a->partials;
-  p.part_b = a->partials + blocks;
+  p.zp = reinterpret_cast<float2*>(w);
+  p.lapx = w + 4 * n;
+  float* tables = w + ((kPublished * n + 3) & ~int64_t{3});
+  p.arow = reinterpret_cast<float4*>(tables);
+  p.onbr = reinterpret_cast<int2*>(tables + 12 * n);
+  p.own = w + kPublished * n;
+  cg_params(p, plan, a->sync);
   p.n = static_cast<int>(n);
-  p.tile = static_cast<int>((n + blocks - 1) / blocks);
   p.maxiter = static_cast<int>(a->maxiter);
   p.fixed = static_cast<int>(a->fixed);
   p.use_lap = static_cast<int>(a->use_lap);
-  p.lap_nbr = static_cast<int>(a->lap_nbr);
+  p.lap_nbr = static_cast<int>(a->use_lap && a->lap_nbr);
   p.w_l = static_cast<float>(a->reg_weight_l);
   p.dc = static_cast<float>(a->diag_coef);
   p.nc = static_cast<float>(a->nbr_coef);
@@ -552,25 +1037,19 @@ extern "C" int dist_cg(const CgArgs* a, void* stream) {
   p.tol2 = static_cast<float>(a->tol_sq);
   p.atol2 = static_cast<float>(a->atol_sq);
   void* args[] = {&p};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(dist_cg_kernel), dim3(static_cast<int>(blocks)),
-      dim3(kCgThreads), args, 0, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) {
-    cudaGetLastError();                        // not sticky: clear it
-    return static_cast<int>(e);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return cooperative(cg_kernel(plan.mode), plan.blocks, plan.smem_bytes, args, stream);
 }
 
-extern "C" int dist_barriers(int64_t blocks, int64_t barriers, void* stream) {
-  int b = static_cast<int>(barriers);
-  void* args[] = {&b};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(dist_barrier_kernel), dim3(static_cast<int>(blocks)),
-      dim3(kCgThreads), args, 0, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(e);
-  }
-  return static_cast<int>(cudaGetLastError());
+// The empty cooperative kernel on a plan's grid (dist_barrier_kernel); sync
+// as dist_cg's.
+extern "C" int dist_barriers(const CgPlan* plan, int64_t barriers, int64_t kind, void* sync,
+                             void* stream) {
+  if (plan->blocks < 1 || barriers < 1 || kind < 0 || kind > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CgParams p = {};
+  cg_params(p, *plan, static_cast<uint32_t*>(sync));
+  int b = static_cast<int>(barriers), k = static_cast<int>(kind);
+  void* args[] = {&p, &b, &k};
+  return cooperative(reinterpret_cast<const void*>(dist_barrier_kernel), plan->blocks, 0, args,
+                     stream);
 }

@@ -54,6 +54,17 @@ fixed trip count), decided on the device; the kernel sums its dots from
 per-block partials in one fixed order, the plain version with torch.sum, so
 the two agree to float32 rounding.
 
+dist_cg's launch follows a host plan (_cg_plan, cg_plan): one block an SM,
+a contiguous tile of rows a block on 16-row starts, and the tile's layout:
+TILE (the tile's rows, tables and vectors in shared memory), VECTORS (the
+vectors alone there) or GLOBAL (nothing there), whichever is the first to
+fit a block's shared memory.  A step forms H p with no grid barrier
+inside: row m takes s_n[1 + ax] of each row n naming it from n's block
+when n is on its tile, and forms it anew from A_n and p at n's stencil
+when it is not, which hp_gather_plain emulates (equal to operator_apply bit
+for bit); so a step crosses two grid barriers, three under the Laplacian's
+neighbour term.
+
 A wrapper takes the plain version ONLY for tensors that lie on the CPU; for
 CUDA tensors it launches the kernel or raises.  `launch_counts` counts
 kernel launches and nothing else.
@@ -245,6 +256,37 @@ def operator_apply(A, x, valid, st: StencilReverse, lap, *,
     return out
 
 
+def hp_gather_plain(A, x, valid, st: StencilReverse, lap, *,
+                    reg_weight_l: float) -> torch.Tensor:
+    """operator_apply as dist_cg's kernel forms it for a row of another
+    tile: row m takes s_m[0] from A_m and x at its stencil, and forms
+    s_n[1 + ax] of each row n that names m along ax (column 2 ax + side of
+    the reverse table) anew from A_n and x at n's stencil, whose neighbour
+    along ax is m itself; the terms are added in the table's column order.
+    Every term is formed with the same products and sums in the same order
+    as operator_apply's (and as n's own block forms s_n), so the two are
+    equal bit for bit: used by the tests only, to pin the kernel's
+    arithmetic."""
+    v = [x] + [_gather(x, st.nbr[:, ax]) for ax in range(3)]
+    out = A[:, _FULL[0][0]] * v[0]
+    for k in range(1, 4):
+        out = out + A[:, _FULL[0][k]] * v[k]
+    for col in range(6):
+        ax = col // 2
+        n = st.rev[:, col]
+        nn = n.clamp(min=0).long()
+        An = A[nn]
+        w = [x[nn]] + [x if a == ax else _gather(x, st.nbr[nn, a]) for a in range(3)]
+        s = An[:, _FULL[1 + ax][0]] * w[0]
+        for k in range(1, 4):
+            s = s + An[:, _FULL[1 + ax][k]] * w[k]
+        out = out + torch.where(n >= 0, s, 0.0)
+    if lap is not None:
+        out = out + reg_weight_l * _lap_apply(_lap_apply(x, valid, st, lap),
+                                              valid, st, lap)
+    return out
+
+
 def jacobi_diag(valid: torch.Tensor, diag: torch.Tensor, damping: float) -> torch.Tensor:
     """The Jacobi preconditioner's safe diagonal (refine/solvers.jacobi_diag)."""
     d_total = (1.0 + damping) * diag
@@ -313,21 +355,128 @@ class _SystemArgs(ctypes.Structure):
                 ("n", _i), ("pairs", _i), ("eik", _i), ("reg_weight_n", _d)]
 
 
+# dist_cg's launch: threads a block, the three layouts of a block's tile,
+# its rows on multiples of TILE_ROWS (16-byte aligned for the bulk copies)
+CG_THREADS = 512
+TILE, VECTORS, GLOBAL = 0, 1, 2
+MODES = ("tile", "vectors", "global")
+TILE_ROWS = 16
+SMEM_PER_BLOCK = 232448          # an H100 block's shared memory, at most
+# shared memory before the regions: the mbarrier (16 bytes), the warps'
+# sums [warps][2] and the grid's (16 bytes) (csrc/distcg.cu kHeader)
+_HEADER = 16 + (CG_THREADS // 32) * 2 * 4 + 16
+# bytes a row of the tile's read-only arrays: A, nbr, rev, valid; lap_idx
+# under the Laplacian's neighbour term
+_ROW_BYTES = {"A": 40, "nbr": 12, "rev": 24, "valid": 1}
+_LAP_BYTES = 24
+# the floats a row of the block's own: s = A P p (4), x, r, z, A p, p, the
+# safe diagonal, damping diag (the Laplacian row under its neighbour term);
+# the floats a row other blocks read: two (z, p_old) pairs and the Laplacian
+# row, and under TILE A's rows 1-3 and each one's neighbours along the other
+# two axes (12 + 6)
+_OWN_VECTORS = 4 + 7
+_PUBLISHED = 5
+_TABLES = 12 + 6
+_OWN_MAX = 4 + 8
+
+
+class CgPlan(NamedTuple):
+    """dist_cg's launch for N rows: csrc/distcg.cu CgPlan, field for field."""
+    blocks: int
+    tile: int              # rows a block (the last block's fewer), a multiple of 16
+    mode: int              # TILE, VECTORS or GLOBAL
+    smem_bytes: int        # a block's dynamic shared memory
+    barriers: int          # grid barriers a CG step
+    A: int                 # byte offsets of the tile's regions in shared
+    nbr: int               # memory, 0 where the layout keeps it in global
+    rev: int               # memory
+    lap: int
+    valid: int
+    vec: int
+
+
+def _up16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _own_vectors(lap_nbr: bool) -> int:
+    return _OWN_VECTORS + int(lap_nbr)
+
+
+def _row_bytes(lap_nbr: bool) -> int:
+    """Shared memory a row of a TILE layout takes."""
+    return (sum(_ROW_BYTES.values()) + (_LAP_BYTES if lap_nbr else 0)
+            + 4 * _own_vectors(lap_nbr))
+
+
+def resident_tile_limit(lap_nbr: bool) -> int:
+    """The most rows a block's tile may hold in the TILE layout (a
+    multiple of TILE_ROWS; every region of such a tile is a multiple of 16
+    bytes)."""
+    per = TILE_ROWS * _row_bytes(lap_nbr)
+    return (SMEM_PER_BLOCK - _HEADER) // per * TILE_ROWS
+
+
+def vector_tile_limit(lap_nbr: bool) -> int:
+    """The most rows a block's tile may hold in the VECTORS layout."""
+    per = TILE_ROWS * 4 * _own_vectors(lap_nbr)
+    return (SMEM_PER_BLOCK - _HEADER) // per * TILE_ROWS
+
+
+def _cg_plan(N: int, *, use_lap: bool, lap_nbr: bool, sms: int) -> CgPlan:
+    """dist_cg's launch for N rows on a card of `sms` SMs: one block an SM
+    at most, contiguous tiles on multiples of TILE_ROWS rows (the last
+    shorter), every block at least one row; the first layout whose shared
+    memory fits a block (TILE, then VECTORS, then GLOBAL) and its regions;
+    the grid barriers a step (2, 3 under the Laplacian's neighbour term)."""
+    if N < 1 or sms < 1:
+        raise ValueError(f"dist_cg: no plan for {N} rows on {sms} SMs")
+    nbr_term = bool(use_lap and lap_nbr)
+    blocks = min(sms, -(-N // TILE_ROWS))
+    per_block = -(-N // blocks)
+    tile = -(-per_block // TILE_ROWS) * TILE_ROWS
+    blocks = -(-N // tile)
+    barriers = 2 + int(nbr_term)
+    vec_bytes = 4 * _own_vectors(nbr_term) * tile
+    regions = dict(A=0, nbr=0, rev=0, lap=0, valid=0, vec=0)
+    if tile <= resident_tile_limit(nbr_term):
+        mode, off = TILE, _HEADER
+        sizes = dict(_ROW_BYTES, lap=_LAP_BYTES if nbr_term else 0)
+        for name in ("A", "nbr", "rev", "lap", "valid"):
+            if sizes[name]:
+                regions[name] = off
+                off += _up16(sizes[name] * tile)
+        regions["vec"] = off
+        off += vec_bytes
+    elif tile <= vector_tile_limit(nbr_term):
+        mode, off = VECTORS, _HEADER
+        regions["vec"] = off
+        off += vec_bytes
+    else:
+        mode, off = GLOBAL, _HEADER
+    return CgPlan(blocks, tile, mode, off, barriers, **regions)
+
+
+_bound = None
+_plans: Dict[tuple, CgPlan] = {}
+_occupancy: Dict[tuple, int] = {}
+
+
+class _CgPlan(ctypes.Structure):
+    """csrc/distcg.cu CgPlan, field for field."""
+    _fields_ = [(n, ctypes.c_int64) for n in CgPlan._fields]
+
+
 class _CgArgs(ctypes.Structure):
     """csrc/distcg.cu CgArgs, field for field (every field 8 bytes)."""
     _p, _i, _d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
     _fields_ = [("A", _p), ("t", _p), ("nbr", _p), ("rev", _p), ("lap", _p),
                 ("valid", _p), ("lap_r", _p), ("delta", _p), ("steps", _p),
-                ("work", _p), ("partials", _p), ("n", _i), ("blocks", _i),
-                ("maxiter", _i), ("fixed", _i), ("use_lap", _i), ("lap_nbr", _i),
+                ("work", _p), ("sync", _p), ("n", _i), ("maxiter", _i),
+                ("fixed", _i), ("use_lap", _i), ("lap_nbr", _i),
                 ("reg_weight_l", _d), ("diag_coef", _d), ("nbr_coef", _d),
                 ("diag_coef_sq", _d), ("nbr_coef_sq", _d), ("damping", _d),
-                ("tol_sq", _d), ("atol_sq", _d)]
-
-
-# float vectors of N in dist_cg's work buffer: x, r, z, p (two), s (four),
-# the Laplacian rows, A p, diag, the safe diagonal
-WORK_VECTORS = 13
+                ("tol_sq", _d), ("atol_sq", _d), ("plan", _CgPlan)]
 
 
 def _check(what: str, dev, named) -> None:
@@ -341,10 +490,6 @@ def _check(what: str, dev, named) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-_bound = None
-_plans: Dict[tuple, int] = {}
-
-
 def _library():
     global _bound
     if _bound is None:
@@ -355,35 +500,65 @@ def _library():
         lib.dist_system.restype = ctypes.c_int
         lib.dist_cg.argtypes = [ctypes.POINTER(_CgArgs), ctypes.c_void_p]
         lib.dist_cg.restype = ctypes.c_int
-        lib.dist_cg_plan.argtypes = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
-        lib.dist_cg_plan.restype = ctypes.c_int
-        lib.dist_barriers.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+        lib.dist_cg_occupancy.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                          ctypes.POINTER(ctypes.c_int64)]
+        lib.dist_cg_occupancy.restype = ctypes.c_int
+        lib.dist_barriers.argtypes = [ctypes.POINTER(_CgPlan), ctypes.c_int64,
+                                      ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
         lib.dist_barriers.restype = ctypes.c_int
         _bound = lib
     return _bound
 
 
-def cg_blocks(dev: torch.device, n: int) -> int:
-    """dist_cg's cooperative grid for n rows on `dev`, found once."""
-    key = (dev.index, n)
-    if key not in _plans:
-        blocks = ctypes.c_int64()
-        with torch.cuda.device(dev):
-            rc = _library().dist_cg_plan(n, ctypes.byref(blocks))
-        if rc != 0:
-            raise RuntimeError(f"dist_cg: no cooperative grid for {n} rows on "
-                               f"{dev}, CUDA error {rc}")
-        _plans[key] = blocks.value
-    return _plans[key]
+def cg_plan(dev: torch.device, N: int, *, use_lap: bool, lap_nbr: bool) -> CgPlan:
+    """_cg_plan on `dev`'s SMs, found once; its layout's cooperative
+    occupancy at its shared memory checked once per (device, mode, bytes):
+    a layout the card cannot run raises."""
+    key = (dev.index, N, bool(use_lap), bool(use_lap and lap_nbr))
+    plan = _plans.get(key)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = _cg_plan(N, use_lap=use_lap, lap_nbr=lap_nbr, sms=sms)
+        okey = (dev.index, plan.mode, plan.smem_bytes)
+        if okey not in _occupancy:
+            per_sm = ctypes.c_int64()
+            with torch.cuda.device(dev):
+                rc = _library().dist_cg_occupancy(plan.mode, plan.smem_bytes,
+                                                  ctypes.byref(per_sm))
+            if rc != 0 or per_sm.value < 1:
+                raise RuntimeError(
+                    f"dist_cg: the {MODES[plan.mode]} layout of {plan.smem_bytes} "
+                    f"bytes does not run cooperatively on {dev} (CUDA error {rc}, "
+                    f"{per_sm.value} blocks an SM)")
+            _occupancy[okey] = per_sm.value
+        _plans[key] = plan
+    return plan
 
 
-def barrier_floor(dev: torch.device, n: int, barriers: int) -> None:
-    """Launch an empty cooperative kernel on dist_cg's grid for n rows that
-    crosses `barriers` grid barriers (the solve's latency floor; not a
-    kernel of any path, so not counted)."""
-    blocks = cg_blocks(dev, n)
+def _work_floats(plan: CgPlan, N: int) -> int:
+    """dist_cg's work buffer (csrc/distcg.cu kPublished): the published
+    rows, then TILE's tables from a 16-byte boundary, or GLOBAL's own
+    rows."""
+    if plan.mode == TILE:
+        return -(-_PUBLISHED * N // 4) * 4 + _TABLES * N
+    return (_PUBLISHED + (_OWN_MAX if plan.mode == GLOBAL else 0)) * N
+
+
+def _sync_words(plan: CgPlan, dev) -> torch.Tensor:
+    """The barriers' counter (4 words, set to 0 by the kernel) and the
+    blocks' partials [2][blocks][2] floats, in one buffer."""
+    return torch.empty((4 + 4 * plan.blocks,), dtype=torch.int32, device=dev)
+
+
+def barrier_floor(dev: torch.device, plan: CgPlan, barriers: int, kind: int = 1) -> None:
+    """Launch an empty cooperative kernel on `plan`'s grid that crosses
+    `barriers` barriers: kind 1 one grid.sync and then dist_cg's counter
+    barriers with their sums (the solve's latency floor), kind 0
+    grid.syncs alone (not a kernel of any path, so not counted)."""
+    sync = _sync_words(plan, dev)
     with torch.cuda.device(dev):
-        rc = _library().dist_barriers(blocks, barriers,
+        rc = _library().dist_barriers(ctypes.byref(_CgPlan(*plan)), barriers, kind,
+                                      sync.data_ptr(),
                                       torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dist_barriers: launch failed, CUDA error {rc}")
@@ -462,21 +637,30 @@ def dist_cg(A: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
     if cg_iters < 0:
         raise ValueError(f"dist_cg: cg_iters must be >= 0, got {cg_iters}")
     dev = A.device
-    blocks = cg_blocks(dev, N)
+    lap_nbr = lap is not None and lap.nbr_coef != 0.0
+    plan = cg_plan(dev, N, use_lap=lap is not None, lap_nbr=lap_nbr)
+    if plan.mode == TILE:
+        staged = [("A", A), ("valid", valid), ("stencil.nbr", stencil.nbr),
+                  ("stencil.rev", stencil.rev)] + ([("stencil.lap", stencil.lap)]
+                                                   if lap_nbr else [])
+        for name, x in staged:
+            if x.data_ptr() % 16:
+                raise ValueError(f"dist_cg: {name} must start on a 16-byte "
+                                 "boundary (its tiles are bulk-copied)")
     delta = torch.empty((N,), dtype=f32, device=dev)
     steps = torch.empty((1,), dtype=torch.int64, device=dev)
-    work = torch.empty((WORK_VECTORS * N,), dtype=f32, device=dev)
-    partials = torch.empty((4 * blocks,), dtype=f32, device=dev)
+    work = torch.empty((_work_floats(plan, N),), dtype=f32, device=dev)
+    sync = _sync_words(plan, dev)
     a = _CgArgs()
     a.A, a.t, a.valid = A.data_ptr(), t.data_ptr(), valid.data_ptr()
     a.nbr, a.rev, a.lap = (stencil.nbr.data_ptr(), stencil.rev.data_ptr(),
                            stencil.lap.data_ptr())
     a.delta, a.steps = delta.data_ptr(), steps.data_ptr()
-    a.work, a.partials = work.data_ptr(), partials.data_ptr()
-    a.n, a.blocks, a.maxiter, a.fixed = N, blocks, cg_iters, int(cg_static)
+    a.work, a.sync = work.data_ptr(), sync.data_ptr()
+    a.n, a.maxiter, a.fixed = N, cg_iters, int(cg_static)
+    a.plan = _CgPlan(*plan)
     if lap is not None:
-        a.lap_r, a.use_lap = lap.r.data_ptr(), 1
-        a.lap_nbr = int(lap.nbr_coef != 0.0)
+        a.lap_r, a.use_lap, a.lap_nbr = lap.r.data_ptr(), 1, int(lap_nbr)
         a.reg_weight_l = float(reg_weight_l)
         a.diag_coef, a.nbr_coef = float(lap.diag_coef), float(lap.nbr_coef)
         a.diag_coef_sq, a.nbr_coef_sq = lap.diag_coef ** 2, lap.nbr_coef ** 2

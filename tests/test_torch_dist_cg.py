@@ -1,8 +1,9 @@
 """The distance block's solve in gather form (ops/distcg.py): the reverse
 stencil table against nbr_idx / nbr_dir and lap_idx's symmetry, the
 assembled rows against the normal equations, the assembled operator, b and
-diag against the JAX package's `_distance_system`, solve_distance through
-the new path against the JAX package's and against the scatter-add CG's
+diag against the JAX package's `_distance_system`, the kernel's one-phase
+H p (hp_gather_plain) against the assembled operator bit for bit,
+solve_distance through the new path against the JAX package's and against the scatter-add CG's
 steps, bit-identical plain runs, the solve's edge cases, and the refiner's
 table rebuilt with every problem.  On the CPU the wrappers run their plain
 versions; the kernels are held against them on the card by chip_smoke.py
@@ -252,6 +253,44 @@ def test_assembled_operator_matches_jax(lin, w_n, w_l):
         lo = jsolvers.laplacian_operator(jp, J["dist"], H_VOX)
         want = want + w_l * jsolvers.lap_apply_T(jsolvers.lap_apply(jx, lo, jp.valid), lo, jp.valid)
     _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("diag_only", [False, True], ids=["lap", "lap-diag"])
+@pytest.mark.parametrize("w_n,w_l", WEIGHTS)
+def test_one_phase_hp_is_operator_apply_bit_for_bit(lin, w_n, w_l, diag_only):
+    """H p as dist_cg's kernel forms it in one phase (each row recomputing
+    s_n[1 + ax] of the rows naming it, hp_gather_plain) equals
+    operator_apply bit for bit in float32."""
+    T = lin["T"]
+    eik, lap = tsolvers.reg_operators(T["p"], T["dist"], H_VOX, reg_weight_n=w_n,
+                                      reg_weight_l=w_l, laplacian_diag_only=diag_only)
+    A, _ = distcg.dist_system(T["rd"], T["DJ"], eik, reg_weight_n=w_n)
+    if w_l and not diag_only:
+        assert lap.nbr_coef != 0.0
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=A.shape[0]).astype(np.float32))
+    kw = dict(reg_weight_l=w_l)
+    got = distcg.hp_gather_plain(A, x, T["p"].valid, T["stencil"], lap, **kw)
+    want = distcg.operator_apply(A, x, T["p"].valid, T["stencil"], lap, **kw)
+    assert bool(want.abs().max() > 0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_one_phase_hp_at_the_clipped_border(seed):
+    """The same on a speckled surface set (rows naming themselves at the
+    grid's low border, frozen neighbours), random float32 rows and the
+    Laplacian's neighbour term."""
+    prob = _speckled_problem(seed)
+    st = distcg.stencil_reverse(prob)
+    N = prob.valid.shape[0]
+    rng = np.random.default_rng(seed + 9)
+    A = torch.from_numpy(rng.normal(size=(N, 10)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=N).astype(np.float32))
+    lap = tsolvers.LapOperator(r=torch.zeros(N), lap_idx=prob.lap_idx,
+                               diag_coef=-2.5, nbr_coef=0.4)
+    got = distcg.hp_gather_plain(A, x, prob.valid, st, lap, reg_weight_l=0.3)
+    want = distcg.operator_apply(A, x, prob.valid, st, lap, reg_weight_l=0.3)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("w_n,w_l", WEIGHTS)
