@@ -90,12 +90,23 @@ block through them, which must run no index_add_ kernel; with
 on that earlier source (the C interface before the host plan), in turns
 with this one.
 
+The pose and the SH light normal equations (csrc/normaleq.cu) are held the
+same way: phases refine and refine_led_upsample check that every pose block
+and every SH light block of those runs called its kernels once and ran no
+plain normal equations on the card, and phase normal_eq_kernels holds both
+against their plain versions (H within NORMAL_EQ_TOL of each keyframe's
+max|H|, g within it of each keyframe's sum of |w r J|, two runs bit for
+bit) on the main run's problem (SH1, and SH2 lights), the LED run's pose and
+the edges (one and 33 keyframes, one voxel, the tile plus one, a masked
+keyframe, no counted pair), with their times.
+
 With --kernels-only the run stops after the kernels and scan_kernels phases
 (build, checks and times of the kernels): a quick look at a changed kernel.
 It drives no path, so it prints no final "ok" line and exits with 3.
 With --refine-only it runs the main run and phases refine,
-refine_led_upsample, refine_kernels and dist_cg_kernels only (with
---profile also the refinement's traces), and exits with 3 the same way:
+refine_led_upsample, refine_kernels, dist_cg_kernels and normal_eq_kernels
+only (with --profile also the refinement's traces), and exits with 3 the
+same way:
 the quick look at the refinement's kernels.
 With --distributed-only it runs those phases, then phase `distributed`
 and the one-process runs it is held to, and exits with 3 the same way: on a
@@ -259,9 +270,23 @@ DIST_KERNELS = {
 # the solve one step apart
 DIST_CG_TOL = 2e-4
 DIST_CG_EDGE = 0.01
+# the refinement's pose and light normal equations (csrc/normaleq.cu):
+# wrapper -> (its source, the JAX function it replaces, by file:line)
+NORMAL_EQ_KERNELS = {
+    "pose_normal_eqs": ("psgradientsdf_tpu_torch/csrc/normaleq.cu",
+                        "psgradientsdf_tpu/refine/optimizer.py:208"),
+    "light_normal_eqs_sh": ("psgradientsdf_tpu_torch/csrc/normaleq.cu",
+                            "psgradientsdf_tpu/refine/solvers.py:512"),
+}
+# normal_eq_kernels: the kernels' H within NORMAL_EQ_TOL of each keyframe's
+# max|H| of the plain version's, g within NORMAL_EQ_TOL of each keyframe's
+# sum of |w r J| (the plain versions sum in float32 in cuBLAS's order, the
+# kernels in short float runs, then in double)
+NORMAL_EQ_TOL = 1e-5
 # everything the run builds: the CUDA kernels (nvcc) and the host libraries
 # of the PNG decoder and of the exports (g++), all started together
-LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "png_unfilter", "mc")
+LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "normaleq", "png_unfilter",
+             "mc")
 
 
 class SmokeFailure(Exception):
@@ -814,36 +839,45 @@ def _scan_counts():
 
 
 def _reset_refine_counts():
-    """Launch counts of the refinement's four kernels, set to 0."""
-    from psgradientsdf_tpu_torch.ops import distcg, residual
+    """Launch counts of the refinement's six kernels, set to 0."""
+    from psgradientsdf_tpu_torch.ops import distcg, normaleq, residual
 
     residual.reset_launch_counts()
     distcg.reset_launch_counts()
+    normaleq.reset_launch_counts()
 
 
 def _refine_counts():
-    from psgradientsdf_tpu_torch.ops import distcg, residual
+    from psgradientsdf_tpu_torch.ops import distcg, normaleq, residual
 
-    return dict(residual.launch_counts, **distcg.launch_counts)
+    return dict(residual.launch_counts, **distcg.launch_counts,
+                **normaleq.launch_counts)
 
 
 @contextlib.contextmanager
 def _refine_calls():
     """While the body runs, count the calls of ops/residual.py's two
-    wrappers (a residual pass, a distance Jacobian, kernel or plain) and of
-    ops/distcg.py's two (the distance block's rows and its CG), and the
-    plain residual passes and plain distance solves (rows or CG) on tensors
-    on the card -> the dict of counts.  The module functions are wrapped
-    from outside; the package has no switch for it."""
-    from psgradientsdf_tpu_torch.ops import distcg, residual
+    wrappers (a residual pass, a distance Jacobian, kernel or plain), of
+    ops/distcg.py's two (the distance block's rows and its CG) and of
+    ops/normaleq.py's two (the pose and the SH light normal equations), and
+    the plain residual passes, plain distance solves (rows or CG) and plain
+    normal equations (the pose chain or the light's product) on tensors on
+    the card -> the dict of counts.  The module functions are wrapped from
+    outside; the package has no switch for it."""
+    from psgradientsdf_tpu_torch.ops import distcg, normaleq, residual
+    from psgradientsdf_tpu_torch.refine import solvers
 
     calls = dict(residual_pass=0, dist_jacobian=0, dist_system=0, dist_cg=0,
-                 plain_residual_pass_on_card=0, plain_distance_solve_on_card=0)
+                 pose_normal_eqs=0, light_normal_eqs_sh=0,
+                 plain_residual_pass_on_card=0, plain_distance_solve_on_card=0,
+                 plain_normal_eqs_on_card=0)
     modules = {"residual_pass": residual, "dist_jacobian": residual,
                "residual_pass_plain": residual, "dist_system": distcg,
                "dist_cg": distcg, "dist_system_plain": distcg,
-               "dist_cg_plain": distcg}
+               "dist_cg_plain": distcg, "pose_normal_eqs": normaleq,
+               "light_normal_eqs_sh": normaleq, "pose_normal_eqs_plain": normaleq}
     real = {n: getattr(m, n) for n, m in modules.items()}
+    light_plain = solvers.light_normal_eqs_sh
 
     def counted(name):
         def fn(*a, **kw):
@@ -858,7 +892,13 @@ def _refine_calls():
             return real[name](*a, **kw)
         return fn
 
-    for n in ("residual_pass", "dist_jacobian", "dist_system", "dist_cg"):
+    def light_on_card(*a, **kw):
+        if a[0].w.device.type != "cpu":
+            calls["plain_normal_eqs_on_card"] += 1
+        return light_plain(*a, **kw)
+
+    for n in ("residual_pass", "dist_jacobian", "dist_system", "dist_cg",
+              "pose_normal_eqs", "light_normal_eqs_sh"):
         setattr(modules[n], n, counted(n))
     residual.residual_pass_plain = plain(
         "residual_pass_plain", lambda a: a[2], "plain_residual_pass_on_card")
@@ -866,11 +906,15 @@ def _refine_calls():
         "dist_system_plain", lambda a: a[0].w, "plain_distance_solve_on_card")
     distcg.dist_cg_plain = plain(
         "dist_cg_plain", lambda a: a[0], "plain_distance_solve_on_card")
+    normaleq.pose_normal_eqs_plain = plain(
+        "pose_normal_eqs_plain", lambda a: a[0].w, "plain_normal_eqs_on_card")
+    solvers.light_normal_eqs_sh = light_on_card
     try:
         yield calls
     finally:
         for n, fn in real.items():
             setattr(modules[n], n, fn)
+        solvers.light_normal_eqs_sh = light_plain
 
 
 def _fuse_capacity(geom):
@@ -1574,13 +1618,15 @@ def check_refine(run, seq, min_drop):
 
 
 def check_refine_launches(run):
-    """The refinement of `run` went through its four kernels: a residual
+    """The refinement of `run` went through its six kernels: a residual
     pass launch for each residual pass the loop made (the LED light's
     initialisation, one before the loop, then a fused iteration's leading
     pass and one after each block, and one at the upsample), a distance
     Jacobian launch for each distance or joint block, a dist_system and a
-    dist_cg launch for each distance block, no plain residual pass and no
-    plain distance solve on the card -> the launches."""
+    dist_cg launch for each distance block, a pose_normal_eqs call for each
+    pose block and a light_normal_eqs_sh call for each SH light block; no
+    plain residual pass, distance solve or normal equations on the card ->
+    the launches."""
     from psgradientsdf_tpu_torch.refine.optimizer import block_names
 
     ref, summary = run["pipe"].refiner, run["summary"]
@@ -1610,8 +1656,18 @@ def check_refine_launches(run):
               f"expected {blocks} distance blocks")
     check(calls["plain_distance_solve_on_card"] == 0,
           f"{calls['plain_distance_solve_on_card']} plain distance solves on the card")
+    pose_blocks = iters * names.count("pose")
+    sh_light_blocks = iters * names.count("light") * (cfg.model != "LED")
+    for name, want in (("pose_normal_eqs", pose_blocks),
+                       ("light_normal_eqs_sh", sh_light_blocks)):
+        check(calls[name] == want and launches[name] == _on_card(want),
+              f"{name}: {launches[name]} launches, {calls[name]} calls, "
+              f"expected {want} blocks")
+    check(calls["plain_normal_eqs_on_card"] == 0,
+          f"{calls['plain_normal_eqs_on_card']} plain normal equations on the card")
     return dict(launches, residual_passes=passes, distance_blocks=blocks,
-                distance_or_joint_blocks=jacobians)
+                distance_or_joint_blocks=jacobians, pose_blocks=pose_blocks,
+                sh_light_blocks=sh_light_blocks)
 
 
 def _one_iteration(ref):
@@ -1706,9 +1762,11 @@ def light_steps(on_card, on_cpu):
     state (the CPU's, after the iteration's albedo block, on both), each step
     of the block on each device, `chained` (each device from its own
     previous step) and `isolated` (the card from the CPU's inputs of the
-    step): the residual pass, the light Jacobian, the Gram product (wJ)^T J
-    and its gradient, the batched eigen-solve, the light update."""
+    step): the residual pass, the light Jacobian, the Gram matrix and its
+    gradient (ops/normaleq.light_normal_eqs_sh: the kernel on the card, the
+    plain product on the CPU), the batched eigen-solve, the light update."""
     import torch
+    from psgradientsdf_tpu_torch.ops import normaleq
     from psgradientsdf_tpu_torch.refine import jacobians, render, solvers
     from psgradientsdf_tpu_torch.refine.optimizer import _albedo_core
 
@@ -1728,7 +1786,7 @@ def light_steps(on_card, on_cpu):
         rd = render.compute_residuals(*ref._args(), **skw)
         J = jacobians.light_jacobian_sh(ref.prob, ref.albedo, ref.grad_stored,
                                         cfg.order)
-        H, g = solvers.light_normal_eqs_sh(rd, J)
+        H, g = normaleq.light_normal_eqs_sh(rd, J)
         delta = solvers.solve_light_from_normal_eqs(H, g)
         return dict(r=rd.r, w=rd.w, J=J, H=H, g=g, delta=delta,
                     lights=ref.lights - delta), rd
@@ -1739,7 +1797,7 @@ def light_steps(on_card, on_cpu):
     chained = {k: _rel(got[k], want[k]) for k in want}
     # each step on the card from the CPU's inputs of that step
     rd_in = type(rd_cpu)(*(t.to(dev) for t in rd_cpu))
-    H_iso, g_iso = solvers.light_normal_eqs_sh(rd_in, want["J"].to(dev))
+    H_iso, g_iso = normaleq.light_normal_eqs_sh(rd_in, want["J"].to(dev))
     delta_iso = solvers.solve_light_from_normal_eqs(want["H"].to(dev), want["g"].to(dev))
     isolated = dict(H=_rel(H_iso, want["H"]), g=_rel(g_iso, want["g"]),
                     delta=_rel(delta_iso, want["delta"]))
@@ -2458,7 +2516,12 @@ def _ptxas(src):
                                ("dist_cg_kernel<vectors>", "dist_cg_kernelILi1E"),
                                ("dist_cg_kernel<global>", "dist_cg_kernelILi2E"),
                                ("dist_barrier_kernel", "dist_barrier_kernel"),
-                               ("dist_system_kernel", "dist_system_kernel")):
+                               ("dist_system_kernel", "dist_system_kernel"),
+                               ("pose_tiles_kernel<sh>", "pose_tiles_kernelILb0E"),
+                               ("pose_tiles_kernel<led>", "pose_tiles_kernelILb1E"),
+                               ("light_tiles_kernel<4>", "light_tiles_kernelILi4E"),
+                               ("light_tiles_kernel<9>", "light_tiles_kernelILi9E"),
+                               ("normaleq_reduce_kernel", "normaleq_reduce_kernel")):
                 if pat in name:
                     name = short
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -2656,6 +2719,211 @@ def dist_cg_kernels(main_run, led_run):
                 flush)
         facts["latency_floor_ms"] = one["dist_cg"]["ms"]
         facts["distance_block"] = _distance_block_traces(ref, *main_w)
+        torch.cuda.empty_cache()
+    return facts
+
+
+def _rd_rows(rd, rows):
+    """The residual pass's pairs of voxels `rows` (a slice or an index)."""
+    return type(rd)(*(t[rows].contiguous() for t in rd))
+
+
+def _rd_frames(rd, frames):
+    return type(rd)(*(t[:, frames].contiguous() for t in rd))
+
+
+def _rd_weighted(rd, keep):
+    """rd with w = r = 0 on the pairs where `keep` [N,F] is False (masked
+    pairs, as the residual pass leaves them)."""
+    import torch
+
+    k = keep[..., None]
+    return rd._replace(w=torch.where(k, rd.w, 0.0), r=torch.where(k, rd.r, 0.0))
+
+
+def _held_normal_eqs(what, got, again, want, g_scale):
+    """The kernel's (H, g) against the plain version's: H within
+    NORMAL_EQ_TOL of each keyframe's max|H| (exactly 0 where that is 0), g
+    within NORMAL_EQ_TOL of each keyframe's g_scale, H symmetric, two runs
+    bit for bit -> the errors, relative to those scales."""
+    import torch
+
+    (H, g), (H2, g2), (Hp, gp) = got, again, want
+    _sync()
+    check(_bits_same(H, H2) and _bits_same(g, g2),
+          f"{what}: two kernel runs differ")
+    check(bool(torch.isfinite(H).all() and torch.isfinite(g).all()),
+          f"{what}: H or g not finite")
+    # the kernel writes both triangles from one sum (a rehearsal's plain
+    # product is not symmetric to the bit)
+    check(DEVICE != "cuda" or bool(torch.equal(H, H.transpose(1, 2))),
+          f"{what}: H not symmetric")
+    h_err = (H - Hp).abs().amax(dim=(1, 2))
+    h_scale = Hp.abs().amax(dim=(1, 2))
+    g_err = (g - gp).abs().amax(dim=1)
+    check(bool((h_err <= NORMAL_EQ_TOL * h_scale).all()),
+          f"{what}: H beyond {NORMAL_EQ_TOL} of max|H|: "
+          f"{float((h_err / h_scale.clamp(min=1e-30)).max())}")
+    check(bool((g_err <= NORMAL_EQ_TOL * g_scale).all()),
+          f"{what}: g beyond {NORMAL_EQ_TOL} of sum |w r J|: "
+          f"{float((g_err / g_scale.clamp(min=1e-30)).max())}")
+    return dict(case=what, keyframes=int(H.shape[0]), bit_identical_runs=True,
+                H_rel_err=float((h_err / h_scale.clamp(min=1e-30)).max()),
+                g_rel_err=float((g_err / g_scale.clamp(min=1e-30)).max()),
+                max_abs_err=max(float(h_err.max()), float(g_err.max())),
+                zero_keyframes=int((h_scale == 0).sum()))
+
+
+def _plan_facts(N, F):
+    from psgradientsdf_tpu_torch.ops import normaleq as NE
+
+    plan = NE._reduce_plan(N, F, _sm_count() if DEVICE == "cuda" else 132)
+    return dict(plan._asdict(), blocks=plan.tiles * plan.chunks)
+
+
+def _pose_case(what, rd, pargs, model, flush, timed=False):
+    """pose_normal_eqs against pose_normal_eqs_plain on the same inputs
+    (pargs: K, poses, albedo, grad_stored, lights).  With `timed`: its ms,
+    plain_ms, library_ms (the one einsum nfcb,nfcd->fbd over a weighted
+    Jacobian formed beforehand: J's formation excluded) and the bytes
+    bound."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import normaleq as NE
+    from psgradientsdf_tpu_torch.refine import jacobians
+
+    K, poses = pargs[0], pargs[1]
+    J = NE.pose_jacobian(jacobians.image_pi_grad(rd, K), rd, poses, *pargs[2:], model)
+    g_scale = torch.einsum("nfc,nfcb->f", (rd.w * rd.r).abs(), J.abs())
+    out = _held_normal_eqs(
+        what, NE.pose_normal_eqs(rd, *pargs, model), NE.pose_normal_eqs(rd, *pargs, model),
+        NE.pose_normal_eqs_plain(rd, *pargs, model), g_scale)
+    N, F = rd.w.shape[0], rd.w.shape[1]
+    out.update(model=model, voxels=N, pairs=N * F, plan=_plan_facts(N, F))
+    if timed and DEVICE == "cuda":
+        # g_img, p_cam, w and r read (60 bytes a pair), poses and K, under
+        # the LED the voxels' albedo and gradient (24 bytes) and the light;
+        # H and g written
+        nbytes = (N * F * 60 + F * 64 + 36 + (N * 24 + 12 if model == "LED" else 0)
+                  + F * 42 * 4)
+        wJ = rd.w[..., None] * J
+        out.update(
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            ms=_time_ms(lambda: NE.pose_normal_eqs(rd, *pargs, model), flush),
+            plain_ms=_time_ms(lambda: NE.pose_normal_eqs_plain(rd, *pargs, model), flush),
+            library_ms=_time_ms(lambda: torch.einsum("nfcb,nfcd->fbd", wJ, J), flush))
+        out["share_of_bound"] = out["bound_ms"] / out["ms"]
+        del wJ
+    return out
+
+
+def _light_case(what, rd, J, flush, timed=False):
+    """light_normal_eqs_sh against solvers.light_normal_eqs_sh on the same
+    inputs.  With `timed`: its ms, plain_ms, library_ms (the one [F,3N] x
+    [3N,B*B] product wf @ JJ, its operands formed beforehand) and the bytes
+    bound."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import normaleq as NE
+    from psgradientsdf_tpu_torch.refine import solvers
+
+    g_scale = torch.einsum("nfc,ncb->f", (rd.w * rd.r).abs(), J.abs())
+    out = _held_normal_eqs(what, NE.light_normal_eqs_sh(rd, J),
+                           NE.light_normal_eqs_sh(rd, J),
+                           solvers.light_normal_eqs_sh(rd, J), g_scale)
+    N, F, B = rd.w.shape[0], rd.w.shape[1], J.shape[-1]
+    out.update(basis=B, voxels=N, pairs=N * F, plan=_plan_facts(N, F))
+    if timed and DEVICE == "cuda":
+        # w and r read (24 bytes a pair), J_l [N,3,B] once; H and g written
+        nbytes = N * F * 24 + N * 12 * B + F * (B * B + B) * 4
+        wf = rd.w.permute(1, 0, 2).reshape(F, N * 3)
+        JJ = (J[..., :, None] * J[..., None, :]).reshape(N * 3, B * B)
+        out.update(
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            ms=_time_ms(lambda: NE.light_normal_eqs_sh(rd, J), flush),
+            plain_ms=_time_ms(lambda: solvers.light_normal_eqs_sh(rd, J), flush),
+            library_ms=_time_ms(lambda: wf @ JJ, flush))
+        out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def normal_eq_kernels(main_run, led_run):
+    """The refinement's normal-equation kernels (csrc/normaleq.cu) against
+    their plain versions on the card, at the main path's shapes: H within
+    NORMAL_EQ_TOL of each keyframe's max|H|, g within NORMAL_EQ_TOL of each
+    keyframe's sum of |w r J|, two kernel runs bit for bit, on
+    (a) the main run's problem at its final state (SH1, 40 keyframes): the
+        pose and the light (B = 4);
+    (b) that problem with SH2 lights (_sh2_lights): its residual pass, the
+        pose and the light (B = 9);
+    (c) the LED run's problem after the upsample: the pose;
+    (d) the edges, on the main problem: one keyframe, 33 keyframes, one
+        voxel with a counted pair, the main plan's tile of voxels plus one,
+        a keyframe with every pair masked, no counted pair (H = g = 0).
+    Timed (median of KERNEL_REPS, L2 flushed): (a) and (c), and (b)'s
+    light.  Then each kernel's registers (nvcc -Xptxas -v).  Launches made
+    here are on no path.  -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import residual as RS
+    from psgradientsdf_tpu_torch.refine import jacobians
+
+    flush = (torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+             if DEVICE == "cuda" else None)
+    ref = main_run["pipe"].refiner
+    args, skw = ref._args(), ref._static_kwargs()
+    prob, _, _, albedo, grad, poses, _, K, lights = args
+    rd = RS.residual_pass(*args, **skw)
+    pargs = (K, poses, albedo, grad, lights)
+    J4 = jacobians.light_jacobian_sh(prob, albedo, grad, 1)
+    cases = [_pose_case("main SH1", rd, pargs, "SH1", flush, timed=True),
+             _light_case("main SH1", rd, J4, flush, timed=True)]
+    sh2 = _sh2_lights(lights, SEED)
+    rd2 = RS.residual_pass(*args[:8], sh2, **dict(skw, model="SH2", order=2))
+    cases += [_pose_case("main, SH2 lights", rd2, pargs[:4] + (sh2,), "SH2", flush),
+              _light_case("main, SH2 lights", rd2,
+                          jacobians.light_jacobian_sh(prob, albedo, grad, 2), flush,
+                          timed=True)]
+    del rd2
+    led = led_run["pipe"].refiner
+    largs, lkw = led._args(), led._static_kwargs()
+    lrd = RS.residual_pass(*largs, **lkw)
+    cases.append(_pose_case("LED after the upsample", lrd,
+                            (largs[7], largs[5], largs[3], largs[4], largs[8]),
+                            "LED", flush, timed=True))
+    del lrd
+    N, F = rd.w.shape[0], rd.w.shape[1]
+    rows = torch.nonzero(prob.valid)[:, 0]
+    row = int(rows[len(rows) // 2])
+    tile = _plan_facts(N, F)["voxels"]
+    one_row = torch.zeros((N, F), dtype=torch.bool, device=rd.w.device)
+    one_row[row] = rd.mask[row]
+    masked = torch.ones((N, F), dtype=torch.bool, device=rd.w.device)
+    masked[:, 3] = False
+    lo = N // 2
+    edges = [
+        ("one keyframe", _rd_frames(rd, slice(0, 1)), slice(0, 1), slice(None)),
+        (f"{EDGE_ODD_F} keyframes", _rd_frames(rd, slice(0, EDGE_ODD_F)),
+         slice(0, EDGE_ODD_F), slice(None)),
+        ("one voxel with counted pairs", _rd_weighted(rd, one_row), slice(None),
+         slice(None)),
+        (f"the main tile of voxels + 1 ({tile + 1})",
+         _rd_rows(rd, slice(lo, lo + tile + 1)), slice(None), slice(lo, lo + tile + 1)),
+        ("keyframe 3 masked", _rd_weighted(rd, masked), slice(None), slice(None)),
+        ("no counted pair", _rd_weighted(rd, torch.zeros_like(masked)), slice(None),
+         slice(None))]
+    for what, erd, fr, vr in edges:
+        eargs = (K, poses[fr].contiguous(), albedo[vr].contiguous(),
+                 grad[vr].contiguous(), lights[fr].contiguous())
+        cases.append(_pose_case(what, erd, eargs, "SH1", flush))
+        cases.append(_light_case(what, erd, J4[vr].contiguous(), flush))
+    zero = [c for c in cases if c["case"] == "no counted pair"]
+    check(all(c["zero_keyframes"] == F for c in zero),
+          "no counted pair: a keyframe's H is not 0")
+    check(all(c["zero_keyframes"] >= 1 for c in cases
+              if c["case"] == "keyframe 3 masked"), "keyframe 3 masked: H is not 0")
+    facts = dict(cases=cases, checked=len(cases), tolerance=NORMAL_EQ_TOL)
+    if DEVICE == "cuda":
+        from psgradientsdf_tpu_torch import kernels
+
+        facts["ptxas"] = _ptxas(kernels.source_path("normaleq"))
         torch.cuda.empty_cache()
     return facts
 
@@ -3531,29 +3799,40 @@ def dumps(ref, truncation, main_run):
 def profile_refine(ref):
     """Trace two warm refinement iterations from the state the main run
     ended in -> the card's busy share of them, device operations (kernels,
-    copies, fills) and the host's CUDA runtime calls per iteration, the
-    operations by device time."""
+    copies, fills), device time and the host's CUDA runtime calls per
+    iteration, the operations by device time and the GEMM kernels (the
+    normal equations run none: their blocks call their kernels once each,
+    and no plain normal equations run on the card)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     _one_iteration(ref)                       # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _refine_calls() as calls, profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
             _one_iteration(ref)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    for name in NORMAL_EQ_KERNELS:
+        check(calls[name] == 2, f"{name}: {calls[name]} calls in two iterations")
+    check(calls["plain_normal_eqs_on_card"] == 0,
+          "plain normal equations ran on the card in the traced iterations")
     rows = sorted(_kernel_rows(prof), reverse=True)
     runtime = sum(e.count for e in prof.key_averages()
                   if not str(e.device_type).endswith("CUDA"))
     busy = sum(r[0] for r in rows) * 1e-6
     check(busy > 0.0, "the profiler saw no device time")
+    check(not any("gemmSN" in r[2] for r in rows),
+          "a cuBLAS gemmSN kernel ran in the traced iterations")
     return dict(
         iterations=2, traced_wall_seconds=wall, device_busy_seconds=busy,
         device_busy_share=busy / wall,
         device_ops_per_iteration=int(sum(r[1] for r in rows)) // 2,
+        device_ms_per_iteration=busy * 1e3 / 2,
         runtime_calls_per_iteration=int(runtime) // 2,
+        gemm=[dict(name=k[:80], launches=c, device_ms=us * 1e-3)
+              for us, c, k in rows if "gemm" in k.lower()],
         top=[dict(name=k[:80], launches=c, device_ms=us * 1e-3)
              for us, c, k in rows[:10]])
 
@@ -4278,6 +4557,8 @@ def main():
                  **refine_kernels(main_run, led_run))
             emit("dist_cg_kernels", ok=True, card=card, reps=KERNEL_REPS,
                  **dist_cg_kernels(main_run, led_run))
+            emit("normal_eq_kernels", ok=True, card=card, reps=KERNEL_REPS,
+                 **normal_eq_kernels(main_run, led_run))
             if "--profile" in sys.argv[1:]:
                 emit("profile_refine", card=card, **profile_refine(
                     main_run["pipe"].refiner))
@@ -4379,6 +4660,10 @@ def main():
         # ---- the distance block's solve against its plain version
         dist_facts = dist_cg_kernels(main_run, led_run)
         emit("dist_cg_kernels", ok=True, card=card, reps=KERNEL_REPS, **dist_facts)
+
+        # ---- the pose and light normal equations against their plain versions
+        normal_facts = normal_eq_kernels(main_run, led_run)
+        emit("normal_eq_kernels", ok=True, card=card, reps=KERNEL_REPS, **normal_facts)
 
         # ---- the command line on the files, a failure mid-refinement, retry
         emit("resume_refine", ok=True, card=card,
@@ -4488,7 +4773,36 @@ def main():
             "grid_sync_floor_ms as many grid.syncs"))}
     for name in DIST_KERNELS:
         check(refine_launches[name] > 0, f"{name} was never launched on its path")
+    # the normal equations: the main run's launches, the times on its final
+    # problem (SH1)
+    normal_cases = {(c["case"], "pose" if "model" in c else "light"): c
+                    for c in normal_facts["cases"]}
+    normal_rows = {
+        "pose_normal_eqs": dict(normal_cases["main SH1", "pose"], work=(
+            f"the main run's pose block at its final state: "
+            f"{normal_cases['main SH1', 'pose']['voxels']} surface-voxel slots x "
+            f"{normal_cases['main SH1', 'pose']['keyframes']} keyframes (two "
+            "launches: the tile pass and the reduction of its partials); the "
+            "bound counts g_img, p_cam, w and r read once (60 bytes a pair); "
+            "library_ms is the one einsum nfcb,nfcd->fbd over the weighted "
+            "pose Jacobian formed beforehand (its formation excluded)")),
+        "light_normal_eqs_sh": dict(normal_cases["main SH1", "light"], work=(
+            "the main run's SH1 light block at its final state (B = 4; two "
+            "launches a call, as the pose's); the bound counts w and r read "
+            "once (24 bytes a pair) and J_l once; library_ms is the one "
+            "[F, 3N] x [3N, B*B] product wf @ JJ, its operands formed "
+            "beforehand"))}
+    for name in NORMAL_EQ_KERNELS:
+        check(refine_launches[name] > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=NORMAL_EQ_KERNELS[name][0],
+             replaces=NORMAL_EQ_KERNELS[name][1],
+             launches=refine_launches[name],
+             max_abs_err=normal_rows[name]["max_abs_err"], ms=normal_rows[name]["ms"],
+             plain_ms=normal_rows[name]["plain_ms"],
+             bound_ms=normal_rows[name]["bound_ms"], bound_by="bytes",
+             library_ms=normal_rows[name]["library_ms"], work=normal_rows[name]["work"])
+        for name in NORMAL_EQ_KERNELS] + [
         dict(name=name, route="cuda", source=DIST_KERNELS[name][0],
              replaces=DIST_KERNELS[name][1], launches=refine_launches[name],
              max_abs_err=dist_rows[name]["max_abs_err"], ms=dist_rows[name]["ms"],

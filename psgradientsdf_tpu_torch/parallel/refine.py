@@ -59,7 +59,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from psgradientsdf_tpu_torch.config import LED
-from psgradientsdf_tpu_torch.ops import residual
+from psgradientsdf_tpu_torch.ops import normaleq, residual
 from psgradientsdf_tpu_torch.parallel import mesh as pm
 from psgradientsdf_tpu_torch.parallel.mesh import is_remote, local_map
 from psgradientsdf_tpu_torch.parallel.shard import (
@@ -333,7 +333,7 @@ def _light(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
                                              b.albedo, b.poses)
             return torch.stack(solvers.light_normal_eqs_led(r, J))
         J = jacobians.light_jacobian_sh(b.view, b.albedo, b.grad, order)
-        H, g = solvers.light_normal_eqs_sh(r, J)
+        H, g = normaleq.light_normal_eqs_sh(r, J)
         return b, torch.cat([H, g[..., None]], dim=-1)               # [F_j,B,B+1]
 
     parts = _each(rd.blocks, part)
@@ -349,8 +349,8 @@ def _light(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
 def _pose(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
           *, model, damping, **_):
     def part(k, j, b):
-        H, g = opt.pose_normal_eqs_chunked(rd.rd[k][j], b.K, b.poses, b.albedo,
-                                           b.grad, b.lights, model)
+        H, g = normaleq.pose_normal_eqs(rd.rd[k][j], b.K, b.poses, b.albedo,
+                                        b.grad, b.lights, model)
         return b, torch.cat([H, g[..., None]], dim=-1)                 # [F_j,6,7]
 
     Hg = _frame_sum(_each(rd.blocks, part))
@@ -458,8 +458,8 @@ def _joint_dp(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
     Jc, wm = {}, {}
 
     def pose_part(k, j, b):
-        Jc[k, j] = opt._pose_jacobian(DJ[k][j][0], rd.rd[k][j], b.poses, b.albedo,
-                                      b.grad, b.lights, model)
+        Jc[k, j] = normaleq.pose_jacobian(DJ[k][j][0], rd.rd[k][j], b.poses,
+                                          b.albedo, b.grad, b.lights, model)
         wm[k, j], H, g = solvers.joint_pose_terms(b.prob, rd.rd[k][j], Jc[k, j])
         return b, torch.cat([H, g[..., None]], dim=-1)
 

@@ -63,7 +63,7 @@ from psgradientsdf_tpu_torch.config import LED, OptimizerConfig
 from psgradientsdf_tpu_torch.core.grid import GridGeometry
 from psgradientsdf_tpu_torch.core.volume import GradSdfVolume
 from psgradientsdf_tpu_torch.io import ply, sdf_io, trajectory
-from psgradientsdf_tpu_torch.ops import distcg, residual
+from psgradientsdf_tpu_torch.ops import distcg, normaleq, residual
 from psgradientsdf_tpu_torch.ops.marching_cubes import extract_mesh_from_volume
 from psgradientsdf_tpu_torch.parallel import distributed
 from psgradientsdf_tpu_torch.refine import geometry, jacobians, render, solvers
@@ -112,7 +112,7 @@ def _light_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
         delta = solvers.solve_light_led(rd, J, damping)
     else:
         J = jacobians.light_jacobian_sh(prob, albedo, grad_stored, order)
-        delta = solvers.solve_light_sh(rd, J)
+        delta = solvers.solve_light_from_normal_eqs(*normaleq.light_normal_eqs_sh(rd, J))
     return lights - delta
 
 
@@ -135,51 +135,9 @@ def _dist_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
     return solvers.update_distance(prob, dist, delta, voxel_size)
 
 
-# above this many surface voxels the pose normal equations accumulate over
-# N-chunks, which bounds the [N,F,3,3] / [N,F,3,6] intermediates of the pose
-# Jacobian to the chunk size
-_POSE_CHUNK = 32768
-
-
-def _pose_jacobian(G, rd, poses, albedo, grad_stored, lights, model):
-    if model == LED:
-        return jacobians.pose_jacobian_led(G, rd, poses, albedo, grad_stored, lights)
-    return jacobians.pose_jacobian_sh(G, rd, poses)
-
-
-def _pose_normal_eqs(rd_chunk, K, poses, albedo_c, grad_c, lights, model):
-    """(H [F,6,6], g [F,6]) partial sums for one N-chunk."""
-    G = jacobians.image_pi_grad(rd_chunk, K)
-    J_c = _pose_jacobian(G, rd_chunk, poses, albedo_c, grad_c, lights, model)
-    return solvers.pose_normal_eqs(rd_chunk, J_c)
-
-
-def pose_normal_eqs_chunked(rd, K, poses, albedo, grad_stored, lights, model):
-    """(H [F,6,6], g [F,6]) of the pose block, summed over N-chunks of at
-    most _POSE_CHUNK rows where N is larger."""
-    N = rd.r.shape[0]
-    # largest power-of-two chunk <= _POSE_CHUNK dividing N (capacities are
-    # 2^k or 3*2^(k-1), so a pow2 divisor >= N/3 always exists)
-    chunk = _POSE_CHUNK
-    while chunk > 1 and N % chunk != 0:
-        chunk //= 2
-    if N > _POSE_CHUNK and chunk > 1:
-        H = g = None
-        for lo in range(0, N, chunk):
-            sl = slice(lo, lo + chunk)
-            Hc, gc = _pose_normal_eqs(
-                type(rd)(*(a[sl] for a in rd)), K, poses, albedo[sl],
-                grad_stored[sl], lights, model)
-            H = Hc if H is None else H + Hc
-            g = gc if g is None else g + gc
-    else:
-        H, g = _pose_normal_eqs(rd, K, poses, albedo, grad_stored, lights, model)
-    return H, g
-
-
 def _pose_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
                *, model, order, loss, lam, voxel_size, damping):
-    H, g = pose_normal_eqs_chunked(rd, K, poses, albedo, grad_stored, lights, model)
+    H, g = normaleq.pose_normal_eqs(rd, K, poses, albedo, grad_stored, lights, model)
     delta = solvers.solve_pose_from_normal_eqs(H, g, damping)
     return solvers.update_poses(poses, delta)
 
@@ -193,7 +151,7 @@ def _joint_dp_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
     G, DJ = residual.dist_jacobian(prob, geom, rd, dist, albedo, grad_stored,
                                    poses, K, lights, model=model, order=order,
                                    voxel_size=voxel_size, with_G=True)
-    J_c = _pose_jacobian(G, rd, poses, albedo, grad_stored, lights, model)
+    J_c = normaleq.pose_jacobian(G, rd, poses, albedo, grad_stored, lights, model)
     delta_d, delta_xi = solvers.solve_joint_dist_pose(
         prob, rd, DJ, J_c, dist, voxel_size,
         reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l, damping=damping,

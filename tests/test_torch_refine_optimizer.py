@@ -12,6 +12,7 @@ import torch
 import helpers_torch as ht
 from psgradientsdf_tpu.utils import robust
 from psgradientsdf_tpu.utils.metrics import MetricsLogger as JLogger
+from psgradientsdf_tpu_torch.ops import normaleq
 from psgradientsdf_tpu_torch.refine import optimizer as topt
 from psgradientsdf_tpu_torch.refine import render as trender
 
@@ -168,10 +169,10 @@ def test_pose_block_chunked_matches_full(sh1_scene, monkeypatch):
     N = ref.dist.shape[0]
     args = (ref.prob, ref.geom, rd, ref.dist, ref.albedo, ref.grad_stored, ref.poses,
             ref.K, ref.lights)
-    monkeypatch.setattr(topt, "_POSE_CHUNK", 1 << 30)          # the full path
+    monkeypatch.setattr(normaleq, "_POSE_CHUNK", 1 << 30)      # the full path
     full = topt._pose_core(*args, **ref._static_kwargs(), damping=1.0)
-    monkeypatch.setattr(topt, "_POSE_CHUNK", N // 4)           # four chunks
-    assert N % topt._POSE_CHUNK == 0 and N > topt._POSE_CHUNK
+    monkeypatch.setattr(normaleq, "_POSE_CHUNK", N // 4)       # four chunks
+    assert N % normaleq._POSE_CHUNK == 0 and N > normaleq._POSE_CHUNK
     chunked = topt._pose_core(*args, **ref._static_kwargs(), damping=1.0)
     assert not torch.equal(full, ref.poses)
     np.testing.assert_allclose(ht.t2n(chunked), ht.t2n(full), atol=1e-6)
