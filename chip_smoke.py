@@ -98,7 +98,10 @@ against their plain versions (H within NORMAL_EQ_TOL of each keyframe's
 max|H|, g within it of each keyframe's sum of |w r J|, two runs bit for
 bit) on the main run's problem (SH1, and SH2 lights), the LED run's pose and
 the edges (one and 33 keyframes, one voxel, the tile plus one, a masked
-keyframe, no counted pair), with their times.
+keyframe, no counted pair; 8 keyframes at one voxel and at the tile plus
+one, 33 keyframes from an unaligned row slice, 257 keyframes in two
+chunks) and three calls back to back, with their times; with --profile
+each traced pose or SH light block launches one kernel.
 
 With --kernels-only the run stops after the kernels and scan_kernels phases
 (build, checks and times of the kernels): a quick look at a changed kernel.
@@ -283,6 +286,10 @@ NORMAL_EQ_KERNELS = {
 # sum of |w r J| (the plain versions sum in float32 in cuBLAS's order, the
 # kernels in short float runs, then in double)
 NORMAL_EQ_TOL = 1e-5
+# normal_eq_kernels: the edge past one keyframe chunk (csrc/normaleq.cu cuts
+# F above 256 into chunks), on this many of the main problem's voxels
+EDGE_CHUNK_F = 257
+EDGE_CHUNK_ROWS = 4096
 # everything the run builds: the CUDA kernels (nvcc) and the host libraries
 # of the PNG decoder and of the exports (g++), all started together
 LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "normaleq", "png_unfilter",
@@ -2520,8 +2527,7 @@ def _ptxas(src):
                                ("pose_tiles_kernel<sh>", "pose_tiles_kernelILb0E"),
                                ("pose_tiles_kernel<led>", "pose_tiles_kernelILb1E"),
                                ("light_tiles_kernel<4>", "light_tiles_kernelILi4E"),
-                               ("light_tiles_kernel<9>", "light_tiles_kernelILi9E"),
-                               ("normaleq_reduce_kernel", "normaleq_reduce_kernel")):
+                               ("light_tiles_kernel<9>", "light_tiles_kernelILi9E")):
                 if pat in name:
                     name = short
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -2774,10 +2780,14 @@ def _held_normal_eqs(what, got, again, want, g_scale):
                 zero_keyframes=int((h_scale == 0).sum()))
 
 
-def _plan_facts(N, F):
+def _plan_facts(N, F, dim, led=False):
+    """The normal-equation kernel's plan on the card (on a rehearsal, for an
+    H100's 15 clusters of 8 blocks)."""
+    import torch
     from psgradientsdf_tpu_torch.ops import normaleq as NE
 
-    plan = NE._reduce_plan(N, F, _sm_count() if DEVICE == "cuda" else 132)
+    plan = (NE.reduce_plan(torch.device("cuda", 0), N, F, dim, led) if DEVICE == "cuda"
+            else NE._reduce_plan(N, F, dim, led, 15))
     return dict(plan._asdict(), blocks=plan.tiles * plan.chunks)
 
 
@@ -2798,7 +2808,7 @@ def _pose_case(what, rd, pargs, model, flush, timed=False):
         what, NE.pose_normal_eqs(rd, *pargs, model), NE.pose_normal_eqs(rd, *pargs, model),
         NE.pose_normal_eqs_plain(rd, *pargs, model), g_scale)
     N, F = rd.w.shape[0], rd.w.shape[1]
-    out.update(model=model, voxels=N, pairs=N * F, plan=_plan_facts(N, F))
+    out.update(model=model, voxels=N, pairs=N * F, plan=_plan_facts(N, F, 6, model == "LED"))
     if timed and DEVICE == "cuda":
         # g_img, p_cam, w and r read (60 bytes a pair), poses and K, under
         # the LED the voxels' albedo and gradient (24 bytes) and the light;
@@ -2830,7 +2840,7 @@ def _light_case(what, rd, J, flush, timed=False):
                            NE.light_normal_eqs_sh(rd, J),
                            solvers.light_normal_eqs_sh(rd, J), g_scale)
     N, F, B = rd.w.shape[0], rd.w.shape[1], J.shape[-1]
-    out.update(basis=B, voxels=N, pairs=N * F, plan=_plan_facts(N, F))
+    out.update(basis=B, voxels=N, pairs=N * F, plan=_plan_facts(N, F, B))
     if timed and DEVICE == "cuda":
         # w and r read (24 bytes a pair), J_l [N,3,B] once; H and g written
         nbytes = N * F * 24 + N * 12 * B + F * (B * B + B) * 4
@@ -2845,6 +2855,26 @@ def _light_case(what, rd, J, flush, timed=False):
     return out
 
 
+def _back_to_back(rd, pargs, J):
+    """Three calls on one stream with no wait between (pose, light, pose),
+    each bit for bit against its own earlier run: a call that left its
+    ticket set would elect no last block, or the wrong one, in the next."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import normaleq as NE
+
+    pose = NE.pose_normal_eqs(rd, *pargs, "SH1")
+    _sync()
+    light = NE.light_normal_eqs_sh(rd, J)
+    _sync()
+    runs = (NE.pose_normal_eqs(rd, *pargs, "SH1"), NE.light_normal_eqs_sh(rd, J),
+            NE.pose_normal_eqs(rd, *pargs, "SH1"))
+    _sync()
+    for got, want, what in zip(runs, (pose, light, pose), ("pose", "light", "pose again")):
+        check(all(bool(torch.equal(a, b)) for a, b in zip(got, want)),
+              f"back to back: the {what} call differs from its first run")
+    return dict(case="back to back: pose, light, pose", calls=3, bit_identical_runs=True)
+
+
 def normal_eq_kernels(main_run, led_run):
     """The refinement's normal-equation kernels (csrc/normaleq.cu) against
     their plain versions on the card, at the main path's shapes: H within
@@ -2857,7 +2887,14 @@ def normal_eq_kernels(main_run, led_run):
     (c) the LED run's problem after the upsample: the pose;
     (d) the edges, on the main problem: one keyframe, 33 keyframes, one
         voxel with a counted pair, the main plan's tile of voxels plus one,
-        a keyframe with every pair masked, no counted pair (H = g = 0).
+        a keyframe with every pair masked, no counted pair (H = g = 0);
+        and on the plan's: 8 keyframes at one voxel and at the 8-keyframe
+        plan's tile plus one (the LED problem's pose, the main problem's
+        first 8 keyframes' light), 33 keyframes from a row slice whose base
+        is not 16-byte aligned (the producer's ragged heads), 257
+        keyframes (two chunks: one span a voxel row);
+    (e) three calls back to back on one stream (pose, light, pose), each
+        bit for bit against its first run (a ticket left set shows).
     Timed (median of KERNEL_REPS, L2 flushed): (a) and (c), and (b)'s
     light.  Then each kernel's registers (nvcc -Xptxas -v).  Launches made
     here are on no path.  -> facts."""
@@ -2885,14 +2922,12 @@ def normal_eq_kernels(main_run, led_run):
     led = led_run["pipe"].refiner
     largs, lkw = led._args(), led._static_kwargs()
     lrd = RS.residual_pass(*largs, **lkw)
-    cases.append(_pose_case("LED after the upsample", lrd,
-                            (largs[7], largs[5], largs[3], largs[4], largs[8]),
-                            "LED", flush, timed=True))
-    del lrd
+    lpargs = (largs[7], largs[5], largs[3], largs[4], largs[8])
+    cases.append(_pose_case("LED after the upsample", lrd, lpargs, "LED", flush, timed=True))
     N, F = rd.w.shape[0], rd.w.shape[1]
     rows = torch.nonzero(prob.valid)[:, 0]
     row = int(rows[len(rows) // 2])
-    tile = _plan_facts(N, F)["voxels"]
+    tile = _plan_facts(N, F, 6)["voxels"]
     one_row = torch.zeros((N, F), dtype=torch.bool, device=rd.w.device)
     one_row[row] = rd.mask[row]
     masked = torch.ones((N, F), dtype=torch.bool, device=rd.w.device)
@@ -2909,11 +2944,43 @@ def normal_eq_kernels(main_run, led_run):
         ("keyframe 3 masked", _rd_weighted(rd, masked), slice(None), slice(None)),
         ("no counted pair", _rd_weighted(rd, torch.zeros_like(masked)), slice(None),
          slice(None))]
+    # a row slice of 33 keyframes that starts one voxel in: its w, r and
+    # p_cam start 12 bytes past a 16-byte boundary
+    odd = type(rd)(*(t[1:] for t in _rd_frames(rd, slice(0, EDGE_ODD_F))))
+    check(odd.w.data_ptr() % 16 != 0, "the row slice's base is 16-byte aligned")
+    edges.append((f"{EDGE_ODD_F} keyframes from an unaligned row slice", odd,
+                  slice(0, EDGE_ODD_F), slice(1, None)))
+    # 257 keyframes (the main run's, repeated) on EDGE_CHUNK_ROWS voxels
+    many = torch.arange(EDGE_CHUNK_F, device=rd.w.device) % F
+    vr = slice(lo, lo + EDGE_CHUNK_ROWS)
+    edges.append((f"{EDGE_CHUNK_F} keyframes (two chunks), {EDGE_CHUNK_ROWS} voxels",
+                  _rd_frames(_rd_rows(rd, vr), many), many, vr))
     for what, erd, fr, vr in edges:
         eargs = (K, poses[fr].contiguous(), albedo[vr].contiguous(),
                  grad[vr].contiguous(), lights[fr].contiguous())
         cases.append(_pose_case(what, erd, eargs, "SH1", flush))
         cases.append(_light_case(what, erd, J4[vr].contiguous(), flush))
+    # 8 keyframes: the LED pose and the main problem's first 8 keyframes'
+    # light, at one voxel and at their plans' tile of voxels + 1
+    LN, LF = lrd.w.shape[0], lrd.w.shape[1]
+    lrows = torch.nonzero(largs[0].valid)[:, 0]
+    lrow = int(lrows[len(lrows) // 2])
+    ltile = _plan_facts(LN, LF, 6, True)["voxels"]
+    llo = max(0, min(LN // 2, LN - ltile - 1))
+    for what, vr in ((f"{LF} keyframes, one voxel", slice(lrow, lrow + 1)),
+                     (f"{LF} keyframes, the LED tile of voxels + 1 ({ltile + 1})",
+                      slice(llo, llo + ltile + 1))):
+        cases.append(_pose_case(what, _rd_rows(lrd, vr), (
+            lpargs[0], lpargs[1], lpargs[2][vr].contiguous(), lpargs[3][vr].contiguous(),
+            lpargs[4]), "LED", flush))
+    rd8 = _rd_frames(rd, slice(0, LF))
+    tile8 = _plan_facts(N, LF, 4)["voxels"]
+    for what, vr in ((f"{LF} keyframes, one voxel", slice(row, row + 1)),
+                     (f"{LF} keyframes, the light's tile of voxels + 1 ({tile8 + 1})",
+                      slice(lo, lo + tile8 + 1))):
+        cases.append(_light_case(what, _rd_rows(rd8, vr), J4[vr].contiguous(), flush))
+    del lrd, rd8
+    cases.append(_back_to_back(rd, pargs, J4))
     zero = [c for c in cases if c["case"] == "no counted pair"]
     check(all(c["zero_keyframes"] == F for c in zero),
           "no counted pair: a keyframe's H is not 0")
@@ -3801,8 +3868,8 @@ def profile_refine(ref):
     ended in -> the card's busy share of them, device operations (kernels,
     copies, fills), device time and the host's CUDA runtime calls per
     iteration, the operations by device time and the GEMM kernels (the
-    normal equations run none: their blocks call their kernels once each,
-    and no plain normal equations run on the card)."""
+    normal equations run none: their blocks call their kernel once each, one
+    launch a call, and no plain normal equations run on the card)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3819,6 +3886,14 @@ def profile_refine(ref):
     check(calls["plain_normal_eqs_on_card"] == 0,
           "plain normal equations ran on the card in the traced iterations")
     rows = sorted(_kernel_rows(prof), reverse=True)
+    # a pose or SH light block launches ONE normal-equation kernel
+    for name, kernel in (("pose_normal_eqs", "pose_tiles_kernel"),
+                         ("light_normal_eqs_sh", "light_tiles_kernel")):
+        launched = sum(r[1] for r in rows if kernel in r[2])
+        check(launched == calls[name],
+              f"{kernel}: {launched} launches for {calls[name]} {name} calls")
+    check(not any("normaleq_reduce_kernel" in r[2] for r in rows),
+          "a normaleq_reduce_kernel ran in the traced iterations")
     runtime = sum(e.count for e in prof.key_averages()
                   if not str(e.device_type).endswith("CUDA"))
     busy = sum(r[0] for r in rows) * 1e-6
@@ -4781,14 +4856,15 @@ def main():
         "pose_normal_eqs": dict(normal_cases["main SH1", "pose"], work=(
             f"the main run's pose block at its final state: "
             f"{normal_cases['main SH1', 'pose']['voxels']} surface-voxel slots x "
-            f"{normal_cases['main SH1', 'pose']['keyframes']} keyframes (two "
-            "launches: the tile pass and the reduction of its partials); the "
+            f"{normal_cases['main SH1', 'pose']['keyframes']} keyframes (one "
+            "launch: the tiles staged by bulk copies, their sums added in "
+            "clusters, then by the last blocks); the "
             "bound counts g_img, p_cam, w and r read once (60 bytes a pair); "
             "library_ms is the one einsum nfcb,nfcd->fbd over the weighted "
             "pose Jacobian formed beforehand (its formation excluded)")),
         "light_normal_eqs_sh": dict(normal_cases["main SH1", "light"], work=(
-            "the main run's SH1 light block at its final state (B = 4; two "
-            "launches a call, as the pose's); the bound counts w and r read "
+            "the main run's SH1 light block at its final state (B = 4; one "
+            "launch a call, as the pose's); the bound counts w and r read "
             "once (24 bytes a pair) and J_l once; library_ms is the one "
             "[F, 3N] x [3N, B*B] product wf @ JJ, its operands formed "
             "beforehand"))}

@@ -21,22 +21,26 @@ The plain versions are the port's eager chains: pose_normal_eqs_plain forms
 the pose Jacobian [n,F,3,6] of N-chunks of at most _POSE_CHUNK voxels and
 sums their products (solvers.pose_normal_eqs); the light's is
 solvers.light_normal_eqs_sh, one [F,3N] x [3N,B*B] product.  The kernels
-form each pair's Jacobian row in registers and store no [N,F,...] tensor;
-they sum the plain versions' float products in a fixed order (a thread's
-run of at most LANE_VOXELS voxels in float, then its tile's lanes and the
-tiles' partials in double; the tiles of consecutive voxels x keyframes
-planned here by _reduce_plan), so they agree with the plain versions to
-float32 rounding of the sums and give the same bits on every run.
+stage their inputs into shared memory by bulk copies, form each pair's
+Jacobian row in registers and store no [N,F,...] tensor; they sum the
+products in a fixed order (a thread's runs of at most LANE_VOXELS voxels in
+float, then in double its runs, its tile's lanes, a cluster's tiles and the
+clusters; the plan of tiles, stages and clusters made here by
+_reduce_plan), so they agree with the plain versions to float32 rounding of
+the sums and give the same bits on every run.
 
-A call on the card is two launches: the tile pass and the reduction of its
-partials.  A wrapper takes the plain version ONLY for tensors that lie on
-the CPU; for CUDA tensors it launches the kernels or raises.
-`launch_counts` counts the calls that launched them, and nothing else.
+A call on the card is ONE launch: the last blocks of the launch, elected by
+integer tickets (one buffer a device and stream, left at 0 by each call),
+add the tiles' partials.  A wrapper takes the plain version ONLY for
+tensors that lie on the CPU; for CUDA tensors it launches the kernel or
+raises.  `launch_counts` counts the calls that launched it, and nothing
+else.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -101,19 +105,33 @@ def pose_normal_eqs_plain(rd, K, poses, albedo, grad_stored, lights, model):
 
 
 # ---------------------------------------------------------------------------
-# the plan of the tile pass
+# the host plan
 # ---------------------------------------------------------------------------
 
-THREADS = 256            # csrc/normaleq.cu kThreads
-REDUCE_THREADS = 1024    # csrc/normaleq.cu kReduceThreads
-POSE_TERMS = 27          # csrc/normaleq.cu kPoseTerms: H's 21 upper entries, g's 6
-# tiles a card's SM takes at once: two blocks of 256 threads fit an SM (55
-# KB of the pose's shared memory and at most 128 registers a thread each),
-# so the tile pass of the main path is one wave
-BLOCKS_PER_SM = 2
-# voxels a lane adds at most: a thread sums its 3 x LANE_VOXELS products of
-# an entry in float before its lanes' sums are added in double
+THREADS = 256            # csrc/normaleq.cu kConsumers: the column x lane threads
+POSE_TERMS = 27          # csrc/normaleq.cu kPoseTerms: a pose system's sums (H 21, g 6)
+# voxels a thread's float run holds at most: a thread sums its 3 x
+# LANE_VOXELS products of an entry in float, then adds the run in double
 LANE_VOXELS = 32
+# a thread keeps its double sums in registers where a block's system has at
+# most this many (the pose's, the B = 4 light's), else in shared memory
+REGISTER_TERMS = 27
+# tiles and stages are multiples of this many voxels: 4 rows of a [N,F,3]
+# float array are 48 F bytes, so an aligned base gives 16-byte-aligned spans
+UNIT_VOXELS = 4
+CLUSTER = 8              # blocks a cluster at most (csrc kMaxCluster, the portable limit)
+# the ring: a stage holds at most THREAD_VOXELS voxels a lane (fewer make
+# the consumers wait at more stage boundaries), a tile at least
+# MIN_TILE_STAGES stages (a short tile's first stage comes sooner), where
+# the unit allows; at most STAGES buffers, at least 2 (measured on an H100:
+# PERF.md, tools/normaleq_ab.py)
+THREAD_VOXELS = 6
+MIN_TILE_STAGES = 6
+STAGES = 4
+SMEM_BLOCK = 232448      # an H100 block's shared memory, at most
+ALIGN = 16               # a bulk copy's alignment of address and size
+# csrc/normaleq.cu normaleq_active_clusters: the kernel of each block
+KERNEL_IDS = {(6, False): 0, (6, True): 1, (4, False): 2, (9, False): 3}
 
 
 def terms(dim: int) -> int:
@@ -121,44 +139,137 @@ def terms(dim: int) -> int:
     return dim * (dim + 1) // 2 + dim
 
 
-class ReducePlan(NamedTuple):
-    """csrc/normaleq.cu ReducePlan: block (tile, chunk) takes voxels [tile V,
-    (tile + 1) V) x keyframes [chunk FB, (chunk + 1) FB), FB keyframe columns
-    x R voxel lanes of threads; a lane adds the voxels lane, lane + R, ...
-    of its tile."""
+def columns(F: int) -> Tuple[int, int, int]:
+    """(FB, R, chunks): a block's keyframe columns, its voxel lanes and the
+    keyframe chunks.  Under 32 keyframes the columns are the next power of
+    two (a warp then holds 32 / FB whole lanes, added by shuffles; the
+    columns past F idle), else min(F, THREADS)."""
+    if F < 1:
+        raise ValueError(f"no plan for F = {F}")
+    FB = 1 << (F - 1).bit_length() if F < 32 else min(F, THREADS)
+    return FB, THREADS // FB, -(-F // FB)
+
+
+def staged_arrays(dim: int, led: bool) -> Tuple[Tuple[int, bool], ...]:
+    """(bytes a pair, or a voxel; is a pair array) of each staged input in
+    the kernel's order: the pose's g_img, p_cam, w, r (and the LED's albedo
+    and stored gradient); the light's w, r and J_l [N,3,B]."""
+    if dim == 6:
+        return ((24, True), (12, True), (12, True), (12, True)) + (
+            ((12, False), (12, False)) if led else ())
+    return ((12, True), (12, True), (12 * dim, False))
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _region(eb: int, pair: bool, F: int, FB: int, SV: int, rows: bool) -> Tuple[int, int]:
+    """(bytes, pitch) of an array's region in a buffer of SV voxels: a span
+    sits at its address modulo 16, so a region holds ALIGN bytes more than
+    its span; a voxel row of the chunk's pairs a span (rows) has its own
+    16-byte-aligned row of the region."""
+    if pair and rows:
+        pitch = _round_up(FB * eb, ALIGN) + ALIGN
+        return SV * pitch, pitch
+    pitch = F * eb if pair else eb
+    return _round_up(SV * pitch, ALIGN) + ALIGN, pitch
+
+
+class NormalEqPlan(NamedTuple):
+    """csrc/normaleq.cu NormalEqPlan.  Block (tile, chunk) takes voxels
+    [tile V, (tile + 1) V) x keyframes [chunk FB, (chunk + 1) FB), FB
+    keyframe columns x R voxel lanes of threads; its producer warp stages
+    the tile's inputs `stage_voxels` at a time into a ring of `stages`
+    buffers of `stage_bytes` (each array's region at `offset`, its voxel
+    rows `pitch` apart); blocks are grouped in clusters of `cluster` along
+    the tiles.  Dynamic shared memory: the sums [S][THREADS] in double at 0,
+    the ring at `ring` (0 where the threads keep their sums in registers:
+    the sums take the ring's place after the loop), two barriers a buffer
+    and a flag at `barriers`; `smem` in all."""
     frames: int          # FB
     lanes: int           # R
     chunks: int          # ceil(F / FB)
-    voxels: int          # V, a multiple of R
-    tiles: int           # ceil(N / V), at least 1
+    voxels: int          # V, a multiple of lcm(UNIT_VOXELS, R)
+    tiles: int           # a multiple of cluster
+    cluster: int         # a power of two, at most CLUSTER
+    stage_voxels: int    # a multiple of lcm(UNIT_VOXELS, R)
+    stages: int
+    rows: int            # 1 where F is cut into chunks
+    stage_bytes: int
+    ring: int
+    barriers: int
+    smem: int
+    offset: Tuple[int, ...]   # 6 (unused: 0)
+    pitch: Tuple[int, ...]
 
 
-def _reduce_plan(N: int, F: int, sms: int) -> ReducePlan:
-    """The tile pass's plan for N voxels x F keyframes on a card of `sms`
-    SMs: all F keyframes a block where F <= THREADS (else chunks of THREADS,
-    one lane), as many voxel lanes as the block's threads hold, and tiles of
-    an equal share of the voxels for BLOCKS_PER_SM blocks an SM (at least a
-    voxel a lane, at most LANE_VOXELS)."""
-    if N < 0 or F < 1 or sms < 1:
-        raise ValueError(f"no plan for N = {N}, F = {F}, {sms} SMs")
-    FB = min(F, THREADS)
-    R = THREADS // FB
-    C = -(-F // FB)
-    want = max(1, -(-BLOCKS_PER_SM * sms // C))
-    V = min(max(R, -(-N // want)), R * LANE_VOXELS)
-    V = -(-V // R) * R
-    return ReducePlan(FB, R, C, V, max(1, -(-N // V)))
+def _layout(F: int, dim: int, led: bool, SV: int) -> Tuple[int, list, list]:
+    """(bytes, offsets, pitches) of a buffer of SV voxels: the staged arrays'
+    regions one after the other."""
+    FB, _, C = columns(F)
+    offsets, pitches, at = [], [], 0
+    for eb, pair in staged_arrays(dim, led):
+        size, pitch = _region(eb, pair, F, FB, SV, C > 1)
+        offsets.append(at)
+        pitches.append(pitch)
+        at += size
+    return at, offsets, pitches
 
 
-_sms: Dict[int, int] = {}
+def _reduce_plan(N: int, F: int, dim: int, led: bool, clusters: int) -> NormalEqPlan:
+    """The plan for N voxels x F keyframes of a dim x dim system on a card
+    that holds `clusters` clusters of CLUSTER blocks at once: tiles of an
+    equal share of the voxels (a multiple of the unit lcm(UNIT_VOXELS, R),
+    at least one) for one wave of those clusters, the chunks sharing them;
+    clusters of the largest power of two of blocks within CLUSTER and the
+    tiles; the largest stage (a multiple of the unit) within the ring's
+    limits and half its room, and as many buffers as fit, at most STAGES."""
+    if N < 0 or clusters < 1:
+        raise ValueError(f"no plan for N = {N} on {clusters} clusters")
+    FB, R, C = columns(F)
+    unit = math.lcm(UNIT_VOXELS, R)
+    slots = max(1, clusters // C) * CLUSTER
+    V = max(unit, _round_up(-(-N // slots), unit))
+    tiles = max(1, -(-N // V))
+    Q = 1 << (min(CLUSTER, tiles).bit_length() - 1)
+    sums = 8 * terms(dim) * THREADS
+    ring = 0 if terms(dim) <= REGISTER_TERMS else sums
+    room = SMEM_BLOCK - ring - 16 * STAGES - ALIGN
+    cap = max(unit, min(V // MIN_TILE_STAGES, R * THREAD_VOXELS) // unit * unit)
+    SV = unit
+    while SV + unit <= cap and _layout(F, dim, led, SV + unit)[0] <= room // 2:
+        SV += unit
+    stage_bytes, offsets, pitches = _layout(F, dim, led, SV)
+    D = min(STAGES, room // stage_bytes)
+    if D < 2:
+        raise ValueError(f"no ring of two stages for F = {F}, dim = {dim}")
+    pad = (0,) * (6 - len(offsets))
+    barriers = max(ring + D * stage_bytes, sums)
+    return NormalEqPlan(FB, R, C, V, _round_up(tiles, Q), Q, SV, D, int(C > 1),
+                        stage_bytes, ring, barriers, barriers + 16 * D + ALIGN,
+                        tuple(offsets) + pad, tuple(pitches) + pad)
 
 
-def reduce_plan(dev: torch.device, N: int, F: int) -> ReducePlan:
-    """_reduce_plan on `dev`'s SMs."""
-    sms = _sms.get(dev.index)
-    if sms is None:
-        sms = _sms[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _reduce_plan(N, F, sms)
+_clusters: Dict[Tuple[int, int], int] = {}
+
+
+def reduce_plan(dev: torch.device, N: int, F: int, dim: int, led: bool) -> NormalEqPlan:
+    """_reduce_plan on `dev`: the clusters of the block's kernel that fit at
+    once with a block's whole shared memory (one block an SM; a plan's
+    smaller blocks fit as many), asked of the runtime once a kernel."""
+    kernel = KERNEL_IDS[dim, led]
+    key = (dev.index, kernel)
+    if key not in _clusters:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = _library().normaleq_active_clusters(kernel, SMEM_BLOCK, CLUSTER,
+                                                     ctypes.byref(out))
+        if rc != 0 or out.value < 1:
+            raise RuntimeError(f"normaleq: no cluster of {CLUSTER} blocks fits "
+                               f"(CUDA error {rc})")
+        _clusters[key] = out.value
+    return _reduce_plan(N, F, dim, led, _clusters[key])
 
 
 # ---------------------------------------------------------------------------
@@ -166,8 +277,14 @@ def reduce_plan(dev: torch.device, N: int, F: int) -> ReducePlan:
 # ---------------------------------------------------------------------------
 
 
-class _ReducePlan(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_int64) for n in ReducePlan._fields]
+class _Plan(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_int64) for n in NormalEqPlan._fields[:-2]]
+                + [("offset", ctypes.c_int64 * 6), ("pitch", ctypes.c_int64 * 6)])
+
+
+def _c_plan(plan: NormalEqPlan) -> _Plan:
+    six = ctypes.c_int64 * 6
+    return _Plan(*plan[:-2], six(*plan.offset), six(*plan.pitch))
 
 
 class _PoseArgs(ctypes.Structure):
@@ -175,17 +292,17 @@ class _PoseArgs(ctypes.Structure):
     _fields_ = (
         [(n, ctypes.c_void_p) for n in
          ("g_img", "p_cam", "w", "r", "poses", "K", "albedo", "grad", "light",
-          "partial", "H", "g")]
+          "partial", "tickets", "H", "g")]
         + [(n, ctypes.c_int64) for n in ("n", "f", "led")]
-        + [("plan", _ReducePlan)])
+        + [("plan", _Plan)])
 
 
 class _LightArgs(ctypes.Structure):
     """csrc/normaleq.cu LightArgs, field for field (every field 8 bytes)."""
     _fields_ = (
-        [(n, ctypes.c_void_p) for n in ("w", "r", "J", "partial", "H", "g")]
+        [(n, ctypes.c_void_p) for n in ("w", "r", "J", "partial", "tickets", "H", "g")]
         + [(n, ctypes.c_int64) for n in ("n", "f", "basis")]
-        + [("plan", _ReducePlan)])
+        + [("plan", _Plan)])
 
 
 def _check(what: str, dev, named) -> None:
@@ -202,17 +319,24 @@ def _check(what: str, dev, named) -> None:
 _bound = None
 
 
+def _bind(lib):
+    """The C entry points' argument and result types set on `lib`."""
+    lib.pose_normal_eqs.argtypes = [ctypes.POINTER(_PoseArgs), ctypes.c_void_p]
+    lib.pose_normal_eqs.restype = ctypes.c_int
+    lib.light_normal_eqs_sh.argtypes = [ctypes.POINTER(_LightArgs), ctypes.c_void_p]
+    lib.light_normal_eqs_sh.restype = ctypes.c_int
+    lib.normaleq_active_clusters.argtypes = [
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.normaleq_active_clusters.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _bound
     if _bound is None:
         from psgradientsdf_tpu_torch.kernels import load_library
 
-        lib = load_library(_LIB_NAME)
-        lib.pose_normal_eqs.argtypes = [ctypes.POINTER(_PoseArgs), ctypes.c_void_p]
-        lib.pose_normal_eqs.restype = ctypes.c_int
-        lib.light_normal_eqs_sh.argtypes = [ctypes.POINTER(_LightArgs), ctypes.c_void_p]
-        lib.light_normal_eqs_sh.restype = ctypes.c_int
-        _bound = lib
+        _bound = _bind(load_library(_LIB_NAME))
     return _bound
 
 
@@ -225,12 +349,29 @@ def _launch(name: str, args, dev) -> None:
     launch_counts[name] += 1
 
 
+# the tickets of the last blocks, one buffer a device and stream: zeroed
+# once when made, each call's last blocks leave theirs at 0 again
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets_for(dev, plan: NormalEqPlan) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    need = plan.chunks * plan.cluster
+    t = _tickets.get(key)
+    if t is None or t.numel() < need:
+        t = _tickets[key] = torch.zeros(max(64, need), dtype=torch.int32, device=dev)
+    return t
+
+
 def _outputs(dev, F, dim, plan):
-    """(partials [tiles, F, S] float64, H [F,dim,dim], g [F,dim])."""
-    partial = torch.empty((plan.tiles, F, terms(dim)), dtype=torch.float64, device=dev)
+    """(partials [chunks, clusters, S, FB] float64, tickets, H [F,dim,dim],
+    g [F,dim])."""
+    partial = torch.empty(
+        plan.chunks * (plan.tiles // plan.cluster) * terms(dim) * plan.frames,
+        dtype=torch.float64, device=dev)
     H = torch.empty((F, dim, dim), dtype=torch.float32, device=dev)
     g = torch.empty((F, dim), dtype=torch.float32, device=dev)
-    return partial, H, g
+    return partial, _tickets_for(dev, plan), H, g
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +383,7 @@ def pose_normal_eqs(rd: ResidualData, K, poses, albedo, grad_stored, lights,
                     model: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """(H [F,6,6], g [F,6]) of the pose block from the residual pass rd
     (g_img, p_cam, w, r) at the state (poses; under the LED also albedo,
-    grad_stored and the light [3]): one call of the kernels on CUDA
+    grad_stored and the light [3]): one launch of the kernel on CUDA
     tensors, pose_normal_eqs_plain on CPU tensors."""
     w = rd.w
     if w.device.type == "cpu":
@@ -260,8 +401,12 @@ def pose_normal_eqs(rd: ResidualData, K, poses, albedo, grad_stored, lights,
                     "lights": (lights.contiguous(), (3,))})
     _check("pose_normal_eqs", dev,
            [(name, t, shape, f32) for name, (t, shape) in ins.items()])
-    plan = reduce_plan(dev, N, F)
-    partial, H, g = _outputs(dev, F, 6, plan)
+    # the kernel reads g_img's (u, v) pairs as 8-byte words; the other
+    # arrays' bases may lie anywhere (the producer loads the ragged ends)
+    if rd.g_img.data_ptr() % 8:
+        raise ValueError("pose_normal_eqs: rd.g_img must start on an 8-byte boundary")
+    plan = reduce_plan(dev, N, F, 6, led)
+    partial, tickets, H, g = _outputs(dev, F, 6, plan)
     a = _PoseArgs()
     a.g_img, a.p_cam, a.w, a.r = (rd.g_img.data_ptr(), rd.p_cam.data_ptr(),
                                   w.data_ptr(), rd.r.data_ptr())
@@ -270,9 +415,10 @@ def pose_normal_eqs(rd: ResidualData, K, poses, albedo, grad_stored, lights,
         a.albedo = ins["albedo"][0].data_ptr()
         a.grad = ins["grad_stored"][0].data_ptr()
         a.light = ins["lights"][0].data_ptr()
-    a.partial, a.H, a.g = partial.data_ptr(), H.data_ptr(), g.data_ptr()
+    a.partial, a.tickets = partial.data_ptr(), tickets.data_ptr()
+    a.H, a.g = H.data_ptr(), g.data_ptr()
     a.n, a.f, a.led = N, F, int(led)
-    a.plan = _ReducePlan(*plan)
+    a.plan = _c_plan(plan)
     _launch("pose_normal_eqs", a, dev)
     return H, g
 
@@ -280,8 +426,8 @@ def pose_normal_eqs(rd: ResidualData, K, poses, albedo, grad_stored, lights,
 def light_normal_eqs_sh(rd: ResidualData, J_l: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(H [F,B,B], g [F,B]) of the SH light block from the residual pass rd
-    (w, r) and the frame-independent light Jacobian J_l [N,3,B]: one call of
-    the kernels on CUDA tensors, solvers.light_normal_eqs_sh on CPU
+    (w, r) and the frame-independent light Jacobian J_l [N,3,B]: one launch
+    of the kernel on CUDA tensors, solvers.light_normal_eqs_sh on CPU
     tensors."""
     w = rd.w
     if w.device.type == "cpu":
@@ -295,12 +441,13 @@ def light_normal_eqs_sh(rd: ResidualData, J_l: torch.Tensor
     _check("light_normal_eqs_sh", dev,
            [("rd.w", w, (N, F, 3), f32), ("rd.r", rd.r, (N, F, 3), f32),
             ("J_l", J_l, (N, 3, B), f32)])
-    plan = reduce_plan(dev, N, F)
-    partial, H, g = _outputs(dev, F, B, plan)
+    plan = reduce_plan(dev, N, F, B, False)
+    partial, tickets, H, g = _outputs(dev, F, B, plan)
     a = _LightArgs()
     a.w, a.r, a.J = w.data_ptr(), rd.r.data_ptr(), J_l.data_ptr()
-    a.partial, a.H, a.g = partial.data_ptr(), H.data_ptr(), g.data_ptr()
+    a.partial, a.tickets = partial.data_ptr(), tickets.data_ptr()
+    a.H, a.g = H.data_ptr(), g.data_ptr()
     a.n, a.f, a.basis = N, F, B
-    a.plan = _ReducePlan(*plan)
+    a.plan = _c_plan(plan)
     _launch("light_normal_eqs_sh", a, dev)
     return H, g
