@@ -103,12 +103,26 @@ one, 33 keyframes from an unaligned row slice, 257 keyframes in two
 chunks) and three calls back to back, with their times; with --profile
 each traced pose or SH light block launches one kernel.
 
+The albedo block's two kernels (its system formed per pair and its whole
+CG with the accept rule, csrc/albedo.cu) are held the same way: phases
+refine and refine_led_upsample check that every albedo block of those runs
+launched each once and ran no plain albedo solve on the card, and phase
+albedo_kernels holds the system bit for bit and the CG against the plain
+solve (its steps, delta within ALBEDO_CG_TOL, the new albedo equal to
+update_albedo on the kernel's delta bit for bit) on the main run's final
+block (both stop rules), with SH2 lights, on the LED run's block, with the
+regularizer on (both rules) and on the edges (one row, a row cut from its
+neighbours, no valid row, four copies of the main system, the first row
+count past the shared-memory tile), times both, and traces one albedo block,
+which must launch exactly the two kernels, no index_add_ and no
+device-to-host copy.
+
 With --kernels-only the run stops after the kernels and scan_kernels phases
 (build, checks and times of the kernels): a quick look at a changed kernel.
 It drives no path, so it prints no final "ok" line and exits with 3.
 With --refine-only it runs the main run and phases refine,
-refine_led_upsample, refine_kernels, dist_cg_kernels and normal_eq_kernels
-only (with --profile also the refinement's traces), and exits with 3 the
+refine_led_upsample, refine_kernels, dist_cg_kernels, normal_eq_kernels and
+albedo_kernels only (with --profile also the refinement's traces), and exits with 3 the
 same way:
 the quick look at the refinement's kernels.
 With --distributed-only it runs those phases, then phase `distributed`
@@ -286,14 +300,30 @@ NORMAL_EQ_KERNELS = {
 # sum of |w r J| (the plain versions sum in float32 in cuBLAS's order, the
 # kernels in short float runs, then in double)
 NORMAL_EQ_TOL = 1e-5
+# the albedo block's system and CG (csrc/albedo.cu): wrapper -> (its source,
+# the JAX function it replaces, by file:line)
+ALBEDO_KERNELS = {
+    "albedo_system": ("psgradientsdf_tpu_torch/csrc/albedo.cu",
+                      "psgradientsdf_tpu/refine/solvers.py:443"),
+    "albedo_cg": ("psgradientsdf_tpu_torch/csrc/albedo.cu",
+                  "psgradientsdf_tpu/refine/solvers.py:482"),
+}
+# albedo_kernels: the kernel's delta against the plain solve's, relative to
+# max|delta| (the tolerance the CPU tests hold the port's albedo solve to
+# the JAX package's by); a plain r.r this close to the threshold (relative)
+# may end the solve one step apart; the regularizer's weight of the cases
+# that turn it on (both recipes set reg albedo 0)
+ALBEDO_CG_TOL = 2e-4
+ALBEDO_CG_EDGE = 0.01
+ALBEDO_REG = 0.05
 # normal_eq_kernels: the edge past one keyframe chunk (csrc/normaleq.cu cuts
 # F above 256 into chunks), on this many of the main problem's voxels
 EDGE_CHUNK_F = 257
 EDGE_CHUNK_ROWS = 4096
 # everything the run builds: the CUDA kernels (nvcc) and the host libraries
 # of the PNG decoder and of the exports (g++), all started together
-LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "normaleq", "png_unfilter",
-             "mc")
+LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "normaleq", "albedo",
+             "png_unfilter", "mc")
 
 
 class SmokeFailure(Exception):
@@ -846,43 +876,50 @@ def _scan_counts():
 
 
 def _reset_refine_counts():
-    """Launch counts of the refinement's six kernels, set to 0."""
-    from psgradientsdf_tpu_torch.ops import distcg, normaleq, residual
+    """Launch counts of the refinement's eight kernels, set to 0."""
+    from psgradientsdf_tpu_torch.ops import albedo, distcg, normaleq, residual
 
     residual.reset_launch_counts()
     distcg.reset_launch_counts()
     normaleq.reset_launch_counts()
+    albedo.reset_launch_counts()
 
 
 def _refine_counts():
-    from psgradientsdf_tpu_torch.ops import distcg, normaleq, residual
+    from psgradientsdf_tpu_torch.ops import albedo, distcg, normaleq, residual
 
     return dict(residual.launch_counts, **distcg.launch_counts,
-                **normaleq.launch_counts)
+                **normaleq.launch_counts, **albedo.launch_counts)
 
 
 @contextlib.contextmanager
 def _refine_calls():
     """While the body runs, count the calls of ops/residual.py's two
     wrappers (a residual pass, a distance Jacobian, kernel or plain), of
-    ops/distcg.py's two (the distance block's rows and its CG) and of
-    ops/normaleq.py's two (the pose and the SH light normal equations), and
-    the plain residual passes, plain distance solves (rows or CG) and plain
-    normal equations (the pose chain or the light's product) on tensors on
-    the card -> the dict of counts.  The module functions are wrapped from
-    outside; the package has no switch for it."""
-    from psgradientsdf_tpu_torch.ops import distcg, normaleq, residual
+    ops/distcg.py's two (the distance block's rows and its CG), of
+    ops/normaleq.py's two (the pose and the SH light normal equations) and
+    of ops/albedo.py's two (the albedo block's system and its CG), and the
+    plain residual passes, plain distance solves (rows or CG), plain normal
+    equations (the pose chain or the light's product) and plain albedo
+    solves (its system, its CG, or the eager chain's data terms) on tensors
+    on the card -> the dict of counts.  The module functions are wrapped
+    from outside; the package has no switch for it."""
+    from psgradientsdf_tpu_torch.ops import albedo, distcg, normaleq, residual
     from psgradientsdf_tpu_torch.refine import solvers
 
     calls = dict(residual_pass=0, dist_jacobian=0, dist_system=0, dist_cg=0,
-                 pose_normal_eqs=0, light_normal_eqs_sh=0,
-                 plain_residual_pass_on_card=0, plain_distance_solve_on_card=0,
-                 plain_normal_eqs_on_card=0)
+                 pose_normal_eqs=0, light_normal_eqs_sh=0, albedo_system=0,
+                 albedo_cg=0, plain_residual_pass_on_card=0,
+                 plain_distance_solve_on_card=0, plain_normal_eqs_on_card=0,
+                 plain_albedo_solve_on_card=0)
     modules = {"residual_pass": residual, "dist_jacobian": residual,
                "residual_pass_plain": residual, "dist_system": distcg,
                "dist_cg": distcg, "dist_system_plain": distcg,
                "dist_cg_plain": distcg, "pose_normal_eqs": normaleq,
-               "light_normal_eqs_sh": normaleq, "pose_normal_eqs_plain": normaleq}
+               "light_normal_eqs_sh": normaleq, "pose_normal_eqs_plain": normaleq,
+               "albedo_system": albedo, "albedo_cg": albedo,
+               "albedo_system_plain": albedo, "albedo_cg_plain": albedo,
+               "albedo_data_terms": solvers}
     real = {n: getattr(m, n) for n, m in modules.items()}
     light_plain = solvers.light_normal_eqs_sh
 
@@ -905,7 +942,7 @@ def _refine_calls():
         return light_plain(*a, **kw)
 
     for n in ("residual_pass", "dist_jacobian", "dist_system", "dist_cg",
-              "pose_normal_eqs", "light_normal_eqs_sh"):
+              "pose_normal_eqs", "light_normal_eqs_sh", "albedo_system", "albedo_cg"):
         setattr(modules[n], n, counted(n))
     residual.residual_pass_plain = plain(
         "residual_pass_plain", lambda a: a[2], "plain_residual_pass_on_card")
@@ -915,6 +952,12 @@ def _refine_calls():
         "dist_cg_plain", lambda a: a[0], "plain_distance_solve_on_card")
     normaleq.pose_normal_eqs_plain = plain(
         "pose_normal_eqs_plain", lambda a: a[0].w, "plain_normal_eqs_on_card")
+    albedo.albedo_system_plain = plain(
+        "albedo_system_plain", lambda a: a[1].w, "plain_albedo_solve_on_card")
+    albedo.albedo_cg_plain = plain(
+        "albedo_cg_plain", lambda a: a[0].b, "plain_albedo_solve_on_card")
+    solvers.albedo_data_terms = plain(
+        "albedo_data_terms", lambda a: a[0].w, "plain_albedo_solve_on_card")
     solvers.light_normal_eqs_sh = light_on_card
     try:
         yield calls
@@ -1625,15 +1668,16 @@ def check_refine(run, seq, min_drop):
 
 
 def check_refine_launches(run):
-    """The refinement of `run` went through its six kernels: a residual
+    """The refinement of `run` went through its eight kernels: a residual
     pass launch for each residual pass the loop made (the LED light's
     initialisation, one before the loop, then a fused iteration's leading
     pass and one after each block, and one at the upsample), a distance
     Jacobian launch for each distance or joint block, a dist_system and a
     dist_cg launch for each distance block, a pose_normal_eqs call for each
-    pose block and a light_normal_eqs_sh call for each SH light block; no
-    plain residual pass, distance solve or normal equations on the card ->
-    the launches."""
+    pose block, a light_normal_eqs_sh call for each SH light block, an
+    albedo_system and an albedo_cg launch for each albedo block; no plain
+    residual pass, distance solve, normal equations or albedo solve on the
+    card -> the launches."""
     from psgradientsdf_tpu_torch.refine.optimizer import block_names
 
     ref, summary = run["pipe"].refiner, run["summary"]
@@ -1672,9 +1716,16 @@ def check_refine_launches(run):
               f"expected {want} blocks")
     check(calls["plain_normal_eqs_on_card"] == 0,
           f"{calls['plain_normal_eqs_on_card']} plain normal equations on the card")
+    albedo_blocks = iters * names.count("albedo")
+    for name in ALBEDO_KERNELS:
+        check(calls[name] == albedo_blocks and launches[name] == _on_card(albedo_blocks),
+              f"{name}: {launches[name]} launches, {calls[name]} calls, "
+              f"expected {albedo_blocks} albedo blocks")
+    check(calls["plain_albedo_solve_on_card"] == 0,
+          f"{calls['plain_albedo_solve_on_card']} plain albedo solves on the card")
     return dict(launches, residual_passes=passes, distance_blocks=blocks,
                 distance_or_joint_blocks=jacobians, pose_blocks=pose_blocks,
-                sh_light_blocks=sh_light_blocks)
+                sh_light_blocks=sh_light_blocks, albedo_blocks=albedo_blocks)
 
 
 def _one_iteration(ref):
@@ -1782,7 +1833,8 @@ def light_steps(on_card, on_cpu):
     rd = render.compute_residuals(*on_cpu._args(), **skw)
     albedo = _albedo_core(*on_cpu._args()[:2], rd, *on_cpu._args()[2:6],
                           on_cpu.K, on_cpu.lights, **skw,
-                          reg_weight_rho=cfg.reg_weight_rho, damping=cfg.damping)
+                          reg_weight_rho=cfg.reg_weight_rho, damping=cfg.damping,
+                          stencil=on_cpu.stencil)
     on_cpu.albedo = albedo
     on_card.albedo = albedo.to(on_card.device)
     for name in ("dist", "grad_stored", "poses", "lights"):
@@ -2006,7 +2058,9 @@ def refine_kernels(main_run, led_run):
     versions on the card, bit for bit, at the main path's shapes:
     (a) the main run's problem at its final state (40 keyframes of 640x480,
         SH1) under every loss, and with SH2 lights under every loss;
-    (b) the LED run's problem after the upsample under every loss;
+    (b) the LED run's problem after the upsample under every loss, and
+        with the loop's finite-difference step there (twice the grid's
+        voxel size: the loop keeps the step it started with);
     (c) the main problem with one keyframe moved past the surface (points
         behind the camera) and one turned (projections off the image);
     (d) the megapixel case: MEGA_F keyframes of MEGA_W x MEGA_H (the plain
@@ -2039,6 +2093,12 @@ def refine_kernels(main_run, led_run):
         kw = dict(lkw, loss=loss_from_name(name))
         cases.append(_refine_case(f"LED {name}", led._args(), kw, flush,
                                   timed=kw["loss"] == lkw["loss"]))
+    # the loop's finite-difference step after the upsample: the step it
+    # started with, twice the grid's voxel size (the voxel centres stay on
+    # the grid's)
+    cases.append(_refine_case("LED, the loop's step after the upsample (2 h)",
+                              led._args(), dict(lkw, voxel_size=2.0 * led.geom.voxel_size),
+                              flush))
     from psgradientsdf_tpu_torch.ops import residual as RS
 
     off = _off_image_poses(args, RS.residual_pass_plain(*args, **skw))
@@ -2527,7 +2587,15 @@ def _ptxas(src):
                                ("pose_tiles_kernel<sh>", "pose_tiles_kernelILb0E"),
                                ("pose_tiles_kernel<led>", "pose_tiles_kernelILb1E"),
                                ("light_tiles_kernel<4>", "light_tiles_kernelILi4E"),
-                               ("light_tiles_kernel<9>", "light_tiles_kernelILi9E")):
+                               ("light_tiles_kernel<9>", "light_tiles_kernelILi9E"),
+                               ("albedo_system_kernel<sh>", "albedo_system_kernelILb0ELb0E"),
+                               ("albedo_system_kernel<sh, reg>",
+                                "albedo_system_kernelILb0ELb1E"),
+                               ("albedo_system_kernel<led>", "albedo_system_kernelILb1ELb0E"),
+                               ("albedo_system_kernel<led, reg>",
+                                "albedo_system_kernelILb1ELb1E"),
+                               ("albedo_cg_kernel<diagonal>", "albedo_cg_kernelILb0E"),
+                               ("albedo_cg_kernel<reg>", "albedo_cg_kernelILb1E")):
                 if pat in name:
                     name = short
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -2996,6 +3064,344 @@ def normal_eq_kernels(main_run, led_run):
 
 
 # the block cores of refine/optimizer.py that _first_iteration_blocks traces
+
+
+# ------------------------------------------------------- the albedo block
+
+
+def _albedo_inputs(ref, rho, sh2=False):
+    """The refiner's albedo block at its state (SH2 lights in place of its
+    own with `sh2`): its residual pass and what ops/albedo.py reads, with
+    the regularizer's weight `rho` -> dict."""
+    from psgradientsdf_tpu_torch.ops import residual as RS
+
+    args, skw = list(ref._args()), dict(ref._static_kwargs())
+    if sh2:
+        args[8] = _sh2_lights(args[8], SEED)
+        skw.update(model="SH2", order=2)
+    prob, _, _, albedo, grad, poses, _, _, lights = args
+    rd = RS.residual_pass(*args, **skw)
+    return dict(prob=prob, rd=rd, albedo=albedo, grad=grad, lights=lights, poses=poses,
+                stencil=ref.stencil, model=skw["model"], order=skw["order"],
+                voxel_size=skw["voxel_size"], rho=rho, damping=float(ref.cfg.damping))
+
+
+def _albedo_rows(c, rows):
+    """The rows `rows` (an index) of an albedo block; links to rows outside
+    them cut (their neighbours frozen) -> dict."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distcg
+
+    p = c["prob"]
+    inside = torch.full((p.valid.shape[0],), -1, dtype=torch.int64, device=p.valid.device)
+    inside[rows] = torch.arange(len(rows), device=p.valid.device)
+    relink = lambda idx: torch.where(idx >= 0, inside[idx.clamp(min=0)], -1)[rows]
+    prob = p._replace(valid=p.valid[rows], idx_xyz=p.idx_xyz[rows],
+                      nbr_idx=relink(p.nbr_idx), lap_idx=relink(p.lap_idx),
+                      nbr_dir=p.nbr_dir[rows].contiguous(),
+                      nbr_albedo_const=p.nbr_albedo_const[rows].contiguous())
+    rd = c["rd"]
+    rd = rd._replace(w=rd.w[rows].contiguous(), r=rd.r[rows].contiguous(),
+                     p_cam=rd.p_cam[rows].contiguous())
+    return dict(c, prob=prob, rd=rd, albedo=c["albedo"][rows].contiguous(),
+                grad=c["grad"][rows].contiguous(), stencil=distcg.stencil_reverse(prob))
+
+
+def _albedo_copies(c, rows):
+    """`rows` rows of disjoint copies of an albedo block (the stencils offset
+    by the rows before each copy; links into rows past the cut cut) ->
+    dict."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distcg
+
+    p, rd = c["prob"], c["rd"]
+    N = p.valid.shape[0]
+    k = -(-rows // N)
+    cat = lambda t: torch.cat([t] * k)[:rows].contiguous()
+
+    def links(idx):
+        off = torch.cat([torch.where(idx >= 0, idx + i * N, -1) for i in range(k)])[:rows]
+        return torch.where(off < rows, off, -1)
+
+    prob = p._replace(valid=cat(p.valid), idx_xyz=cat(p.idx_xyz), nbr_idx=links(p.nbr_idx),
+                      lap_idx=links(p.lap_idx), nbr_dir=cat(p.nbr_dir),
+                      nbr_albedo_const=cat(p.nbr_albedo_const))
+    crd = rd._replace(w=cat(rd.w), r=cat(rd.r), p_cam=cat(rd.p_cam))
+    return dict(c, prob=prob, rd=crd, albedo=cat(c["albedo"]), grad=cat(c["grad"]),
+                stencil=distcg.stencil_reverse(prob))
+
+
+def _albedo_plan_of(N):
+    """albedo_cg's plan for N voxels: the card's; in a CPU rehearsal the
+    plan for an H100's 132 SMs."""
+    from psgradientsdf_tpu_torch.ops import albedo as AL
+
+    return AL._albedo_plan(N, sms=_sm_count() if DEVICE == "cuda" else 132)
+
+
+def _albedo_case(what, c, static, flush):
+    """albedo_system twice and against its plain version bit for bit, then
+    albedo_cg twice (bit for bit) and against albedo_cg_plain on the
+    kernel's system: the same steps unless the plain r.r lies within
+    ALBEDO_CG_EDGE of the threshold at the test where they part, delta
+    within ALBEDO_CG_TOL of max|delta|, the new albedo equal to
+    solvers.update_albedo on the kernel's own delta bit for bit.  On the
+    card also both kernels' ms, plain_ms, library_ms and byte bounds, and
+    albedo_cg's barrier floor -> dict."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import albedo as AL
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+    from psgradientsdf_tpu_torch.refine import solvers
+
+    prob, rd, st, albedo = c["prob"], c["rd"], c["stencil"], c["albedo"]
+    sargs = (prob, rd, albedo, c["grad"], c["lights"], c["poses"], st)
+    skw = dict(model=c["model"], order=c["order"], voxel_size=c["voxel_size"],
+               reg_weight_rho=c["rho"])
+    sys1 = AL.albedo_system(*sargs, **skw)
+    sys2 = AL.albedo_system(*sargs, **skw)
+    plain = AL.albedo_system_plain(*sargs, **skw)
+    _sync()
+    for name, a, b, p in zip(AL.AlbedoSystem._fields, sys1, sys2, plain):
+        if p is None:
+            check(a is None, f"albedo_system: {name} formed without the regularizer ({what})")
+            continue
+        check(_bits_same(a, b), f"albedo_system: two runs differ in {name} ({what})")
+        check(_bits_same(a, p), f"albedo_system differs from its plain version: {what}, "
+                                f"{name}, by up to {_abs_err(a, p)}")
+    valid = prob.valid
+    kw = dict(reg_weight_rho=c["rho"], damping=c["damping"], cg_iters=100, cg_tol=1e-6,
+              cg_static=static)
+    s1, s2, sp, trace = [], [], [], []
+    d1, n1 = AL.albedo_cg(sys1, valid, albedo, st, **kw, steps_out=s1)
+    d2, n2 = AL.albedo_cg(sys1, valid, albedo, st, **kw, steps_out=s2)
+    dp, npl = AL.albedo_cg_plain(sys1, valid, albedo, st, **kw, steps_out=sp, trace=trace)
+    _sync()
+    k1, kp = int(s1[0]), int(sp[0])
+    check(_bits_same(d1, d2) and _bits_same(n1, n2) and k1 == int(s2[0]),
+          f"albedo_cg: two kernel runs differ ({what})")
+    edge = None
+    if k1 != kp:
+        rr, thr = trace[min(k1, kp)]
+        edge = abs(rr - thr) / thr
+        check(edge <= ALBEDO_CG_EDGE, f"albedo_cg: {k1} steps, the plain solve {kp}, "
+                                      f"r.r {rr:.6g} against {thr:.6g} ({what})")
+    scale = float(dp.abs().max())
+    err = _abs_err(d1, dp)
+    check(err <= ALBEDO_CG_TOL * scale, f"albedo_cg: delta off the plain solve's by "
+                                        f"{err:.3g} of max {scale:.3g} ({what})")
+    check(_bits_same(n1, solvers.update_albedo(prob, albedo, d1)),
+          f"albedo_cg: the new albedo is not update_albedo on its delta ({what})")
+    ok_k = n1 != albedo
+    ok_p = npl != albedo
+    N = valid.shape[0]
+    plan = _albedo_plan_of(N)
+    out = dict(case=what, rows=N, valid_rows=int(valid.sum()), keyframes=rd.w.shape[1],
+               model=c["model"], order=c["order"], rho=c["rho"], static=static,
+               steps=k1, plain_steps=kp, threshold_edge=edge,
+               albedo_system_bit_identical=True, albedo_cg_runs_bit_identical=True,
+               update_albedo_bit_identical=True, max_abs_err=err, max_abs_delta=scale,
+               relative_err=err / scale if scale > 0 else 0.0,
+               accepted=int(ok_k.sum()), accept_differs_from_plain=int((ok_k != ok_p).sum()),
+               plan=dict(plan._asdict(), barriers_per_step=4 if c["rho"] else 2))
+    if DEVICE == "cuda":
+        dev = valid.device
+        F = rd.w.shape[1]
+        led = c["model"] == "LED"
+        reg = c["rho"] != 0.0
+        # w and r read once (24 bytes a pair; LED p_cam too, 12), the
+        # gradient and the mask (13 bytes a row), the lights and poses once,
+        # b and diag_ps written (24 bytes a row); under the regularizer
+        # albedo, nbr, rev, nbr_dir and the frozen albedo read (96 bytes a
+        # row) and diag, r_reg, J0r and Jir written (72)
+        sys_bytes = (N * F * (36 if led else 24) + N * 13 + c["lights"].numel() * 4
+                     + (F * 64 if led else 0) + N * 24 + (N * 168 if reg else 0))
+        J = AL.pair_jacobian(rd, c["grad"], c["lights"], c["poses"], model=c["model"],
+                             order=c["order"])
+        wr = rd.w * rd.r
+        out["albedo_system"] = dict(
+            bytes=sys_bytes, bound_ms=sys_bytes / HBM_BYTES_PER_S * 1e3,
+            ms=_time_ms(lambda: AL.albedo_system(*sargs, **skw), flush),
+            plain_ms=_time_ms(lambda: AL.albedo_system_plain(*sargs, **skw), flush),
+            library_ms=_time_ms(lambda: torch.einsum("nfc,nfc->nc", J, wr), flush),
+            library_call="torch.einsum('nfc,nfc->nc', J, w r) over [N, F, 3], J and "
+                         "w r formed beforehand")
+        del J, wr
+        # b, diag_ps, the mask and the albedo read once, delta and the new
+        # albedo written once (61 bytes a row); under the regularizer diag
+        # (a tensor of its own only there), J0r, Jir, nbr and rev too (96)
+        cg_bytes = N * (61 + (96 if sys1.diag is not sys1.diag_ps else 0))
+        barriers = 1 + out["plan"]["barriers_per_step"] * k1
+        tiles = DC._cg_plan(N, use_lap=False, lap_nbr=False, sms=_sm_count())
+        out["albedo_cg"] = dict(
+            bytes=cg_bytes, bound_ms=cg_bytes / HBM_BYTES_PER_S * 1e3,
+            ms=_time_ms(lambda: AL.albedo_cg(sys1, valid, albedo, st, **kw), flush),
+            plain_ms=_time_ms(lambda: AL.albedo_cg_plain(sys1, valid, albedo, st, **kw),
+                              flush),
+            library_ms=None, blocks=plan.blocks, grid_barriers=barriers,
+            barrier_floor_ms=_time_ms(lambda: DC.barrier_floor(dev, tiles, barriers), flush))
+        for k in ("albedo_system", "albedo_cg"):
+            out[k]["share_of_bound"] = out[k]["bound_ms"] / out[k]["ms"]
+    return out
+
+
+def _albedo_block_traces(ref):
+    """One albedo block from the main run's final state through
+    ops/albedo.py (optimizer._albedo_core, the recipe's weights), traced on
+    the card -> its device operations (exactly one albedo_system and one
+    albedo_cg kernel), index_add_ kernels and device-to-host copies (none
+    may run), the host's CUDA runtime calls (the marker's launch among
+    them) and, among them, copies and stream synchronisations (none may
+    run: the block reads nothing back), host seconds (median of 3
+    untraced)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from psgradientsdf_tpu_torch.ops import residual as RS
+    from psgradientsdf_tpu_torch.refine import optimizer
+
+    args = ref._args()
+    skw = ref._static_kwargs()
+    prob, geom, dist, albedo, grad, poses, images, K, lights = args
+    rd = RS.residual_pass(*args, **skw)
+
+    def block():
+        return optimizer._albedo_core(
+            prob, geom, rd, dist, albedo, grad, poses, K, lights, **skw,
+            reg_weight_rho=float(ref.cfg.reg_weight_rho), damping=float(ref.cfg.damping),
+            stencil=ref.stencil)
+
+    block()
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        block()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    # A session can miss the launches made through the kernels' own CUDA
+    # runtime until PyTorch has launched something in it (a warm-up step
+    # alone did not do): each step launches one fill first, the marker, and
+    # the marker is taken out of the counts.
+    mark = torch.empty(1, device=dist.device)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                  repeat=1)) as prof:
+        for _ in range(2):
+            mark.fill_(1.0)
+            block()
+            torch.cuda.synchronize()
+            prof.step()
+    rows = sorted(_kernel_rows(prof), reverse=True)
+    marks = int(sum(r[1] for r in rows if "FillFunctor" in r[2]))
+    check(marks == 1, f"the albedo block's trace holds {marks} marker fills")
+    host = [(e.count, e.key) for e in prof.key_averages()
+            if not str(e.device_type).endswith("CUDA") and not e.key.startswith("ProfilerStep")]
+    reads = sum(n for n, k in host if "Memcpy" in k or k == "cudaStreamSynchronize")
+    out = dict(
+        seconds=statistics.median(secs),
+        device_ops=int(sum(r[1] for r in rows)) - marks,
+        albedo_system_kernels=int(sum(r[1] for r in rows if "albedo_system_kernel" in r[2])),
+        albedo_cg_kernels=int(sum(r[1] for r in rows if "albedo_cg_kernel" in r[2])),
+        index_add_kernels=int(sum(r[1] for r in rows if _is_index_add(r[2]))),
+        device_to_host_copies=int(sum(r[1] for r in rows if "DtoH" in r[2]
+                                      or "Device -> Pageable" in r[2])),
+        host_reads=int(reads),
+        runtime_calls=int(sum(n for n, k in host)),
+        runtime=[dict(name=k[:60], calls=n) for n, k in host],
+        device_ms=sum(r[0] for r in rows if "FillFunctor" not in r[2]) * 1e-3,
+        ops=[dict(name=k[:80], launches=n, device_ms=us * 1e-3) for us, n, k in rows
+             if "FillFunctor" not in k])
+    check(out["albedo_system_kernels"] == 1 and out["albedo_cg_kernels"] == 1
+          and out["device_ops"] == 2,
+          f"a traced albedo block ran {out['device_ops']} device operations: {out['ops']}")
+    check(out["index_add_kernels"] == 0 and out["device_to_host_copies"] == 0
+          and out["host_reads"] == 0,
+          f"the albedo block ran {out['index_add_kernels']} index_add_ kernels, "
+          f"{out['device_to_host_copies']} device-to-host copies, {out['host_reads']} reads")
+    return out
+
+
+def albedo_kernels(main_run, led_run):
+    """The albedo block's two kernels (csrc/albedo.cu) against their plain
+    versions on the card, at the main path's shapes (_albedo_case): the
+    main run's final albedo block at its loop's weights (SH1, the recipe's
+    reg albedo 0) under scipy's stop rule and cg_static's; that block with
+    SH2 lights; the LED run's block after the upsample; the main block with
+    the regularizer (reg_weight_rho ALBEDO_REG) under both rules; one row
+    alone; a row cut from its neighbours (under the regularizer); no valid
+    row (both rules); four copies of the main system (with and without the
+    regularizer); the first row count past the shared-memory tile
+    (the vectors in device memory).
+    Every case timed (median of KERNEL_REPS, L2 flushed); the one row's
+    CG is albedo_cg's latency floor.  Then the kernels' registers (nvcc
+    -Xptxas -v) and one albedo block traced through the kernels
+    (_albedo_block_traces).  Launches made here are on no path.
+    -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import albedo as AL
+    from psgradientsdf_tpu_torch.ops import distcg
+
+    flush = (torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+             if DEVICE == "cuda" else None)
+    ref, led = main_run["pipe"].refiner, led_run["pipe"].refiner
+    rho = float(ref.cfg.reg_weight_rho)
+    main = _albedo_inputs(ref, rho)
+    cases = [_albedo_case("main SH1", main, False, flush),
+             _albedo_case("main SH1", main, True, flush)]
+    cases.append(_albedo_case("main, SH2 lights", _albedo_inputs(ref, rho, sh2=True),
+                              False, flush))
+    cases.append(_albedo_case("LED after the upsample",
+                              _albedo_inputs(led, float(led.cfg.reg_weight_rho)), False,
+                              flush))
+    reg = dict(main, rho=ALBEDO_REG)
+    for static in (False, True):
+        cases.append(_albedo_case(f"main, reg albedo {ALBEDO_REG}", reg, static, flush))
+    p = main["prob"]
+    valid_rows = torch.nonzero(p.valid)[:, 0]
+    row = int(valid_rows[len(valid_rows) // 2])
+    one = _albedo_case("one row", _albedo_rows(main, torch.tensor([row], device=p.valid.device)),
+                       False, flush)
+    check(one["steps"] == 1, f"one row: {one['steps']} steps")
+    cases.append(one)
+    nbr = p.nbr_idx.clone()
+    nbr[row] = -1
+    cut = p._replace(nbr_idx=nbr)
+    cases.append(_albedo_case("a row cut from its neighbours",
+                              dict(reg, prob=cut, stencil=distcg.stencil_reverse(cut)),
+                              False, flush))
+    none = p._replace(valid=torch.zeros_like(p.valid))
+    for static in (False, True):
+        case = _albedo_case("no valid row", dict(main, prob=none), static, flush)
+        check(case["steps"] == 0 and case["max_abs_delta"] == 0.0 and case["accepted"] == 0,
+              "no valid row: a step, a nonzero delta or a moved albedo")
+        cases.append(case)
+    N = p.valid.shape[0]
+    four = _albedo_copies(main, 4 * N)
+    cases.append(_albedo_case("four copies of the main system", four, False, flush))
+    cases.append(_albedo_case(f"four copies, reg albedo {ALBEDO_REG}",
+                              dict(four, rho=ALBEDO_REG), False, flush))
+    del four
+    sms = _sm_count() if DEVICE == "cuda" else 132
+    past = sms * AL.shared_tile_limit() + 1
+    case = _albedo_case("the first row count past the shared tile",
+                        _albedo_copies(main, past), False, flush)
+    check(not case["plan"]["shared"], f"{past} rows: the vectors stayed in shared memory")
+    cases.append(case)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    check(any(c["plan"]["shared"] for c in cases), "no case kept its vectors in shared memory")
+    check(all(c["steps"] > 3 for c in cases if c["rho"] and c["valid_rows"] > 1),
+          "a regularized solve ended within three steps")
+    facts = dict(cases=cases, checked=len(cases), tolerance=ALBEDO_CG_TOL)
+    if DEVICE == "cuda":
+        from psgradientsdf_tpu_torch import kernels
+
+        facts["ptxas"] = _ptxas(kernels.source_path("albedo"))
+        facts["latency_floor_ms"] = one["albedo_cg"]["ms"]
+        facts["albedo_block"] = _albedo_block_traces(ref)
+        torch.cuda.empty_cache()
+    return facts
+
+
 FIRST_BLOCKS = {"albedo": "_albedo_core", "light": "_light_core",
                 "distance": "_dist_core", "pose": "_pose_core"}
 
@@ -3869,7 +4275,9 @@ def profile_refine(ref):
     copies, fills), device time and the host's CUDA runtime calls per
     iteration, the operations by device time and the GEMM kernels (the
     normal equations run none: their blocks call their kernel once each, one
-    launch a call, and no plain normal equations run on the card)."""
+    launch a call, and no plain normal equations run on the card), and the
+    index_add_ kernels (each albedo block launches its two kernels and
+    none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3881,14 +4289,17 @@ def profile_refine(ref):
             _one_iteration(ref)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    for name in NORMAL_EQ_KERNELS:
+    for name in list(NORMAL_EQ_KERNELS) + list(ALBEDO_KERNELS):
         check(calls[name] == 2, f"{name}: {calls[name]} calls in two iterations")
-    check(calls["plain_normal_eqs_on_card"] == 0,
-          "plain normal equations ran on the card in the traced iterations")
+    check(calls["plain_normal_eqs_on_card"] == 0 and calls["plain_albedo_solve_on_card"] == 0,
+          "plain normal equations or albedo solves ran on the card in the traced iterations")
     rows = sorted(_kernel_rows(prof), reverse=True)
-    # a pose or SH light block launches ONE normal-equation kernel
+    # a pose or SH light block launches ONE normal-equation kernel, an
+    # albedo block one albedo_system and one albedo_cg kernel
     for name, kernel in (("pose_normal_eqs", "pose_tiles_kernel"),
-                         ("light_normal_eqs_sh", "light_tiles_kernel")):
+                         ("light_normal_eqs_sh", "light_tiles_kernel"),
+                         ("albedo_system", "albedo_system_kernel"),
+                         ("albedo_cg", "albedo_cg_kernel")):
         launched = sum(r[1] for r in rows if kernel in r[2])
         check(launched == calls[name],
               f"{kernel}: {launched} launches for {calls[name]} {name} calls")
@@ -3902,6 +4313,7 @@ def profile_refine(ref):
           "a cuBLAS gemmSN kernel ran in the traced iterations")
     return dict(
         iterations=2, traced_wall_seconds=wall, device_busy_seconds=busy,
+        index_add_kernels=int(sum(r[1] for r in rows if _is_index_add(r[2]))),
         device_busy_share=busy / wall,
         device_ops_per_iteration=int(sum(r[1] for r in rows)) // 2,
         device_ms_per_iteration=busy * 1e3 / 2,
@@ -4065,23 +4477,25 @@ def cli_mesh_run(tmp, root):
 
 @contextlib.contextmanager
 def _albedo_decisions():
-    """While the body runs, record each call of refine/solvers.update_albedo
-    (the albedo block's (0, 1) acceptance): its candidates rho - delta and
-    its accept mask, on the device -> the list of (candidates, accepted)."""
-    from psgradientsdf_tpu_torch.refine import solvers
+    """While the body runs, record each one-device albedo block's (0, 1)
+    acceptance, made in ops/albedo.albedo_cg (the kernel's epilogue on the
+    card, update_albedo's rule): its candidates rho - delta and its accept
+    mask, on the device -> the list of (candidates, accepted)."""
+    from psgradientsdf_tpu_torch.ops import albedo as AL
 
-    real, seen = solvers.update_albedo, []
+    real, seen = AL.albedo_cg, []
 
-    def recording(prob, albedo, delta):
+    def recording(sys, valid, albedo, *a, **kw):
+        delta, new = real(sys, valid, albedo, *a, **kw)
         cand = albedo - delta
-        seen.append((cand.clone(), (cand > 0.0) & (cand < 1.0) & prob.valid[:, None]))
-        return real(prob, albedo, delta)
+        seen.append((cand, (cand > 0.0) & (cand < 1.0) & valid[:, None]))
+        return delta, new
 
-    solvers.update_albedo = recording
+    AL.albedo_cg = recording
     try:
         yield seen
     finally:
-        solvers.update_albedo = real
+        AL.albedo_cg = real
 
 
 @contextlib.contextmanager
@@ -4634,6 +5048,8 @@ def main():
                  **dist_cg_kernels(main_run, led_run))
             emit("normal_eq_kernels", ok=True, card=card, reps=KERNEL_REPS,
                  **normal_eq_kernels(main_run, led_run))
+            emit("albedo_kernels", ok=True, card=card, reps=KERNEL_REPS,
+                 **albedo_kernels(main_run, led_run))
             if "--profile" in sys.argv[1:]:
                 emit("profile_refine", card=card, **profile_refine(
                     main_run["pipe"].refiner))
@@ -4739,6 +5155,10 @@ def main():
         # ---- the pose and light normal equations against their plain versions
         normal_facts = normal_eq_kernels(main_run, led_run)
         emit("normal_eq_kernels", ok=True, card=card, reps=KERNEL_REPS, **normal_facts)
+
+        # ---- the albedo block's system and CG against their plain versions
+        albedo_facts = albedo_kernels(main_run, led_run)
+        emit("albedo_kernels", ok=True, card=card, reps=KERNEL_REPS, **albedo_facts)
 
         # ---- the command line on the files, a failure mid-refinement, retry
         emit("resume_refine", ok=True, card=card,
@@ -4870,7 +5290,42 @@ def main():
             "beforehand"))}
     for name in NORMAL_EQ_KERNELS:
         check(refine_launches[name] > 0, f"{name} was never launched on its path")
+    # the albedo block: the main run's launches, the times on its final
+    # problem (SH1, the recipe's reg albedo 0, scipy's stop rule)
+    albedo_case = next(c for c in albedo_facts["cases"]
+                       if c["case"] == "main SH1" and not c["static"])
+    albedo_rows = {
+        "albedo_system": dict(albedo_case["albedo_system"], max_abs_err=0.0, work=(
+            f"the main run's albedo block at its final state: {albedo_case['rows']} "
+            f"surface-voxel slots x {albedo_case['keyframes']} keyframes, SH1 (J formed "
+            "per pair, never stored); the bound counts w and r read once (24 bytes a "
+            "pair), the gradient, the mask, b and diag_ps (37 bytes a row); library_ms "
+            "is the one einsum nfc,nfc->nc over J and w r formed beforehand")),
+        "albedo_cg": dict(albedo_case["albedo_cg"], max_abs_err=albedo_case["max_abs_err"],
+                          latency_floor_ms=albedo_facts["latency_floor_ms"], work=(
+            f"that block's whole Jacobi-PCG and accept rule ({albedo_case['steps']} "
+            f"step, one cooperative launch, {albedo_case['plan']['blocks']} blocks of "
+            f"{albedo_case['plan']['tile']} voxels, 2 grid barriers a step: the "
+            "diagonal instance); the bound counts b, diag_ps (which is diag there), the "
+            "mask and the albedo read once and delta and the albedo written once (61 "
+            "bytes a row); "
+            "latency_floor_ms is the same launch on one row, barrier_floor_ms an "
+            "empty cooperative kernel on the same grid crossing as many barriers"))}
+    for name in ALBEDO_KERNELS:
+        check(refine_launches[name] > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=ALBEDO_KERNELS[name][0],
+             replaces=ALBEDO_KERNELS[name][1], launches=refine_launches[name],
+             max_abs_err=albedo_rows[name]["max_abs_err"], ms=albedo_rows[name]["ms"],
+             plain_ms=albedo_rows[name]["plain_ms"],
+             bound_ms=albedo_rows[name]["bound_ms"], bound_by="bytes",
+             library_ms=albedo_rows[name]["library_ms"],
+             **({"latency_floor_ms": albedo_rows[name]["latency_floor_ms"],
+                 "barrier_floor_ms": albedo_rows[name]["barrier_floor_ms"],
+                 "library_note": "no single PyTorch call computes it"}
+                if name == "albedo_cg" else {"library_call": albedo_rows[name]["library_call"]}),
+             work=albedo_rows[name]["work"])
+        for name in ALBEDO_KERNELS] + [
         dict(name=name, route="cuda", source=NORMAL_EQ_KERNELS[name][0],
              replaces=NORMAL_EQ_KERNELS[name][1],
              launches=refine_launches[name],

@@ -86,7 +86,8 @@
 // (red.release.gpu), warp 0 polls the counter (ld.acquire.gpu) until every
 // block of this barrier has arrived, then reads all the partials in one
 // parallel load and adds them in one fixed order, the same in every block,
-// so every block holds the same alpha and beta and takes the same branch.
+// so every block holds the same alpha and beta and takes the same branch
+// (csrc/cg_sync.cuh, shared with csrc/albedo.cu).
 // Two sets of partials, alternating, suffice: a block cannot write barrier
 // e + 2's before every block has passed e + 1.  (On the H100 this was the
 // fastest barrier with its sum measured: grid.sync and the same load, and
@@ -110,6 +111,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cg_sync.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -258,8 +261,6 @@ dist_system_kernel(const __grid_constant__ SystemParams p) {
 
 // ---------------------------------------------------------------- dist_cg
 
-constexpr int kCgThreads = 512;
-constexpr int kCgWarps = kCgThreads / 32;
 // a block's layouts (ops/distcg.py TILE, VECTORS, GLOBAL)
 constexpr int kTile = 0, kVectors = 1, kGlobal = 2;
 // the block's own rows' s = A P p, 4 floats a row, then its vectors, `tile`
@@ -301,54 +302,6 @@ struct CgParams {
   int off_A, off_nbr, off_rev, off_lap, off_valid, off_vec;
   float w_l, dc, nc, dc2, nc2, damping, one_plus_damping, tol2, atol2;
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int s = 16; s >= 1; s >>= 1) v += __shfl_xor_sync(kFull, v, s);
-  return v;
-}
-
-// The block's sum of every thread's g[q] in one fixed order (each warp's xor
-// butterfly, then warp 0's butterfly over the warps' sums) -> out[q] in
-// every lane of warp 0.  buf: [kCgWarps][2] floats of shared memory.
-template <int K>
-__device__ __forceinline__ void block_sum(const float (&g)[K], float (&out)[K], float* buf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int q = 0; q < K; ++q) {
-    const float v = warp_sum(g[q]);
-    if (lane == 0) buf[2 * warp + q] = v;
-  }
-  __syncthreads();
-  if (warp == 0)
-#pragma unroll
-    for (int q = 0; q < K; ++q) out[q] = warp_sum(lane < kCgWarps ? buf[2 * lane + q] : 0.0f);
-}
-
-// All blocks' partials part[blocks][2] summed in one fixed order, the same
-// in every block (lane l of warp 0 adds blocks l, l + 32, ..., then the
-// butterfly) -> out[q] in every thread.  Warp 0 reads them after its
-// acquire; bc: 2 floats of shared memory.
-template <int K>
-__device__ __forceinline__ void grid_sum(const float* part, int blocks, float (&out)[K],
-                                         float* bc) {
-  if (threadIdx.x < 32) {
-    float s[K];
-#pragma unroll
-    for (int q = 0; q < K; ++q) s[q] = 0.0f;
-    for (int i = threadIdx.x; i < blocks; i += 32)
-#pragma unroll
-      for (int q = 0; q < K; ++q) s[q] += __ldcg(part + 2 * i + q);
-#pragma unroll
-    for (int q = 0; q < K; ++q) {
-      s[q] = warp_sum(s[q]);
-      if (threadIdx.x == 0) bc[q] = s[q];
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < K; ++q) out[q] = bc[q];
-}
 
 // ------------------------------------------ shared-memory copies, barriers
 
@@ -463,57 +416,6 @@ __device__ __forceinline__ float2 ldcg_if(bool c, const float2* a) {
       : "l"(a), "r"(static_cast<unsigned>(c)));
   return v;
 }
-
-__device__ __forceinline__ void red_release(uint32_t* a, uint32_t v) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(a), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ uint32_t ld_acquire(const uint32_t* a) {
-  uint32_t v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(a) : "memory");
-  return v;
-}
-
-// Grid barrier number `epoch` (1, 2, ...), warp 0's part: thread 0 writes
-// the block's K partials (held by every lane of warp 0) into the epoch's
-// set and arrives; every lane waits for all blocks' arrivals.  Call after a
-// __syncthreads that follows the block's last writes to global memory; the
-// block's other warps wait at the __syncthreads that follows.
-template <int K>
-__device__ __forceinline__ void arrive_and_wait(const CgParams& p, uint32_t epoch,
-                                                const float* mine) {
-  if (threadIdx.x == 0) {
-    float* part = p.part + static_cast<size_t>(epoch & 1) * p.blocks * 2;
-#pragma unroll
-    for (int q = 0; q < K; ++q) part[2 * blockIdx.x + q] = mine[q];
-    red_release(p.counter, 1u);
-  }
-  const uint32_t want = epoch * static_cast<uint32_t>(p.blocks);
-  while (ld_acquire(p.counter) < want) {
-  }
-}
-
-// Barrier `epoch` and the grid's sums of each thread's g[q] -> out[q] in
-// every thread.
-template <int K>
-__device__ __forceinline__ void barrier_sum(const CgParams& p, uint32_t epoch,
-                                            const float (&g)[K], float (&out)[K], float* buf,
-                                            float* bc) {
-  float mine[K];
-  block_sum<K>(g, mine, buf);
-  if (threadIdx.x < 32) arrive_and_wait<K>(p, epoch, mine);
-  grid_sum<K>(p.part + static_cast<size_t>(epoch & 1) * p.blocks * 2, p.blocks, out, bc);
-}
-
-// Barrier `epoch` alone.
-__device__ __forceinline__ void barrier(const CgParams& p, uint32_t epoch) {
-  __syncthreads();
-  if (threadIdx.x < 32) arrive_and_wait<0>(p, epoch, nullptr);
-  __syncthreads();
-}
-
-// torch.clamp(v, min=1e-30): NaN passes through
-__device__ __forceinline__ float clamp30(float v) { return v < 1e-30f ? 1e-30f : v; }
 
 template <int kMode>
 __global__ void __launch_bounds__(kCgThreads, 1)

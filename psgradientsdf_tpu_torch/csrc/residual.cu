@@ -155,6 +155,11 @@ struct ResidualArgs {
   int64_t N, F, H, W, led, basis, loss;
   double origin_x, origin_y, origin_z, voxel, lam;
   TilePlan plan;
+  // the grid's voxel size, which places the voxel centres (geom.voxel2world);
+  // `voxel` is the finite differences' step (the caller's voxel_size).  The
+  // refinement's loop keeps the step it started with past the upsample, as
+  // the JAX package's does, while the grid halves
+  double grid_voxel;
 };
 
 struct JacobianArgs {
@@ -1059,10 +1064,10 @@ extern "C" int residual_pass(const ResidualArgs* a, void* stream) {
   p.ox = static_cast<float>(a->origin_x);
   p.oy = static_cast<float>(a->origin_y);
   p.oz = static_cast<float>(a->origin_z);
-  p.h = static_cast<float>(a->voxel);
+  p.h = static_cast<float>(a->grid_voxel);
   // PyTorch divides a CUDA tensor by a Python number as a product with the
   // float32 reciprocal, computed on the host in float
-  p.inv_h = 1.0f / p.h;
+  p.inv_h = 1.0f / static_cast<float>(a->voxel);
   p.lam = static_cast<float>(a->lam);
   p.inv_lam = 1.0f / p.lam;
   // r^2 < lam * lam: the product in double, compared in float

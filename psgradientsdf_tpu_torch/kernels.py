@@ -4,14 +4,16 @@ Each source under csrc/ becomes a shared library with a plain C interface,
 loaded with ctypes: a CUDA source (.cu: the row copies, the Gauss-Newton
 solve, the fusion update, the refinement's residual pass and distance
 Jacobian, the distance block's assembled system and CG, the pose and light
-normal equations) is compiled with nvcc for sm_90a,
-a host C++ source (.cpp: the PNG unfilter, marching cubes and the PLY
-writers) with g++.  The build happens at first use, from the sources in this
-package and nothing else, into build/ beside them (ignored by git); the
-library's file name carries a hash of its source, so an edited source is
-rebuilt and a built one is reused.  The hash also covers the compiler's
-command line and its --version output, so a changed flag or another
-compiler (a build directory copied from another machine) builds anew.  A
+normal equations, the albedo block's system and CG) is compiled with nvcc
+for sm_90a, a host C++ source (.cpp: the PNG unfilter, marching cubes and
+the PLY writers) with g++.  The build happens at first use, from the
+sources in this package and nothing else, into build/ beside them (ignored
+by git); the library's file name carries a hash of its source (a CUDA
+source's with every header under csrc/, *.cuh, that it may include), so an
+edited source or header is rebuilt and a built one is reused.  The hash
+also covers the compiler's command line and its --version output, so a
+changed flag or another compiler (a build directory copied from another
+machine) builds anew.  A
 build or load failure raises with the compiler's output; nothing falls back
 to another path.
 
@@ -42,7 +44,8 @@ GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 # the package's CUDA kernels, one source each (csrc/<name>.cu): the first of
 # them asked for starts nvcc on every one not yet built, all together
-CUDA_LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "normaleq")
+CUDA_LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "normaleq",
+                  "albedo")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -97,14 +100,22 @@ def _compiler_version(compiler: str) -> bytes:
                           check=True).stdout
 
 
+def cuda_headers() -> list:
+    """The headers the CUDA sources may include (csrc/*.cuh), sorted."""
+    return sorted(os.path.join(CSRC_DIR, n) for n in os.listdir(CSRC_DIR)
+                  if n.endswith(".cuh"))
+
+
 def library_path(name: str) -> str:
     """Where the library built from csrc/<name>.cu or .cpp lives: its name
-    hashes the source, the compiler's command line and its --version."""
+    hashes the source (a CUDA source with every csrc/*.cuh header), the
+    compiler's command line and its --version."""
     src = source_path(name)
     compiler, flags = _compiler(src)
     h = hashlib.sha1()
-    with open(src, "rb") as fh:
-        h.update(fh.read())
+    for path in [src] + (cuda_headers() if src.endswith(".cu") else []):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
     h.update("\0".join(flags).encode())
     h.update(_compiler_version(compiler))
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")

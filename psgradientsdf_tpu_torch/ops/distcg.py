@@ -293,22 +293,19 @@ def jacobi_diag(valid: torch.Tensor, diag: torch.Tensor, damping: float) -> torc
     return torch.where(valid & (d_total > 0.0), d_total, 1.0)
 
 
-def dist_cg_plain(A, t, valid, stencil: StencilReverse, lap, *,
-                  reg_weight_l: float, damping: float, cg_iters: int,
-                  cg_tol: float, cg_static: bool, atol: float = 0.0,
-                  steps_out: Optional[List] = None,
-                  trace: Optional[List] = None) -> torch.Tensor:
-    """The distance block's Jacobi-PCG from x0 = 0 with eager PyTorch ops
-    on the assembled rows; the stop test r.r > thr is read back before
-    every step.  cg_static=False: thr = max(tol^2 b.b, atol^2), at most
-    cg_iters steps (scipy's rule); True: thr = tol^2 b.b and the clamped
-    divisions of solvers.pcg_fixed (the iterate stays frozen once the test
-    fails, so stopping there gives its result).  `steps_out` receives the
-    steps taken (a 0-dim int64 tensor), `trace` each test's (r.r, thr)."""
-    st = stencil
-    b, diag = distance_rhs_plain(A, t, valid, st, lap, reg_weight_l=reg_weight_l)
-    d_safe = jacobi_diag(valid, diag, damping)
-    b = torch.where(valid, b, 0.0)
+def pcg_plain(matvec, b: torch.Tensor, d_safe: torch.Tensor, *, cg_iters: int,
+              cg_tol: float, cg_static: bool, atol: float = 0.0,
+              steps_out: Optional[List] = None,
+              trace: Optional[List] = None) -> torch.Tensor:
+    """The Jacobi-PCG from x0 = 0 with eager PyTorch ops, the plain version
+    of dist_cg's and albedo_cg's loops: `matvec` the operator, b the masked
+    right-hand side, d_safe the preconditioner's safe diagonal; the stop
+    test r.r > thr is read back before every step.  cg_static=False: thr =
+    max(tol^2 b.b, atol^2), at most cg_iters steps (scipy's rule); True:
+    thr = tol^2 b.b and the clamped divisions of solvers.pcg_fixed (the
+    iterate stays frozen once the test fails, so stopping there gives its
+    result).  `steps_out` receives the steps taken (a 0-dim int64 tensor),
+    `trace` each test's (r.r, thr)."""
     bb = torch.sum(b * b)
     thr = ((cg_tol * cg_tol) * bb if cg_static
            else torch.clamp((cg_tol * cg_tol) * bb, min=atol * atol))
@@ -324,8 +321,7 @@ def dist_cg_plain(A, t, valid, stencil: StencilReverse, lap, *,
             trace.append((float(rr), float(thr)))
         if not bool(rr > thr):
             break
-        hp = operator_apply(A, p, valid, st, lap, reg_weight_l=reg_weight_l)
-        Ap = torch.where(valid, hp + damping * diag * p, p)
+        Ap = matvec(p)
         pAp = torch.sum(p * Ap)
         alpha = gamma / (torch.clamp(pAp, min=1e-30) if cg_static else pAp)
         x = x + alpha * p
@@ -339,6 +335,27 @@ def dist_cg_plain(A, t, valid, stencil: StencilReverse, lap, *,
         steps += 1
     if steps_out is not None:
         steps_out.append(torch.tensor(steps, dtype=torch.int64, device=b.device))
+    return x
+
+
+def dist_cg_plain(A, t, valid, stencil: StencilReverse, lap, *,
+                  reg_weight_l: float, damping: float, cg_iters: int,
+                  cg_tol: float, cg_static: bool, atol: float = 0.0,
+                  steps_out: Optional[List] = None,
+                  trace: Optional[List] = None) -> torch.Tensor:
+    """The distance block's Jacobi-PCG (pcg_plain) on the assembled rows,
+    its operator where(valid, H p + damping diag p, p)."""
+    st = stencil
+    b, diag = distance_rhs_plain(A, t, valid, st, lap, reg_weight_l=reg_weight_l)
+    d_safe = jacobi_diag(valid, diag, damping)
+
+    def matvec(p):
+        hp = operator_apply(A, p, valid, st, lap, reg_weight_l=reg_weight_l)
+        return torch.where(valid, hp + damping * diag * p, p)
+
+    x = pcg_plain(matvec, torch.where(valid, b, 0.0), d_safe, cg_iters=cg_iters,
+                  cg_tol=cg_tol, cg_static=cg_static, atol=atol, steps_out=steps_out,
+                  trace=trace)
     return torch.where(valid, x, 0.0)
 
 

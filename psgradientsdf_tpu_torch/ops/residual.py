@@ -218,7 +218,7 @@ class _ResidualArgs(ctypes.Structure):
         + [(n, ctypes.c_int64) for n in ("N", "F", "H", "W", "led", "basis", "loss")]
         + [(n, ctypes.c_double) for n in
            ("origin_x", "origin_y", "origin_z", "voxel", "lam")]
-        + [("plan", _TilePlan)])
+        + [("plan", _TilePlan), ("grid_voxel", ctypes.c_double)])
 
 
 class _JacobianArgs(ctypes.Structure):
@@ -360,6 +360,10 @@ def residual_pass(prob: RefineProblem, geom: GridGeometry, dist, albedo,
     a.N, a.F, a.H, a.W = N, F, H, W
     a.led, a.basis, a.loss = int(model == LED), B, int(loss)
     a.origin_x, a.origin_y, a.origin_z = geom.origin
+    # the voxel centres on the grid's spacing, the finite differences on the
+    # caller's voxel_size (they part after the loop's upsample), as the
+    # plain version computes them
+    a.grid_voxel = float(geom.voxel_size)
     a.voxel, a.lam = float(voxel_size), float(lam)
     a.plan = _c_plan(_tile_plan(N, F, kernel="residual"))
     _launch(_library().residual_pass, a, dev, "residual_pass")

@@ -20,12 +20,13 @@ Reference behaviors carried over:
   * artifact dumps every 3 iterations (PsOptimizer.cpp:419-423)
 
 Host reads: the four energies after every block (one small copy), the CG
-stop flag every few steps (refine/solvers.py; the distance block's CG on
-one device decides its stop on the card, ops/distcg.py), and the dense
-factorisations' status.  The periodic every-3-iteration dumps
-(PsOptimizer.cpp:419-423) run on a writer thread (utils/writer.py): the
-loop starts the device->host copies of what the dump reads and goes on,
-the thread runs marching cubes and writes the PLY files; the next dump,
+stop flag every few steps (refine/solvers.py; the distance and albedo
+blocks' CGs on one device decide their stop on the card, ops/distcg.py and
+ops/albedo.py), and the dense factorisations' status.  The periodic
+every-3-iteration dumps (PsOptimizer.cpp:419-423) run on a writer thread
+(utils/writer.py): the loop starts the device->host copies of what the
+dump reads and goes on, the thread runs marching cubes and writes the PLY
+files; the next dump,
 the end of the loop and a failure join it, and a failed dump is logged as
 `artifact_dump_error` without stopping the refinement.  The upsample and
 terminal dumps are synchronous.
@@ -91,18 +92,18 @@ def _energy_from_rd(prob, rd, dist, albedo, *, loss, lam, voxel_size):
 
 def _albedo_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
                  *, model, order, loss, lam, voxel_size, reg_weight_rho,
-                 damping, steps_out=None):
+                 damping, stencil=None, steps_out=None):
     """Albedo GN update from an existing residual pass (its linearization
-    point must be the current state)."""
-    if model == LED:
-        J = jacobians.albedo_jacobian_led(prob, geom, dist, grad_stored, poses, lights)
-    else:
-        J = jacobians.albedo_jacobian_sh(prob, grad_stored, lights, order)
-    delta = solvers.solve_albedo(
-        prob, rd, J, albedo, voxel_size,
-        reg_weight_rho=reg_weight_rho, damping=damping, steps_out=steps_out,
+    point must be the current state): the system formed per pair and the
+    CG with its accept rule (ops/albedo.py through solvers.solve_albedo;
+    J_rho is never formed as a tensor), the problem's reverse stencil table
+    `stencil` read under the regularizer."""
+    _, new_albedo = solvers.solve_albedo(
+        prob, rd, albedo, grad_stored, lights, poses, voxel_size, model=model,
+        order=order, reg_weight_rho=reg_weight_rho, damping=damping,
+        steps_out=steps_out, stencil=stencil,
     )
-    return solvers.update_albedo(prob, albedo, delta)
+    return new_albedo
 
 
 def _light_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
@@ -189,14 +190,14 @@ def _run_block(name, prob, geom, rd, dist, albedo, grad_stored, poses, K, lights
                laplacian_diag_only, steps_out=None, stencil=None):
     """One block's update from the residual pass `rd` at the current state
     -> (dist, albedo, grad_stored, poses, lights); `stencil` is the
-    problem's reverse stencil table for the distance block."""
+    problem's reverse stencil table for the distance and albedo blocks."""
     args = (prob, geom, rd, dist, albedo, grad_stored, poses, K, lights)
     dkw = dict(reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l,
                damping=damping, laplacian_diag_only=laplacian_diag_only,
                steps_out=steps_out)
     if name == "albedo":
         albedo = _albedo_core(*args, **kw, reg_weight_rho=reg_weight_rho,
-                              damping=damping, steps_out=steps_out)
+                              damping=damping, stencil=stencil, steps_out=steps_out)
     elif name == "light":
         lights = _light_core(*args, **kw, damping=damping)
     elif name == "joint_dp":
@@ -231,7 +232,8 @@ def _iteration_core(prob, geom, dist, albedo, grad_stored, poses, images, K,
     CG step counts.  `ops` (RefineOps) are the functions it is made of: the
     single-device ones by default, a mesh's from parallel/refine.py;
     `stencil` is the problem's reverse stencil table (ops/distcg.py), which
-    a distance block on one device needs; a mesh's ops take none.
+    a distance block (and an albedo block under its regularizer) on one
+    device needs; a mesh's ops take none.
     """
     ops = SINGLE if ops is None else ops
     kw = dict(model=model, order=order, loss=loss, lam=lam,
@@ -459,8 +461,9 @@ class PhotometricRefiner:
 
     def rebuild_stencil(self) -> None:
         """The reverse stencil table of the refiner's problem, for the
-        distance block on one device: called wherever the problem is set
-        (init, the upsample, io/checkpoint.load_refine_state)."""
+        distance and albedo blocks on one device: called wherever the
+        problem is set (init, the upsample,
+        io/checkpoint.load_refine_state)."""
         self.stencil = (None if self.mesh is not None or self.prob is None
                         else distcg.stencil_reverse(self.prob))
 

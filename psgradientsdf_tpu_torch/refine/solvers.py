@@ -16,10 +16,14 @@ Replaces the reference's Eigen sparse-triplet assembly + ConjugateGradient
 
 The scatter-adds are `index_add_`.  On a CUDA device it adds with atomics in
 no fixed order, so two runs there agree to rounding, not bit for bit, and
-the device is held against the CPU by tolerance.  The distance block's
-solve on one device has none: `solve_distance` assembles the normal
-equations per row and runs the whole CG through ops/distcg.py (one kernel
-launch each on the card), with the transposes in gather form.
+the device is held against the CPU by tolerance.  The distance and albedo
+blocks' solves on one device have none: `solve_distance` assembles the
+normal equations per row and runs the whole CG through ops/distcg.py, and
+`solve_albedo` forms its system and runs its CG and update through
+ops/albedo.py (one kernel launch each on the card), with the transposes in
+gather form.  The albedo block's eager operators below (albedo_data_terms,
+albedo_reg_*) are the mesh's (parallel/refine.py) and the references the
+tests hold ops/albedo.py to.
 
 On a device mesh (parallel/refine.py) every operator runs on one shard's
 rows: `src=` names the full N-vector that neighbours are read from (the
@@ -42,6 +46,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from psgradientsdf_tpu_torch.ops import albedo as albedo_ops
 from psgradientsdf_tpu_torch.ops import distcg
 from psgradientsdf_tpu_torch.ops.distcg import jacobi_diag
 from psgradientsdf_tpu_torch.refine import geometry
@@ -551,6 +556,11 @@ def albedo_data_terms(rd: ResidualData, J_rho: torch.Tensor):
     return torch.sum(J * (w * rd.r), dim=1), torch.sum((J * J) * w, dim=1)
 
 
+# The albedo regularizer in scatter form (index_add_ transposes).  Only the
+# mesh's albedo block (parallel/refine.py `_albedo`) runs it; one device
+# runs the gather form of ops/albedo.py (reg_rows, reg_apply, reg_apply_T),
+# which tests/test_torch_albedo.py::test_system_matches_the_eager_chain
+# holds to these operators.
 class AlbedoReg(NamedTuple):
     """Linearized albedo smoothness: per-channel residual [N,3] and its
     stencil Jacobian (J0 [N,3], Ji [N,3ax,3ch])."""
@@ -604,48 +614,51 @@ def albedo_reg_diag(op: AlbedoReg, rows=None) -> torch.Tensor:
 def solve_albedo(
     prob: RefineProblem,
     rd: ResidualData,
-    J_rho,                 # [N,F] (SH, channel-shared) or [N,F,3] (LED)
     albedo: torch.Tensor,
+    grad_stored: torch.Tensor,
+    lights: torch.Tensor,    # [F,B] (SH) or [3] (LED)
+    poses: torch.Tensor,     # [F,4,4]
     voxel_size: float,
     *,
+    model: str,
+    order: int,
     reg_weight_rho: float,
     damping: float,
     cg_iters: int = 100,
     cg_tol: float = 1e-6,
     cg_static: bool = False,
     steps_out: Optional[List] = None,
-) -> torch.Tensor:
-    """Albedo GN step (PsOptimizer.cpp:85-121). Variables [N,3]."""
-    valid_c = prob.valid[:, None]
-    b, diag_ps = albedo_data_terms(rd, J_rho)
-    diag = diag_ps
+    stencil: Optional[distcg.StencilReverse] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Albedo GN step (PsOptimizer.cpp:85-121) and its update: -> (delta
+    [N,3], the new albedo [N,3] of update_albedo).
 
-    use_reg = reg_weight_rho != 0.0
-    if use_reg:
-        reg = albedo_reg_operator(prob, albedo, voxel_size)
-        b = b + reg_weight_rho * albedo_reg_apply_T(reg.r, reg)
-        diag = diag + reg_weight_rho * albedo_reg_diag(reg)
-
-    def matvec(x):
-        # x does not depend on the frame, so J^T W J x = (sum_f w J^2) x
-        out = diag_ps * x
-        if use_reg:
-            out = out + reg_weight_rho * albedo_reg_apply_T(albedo_reg_apply(x, reg), reg)
-        out = out + damping * diag * x
-        return torch.where(valid_c, out, x)
-
-    d_safe = jacobi_diag(valid_c, diag, damping)
-    b = torch.where(valid_c, b, 0.0)
-    delta = _solve_cg(matvec, b, d_safe, cg_iters, cg_tol, cg_static, steps_out)
-    return torch.where(valid_c, delta, 0.0)
+    The system is formed per pair and row (ops/albedo.albedo_system: J_rho
+    of albedo_jacobian_sh / _led, albedo_data_terms, and under
+    reg_weight_rho the regularizer of albedo_reg_operator with its
+    transposes) and solved with the accept rule by ops/albedo.albedo_cg,
+    with the stop rule of `cg` (cg_static: `pcg_fixed`'s); one kernel
+    launch each on the card.  `stencil` is the problem's
+    distcg.stencil_reverse table, read under the regularizer only (a
+    missing table or another problem's then raises).  `steps_out` receives
+    the steps taken, under either rule."""
+    if reg_weight_rho != 0.0 and (stencil is None or stencil.source is not prob.nbr_idx):
+        raise ValueError("solve_albedo: the stencil table is missing or was "
+                         "built for another problem")
+    sys = albedo_ops.albedo_system(prob, rd, albedo, grad_stored, lights, poses, stencil,
+                                   model=model, order=order, voxel_size=voxel_size,
+                                   reg_weight_rho=reg_weight_rho)
+    return albedo_ops.albedo_cg(sys, prob.valid, albedo, stencil,
+                                reg_weight_rho=reg_weight_rho, damping=damping,
+                                cg_iters=cg_iters, cg_tol=cg_tol, cg_static=cg_static,
+                                steps_out=steps_out)
 
 
 def update_albedo(prob: RefineProblem, albedo: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """rho -= delta per channel, accepted only if the result lies strictly in
-    (0,1) (OptimizerAux.cpp:120-150)."""
-    cand = albedo - delta
-    ok = (cand > 0.0) & (cand < 1.0) & prob.valid[:, None]
-    return torch.where(ok, cand, albedo)
+    (0,1) (OptimizerAux.cpp:120-150): ops/albedo.accept, the rule albedo_cg
+    applies to its own delta."""
+    return albedo_ops.accept(prob.valid, albedo, delta)
 
 
 # --------------------------------------------------------------- light solve

@@ -4,7 +4,8 @@ assembled rows against the normal equations, the assembled operator, b and
 diag against the JAX package's `_distance_system`, the kernel's one-phase
 H p (hp_gather_plain) against the assembled operator bit for bit,
 solve_distance through the new path against the JAX package's and against the scatter-add CG's
-steps, bit-identical plain runs, the solve's edge cases, and the refiner's
+steps, bit-identical plain runs, the solve's edge cases, the plain PCG
+loop it shares with the albedo block against solvers.cg, and the refiner's
 table rebuilt with every problem.  On the CPU the wrappers run their plain
 versions; the kernels are held against them on the card by chip_smoke.py
 (phase dist_cg_kernels)."""
@@ -427,6 +428,35 @@ def test_edge_cases_one_row_frozen_neighbours_and_no_valid_row(lin):
                             damping=1.0, cg_iters=100, cg_tol=1e-6,
                             cg_static=static, steps_out=steps)
         assert int(steps[0]) == 0 and not bool(d0.any())
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["scipy", "static"])
+def test_pcg_plain_is_cg_chunks_on_a_dense_system(static):
+    """The plain PCG loop that dist_cg_plain and albedo_cg_plain share
+    (distcg.pcg_plain) on a dense SPD system: solvers.cg's steps (scipy's
+    rule) and solvers.cg / pcg_fixed's iterate within 1e-6 of its largest
+    entry, the solution within 1e-4 of a float64 solve."""
+    rng = np.random.default_rng(7)
+    n = 24
+    M = rng.standard_normal((n, n))
+    A = M @ M.T + n * np.eye(n)
+    b = rng.standard_normal(n)
+    At, bt = torch.tensor(A, dtype=torch.float32), torch.tensor(b, dtype=torch.float32)
+    d = torch.diagonal(At).clone()
+    matvec = lambda p: At @ p
+    steps = []
+    x = distcg.pcg_plain(matvec, bt, d, cg_iters=100, cg_tol=1e-4, cg_static=static,
+                         steps_out=steps)
+    if static:
+        ref = tsolvers.pcg_fixed(matvec, bt, lambda v: v / d, 100, 1e-4)
+    else:
+        ref_steps = []
+        ref = tsolvers.cg(matvec, bt, lambda v: v / d, 100, 1e-4, steps_out=ref_steps)
+        assert int(steps[0]) == int(ref_steps[0]) > 1
+    want = np.linalg.solve(A, b)
+    np.testing.assert_allclose(x.numpy(), ref.numpy(), rtol=0,
+                               atol=1e-6 * float(ref.abs().max()))
+    np.testing.assert_allclose(x.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
 
 
 # ------------------------------------------------------------ the refiner

@@ -440,14 +440,16 @@ def test_tile_plan_covers_every_pair_once_in_contiguous_spans(F, N):
 
 @pytest.mark.parametrize("kernel", ["residual", "jacobian"])
 def test_c_argument_blocks_have_the_kernels_layout(kernel):
-    """Every field 8 bytes, the plan last (csrc/residual.cu's structs), and
-    the plan passed field for field."""
+    """Every field 8 bytes, the plan last but for the pass's grid voxel
+    size after it (csrc/residual.cu's structs), and the plan passed field
+    for field."""
     import ctypes
 
     assert ctypes.sizeof(tres._TilePlan) == 17 * 8
-    assert ctypes.sizeof(tres._ResidualArgs) == (19 + 7 + 5) * 8 + 17 * 8
+    assert ctypes.sizeof(tres._ResidualArgs) == (19 + 7 + 5) * 8 + 17 * 8 + 8
     assert ctypes.sizeof(tres._JacobianArgs) == (14 + 4 + 1) * 8 + 17 * 8
     assert tres._ResidualArgs.plan.offset == (19 + 7 + 5) * 8
+    assert tres._ResidualArgs.grid_voxel.offset == (19 + 7 + 5) * 8 + 17 * 8
     assert tres._JacobianArgs.plan.offset == (14 + 4 + 1) * 8
     plan = tres._tile_plan(7, 5000, kernel=kernel)
     c = tres._c_plan(plan)
@@ -460,3 +462,30 @@ def test_c_argument_blocks_have_the_kernels_layout(kernel):
     assert c.carveout == plan.carveout and 0 < plan.carveout <= 100
     # only the pass stages its outputs
     assert (plan.stage_bytes > 0) == (kernel == "residual")
+
+
+def test_voxel_centres_follow_the_grid_and_differences_the_step(monkeypatch):
+    """The refinement's loop passes the step it started with after the
+    upsample halves the grid (as the JAX package's does): the pass places
+    the voxel centres on the grid's spacing (geom.voxel2world) whatever the
+    step, and only the finite differences take the step.  The plain
+    version's p_cam and uv do not move with the step; the wrapper hands the
+    kernel both sizes (the launch captured on meta tensors, no card
+    here)."""
+    st = _state("LED")
+    args, kw = _t_args(st), _kw(st)
+    a = tres.residual_pass_plain(*args, **kw)
+    b = tres.residual_pass_plain(*args, **dict(kw, voxel_size=2 * H_VOX))
+    assert torch.equal(a.p_cam, b.p_cam) and torch.equal(a.uv, b.uv)
+
+    seen = {}
+    monkeypatch.setattr(tres, "_library", lambda: type("L", (), {"residual_pass": None}))
+    monkeypatch.setattr(tres, "_launch", lambda fn, args, dev, name: seen.update(a=args))
+    meta = lambda t: t.to("meta") if isinstance(t, torch.Tensor) else t
+    prob = type(args[0])(*(meta(t) for t in args[0]))
+    margs = (prob, args[1]) + tuple(meta(t) for t in args[2:])
+    tres.residual_pass(*margs, **dict(kw, voxel_size=2 * H_VOX))
+    geom = args[1]
+    assert seen["a"].grid_voxel == geom.voxel_size == H_VOX
+    assert seen["a"].voxel == 2 * H_VOX
+    assert (seen["a"].origin_x, seen["a"].origin_y, seen["a"].origin_z) == geom.origin

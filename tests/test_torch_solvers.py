@@ -251,7 +251,9 @@ def test_solve_and_update_distance(lin, w_n, w_l, static):
 def test_solve_and_update_albedo(lin, w_rho):
     J, T = lin["J"], lin["T"]
     kw = dict(reg_weight_rho=w_rho, damping=1.0)
-    ta = tsolvers.solve_albedo(T["p"], T["rd"], T["Jrho"], T["albedo"], H_VOX, **kw)
+    ta, _ = tsolvers.solve_albedo(T["p"], T["rd"], T["albedo"], T["grad"], T["lights"],
+                                  T["poses"], H_VOX, model=lin["model"], order=lin["order"],
+                                  stencil=stencil_reverse(T["p"]), **kw)
     ja = jsolvers.solve_albedo(J["p"], J["rd"], J["Jrho"], J["albedo"], H_VOX, **kw)
     assert ta.shape == T["albedo"].shape and float(ta.abs().max()) > 1e-3
     _close(ta, ja, 2e-4)
