@@ -1,15 +1,14 @@
 """The albedo block's solve: its data terms formed per (voxel, keyframe)
-pair (and the regularizer's rows), and the whole Jacobi-preconditioned CG
-with the (0, 1) accept rule, one launch each of the hand-written Hopper
-kernels in csrc/albedo.cu, or their plain PyTorch versions for CPU tensors.
+pair (and the regularizer's rows), then the whole Jacobi-preconditioned CG
+with the (0, 1) accept rule, in ONE launch of the hand-written Hopper
+kernel in csrc/albedo.cu, or the plain PyTorch versions for CPU tensors.
 
-  albedo_system(prob, rd, albedo, grad_stored, lights, poses, stencil, *,
-                model, order, voxel_size, reg_weight_rho) -> AlbedoSystem
-  albedo_cg(system, valid, albedo, stencil, *, reg_weight_rho, damping,
-            cg_iters, cg_tol, cg_static, steps_out=None)
-      -> (delta [N,3], new albedo [N,3])
+  albedo_block(prob, rd, albedo, grad_stored, lights, poses, stencil, *,
+               model, order, voxel_size, reg_weight_rho, damping, cg_iters,
+               cg_tol, cg_static, steps_out=None, system_out=None,
+               barriers_out=None) -> (delta [N,3], new albedo [N,3])
 
-Together they replace the JAX package's albedo block as
+It replaces the JAX package's albedo block as
 psgradientsdf_tpu/refine/optimizer.py `_albedo_core` (:77) runs it:
 refine/jacobians.py `albedo_jacobian_sh` (:128) / `albedo_jacobian_led`
 (:138), refine/solvers.py `solve_albedo` (:424: the einsums :443-444, the
@@ -27,24 +26,29 @@ b += rho J^T r_reg, diag = diag_ps + rho diag(J^T J) gather the rows that
 name a row through the reverse stencil table (distcg.stencil_reverse):
 no index_add_, every sum in one fixed order.
 
-albedo_system sums a row's frames as its group of GROUP = 8 lanes does on
-the card (four rows a warp): lane k adds frames k, k + 8, ... in order,
-then the 8 lane sums are added pairwise; every product and sum is rounded
-once, and the kernel (_rn intrinsics) equals the plain version bit for
-bit.  albedo_cg runs
-`solvers.cg_chunks`' preconditioned CG with both stop rules (scipy's, and
-cg_static's fixed trip count), decided on the device, then update_albedo's
-rule on its delta; the kernel sums its dots from per-block partials in one
-fixed order, the plain version with torch.sum, so the two agree to float32
-rounding (the accept rule equals update_albedo on the kernel's own delta
-bit for bit).
+albedo_system_plain sums a row's frames as its group of GROUP = 8 lanes
+does on the card (four rows a warp): lane k adds frames k, k + 8, ... in
+order, then the 8 lane sums are added pairwise; every product and sum is
+rounded once, and the kernel (_rn intrinsics) equals the plain version bit
+for bit.  albedo_cg_plain runs `solvers.cg_chunks`' preconditioned CG with
+both stop rules (scipy's, and cg_static's fixed trip count), then
+update_albedo's rule on its delta; the kernel decides both rules on the
+device and sums its dots from per-block partials in one fixed order, the
+plain version with torch.sum, so the two agree to float32 rounding (the
+accept rule equals update_albedo on the kernel's own delta bit for bit).
 
-albedo_cg widens dist_cg's row: a row is a voxel with its three channels,
-on distcg._cg_plan's tiles (one block an SM, contiguous tiles on 16-row
-starts); the block's own vectors sit in shared memory where the tile fits
-(shared_tile_limit), else in device memory.  Without the regularizer (both
-recipes) the operator is diagonal and a step crosses two grid barriers,
-those of its dots; under it four (p and J p are published between them).
+The launch (_albedo_plan) runs on distcg._cg_plan's tiles (one block an SM,
+contiguous tiles of voxels on 16-row starts).  Each warp streams stages of
+STAGE_ROWS voxel rows of w, r (and p_cam) and of the stored gradient
+through its own ring of `depth` stages in shared memory by bulk copies
+(stage_list is the order), forms
+the rows' b and diag_ps straight into the block's CG vectors (in shared
+memory up to shared_tile_limit voxels a block, else in device memory), and
+runs the CG there.  Without the regularizer (both recipes) the operator is
+diagonal: step 0's p.Ap rides on the prologue's barrier and a later step
+crosses two, so the recipes' one-step solve crosses two grid barriers in
+all; under the regularizer a step crosses four (p and J p are published
+between them).
 
 A wrapper takes the plain version ONLY for tensors that lie on the CPU; for
 CUDA tensors it launches the kernel or raises.  `launch_counts` counts
@@ -67,10 +71,10 @@ from psgradientsdf_tpu_torch.refine.problem import RefineProblem
 from psgradientsdf_tpu_torch.utils import sh
 
 _LIB_NAME = "albedo"
-launch_counts: Dict[str, int] = {"albedo_system": 0, "albedo_cg": 0}
+launch_counts: Dict[str, int] = {"albedo_block": 0}
 
-# albedo_system's lanes a row (csrc/albedo.cu kGroup): lane k adds frames
-# k, k + GROUP, ...
+# the kernel's lanes a row (csrc/albedo.cu kGroup): lane k adds frames k,
+# k + GROUP, ...
 GROUP = 8
 
 
@@ -235,43 +239,125 @@ def albedo_cg_plain(sys: AlbedoSystem, valid: torch.Tensor, albedo: torch.Tensor
     return delta, accept(valid, albedo, delta)
 
 
+def grid_barriers(reg: bool, steps: int) -> int:
+    """The grid barriers albedo_block's kernel crosses in a solve of `steps`
+    steps: without the regularizer the prologue's grid.sync (carrying step
+    0's p.Ap too), then two a step but one at step 0; under it the grid.sync
+    before the transposes, the prologue's barrier and four a step."""
+    if reg:
+        return 2 + 4 * steps
+    return 2 * steps if steps else 1
+
+
 # ---------------------------------------------------------------------------
-# the CG's launch plan
+# the launch plan
 # ---------------------------------------------------------------------------
 
+WARPS = distcg.CG_THREADS // 32
+# voxel rows a stage (csrc/albedo.cu kStageRows): a warp's four groups of
+# GROUP lanes, one row each
+STAGE_ROWS = 32 // GROUP
+# the most stages a warp's ring holds
+DEPTH = 2
+# floats each block publishes a barrier (csrc/albedo.cu kSlots): the
+# prologue's b.b, r.z and p.Ap
+SLOTS = 4
+# shared memory before the warps' mbarriers: the warps' sums [warps][SLOTS]
+# and the grid's (16 bytes) (csrc/albedo.cu kHeader)
+_HEADER = WARPS * SLOTS * 4 + 16
 # the block's own vectors, 3 floats a row each: x, r, z, A p, p, the safe
 # diagonal, damping diag, diag_ps (csrc/albedo.cu kVectors)
 _VECTORS = 8
-# shared memory before the vectors: the warps' sums [warps][2] and the
-# grid's (16 bytes) (csrc/albedo.cu kHeader)
-_HEADER = (distcg.CG_THREADS // 32) * 2 * 4 + 16
+_ROW_BYTES = 4 * 3 * _VECTORS
 
 
 class AlbedoPlan(NamedTuple):
-    """albedo_cg's launch for N voxels: distcg._cg_plan's blocks and tile,
-    the block's dynamic shared memory and whether its own vectors are
-    there."""
+    """albedo_block's launch for N voxels at F keyframes (csrc/albedo.cu
+    BlockPlan): distcg._cg_plan's blocks and tile; whether the CG's vectors
+    sit in shared memory; the stages a warp's ring holds (0: the pairs read
+    from device memory) and a stage's bytes; the rings' and the vectors'
+    offsets and the block's dynamic shared memory."""
     blocks: int
     tile: int
-    smem_bytes: int
     shared: bool
+    depth: int
+    stage_bytes: int
+    ring: int
+    vec: int
+    smem_bytes: int
 
 
-def shared_tile_limit() -> int:
-    """The most voxels a block's tile may hold with its vectors in shared
-    memory (a multiple of distcg.TILE_ROWS)."""
-    per = distcg.TILE_ROWS * 4 * 3 * _VECTORS
-    return (distcg.SMEM_PER_BLOCK - _HEADER) // per * distcg.TILE_ROWS
+def _stage_bytes(F: int, led: bool) -> int:
+    """A stage: STAGE_ROWS rows of w and r (LED: and p_cam), F x 3 floats
+    each, then their stored gradients, 3 floats each; always a multiple of
+    16 bytes."""
+    return STAGE_ROWS * (F * 12 * (3 if led else 2) + 12)
 
 
-def _albedo_plan(N: int, *, sms: int) -> AlbedoPlan:
-    """albedo_cg's launch for N voxels on a card of `sms` SMs: the tiles of
-    distcg._cg_plan (rows = voxels), the vectors in shared memory where the
-    tile fits shared_tile_limit."""
+def _rings(depth: int, F: int, led: bool) -> Tuple[int, int]:
+    """(the rings' offset, their end) at `depth` stages a warp: the warps'
+    mbarriers after the header, the rings from the next 16-byte
+    boundary."""
+    ring = distcg._up16(_HEADER + 8 * WARPS * depth)
+    return ring, ring + WARPS * depth * _stage_bytes(F, led)
+
+
+def shared_tile_limit(F: int, *, led: bool) -> int:
+    """The most voxels a block's tile may hold with the CG's vectors in
+    shared memory, a multiple of distcg.TILE_ROWS, beside rings of one
+    stage a warp where such rings fit at all."""
+    _, end = _rings(1, F, led)
+    if end > distcg.SMEM_PER_BLOCK:
+        _, end = _rings(0, F, led)
+    per = distcg.TILE_ROWS * _ROW_BYTES
+    return (distcg.SMEM_PER_BLOCK - end) // per * distcg.TILE_ROWS
+
+
+def _albedo_plan(N: int, F: int, *, led: bool, sms: int) -> AlbedoPlan:
+    """albedo_block's launch for N voxels at F keyframes on a card of `sms`
+    SMs: the tiles of distcg._cg_plan (rows = voxels), the vectors in
+    shared memory where the tile fits shared_tile_limit, and the deepest
+    ring, up to DEPTH stages a warp, that fits beside them."""
+    if F < 1:
+        raise ValueError(f"albedo_block: no plan for {F} keyframes")
     tiles = distcg._cg_plan(N, use_lap=False, lap_nbr=False, sms=sms)
-    shared = tiles.tile <= shared_tile_limit()
-    smem = _HEADER + (4 * 3 * _VECTORS * tiles.tile if shared else 0)
-    return AlbedoPlan(tiles.blocks, tiles.tile, smem, shared)
+    shared = tiles.tile <= shared_tile_limit(F, led=led)
+    vec_bytes = _ROW_BYTES * tiles.tile if shared else 0
+    depth = next((d for d in range(DEPTH, 0, -1)
+                  if _rings(d, F, led)[1] + vec_bytes <= distcg.SMEM_PER_BLOCK), 0)
+    ring, end = _rings(depth, F, led)
+    return AlbedoPlan(tiles.blocks, tiles.tile, shared, depth, _stage_bytes(F, led), ring,
+                      end if shared else 0, end + vec_bytes)
+
+
+def stage_list(plan: AlbedoPlan, N: int, F: int, *, led: bool, base: int = 0
+               ) -> Dict[str, np.ndarray]:
+    """Every stage the kernel reads on `plan`, as its warps take them: block
+    b's tile [b tile, ...) in stages of STAGE_ROWS voxel rows, stage s to
+    warp s % WARPS as its turn j = s // WARPS, into slot j % depth of that
+    warp's ring.  A stage is one bulk copy a span (its rows of each pair
+    tensor, F x 12 bytes a row, and of the stored gradient, 12 bytes a row)
+    where every span is 16-byte aligned and sized, the tensors' bases lying
+    `base` bytes past a 16-byte boundary; else the warp's lanes load it (so
+    at depth 0, where the pairs are read from device memory).  `offset` and
+    `bytes` are a pair tensor's span -> {field: array}."""
+    blocks = np.arange(plan.blocks, dtype=np.int64)
+    rows = np.minimum(N - blocks * plan.tile, plan.tile)
+    stages = -(-rows // STAGE_ROWS)
+    block = np.repeat(blocks, stages)
+    s = np.arange(int(stages.sum()), dtype=np.int64) - np.repeat(np.cumsum(stages) - stages,
+                                                                 stages)
+    row0 = block * plan.tile + STAGE_ROWS * s
+    nrows = np.minimum(STAGE_ROWS, N - row0)
+    offset = row0 * F * 12 + base
+    nbytes = nrows * F * 12
+    j = s // WARPS
+    staged = plan.depth > 0
+    return dict(block=block, warp=s % WARPS, turn=j,
+                slot=j % plan.depth if staged else np.full_like(j, -1),
+                row0=row0, rows=nrows, offset=offset, bytes=nbytes,
+                bulk=((offset % 16 == 0) & (nbytes % 16 == 0) & ((row0 * 12 + base) % 16 == 0)
+                      & (nrows * 12 % 16 == 0)) & staged)
 
 
 _bound = None
@@ -279,60 +365,65 @@ _plans: Dict[tuple, AlbedoPlan] = {}
 _occupancy: Dict[tuple, int] = {}
 
 
-def cg_plan(dev: torch.device, N: int, *, reg: bool) -> AlbedoPlan:
+def block_plan(dev: torch.device, N: int, F: int, *, led: bool, reg: bool) -> AlbedoPlan:
     """_albedo_plan on `dev`'s SMs, found once; its cooperative occupancy at
     its shared memory checked once per (device, instance, bytes): a plan the
     card cannot run raises."""
-    key = (dev.index, N)
+    key = (dev.index, N, F, bool(led))
     plan = _plans.get(key)
     if plan is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = _plans[key] = _albedo_plan(N, sms=sms)
-    okey = (dev.index, bool(reg), plan.smem_bytes)
+        plan = _plans[key] = _albedo_plan(N, F, led=led, sms=sms)
+    okey = (dev.index, bool(led), bool(reg), plan.smem_bytes)
     if okey not in _occupancy:
         per_sm = ctypes.c_int64()
         with torch.cuda.device(dev):
-            rc = _library().albedo_cg_occupancy(int(reg), plan.smem_bytes,
-                                                ctypes.byref(per_sm))
+            rc = _library().albedo_block_occupancy(int(led), int(reg), plan.smem_bytes,
+                                                   ctypes.byref(per_sm))
         if rc != 0 or per_sm.value < 1:
             raise RuntimeError(
-                f"albedo_cg: {plan.smem_bytes} bytes of shared memory do not run "
+                f"albedo_block: {plan.smem_bytes} bytes of shared memory do not run "
                 f"cooperatively on {dev} (CUDA error {rc}, {per_sm.value} blocks an SM)")
         _occupancy[okey] = per_sm.value
     return plan
 
 
 def _work_floats(plan: AlbedoPlan, N: int, reg: bool) -> int:
-    """albedo_cg's work buffer: the published p and y (regularizer), then
-    the own vectors where they are not in shared memory."""
-    return (6 * N if reg else 0) + (0 if plan.shared else 3 * _VECTORS * N)
+    """albedo_block's work buffer: the published p and y and the rows r_reg,
+    J0r (3 N each) and Jir (9 N) under the regularizer, then the own vectors
+    where they are not in shared memory."""
+    return (21 * N if reg else 0) + (0 if plan.shared else 3 * _VECTORS * N)
+
+
+def _sync_words(plan: AlbedoPlan, dev) -> torch.Tensor:
+    """The barriers' counter (4 words, set to 0 by the kernel) and the
+    blocks' partials [2][blocks][SLOTS] floats, in one buffer."""
+    return torch.empty((4 + 2 * SLOTS * plan.blocks,), dtype=torch.int32, device=dev)
 
 
 # ---------------------------------------------------------------------------
-# argument checks and the library binding
+# argument checks, the library binding and the launch
 # ---------------------------------------------------------------------------
 
 
-class _SystemArgs(ctypes.Structure):
-    """csrc/albedo.cu SystemArgs, field for field (every field 8 bytes)."""
+class _BlockPlan(ctypes.Structure):
+    """csrc/albedo.cu BlockPlan, field for field."""
+    _fields_ = [(n, ctypes.c_int64) for n in AlbedoPlan._fields]
+
+
+class _BlockArgs(ctypes.Structure):
+    """csrc/albedo.cu BlockArgs, field for field (every field 8 bytes but
+    the plan)."""
     _p, _i, _d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
     _fields_ = [("w", _p), ("r", _p), ("p_cam", _p), ("grad", _p), ("lights", _p),
                 ("poses", _p), ("valid", _p), ("albedo", _p), ("nbr", _p), ("rev", _p),
-                ("nbr_dir", _p), ("nbr_const", _p), ("b", _p), ("diag_ps", _p),
-                ("diag", _p), ("r_reg", _p), ("J0r", _p), ("Jir", _p), ("n", _i),
-                ("f", _i), ("basis", _i), ("led", _i), ("reg", _i), ("inv_h", _d),
-                ("reg_weight_rho", _d)]
-
-
-class _CgArgs(ctypes.Structure):
-    """csrc/albedo.cu CgArgs, field for field (every field 8 bytes)."""
-    _p, _i, _d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    _fields_ = [("b", _p), ("diag_ps", _p), ("diag", _p), ("J0r", _p), ("Jir", _p),
-                ("nbr", _p), ("rev", _p), ("valid", _p), ("albedo", _p), ("delta", _p),
-                ("albedo_out", _p), ("steps", _p), ("work", _p), ("sync", _p),
-                ("n", _i), ("maxiter", _i), ("fixed", _i), ("reg", _i), ("blocks", _i),
-                ("tile", _i), ("smem_bytes", _i), ("shared", _i),
-                ("reg_weight_rho", _d), ("damping", _d), ("tol_sq", _d)]
+                ("nbr_dir", _p), ("nbr_const", _p), ("delta", _p), ("albedo_out", _p),
+                ("steps", _p), ("work", _p), ("sync", _p), ("b_out", _p),
+                ("diag_ps_out", _p), ("diag_out", _p), ("b_in", _p), ("diag_ps_in", _p),
+                ("n", _i), ("f", _i), ("basis", _i), ("led", _i), ("reg", _i),
+                ("maxiter", _i), ("fixed", _i), ("phases", _i), ("inv_h", _d),
+                ("reg_weight_rho", _d), ("damping", _d), ("tol_sq", _d),
+                ("plan", _BlockPlan)]
 
 
 def _library():
@@ -341,139 +432,145 @@ def _library():
         from psgradientsdf_tpu_torch.kernels import load_library
 
         lib = load_library(_LIB_NAME)
-        lib.albedo_system.argtypes = [ctypes.POINTER(_SystemArgs), ctypes.c_void_p]
-        lib.albedo_system.restype = ctypes.c_int
-        lib.albedo_cg.argtypes = [ctypes.POINTER(_CgArgs), ctypes.c_void_p]
-        lib.albedo_cg.restype = ctypes.c_int
-        lib.albedo_cg_occupancy.argtypes = [ctypes.c_int64, ctypes.c_int64,
-                                            ctypes.POINTER(ctypes.c_int64)]
-        lib.albedo_cg_occupancy.restype = ctypes.c_int
+        lib.albedo_block.argtypes = [ctypes.POINTER(_BlockArgs), ctypes.c_void_p]
+        lib.albedo_block.restype = ctypes.c_int
+        lib.albedo_block_occupancy.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                                               ctypes.POINTER(ctypes.c_int64)]
+        lib.albedo_block_occupancy.restype = ctypes.c_int
         _bound = lib
     return _bound
 
 
-def _launch(name: str, args, dev) -> None:
-    with torch.cuda.device(dev):
-        rc = getattr(_library(), name)(ctypes.byref(args),
-                                       torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {rc}")
-    launch_counts[name] += 1
-
-
-# ---------------------------------------------------------------------------
-# the wrappers
-# ---------------------------------------------------------------------------
-
-
-def albedo_system(prob: RefineProblem, rd, albedo: torch.Tensor,
-                  grad_stored: torch.Tensor, lights: torch.Tensor,
-                  poses: torch.Tensor, stencil: Optional[StencilReverse], *,
-                  model: str, order: int, voxel_size: float,
-                  reg_weight_rho: float) -> AlbedoSystem:
-    """The albedo block's system from the residual pass rd (w, r and, under
-    LED, p_cam [N,F,3]), the stored gradient [N,3], the lights ([F,B] SH,
-    [3] LED) and the poses [F,4,4] (LED); under the regularizer the albedo
-    [N,3] and the problem's reverse stencil table: one kernel launch on the
-    card, albedo_system_plain on the CPU."""
-    kw = dict(model=model, order=order, voxel_size=voxel_size,
-              reg_weight_rho=reg_weight_rho)
+def _launch_block(prob: RefineProblem, rd, albedo: torch.Tensor, grad_stored: torch.Tensor,
+                  lights: torch.Tensor, poses: torch.Tensor,
+                  stencil: Optional[StencilReverse], *, model: str, order: int,
+                  voxel_size: float, reg_weight_rho: float, damping: float, cg_iters: int,
+                  cg_tol: float, cg_static: bool, want_system: bool = False,
+                  phases: int = 3, system_in: Optional[AlbedoSystem] = None):
+    """One launch of albedo_block's kernel on the card -> (delta, new
+    albedo, steps [2] int64: the steps and the grid barriers crossed, the
+    system written out with `want_system` else None).  `phases` 3 is the
+    block; without the regularizer 1 forms the system alone (written out)
+    and 2 solves `system_in`, the two-launch form that
+    tools/albedo_block_ab.py times."""
     w = rd.w
-    if w.device.type == "cpu":
-        return albedo_system_plain(prob, rd, albedo, grad_stored, lights, poses,
-                                   stencil, **kw)
     N, F = w.shape[0], w.shape[1]
     led, reg = model == LED, reg_weight_rho != 0.0
+    if phases not in (1, 2, 3) or (reg and phases != 3):
+        raise ValueError(f"albedo_block: phases {phases} (regularizer {reg})")
     B = sh.n_basis(order)
     f32, i32 = torch.float32, torch.int32
-    named = [("rd.w", w, (N, F, 3), f32), ("rd.r", rd.r, (N, F, 3), f32),
-             ("grad_stored", grad_stored, (N, 3), f32),
-             ("valid", prob.valid, (N,), torch.bool)]
-    if led:
-        named += [("rd.p_cam", rd.p_cam, (N, F, 3), f32), ("lights", lights, (3,), f32),
-                  ("poses", poses, (F, 4, 4), f32)]
+    named = [("valid", prob.valid, (N,), torch.bool), ("albedo", albedo, (N, 3), f32)]
+    if phases & 1:
+        named += [("rd.w", w, (N, F, 3), f32), ("rd.r", rd.r, (N, F, 3), f32),
+                  ("grad_stored", grad_stored, (N, 3), f32)]
+        if led:
+            named += [("rd.p_cam", rd.p_cam, (N, F, 3), f32), ("lights", lights, (3,), f32),
+                      ("poses", poses, (F, 4, 4), f32)]
+        else:
+            named.append(("lights", lights, (F, B), f32))
     else:
-        named.append(("lights", lights, (F, B), f32))
+        named += [("system_in.b", system_in.b, (N, 3), f32),
+                  ("system_in.diag_ps", system_in.diag_ps, (N, 3), f32)]
     if reg:
-        named += [("albedo", albedo, (N, 3), f32), ("stencil.nbr", stencil.nbr, (N, 3), i32),
+        named += [("stencil.nbr", stencil.nbr, (N, 3), i32),
                   ("stencil.rev", stencil.rev, (N, 6), i32),
                   ("prob.nbr_dir", prob.nbr_dir, (N, 3), f32),
                   ("prob.nbr_albedo_const", prob.nbr_albedo_const, (N, 3, 3), f32)]
-    distcg._check("albedo_system", w.device, named)
-    out = lambda *shape: torch.empty((N,) + shape, dtype=f32, device=w.device)
-    b, diag_ps = out(3), out(3)
-    if reg:
-        diag, r_reg, J0r, Jir = out(3), out(3), out(3), out(3, 3)
+    dev = w.device
+    distcg._check("albedo_block", dev, named)
+    if cg_iters < 0:
+        raise ValueError(f"albedo_block: cg_iters must be >= 0, got {cg_iters}")
+    plan = block_plan(dev, N, F, led=led, reg=reg)
+    out = lambda *shape: torch.empty((N,) + shape, dtype=f32, device=dev)
+    delta, new = out(3), out(3)
+    steps = torch.empty((2,), dtype=torch.int64, device=dev)
+    work = torch.empty((max(_work_floats(plan, N, reg), 1),), dtype=f32, device=dev)
+    sync = _sync_words(plan, dev)
+    a = _BlockArgs()
+    if phases & 1:
+        a.w, a.r, a.grad = w.data_ptr(), rd.r.data_ptr(), grad_stored.data_ptr()
+        a.lights = lights.data_ptr()
+        if led:
+            a.p_cam, a.poses = rd.p_cam.data_ptr(), poses.data_ptr()
     else:
-        diag, r_reg, J0r, Jir = diag_ps, None, None, None
-    a = _SystemArgs()
-    a.w, a.r, a.grad = w.data_ptr(), rd.r.data_ptr(), grad_stored.data_ptr()
-    a.lights, a.valid = lights.data_ptr(), prob.valid.data_ptr()
-    if led:
-        a.p_cam, a.poses = rd.p_cam.data_ptr(), poses.data_ptr()
+        a.b_in, a.diag_ps_in = system_in.b.data_ptr(), system_in.diag_ps.data_ptr()
+    a.valid, a.albedo = prob.valid.data_ptr(), albedo.data_ptr()
     if reg:
-        a.albedo = albedo.data_ptr()
         a.nbr, a.rev = stencil.nbr.data_ptr(), stencil.rev.data_ptr()
         a.nbr_dir, a.nbr_const = prob.nbr_dir.data_ptr(), prob.nbr_albedo_const.data_ptr()
-        a.diag, a.r_reg, a.J0r, a.Jir = (diag.data_ptr(), r_reg.data_ptr(), J0r.data_ptr(),
-                                         Jir.data_ptr())
-    a.b, a.diag_ps = b.data_ptr(), diag_ps.data_ptr()
-    a.n, a.f, a.basis, a.led, a.reg = N, F, B, int(led), int(reg)
-    a.inv_h, a.reg_weight_rho = inv_voxel(voxel_size), float(reg_weight_rho)
-    _launch("albedo_system", a, w.device)
-    return AlbedoSystem(b, diag_ps, diag, r_reg, J0r, Jir)
-
-
-def albedo_cg(sys: AlbedoSystem, valid: torch.Tensor, albedo: torch.Tensor,
-              stencil: Optional[StencilReverse], *, reg_weight_rho: float,
-              damping: float, cg_iters: int, cg_tol: float, cg_static: bool,
-              steps_out: Optional[List] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The albedo step delta [N,3] (0 on invalid rows) and the new albedo
-    [N,3] (albedo - delta where it lies in (0, 1) on a valid row): the
-    whole Jacobi-PCG and the accept rule in ONE cooperative launch on the
-    card, its stop decided there (nothing read back; `steps_out` receives
-    the step count as a 0-dim int64 tensor on the card), albedo_cg_plain on
-    the CPU.  `stencil` (the reverse table) is read under the regularizer
-    only."""
-    kw = dict(reg_weight_rho=reg_weight_rho, damping=damping, cg_iters=cg_iters,
-              cg_tol=cg_tol, cg_static=cg_static, steps_out=steps_out)
-    b = sys.b
-    if b.device.type == "cpu":
-        return albedo_cg_plain(sys, valid, albedo, stencil, **kw)
-    N = b.shape[0]
-    reg = reg_weight_rho != 0.0
-    f32, i32 = torch.float32, torch.int32
-    named = [("b", b, (N, 3), f32), ("diag_ps", sys.diag_ps, (N, 3), f32),
-             ("diag", sys.diag, (N, 3), f32), ("valid", valid, (N,), torch.bool),
-             ("albedo", albedo, (N, 3), f32)]
-    if reg:
-        named += [("J0r", sys.J0r, (N, 3), f32), ("Jir", sys.Jir, (N, 3, 3), f32),
-                  ("stencil.nbr", stencil.nbr, (N, 3), i32),
-                  ("stencil.rev", stencil.rev, (N, 6), i32)]
-    dev = b.device
-    distcg._check("albedo_cg", dev, named)
-    if cg_iters < 0:
-        raise ValueError(f"albedo_cg: cg_iters must be >= 0, got {cg_iters}")
-    plan = cg_plan(dev, N, reg=reg)
-    delta = torch.empty((N, 3), dtype=f32, device=dev)
-    new = torch.empty((N, 3), dtype=f32, device=dev)
-    steps = torch.empty((1,), dtype=torch.int64, device=dev)
-    work = torch.empty((max(_work_floats(plan, N, reg), 1),), dtype=f32, device=dev)
-    sync = distcg._sync_words(plan, dev)
-    a = _CgArgs()
-    a.b, a.diag_ps, a.diag = b.data_ptr(), sys.diag_ps.data_ptr(), sys.diag.data_ptr()
-    if reg:
-        a.J0r, a.Jir = sys.J0r.data_ptr(), sys.Jir.data_ptr()
-        a.nbr, a.rev = stencil.nbr.data_ptr(), stencil.rev.data_ptr()
-    a.valid, a.albedo = valid.data_ptr(), albedo.data_ptr()
     a.delta, a.albedo_out, a.steps = delta.data_ptr(), new.data_ptr(), steps.data_ptr()
     a.work, a.sync = work.data_ptr(), sync.data_ptr()
-    a.n, a.maxiter, a.fixed, a.reg = N, cg_iters, int(cg_static), int(reg)
-    a.blocks, a.tile, a.smem_bytes, a.shared = (plan.blocks, plan.tile, plan.smem_bytes,
-                                                int(plan.shared))
-    a.reg_weight_rho, a.damping = float(reg_weight_rho), float(damping)
-    a.tol_sq = cg_tol * cg_tol
-    _launch("albedo_cg", a, dev)
+    system = None
+    if want_system or phases == 1:
+        b, diag_ps = out(3), out(3)
+        diag = out(3) if reg else diag_ps
+        a.b_out, a.diag_ps_out, a.diag_out = b.data_ptr(), diag_ps.data_ptr(), diag.data_ptr()
+        # the regularizer's rows stay in the work buffer: views of them
+        rows = ((work[6 * N:9 * N].view(N, 3), work[9 * N:12 * N].view(N, 3),
+                 work[12 * N:21 * N].view(N, 3, 3)) if reg else (None, None, None))
+        system = AlbedoSystem(b, diag_ps, diag, *rows)
+    a.n, a.f, a.basis, a.led, a.reg = N, F, B, int(led), int(reg)
+    a.maxiter, a.fixed, a.phases = cg_iters, int(cg_static), phases
+    a.inv_h, a.reg_weight_rho = inv_voxel(voxel_size), float(reg_weight_rho)
+    a.damping, a.tol_sq = float(damping), cg_tol * cg_tol
+    a.plan = _BlockPlan(*plan)
+    with torch.cuda.device(dev):
+        rc = _library().albedo_block(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"albedo_block: kernel launch failed, CUDA error {rc}")
+    launch_counts["albedo_block"] += 1
+    return delta, new, steps, system
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+
+def albedo_block(prob: RefineProblem, rd, albedo: torch.Tensor, grad_stored: torch.Tensor,
+                 lights: torch.Tensor, poses: torch.Tensor,
+                 stencil: Optional[StencilReverse], *, model: str, order: int,
+                 voxel_size: float, reg_weight_rho: float, damping: float, cg_iters: int,
+                 cg_tol: float, cg_static: bool, steps_out: Optional[List] = None,
+                 system_out: Optional[List] = None,
+                 barriers_out: Optional[List] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The albedo block from the residual pass rd (w, r and, under LED,
+    p_cam [N,F,3]), the albedo [N,3], the stored gradient [N,3], the lights
+    ([F,B] SH, [3] LED), the poses [F,4,4] (LED) and, under the regularizer,
+    the problem's reverse stencil table: the step delta [N,3] (0 on invalid
+    rows) and the new albedo [N,3] (albedo - delta where it lies in (0, 1)
+    on a valid row).  On the card ONE cooperative launch forms the system
+    and runs the whole Jacobi-PCG and the accept rule, its stop decided
+    there (nothing read back); on the CPU albedo_cg_plain on
+    albedo_system_plain.  `steps_out` receives the step count as a 0-dim
+    int64 tensor, `barriers_out` the grid barriers the kernel crossed (on
+    the CPU the count it would cross, grid_barriers), `system_out` the
+    AlbedoSystem (on the card written out by the kernel too: a check's
+    view of what the main path keeps in shared memory)."""
+    skw = dict(model=model, order=order, voxel_size=voxel_size, reg_weight_rho=reg_weight_rho)
+    ckw = dict(damping=damping, cg_iters=cg_iters, cg_tol=cg_tol, cg_static=cg_static)
+    w = rd.w
+    if w.device.type == "cpu":
+        sys = albedo_system_plain(prob, rd, albedo, grad_stored, lights, poses, stencil, **skw)
+        steps = []
+        delta, new = albedo_cg_plain(sys, prob.valid, albedo, stencil,
+                                     reg_weight_rho=reg_weight_rho, **ckw, steps_out=steps)
+        count = steps[0]
+        if system_out is not None:
+            system_out.append(sys)
+        if barriers_out is not None:
+            barriers_out.append(torch.tensor(grid_barriers(reg_weight_rho != 0.0, int(count))))
+        if steps_out is not None:
+            steps_out.append(count)
+        return delta, new
+    delta, new, steps, sys = _launch_block(prob, rd, albedo, grad_stored, lights, poses,
+                                           stencil, **skw, **ckw,
+                                           want_system=system_out is not None)
+    if system_out is not None:
+        system_out.append(sys)
     if steps_out is not None:
-        steps_out.append(steps.view(()))
+        steps_out.append(steps[0])
+    if barriers_out is not None:
+        barriers_out.append(steps[1])
     return delta, new

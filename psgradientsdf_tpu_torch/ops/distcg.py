@@ -298,7 +298,7 @@ def pcg_plain(matvec, b: torch.Tensor, d_safe: torch.Tensor, *, cg_iters: int,
               steps_out: Optional[List] = None,
               trace: Optional[List] = None) -> torch.Tensor:
     """The Jacobi-PCG from x0 = 0 with eager PyTorch ops, the plain version
-    of dist_cg's and albedo_cg's loops: `matvec` the operator, b the masked
+    of dist_cg's and albedo_block's loops: `matvec` the operator, b the masked
     right-hand side, d_safe the preconditioner's safe diagonal; the stop
     test r.r > thr is read back before every step.  cg_static=False: thr =
     max(tol^2 b.b, atol^2), at most cg_iters steps (scipy's rule); True:

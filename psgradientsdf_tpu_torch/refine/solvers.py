@@ -20,7 +20,7 @@ the device is held against the CPU by tolerance.  The distance and albedo
 blocks' solves on one device have none: `solve_distance` assembles the
 normal equations per row and runs the whole CG through ops/distcg.py, and
 `solve_albedo` forms its system and runs its CG and update through
-ops/albedo.py (one kernel launch each on the card), with the transposes in
+ops/albedo.py (one kernel launch on the card), with the transposes in
 gather form.  The albedo block's eager operators below (albedo_data_terms,
 albedo_reg_*) are the mesh's (parallel/refine.py) and the references the
 tests hold ops/albedo.py to.
@@ -633,30 +633,27 @@ def solve_albedo(
     """Albedo GN step (PsOptimizer.cpp:85-121) and its update: -> (delta
     [N,3], the new albedo [N,3] of update_albedo).
 
-    The system is formed per pair and row (ops/albedo.albedo_system: J_rho
-    of albedo_jacobian_sh / _led, albedo_data_terms, and under
-    reg_weight_rho the regularizer of albedo_reg_operator with its
-    transposes) and solved with the accept rule by ops/albedo.albedo_cg,
-    with the stop rule of `cg` (cg_static: `pcg_fixed`'s); one kernel
-    launch each on the card.  `stencil` is the problem's
-    distcg.stencil_reverse table, read under the regularizer only (a
-    missing table or another problem's then raises).  `steps_out` receives
-    the steps taken, under either rule."""
+    ONE call of ops/albedo.albedo_block, one kernel launch on the card: the
+    system formed per pair and row (J_rho of albedo_jacobian_sh / _led,
+    albedo_data_terms, and under reg_weight_rho the regularizer of
+    albedo_reg_operator with its transposes), then its CG with the stop
+    rule of `cg` (cg_static: `pcg_fixed`'s) and the accept rule.  `stencil`
+    is the problem's distcg.stencil_reverse table, read under the
+    regularizer only (a missing table or another problem's then raises).
+    `steps_out` receives the steps taken, under either rule."""
     if reg_weight_rho != 0.0 and (stencil is None or stencil.source is not prob.nbr_idx):
         raise ValueError("solve_albedo: the stencil table is missing or was "
                          "built for another problem")
-    sys = albedo_ops.albedo_system(prob, rd, albedo, grad_stored, lights, poses, stencil,
+    return albedo_ops.albedo_block(prob, rd, albedo, grad_stored, lights, poses, stencil,
                                    model=model, order=order, voxel_size=voxel_size,
-                                   reg_weight_rho=reg_weight_rho)
-    return albedo_ops.albedo_cg(sys, prob.valid, albedo, stencil,
-                                reg_weight_rho=reg_weight_rho, damping=damping,
-                                cg_iters=cg_iters, cg_tol=cg_tol, cg_static=cg_static,
-                                steps_out=steps_out)
+                                   reg_weight_rho=reg_weight_rho, damping=damping,
+                                   cg_iters=cg_iters, cg_tol=cg_tol, cg_static=cg_static,
+                                   steps_out=steps_out)
 
 
 def update_albedo(prob: RefineProblem, albedo: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """rho -= delta per channel, accepted only if the result lies strictly in
-    (0,1) (OptimizerAux.cpp:120-150): ops/albedo.accept, the rule albedo_cg
+    (0,1) (OptimizerAux.cpp:120-150): ops/albedo.accept, the rule albedo_block
     applies to its own delta."""
     return albedo_ops.accept(prob.valid, albedo, delta)
 

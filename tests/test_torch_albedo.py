@@ -2,11 +2,12 @@
 row against the JAX package's Jacobians, einsums and regularizer and
 against the port's eager chain, the CG and its accept rule against the JAX
 package's solve_albedo / update_albedo and the scatter-add CG's steps under
-both stop rules, the whole new _albedo_core against the JAX package's, the
-edges (no valid row, one row, a row with every frame masked, a row cut from
-its neighbours, candidates at 0 and 1), the CG's tile plan, the wrappers'
-CPU path and their refusal to fall back off the CPU.  The kernels are held
-against the plain versions on the card by chip_smoke.py (phase
+both stop rules, albedo_block and the whole new _albedo_core against the
+JAX package's, the edges (no valid row, one row, a row with every frame
+masked, a row cut from its neighbours, candidates at 0 and 1), the launch
+plan's tiles, the wrapper's CPU path and its refusal to fall back off the
+CPU.  The stage plan is tests/test_torch_albedo_block.py's; the kernel is
+held against the plain versions on the card by chip_smoke.py (phase
 albedo_kernels)."""
 
 import os
@@ -336,6 +337,43 @@ def test_albedo_core_matches_jax(lin, rho):
     np.testing.assert_array_equal(moved_t, moved_j)
 
 
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("rho", RHOS)
+def test_albedo_block_matches_jax(lin, rho, static):
+    """albedo_block (the one launch's CPU path) against the JAX package:
+    delta within 2e-4 of max|delta| of solve_albedo's under the same stop
+    rule, the new albedo equal to the JAX package's update_albedo on that
+    delta bit for bit, and (scipy's rule, the refiner's) within 2e-4 of
+    max|delta| of _albedo_core's with the same accept decisions; one step
+    and two grid barriers without the regularizer."""
+    J, T = lin["J"], lin["T"]
+    steps, bars = [], []
+    delta, new = AL.albedo_block(T["p"], T["rd"], T["albedo"], T["grad"], T["lights"],
+                                 T["poses"], T["st"], model=lin["model"], order=lin["order"],
+                                 voxel_size=H_VOX, reg_weight_rho=rho, damping=DAMPING,
+                                 cg_iters=100, cg_tol=1e-6, cg_static=static,
+                                 steps_out=steps, barriers_out=bars)
+    ja = jsolvers.solve_albedo(J["p"], J["rd"], J["Jrho"], J["albedo"], H_VOX,
+                               reg_weight_rho=rho, damping=DAMPING, cg_static=static)
+    scale = float(delta.abs().max())
+    assert scale > 1e-3
+    _close(delta, ja, 2e-4)
+    jn = jsolvers.update_albedo(J["p"], J["albedo"], jnp.asarray(ht.t2n(delta)))
+    np.testing.assert_array_equal(ht.t2n(new), np.asarray(jn))
+    if rho == 0.0:
+        assert int(steps[0]) == 1 and int(bars[0]) == 2
+    else:
+        assert int(steps[0]) > 3 and int(bars[0]) == 2 + 4 * int(steps[0])
+    if not static:
+        kw = dict(lin["kw"], reg_weight_rho=rho, damping=DAMPING)
+        jcore = np.asarray(joptimizer._albedo_core(
+            J["p"], J["g"], J["rd"], J["dist"], J["albedo"], J["grad"], J["poses"], J["K"],
+            J["lights"], **kw))
+        assert float(np.abs(ht.t2n(new) - jcore).max()) <= 2e-4 * scale
+        np.testing.assert_array_equal(ht.t2n(new) != ht.t2n(T["albedo"]),
+                                      jcore != np.asarray(J["albedo"]))
+
+
 def test_the_regularizer_needs_the_problems_table(lin):
     T = lin["T"]
     args = (T["p"], T["rd"], T["albedo"], T["grad"], T["lights"], T["poses"], H_VOX)
@@ -497,51 +535,60 @@ def test_candidates_at_zero_and_one(static):
 @pytest.mark.parametrize("N", [1, 15, 16, 17, 132 * 16, 132 * 16 + 1, 49152, 4 * 49152,
                                "limit", "limit+1", 2_000_000])
 def test_cg_plan_tiles_every_row_once(N):
-    """The CG's plan on 132 SMs: distcg._cg_plan's tiles over voxels, every
-    voxel in one block's tile, the vectors in shared memory up to
+    """The block's plan on 132 SMs at the main run's 40 keyframes:
+    distcg._cg_plan's tiles over voxels, every voxel in one block's tile,
+    the vectors in shared memory (after the warps' rings) up to
     shared_tile_limit rows a block and in device memory past it."""
-    lim = AL.shared_tile_limit()
+    F = 40
+    lim = AL.shared_tile_limit(F, led=False)
     if N == "limit":
         N = 132 * lim
     elif N == "limit+1":
         N = 132 * lim + 1
-    plan = AL._albedo_plan(N, sms=132)
+    plan = AL._albedo_plan(N, F, led=False, sms=132)
     tiles = distcg._cg_plan(N, use_lap=False, lap_nbr=False, sms=132)
     assert (plan.blocks, plan.tile) == (tiles.blocks, tiles.tile)
     assert plan.tile % 16 == 0 and plan.blocks <= 132
     assert (plan.blocks - 1) * plan.tile < N <= plan.blocks * plan.tile
     assert plan.shared == (plan.tile <= lim)
-    assert plan.smem_bytes == AL._HEADER + (96 * plan.tile if plan.shared else 0)
-    assert plan.smem_bytes <= distcg.SMEM_PER_BLOCK
+    rings = plan.ring + AL.WARPS * plan.depth * plan.stage_bytes
+    assert plan.smem_bytes == rings + (96 * plan.tile if plan.shared else 0)
+    assert plan.vec == (rings if plan.shared else 0)
+    assert plan.smem_bytes <= distcg.SMEM_PER_BLOCK and plan.depth >= 1
     if N == 132 * lim:
         assert plan.shared and plan.tile == lim
     if N == 132 * lim + 1:
-        assert not plan.shared
-    assert AL._work_floats(plan, N, True) == 6 * N + (0 if plan.shared else 24 * N)
+        assert not plan.shared and plan.depth == AL.DEPTH
+    assert AL._work_floats(plan, N, True) == 21 * N + (0 if plan.shared else 24 * N)
+    assert AL._work_floats(plan, N, False) == (0 if plan.shared else 24 * N)
 
 
 # ---------------------------------------------------------------- wrappers
 
 
 def test_wrappers_take_the_plain_path_on_the_cpu(lin):
-    """On CPU tensors the wrappers are the plain versions, bit for bit, and
-    count no launch."""
+    """On CPU tensors albedo_block is albedo_cg_plain on
+    albedo_system_plain, bit for bit (system_out the plain system, the
+    steps the plain ones, barriers_out the count the kernel would cross),
+    and counts no launch."""
     T = lin["T"]
     AL.reset_launch_counts()
     for rho in RHOS:
         args = (T["p"], T["rd"], T["albedo"], T["grad"], T["lights"], T["poses"], T["st"])
-        kw = dict(model=lin["model"], order=lin["order"], voxel_size=H_VOX,
-                  reg_weight_rho=rho)
-        got, want = AL.albedo_system(*args, **kw), AL.albedo_system_plain(*args, **kw)
-        for g, w in zip(got, want):
-            assert (g is None and w is None) or torch.equal(g, w)
-        s1, s2 = [], []
-        d1, n1 = AL.albedo_cg(got, T["p"].valid, T["albedo"], T["st"], **_cg_kw(rho),
-                              steps_out=s1)
+        skw = dict(model=lin["model"], order=lin["order"], voxel_size=H_VOX,
+                   reg_weight_rho=rho)
+        want = AL.albedo_system_plain(*args, **skw)
+        s1, s2, got, bars = [], [], [], []
+        cg = {k: v for k, v in _cg_kw(rho).items() if k != "reg_weight_rho"}
+        d1, n1 = AL.albedo_block(*args, **skw, **cg, steps_out=s1, system_out=got,
+                                 barriers_out=bars)
         d2, n2 = AL.albedo_cg_plain(want, T["p"].valid, T["albedo"], T["st"], **_cg_kw(rho),
                                     steps_out=s2)
+        for g, w in zip(got[0], want):
+            assert (g is None and w is None) or torch.equal(g, w)
         assert torch.equal(d1, d2) and torch.equal(n1, n2) and int(s1[0]) == int(s2[0])
-    assert AL.launch_counts == {"albedo_system": 0, "albedo_cg": 0}
+        assert int(bars[0]) == AL.grid_barriers(rho != 0.0, int(s1[0]))
+    assert AL.launch_counts == {"albedo_block": 0}
 
 
 def test_wrappers_raise_off_the_cpu_instead_of_falling_back(monkeypatch):
@@ -557,7 +604,8 @@ def test_wrappers_raise_off_the_cpu_instead_of_falling_back(monkeypatch):
     monkeypatch.setattr(AL, "albedo_system_plain", refuse)
     monkeypatch.setattr(AL, "albedo_cg_plain", refuse)
     monkeypatch.setattr(AL, "_library", no_library)
-    monkeypatch.setattr(AL, "cg_plan", lambda dev, N, reg: AL._albedo_plan(N, sms=132))
+    monkeypatch.setattr(AL, "block_plan", lambda dev, N, F, led, reg: AL._albedo_plan(
+        N, F, led=led, sms=132))
     AL.reset_launch_counts()
     N, F = 40, 3
     m = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype, device="meta")
@@ -566,19 +614,20 @@ def test_wrappers_raise_off_the_cpu_instead_of_falling_back(monkeypatch):
     rd = ResidualData(r=m(N, F, 3), w=m(N, F, 3), mask=m(N, F, dtype=torch.bool),
                       p_cam=m(N, F, 3), uv=m(N, F, 2), g_img=m(N, F, 3, 2))
     prob = type("P", (), {"valid": m(N, dtype=torch.bool)})()
-    with pytest.raises((RuntimeError, ValueError)):
-        AL.albedo_system(prob, rd, None, m(N, 3), m(F, 4), None, None, model="SH", order=1,
-                         voxel_size=H_VOX, reg_weight_rho=0.0)
-    sys = AL.AlbedoSystem(m(N, 3), m(N, 3), m(N, 3), None, None, None)
-    with pytest.raises((RuntimeError, ValueError)):
-        AL.albedo_cg(sys, prob.valid, m(N, 3), None, **_cg_kw(0.0))
-    assert AL.launch_counts == {"albedo_system": 0, "albedo_cg": 0}
+    for model, lights in (("SH", m(F, 4)), (LED, m(3))):
+        with pytest.raises((RuntimeError, ValueError)):
+            AL.albedo_block(prob, rd, m(N, 3), m(N, 3), lights, m(F, 4, 4), None, model=model,
+                            order=1, voxel_size=H_VOX, reg_weight_rho=0.0, damping=DAMPING,
+                            cg_iters=100, cg_tol=1e-6, cg_static=False)
+    assert AL.launch_counts == {"albedo_block": 0}
 
 
 def test_the_library_name_covers_the_shared_header(tmp_path, monkeypatch):
     """A CUDA library's name hashes the csrc/*.cuh headers too: an edited
-    header (csrc/cg_sync.cuh, shared by distcg.cu and albedo.cu) rebuilds
-    every CUDA library, a host library's name does not move."""
+    header (csrc/cg_sync.cuh, shared by distcg.cu and albedo.cu;
+    csrc/async_copy.cuh, the mbarrier and bulk-copy helpers of normaleq.cu
+    and albedo.cu, defined there alone) rebuilds every CUDA library, a host
+    library's name does not move."""
     src = tmp_path / "csrc"
     src.mkdir()
     (src / "one.cu").write_text("// one\n")
@@ -593,17 +642,23 @@ def test_the_library_name_covers_the_shared_header(tmp_path, monkeypatch):
     assert kernels.library_path("two") == cpp
     assert os.path.basename(kernels.cuda_headers()[0]) == "sync.cuh"
     real = os.path.join(os.path.dirname(kernels.__file__), "csrc")
-    assert "cg_sync.cuh" in os.listdir(real)
-    for name in ("distcg.cu", "albedo.cu"):
-        with open(os.path.join(real, name)) as fh:
-            assert '#include "cg_sync.cuh"' in fh.read()
+    assert {"cg_sync.cuh", "async_copy.cuh"} <= set(os.listdir(real))
+    for header, users in (("cg_sync.cuh", ("distcg.cu", "albedo.cu")),
+                          ("async_copy.cuh", ("normaleq.cu", "albedo.cu"))):
+        for name in users:
+            with open(os.path.join(real, name)) as fh:
+                src = fh.read()
+            assert f'#include "{header}"' in src
+            if header == "async_copy.cuh":
+                assert "void mbar_init(" not in src and "void bulk_load(" not in src
 
 
-@pytest.mark.parametrize("struct", ["SystemArgs", "CgArgs"])
+@pytest.mark.parametrize("struct", ["BlockArgs", "BlockPlan"])
 def test_c_argument_blocks_have_the_kernels_layout(struct):
     """ops/albedo.py's ctypes blocks name csrc/albedo.cu's struct fields in
-    the same order, every field 8 bytes: a field dropped or added on one
-    side only would shift every field after it."""
+    the same order, every field 8 bytes but BlockArgs' nested plan (a
+    BlockPlan last): a field dropped or added on one side only would shift
+    every field after it."""
     import ctypes
     import re
 
@@ -618,4 +673,11 @@ def test_c_argument_blocks_have_the_kernels_layout(struct):
             names += [re.split(r"[\s*]+", first)[-1]] + [n.strip() for n in rest]
     ours = getattr(AL, "_" + struct)
     assert [f[0] for f in ours._fields_] == names
-    assert ctypes.sizeof(ours) == 8 * len(names)
+    sizes = [ctypes.sizeof(t) for _, t in ours._fields_]
+    if struct == "BlockArgs":
+        assert ours._fields_[-1][1] is AL._BlockPlan and "BlockPlan plan;" in body
+        sizes = sizes[:-1]
+    else:
+        assert names == list(AL.AlbedoPlan._fields)
+    assert sizes == [8] * len(sizes)
+    assert ctypes.sizeof(ours) == sum(ctypes.sizeof(t) for _, t in ours._fields_)

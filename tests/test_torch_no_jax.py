@@ -138,7 +138,7 @@ def test_kernel_wrappers_raise_on_cuda_tensors_instead_of_falling_back():
     ("residual", ("residual_pass_kernel", "dist_jacobian_kernel")),
     ("distcg", ("dist_system_kernel", "dist_cg_kernel")),
     ("normaleq", ("pose_tiles_kernel", "light_tiles_kernel")),
-    ("albedo", ("albedo_system_kernel", "albedo_cg_kernel"))])
+    ("albedo", ("albedo_block_kernel",))])
 def test_scan_program_wrappers_raise_on_cuda_tensors_instead_of_falling_back(
         module, kernels):
     """ops/gn.py, ops/fuse.py, ops/residual.py, ops/distcg.py,
