@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--profile | --kernels-only | --refine-only |
                            --distributed-only] [--residual-parent <residual.cu>]
-                          [--distcg-parent <distcg.cu>]
+                          [--distcg-parent <distcg.cu>] [--system-parent <distcg.cu>]
+                          [--gram-parent <gn.cu>]
 
 Builds the package's CUDA kernels and its host C++ libraries (PNG unfilter,
 marching cubes and PLY writers) from csrc/, holds each kernel against its
@@ -55,9 +56,11 @@ jit-fused programs (the fusion update, one launch a fused frame; a frame's
 whole Gauss-Newton solve, one cooperative launch a frame, its records on
 chip or, for a 1280x960 frame, in device memory; the Gram alone of the mesh
 trackers) against their plain versions on the real rows and frames of the
-sequence, and 48 frames tracked under each named tracker configuration; the
-scan phase then checks that every tracked frame and every update of the
-main run went through them.
+sequence, and 48 frames tracked under each named tracker configuration
+(the Gram also twice bit for bit and beside an empty launch of its grid and
+clusters; with --gram-parent <gn.cu> timed in turns with that earlier
+source); the scan phase then checks that every tracked frame and every
+update of the main run went through them.
 
 The refinement's two kernels (the residual pass and the distance block's
 Jacobian, csrc/residual.cu) are held the same way: phases refine and
@@ -88,7 +91,12 @@ of the CG's host plan, no valid row), times both, and traces one distance
 block through them, which must run no index_add_ kernel; with
 --distcg-parent <distcg.cu> it also times the CG of the main and LED cases
 on that earlier source (the C interface before the host plan), in turns
-with this one.
+with this one.  It also holds the rows bit for bit at each edge of
+dist_system's lanes rule, at one keyframe, on eight copies of the main
+block and on a ragged last tile, each bulk-copied and (an input off a
+16-byte boundary) with the lanes' loads; with --system-parent <distcg.cu> it
+times the rows of the main and LED cases on that earlier source (the one
+before the lanes rule) in turns with this one.
 
 The pose and the SH light normal equations (csrc/normaleq.cu) are held the
 same way: phases refine and refine_led_upsample check that every pose block
@@ -1129,12 +1137,19 @@ def scan_kernels(tmp, seq):
             latency_floor_ms=_time_ms(lambda: G.barrier_floor(frame, 1, iters), flush),
             library_ms=None)
         step["share_of_bound"] = step["bound_ms"] / step["ms"]
-        # the Gram alone at 640x480 (gn_gram, the mesh / resident trackers')
+        # the Gram alone at 640x480 (gn_gram, the mesh / resident trackers'):
+        # two runs bit for bit, its plan, its time beside an empty launch of
+        # the same grid and clusters
         recs = G.pack_records(*G.frame_records(frame, seed))
         rows = _gram_rows(frame.points()[0], seed, G.unpack_records(recs))
+        check(_bits_same(G.gram(frame, seed, recs), G.gram(frame, seed, recs)),
+              "gn_gram: two runs differ")
+        plan = G.gram_plan(frame.n, _sm_count())
         facts["gn_gram"] = dict(
             frame=f, pixels=frame.n, max_abs_err=step["gram_max_abs_err"],
+            runs_bit_identical=True, plan=plan._asdict(),
             ms=_time_ms(lambda: G.gram(frame, seed, recs), flush),
+            latency_floor_ms=_time_ms(lambda: G.gram_floor(frame, recs), flush),
             plain_ms=_time_ms(lambda: G.gram_plain(
                 frame.points()[0], seed, G.unpack_records(recs)), flush),
             # the depth map and the records read once, S written
@@ -1144,6 +1159,10 @@ def scan_kernels(tmp, seq):
         del rows
         facts["gn_gram"]["share_of_bound"] = (facts["gn_gram"]["bound_ms"]
                                               / facts["gn_gram"]["ms"])
+        if "--gram-parent" in sys.argv[1:]:
+            facts["gn_gram"]["parent"] = _gram_parent_ab(frame, seed, recs, flush)
+            facts["gn_gram"]["earlier_ms"] = statistics.median(
+                facts["gn_gram"]["parent"]["parent"])
     facts["gn_solve"] = step
 
     # (c) the frames tracked under each named configuration, kernel against
@@ -1157,6 +1176,52 @@ def scan_kernels(tmp, seq):
 
 
 GN_CONFIGS = ("REFERENCE", "STREAMING", "PARITY", "STREAMING_FAST")
+
+
+def _gram_parent_ab(frame, pose, recs, flush):
+    """gn_gram on this gn.cu and on the --gram-parent source (any earlier
+    gn.cu whose GnArgs is a prefix of this one's and whose gn_gram sizes
+    its own grid, up to 528 blocks; built here into a temporary directory,
+    its launches on no path and not counted), the parent held within
+    GN_S_TOL of max|S| of this kernel's S, timed in turns: this, the parent,
+    the parent, this -> {"this"|"parent": [ms, ms]}."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import gn as G
+
+    src = sys.argv[sys.argv.index("--gram-parent") + 1]
+    scratch = (torch.empty(528 * 36, dtype=torch.float32, device=recs.device),
+               torch.zeros(1, dtype=torch.int32, device=recs.device))
+    with tempfile.TemporaryDirectory(prefix="gram_parent_") as tmp:
+        parent = _parent_build(src, tmp, "gn_parent")
+        parent.gn_gram.argtypes = [ctypes.POINTER(G._GnArgs), ctypes.c_void_p]
+        runs = dict(this=lambda: G.gram(frame, pose, recs),
+                    parent=lambda: _parent_gram(parent, frame, pose, recs, scratch))
+        S, Sp = runs["this"](), runs["parent"]()
+        _sync()
+        check(_rel(Sp, S.cpu()) <= GN_S_TOL, "the parent's gn_gram differs from this one's")
+        times = {"this": [], "parent": []}
+        for name in ("this", "parent", "parent", "this"):
+            times[name].append(_time_ms(runs[name], flush))
+    return times
+
+
+def _parent_gram(parent, frame, pose, recs, scratch):
+    """The parent's gn_gram (its own grid; `scratch`: partials for up to 528
+    blocks and a zeroed ticket) -> S."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import gn as G
+
+    partials, ticket = scratch
+    out = torch.empty((8, 8), dtype=torch.float32, device=recs.device)
+    d = frame.depth
+    a = G._GnArgs(depth=d.data_ptr(), h=d.shape[0], w=d.shape[1], depth_rs=d.stride(0),
+                  depth_cs=d.stride(1), coord_stride=float(frame.stride), K=frame.K.data_ptr(),
+                  zmin=frame.zmin, zmax=frame.zmax, records=recs.data_ptr(),
+                  pose=pose.contiguous().data_ptr(), gram_out=out.data_ptr(),
+                  partials=partials.data_ptr(), ticket=ticket.data_ptr())
+    rc = parent.gn_gram(ctypes.byref(a), torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the parent's gn_gram: CUDA error {rc}")
+    return out
 
 
 def _gram_rows(pts_cam, pose, rec):
@@ -2407,6 +2472,77 @@ def _cg_plan_facts(plan):
                 smem_bytes=plan.smem_bytes, barriers_per_step=plan.barriers)
 
 
+def _misaligned(rd):
+    """rd with w one float off a 16-byte boundary (a copy): dist_system's
+    lanes then read device memory in place of the bulk-copied ring."""
+    import torch
+
+    w = rd.w
+    buf = torch.empty(w.numel() + 1, dtype=w.dtype, device=w.device)
+    buf[1:] = w.reshape(-1)
+    return rd._replace(w=buf[1:].view(w.shape))
+
+
+def _system_case(what, c, frames=None, copies=1, rows=None):
+    """dist_system on a distance block's inputs cut or grown (its keyframes
+    `frames`, repeated past F; `copies` copies of its rows; the first `rows`
+    of them), bulk-copied and (w off a 16-byte boundary) with the lanes'
+    loads, each bit for bit against dist_system_plain -> facts with the
+    plans."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    rd, DJ, eik = c["rd"], c["DJ"], c["eik"]
+    F = rd.w.shape[1]
+    pick = lambda x, dim: x if frames is None else x.index_select(
+        dim, torch.tensor(frames, device=x.device) % F)
+    grow = lambda x: x.repeat(copies, *([1] * (x.dim() - 1)))[:rows].contiguous()
+    rd = rd._replace(w=grow(pick(rd.w, 1)), r=grow(pick(rd.r, 1)))
+    DJ = DJ._replace(J0=grow(pick(DJ.J0, 1)), Ji=grow(pick(DJ.Ji, 2)))
+    if eik is not None:
+        eik = eik._replace(r=grow(eik.r), J0=grow(eik.J0), Ji=grow(eik.Ji))
+    want = DC.dist_system_plain(rd, DJ, eik, reg_weight_n=c["w_n"])
+    N, Fc = rd.w.shape[:2]
+    out = dict(case=what, rows=N, keyframes=Fc, lanes=DC.system_lanes(3 * Fc))
+    for staged, r in ((True, rd), (False, _misaligned(rd))):
+        got = DC.dist_system(r, DJ, eik, reg_weight_n=c["w_n"])
+        _sync()
+        for name, a, b in (("A", got[0], want[0]), ("t", got[1], want[1])):
+            check(_bits_same(a, b), f"dist_system differs from its plain version: "
+                                    f"{what}, {name}, bulk-copied={staged}, by up to "
+                                    f"{_abs_err(a, b)}")
+        if DEVICE == "cuda":
+            plan = DC.system_plan(rd.w.device, N, 3 * Fc, staged=staged)
+            out["plan" if staged else "plan_lanes_loads"] = plan._asdict()
+    out["bit_identical"] = True
+    return out
+
+
+def _system_cases(main, led):
+    """dist_system bit for bit at each edge of its lanes rule (the last F
+    of each lane count and the first of the next, from the main block's
+    keyframes, repeated past its 40), one keyframe, the main and LED
+    widths, eight copies of the main block and a ragged last tile (and a
+    run with 1-3 floats past its 16-byte body) -> [facts]."""
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    N = main["rd"].w.shape[0]
+    edges = []
+    for F in range(1, 200):
+        if DC.system_lanes(3 * (F + 1)) != DC.system_lanes(3 * F):
+            edges += [F, F + 1]
+    cases = [_system_case(f"{F} keyframe{'s' if F > 1 else ''}", main, frames=list(range(F)))
+             for F in [1] + edges]
+    cases += [_system_case("main SH1", main), _system_case("LED after the upsample", led),
+              _system_case("eight copies of the main block", main, copies=8),
+              _system_case("a ragged last tile", main, rows=N - 3),
+              _system_case("5 keyframes, a ragged last tile", main, frames=list(range(5)),
+                           rows=N - 3)]
+    check({c["lanes"] for c in cases} == {4, 8, 16, 32},
+          "a lane count of dist_system was not exercised")
+    return cases
+
+
 def _dist_case(what, c, static, flush, timed=False):
     """dist_system against its plain version bit for bit, then dist_cg
     (_cg_check).  With `timed`, on the card: both kernels' ms, plain_ms,
@@ -2438,13 +2574,17 @@ def _dist_case(what, c, static, flush, timed=False):
         sys_bytes = N * J * 24 + (N * 20 if eik is not None else 0) + N * 56
         a = torch.stack([DJ.J0.reshape(N, J), *DJ.Ji.reshape(N, 3, J).unbind(1)], -1)
         wa = rd.w.reshape(N, J, 1) * a
+        rdm = _misaligned(rd)                    # the lanes' loads
         out["dist_system"] = dict(
             bytes=sys_bytes, bound_ms=sys_bytes / HBM_BYTES_PER_S * 1e3,
             ms=_time_ms(lambda: DC.dist_system(rd, DJ, eik, **skw), flush),
+            lanes_loads_ms=_time_ms(lambda: DC.dist_system(rdm, DJ, eik, **skw), flush),
+            lanes=DC.system_lanes(J),
+            plan=DC.system_plan(dev, N, J)._asdict(),
             plain_ms=_time_ms(lambda: DC.dist_system_plain(rd, DJ, eik, **skw), flush),
             library_ms=_time_ms(lambda: torch.einsum("nji,njk->nik", wa, a), flush),
             library_call="torch.einsum('nji,njk->nik', w a, a) over [N, F*3, 4]")
-        del wa, a
+        del wa, a, rdm
         # A, t, nbr and rev (int32) and the mask read once, delta written
         # once; the Laplacian's residual where it is on, and lap_idx only
         # where its neighbour term is read (the kernel's lap_nbr)
@@ -2586,7 +2726,22 @@ def _ptxas(src):
                                ("dist_cg_kernel<vectors>", "dist_cg_kernelILi1E"),
                                ("dist_cg_kernel<global>", "dist_cg_kernelILi2E"),
                                ("dist_barrier_kernel", "dist_barrier_kernel"),
-                               ("dist_system_kernel", "dist_system_kernel"),
+                               ("dist_system_kernel<4, staged>",
+                                "dist_system_kernelILi4ELb1E"),
+                               ("dist_system_kernel<4, lanes' loads>",
+                                "dist_system_kernelILi4ELb0E"),
+                               ("dist_system_kernel<8, staged>",
+                                "dist_system_kernelILi8ELb1E"),
+                               ("dist_system_kernel<8, lanes' loads>",
+                                "dist_system_kernelILi8ELb0E"),
+                               ("dist_system_kernel<16, staged>",
+                                "dist_system_kernelILi16ELb1E"),
+                               ("dist_system_kernel<16, lanes' loads>",
+                                "dist_system_kernelILi16ELb0E"),
+                               ("dist_system_kernel<32, staged>",
+                                "dist_system_kernelILi32ELb1E"),
+                               ("dist_system_kernel<32, lanes' loads>",
+                                "dist_system_kernelILi32ELb0E"),
                                ("pose_tiles_kernel<sh>", "pose_tiles_kernelILb0E"),
                                ("pose_tiles_kernel<led>", "pose_tiles_kernelILb1E"),
                                ("light_tiles_kernel<4>", "light_tiles_kernelILi4E"),
@@ -2620,9 +2775,8 @@ class _ParentCgArgs(ctypes.Structure):
                 ("tol_sq", _d), ("atol_sq", _d)]
 
 
-def _parent_library(path):
-    """The parent's distcg library (its C interface) at `path`."""
-    parent = ctypes.CDLL(path)
+def _parent_library(parent):
+    """The parent's distcg library with its C interface's types set."""
     parent.dist_cg.argtypes = [ctypes.POINTER(_ParentCgArgs), ctypes.c_void_p]
     parent.dist_cg_plan.argtypes = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
     return parent
@@ -2666,17 +2820,12 @@ def _distcg_parent_ab(cases, flush):
     launches are on no path and not counted), each held against the plain
     solve (its steps, DIST_CG_TOL), timed in turns: this, the parent, the
     parent, this -> {case: {"this"|"parent": [ms, ms]}}."""
-    from psgradientsdf_tpu_torch import kernels
     from psgradientsdf_tpu_torch.ops import distcg as DC
 
     src = sys.argv[sys.argv.index("--distcg-parent") + 1]
     out = {}
     with tempfile.TemporaryDirectory(prefix="distcg_parent_") as tmp:
-        lib = os.path.join(tmp, "libdistcg_parent.so")
-        proc = subprocess.run([kernels._find_nvcc(), *kernels.NVCC_FLAGS, "-o", lib, src],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        check(proc.returncode == 0, f"nvcc on {src} failed:\n{proc.stdout}")
-        parent = _parent_library(lib)
+        parent = _parent_library(_parent_build(src, tmp, "distcg_parent"))
         for what, c in cases:
             A, t = DC.dist_system(c["rd"], c["DJ"], c["eik"], reg_weight_n=c["w_n"])
             valid, st, lap = c["prob"].valid, c["stencil"], c["lap"]
@@ -2697,6 +2846,67 @@ def _distcg_parent_ab(cases, flush):
                 times[name].append(_time_ms(runs[name], flush))
             out[what] = dict(times, steps=int(sp[0]))
     return out
+
+
+def _parent_build(src, tmp, name):
+    """nvcc on an earlier source (csrc/ on the include path) into tmp ->
+    the library."""
+    from psgradientsdf_tpu_torch import kernels
+
+    lib = os.path.join(tmp, f"lib{name}.so")
+    proc = subprocess.run([kernels._find_nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.CSRC_DIR,
+                           "-o", lib, src],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    check(proc.returncode == 0, f"nvcc on {src} failed:\n{proc.stdout}")
+    return ctypes.CDLL(lib)
+
+
+def _system_parent_ab(cases, flush):
+    """dist_system on this distcg.cu and on the --system-parent source (any
+    earlier distcg.cu whose SystemArgs is a prefix of this one's, as the one
+    before the lanes rule; built here into a temporary directory, its
+    launches on no path and not counted), the parent held to this kernel's
+    A and t within 1e-5 of max|A| (its lanes sum in another order), timed in
+    turns: this, the parent, the parent, this -> {case: {"this"|"parent":
+    [ms, ms]}}."""
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    src = sys.argv[sys.argv.index("--system-parent") + 1]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="system_parent_") as tmp:
+        parent = _parent_build(src, tmp, "distcg_parent")
+        parent.dist_system.argtypes = [ctypes.POINTER(DC._SystemArgs), ctypes.c_void_p]
+        for what, c in cases:
+            rd, DJ, eik = c["rd"], c["DJ"], c["eik"]
+            runs = dict(this=lambda: DC.dist_system(rd, DJ, eik, reg_weight_n=c["w_n"]),
+                        parent=lambda: _parent_system(parent, rd, DJ, eik, c["w_n"]))
+            (A, _), (Ap, _) = runs["this"](), runs["parent"]()
+            _sync()
+            check(_abs_err(Ap, A) <= 1e-5 * float(A.abs().max()),
+                  f"the parent's dist_system differs from this one's ({what})")
+            times = {"this": [], "parent": []}
+            for name in ("this", "parent", "parent", "this"):
+                times[name].append(_time_ms(runs[name], flush))
+            out[what] = times
+    return out
+
+
+def _parent_system(parent, rd, DJ, eik, w_n):
+    """The parent's dist_system on these rows -> (A, t)."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    N, F = rd.w.shape[:2]
+    A = torch.empty((N, 10), dtype=torch.float32, device=rd.w.device)
+    t = torch.empty((N, 4), dtype=torch.float32, device=rd.w.device)
+    a = DC._SystemArgs(w=rd.w.data_ptr(), r=rd.r.data_ptr(), J0=DJ.J0.data_ptr(),
+                       Ji=DJ.Ji.data_ptr(), A=A.data_ptr(), t=t.data_ptr(), n=N,
+                       pairs=3 * F, eik=int(eik is not None), reg_weight_n=w_n)
+    if eik is not None:
+        a.eik_r, a.eik_J0, a.eik_Ji = eik.r.data_ptr(), eik.J0.data_ptr(), eik.Ji.data_ptr()
+    rc = parent.dist_system(ctypes.byref(a), torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the parent's dist_system: CUDA error {rc}")
+    return A, t
 
 
 def dist_cg_kernels(main_run, led_run):
@@ -2782,11 +2992,21 @@ def dist_cg_kernels(main_run, led_run):
           "the LED case runs without the Laplacian's third barrier")
     check({c["plan"]["mode"] for c in cases} == set(distcg.MODES),
           "a layout of dist_cg was not exercised")
-    facts = dict(cases=cases, checked=len(cases))
+    system_cases = _system_cases(main, _dist_inputs(led, *led_w))
+    facts = dict(cases=cases, checked=len(cases), system_cases=system_cases,
+                 system_checked=len(system_cases))
     if DEVICE == "cuda":
         from psgradientsdf_tpu_torch import kernels
 
         facts["ptxas"] = _ptxas(kernels.source_path("distcg"))
+        if "--system-parent" in sys.argv[1:]:
+            facts["system_parent"] = _system_parent_ab(
+                [("main SH1", main), ("LED after the upsample", _dist_inputs(led, *led_w))],
+                flush)
+            for case in cases:
+                if case["case"] in facts["system_parent"] and "dist_system" in case:
+                    case["dist_system"]["earlier_ms"] = statistics.median(
+                        facts["system_parent"][case["case"]]["parent"])
         if "--distcg-parent" in sys.argv[1:]:
             facts["parent"] = _distcg_parent_ab(
                 [("main SH1", main), ("LED after the upsample", _dist_inputs(led, *led_w))],
@@ -5256,8 +5476,11 @@ def main():
         "gn_gram": dict(scan_facts["gn_gram"], work=(
             f"the masked Gram of frame 24's frozen records at {W}x{H} (the "
             "summed-Gram mesh tracker's and the resident tracker's pass; "
-            "launches: the tracked mesh scans'); the bound counts the depth "
-            "map and the [N, 8] records once")),
+            "launches: the tracked mesh scans'), "
+            f"{scan_facts['gn_gram']['plan']['clusters']} clusters of "
+            f"{scan_facts['gn_gram']['plan']['cluster']} blocks; the bound counts "
+            "the depth map and the [N, 8] records once; latency_floor_ms is an "
+            "empty kernel of the same grid and clusters")),
         "fuse_rows": dict(update, max_abs_err=0.0,
                           work=f"frame 24's update at 128^3 on the gathered SoA "
                                f"rows: {update['live_rows']} live rows of "
@@ -5292,8 +5515,9 @@ def main():
         "dist_system": dict(dist_case["dist_system"], max_abs_err=0.0, work=(
             f"the main run's distance block at its final state: "
             f"{dist_case['rows']} surface-voxel slots x {dist_case['keyframes']} "
-            "keyframes; the bound counts w, r, J0 and Ji read once (24 bytes a "
-            "pair), the Eikonal row and A, t written (56 bytes a row); "
+            f"keyframes, {dist_case['dist_system']['lanes']} lanes a row, the tiles "
+            "bulk-copied into a ring; the bound counts w, r, J0 and Ji read once "
+            "(24 bytes a pair), the Eikonal row and A, t written (56 bytes a row); "
             "library_ms is the one einsum that forms A from [N, F*3, 4]")),
         "dist_cg": dict(dist_case["dist_cg"], max_abs_err=dist_case["max_abs_err"],
                         latency_floor_ms=dist_facts["latency_floor_ms"], work=(
@@ -5380,6 +5604,8 @@ def main():
              plain_ms=dist_rows[name]["plain_ms"],
              bound_ms=dist_rows[name]["bound_ms"], bound_by="bytes",
              library_ms=dist_rows[name]["library_ms"],
+             **({"earlier_ms": dist_rows[name]["earlier_ms"]}
+                if "earlier_ms" in dist_rows[name] else {}),
              **({"latency_floor_ms": dist_rows[name]["latency_floor_ms"],
                  "barrier_floor_ms": dist_rows[name]["barrier_floor_ms"],
                  "grid_sync_floor_ms": dist_rows[name]["grid_sync_floor_ms"],
@@ -5403,8 +5629,8 @@ def main():
              library_ms=scan_rows[name].get("library_ms"),
              library_note=scan_rows[name].get(
                  "library_call", "no single PyTorch call computes it"),
-             **({"latency_floor_ms": solve["latency_floor_ms"]}
-                if name == "gn_solve" else {}),
+             **{k: scan_rows[name][k] for k in ("latency_floor_ms", "earlier_ms")
+                if k in scan_rows[name]},
              work=scan_rows[name]["work"])
         for name in SCAN_KERNELS] + [
         dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],

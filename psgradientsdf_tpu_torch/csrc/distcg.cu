@@ -22,15 +22,33 @@
 // atomics: every sum runs in one fixed order, a solve gives the same bits
 // on every run.
 //
-// dist_system_kernel: a warp a row (grid-stride).  Lane l adds the pairs
-// j = l, l + 32, ... of the row's F*3 in order (kUnroll pairs' loads in
-// flight), each product and sum rounded once (_rn intrinsics); the 32 lane
-// sums are added by an xor butterfly (every lane ends with the same bits),
-// then the Eikonal row; lane q writes output q (A's 10, then t's 4).  The
-// plain version (ops/distcg.dist_system_plain) emulates that order: the
-// kernel equals it bit for bit.  Bound by bytes: w, r, J0 and Ji read once
-// (24 bytes a pair: 141.6 MB at N = 49152, F = 40, 0.042 ms at 3.35 TB/s)
-// and 56 bytes a row written.
+// dist_system_kernel<G, staged>: a group of G lanes a row, G = the host's
+// ops/distcg.system_lanes(F*3) (4, 8, 16 or 32: the fewest that give a lane
+// at most 16 pairs; 4 at the LED run's F = 8, 8 at the main F = 40), so
+// 32 / G rows share a warp.  Lane l of a group adds the pairs j = l, l + G,
+// ... of the row's F*3 in order (kUnroll pairs' loads in flight), each
+// product and sum rounded once (_rn intrinsics); the G lane sums are added
+// pairwise over log2 G levels (lane l and l ^ G/2, then ^ G/4, ...) as a
+// reduce-scatter, then the Eikonal row.  The plain version
+// (ops/distcg.dist_system_plain) emulates that order: the kernel equals it
+// bit for bit.  The launch follows the host plan ops/distcg._system_plan:
+// a persistent grid (kSysBlocks blocks an SM where two ring stages fit,
+// else one) over tiles of consecutive rows, 8 consumer warps and one
+// producer warp a block, each consumer warp one row group a lane (32 / G
+// rows) of a tile.
+// A tile's inputs are seven contiguous runs (w, r, J0 [rows][F*3], Ji
+// [rows][3][F*3], the Eikonal row's r, J0 [rows] and Ji [rows][3]); the
+// producer's lane 0 copies them into a ring of up to 4 shared-memory stages
+// with cp.async.bulk on the stage's mbarrier (csrc/async_copy.cuh; a run's
+// last 1-3 floats past its 16-byte body by its own loads), so the next
+// tiles are in flight while this one is summed; depth 0 (an input not
+// 16-byte aligned, or a stage too large) has the lanes read device memory
+// instead.  A warp stages its rows' A (10 floats) and t (4) in shared
+// memory and writes each as one contiguous run with 16-byte stores.  Bound
+// by bytes: w, r, J0 and Ji read once (24 bytes a pair: 141.6 MB at N =
+// 49152, F = 40, 0.042 ms at 3.35 TB/s), 20 bytes a row of the Eikonal row
+// and 56 bytes a row written; at F = 40 it reads at a plain torch.sum's rate
+// over as many bytes (PERF.md §6 records the designs measured).
 //
 // dist_cg_kernel: ONE cooperative launch runs the whole PCG.  The host plan
 // (ops/distcg._cg_plan) gives each block a contiguous tile of rows whose
@@ -112,9 +130,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "cg_sync.cuh"
 
 namespace cg = cooperative_groups;
+
+struct SystemPlan {            // ops/distcg.py SystemPlan, field for field
+  int64_t lanes, tile, depth, blocks, smem_bytes, ring;
+};
 
 struct SystemArgs {            // ops/distcg.py _SystemArgs, field for field
   const float* w;
@@ -128,6 +151,7 @@ struct SystemArgs {            // ops/distcg.py _SystemArgs, field for field
   float* t;
   int64_t n, pairs, eik;
   double reg_weight_n;
+  SystemPlan plan;
 };
 
 struct CgPlan {                // ops/distcg.py CgPlan, field for field
@@ -157,7 +181,11 @@ struct CgArgs {                // ops/distcg.py _CgArgs, field for field
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSysThreads = 256;
+constexpr int kSysWarps = 8;                        // ops/distcg.SYSTEM_WARPS
+constexpr int kSysBlocks = 2;                       // ops/distcg.SYSTEM_BLOCKS
+constexpr int kSysThreads = 32 * (kSysWarps + 1);   // and the producer warp
+constexpr int kSysDepth = 4;                        // ops/distcg.SYSTEM_DEPTH
+constexpr int kSysBarriers = 2 * kSysDepth * 8;     // full[4], empty[4]
 constexpr int kUnroll = 4;        // pairs a lane has in flight
 
 // A's 10 entries in the order 00 01 02 03 11 12 13 22 23 33: entry q is
@@ -186,76 +214,238 @@ struct SystemParams {
   const float* __restrict__ eik_Ji;
   float* __restrict__ A;
   float* __restrict__ t;
-  int64_t n;
-  int pairs, eik;
+  int64_t n, tiles;
+  int pairs, eik, tile, depth, ring;
   float lam;
 };
 
-__global__ void __launch_bounds__(kSysThreads)
+// a pair's input: from the ring (shared memory) or from device memory
+template <bool kStaged>
+__device__ __forceinline__ float ld_pair(const float* a) {
+  if constexpr (kStaged) return *a;
+  else return __ldg(a);
+}
+
+// The producer's copy of one run of `count` floats into a stage: its
+// 16-byte body by one bulk copy on bar (issued by bulk_run after the
+// stage's expect_tx), the 1-3 floats past it here -> the body's bytes.
+__device__ __forceinline__ uint32_t run_tail(float* s, const float* g, int64_t count) {
+  const int64_t body = count & ~int64_t{3};
+  for (int64_t i = body; i < count; ++i) s[i] = __ldg(g + i);
+  return static_cast<uint32_t>(body * 4);
+}
+
+__device__ __forceinline__ void bulk_run(float* s, const float* g, uint32_t bytes, uint64_t* bar) {
+  if (bytes) bulk_load(s, g, bytes, bar);
+}
+
+// `count` floats from shared memory to device memory by a warp: 16-byte
+// stores from dst's first 16-byte boundary on, single floats around them
+__device__ __forceinline__ void store_run(float* dst, const float* src, int count, int lane) {
+  const int lead = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) >> 2;
+  const int head = lead < count ? lead : count;
+  if (lane < head) dst[lane] = src[lane];
+  const int body = (count - head) >> 2;
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int i = lane; i < body; i += 32) {
+    const float* s = src + head + 4 * i;
+    d4[i] = make_float4(s[0], s[1], s[2], s[3]);
+  }
+  for (int i = head + 4 * body + lane; i < count; i += 32) dst[i] = src[i];
+}
+
+// The reduce-scatter of a row group's 16 values (A's 10, t's 4, two zeros)
+// over its G lanes: at the level of lanes l and l ^ s (s = G/2, ..., 1) the
+// lane with bit s set keeps the upper half of its values and its partner
+// the lower, each adding the half the other sends; with one value left the
+// two add theirs.  Each sum pairs the same lanes' partial sums as the xor
+// butterfly does (ops/distcg._lane_sum), so the bits are the butterfly's,
+// for a quarter of its shuffles.  After it a lane holds the values [gl * 16
+// / G, + 16 / G) (G <= 16), or value gl / 2 (G = 32).
+template <int NV>
+__device__ __forceinline__ void scatter_level(float (&v)[16], int s, bool upper) {
+  if constexpr (NV > 1) {
+    constexpr int H = NV / 2;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float send = upper ? v[i] : v[H + i];
+      const float keep = upper ? v[H + i] : v[i];
+      v[i] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, s));
+    }
+  } else {
+    v[0] = __fadd_rn(v[0], __shfl_xor_sync(kFull, v[0], s));
+  }
+}
+
+template <int G, int NV = 16>
+__device__ __forceinline__ void reduce_scatter(float (&v)[16], int gl) {
+  if constexpr (G > 1) {
+    scatter_level<NV>(v, G / 2, (gl & (G / 2)) != 0);
+    reduce_scatter<G / 2, (NV > 1 ? NV / 2 : 1)>(v, gl);
+  }
+}
+
+// Dynamic shared memory: full[kSysDepth] and empty[kSysDepth] mbarriers
+// (kSysBarriers bytes), each consumer warp's staged outputs [32 / G] x (A's
+// 10, then t's 4 a row), then from byte p.ring the ring: p.depth
+// stages of the tile's w, r, J0 [tile][pairs], Ji [tile][3][pairs] and the
+// Eikonal row's r, J0 [tile] and Ji [tile][3].
+template <int G, bool kStaged>
+__global__ void __launch_bounds__(kSysThreads, kSysBlocks)
 dist_system_kernel(const __grid_constant__ SystemParams p) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kSysThreads / 32);
-  const int J = p.pairs;
-  for (int64_t n = (static_cast<int64_t>(blockIdx.x) * kSysThreads + threadIdx.x) >> 5;
-       n < p.n; n += warps) {
-    const float* w = p.w + n * J;
-    const float* r = p.r + n * J;
-    const float* j0 = p.J0 + n * J;
-    const float* ji = p.Ji + n * 3 * J;
-    float acc[14];
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kRows = 32 / G;                     // rows a warp holds at once
+  constexpr int kMine = G < 32 ? 16 / G : 1;        // values a lane ends with
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kSysDepth;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int J = p.pairs, R = p.tile, D = p.depth;
+  const int64_t run = static_cast<int64_t>(R) * J;  // a stage: 6 such runs, then 5 R
+  const int64_t stage = 6 * run + 5 * R;
+  float* ring = reinterpret_cast<float*>(smem + p.ring);
+  if constexpr (kStaged) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < D; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], kSysWarps);
+      }
+      fence_mbar_init();
+    }
+    __syncthreads();
+  }
+  if (warp == kSysWarps) {                          // the producer
+    if constexpr (kStaged) {
+      if (lane != 0) return;
+      const int runs = p.eik ? 7 : 4;
+      int k = 0;
+      for (int64_t tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++k) {
+        const int s = k % D;
+        if (k >= D) mbar_wait(&empty[s], ((k / D) - 1) & 1);
+        const int64_t n0 = tile * R;
+        const int64_t rows = p.n - n0 < R ? p.n - n0 : R;
+        float* st = ring + stage * s;
+        const float* g[7] = {p.w + n0 * J, p.r + n0 * J, p.J0 + n0 * J, p.Ji + 3 * n0 * J,
+                             p.eik_r + n0, p.eik_J0 + n0, p.eik_Ji + 3 * n0};
+        float* d[7] = {st, st + run, st + 2 * run, st + 3 * run, st + 6 * run,
+                       st + 6 * run + R, st + 6 * run + 2 * R};
+        const int64_t count[7] = {rows * J, rows * J, rows * J, 3 * rows * J, rows, rows,
+                                  3 * rows};
+        uint32_t bytes[7], total = 0;
 #pragma unroll
-    for (int q = 0; q < 14; ++q) acc[q] = 0.0f;
-    for (int base = 0; base < J; base += 32 * kUnroll) {
-      float wv[kUnroll], rv[kUnroll], a[kUnroll][4];
+        for (int a = 0; a < 7; ++a)
+          if (a < runs) total += bytes[a] = run_tail(d[a], g[a], count[a]);
+        fence_proxy_async();
+        mbar_arrive_expect_tx(&full[s], total);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = base + u * 32 + lane;
-        if (j < J) {
-          wv[u] = __ldg(w + j);
-          rv[u] = __ldg(r + j);
-          a[u][0] = __ldg(j0 + j);
-          a[u][1] = __ldg(ji + j);
-          a[u][2] = __ldg(ji + J + j);
-          a[u][3] = __ldg(ji + 2 * J + j);
+        for (int a = 0; a < 7; ++a)
+          if (a < runs) bulk_run(d[a], g[a], bytes[a], &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int grp = lane / G, gl = lane % G;
+  float* outA = reinterpret_cast<float*>(smem + kSysBarriers) + warp * kRows * 14;
+  float* outT = outA + kRows * 10;
+  int k = 0;
+  for (int64_t tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++k) {
+    const int64_t n0 = tile * R;
+    const int rows = static_cast<int>(p.n - n0 < R ? p.n - n0 : R);
+    const int r0 = warp * kRows;                    // the warp's rows of the tile
+    const int mine = max(0, min(kRows, rows - r0));
+    const float *w, *r, *j0, *ji, *er, *ej0, *eji;
+    if constexpr (kStaged) {
+      mbar_wait(&full[k % D], (k / D) & 1);
+      const float* st = ring + stage * (k % D);
+      w = st;  r = st + run;  j0 = st + 2 * run;  ji = st + 3 * run;
+      er = st + 6 * run;  ej0 = er + R;  eji = er + 2 * R;
+    } else {
+      w = p.w + n0 * J;  r = p.r + n0 * J;  j0 = p.J0 + n0 * J;  ji = p.Ji + 3 * n0 * J;
+      er = p.eik_r + n0;  ej0 = p.eik_J0 + n0;  eji = p.eik_Ji + 3 * n0;
+    }
+    if (mine > 0) {                                 // the same branch in every lane
+      const int row = grp;                          // the warp's local row
+      const bool live = row < mine;
+      const int lr = r0 + row;                      // the tile's
+      float v[16], e[5];
+#pragma unroll
+      for (int q = 0; q < 16; ++q) v[q] = 0.0f;
+      if (live) {
+        if (p.eik) {                                // J0, Ji, r: in flight with the pairs
+          e[0] = ld_pair<kStaged>(ej0 + lr);
+          e[1] = ld_pair<kStaged>(eji + 3 * lr);
+          e[2] = ld_pair<kStaged>(eji + 3 * lr + 1);
+          e[3] = ld_pair<kStaged>(eji + 3 * lr + 2);
+          e[4] = ld_pair<kStaged>(er + lr);
+        }
+        const float* wr = w + lr * J;
+        const float* rr = r + lr * J;
+        const float* j0r = j0 + lr * J;
+        const float* jir = ji + 3 * lr * J;
+        for (int base = gl; base < J; base += G * kUnroll) {
+          float wv[kUnroll], rv[kUnroll], a[kUnroll][4];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const int j = base + u * G;
+            if (j < J) {
+              wv[u] = ld_pair<kStaged>(wr + j);
+              rv[u] = ld_pair<kStaged>(rr + j);
+              a[u][0] = ld_pair<kStaged>(j0r + j);
+              a[u][1] = ld_pair<kStaged>(jir + j);
+              a[u][2] = ld_pair<kStaged>(jir + J + j);
+              a[u][3] = ld_pair<kStaged>(jir + 2 * J + j);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            if (base + u * G >= J) continue;
+            float wa[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) wa[i] = __fmul_rn(wv[u], a[u][i]);
+#pragma unroll
+            for (int q = 0; q < 10; ++q)
+              v[q] = __fadd_rn(v[q], __fmul_rn(wa[pair_i(q)], a[u][pair_k(q)]));
+            const float wr_ = __fmul_rn(wv[u], rv[u]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) v[10 + i] = __fadd_rn(v[10 + i], __fmul_rn(wr_, a[u][i]));
+          }
         }
       }
+      reduce_scatter<G>(v, gl);
+      if (live && !(G == 32 && (gl & 1))) {       // (G = 32: lanes 2m, 2m + 1 hold one value)
+        const int base = G < 32 ? gl * kMine : gl >> 1;
+        if (p.eik) {                                // then the Eikonal row's terms
+          float ec[14], we[4];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = base + u * 32 + lane;
-        if (j >= J) continue;
-        float wa[4];
+          for (int i = 0; i < 4; ++i) we[i] = __fmul_rn(p.lam, e[i]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) wa[i] = __fmul_rn(wv[u], a[u][i]);
+          for (int q = 0; q < 10; ++q) ec[q] = __fmul_rn(we[pair_i(q)], e[pair_k(q)]);
+          const float wre = __fmul_rn(p.lam, e[4]);
 #pragma unroll
-        for (int q = 0; q < 10; ++q)
-          acc[q] = __fadd_rn(acc[q], __fmul_rn(wa[pair_i(q)], a[u][pair_k(q)]));
-        const float wr = __fmul_rn(wv[u], rv[u]);
+          for (int i = 0; i < 4; ++i) ec[10 + i] = __fmul_rn(wre, e[i]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[10 + i] = __fadd_rn(acc[10 + i], __fmul_rn(wr, a[u][i]));
+          for (int m = 0; m < kMine; ++m) {
+            float add = 0.0f;
+#pragma unroll
+            for (int q = 0; q < 14; ++q) add = q == base + m ? ec[q] : add;
+            v[m] = __fadd_rn(v[m], add);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < kMine; ++m) {
+          const int q = base + m;
+          if (q < 10) outA[row * 10 + q] = v[m];
+          else if (q < 14) outT[row * 4 + q - 10] = v[m];
+        }
       }
     }
-#pragma unroll
-    for (int s = 16; s >= 1; s >>= 1)
-#pragma unroll
-      for (int q = 0; q < 14; ++q) acc[q] = __fadd_rn(acc[q], __shfl_xor_sync(kFull, acc[q], s));
-    if (p.eik) {
-      const float e[4] = {__ldg(p.eik_J0 + n), __ldg(p.eik_Ji + 3 * n),
-                          __ldg(p.eik_Ji + 3 * n + 1), __ldg(p.eik_Ji + 3 * n + 2)};
-      float we[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) we[i] = __fmul_rn(p.lam, e[i]);
-#pragma unroll
-      for (int q = 0; q < 10; ++q) acc[q] = __fadd_rn(acc[q], __fmul_rn(we[pair_i(q)], e[pair_k(q)]));
-      const float wr = __fmul_rn(p.lam, __ldg(p.eik_r + n));
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[10 + i] = __fadd_rn(acc[10 + i], __fmul_rn(wr, e[i]));
+    __syncwarp();
+    if constexpr (kStaged) {
+      if (lane == 0) mbar_arrive(&empty[k % D]);   // this warp is done with the stage
     }
-    float mine = 0.0f;
-#pragma unroll
-    for (int q = 0; q < 14; ++q)
-      if (lane == q) mine = acc[q];
-    if (lane < 10) p.A[n * 10 + lane] = mine;
-    else if (lane < 14) p.t[n * 4 + lane - 10] = mine;
+    store_run(p.A + (n0 + r0) * 10, outA, mine * 10, lane);
+    store_run(p.t + (n0 + r0) * 4, outT, mine * 4, lane);
+    __syncwarp();
   }
 }
 
@@ -305,45 +495,7 @@ struct CgParams {
 
 // ------------------------------------------ shared-memory copies, barriers
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// arrive, expecting `bytes` of bulk copies to complete on bar
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` of bar has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_load(void* s, const void* g, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-          smem_addr(s)),
-      "l"(g), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
+// (the mbarrier and bulk-copy helpers: csrc/async_copy.cuh)
 
 // An array's tile, `count` elements: its whole 16-byte chunks -> the bytes
 // of its bulk copy; the rest the threads copy (copy_tail).
@@ -450,6 +602,7 @@ dist_cg_kernel(const __grid_constant__ CgParams p) {
                      bL = p.lap_nbr ? body_bytes<int32_t>(6 * rows) : 0u,
                      bV = body_bytes<unsigned char>(rows);
       mbar_init(bar, 1);
+      fence_mbar_init();
       mbar_arrive_expect_tx(bar, bA + bN + bR + bL + bV);
       if (bA) bulk_load(sA, gA, bA, bar);
       if (bN) bulk_load(sNbr, gNbr, bN, bar);
@@ -817,11 +970,21 @@ const void* cg_kernel(int64_t mode) {
   return reinterpret_cast<const void*>(dist_cg_kernel<kGlobal>);
 }
 
-int device_sms(int* sms) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return static_cast<int>(e);
+template <int G>
+const void* system_kernel_for(bool staged) {
+  return staged ? reinterpret_cast<const void*>(dist_system_kernel<G, true>)
+                : reinterpret_cast<const void*>(dist_system_kernel<G, false>);
+}
+
+// dist_system_kernel for the plan's lanes and ring, or null
+const void* system_kernel(int64_t lanes, bool staged) {
+  switch (lanes) {
+    case 4: return system_kernel_for<4>(staged);
+    case 8: return system_kernel_for<8>(staged);
+    case 16: return system_kernel_for<16>(staged);
+    case 32: return system_kernel_for<32>(staged);
+    default: return nullptr;
+  }
 }
 
 void cg_params(CgParams& p, const CgPlan& plan, uint32_t* sync) {
@@ -853,28 +1016,42 @@ int cooperative(const void* kernel, int64_t blocks, int64_t smem, void** args, v
 
 }  // namespace
 
+// One launch on the plan (ops/distcg._system_plan), checked here.
 extern "C" int dist_system(const SystemArgs* a, void* stream) {
-  if (a->n < 1 || a->pairs < 1 || (a->eik && (!a->eik_r || !a->eik_J0 || !a->eik_Ji)))
+  const SystemPlan& pl = a->plan;
+  const void* kernel = system_kernel(pl.lanes, pl.depth > 0);
+  const int64_t stage = pl.tile * (24 * a->pairs + 20);
+  const auto aligned = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) == 0; };
+  if (a->n < 1 || a->pairs < 1 || (a->eik && (!a->eik_r || !a->eik_J0 || !a->eik_Ji)) ||
+      !kernel || pl.tile != kSysWarps * (32 / pl.lanes) || pl.depth < 0 || pl.depth == 1 ||
+      pl.depth > kSysDepth || pl.blocks < 1 || pl.ring % 128 != 0 ||
+      pl.ring < kSysBarriers + 56 * pl.tile || pl.smem_bytes != pl.ring + pl.depth * stage ||
+      (pl.depth > 0 && !(aligned(a->w) && aligned(a->r) && aligned(a->J0) && aligned(a->Ji) &&
+                         (!a->eik || (aligned(a->eik_r) && aligned(a->eik_J0) &&
+                                      aligned(a->eik_Ji))))))
     return static_cast<int>(cudaErrorInvalidValue);
-  int sms = 0, occ = 0;
-  int e = device_sms(&sms);
-  if (e) return e;
-  cudaError_t ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, dist_system_kernel, kSysThreads, 0);
-  if (ce != cudaSuccess) return static_cast<int>(ce);
   SystemParams p;
   p.w = a->w;  p.r = a->r;  p.J0 = a->J0;  p.Ji = a->Ji;
   p.eik_r = a->eik_r;  p.eik_J0 = a->eik_J0;  p.eik_Ji = a->eik_Ji;
   p.A = a->A;  p.t = a->t;
   p.n = a->n;
+  p.tiles = (a->n + pl.tile - 1) / pl.tile;
   p.pairs = static_cast<int>(a->pairs);
   p.eik = static_cast<int>(a->eik);
+  p.tile = static_cast<int>(pl.tile);
+  p.depth = static_cast<int>(pl.depth);
+  p.ring = static_cast<int>(pl.ring);
   p.lam = static_cast<float>(a->reg_weight_n);
-  const int64_t rows_a_block = kSysThreads / 32;
-  const int64_t want = (a->n + rows_a_block - 1) / rows_a_block;
-  const int64_t cap = static_cast<int64_t>(sms) * (occ > 0 ? occ : 1);
-  const int blocks = static_cast<int>(want < cap ? want : cap);
-  dist_system_kernel<<<blocks, kSysThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(pl.smem_bytes));
+  void* args[] = {&p};
+  if (e == cudaSuccess)
+    e = cudaLaunchKernel(kernel, dim3(static_cast<unsigned>(pl.blocks)), dim3(kSysThreads), args,
+                         static_cast<size_t>(pl.smem_bytes), static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    cudaGetLastError();                        // not sticky: clear it
+    return static_cast<int>(e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -59,9 +59,26 @@
 // and fresh-step rules and the masked carry update of gn_step, and pose <-
 // se3_exp(-xi) @ pose.
 //
-// gn_gram is the pass alone on frozen records [N, 8] at a given pose, with
-// its own grid and a last-block ticket: the summed-Gram mesh tracker and the
+// gn_gram is the pass alone on frozen records [N, 8] at a given pose (the
+// JAX package's masked_gram :286-301): the summed-Gram mesh tracker and the
 // resident tracker sum it across shards and keep their own PyTorch solve.
+// Its launch follows the host plan ops/gn.gram_plan, a function of N and the
+// SM count alone: at most one block an SM (SMs / 8 clusters of 8 blocks,
+// fewer for a small frame), each block a contiguous tile of pixels whose
+// records its thread 0 bulk-copies (cp.async.bulk, csrc/async_copy.cuh) in
+// chunks of kGramChunk pixels through a ring of kGramStages stages (all of a
+// 640x480 frame's tile in flight at once); each thread reads its kGramPix
+// pixels' depths of the next chunk while this one is summed.  A block adds
+// its threads' sums through shared memory in a fixed order (block_sum_rows,
+// as gn_solve's); the cluster's rank-0 block adds its blocks' sums in rank
+// order from their shared memory (distributed shared memory) and writes the
+// cluster's 36 sums; an integer ticket elects the last cluster, whose
+// rank-0 block adds the clusters' sums in cluster order into S and resets
+// the ticket to 0 for the next launch.  No float atomics: two runs give the
+// same bits.  Bound by bytes: the depth map and the records read once (36
+// bytes a pixel: 11.06 MB at 640x480, 3.3 us at 3.35 TB/s); an empty launch
+// of the same grid and clusters takes longer than that (chip_smoke.py times
+// it beside the kernel; PERF.md §6 records the grids and designs measured).
 //
 // The carry buffer (float32, see ops/gn.py): pose [0:16] row-major,
 // converged 16, failed 17, stalled 18, E_mean 19, count 20, iterations 21,
@@ -91,13 +108,15 @@
 // crosses as many barriers: the latency floor).
 //
 // Plain C interface (loaded with ctypes): gn_solve_plan() picks the grid,
-// gn_solve(), gn_barriers() and gn_gram() launch on the stream they are
-// given, do not synchronise, allocate nothing and return cudaGetLastError()
-// (or the error of the failed call) as an int.
+// gn_solve(), gn_barriers(), gn_gram() and gn_gram_floor() launch on the
+// stream they are given, do not synchronise, allocate nothing and return
+// cudaGetLastError() (or the error of the failed call) as an int.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "async_copy.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -118,20 +137,24 @@ struct GnArgs {
   float* carry;          // gn_solve: the carry
   const float* pose;     // gn_gram: [4, 4]
   float* gram_out;       // gn_gram: [8, 8]
-  float* partials;       // gn_gram: [blocks, 36]; gn_solve: [2, blocks, 36]
+  float* partials;       // gn_gram: [clusters, 36]; gn_solve: [2, blocks, 36]
   unsigned int* ticket;  // gn_gram: one counter, 0 between launches
   int64_t num_iterations, regather_every, early_exit;
-  int64_t blocks, on_chip;   // gn_solve: its plan (gn_solve_plan)
+  int64_t blocks, on_chip;   // gn_solve: its plan (gn_solve_plan); gn_gram: blocks
   double conv_threshold_sq, damping, lever;
+  int64_t cluster, tile;     // gn_gram: its plan's (ops/gn.gram_plan)
 };
 
 namespace {
 
-constexpr int kThreads = 256;            // gn_gram
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBlocks = 528;          // four a streaming multiprocessor
 constexpr int kTerms = 36;               // distinct products of the 8x8 Gram
-constexpr int kGroups = 7;               // final sum: 7 x 36 = 252 threads
+constexpr int kGramThreads = 256;        // gn_gram (ops/gn.GRAM_THREADS)
+constexpr int kGramGroups = kGramThreads / kTerms;    // 7 x 36 = 252 threads
+constexpr int kGramPix = 4;              // ops/gn.GRAM_PIX
+constexpr int kGramCluster = 8;          // ops/gn.GRAM_CLUSTER
+constexpr int kGramChunk = kGramThreads * kGramPix;   // pixels a ring stage
+constexpr int kGramStages = 3;
+constexpr int kGramSmem = kGramStages * kGramChunk * 32;   // the ring: 96 KB
 constexpr int kSolveThreads = 512;       // gn_solve: one block an SM
 constexpr int kSolveGroups = kSolveThreads / kTerms;   // 14 x 36 = 504
 constexpr int kPix = 2;                  // pixels a thread reads together
@@ -192,16 +215,21 @@ __device__ __forceinline__ bool carry_active(const float* c, bool fresh,
          c[kIters] < static_cast<float>(num_iterations);
 }
 
-// pixel i backprojected (camera_points): ((u - cx) / fx * z, (v - cy) / fy
-// * z, z), with Kc = (fx, cx, fy, cy)
-__device__ __forceinline__ float3 camera_point(const GnParams& p, const float Kc[4],
-                                               int i) {
-  const int row = i / p.w, col = i - row * p.w;
-  const float z = p.depth[row * p.depth_rs + col * p.depth_cs];
+// the pixel at (row, col) of depth z backprojected (camera_points): ((u -
+// cx) / fx * z, (v - cy) / fy * z, z), with Kc = (fx, cx, fy, cy)
+__device__ __forceinline__ float3 camera_point_rc(const GnParams& p, const float Kc[4],
+                                                  int row, int col, float z) {
   const float u = fmul(static_cast<float>(col), p.coord_stride);
   const float v = fmul(static_cast<float>(row), p.coord_stride);
   return make_float3(fmul(fdiv(fsub(u, Kc[1]), Kc[0]), z),
                      fmul(fdiv(fsub(v, Kc[3]), Kc[2]), z), z);
+}
+
+// pixel i backprojected
+__device__ __forceinline__ float3 camera_point(const GnParams& p, const float Kc[4],
+                                               int i) {
+  const int row = i / p.w, col = i - row * p.w;
+  return camera_point_rc(p, Kc, row, col, p.depth[row * p.depth_rs + col * p.depth_cs]);
 }
 
 // a camera point moved by the pose P (row-major 3x4)
@@ -301,43 +329,25 @@ __device__ __forceinline__ void add_row(const Rec& r, float px, float py,
     for (int b = a; b < 8; ++b) acc[k++] += g[a] * g[b];
 }
 
-// gn_gram's block sums of its threads' acc (a shuffle tree in each warp,
-// then the warps in order), returned in threads 0..35.
-__device__ __forceinline__ float block_sum(const float acc[kTerms],
-                                           float (*warp_sums)[kTerms]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kTerms; ++k) {
-    float s = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) warp_sums[warp][k] = s;
-  }
-  __syncthreads();
-  float s = 0.0f;
-  if (threadIdx.x < kTerms)
-    for (int w = 0; w < kWarps; ++w) s += warp_sums[w][threadIdx.x];
-  return s;
-}
-
-// gn_solve's block sums, through shared memory: each thread writes its 36
-// sums to its row of `red`, then kSolveGroups x 36 threads each add one
-// term over every kSolveGroups-th row in order, then 36 threads add the
-// groups in order -> the block's sums in threads 0..35.
+// A block's sums of its kT threads' acc (gn_solve's and gn_gram's), through
+// shared memory: each thread writes its 36 sums to its row of `red`, then
+// kG x 36 threads each add one term over every kG-th row in order, then 36
+// threads add the groups in order -> the block's sums in threads 0..35.
+template <int kT, int kG>
 __device__ __forceinline__ float block_sum_rows(const float acc[kTerms], float* red,
                                                 float (*group_sums)[kTerms]) {
   float* mine = red + threadIdx.x * kRedStride;
 #pragma unroll
   for (int k = 0; k < kTerms; ++k) mine[k] = acc[k];
   __syncthreads();
-  if (threadIdx.x < kSolveGroups * kTerms) {
+  if (threadIdx.x < kG * kTerms) {
     const int k = threadIdx.x % kTerms, grp = threadIdx.x / kTerms;
-    constexpr int kRows = (kSolveThreads + kSolveGroups - 1) / kSolveGroups;
+    constexpr int kRows = (kT + kG - 1) / kG;
     float v[kRows];
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
-      const int t = grp + q * kSolveGroups;
-      v[q] = t < kSolveThreads ? red[t * kRedStride + k] : 0.0f;
+      const int t = grp + q * kG;
+      v[q] = t < kT ? red[t * kRedStride + k] : 0.0f;
     }
     float s = 0.0f;
 #pragma unroll
@@ -347,7 +357,7 @@ __device__ __forceinline__ float block_sum_rows(const float acc[kTerms], float* 
   __syncthreads();
   float s = 0.0f;
   if (threadIdx.x < kTerms)
-    for (int grp = 0; grp < kSolveGroups; ++grp) s += group_sums[grp][threadIdx.x];
+    for (int grp = 0; grp < kG; ++grp) s += group_sums[grp][threadIdx.x];
   return s;
 }
 
@@ -421,13 +431,6 @@ __device__ void se3_exp_left(const float xi[6], float pose[16]) {
                        T[r * 4 + 2] * pose[8 + q] + T[r * 4 + 3] * pose[12 + q];
   for (int q = 0; q < 4; ++q) out[12 + q] = pose[12 + q];
   for (int k = 0; k < 16; ++k) pose[k] = out[k];
-}
-
-// The blocks gn_gram launches for n pixels (the partials buffer's rows): a
-// function of n alone, so the sums run in the same order on every run.
-int blocks_for(int n) {
-  const int want = (n + kThreads - 1) / kThreads;
-  return want < 1 ? 1 : (want > kMaxBlocks ? kMaxBlocks : want);
 }
 
 // The solve and the masked carry update of gn_step (one thread), on the
@@ -589,7 +592,7 @@ gn_solve_kernel(const __grid_constant__ GnParams p) {
           add_row(rec[q], px[q], py[q], pz[q], acc);
         }
       }
-      const float mine = block_sum_rows(acc, red, group_sums);
+      const float mine = block_sum_rows<kSolveThreads, kSolveGroups>(acc, red, group_sums);
       float* part = p.partials + static_cast<int64_t>(executed & 1) * gridDim.x * kTerms;
       if (tid < kTerms) part[blockIdx.x * kTerms + tid] = mine;
       grid.sync();
@@ -614,13 +617,67 @@ gn_barrier_kernel(int barriers) {
   for (int k = 0; k < barriers; ++k) grid.sync();
 }
 
-// The masked Gram of frozen records at p.pose, written to p.gram_out.
-__global__ void __launch_bounds__(kThreads)
-gn_kernel(const __grid_constant__ GnParams p) {
-  __shared__ float warp_sums[kWarps][kTerms];
-  __shared__ float group_sums[kGroups][kTerms];
+// a ticket drawn: the add releases this thread's (and, after a barrier, its
+// block's) writes and acquires those of the blocks that drew before
+__device__ __forceinline__ unsigned ticket_add(unsigned* t) {
+  unsigned old;
+  asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;" : "=r"(old) : "l"(t) : "memory");
+  return old;
+}
+
+// a chunk of the block's records tile into its stage of the ring: one bulk
+// copy on the stage's mbarrier
+__device__ __forceinline__ void gram_chunk(const GnParams& p, float4* ring, uint64_t* full,
+                                           int begin, int count, int c) {
+  const int s = c % kGramStages;
+  const int px = min(kGramChunk, count - c * kGramChunk);
+  const uint32_t bytes = static_cast<uint32_t>(px) * 32u;
+  mbar_arrive_expect_tx(&full[s], bytes);
+  bulk_load(ring + 2 * kGramChunk * s, p.records + 8 * (static_cast<int64_t>(begin) +
+                                                         c * kGramChunk),
+            bytes, &full[s]);
+}
+
+// the depths of this thread's pixels of chunk c (and their rows and columns)
+__device__ __forceinline__ void gram_depths(const GnParams& p, int begin, int count, int c,
+                                            int (&row)[kGramPix], int (&col)[kGramPix],
+                                            float (&z)[kGramPix]) {
+#pragma unroll
+  for (int q = 0; q < kGramPix; ++q) {
+    const int l = c * kGramChunk + q * kGramThreads + threadIdx.x;
+    if (l >= count) continue;
+    const int i = begin + l;
+    row[q] = i / p.w;
+    col[q] = i - row[q] * p.w;
+    z[q] = p.depth[row[q] * p.depth_rs + col[q] * p.depth_cs];
+  }
+}
+
+// The masked Gram of frozen records at p.pose, written to p.gram_out (see
+// the header): the block's tile of p.tile pixels, its records bulk-copied in
+// chunks of kGramChunk pixels through a ring of kGramStages stages (the
+// dynamic shared memory, then the block sum's rows), the depths of the next
+// chunk loaded while this one is summed; the block's sums, the cluster's by
+// its rank-0 block, the clusters' by the last cluster's.
+__global__ void __launch_bounds__(kGramThreads, 2)
+gn_gram_kernel(const __grid_constant__ GnParams p) {
+  extern __shared__ __align__(128) unsigned char gram_dyn[];
+  __shared__ uint64_t full[kGramStages];
+  __shared__ float group_sums[kGramGroups][kTerms];
+  __shared__ float bsum[kTerms];
   __shared__ float S[64];
-  __shared__ bool last;
+  __shared__ int last;
+  float4* ring = reinterpret_cast<float4*>(gram_dyn);   // [stages][chunk][2]
+  const int tid = threadIdx.x;
+  const int begin = blockIdx.x * p.tile;
+  const int count = max(0, min(p.tile, p.n - begin));
+  const int chunks = (count + kGramChunk - 1) / kGramChunk;
+  if (tid == 0) {
+    for (int s = 0; s < kGramStages; ++s) mbar_init(&full[s], 1);
+    fence_mbar_init();
+    for (int c = 0; c < chunks && c < kGramStages; ++c) gram_chunk(p, ring, full, begin, count, c);
+  }
+  __syncthreads();
 
   float acc[kTerms];
 #pragma unroll
@@ -629,33 +686,82 @@ gn_kernel(const __grid_constant__ GnParams p) {
 #pragma unroll
   for (int k = 0; k < 12; ++k) P[k] = p.pose[k];
   const float Kc[4] = {p.K[0], p.K[2], p.K[4], p.K[5]};
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.n;
-       i += gridDim.x * kThreads) {
-    float px, py, pz;
-    world_point(P, camera_point(p, Kc, i), px, py, pz);
-    add_row(load_record(p.records, i), px, py, pz, acc);
+  int row[kGramPix], col[kGramPix];
+  float z[kGramPix];
+  gram_depths(p, begin, count, 0, row, col, z);
+  for (int c = 0; c < chunks; ++c) {
+    int nrow[kGramPix], ncol[kGramPix];
+    float nz[kGramPix];
+    if (c + 1 < chunks) gram_depths(p, begin, count, c + 1, nrow, ncol, nz);
+    const int s = c % kGramStages;
+    mbar_wait(&full[s], (c / kGramStages) & 1);
+    const float4* st = ring + 2 * kGramChunk * s;
+#pragma unroll
+    for (int q = 0; q < kGramPix; ++q) {
+      const int l = q * kGramThreads + tid;         // in the chunk
+      if (c * kGramChunk + l >= count) continue;
+      const float4 a = st[2 * l], b = st[2 * l + 1];
+      float px, py, pz;
+      world_point(P, camera_point_rc(p, Kc, row[q], col[q], z[q]), px, py, pz);
+      add_row(Rec{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w != 0.0f}, px, py, pz, acc);
+    }
+    __syncthreads();                                // every thread is done with stage s
+    if (tid == 0 && c + kGramStages < chunks) {
+      fence_proxy_async();
+      gram_chunk(p, ring, full, begin, count, c + kGramStages);
+    }
+#pragma unroll
+    for (int q = 0; q < kGramPix; ++q) {
+      row[q] = nrow[q];
+      col[q] = ncol[q];
+      z[q] = nz[q];
+    }
   }
-  const float mine = block_sum(acc, warp_sums);
-  if (threadIdx.x < kTerms) {
-    p.partials[blockIdx.x * kTerms + threadIdx.x] = mine;
-    __threadfence();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned int t = atomicAdd(p.ticket, 1u);
-    last = t == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
+  // the ring is free: its first bytes hold the block sum's rows
+  const float mine = block_sum_rows<kGramThreads, kGramGroups>(
+      acc, reinterpret_cast<float*>(gram_dyn), group_sums);
+  if (tid < kTerms) bsum[tid] = mine;
 
-  // the last block: the partials in block order
-  __threadfence();
-  sum_partials<kGroups>(p.partials, gridDim.x, group_sums, S);
-  if (threadIdx.x == 0) {
-    *p.ticket = 0u;                            // ready for the next launch
-    for (int k = 0; k < 64; ++k) p.gram_out[k] = S[k];
+  // the cluster's sums, in rank order, by its rank-0 block from the blocks'
+  // shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const unsigned rank = cluster.block_rank();
+  const int Q = static_cast<int>(cluster.num_blocks());
+  const int clusters = static_cast<int>(gridDim.x) / Q;
+  if (rank == 0 && tid < kTerms) {
+    float* sums = bsum;
+    float v[kGramCluster];
+#pragma unroll
+    for (int r = 0; r < kGramCluster; ++r)
+      v[r] = r < Q ? cluster.map_shared_rank(sums, r)[tid] : 0.0f;
+    float s = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kGramCluster; ++r)
+      if (r < Q) s += v[r];
+    p.partials[(blockIdx.x / Q) * kTerms + tid] = s;
   }
+  // done with the peers' sums: arrive now, and wait (the peers wait there
+  // until rank 0 has read their sums) only after the ticket
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  if (rank == 0) {
+    __syncthreads();                           // the cluster's sums before the ticket
+    if (tid == 0) {
+      last = ticket_add(p.ticket) == static_cast<unsigned>(clusters - 1);
+      if (last) atomicExch(p.ticket, 0u);      // ready for the next launch
+    }
+    __syncthreads();
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  if (rank != 0 || !last) return;
+
+  // the last cluster's rank-0 block: the clusters' sums in cluster order
+  sum_partials<1>(p.partials, clusters, group_sums, S);
+  if (tid < 64) p.gram_out[tid] = S[tid];
 }
+
+// An empty kernel of gn_gram's grid and clusters: its latency floor.
+__global__ void __launch_bounds__(kGramThreads, 2) gn_gram_floor_kernel(const GnParams) {}
 
 GnParams params(const GnArgs* a) {
   GnParams p;
@@ -765,10 +871,45 @@ extern "C" int gn_barriers(int64_t blocks, int64_t barriers, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int gn_blocks(int n) { return blocks_for(n); }
+// gn_gram's kernel (or its empty twin) on the plan in a's cluster fields:
+// blocks in clusters of `cluster`, tiles of `tile` pixels.
+static int gram_launch(void (*kernel)(const GnParams), int smem, const GnArgs* a,
+                       cudaStream_t stream) {
+  GnParams p = params(a);
+  if (p.n < 1 || a->cluster < 1 || a->cluster > kGramCluster || a->blocks < a->cluster ||
+      a->blocks % a->cluster != 0 || a->tile < 1 || a->blocks * a->tile < p.n ||
+      (reinterpret_cast<uintptr_t>(a->records) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.tile = static_cast<int>(a->tile);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(a->blocks));
+  cfg.blockDim = dim3(kGramThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(a->cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int gn_gram(const GnArgs* a, void* stream) {
-  const GnParams p = params(a);
-  gn_kernel<<<blocks_for(p.n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return gram_launch(gn_gram_kernel, kGramSmem, a, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gn_gram_floor(const GnArgs* a, void* stream) {
+  return gram_launch(gn_gram_floor_kernel, 0, a, static_cast<cudaStream_t>(stream));
 }

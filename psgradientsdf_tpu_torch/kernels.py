@@ -171,3 +171,18 @@ def load_library(name: str) -> ctypes.CDLL:
                 raise KernelBuildError(f"cannot load {path}: {e}") from e
             _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev) -> int:
+    """The SMs of the CUDA device `dev` (a torch.device), read once a device:
+    the host plans of the launches are functions of it."""
+    import torch
+
+    return _sm_count(torch.cuda.current_device() if dev.index is None else dev.index)

@@ -44,15 +44,21 @@ through lap_idx itself.  stencil_reverse checks both properties and raises
 where either fails.  No scatter-add is left: every sum runs in one fixed
 order, and a solve gives the same bits on every run.
 
-dist_system sums a row's F*3 pairs as a warp does on the card: lane l adds
-the pairs j = l, l + 32, ... in order, then the 32 lane sums are added
-pairwise (lane l and l ^ 16, then ^ 8, ^ 4, ^ 2, ^ 1); every product and sum
-is rounded once, and the kernel (_rn intrinsics) equals the plain version
-bit for bit.  dist_cg runs `solvers.cg_chunks`' preconditioned CG on the
-assembled operator with both of its stop rules (scipy's, and cg_static's
-fixed trip count), decided on the device; the kernel sums its dots from
-per-block partials in one fixed order, the plain version with torch.sum, so
-the two agree to float32 rounding.
+dist_system sums a row's J = F*3 pairs in a group of G lanes, G =
+system_lanes(J) (4, 8, 16 or 32: the fewest that give a lane at most
+SYSTEM_PAIRS pairs): lane l adds the pairs j = l, l + G, ... in order, then
+the G lane sums are added pairwise (lane l and l ^ G/2, then ^ G/4, ...,
+^ 1); every product and sum is rounded once, and the kernel (_rn
+intrinsics) equals the plain version bit for bit.  Its launch follows a host
+plan (_system_plan, system_plan): a persistent grid over tiles of
+consecutive rows, each tile's w, r, J0, Ji and Eikonal rows bulk-copied
+into a ring of shared-memory stages.
+
+dist_cg runs `solvers.cg_chunks`' preconditioned CG on the assembled
+operator with both of its stop rules (scipy's, and cg_static's fixed trip
+count), decided on the device; the kernel sums its dots from per-block
+partials in one fixed order, the plain version with torch.sum, so the two
+agree to float32 rounding.
 
 dist_cg's launch follows a host plan (_cg_plan, cg_plan): one block an SM,
 a contiguous tile of rows a block on 16-row starts, and the tile's layout:
@@ -73,6 +79,7 @@ kernel launches and nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -83,6 +90,10 @@ _LIB_NAME = "distcg"
 launch_counts: Dict[str, int] = {"dist_system": 0, "dist_cg": 0}
 
 LANES = 32
+# dist_system: the pairs a lane sums at most (system_lanes' rule; 16 beat
+# 2, 4 and 8 at the main refinement's F = 40 on the H100; at the LED run's
+# F = 8, 8 and 16 give one plan)
+SYSTEM_PAIRS = 16
 # the entries of a row's symmetric 4x4 A_n, as stored [N, 10]
 A_IDX = ((0, 0), (0, 1), (0, 2), (0, 3), (1, 1), (1, 2), (1, 3), (2, 2),
          (2, 3), (3, 3))
@@ -144,35 +155,47 @@ def stencil_reverse(prob: RefineProblem) -> StencilReverse:
 # ---------------------------------------------------------------------------
 
 
+def system_lanes(J: int) -> int:
+    """The lanes G that sum one row's J pairs in dist_system: the smallest
+    power of two from 4 to LANES that gives each lane at most SYSTEM_PAIRS
+    pairs (LANES where none does); LANES // G rows share a warp."""
+    G = 4
+    while G < LANES and G * SYSTEM_PAIRS < J:
+        G *= 2
+    return G
+
+
 def _lane_sum(acc: torch.Tensor) -> torch.Tensor:
-    """[N, 32, k] lane sums -> [N, k], added as the warp's xor butterfly."""
-    s = LANES // 2
+    """[N, G, k] lane sums -> [N, k], added as the row's xor butterfly."""
+    s = acc.shape[1] // 2
     while s >= 1:
         acc = acc[:, :s] + acc[:, s:2 * s]
         s //= 2
     return acc[:, 0]
 
 
-def _by_lane(x: torch.Tensor, N: int, J: int) -> torch.Tensor:
-    """[N, J, ...] -> [N, ceil(J/32), 32, ...], zero-padded past J."""
-    Q = -(-J // LANES)
-    out = x.new_zeros((N, Q * LANES) + tuple(x.shape[2:]))
+def _by_lane(x: torch.Tensor, N: int, J: int, G: int) -> torch.Tensor:
+    """[N, J, ...] -> [N, ceil(J/G), G, ...], zero-padded past J."""
+    Q = -(-J // G)
+    out = x.new_zeros((N, Q * G) + tuple(x.shape[2:]))
     out[:, :J] = x
-    return out.view((N, Q, LANES) + tuple(x.shape[2:]))
+    return out.view((N, Q, G) + tuple(x.shape[2:]))
 
 
 def dist_system_plain(rd, DJ, eik, *, reg_weight_n: float
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(A [N,10], t [N,4]) with eager PyTorch ops, in the kernel's order:
-    a row's pairs summed lane by lane, the lanes pairwise, then the
-    Eikonal row added (eik None: none)."""
+    a row's pairs summed lane by lane over system_lanes(F*3) lanes, the
+    lanes pairwise, then the Eikonal row added (eik None: none)."""
     w, r, J0, Ji = rd.w, rd.r, DJ.J0, DJ.Ji
     N = w.shape[0]
     J = w[0].numel()
+    G = system_lanes(J)
     a = torch.stack([J0.reshape(N, J), *Ji.reshape(N, 3, J).unbind(1)], dim=-1)
-    a, wv, rv = _by_lane(a, N, J), _by_lane(w.reshape(N, J), N, J), _by_lane(r.reshape(N, J), N, J)
-    accA = w.new_zeros((N, LANES, 10))
-    acct = w.new_zeros((N, LANES, 4))
+    a, wv, rv = (_by_lane(a, N, J, G), _by_lane(w.reshape(N, J), N, J, G),
+                 _by_lane(r.reshape(N, J), N, J, G))
+    accA = w.new_zeros((N, G, 10))
+    acct = w.new_zeros((N, G, 4))
     for q in range(a.shape[1]):
         aq, wq = a[:, q], wv[:, q]
         wa = wq[..., None] * aq
@@ -364,12 +387,76 @@ def dist_cg_plain(A, t, valid, stencil: StencilReverse, lap, *,
 # ---------------------------------------------------------------------------
 
 
+# dist_system's launch: consumer warps a block (and one producer warp),
+# blocks an SM (csrc/distcg.cu kSysBlocks), the stages at most, the shared
+# memory of an SM the blocks share; the stages' mbarriers (full and empty, 8
+# bytes each) ahead of the rows' staged outputs (csrc/distcg.cu kSys*)
+SYSTEM_WARPS = 8
+SYSTEM_BLOCKS = 2
+SYSTEM_DEPTH = 4
+SYSTEM_SM_SMEM = 220 * 1024
+_SYSTEM_BARRIERS = 2 * SYSTEM_DEPTH * 8
+# bytes a pair (w, r, J0, Ji), a row's Eikonal row (r, J0, Ji) and its
+# outputs (A's 10, t's 4)
+_PAIR_BYTES = 24
+_EIK_BYTES = 20
+_OUT_BYTES = 56
+
+
+class SystemPlan(NamedTuple):
+    """dist_system's launch for N rows of J pairs: csrc/distcg.cu
+    SystemPlan, field for field."""
+    lanes: int             # G, the lanes that sum a row (system_lanes)
+    tile: int              # rows a tile: SYSTEM_WARPS x LANES // G (a row group a lane)
+    depth: int             # the ring's stages; 0: the lanes read device memory
+    blocks: int            # a persistent grid over the tiles
+    smem_bytes: int        # a block's dynamic shared memory
+    ring: int              # the ring's byte offset in it
+
+
+def _up128(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+@functools.lru_cache(maxsize=None)
+def _system_plan(N: int, J: int, *, sms: int, staged: bool = True) -> SystemPlan:
+    """dist_system's launch for N rows of J pairs on a card of `sms` SMs:
+    G = system_lanes(J); a tile of SYSTEM_WARPS x LANES // G consecutive
+    rows (each warp one row group a lane); tiles over a persistent grid of
+    SYSTEM_BLOCKS blocks an SM, each with a ring of up to SYSTEM_DEPTH
+    stages in its share of SYSTEM_SM_SMEM (one block an SM where fewer than
+    two stages fit; depth 0, the lanes reading device memory at
+    SYSTEM_BLOCKS blocks an SM, where two do not fit one block either or
+    `staged` is False: an input not 16-byte aligned)."""
+    if N < 1 or J < 1 or sms < 1:
+        raise ValueError(f"dist_system: no plan for {N} rows of {J} pairs on {sms} SMs")
+    G = system_lanes(J)
+    tile = SYSTEM_WARPS * (LANES // G)
+    stage = tile * (_PAIR_BYTES * J + _EIK_BYTES)
+    ring = _up128(_SYSTEM_BARRIERS + tile * _OUT_BYTES)
+    per_sm = SYSTEM_BLOCKS
+    depth = min(SYSTEM_DEPTH, (SYSTEM_SM_SMEM // per_sm - ring) // stage)
+    if depth < 2:
+        per_sm = 1
+        depth = min(SYSTEM_DEPTH, (SYSTEM_SM_SMEM - ring) // stage)
+    if depth < 2 or not staged:
+        depth, per_sm = 0, SYSTEM_BLOCKS
+    blocks = min(-(-N // tile), per_sm * sms)
+    return SystemPlan(G, tile, depth, blocks, ring + depth * stage, ring)
+
+
+class _SystemPlan(ctypes.Structure):
+    """csrc/distcg.cu SystemPlan, field for field."""
+    _fields_ = [(n, ctypes.c_int64) for n in SystemPlan._fields]
+
+
 class _SystemArgs(ctypes.Structure):
     """csrc/distcg.cu SystemArgs, field for field (every field 8 bytes)."""
     _p, _i, _d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
     _fields_ = [("w", _p), ("r", _p), ("J0", _p), ("Ji", _p), ("eik_r", _p),
                 ("eik_J0", _p), ("eik_Ji", _p), ("A", _p), ("t", _p),
-                ("n", _i), ("pairs", _i), ("eik", _i), ("reg_weight_n", _d)]
+                ("n", _i), ("pairs", _i), ("eik", _i), ("reg_weight_n", _d),
+                ("plan", _SystemPlan)]
 
 
 # dist_cg's launch: threads a block, the three layouts of a block's tile,
@@ -507,23 +594,27 @@ def _check(what: str, dev, named) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
+def _bind(lib):
+    """The C entry points' argument and result types set on `lib`."""
+    lib.dist_system.argtypes = [ctypes.POINTER(_SystemArgs), ctypes.c_void_p]
+    lib.dist_system.restype = ctypes.c_int
+    lib.dist_cg.argtypes = [ctypes.POINTER(_CgArgs), ctypes.c_void_p]
+    lib.dist_cg.restype = ctypes.c_int
+    lib.dist_cg_occupancy.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                      ctypes.POINTER(ctypes.c_int64)]
+    lib.dist_cg_occupancy.restype = ctypes.c_int
+    lib.dist_barriers.argtypes = [ctypes.POINTER(_CgPlan), ctypes.c_int64,
+                                  ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+    lib.dist_barriers.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _bound
     if _bound is None:
         from psgradientsdf_tpu_torch.kernels import load_library
 
-        lib = load_library(_LIB_NAME)
-        lib.dist_system.argtypes = [ctypes.POINTER(_SystemArgs), ctypes.c_void_p]
-        lib.dist_system.restype = ctypes.c_int
-        lib.dist_cg.argtypes = [ctypes.POINTER(_CgArgs), ctypes.c_void_p]
-        lib.dist_cg.restype = ctypes.c_int
-        lib.dist_cg_occupancy.argtypes = [ctypes.c_int64, ctypes.c_int64,
-                                          ctypes.POINTER(ctypes.c_int64)]
-        lib.dist_cg_occupancy.restype = ctypes.c_int
-        lib.dist_barriers.argtypes = [ctypes.POINTER(_CgPlan), ctypes.c_int64,
-                                      ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
-        lib.dist_barriers.restype = ctypes.c_int
-        _bound = lib
+        _bound = _bind(load_library(_LIB_NAME))
     return _bound
 
 
@@ -550,6 +641,13 @@ def cg_plan(dev: torch.device, N: int, *, use_lap: bool, lap_nbr: bool) -> CgPla
             _occupancy[okey] = per_sm.value
         _plans[key] = plan
     return plan
+
+
+def system_plan(dev: torch.device, N: int, J: int, *, staged: bool = True) -> SystemPlan:
+    """_system_plan on `dev`'s SMs (read once a device)."""
+    from psgradientsdf_tpu_torch.kernels import sm_count
+
+    return _system_plan(N, J, sms=sm_count(dev), staged=staged)
 
 
 def _work_floats(plan: CgPlan, N: int) -> int:
@@ -600,7 +698,9 @@ def dist_system(rd, DJ, eik, *, reg_weight_n: float
     """The distance block's rows (A [N,10], t [N,4]) from the residual pass
     rd (w, r [N,F,3]), the distance Jacobian DJ (J0 [N,F,3], Ji [N,3,F,3])
     and the Eikonal operator (r, J0 [N], Ji [N,3]; None when its weight is
-    0): one kernel launch on the card, dist_system_plain on the CPU."""
+    0): one kernel launch on the card, dist_system_plain on the CPU.  The
+    tiles are bulk-copied where every input starts on a 16-byte boundary,
+    else the lanes read device memory; the same bits either way."""
     w = rd.w
     if w.device.type == "cpu":
         return dist_system_plain(rd, DJ, eik, reg_weight_n=reg_weight_n)
@@ -623,6 +723,9 @@ def dist_system(rd, DJ, eik, *, reg_weight_n: float
     a.A, a.t = A.data_ptr(), t.data_ptr()
     a.n, a.pairs, a.eik = N, F * 3, int(eik is not None)
     a.reg_weight_n = float(reg_weight_n)
+    staged_inputs = [w, rd.r, DJ.J0, DJ.Ji] + ([] if eik is None else [eik.r, eik.J0, eik.Ji])
+    aligned = all(x.data_ptr() % 16 == 0 for x in staged_inputs)
+    a.plan = _SystemPlan(*system_plan(w.device, N, F * 3, staged=aligned))
     _launch("dist_system", a, w.device)
     return A, t
 

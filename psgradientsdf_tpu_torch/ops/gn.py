@@ -5,7 +5,7 @@ one launch.
 
   gn_solve(frame, carry, num_iterations=, regather_every=, early_exit=, ...)
                                                 the solve, IN PLACE on carry
-  gram(frame, pose, records) -> S [8,8]         the Gram alone
+  gram(frame, pose, records) -> S [8,8]         the Gram alone (gram_plan)
 
 A GnFrame holds one frame's tracking inputs: the (strided) depth map, the
 intrinsics, the depth range and, for gn_solve, the volume's record fields
@@ -33,7 +33,10 @@ tests it (tracking/tracker.run_gn_rounds, the loop of the mesh and
 resident trackers, gives the same bits over the same plain records and
 Gram).  On the card the kernel's sums and its 6x6 solve run in another order than the
 plain matrix products, so S agrees to float32 rounding (chip_smoke.py holds
-it within 1e-5 of max|S|).
+it within 1e-5 of max|S|).  gram's launch follows gram_plan(n, SMs): about
+one block an SM in clusters of GRAM_CLUSTER, a contiguous tile of pixels a
+block; the blocks' sums are added in each cluster, then the clusters' by
+the last cluster, in one fixed order (two runs give the same bits).
 
 A wrapper takes the plain version ONLY for tensors that lie on the CPU; for
 CUDA tensors it launches the kernel or raises (a refused cooperative launch
@@ -44,7 +47,8 @@ and nothing else.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -63,6 +67,35 @@ launch_counts: Dict[str, int] = {"gn_solve": 0, "gn_gram": 0}
 # the carry buffer: pose [0:16] row-major, then these slots, then S [24:88]
 CONV, FAIL, STALLED, E_MEAN, COUNT, ITERS, S0 = 16, 17, 18, 19, 20, 21, 24
 CARRY_SIZE = S0 + 64
+
+# gram's launch (csrc/gn.cu kGram*): threads a block, pixels a thread reads
+# together, blocks a cluster
+GRAM_THREADS = 256
+GRAM_PIX = 4
+GRAM_CLUSTER = 8
+
+
+class GramPlan(NamedTuple):
+    """gram's launch for n pixels."""
+    cluster: int           # blocks a cluster
+    clusters: int          # the rows of the partials buffer (36 floats each)
+    blocks: int            # clusters x cluster
+    tile: int              # pixels a block (the last blocks' fewer, or none)
+
+
+@functools.lru_cache(maxsize=None)
+def gram_plan(n: int, sms: int) -> GramPlan:
+    """gram's launch for n pixels on a card of `sms` SMs, a function of the
+    two alone: sms // GRAM_CLUSTER clusters (at most one block an SM; 16 on
+    an H100), fewer where n gives a cluster's threads fewer than GRAM_PIX
+    pixels each, at least one; a contiguous tile of ceil(n / blocks) pixels
+    a block."""
+    if n < 1 or sms < 1:
+        raise ValueError(f"gram: no plan for {n} pixels on {sms} SMs")
+    per_cluster = GRAM_CLUSTER * GRAM_THREADS * GRAM_PIX
+    clusters = max(1, min(sms // GRAM_CLUSTER, -(-n // per_cluster)))
+    blocks = clusters * GRAM_CLUSTER
+    return GramPlan(GRAM_CLUSTER, clusters, blocks, -(-n // blocks))
 
 
 def reset_launch_counts() -> None:
@@ -133,7 +166,7 @@ class GnFrame:
 
     def scratch(self, rows: int):
         """The kernels' partial sums (`rows` of 36) and gn_gram's ticket
-        (zero between launches: its last block resets it)."""
+        (zero between launches: its last cluster resets it)."""
         if self._scratch is None or self._scratch[0].numel() < rows * 36:
             self._scratch = (
                 torch.empty((rows * 36,), dtype=torch.float32, device=self.device),
@@ -379,7 +412,7 @@ class _GnArgs(ctypes.Structure):
         ("partials", _p), ("ticket", _p), ("num_iterations", _i),
         ("regather_every", _i), ("early_exit", _i), ("blocks", _i),
         ("on_chip", _i), ("conv_threshold_sq", _d), ("damping", _d),
-        ("lever", _d)]
+        ("lever", _d), ("cluster", _i), ("tile", _i)]
 
 
 def _check(frame: GnFrame, records: Optional[torch.Tensor], *tensors) -> None:
@@ -403,24 +436,26 @@ _bound = None
 _plans: Dict[tuple, tuple] = {}
 
 
+def _bind(lib):
+    """The C entry points' argument and result types set on `lib`."""
+    for fn in (lib.gn_solve, lib.gn_gram, lib.gn_gram_floor):
+        fn.argtypes = [ctypes.POINTER(_GnArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.gn_solve_plan.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                  ctypes.POINTER(ctypes.c_int64),
+                                  ctypes.POINTER(ctypes.c_int64)]
+    lib.gn_solve_plan.restype = ctypes.c_int
+    lib.gn_barriers.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    lib.gn_barriers.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _bound
     if _bound is None:
         from psgradientsdf_tpu_torch.kernels import load_library
 
-        lib = load_library(_LIB_NAME)
-        for fn in (lib.gn_solve, lib.gn_gram):
-            fn.argtypes = [ctypes.POINTER(_GnArgs), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.gn_blocks.argtypes = [ctypes.c_int]
-        lib.gn_blocks.restype = ctypes.c_int
-        lib.gn_solve_plan.argtypes = [ctypes.c_int64, ctypes.c_int64,
-                                      ctypes.POINTER(ctypes.c_int64),
-                                      ctypes.POINTER(ctypes.c_int64)]
-        lib.gn_solve_plan.restype = ctypes.c_int
-        lib.gn_barriers.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-        lib.gn_barriers.restype = ctypes.c_int
-        _bound = lib
+        _bound = _bind(load_library(_LIB_NAME))
     return _bound
 
 
@@ -453,7 +488,22 @@ def barrier_floor(frame: GnFrame, regather_every: int, barriers: int) -> None:
         raise RuntimeError(f"gn_barriers: launch failed, CUDA error {rc}")
 
 
-def _launch(name: str, frame: GnFrame, records, partial_rows: int, **fields) -> None:
+def _gram_plan_on(dev: torch.device, n: int) -> GramPlan:
+    from psgradientsdf_tpu_torch.kernels import sm_count
+
+    return gram_plan(n, sm_count(dev))
+
+
+def gram_floor(frame: GnFrame, records: torch.Tensor) -> None:
+    """Launch an empty kernel of gram's grid and clusters for the frame
+    (the Gram's latency floor; not a kernel of any path, so not counted)."""
+    plan = _gram_plan_on(frame.device, frame.n)
+    _launch("gn_gram_floor", frame, records, plan.clusters, counted=False,
+            blocks=plan.blocks, cluster=plan.cluster, tile=plan.tile)
+
+
+def _launch(name: str, frame: GnFrame, records, partial_rows: int, *,
+            counted: bool = True, **fields) -> None:
     lib = _library()
     a = _GnArgs()
     d = frame.depth
@@ -472,7 +522,8 @@ def _launch(name: str, frame: GnFrame, records, partial_rows: int, **fields) -> 
                                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {rc}")
-    launch_counts[name] += 1
+    if counted:
+        launch_counts[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -525,12 +576,16 @@ def gn_solve(frame: GnFrame, carry: torch.Tensor, *, num_iterations: int,
 
 def gram(frame: GnFrame, pose: torch.Tensor, records: torch.Tensor) -> torch.Tensor:
     """The masked 8x8 Gram of frozen records [N,8] at `pose` (one kernel
-    launch on the card, gram_plain on the CPU)."""
+    launch on the card on gram_plan, gram_plain on the CPU)."""
     _check(frame, records, pose)
     if frame.device.type == "cpu":
         return gram_plain(frame.points()[0], pose, unpack_records(records))
+    if records.data_ptr() % 16:
+        raise ValueError("gram: records must start on a 16-byte boundary (bulk-copied)")
     pose = pose.to(torch.float32).contiguous()
     out = torch.empty((8, 8), dtype=torch.float32, device=frame.device)
-    _launch("gn_gram", frame, records, _library().gn_blocks(frame.n),
-            pose=pose.data_ptr(), gram_out=out.data_ptr())
+    plan = _gram_plan_on(frame.device, frame.n)
+    _launch("gn_gram", frame, records, plan.clusters, pose=pose.data_ptr(),
+            gram_out=out.data_ptr(), blocks=plan.blocks, cluster=plan.cluster,
+            tile=plan.tile)
     return out

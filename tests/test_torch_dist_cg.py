@@ -1,7 +1,8 @@
 """The distance block's solve in gather form (ops/distcg.py): the reverse
 stencil table against nbr_idx / nbr_dir and lap_idx's symmetry, the
 assembled rows against the normal equations, the assembled operator, b and
-diag against the JAX package's `_distance_system`, the kernel's one-phase
+diag against the JAX package's `_distance_system` (also at each of
+dist_system's lane counts), the kernel's one-phase
 H p (hp_gather_plain) against the assembled operator bit for bit,
 solve_distance through the new path against the JAX package's and against the scatter-add CG's
 steps, bit-identical plain runs, the solve's edge cases, the plain PCG
@@ -305,6 +306,40 @@ def test_rhs_and_diag_match_jax_distance_system(lin, w_n, w_l):
         reg_weight_l=w_l, damping=1.0, laplacian_diag_only=False)
     _close(b, jb, 1e-5)
     _close(diag, jdiag, 1e-5)
+
+
+@pytest.mark.parametrize("F", [1, 8, 22, 43, 86])
+def test_rows_at_each_lane_count_match_jax_distance_system(lin, F):
+    """dist_system_plain at each lane count (system_lanes: 4, 4, 8, 16, 32)
+    on random pairs of F keyframes over the problem's stencil: b, diag and
+    H x from the assembled rows against the JAX package's
+    _distance_system on the same arrays."""
+    J, T = lin["J"], lin["T"]
+    p = T["p"]
+    N = p.valid.shape[0]
+    rng = np.random.default_rng(F)
+    w = (rng.random((N, F, 3)) * (rng.random((N, F, 1)) > 0.2)).astype(np.float32)
+    r = (0.1 * rng.standard_normal((N, F, 3))).astype(np.float32)
+    J0 = rng.standard_normal((N, F, 3)).astype(np.float32)
+    Ji = (0.5 * rng.standard_normal((N, 3, F, 3))).astype(np.float32)
+    x = rng.standard_normal(N).astype(np.float32)
+    rd = T["rd"]._replace(w=torch.from_numpy(w), r=torch.from_numpy(r))
+    DJ = T["DJ"]._replace(J0=torch.from_numpy(J0), Ji=torch.from_numpy(Ji))
+    w_n = 0.5
+    eik, _ = tsolvers.reg_operators(p, T["dist"], H_VOX, reg_weight_n=w_n, reg_weight_l=0.0,
+                                    laplacian_diag_only=False)
+    A, t = distcg.dist_system_plain(rd, DJ, eik, reg_weight_n=w_n)
+    b, diag = distcg.distance_rhs_plain(A, t, p.valid, T["stencil"], None, reg_weight_l=0.0)
+    hx = distcg.operator_apply(A, torch.from_numpy(x), p.valid, T["stencil"], None,
+                               reg_weight_l=0.0)
+    jrd = J["rd"]._replace(w=jnp.asarray(w), r=jnp.asarray(r))
+    jDJ = J["DJ"]._replace(J0=jnp.asarray(J0), Ji=jnp.asarray(Ji))
+    jb, jdiag, hdd = jsolvers._distance_system(
+        J["p"], jrd, jDJ, J["dist"], H_VOX, reg_weight_n=w_n, reg_weight_l=0.0,
+        damping=0.0, laplacian_diag_only=False)
+    _close(b, jb, 1e-5)
+    _close(diag, jdiag, 1e-5)
+    _close(hx, hdd(jnp.asarray(x)), 1e-5)
 
 
 # ------------------------------------------------------------------ the solve

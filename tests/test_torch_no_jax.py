@@ -134,7 +134,7 @@ def test_kernel_wrappers_raise_on_cuda_tensors_instead_of_falling_back():
 
 
 @pytest.mark.parametrize("module,kernels", [
-    ("gn", ("gn_solve_kernel", "gn_kernel")), ("fuse", ("fuse_rows_kernel",)),
+    ("gn", ("gn_solve_kernel", "gn_gram_kernel")), ("fuse", ("fuse_rows_kernel",)),
     ("residual", ("residual_pass_kernel", "dist_jacobian_kernel")),
     ("distcg", ("dist_system_kernel", "dist_cg_kernel")),
     ("normaleq", ("pose_tiles_kernel", "light_tiles_kernel")),
