@@ -49,7 +49,10 @@ iterations, with torch.profiler and print the card's busy share of each and
 the kernels that take the most device time, and trace each block of the
 main refinement's iteration 0 (its one-time costs) on the host and the
 card.  The run is otherwise the same (its refinement seconds then include
-the tracing of iteration 0).
+the tracing of iteration 0).  Every traced session opens with a warm-up of
+throwaway kernels that takes the device records the profiler drops at a
+session's start on the card machine, and fails if it lost them all
+(_traced).
 
 Phase scan_kernels follows the kernels phase: the kernels of the scan's
 jit-fused programs (the fusion update, one launch a fused frame; a frame's
@@ -60,7 +63,15 @@ sequence, and 48 frames tracked under each named tracker configuration
 (the Gram also twice bit for bit and beside an empty launch of its grid and
 clusters; with --gram-parent <gn.cu> timed in turns with that earlier
 source); the scan phase then checks that every tracked frame and every
-update of the main run went through them.
+update of the main run went through them.  It also holds the culled
+fusion's cull and compaction (csrc/cull.cu, one cooperative launch each)
+against their plain versions bit for bit on 76 cases (every frame, a
+1280x960 frame, 512^3, segments, slabs, the resident margins, a False
+gate, no valid and NaN depths, the grid behind the camera and around it,
+capacities at and below the active count, a K-frame union) and times them
+in the path's order; every scan phase then counts one cull and one
+compaction a culled fusion (a slab each on a mesh) and no plain cull on the
+card.
 
 The refinement's two kernels (the residual pass and the distance block's
 Jacobian, csrc/residual.cu) are held the same way: phases refine and
@@ -244,7 +255,19 @@ SCAN_KERNELS = {
                 "psgradientsdf_tpu/tracking/tracker.py:286"),
     "fuse_rows": ("psgradientsdf_tpu_torch/csrc/fuse.cu",
                   "psgradientsdf_tpu/core/volume.py:104"),
+    "row_activity": ("psgradientsdf_tpu_torch/csrc/cull.cu",
+                     "psgradientsdf_tpu/core/volume.py:252"),
+    "compact_rows": ("psgradientsdf_tpu_torch/csrc/cull.cu",
+                     "psgradientsdf_tpu/core/volume.py:516"),
 }
+# the culled fusion's cull and compaction (ops/cull.py): the kernels whose
+# launches every culled fusion path counts beside the direct row copies'
+CULL_KERNELS = ("row_activity", "compact_rows")
+# scan_kernels: the spin that keeps the card busy while the host enqueues a
+# path's kernels, so that events between them time the device alone
+SPIN_CYCLES = 2_000_000
+# each traced session opens with this many throwaway kernels (_traced)
+TRACE_WARMUP = 128
 # scan_kernels: one GN step's S against the plain Gram, relative to max|S|;
 # the tracked poses, kernel against plain (metres and radians); a plain step
 # norm this close to the threshold (relative) may end the solve one step
@@ -334,7 +357,7 @@ EDGE_CHUNK_ROWS = 4096
 # everything the run builds: the CUDA kernels (nvcc) and the host libraries
 # of the PNG decoder and of the exports (g++), all started together
 LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "normaleq", "albedo",
-             "png_unfilter", "mc")
+             "cull", "png_unfilter", "mc")
 
 
 class SmokeFailure(Exception):
@@ -870,20 +893,64 @@ def check_packed_widths(rowcopy, gen, flush):
 def _reset_scan_counts():
     """Launch counts of the scan's program kernels, and the frames
     track_frame solved, set to 0."""
-    from psgradientsdf_tpu_torch.ops import fuse, gn
+    from psgradientsdf_tpu_torch.ops import cull, fuse, gn
     from psgradientsdf_tpu_torch.tracking import tracker
 
     gn.reset_launch_counts()
     fuse.reset_launch_counts()
+    cull.reset_launch_counts()
     tracker.steps_run["track_frame"] = 0
 
 
 def _scan_counts():
-    from psgradientsdf_tpu_torch.ops import fuse, gn
+    from psgradientsdf_tpu_torch.ops import cull, fuse, gn
     from psgradientsdf_tpu_torch.tracking import tracker
 
-    return dict(gn.launch_counts, **fuse.launch_counts,
+    return dict(gn.launch_counts, **fuse.launch_counts, **cull.launch_counts,
                 frames_solved=tracker.steps_run["track_frame"])
+
+
+def _reset_row_counts():
+    """Launch counts of the culled fusion's kernels (the row copies, the
+    cull and the compaction), set to 0."""
+    from psgradientsdf_tpu_torch.ops import cull, rowcopy
+
+    rowcopy.reset_launch_counts()
+    cull.reset_launch_counts()
+
+
+def _row_counts():
+    from psgradientsdf_tpu_torch.ops import cull, rowcopy
+
+    return dict(rowcopy.launch_counts, **cull.launch_counts)
+
+
+@contextlib.contextmanager
+def _plain_cull_calls():
+    """While the body runs, count the calls of ops/cull.py's plain versions
+    (the cull's and the compactions' eager chains) on tensors on the card ->
+    the dict of counts (0 on every path: the wrappers launch the kernels).
+    The module functions are wrapped from outside."""
+    from psgradientsdf_tpu_torch.ops import cull
+
+    calls = {"plain_cull_on_card": 0}
+    names = ("row_activity_plain", "compact_active_plain", "compact_padded_plain")
+    real = {n: getattr(cull, n) for n in names}
+
+    def counted(name, pos):
+        def fn(*a, **kw):
+            if a[pos].device.type != "cpu":
+                calls["plain_cull_on_card"] += 1
+            return real[name](*a, **kw)
+        return fn
+
+    for n in names:
+        setattr(cull, n, counted(n, 1 if n == "row_activity_plain" else 0))
+    try:
+        yield calls
+    finally:
+        for n, fn in real.items():
+            setattr(cull, n, fn)
 
 
 def _reset_refine_counts():
@@ -1071,6 +1138,8 @@ def scan_kernels(tmp, seq):
         plain loop within GN_POSE_TOL.
     (d) frame 24 at 1280x960, whose records go to device memory
         (_big_frame).
+    (e) the culled fusion's cull and compaction, bit for bit on the cases
+        of _cull_kernels, with their times in the path's order.
     Launches made here are on no path.  -> facts."""
     import torch
     from psgradientsdf_tpu_torch.core.grid import GridGeometry
@@ -1104,6 +1173,7 @@ def scan_kernels(tmp, seq):
             torch.cuda.empty_cache()
 
     facts["update_variants"] = _update_variants(st)
+    facts["cull"] = _cull_kernels(st, flush)
 
     # (b) one step, one round, the Gram alone, and the solve's time
     vol = _gt_loop(st, range(FRAMES), "soa", st["cap"])
@@ -1490,6 +1560,257 @@ def _update_variants(st):
     return dict(frame=f, grid=X, cases=done, bit_identical=True)
 
 
+def _path_ms(fns):
+    """Device ms of each of `fns` run back to back in this order, as the
+    path runs them, KERNEL_REPS times: behind a spin kernel that keeps the
+    card busy while the host enqueues them, so the events between them time
+    the device alone, and with no flush (the L2 holds what the path leaves,
+    not a flush's dirty lines) -> [median ms of each]."""
+    import torch
+
+    for _ in range(3):
+        for fn in fns:
+            fn()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
+    times = [[] for _ in fns]
+    for _ in range(KERNEL_REPS):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        events[0].record()
+        for fn, ev in zip(fns, events[1:]):
+            fn()
+            ev.record()
+        torch.cuda.synchronize()
+        for i, t in enumerate(times):
+            t.append(events[i].elapsed_time(events[i + 1]))
+    return [statistics.median(t) for t in times]
+
+
+def _compaction_checks(what, flat, cap):
+    """compact_active and compact_padded against their plain versions at
+    capacity `cap`: indices, n_active, live and overflow equal, and each
+    kernel twice bit for bit."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import cull as C
+
+    n = int(flat.sum())
+    got = C.compact_active(flat, cap)
+    again = C.compact_active(flat, cap)
+    want = C.compact_active_plain(flat, cap)
+    for a, b, c in zip(got, again, want):
+        check(torch.equal(a, c) and torch.equal(a, b),
+              f"compact_active differs from its plain version or between two "
+              f"runs: {what}, capacity {cap}")
+    if cap == 0 and DEVICE == "cpu":
+        return               # the plain version reads slot 0, which is missing
+    got = C.compact_padded(flat, cap)
+    again = C.compact_padded(flat, cap)
+    if cap > 0:
+        want = C.compact_padded_plain(flat, cap)
+    else:
+        # the plain version reads slot 0, which a capacity of 0 lacks
+        want = (torch.zeros(0, dtype=torch.int32, device=flat.device),
+                torch.tensor(max(n, 1), device=flat.device),
+                torch.tensor(n > 0, device=flat.device))
+    for a, b, c in zip(got, again, want):
+        check(torch.equal(a, c) and torch.equal(a, b),
+              f"compact_padded differs from its plain version or between two "
+              f"runs: {what}, capacity {cap}")
+    check(int(got[1]) == max(n, 1) and bool(got[2]) == (n > cap),
+          f"compact_padded's live or overflow: {what}, capacity {cap}")
+
+
+def _cull_case(what, geom, depth, K, pose, kw, caps=(), gate=None, union=None):
+    """row_activity against its plain version on the card, mask element for
+    mask element and twice bit for bit (gated, and ORed into `union` when
+    one is given), then the compaction of its mask at each capacity
+    (`caps`; callables of the active count) -> dict."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import cull as C
+
+    want = C.row_activity_plain(geom, depth, K, pose, **kw)
+    if gate is not None:
+        want = want & gate
+    if union is not None:
+        want = want | union
+    runs = [C.row_activity(geom, depth, K, pose, gate=gate,
+                           union=None if union is None else union.clone(), **kw)
+            for _ in range(2)]
+    _sync()
+    check(torch.equal(runs[0], runs[1]), f"row_activity: two runs differ: {what}")
+    check(torch.equal(runs[0], want),
+          f"row_activity differs from its plain version: {what}, "
+          f"{int((runs[0] != want).sum())} of {want.numel()} entries")
+    flat = want.reshape(-1)
+    n = int(flat.sum())
+    done = sorted({max(0, c(n) if callable(c) else c) for c in caps})
+    for cap in done:
+        _compaction_checks(what, flat, cap)
+    return dict(case=what, entries=flat.numel(), active=n, capacities=done)
+
+
+def _log2_spans():
+    """floor(log2(float(span)) + 1e-6) on the card, as the plain cull takes
+    its table level, against bit_length(span) - 1 (the kernel's 31 -
+    clz(span)) for every span up to 4096 -> the spans checked."""
+    import torch
+
+    span = torch.arange(1, 4097, dtype=torch.int32, device=DEVICE)
+    k = torch.floor(torch.log2(span.to(torch.float32)) + 1e-6).to(torch.int64).cpu()
+    want = torch.tensor([int(s).bit_length() - 1 for s in range(1, 4097)])
+    check(torch.equal(k, want), "floor(log2(span) + 1e-6) != bit_length(span) - 1 "
+                                "on the card")
+    return 4096
+
+
+def _cull_times(what, geom, depth, K, pose, kw, cap, gate, flush):
+    """The cull and the gated compaction of one culled fusion, timed in the
+    path's order (_path_ms) and each after _time_ms's flush, beside the
+    plain versions, their byte bounds, an empty cooperative launch of each
+    one's grid crossing one barrier, and torch.nonzero (the compaction's
+    one-call yardstick, which reads the count back to the host) -> dict."""
+    import torch
+    from psgradientsdf_tpu_torch.kernels import sm_count
+    from psgradientsdf_tpu_torch.ops import cull as C
+
+    H, W = depth.shape
+    dev = depth.device
+
+    def cull():
+        return C.row_activity(geom, depth, K, pose, gate=gate, **kw)
+
+    def plain_cull():
+        return C.row_activity_plain(geom, depth, K, pose, **kw) & gate
+
+    flat = cull().reshape(-1)
+    n_seg, n = flat.numel(), int(flat.sum())
+    sms = sm_count(dev)
+    cull_blocks = C.cull_blocks(H, n_seg, sms)
+    smem = C.table_levels(H) * H * 4
+    compact_blocks = C.compact_blocks(n_seg, sms)
+    path = _path_ms([cull, lambda: C.compact_padded(flat, cap)])
+    floors = _path_ms([lambda: C.barrier_floor(dev, cull_blocks, smem),
+                       lambda: C.barrier_floor(dev, compact_blocks)])
+    out = {"case": what, "entries": n_seg, "active": n, "capacity": cap}
+    out["row_activity"] = dict(
+        ms=path[0], ms_after_flush=_time_ms(cull, flush),
+        plain_ms=_time_ms(plain_cull, flush),
+        # the depth image read once, the mask written once
+        bound_ms=(H * W * 4 + n_seg) / HBM_BYTES_PER_S * 1e3,
+        latency_floor_ms=floors[0], blocks=cull_blocks, table_bytes=smem,
+        library_ms=None)
+    out["compact_rows"] = dict(
+        ms=path[1], ms_after_flush=_time_ms(lambda: C.compact_padded(flat, cap), flush),
+        plain_ms=_time_ms(lambda: C.compact_padded_plain(flat, cap), flush),
+        # the flags read once, the int32 indices and the scalars written once
+        bound_ms=(n_seg + cap * 4 + 17) / HBM_BYTES_PER_S * 1e3,
+        latency_floor_ms=floors[1], blocks=compact_blocks,
+        library_ms=_time_ms(lambda: torch.nonzero(flat), flush))
+    for k in CULL_KERNELS:
+        out[k]["share_of_bound"] = out[k]["bound_ms"] / out[k]["ms"]
+    return out
+
+
+def _cull_kernels(st, flush):
+    """The culled fusion's cull and compaction (csrc/cull.cu) against their
+    plain versions on the card, bit for bit (_cull_case): the FRAMES frames
+    at their generating poses (each compacted at the fusion's capacity, at
+    its active count and one less: an overflow), frame 24 at 1280x960, 512^3
+    rows, seg_x = 8, four contiguous slabs (z0) and four interleaved ones
+    (z_idx), the resident margins (rows and segments), a gate that is False,
+    a frame with no valid depth (0 active) and one with NaN depths, a pose
+    that puts the grid behind the camera and one inside it (mixed rows), a
+    K-frame union; the table level on the card for every span up to 4096;
+    times of frame 24 at 128^3 and of the 512^3 and 1280x960 cases
+    (_cull_times) -> facts.  Launches made here are on no path."""
+    import torch
+    from psgradientsdf_tpu_torch.core.grid import GridGeometry
+    from psgradientsdf_tpu_torch.ops import cull as C
+
+    geom, zkw, K = st["geom"], st["zkw"], st["K"]
+    X, Y, Z = geom.dims
+    cap = st["cap"]
+    caps = (cap, lambda n: n, lambda n: n - 1)
+    f = 24
+    depth, pose = st["depths"][f], st["gt"][f]
+    true = torch.tensor(True, device=DEVICE)
+    cases = []
+    for g in range(FRAMES):
+        cases.append(_cull_case(f"frame {g}", geom, st["depths"][g], K, st["gt"][g],
+                                zkw, caps, gate=true))
+    # the 1280x960 frame: each pixel twice in each direction, K doubled
+    big_depth = depth.repeat_interleave(2, 0).repeat_interleave(2, 1)
+    big_K = K.clone()
+    big_K[0, 0], big_K[1, 1] = 2 * K[0, 0], 2 * K[1, 1]
+    big_K[0, 2], big_K[1, 2] = 2 * K[0, 2] + 0.5, 2 * K[1, 2] + 0.5
+    cases.append(_cull_case("frame 24 at 1280x960", geom, big_depth, big_K, pose,
+                            zkw, caps))
+    big = GridGeometry(dims=(PACKED_BIG_GRID,) * 3,
+                       voxel_size=geom.voxel_size * X / PACKED_BIG_GRID,
+                       shift=geom.shift)
+    big_kw = dict(zkw, truncation=st["truncation"] * X / PACKED_BIG_GRID)
+    big_cap = cap * PACKED_BIG_GRID ** 2 // (X * Y)
+    for g in (0, f):
+        cases.append(_cull_case(f"frame {g} at {PACKED_BIG_GRID}^3", big,
+                                st["depths"][g], K, st["gt"][g], big_kw,
+                                (big_cap, lambda n: n)))
+    cases.append(_cull_case("seg_x 8", geom, depth, K, pose, dict(zkw, seg_x=8),
+                            (8 * cap, lambda n: n, lambda n: n - 1)))
+    cases.append(_cull_case(f"seg_x 64 at {PACKED_BIG_GRID}^3", big, depth, K, pose,
+                            dict(big_kw, seg_x=64), (lambda n: n,)))
+    Zl = Z // 4
+    for k in range(4):
+        cases.append(_cull_case(f"slab z0={k * Zl}", geom, depth, K, pose,
+                                dict(zkw, z0=k * Zl, z_rows=Zl), (cap // 4, lambda n: n)))
+        planes = torch.arange(k, Z, 4, dtype=torch.int32, device=DEVICE)
+        cases.append(_cull_case(f"interleaved slab {k}", geom, depth, K, pose,
+                                dict(zkw, z_rows=Zl, z_idx=planes),
+                                (cap // 4, lambda n: n)))
+    margins = dict(margin_px=RESIDENT_MARGIN[0], margin_t=RESIDENT_MARGIN[1])
+    cases.append(_cull_case("resident margins", geom, depth, K, pose,
+                            dict(zkw, **margins), (cap, lambda n: n)))
+    cases.append(_cull_case("resident margins, seg_x 8", geom, depth, K, pose,
+                            dict(zkw, seg_x=8, **margins), (lambda n: n,)))
+    cases.append(_cull_case("gate False", geom, depth, K, pose, zkw, (cap, 0),
+                            gate=torch.tensor(False, device=DEVICE)))
+    cases.append(_cull_case("no valid depth", geom, torch.zeros_like(depth), K, pose,
+                            zkw, (cap, 0, 1)))
+    holes = depth.clone()
+    holes[100:140, :] = float("nan")
+    holes[:, 300:310] = float("nan")
+    cases.append(_cull_case("NaN depths", geom, holes, K, pose, zkw, caps))
+    behind = pose.clone()
+    behind[:3, 2] = -behind[:3, 2]               # turned to look away
+    behind[:3, 1] = -behind[:3, 1]
+    cases.append(_cull_case("behind the camera", geom, depth, K, behind, zkw, (cap, 1)))
+    inside = pose.clone()
+    inside[:3, 3] = torch.tensor(geom.origin, device=DEVICE) + geom.voxel_size * X / 2
+    cases.append(_cull_case("camera inside the grid", geom, depth, K, inside, zkw, caps))
+    # fuse_frames_culled's union: each frame's cull ORed into the frames'
+    # before it
+    union = torch.zeros((Z, Y), dtype=torch.bool, device=DEVICE)
+    for g in range(1, 1 + PACKED_K):
+        cases.append(_cull_case(f"frame {g} into the union of frames 1-{g - 1}", geom,
+                                st["depths"][g], K, st["gt"][g], zkw, (), gate=true,
+                                union=union))
+        union = union | C.row_activity_plain(geom, st["depths"][g], K, st["gt"][g],
+                                             **zkw)
+    facts = dict(cases=cases, n_cases=len(cases), spans_checked=_log2_spans(),
+                 bit_identical=True)
+    check(any(c["active"] == 0 for c in cases)
+          and any(c["case"] == "camera inside the grid" and c["active"] > 0 for c in cases),
+          "the cull cases miss the empty mask or the mixed rows")
+    if DEVICE == "cuda":
+        facts["times"] = [
+            _cull_times(f"frame {f} at {X}^3, 640x480", geom, depth, K, pose, zkw,
+                        cap, true, flush),
+            _cull_times(f"frame {f} at {PACKED_BIG_GRID}^3", big, depth, K, pose,
+                        big_kw, big_cap, true, flush),
+            _cull_times(f"frame {f} at 1280x960", geom, big_depth, big_K, pose, zkw,
+                        cap, true, flush)]
+    return facts
+
+
 # ----------------------------------------------------------------- the scan
 
 
@@ -1526,7 +1847,6 @@ def run_scan(tmp, tag, seq, last, rows_impl, refine=None, grid=None,
     recipe keys ("mesh shape"); `pipe_kw` (checkpoint_every, resume,
     mesh_devices) go to the pipeline."""
     from psgradientsdf_tpu_torch.config import load_config
-    from psgradientsdf_tpu_torch.ops import rowcopy
     from psgradientsdf_tpu_torch.pipeline import ReconstructionPipeline
     from psgradientsdf_tpu_torch.utils.metrics import MetricsLogger
 
@@ -1541,15 +1861,18 @@ def run_scan(tmp, tag, seq, last, rows_impl, refine=None, grid=None,
             poses[: last + 1] if gt_poses else None),
         metrics=MetricsLogger(os.path.join(out_dir, "metrics.jsonl"), echo=False),
         device=DEVICE, rows_impl=rows_impl, **pipe_kw)
-    rowcopy.reset_launch_counts()            # just before the path is driven
+    _reset_row_counts()                      # just before the path is driven
     _reset_scan_counts()
     _reset_refine_counts()
     t0 = time.perf_counter()
-    with _refine_calls() as refine_calls:
+    with _refine_calls() as refine_calls, _plain_cull_calls() as cull_calls:
         summary = pipe.run(refine=refine is not None)
         _sync()
     seconds = time.perf_counter() - t0
-    counts = dict(rowcopy.launch_counts)     # and read just after
+    counts = _row_counts()                   # and read just after
+    check(cull_calls["plain_cull_on_card"] == 0,
+          f"{tag}: {cull_calls['plain_cull_on_card']} plain culls or compactions "
+          "ran on the card")
     scan_counts = _scan_counts()
     refine_counts = _refine_counts()
     with open(os.path.join(out_dir, "tracking_poses.txt")) as fh:
@@ -2608,10 +2931,55 @@ def _dist_case(what, c, static, flush, timed=False):
     return out
 
 
+@contextlib.contextmanager
+def _traced(cpu=False):
+    """A torch.profiler session on the card (and the host with `cpu`) that
+    opens with TRACE_WARMUP throwaway spin kernels and a synchronize.  On
+    the card machine the profiler drops the first device records of a
+    session as out of its capture window (kineto's "Out-of-range" count: 3
+    to 6 records, always the session's first, in sessions after the first
+    minute of a run; a window padded by 0.25 s lost them all the same), so
+    a short body such as one albedo block could lose all of its kernels.
+    The warm-up takes those losses; its kernel is left out of every count
+    (_kernel_rows, _runtime_calls), and the session fails unless some of its
+    warm-up records arrived, the records that come after them being kept.
+    -> the profile object, with `warmup_dropped`, the warm-up records the
+    session lost."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        for _ in range(TRACE_WARMUP):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+    seen = int(sum(e.count for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and _is_warmup(e.key)))
+    check(seen > 0, "a trace lost every record of its warm-up: its body's device "
+                    "activity may be lost too")
+    prof.warmup_dropped = TRACE_WARMUP - seen
+
+
+def _is_warmup(name):
+    return "spin_kernel" in name
+
+
+def _runtime_calls(prof):
+    """The host's CUDA runtime and driver calls a _traced session recorded,
+    less its warm-up's launches and synchronize and its closing
+    synchronize."""
+    return sum(e.count for e in prof.key_averages()
+               if not str(e.device_type).endswith("CUDA") and e.key.startswith("cu")
+               ) - (TRACE_WARMUP + 2)
+
+
 def _kernel_rows(prof):
-    """(device us, launches, name) of each kernel a trace saw."""
+    """(device us, launches, name) of each kernel a trace saw, its warm-up
+    left out (_traced)."""
     return [(_device_us(e), e.count, e.key) for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
+            if str(e.device_type).endswith("CUDA") and not _is_warmup(e.key)]
 
 
 def _is_index_add(name):
@@ -2621,10 +2989,10 @@ def _is_index_add(name):
 def _distance_block_traces(ref, w_n, w_l):
     """One distance block from the main run's final state through
     ops/distcg.py (optimizer._dist_core on the refiner's table), traced ->
-    its device kernels, index_add_ kernels (none may run), device time and
-    host seconds (median of 3 untraced)."""
+    its device kernels, index_add_ kernels (none may run), device time,
+    host seconds (median of 3 untraced) and the warm-up records the trace
+    lost (_traced)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from psgradientsdf_tpu_torch.ops import residual as RS
     from psgradientsdf_tpu_torch.refine import optimizer
 
@@ -2647,12 +3015,11 @@ def _distance_block_traces(ref, w_n, w_l):
         block()
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _traced() as prof:
         block()
-        torch.cuda.synchronize()
     rows = sorted(_kernel_rows(prof), reverse=True)
     out = dict(
-        seconds=statistics.median(secs),
+        seconds=statistics.median(secs), warmup_dropped=prof.warmup_dropped,
         device_kernels=int(sum(r[1] for r in rows)),
         index_add_kernels=int(sum(r[1] for r in rows if _is_index_add(r[2]))),
         device_ms=sum(r[0] for r in rows) * 1e-3,
@@ -3484,9 +3851,9 @@ def _albedo_block_traces(ref):
     index_add_ kernels and device-to-host copies (none may run), the host's
     CUDA runtime calls (the markers' launches among them) and, among them,
     copies and stream synchronisations (none may run: the block reads
-    nothing back), host seconds (median of 3 untraced)."""
+    nothing back), host seconds (median of 3 untraced) and the warm-up
+    records the trace lost (_traced)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from psgradientsdf_tpu_torch.ops import residual as RS
     from psgradientsdf_tpu_torch.refine import optimizer
 
@@ -3509,38 +3876,30 @@ def _albedo_block_traces(ref):
         block()
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    # A session can miss the launches made through the kernels' own CUDA
-    # runtime until PyTorch has launched something in it (a warm-up step
-    # alone did not do), and after --profile's earlier sessions one that
-    # saw a single PyTorch launch a step recorded no device activity at
-    # all: each step launches a fill before the block and one after it, the
-    # markers, and the markers are taken out of the counts.
+    # The block runs between two fills, the markers, which are taken out of
+    # the counts: the trace must hold both, so a session that lost device
+    # activity fails here instead of passing with too few operations.
     mark = torch.empty(1, device=dist.device)
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
-                                                  repeat=1)) as prof:
-        for _ in range(2):
-            mark.fill_(1.0)
-            block()
-            mark.fill_(2.0)
-            torch.cuda.synchronize()
-            prof.step()
+    with _traced() as prof:
+        mark.fill_(1.0)
+        block()
+        mark.fill_(2.0)
     rows = sorted(_kernel_rows(prof), reverse=True)
     marks = int(sum(r[1] for r in rows if "FillFunctor" in r[2]))
     host = [(e.count, e.key) for e in prof.key_averages()
-            if not str(e.device_type).endswith("CUDA") and not e.key.startswith("ProfilerStep")]
+            if not str(e.device_type).endswith("CUDA")]
     check(marks == 2, f"the albedo block's trace holds {marks} marker fills: device "
                       f"{[(n, k[:60]) for _, n, k in rows]}, host {host}")
     reads = sum(n for n, k in host if "Memcpy" in k or k == "cudaStreamSynchronize")
     out = dict(
-        seconds=statistics.median(secs),
+        seconds=statistics.median(secs), warmup_dropped=prof.warmup_dropped,
         device_ops=int(sum(r[1] for r in rows)) - marks,
         albedo_block_kernels=int(sum(r[1] for r in rows if "albedo_block_kernel" in r[2])),
         index_add_kernels=int(sum(r[1] for r in rows if _is_index_add(r[2]))),
         device_to_host_copies=int(sum(r[1] for r in rows if "DtoH" in r[2]
                                       or "Device -> Pageable" in r[2])),
         host_reads=int(reads),
-        runtime_calls=int(sum(n for n, k in host)),
+        runtime_calls=_runtime_calls(prof),
         runtime=[dict(name=k[:60], calls=n) for n, k in host],
         device_ms=sum(r[0] for r in rows if "FillFunctor" not in r[2]) * 1e-3,
         ops=[dict(name=k[:80], launches=n, device_ms=us * 1e-3) for us, n, k in rows
@@ -3674,28 +4033,26 @@ def _first_iteration_blocks(enabled):
     """With `enabled`, trace the first call of each block the body's
     refinement runs (refine/optimizer.py's block cores, wrapped from
     outside), each in its own torch.profiler session on the host and the
-    card, the profiler started once beforehand so that its own set-up is
-    in no block -> {block: its seconds, device kernels and device time, the
-    operations that took the most host and device time}."""
+    card (_traced), the profiler started once beforehand so that its own
+    set-up is in no block -> {block: its seconds, device kernels and device
+    time, the operations that took the most host and device time, the
+    warm-up records the trace lost}."""
     facts = {}
     if not enabled:
         yield facts
         return
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from psgradientsdf_tpu_torch.refine import optimizer
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts):
+    with _traced(cpu=True):
         torch.zeros(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
     real = {b: getattr(optimizer, f) for b, f in FIRST_BLOCKS.items()}
 
     def traced(block):
         def fn(*a, **kw):
             if block in facts:
                 return real[block](*a, **kw)
-            with profile(activities=acts) as prof:
+            with _traced(cpu=True) as prof:
                 t0 = time.perf_counter()
                 out = real[block](*a, **kw)
                 torch.cuda.synchronize()
@@ -3705,7 +4062,8 @@ def _first_iteration_blocks(enabled):
                            for e in prof.key_averages()
                            if not str(e.device_type).endswith("CUDA")), reverse=True)
             facts[block] = dict(
-                seconds=wall, device_kernels=int(sum(r[1] for r in kernels)),
+                seconds=wall, warmup_dropped=prof.warmup_dropped,
+                device_kernels=int(sum(r[1] for r in kernels)),
                 device_ms=sum(r[0] for r in kernels) * 1e-3,
                 top_host=[dict(name=k[:80], calls=n, self_host_ms=us * 1e-3)
                           for us, n, k in host[:8]],
@@ -3723,16 +4081,28 @@ def _first_iteration_blocks(enabled):
             setattr(optimizer, f, real[b])
 
 
+def _checked_blocks(first_blocks):
+    """_first_iteration_blocks' facts, once every block's trace is seen to
+    hold its device activity."""
+    check(set(first_blocks) == set(FIRST_BLOCKS)
+          and all(b["device_kernels"] > 0 for b in first_blocks.values()),
+          f"a first-iteration block's trace holds no device activity: "
+          f"{ {k: b['device_kernels'] for k, b in first_blocks.items()} }")
+    return first_blocks
+
+
 # ------------------------------------------------------ the scan on a mesh
 
 
 def _dma_launches(run):
-    return {k: run["counts"][k] for k in ("gather_rows_dma", "scatter_rows_dma")}
+    return {k: run["counts"][k]
+            for k in ("gather_rows_dma", "scatter_rows_dma") + CULL_KERNELS}
 
 
 def _check_mesh_launches(run, slabs, what):
-    """One direct gather and one direct scatter launch per slab per culled
-    fusion of a frame (a rehearsal on the CPU counts none)."""
+    """One direct gather, one direct scatter, one cull and one compaction
+    launch per slab per culled fusion of a frame (a rehearsal on the CPU
+    counts none)."""
     calls = run["pipe"].fuse_culled_calls
     want = slabs * calls if DEVICE == "cuda" else 0
     for name, n in _dma_launches(run).items():
@@ -3881,15 +4251,18 @@ def _on_card(n):
 
 def _counted(fn):
     """Run fn with the launch counts set to 0 just before and read just
-    after -> (fn's result, counts, wall seconds to the device's end)."""
-    from psgradientsdf_tpu_torch.ops import rowcopy
-
+    after -> (fn's result, counts of the row copies, the cull and the
+    compaction, wall seconds to the device's end)."""
     _sync()
-    rowcopy.reset_launch_counts()
+    _reset_row_counts()
     t0 = time.perf_counter()
-    out = fn()
+    with _plain_cull_calls() as cull_calls:
+        out = fn()
     _sync()
-    return out, dict(rowcopy.launch_counts), time.perf_counter() - t0
+    counts = _row_counts()
+    check(cull_calls["plain_cull_on_card"] == 0,
+          f"{cull_calls['plain_cull_on_card']} plain culls or compactions ran on the card")
+    return out, counts, time.perf_counter() - t0
 
 
 def _tracked_loop(st, n, layout, rows_impl):
@@ -4041,7 +4414,7 @@ def packed_phase(tmp, seq):
     from psgradientsdf_tpu_torch.core.grid import GridGeometry
     from psgradientsdf_tpu_torch.io.trajectory import ate_rmse
 
-    launches = {k: 0 for k in KERNELS}
+    launches = {k: 0 for k in list(KERNELS) + list(CULL_KERNELS)}
 
     def add(counts):
         for k in launches:
@@ -4066,8 +4439,10 @@ def packed_phase(tmp, seq):
         name = "gather_rows_dma" if impl == "dma" else "gather_rows"
         scat = "scatter_rows_dma" if impl == "dma" else "scatter_rows"
         check(counts[name] == _on_card(n) == counts[scat]
-              and sum(counts.values()) == _on_card(2 * n),
+              and sum(counts[k] for k in KERNELS) == _on_card(2 * n),
               f"{tag}: launches {counts}, one gather and one scatter a frame")
+        check(counts["row_activity"] == _on_card(n) == counts["compact_rows"],
+              f"{tag}: launches {counts}, one cull and one compaction a frame")
         add(counts)
         if tag in loops:
             check(np.array_equal(poses, loops[tag]["poses"])
@@ -4102,9 +4477,11 @@ def packed_phase(tmp, seq):
     for tag in _turns(list(runs)):
         vol, counts, secs = _counted(runs[tag])
         check(counts["gather_rows_dma"] == _on_card(want[tag])
-              == counts["scatter_rows_dma"],
-              f"{tag}: launches {counts}, one gather and one scatter a "
-              f"{'batch' if tag == 'batched' else 'frame'}")
+              == counts["scatter_rows_dma"] == counts["compact_rows"],
+              f"{tag}: launches {counts}, one gather, one scatter and one "
+              f"compaction a {'batch' if tag == 'batched' else 'frame'}")
+        check(counts["row_activity"] == _on_card(n),
+              f"{tag}: launches {counts}, one cull a frame")
         add(counts)
         ms[tag].append(secs * 1e3 / n)
         check(_equal_volumes(vol, vols.setdefault(tag, vol)),
@@ -4141,7 +4518,9 @@ def packed_phase(tmp, seq):
         vol, counts, secs = _counted(runs[tag])
         add(counts)
         want = _on_card(1 if tag == "batched" else len(frames))
-        check(counts["gather_rows_dma"] == want == counts["scatter_rows_dma"],
+        check(counts["gather_rows_dma"] == want == counts["scatter_rows_dma"]
+              == counts["compact_rows"]
+              and counts["row_activity"] == _on_card(len(frames)),
               f"512^3 {tag}: launches {counts}")
         big_facts["ms_per_frame"].setdefault(tag, []).append(secs * 1e3 / len(frames))
         if tag in vols:
@@ -4229,14 +4608,21 @@ def packed_phase(tmp, seq):
     check(torch.equal(fused.payload, canon.payload),
           f"resident GT stream: payload differs by up to {diff}")
     allocs = _on_card(len(chunks) + (m - 1))
-    check(counts["gather_rows_dma"] == allocs == counts["scatter_rows_dma"],
+    check(counts["gather_rows_dma"] == allocs == counts["scatter_rows_dma"]
+          == counts["compact_rows"],
           f"resident GT stream: launches {counts}, {allocs} expected")
+    # a cull for each refresh and allocation, and one a fusion
+    check(counts["row_activity"] == _on_card(len(chunks) + 2 * (m - 1)),
+          f"resident GT stream: launches {counts}")
     add(counts)
     _, poses, flag, miss, counts_t, ms_track = resident_stream(tracked=True)
     check(flag == 0 and not miss, f"resident tracked stream: flags {flag}, miss {miss}")
     allocs = _on_card(len(chunks) + 2 * (m - 1))
-    check(counts_t["gather_rows_dma"] == allocs == counts_t["scatter_rows_dma"],
+    check(counts_t["gather_rows_dma"] == allocs == counts_t["scatter_rows_dma"]
+          == counts_t["compact_rows"],
           f"resident tracked stream: launches {counts_t}, {allocs} expected")
+    check(counts_t["row_activity"] == _on_card(len(chunks) + 3 * (m - 1)),
+          f"resident tracked stream: launches {counts_t}")
     ate_res = ate_rmse(list(poses), seq[3][:m])
     ate_can = ate_rmse(list(canonical_poses[:m]), seq[3][:m])
     check(abs(ate_res - ate_can) * 1e3 <= RESIDENT_ATE_MM,
@@ -4264,11 +4650,11 @@ def _equal_volumes(a, b):
 
 
 def _check_dma_launches(counts, calls, what):
-    """One direct gather and one direct scatter launch per culled fusion (on
-    the CPU of a rehearsal the wrappers run their plain versions and count
-    nothing)."""
+    """One direct gather, one direct scatter, one cull and one compaction
+    launch per culled fusion (on the CPU of a rehearsal the wrappers run
+    their plain versions and count nothing)."""
     want = calls if DEVICE == "cuda" else 0
-    for name in ("gather_rows_dma", "scatter_rows_dma"):
+    for name in ("gather_rows_dma", "scatter_rows_dma") + CULL_KERNELS:
         check(counts[name] == want,
               f"{what}: {name} {counts[name]} launches, {calls} culled fusions")
 
@@ -4542,11 +4928,10 @@ def profile_refine(ref):
     index_add_ kernels (each albedo block launches its one kernel and
     none)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     _one_iteration(ref)                       # warm
     torch.cuda.synchronize()
-    with _refine_calls() as calls, profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _refine_calls() as calls, _traced() as prof:
         t0 = time.perf_counter()
         for _ in range(2):
             _one_iteration(ref)
@@ -4567,14 +4952,14 @@ def profile_refine(ref):
               f"{kernel}: {launched} launches for {calls[name]} {name} calls")
     check(not any("normaleq_reduce_kernel" in r[2] for r in rows),
           "a normaleq_reduce_kernel ran in the traced iterations")
-    runtime = sum(e.count for e in prof.key_averages()
-                  if not str(e.device_type).endswith("CUDA"))
+    runtime = _runtime_calls(prof)
     busy = sum(r[0] for r in rows) * 1e-6
     check(busy > 0.0, "the profiler saw no device time")
     check(not any("gemmSN" in r[2] for r in rows),
           "a cuBLAS gemmSN kernel ran in the traced iterations")
     return dict(
         iterations=2, traced_wall_seconds=wall, device_busy_seconds=busy,
+        warmup_dropped=prof.warmup_dropped,
         index_add_kernels=int(sum(r[1] for r in rows if _is_index_add(r[2]))),
         device_busy_share=busy / wall,
         device_ops_per_iteration=int(sum(r[1] for r in rows)) // 2,
@@ -4586,6 +4971,13 @@ def profile_refine(ref):
              for us, c, k in rows[:10]])
 
 
+def _is_eager_cull(name):
+    """A kernel of the cull's or the compaction's eager chains: cumsum's
+    scans or scatter_."""
+    low = name.lower()
+    return "scan" in low or "cumsum" in low or "scatter_gather" in low
+
+
 def _device_us(e):
     return float(getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0)))
@@ -4595,21 +4987,28 @@ def profile_scan(tmp, seq, frames, plain_seconds):
     """Trace one more scan of `frames` frames (kernels only, so the host is
     slowed as little as may be) -> the card's busy time in it, its share of
     the untraced run's `plain_seconds`, device operations and the host's
-    CUDA runtime calls a frame, and the kernels by device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    CUDA runtime calls a frame, the kernels by device time, and the cull's
+    and the compaction's kernels (one each a culled fusion, no kernel of
+    their eager chains)."""
+    with _traced() as prof:
         traced = run_scan(tmp, "traced", seq, frames - 1, "dma")
-        torch.cuda.synchronize()
 
     rows = sorted(_kernel_rows(prof), reverse=True)
-    runtime = sum(e.count for e in prof.key_averages()
-                  if not str(e.device_type).endswith("CUDA"))
+    runtime = _runtime_calls(prof)
     busy = sum(r[0] for r in rows) * 1e-6
     check(busy > 0.0, "the profiler saw no device time")
+    # the cull and the compaction run as one launch each: no kernel of
+    # their eager chains (cumsum's scans, scatter_) on the card
+    eager = [(n, k[:80]) for _, n, k in rows if _is_eager_cull(k)]
+    check(not eager, f"the traced scan ran the cull's eager chain: {eager}")
+    calls = traced["pipe"].fuse_culled_calls
+    cull = {k: int(sum(r[1] for r in rows if f"{k}_kernel" in r[2])) for k in CULL_KERNELS}
+    check(all(v == calls for v in cull.values()),
+          f"the traced scan's cull kernels {cull}, {calls} culled fusions")
     return dict(
-        frames=frames, device_busy_seconds=busy,
+        frames=frames, device_busy_seconds=busy, culled_fusions=calls,
+        warmup_dropped=prof.warmup_dropped,
+        cull_kernels=cull, eager_cull_kernels=0,
         untraced_scan_seconds=plain_seconds,
         traced_scan_seconds=traced["summary"]["seconds"],
         device_busy_share=busy / plain_seconds,
@@ -4693,7 +5092,6 @@ def cli_mesh_run(tmp, root):
     seconds)."""
     import psgradientsdf_tpu_torch.pipeline as pipeline_mod
     from psgradientsdf_tpu_torch import cli
-    from psgradientsdf_tpu_torch.ops import rowcopy
 
     out = os.path.join(tmp, "cli_mesh") + "/"
     cfg_path = os.path.join(tmp, "cli_mesh.json")
@@ -4712,7 +5110,7 @@ def cli_mesh_run(tmp, root):
             super()._run_refine_phase(summary)
 
     pipeline_mod.ReconstructionPipeline = Recorded
-    rowcopy.reset_launch_counts()            # just before the path is driven
+    _reset_row_counts()                      # just before the path is driven
     t0 = time.perf_counter()
     try:
         with open(os.path.join(tmp, "cli_mesh_stdout.txt"), "w") as fh, \
@@ -4726,7 +5124,7 @@ def cli_mesh_run(tmp, root):
     finally:
         pipeline_mod.ReconstructionPipeline = real
     wall = time.perf_counter() - t0
-    counts = dict(rowcopy.launch_counts)     # and read just after
+    counts = _row_counts()                   # and read just after
     check(rc == 0 and len(made) == 1, f"the command line returned {rc}")
     with open(summary_path) as fh:
         summary = json.load(fh)
@@ -5013,7 +5411,6 @@ def dist_rank(rank, job_path):
     what it saw for the phase to check."""
     import torch
     from psgradientsdf_tpu_torch.config import load_config
-    from psgradientsdf_tpu_torch.ops import rowcopy
     from psgradientsdf_tpu_torch.parallel import distributed
     from psgradientsdf_tpu_torch.parallel import mesh as pm
     from psgradientsdf_tpu_torch.pipeline import ReconstructionPipeline
@@ -5043,14 +5440,14 @@ def dist_rank(rank, job_path):
         pipe = ScanDigest(load_config(spec["config"]), loader=loader,
                           device=distributed.home(), metrics=MetricsLogger(log, echo=False))
         slabs = sum(not pm.is_remote(d) for d in pipe.mesh.slab_devices)
-        rowcopy.reset_launch_counts()        # just before the path is driven
+        _reset_row_counts()                  # just before the path is driven
         pm.reset_reduce_counts()
         t0 = time.perf_counter()
         summary = pipe.run(refine=True)
         if distributed.home().type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(rowcopy.launch_counts)  # and read just after
+        counts = _row_counts()               # and read just after
         moved = dict(pm.reduce_counts)
         pipe.close()
         with open(log) as fh:
@@ -5165,7 +5562,7 @@ def distributed_phase(tmp, root, cli_run, led_run, led_seq):
     want = {"sh1": _refiner_state(cli_pipe.refiner),
             "led": _refiner_state(led_run["pipe"].refiner)}
     cli_keyframes = _digest([torch.from_numpy(np.stack(cli_pipe.key_poses))])
-    launches = {"gather_rows_dma": 0, "scatter_rows_dma": 0}
+    launches = {k: 0 for k in ("gather_rows_dma", "scatter_rows_dma") + CULL_KERNELS}
     facts = {}
     for backend, devices in routes:
         t0 = time.perf_counter()
@@ -5315,15 +5712,16 @@ def main():
             if "--profile" in sys.argv[1:]:
                 emit("profile_refine", card=card, **profile_refine(
                     main_run["pipe"].refiner))
-                emit("profile_first_iteration", card=card, blocks=first_blocks)
+                emit("profile_first_iteration", card=card,
+                     blocks=_checked_blocks(first_blocks))
             print(smi, flush=True)
             return 3
         facts = check_scan(main_run, seq, FRAMES)
         counts = main_run["counts"]
         calls = main_run["pipe"].fuse_culled_calls
-        # a culled fusion gathers its five tables with one call and writes
-        # them back with one
-        for name in ("gather_rows_dma", "scatter_rows_dma"):
+        # a culled fusion culls with one launch, compacts with one, gathers
+        # its five tables with one call and writes them back with one
+        for name in ("gather_rows_dma", "scatter_rows_dma") + CULL_KERNELS:
             check(counts[name] == calls,
                   f"{name}: {counts[name]} launches, expected 1 x {calls}")
         for name in ("gather_rows", "scatter_rows"):
@@ -5366,8 +5764,15 @@ def main():
             check(staged["counts"][name] == calls_s,
                   f"{name}: {staged['counts'][name]} launches, expected "
                   f"1 x {calls_s}")
-        check(all(v == 0 for v in runs["plain"]["counts"].values()),
-              "plain row movement launched a kernel")
+        check(all(runs["plain"]["counts"][k] == 0 for k in KERNELS),
+              "plain row movement launched a row-copy kernel")
+        # every row movement culls and compacts through the kernels
+        for impl, run in runs.items():
+            calls_i = run["pipe"].fuse_culled_calls
+            for name in CULL_KERNELS:
+                check(run["counts"][name] == calls_i,
+                      f"the {impl} rows' scan: {name} {run['counts'][name]} "
+                      f"launches, {calls_i} culled fusions")
         for impl in ("staged", "plain"):
             check(runs[impl]["pose_text"] == runs["dma"]["pose_text"],
                   f"{impl}: poses differ from the dma run")
@@ -5444,7 +5849,8 @@ def main():
                 tmp, seq, short, runs["dma"]["summary"]["seconds"]))
             emit("profile_refine", card=card, **profile_refine(
                 main_run["pipe"].refiner))
-            emit("profile_first_iteration", card=card, blocks=first_blocks)
+            emit("profile_first_iteration", card=card,
+                 blocks=_checked_blocks(first_blocks))
 
     # the main run's launches, the mesh phases' of the direct kernels, and
     # phase packed's of all four
@@ -5487,6 +5893,23 @@ def main():
                                f"{update['slots']} slots, 128 voxels a row; the "
                                "bound counts 72 bytes a live voxel, the pixel "
                                "table and the row ids once")}
+    cull_time = scan_facts["cull"]["times"][0]
+    scan_rows["row_activity"] = dict(cull_time["row_activity"], max_abs_err=0.0, work=(
+        f"{cull_time['case']}'s gated cull in one cooperative launch "
+        f"({cull_time['row_activity']['blocks']} blocks, one grid barrier), timed "
+        "in the path's order before the compaction, no flush: the row maxima, "
+        f"then the mask of {cull_time['entries']} rows; the bound counts the "
+        "depth image read and the mask written once; latency_floor_ms is an "
+        "empty cooperative launch of the same grid and table crossing one "
+        "barrier; no single PyTorch call computes the cull"))
+    scan_rows["compact_rows"] = dict(cull_time["compact_rows"], max_abs_err=0.0, work=(
+        f"that mask's compaction with duplicate-first padding in one cooperative "
+        f"launch ({cull_time['compact_rows']['blocks']} blocks, one grid "
+        f"barrier): {cull_time['active']} active rows into {cull_time['capacity']} "
+        "int32 slots, n_active, live and overflow on the card; the bound counts "
+        "the flags read and the slots and scalars written once; library_ms is "
+        "one torch.nonzero over the mask, which reads its count back to the "
+        "host (a yardstick only)"))
     for name in SCAN_KERNELS:
         check(scan_counts[name] > 0, f"{name} was never launched on its path")
     # the refinement's kernels: the main run's launches, the times on its
@@ -5628,8 +6051,9 @@ def main():
              bound_ms=scan_rows[name]["bound_ms"], bound_by="bytes",
              library_ms=scan_rows[name].get("library_ms"),
              library_note=scan_rows[name].get(
-                 "library_call", "no single PyTorch call computes it"),
-             **{k: scan_rows[name][k] for k in ("latency_floor_ms", "earlier_ms")
+                 "library_call", "torch.nonzero(flags)" if name == "compact_rows"
+                 else "no single PyTorch call computes it"),
+             **{k: scan_rows[name][k] for k in ("latency_floor_ms", "ms_after_flush", "earlier_ms")
                 if k in scan_rows[name]},
              work=scan_rows[name]["work"])
         for name in SCAN_KERNELS] + [

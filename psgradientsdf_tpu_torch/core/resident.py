@@ -75,13 +75,11 @@ from psgradientsdf_tpu_torch.core.volume import (
     _gather,
     _on,
     _gate_tensor,
-    _row_activity,
     _scatter,
     _vis_word_bit,
-    compact_active,
     pack_pixel_payload,
 )
-from psgradientsdf_tpu_torch.ops import fuse, rowcopy
+from psgradientsdf_tpu_torch.ops import cull, fuse, rowcopy
 
 FLAG_CAPACITY = 1      # resident row capacity exhausted
 FLAG_DELTA = 2         # per-frame delta capacity exhausted
@@ -171,12 +169,14 @@ def _scatter_rows(tables, idx, rows_list, live, impl):
 
 
 def _act_flat(geom, depth, K, pose, *, truncation, zmin, zmax, S,
-              margin_px=0.0, margin_t=0.0):
-    """Flattened slot-granularity activity mask ([NSEG] at slot length S)."""
+              margin_px=0.0, margin_t=0.0, gate=None):
+    """Flattened slot-granularity activity mask ([NSEG] at slot length S),
+    gated: one cull launch on the card."""
     seg = None if S == geom.dims[0] else S
-    return _row_activity(geom, depth, K, pose, truncation=truncation,
-                         zmin=zmin, zmax=zmax, seg_x=seg,
-                         margin_px=margin_px, margin_t=margin_t).reshape(-1)
+    return cull.row_activity(geom, depth, K, pose, truncation=truncation,
+                             zmin=zmin, zmax=zmax, seg_x=seg,
+                             margin_px=margin_px, margin_t=margin_t,
+                             gate=gate).reshape(-1)
 
 
 def fused_ever_from_vis(pvol: PackedVolume, seg_x: Optional[int] = None
@@ -218,7 +218,7 @@ def resident_refresh(
     Wc, NSEG, S = _shapes(pvol, seg_x)
     act = _act_flat(geom, depth, K, pose, truncation=truncation, zmin=zmin,
                     zmax=zmax, S=S, margin_px=margin_px, margin_t=margin_t)
-    ridx, n_act = compact_active(act, capacity)          # fill value NSEG
+    ridx, n_act = cull.compact_active(act, capacity)          # fill value NSEG
     ok = ridx < NSEG
     safe = torch.clamp(ridx, max=NSEG - 1).to(torch.int32).contiguous()
     moved = _gather_rows(_tables(pvol, seg_x), safe, rows_impl)
@@ -281,7 +281,7 @@ def resident_alloc(
     one gather call from the canonical tables, one direct scatter into slots
     n_used.. of the compact tables.
 
-    margin_px / margin_t widen the cull (core/volume._row_activity) so the
+    margin_px / margin_t widen the cull (ops/cull.row_activity) so the
     admitted set also covers the rows a tracking solve may query while it
     moves the pose away from `pose`: the allocation before tracking passes
     the expected inter-frame motion (reprojection pixels / camera-depth
@@ -296,7 +296,7 @@ def resident_alloc(
     act = _act_flat(geom, depth, K, pose, truncation=truncation, zmin=zmin,
                     zmax=zmax, S=S, margin_px=margin_px, margin_t=margin_t)
     new_mask = act & (res.row_slot >= CAPR)
-    didx, n_new = compact_active(new_mask, delta_capacity)   # fill NSEG
+    didx, n_new = cull.compact_active(new_mask, delta_capacity)   # fill NSEG
     n_used = res.n_used.to(torch.int64)
     ar = torch.arange(delta_capacity, dtype=torch.int64, device=dev)
     slots_new = n_used + ar
@@ -363,9 +363,7 @@ def fuse_frame_resident(
     NSEG = res.row_slot.shape[0]
 
     act = _act_flat(geom, depth, K, pose, truncation=truncation, zmin=zmin,
-                    zmax=zmax, S=S)
-    if gate is not None:
-        act = act & gate
+                    zmax=zmax, S=S, gate=gate)
     coverage_bad = (act & (res.row_slot >= CAPR)).any()
     act_pad = torch.cat([act, act.new_zeros(1)])
     slot_rows = res.slot_rows.long()

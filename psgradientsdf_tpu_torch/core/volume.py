@@ -19,9 +19,10 @@ Fusion (`fuse_frame`) evaluates the reference's per-voxel update
 (VolumetricGradSdf.cpp:51-138) for all voxels: transform to camera, project
 to the nearest pixel, gate (z-range / fusion weight / normal validity /
 viewing angle), then masked running-mean updates.  `fuse_frame_culled` does
-the same on the rows that survive a conservative cull, moving their state
-rows with the row-copy kernels (ops/rowcopy.py); `fuse_frames_culled` fuses
-K frames at given poses with one row move for the batch.  Every path runs
+the same on the rows that survive a conservative cull, compacted to a
+static capacity (ops/cull.py: one launch each on the card), moving their
+state rows with the row-copy kernels (ops/rowcopy.py); `fuse_frames_culled`
+fuses K frames at given poses with one row move for the batch.  Every path runs
 the update itself through ops/fuse.fuse_rows, in place on rows of state: one
 kernel launch a frame on the card (csrc/fuse.cu), the plain PyTorch version
 on the CPU.
@@ -36,16 +37,22 @@ Nothing in the fusion functions reads a value back to the host.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from psgradientsdf_tpu_torch import device_constant, resolve_device
 from psgradientsdf_tpu_torch.core.grid import GridGeometry
-from psgradientsdf_tpu_torch.ops import fuse, rowcopy
+from psgradientsdf_tpu_torch.ops import cull, fuse, rowcopy
+# the level-1 cull and the level-2 compaction (ops/cull.py) stay importable
+# from here, beside the fusion that runs them
+from psgradientsdf_tpu_torch.ops.cull import (  # noqa: F401
+    compact_active,
+    compact_padded as _compact_padded,
+    row_activity as _row_activity,
+)
 # fusion_weight stays importable from here, beside the volume it weighs
-from psgradientsdf_tpu_torch.ops.fuse import fusion_weight, rot_apply  # noqa: F401
+from psgradientsdf_tpu_torch.ops.fuse import fusion_weight  # noqa: F401
 
 ROWS_IMPLS = ("dma", "staged", "plain")
 
@@ -157,145 +164,6 @@ def fuse_frame(
     return new
 
 
-def _slab_planes(z_rows: int, z0: Optional[int], z_map: Optional[torch.Tensor],
-                 dev) -> Optional[torch.Tensor]:
-    """The global plane index of each of a slab's z_rows planes, as float32:
-    z_map (interleaved slabs), or z0 + local (contiguous ones), added as
-    floats, as the JAX package does; None for the whole grid."""
-    if z_map is not None:
-        return z_map.to(dev, torch.float32)
-    if z0 is None:
-        return None
-    return torch.arange(z_rows, dtype=torch.float32, device=dev) + float(z0)
-
-
-def _row_activity(
-    geom: GridGeometry,
-    depth: torch.Tensor,
-    K: torch.Tensor,
-    pose: torch.Tensor,
-    *,
-    truncation: float,
-    zmin: float,
-    zmax: float,
-    z0: Optional[int] = None,         # slab z-offset (sharded slabs)
-    z_rows: Optional[int] = None,     # slab z extent (default: whole grid)
-    z_idx: Optional[torch.Tensor] = None,  # [z_rows] global z per local
-                                           # plane (interleaved slabs;
-                                           # overrides z0)
-    seg_x: Optional[int] = None,      # X-segment length (None = whole row)
-    margin_px: float = 0.0,           # extra pixel margin on the image test
-    margin_t: float = 0.0,            # extra meters on the carve/behind tests
-) -> torch.Tensor:
-    """Level-1 cull of fuse_frame_culled: conservative activity mask at
-    X-row granularity ([Z, Y], seg_x=None) or X-SEGMENT granularity
-    ([Z, Y, X//seg_x]) — the endpoint bounds are exact for any x interval
-    (u, v are Moebius in x with constant derivative sign where pz > 0), so
-    segments just evaluate them at the segment ends.  With (z0, z_rows) or
-    (z_idx, z_rows) the mask covers a Z-slab: the per-shard form of
-    parallel/shard.py.
-
-    A row is culled if (a) it lies entirely behind the camera, (b) its
-    projected interval misses the image, or (c) it lies more than the
-    truncation behind every observable depth in its v-footprint (a
-    per-image-row max table with a sparse table for O(1) range maxima).  All
-    tests carry float-safety margins, so the mask is a strict SUPERSET of
-    the active set.  Same arithmetic, in the same order, as the JAX package's
-    _row_activity: the two masks are compared exactly in the tests.
-
-    margin_px / margin_t widen the image-footprint and depth-band tests, so
-    the mask stays a superset of the active set while the pose moves by up
-    to about margin_px pixels of reprojection and margin_t meters of
-    camera depth: the resident allocator (core/resident.py) admits with them
-    the rows a tracking solve may query as it moves the pose from its seed.
-    Zero margins give the exact-frame cull, bit for bit."""
-    dev = depth.device
-    H, W = depth.shape
-    X, Y, Zd = geom.dims
-    if z_rows is None:
-        z_rows = Zd
-    S = X if seg_x is None else seg_x
-    assert X % S == 0, f"seg_x={S} must divide X={X}"
-    NS = X // S
-    fx, fy = K[0, 0], K[1, 1]
-    cx, cy = K[0, 2], K[1, 2]
-    R = pose[:3, :3]
-    t = pose[:3, 3]
-    origin = geom.origin_tensor(dev)
-    h = geom.voxel_size
-    f32 = dict(dtype=torch.float32, device=dev)
-    zi = _slab_planes(z_rows, z0, z_idx, dev)
-    if zi is None:
-        zi = torch.arange(z_rows, **f32)
-    zi = zi[:, None, None]                                 # [Zl,1,1]
-    yi = torch.arange(Y, **f32)[None, :, None]             # [1,Y,1]
-
-    def endpoint_cam(x_idx):                               # [1,1,NS]
-        px = (origin[0] + h * x_idx).expand(z_rows, Y, NS)
-        py = (origin[1] + h * yi).expand(z_rows, Y, NS)
-        pz_w = (origin[2] + h * zi).expand(z_rows, Y, NS)
-        return rot_apply(R, px - t[0], py - t[1], pz_w - t[2], transpose=True)
-
-    sx = torch.arange(NS, **f32)[None, None, :] * S
-    p0x, p0y, pz0 = endpoint_cam(sx)
-    p1x, p1y, pz1 = endpoint_cam(sx + (S - 1))
-    eps_z = 1e-5 * (pz0.abs() + pz1.abs()) + 1e-6
-    both_behind = (pz0 <= eps_z - margin_t) & (pz1 <= eps_z - margin_t)
-    both_front = (pz0 > eps_z) & (pz1 > eps_z)
-    mixed = ~both_behind & ~both_front
-
-    one = torch.ones_like(pz0)
-    sz0 = torch.where(pz0 > 0, pz0, one)
-    sz1 = torch.where(pz1 > 0, pz1, one)
-    u0 = cx + fx * p0x / sz0
-    u1 = cx + fx * p1x / sz1
-    v0 = cy + fy * p0y / sz0
-    v1 = cy + fy * p1y / sz1
-    mu = 0.01 + 1e-5 * (u0.abs() + u1.abs()) + margin_px
-    mv_ = 0.01 + 1e-5 * (v0.abs() + v1.abs()) + margin_px
-    u_min = torch.minimum(u0, u1) - mu
-    u_max = torch.maximum(u0, u1) + mu
-    v_min = torch.minimum(v0, v1) - mv_
-    v_max = torch.maximum(v0, v1) + mv_
-    # exact in_img (after +0.5 int-cast rounding): -1.5 < u_f < W - 0.5
-    img_possible = (
-        (u_max > -1.5) & (u_min < W - 0.5) & (v_max > -1.5) & (v_min < H - 0.5)
-    )
-
-    # per-image-row max VALID depth + sparse table for range maxima
-    neg_inf = torch.full_like(depth, -math.inf)
-    z_valid = torch.where((depth > zmin) & (depth < zmax), depth, neg_inf)
-    row_max = torch.max(z_valid, dim=1).values             # [H]
-    levels = max(1, (H - 1).bit_length())
-    st = [row_max]
-    ar = torch.arange(H, device=dev)
-    for l in range(1, levels):
-        half = 1 << (l - 1)
-        idx = torch.clamp(ar + half, max=H - 1)
-        st.append(torch.maximum(st[-1], st[-1][idx]))
-    flat = torch.stack(st).reshape(-1)                      # [L*H]
-
-    v_lo = torch.clamp(torch.floor(v_min - 1.0), 0, H - 1).to(torch.int32)
-    v_hi = torch.clamp(torch.ceil(v_max + 1.0), 0, H - 1).to(torch.int32)
-    span = torch.clamp(v_hi - v_lo + 1, min=1)
-    k = torch.clamp(
-        torch.floor(torch.log2(span.to(torch.float32)) + 1e-6), 0, levels - 1
-    ).to(torch.int32)
-    pow_k = torch.bitwise_left_shift(torch.ones_like(k), k)
-    q1 = flat[(k * H + v_lo).long()]
-    q2 = flat[(k * H + torch.clamp(v_hi - pow_k + 1, min=0)).long()]
-    z_fp_max = torch.maximum(q1, q2)
-    z_fp_max = torch.where(mixed, torch.max(row_max), z_fp_max)
-
-    pz_min = torch.minimum(pz0, pz1) - eps_z
-    carve_ok = pz_min - truncation - margin_t <= z_fp_max   # -inf -> cull
-
-    act = ~both_behind & (img_possible | mixed) & carve_ok
-    if seg_x is None:
-        return act[..., 0]            # [Zl, Y] — the row form
-    return act                        # [Zl, Y, NS]
-
-
 def count_active_rows(
     geom: GridGeometry,
     depth,
@@ -310,32 +178,13 @@ def count_active_rows(
 ) -> torch.Tensor:
     """Number of rows (or X-segments, with seg_x) fuse_frame_culled would
     process for this frame — the capacity-sizing probe for callers
-    choosing row_capacity."""
+    choosing row_capacity: the cull and a compaction of capacity 0 (an
+    int64 scalar on the device)."""
     dev = resolve_device(device)
     depth, K, pose = _on(dev, depth, K, pose)
-    return torch.sum(_row_activity(
-        geom, depth, K, pose, truncation=truncation, zmin=zmin, zmax=zmax,
-        seg_x=seg_x).to(torch.int32))
-
-
-def compact_active(active_flat: torch.Tensor, capacity: int):
-    """Static-capacity compaction with no host sync: the indices of the first
-    `capacity` True entries of active_flat [NSEG], ascending, padded with the
-    fill value NSEG -> (rows_idx int64 [capacity], n_active int64 scalar).
-
-    The same indices as a size-limited nonzero with a fill value: each active
-    entry's rank (an exclusive prefix count) is its slot; entries ranked past
-    the capacity, and inactive ones, all land in one spill slot beyond the
-    end, which is cut off."""
-    nseg = active_flat.shape[0]
-    dev = active_flat.device
-    csum = torch.cumsum(active_flat.to(torch.int64), dim=0)
-    rank = csum - 1
-    keep = active_flat & (rank < capacity)
-    dest = torch.where(keep, rank, torch.full_like(rank, capacity))
-    buf = torch.full((capacity + 1,), nseg, dtype=torch.int64, device=dev)
-    buf.scatter_(0, dest, torch.arange(nseg, dtype=torch.int64, device=dev))
-    return buf[:capacity], csum[-1]
+    act = cull.row_activity(geom, depth, K, pose, truncation=truncation,
+                            zmin=zmin, zmax=zmax, seg_x=seg_x)
+    return cull.compact_active(act.reshape(-1), 0)[1]
 
 
 def _gather(tables2d, idx, impl):
@@ -365,26 +214,6 @@ def _check_rows_impl(rows_impl: str) -> None:
         raise ValueError(f"rows_impl {rows_impl!r} is not one of {ROWS_IMPLS}")
 
 
-def _compact_padded(active_flat: torch.Tensor, capacity: int):
-    """Level-2 compaction with duplicate-first padding -> (safe_rows int32
-    [capacity], live int64 scalar, overflow bool scalar).
-
-    The capacity slots past the active rows repeat the FIRST compacted row:
-    they gather it again, compute its update again (identical bytes) and
-    may write it again, so the movement stays a pure indexed row copy and
-    write order cannot matter.  `live` is the count of slots the scatter
-    must write (the kernels skip the rest); with no active row at all, slot
-    0 itself is padding (the grid's last row, whose update is the identity)
-    and stays live."""
-    nseg = active_flat.shape[0]
-    rows_idx, n_active = compact_active(active_flat, capacity)
-    first = torch.clamp(rows_idx[0], max=nseg - 1)
-    safe_rows = torch.where(rows_idx < nseg,
-                            torch.clamp(rows_idx, max=nseg - 1), first)
-    return (safe_rows.to(torch.int32).contiguous(),
-            torch.clamp(n_active, min=1), n_active > capacity)
-
-
 def fuse_frame_culled(
     vol: GradSdfVolume,
     geom: GridGeometry,
@@ -410,15 +239,16 @@ def fuse_frame_culled(
     """Two-level-culled fusion: exact fuse_frame semantics on a fraction of
     the voxels.
 
-      1. `_row_activity` culls at X-row (or, with seg_x=S, X-segment)
-         granularity: contiguous [1,1,X] lines, so state moves as whole rows.
+      1. `ops/cull.row_activity` culls at X-row (or, with seg_x=S,
+         X-segment) granularity: contiguous [1,1,X] lines, so state moves as
+         whole rows; the gate is ANDed in (one launch on the card).
       2. `_fuse_culled_slab` compacts the surviving rows to a STATIC
-         row_capacity (`compact_active`), gathers their state rows from the
-         five row tables (dist, grad, weight, color and the frame's
-         visibility word) by one call, runs the exact per-voxel update on
-         them, and scatters the rows of all five tables back by one call:
-         two row-copy launches a frame (three with the ordered scatter's
-         winner pass).
+         row_capacity (`ops/cull.compact_padded`, one launch), gathers
+         their state rows from the five row tables (dist, grad, weight,
+         color and the frame's visibility word) by one call, runs the exact
+         per-voxel update on them, and scatters the rows of all five tables
+         back by one call: two row-copy launches a frame (three with the
+         ordered scatter's winner pass).
 
     rows_impl picks the row-movement kernels (ops/rowcopy.py): "dma" (direct
     gather / direct scatter, the default and what the pipeline uses) or
@@ -461,11 +291,9 @@ def _culled_frame(geom, color, depth, normals, n_sq_inv, K, pose, gate, *,
     color, depth, normals, n_sq_inv, K, pose = _on(
         dev, color, depth, normals, n_sq_inv, K, pose)
     gate = _gate_tensor(gate, dev)
-    active = _row_activity(
+    active = cull.row_activity(
         geom, depth, K, pose, truncation=truncation, zmin=zmin, zmax=zmax,
-        seg_x=seg_x)
-    if gate is not None:
-        active = active & gate
+        seg_x=seg_x, gate=gate)
     pix_payload = pack_pixel_payload(color, depth, normals, n_sq_inv)
     return active, pix_payload, K, pose, gate, tuple(depth.shape)
 
@@ -508,7 +336,8 @@ def _fuse_culled_slab(
     NS = X // S
     NSEG = z_rows * Y * NS
 
-    safe_rows, live, overflow = _compact_padded(active.reshape(-1), row_capacity)
+    safe_rows, live, overflow = cull.compact_padded(active.reshape(-1),
+                                                    row_capacity)
 
     word, bit = _vis_word_bit(frame_idx)
     t_dist = vol.dist.view(NSEG, S)
@@ -588,8 +417,8 @@ def fuse_frame_culled_packed(
     device=None,
 ) -> Tuple[PackedVolume, torch.Tensor]:
     """fuse_frame_culled on PackedVolume state: the same level-1 cull, the
-    same padding and the same per-voxel update (shared _row_activity,
-    _compact_padded, ops/fuse.fuse_rows), so the volume is
+    same padding and the same per-voxel update (shared ops/cull.row_activity,
+    compact_padded, ops/fuse.fuse_rows), so the volume is
     fuse_frame_culled's bit for bit; but the level-2 move is ONE gather
     call and ONE scatter call over two tables, the payload's [S*8]-float
     rows and the frame's visibility word, the update reads and writes the
@@ -611,7 +440,7 @@ def fuse_frame_culled_packed(
     NSEG = Zd * Y * NS
     cap = row_capacity
 
-    safe_rows, live, overflow = _compact_padded(active.reshape(-1), cap)
+    safe_rows, live, overflow = cull.compact_padded(active.reshape(-1), cap)
     word, bit = _vis_word_bit(frame_idx)
     tables = [pvol.payload.view(NSEG, S * 8), pvol.vis[word].view(NSEG, S)]
     rows, vw_r = _gather(tables, safe_rows, rows_impl)
@@ -692,14 +521,13 @@ def fuse_frames_culled(
     w_hi = min(word_lo + 1, n_words - 1)
     bad_words = any(f // 32 not in (word_lo, word_lo + 1) for f in fids)
 
+    # one cull launch a frame, each ORed into the first one's mask
     active = None
     for k in range(KF):
-        a = _row_activity(geom, depths[k], K, poses[k], truncation=truncation,
-                          zmin=zmin, zmax=zmax)
-        if gates is not None:
-            a = a & gates[k]
-        active = a if active is None else active | a
-    safe_rows, live, overflow = _compact_padded(active.reshape(-1), cap)
+        active = cull.row_activity(
+            geom, depths[k], K, poses[k], truncation=truncation, zmin=zmin,
+            zmax=zmax, gate=None if gates is None else gates[k], union=active)
+    safe_rows, live, overflow = cull.compact_padded(active.reshape(-1), cap)
 
     if not inplace:
         vol = vol.clone()

@@ -8,7 +8,7 @@ them; here one process runs each slab's body in turn on the slab's device
 (parallel/mesh.py) and joins them through mesh.reduce_to_first:
 
   * fusion is voxel-local, so a slab fuses on its own: the culled fusion
-    culls the slab's own rows (core/volume._row_activity with the slab's
+    culls the slab's own rows (ops/cull.row_activity with the slab's
     planes) and runs the shared compaction / row-copy gather / update /
     row-copy scatter on them (core/volume._fuse_culled_slab) — one gather
     and one scatter launch per slab a frame — and only the overflow flags
@@ -49,11 +49,11 @@ import torch
 from psgradientsdf_tpu_torch.core.grid import GridGeometry
 from psgradientsdf_tpu_torch.core.volume import (
     _fuse_culled_slab,
-    _row_activity,
     fuse_frame,
     pack_pixel_payload,
     pack_tracking_payload,
 )
+from psgradientsdf_tpu_torch.ops import cull
 from psgradientsdf_tpu_torch.parallel import distributed as pd
 from psgradientsdf_tpu_torch.parallel.halo import padded_slab
 from psgradientsdf_tpu_torch.parallel.mesh import (
@@ -178,12 +178,10 @@ def sharded_fuse_frame_culled_fn(
                 flags.append(slab)
                 continue
             z0, z_map = _planes(k, n_z, Zl, interleave_z, dev)
-            active = _row_activity(
-                geom, depth[dev], K[dev], pose[dev], truncation=truncation,
-                zmin=zmin, zmax=zmax, z0=z0, z_rows=Zl, z_idx=z_map)
             g = None if gates is None else gates[dev]
-            if g is not None:
-                active = active & g
+            active = cull.row_activity(
+                geom, depth[dev], K[dev], pose[dev], truncation=truncation,
+                zmin=zmin, zmax=zmax, z0=z0, z_rows=Zl, z_idx=z_map, gate=g)
             if dev not in payload:
                 payload[dev] = pack_pixel_payload(
                     color[dev], depth[dev], normals[dev], n_sq_inv[dev])

@@ -34,7 +34,8 @@ def test_import_brings_in_no_jax_and_builds_nothing():
     assert len(mods) > 25 and "psgradientsdf_tpu_torch.ops.rowcopy" in mods
     for new in ("native", "io.png", "io.checkpoint", "parallel.refine",
                 "parallel.distributed", "core.resident", "ops.gn", "ops.fuse",
-                "ops.residual", "ops.distcg", "ops.normaleq", "ops.albedo"):
+                "ops.residual", "ops.distcg", "ops.normaleq", "ops.albedo",
+                "ops.cull"):
         assert "psgradientsdf_tpu_torch." + new in mods
     code = (
         "import importlib, os, sys\n"
@@ -138,12 +139,13 @@ def test_kernel_wrappers_raise_on_cuda_tensors_instead_of_falling_back():
     ("residual", ("residual_pass_kernel", "dist_jacobian_kernel")),
     ("distcg", ("dist_system_kernel", "dist_cg_kernel")),
     ("normaleq", ("pose_tiles_kernel", "light_tiles_kernel")),
-    ("albedo", ("albedo_block_kernel",))])
+    ("albedo", ("albedo_block_kernel",)),
+    ("cull", ("row_activity_kernel", "compact_rows_kernel"))])
 def test_scan_program_wrappers_raise_on_cuda_tensors_instead_of_falling_back(
         module, kernels):
     """ops/gn.py, ops/fuse.py, ops/residual.py, ops/distcg.py,
-    ops/normaleq.py and ops/albedo.py take the plain version only for CPU
-    tensors:
+    ops/normaleq.py, ops/albedo.py and ops/cull.py take the plain version
+    only for CPU tensors:
     no try/except around a launch, one CPU branch a wrapper, and their
     kernels hand-written in csrc/ with a plain C interface."""
     with open(os.path.join(PKG, "ops", module + ".py")) as fh:

@@ -386,3 +386,23 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
         with pytest.raises(RuntimeError, match="CUDA"):
             fn(tv, sc["tg"], *args, sc["K"], np.eye(4, dtype=np.float32), 0,
                truncation=sc["T"], **extra, **ZKW)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tvolume.count_active_rows(sc["tg"], sc["fr"]["depth"], sc["K"],
+                                  np.eye(4, dtype=np.float32), truncation=sc["T"],
+                                  **ZKW)
+    # the cull's and the compaction's wrappers (ops/cull.py) run where their
+    # tensors lie: CPU tensors, as asked for here, take the plain versions
+    # and launch nothing
+    from psgradientsdf_tpu_torch.ops import cull
+
+    cull.reset_launch_counts()
+    act = cull.row_activity(sc["tg"], torch.from_numpy(sc["fr"]["depth"]),
+                            torch.from_numpy(sc["K"]), torch.eye(4),
+                            truncation=sc["T"], gate=torch.tensor(True), **ZKW)
+    idx, n_act = cull.compact_active(act.reshape(-1), 8)
+    safe, live, _ = cull.compact_padded(act.reshape(-1), 8)
+    assert idx.device.type == safe.device.type == "cpu"
+    assert int(n_act) == int(live) == int(tvolume.count_active_rows(
+        sc["tg"], sc["fr"]["depth"], sc["K"], np.eye(4, dtype=np.float32),
+        truncation=sc["T"], device=CPU, **ZKW)) > 0
+    assert cull.launch_counts == {"row_activity": 0, "compact_rows": 0}
