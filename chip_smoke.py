@@ -36,7 +36,9 @@ command line's whole recipe from the PNG files on a 2x2 mesh; that recipe
 and the LED upsample run again with one process a mesh row
 (parallel/distributed.py: two processes of this script over gloo on the one
 card, and over NCCL where there are two cards) against those one-process
-runs; and the host's marching cubes (C++ against numpy) at 128^3 and 256^3, with a periodic
+runs, and that recipe stopped at a scan checkpoint, failed in the
+refinement and resumed from its checkpoints in three launches of the
+processes; and the host's marching cubes (C++ against numpy) at 128^3 and 256^3, with a periodic
 refinement dump synchronous and on its writer thread.
 
 Every phase prints one JSON object on a line of its own.  Any failed check,
@@ -52,7 +54,9 @@ card.  The run is otherwise the same (its refinement seconds then include
 the tracing of iteration 0).  Every traced session opens with a warm-up of
 throwaway kernels that takes the device records the profiler drops at a
 session's start on the card machine, and fails if it lost them all
-(_traced).
+(_traced, through utils/profiling.py, which the command line's --profile
+uses too); the command line's own --profile trace of a short scan must hold
+some of that warm-up and every gn_solve launch (profile_cli).
 
 Phase scan_kernels follows the kernels phase: the kernels of the scan's
 jit-fused programs (the fusion update, one launch a fused frame; a frame's
@@ -160,6 +164,7 @@ import ctypes
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -266,8 +271,6 @@ CULL_KERNELS = ("row_activity", "compact_rows")
 # scan_kernels: the spin that keeps the card busy while the host enqueues a
 # path's kernels, so that events between them time the device alone
 SPIN_CYCLES = 2_000_000
-# each traced session opens with this many throwaway kernels (_traced)
-TRACE_WARMUP = 128
 # scan_kernels: one GN step's S against the plain Gram, relative to max|S|;
 # the tracked poses, kernel against plain (metres and radians); a plain step
 # norm this close to the threshold (relative) may end the solve one step
@@ -2934,52 +2937,45 @@ def _dist_case(what, c, static, flush, timed=False):
 @contextlib.contextmanager
 def _traced(cpu=False):
     """A torch.profiler session on the card (and the host with `cpu`) that
-    opens with TRACE_WARMUP throwaway spin kernels and a synchronize.  On
-    the card machine the profiler drops the first device records of a
-    session as out of its capture window (kineto's "Out-of-range" count: 3
-    to 6 records, always the session's first, in sessions after the first
-    minute of a run; a window padded by 0.25 s lost them all the same), so
-    a short body such as one albedo block could lose all of its kernels.
-    The warm-up takes those losses; its kernel is left out of every count
-    (_kernel_rows, _runtime_calls), and the session fails unless some of its
-    warm-up records arrived, the records that come after them being kept.
-    -> the profile object, with `warmup_dropped`, the warm-up records the
-    session lost."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    opens with utils/profiling.py's warm-up: WARMUP throwaway spin kernels
+    and a synchronize.  On the card machine the profiler drops the first
+    device records of a session as out of its capture window (kineto's
+    "Out-of-range" count: 3 to 6 records, always the session's first, in
+    sessions after the first minute of a run; a window padded by 0.25 s lost
+    them all the same), so a short body such as one albedo block could lose
+    all of its kernels.  The warm-up takes those losses; its kernel is left
+    out of every count (_kernel_rows, _runtime_calls), and the session fails
+    unless some of its warm-up records arrived, the records that come after
+    them being kept.  -> the profile object, with `warmup_dropped`, the
+    warm-up records the session lost."""
+    from psgradientsdf_tpu_torch.utils import profiling
 
-    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        for _ in range(TRACE_WARMUP):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
+    with profiling.session(cuda=True, cpu=cpu) as prof:
         yield prof
-        torch.cuda.synchronize()
-    seen = int(sum(e.count for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and _is_warmup(e.key)))
+    seen = profiling.warmup_kept(prof)
     check(seen > 0, "a trace lost every record of its warm-up: its body's device "
                     "activity may be lost too")
-    prof.warmup_dropped = TRACE_WARMUP - seen
-
-
-def _is_warmup(name):
-    return "spin_kernel" in name
+    prof.warmup_dropped = profiling.WARMUP - seen
 
 
 def _runtime_calls(prof):
     """The host's CUDA runtime and driver calls a _traced session recorded,
     less its warm-up's launches and synchronize and its closing
     synchronize."""
+    from psgradientsdf_tpu_torch.utils import profiling
+
     return sum(e.count for e in prof.key_averages()
                if not str(e.device_type).endswith("CUDA") and e.key.startswith("cu")
-               ) - (TRACE_WARMUP + 2)
+               ) - (profiling.WARMUP + 2)
 
 
 def _kernel_rows(prof):
     """(device us, launches, name) of each kernel a trace saw, its warm-up
     left out (_traced)."""
+    from psgradientsdf_tpu_torch.utils import profiling
+
     return [(_device_us(e), e.count, e.key) for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and not _is_warmup(e.key)]
+            if str(e.device_type).endswith("CUDA") and not profiling.is_warmup(e.key)]
 
 
 def _is_index_add(name):
@@ -5019,6 +5015,44 @@ def profile_scan(tmp, seq, frames, plain_seconds):
              for us, c, k in rows[:12]])
 
 
+def profile_cli(tmp, root, frames):
+    """The command line with --profile over the first `frames` PNG files of
+    `root`, the scan alone: its trace.json must hold some of the warm-up's
+    kernels (utils/profiling.py) and one gn_solve launch for each frame the
+    scan solved, so that the records the profiler drops at a session's
+    start were the warm-up's."""
+    from psgradientsdf_tpu_torch import cli
+    from psgradientsdf_tpu_torch.utils import profiling
+
+    out = os.path.join(tmp, "cli_profile") + "/"
+    cfg_path = os.path.join(tmp, "cli_profile.json")
+    trace_dir = os.path.join(tmp, "cli_trace")
+    write_config(cfg_path, out, frames - 1, input_dir=root + "/")
+    _reset_scan_counts()                     # just before the path is driven
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "cli_profile_stdout.txt"), "w") as fh, \
+            contextlib.redirect_stdout(fh):
+        rc = cli.main(["--config_file", cfg_path, "--no-refine", "--profile", trace_dir,
+                       "--platform", "gpu"])
+    wall = time.perf_counter() - t0
+    counts = _scan_counts()                  # and read just after
+    check(rc == 0, f"the command line with --profile returned {rc}")
+    path = os.path.join(trace_dir, "trace.json")
+    with open(path) as fh:
+        kernels = [e["name"] for e in json.load(fh)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    kept = sum(profiling.is_warmup(n) for n in kernels)
+    solves = sum("gn_solve_kernel" in n for n in kernels)
+    check(kept > 0, "the command line's trace lost every record of its warm-up")
+    check(solves == counts["gn_solve"] == counts["frames_solved"] >= frames - 1,
+          f"the command line's trace holds {solves} gn_solve launches, the scan "
+          f"made {counts['gn_solve']} for {counts['frames_solved']} frames solved")
+    return dict(frames=frames, wall_seconds=wall, warmup_kept=kept,
+                warmup_dropped=profiling.WARMUP - kept, gn_solve_in_trace=solves,
+                frames_solved=counts["frames_solved"], device_kernels=len(kernels),
+                trace_bytes=os.path.getsize(path))
+
+
 # ------------------------------------------------- the refinement on a mesh
 
 
@@ -5370,10 +5404,11 @@ def mesh_refine(tmp, seq, main_run, led_run, led_seq, root):
 
 def _record_writes(out_dir):
     """Every file this process writes under out_dir (Python's open, the PLY,
-    SDF and trajectory writers) and every writer thread it starts -> the
-    list they are appended to."""
+    SDF and trajectory writers, the checkpoint's files) and every writer
+    thread it starts -> the list they are appended to."""
     import psgradientsdf_tpu_torch.pipeline as pipeline_mod
     import psgradientsdf_tpu_torch.refine.optimizer as optimizer_mod
+    from psgradientsdf_tpu_torch.io import checkpoint as ckpt
     from psgradientsdf_tpu_torch.io import ply, sdf_io, trajectory
 
     seen = []
@@ -5386,7 +5421,8 @@ def _record_writes(out_dir):
 
     builtins.open = spy_open
     for mod, names in ((ply, ("write_mesh_ply", "write_pointcloud_ply")),
-                       (sdf_io, ("write_sdf",)), (trajectory, ("write_trajectory",))):
+                       (sdf_io, ("write_sdf",)), (trajectory, ("write_trajectory",)),
+                       (ckpt, ("_atomic_savez", "_atomic_json"))):
         for name in names:
             def spy(path, *a, _fn=getattr(mod, name), **k):
                 if str(path).startswith(out_dir):
@@ -5404,11 +5440,39 @@ def _record_writes(out_dir):
     return seen
 
 
+@contextlib.contextmanager
+def _failing_iteration(iteration):
+    """While the body runs, refinement iteration `iteration` (counted from 0
+    in this process) raises, by a wrapper of the module function that runs
+    an iteration (None: no failure) -> the dict whose "failed" says whether
+    it did."""
+    from psgradientsdf_tpu_torch.refine import optimizer as opt_mod
+
+    state = {"calls": 0, "failed": False}
+    real = opt_mod._iteration_core
+
+    def failing(*args, **kw):
+        state["calls"] += 1
+        if state["calls"] == iteration + 1:
+            state["failed"] = True
+            raise RuntimeError(f"injected failure in refinement iteration {iteration}")
+        return real(*args, **kw)
+
+    if iteration is not None:
+        opt_mod._iteration_core = failing
+    try:
+        yield state
+    finally:
+        opt_mod._iteration_core = real
+
+
 def dist_rank(rank, job_path):
     """One process of phase `distributed` (the phase starts it with
-    --dist-rank RANK JOB): joins the process group, runs the job's recipes
-    through ReconstructionPipeline on a mesh over the processes, and writes
-    what it saw for the phase to check."""
+    --dist-rank RANK JOB): joins the process group, runs the job's runs
+    through ReconstructionPipeline on a mesh over the processes (a run may
+    checkpoint, resume, stop after the scan, or fail in a refinement
+    iteration, as its spec says), and writes what it saw for the phase to
+    check."""
     import torch
     from psgradientsdf_tpu_torch.config import load_config
     from psgradientsdf_tpu_torch.parallel import distributed
@@ -5428,9 +5492,19 @@ def dist_rank(rank, job_path):
             self.scan_digest = _digest(self.vol)
             super()._run_refine_phase(summary)
 
-    seen = _record_writes(job["sh1"]["out"])
+        def _scan_layout(self, vol):
+            # the first placement of the scan's volume (a resume's: the
+            # file's): where it was read, and the slabs this process holds
+            svol = super()._scan_layout(vol)
+            if not hasattr(self, "placed"):
+                self.placed = dict(source=vol.dist.device.type, slabs=[
+                    None if pm.is_remote(s) else str(s.dist.device)
+                    for s in svol.slabs])
+            return svol
+
+    seen = _record_writes(job["out_prefix"])
     res = dict(rank=rank, backend=distributed.backend(), device=str(distributed.home()))
-    for run in ("sh1", "led"):
+    for run in job["runs"]:
         spec = job[run]
         loader = None
         if "frames" in spec:
@@ -5438,38 +5512,58 @@ def dist_rank(rank, job_path):
             loader = memory_loader(z["K"], z["colors"], z["depths"], z["poses"])
         log = spec["metrics"][rank]
         pipe = ScanDigest(load_config(spec["config"]), loader=loader,
-                          device=distributed.home(), metrics=MetricsLogger(log, echo=False))
+                          device=distributed.home(), metrics=MetricsLogger(log, echo=False),
+                          **{k: spec[k] for k in ("checkpoint_every", "resume") if k in spec})
         slabs = sum(not pm.is_remote(d) for d in pipe.mesh.slab_devices)
         _reset_row_counts()                  # just before the path is driven
         pm.reset_reduce_counts()
+        failure = None
         t0 = time.perf_counter()
-        summary = pipe.run(refine=True)
-        if distributed.home().type == "cuda":
-            torch.cuda.synchronize()
+        with _plain_cull_calls() as cull_calls, _refine_calls() as refine_calls, \
+                _failing_iteration(spec.get("fail_iteration")) as injected:
+            try:
+                summary = pipe.run(refine=not spec.get("scan_only"))
+            except RuntimeError as e:
+                if not injected["failed"]:
+                    raise
+                failure, summary = str(e), None
+            if distributed.home().type == "cuda":
+                torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _row_counts()               # and read just after
         moved = dict(pm.reduce_counts)
         pipe.close()
         with open(log) as fh:
             events = [json.loads(line) for line in fh]
-        state = _refiner_state(pipe.refiner)
-        if rank == 0:
-            torch.save(state, spec["state"])
-        per_block, per_iter, cg = _block_times(events)
-        it = max(state["iterations"], 1)
-        res[run] = dict(
-            scan_digest=pipe.scan_digest,
-            keyframe_digest=_digest([torch.from_numpy(np.stack(pipe.key_poses))]),
-            state_digest=_digest([state[k] for k in STATE_TENSORS]),
-            energy=state["energy"], iterations=state["iterations"],
-            stopped=state["stop"], surface_voxels=state["n_surface"],
-            local_slabs=slabs, culled_fusions=pipe.fuse_culled_calls,
-            launches=counts, frames=summary["frames"], frames_per_s=summary["fps"],
-            refine_seconds=summary["refine_seconds"], wall_seconds=wall,
-            seconds_per_iteration=per_iter, seconds_per_block=per_block, cg_steps=cg,
-            moves=moved, moves_per_iteration={k: v / it for k, v in moved.items()
-                                              if k != "largest"},
-            writes=list(seen))
+        got = dict(
+            local_slabs=slabs, culled_fusions=pipe.fuse_culled_calls, launches=counts,
+            wall_seconds=wall, failure=failure, writes=list(seen),
+            placed=getattr(pipe, "placed", None),
+            plain_on_card={k: v for k, v in dict(refine_calls, **cull_calls).items()
+                           if k.startswith("plain")},
+            scan_digest=(_digest(pipe.vol) if spec.get("scan_only")
+                         else getattr(pipe, "scan_digest", None)),
+            keyframe_digest=(_digest([torch.from_numpy(np.stack(pipe.key_poses))])
+                             if pipe.key_poses else None),
+            events={k: [e for e in events if e["event"] == k] for k in (
+                "checkpoint", "refine_checkpoint", "resume", "scan_done")})
+        if summary is not None and pipe.refiner is not None:
+            state = _refiner_state(pipe.refiner)
+            if rank == 0:
+                torch.save(state, spec["state"])
+            per_block, per_iter, cg = _block_times(events)
+            it = max(state["iterations"], 1)
+            got.update(
+                state_digest=_digest([state[k] for k in STATE_TENSORS]),
+                energy=state["energy"], iterations=state["iterations"],
+                stopped=state["stop"], surface_voxels=state["n_surface"],
+                frames=summary["frames"], frames_per_s=summary.get("fps"),
+                refine_seconds=summary["refine_seconds"],
+                seconds_per_iteration=per_iter, seconds_per_block=per_block,
+                cg_steps=cg, moves=moved,
+                moves_per_iteration={k: v / it for k, v in moved.items()
+                                     if k != "largest"})
+        res[run] = got
         seen.clear()
     distributed.shutdown()
     with open(job["result"][rank], "w") as fh:
@@ -5477,22 +5571,30 @@ def dist_rank(rank, job_path):
     return 0
 
 
-def _run_ranks(tmp, backend, devices, specs):
+def _dist_out(tmp, backend, run):
+    """The output directory of a distributed run (process 0 writes there)."""
+    return os.path.join(tmp, f"dist_{backend}_out_{run}") + "/"
+
+
+def _run_ranks(tmp, backend, devices, specs, launch):
     """Start DIST_WORLD processes of dist_rank on `devices` (one a rank) over
-    `backend` and wait for them -> their results.  A process that fails or
-    outlives DIST_RANK_SECONDS fails the phase; none outlives the call."""
-    tag = f"dist_{backend}"
-    job = dict(backend=backend, devices=devices,
+    `backend`, to run `specs` in order, and wait for them -> their results.
+    A process that fails or outlives DIST_RANK_SECONDS fails the phase; none
+    outlives the call."""
+    tag = f"dist_{backend}_{launch}"
+    job = dict(backend=backend, devices=devices, runs=list(specs),
                rendezvous=os.path.join(tmp, tag + "_rendezvous"),
+               out_prefix=_dist_out(tmp, backend, "").rstrip("/"),
                result=[os.path.join(tmp, f"{tag}_rank{r}.json")
                        for r in range(len(devices))])
     for run, spec in specs.items():
-        out = os.path.join(tmp, f"{tag}_{run}") + "/"
+        out = _dist_out(tmp, backend, run)
         write_config(spec["config"], out, spec["last"], grid=spec.get("grid"),
                      refine=spec["refine"], input_dir=spec.get("input", ""),
                      config={"mesh shape": spec["mesh"]})
-        job[run] = dict(spec, out=out, state=os.path.join(tmp, f"{tag}_{run}_state.pt"),
-                        metrics=[os.path.join(tmp, f"{tag}_{run}_rank{r}.jsonl")
+        job[run] = dict(spec, out=out,
+                        state=os.path.join(tmp, f"dist_{backend}_{run}_state.pt"),
+                        metrics=[os.path.join(tmp, f"dist_{backend}_{run}_rank{r}.jsonl")
                                  for r in range(len(devices))])
     job_path = os.path.join(tmp, tag + ".json")
     with open(job_path, "w") as fh:
@@ -5514,7 +5616,7 @@ def _run_ranks(tmp, backend, devices, specs):
                 log.flush()
                 with open(log.name) as fh:
                     tail = fh.read()[-3000:]
-                raise SmokeFailure(f"{backend} rank {r} ended with {rc}:\n{tail}")
+                raise SmokeFailure(f"{backend} {launch} rank {r} ended with {rc}:\n{tail}")
     finally:
         for p, log in procs:
             if p.poll() is None:
@@ -5526,6 +5628,134 @@ def _run_ranks(tmp, backend, devices, specs):
         with open(path) as fh:
             results.append(json.load(fh))
     return job, results
+
+
+def _dist_resume(tmp, backend, devices, sh1, cli_run, want, launches):
+    """mesh_refine (c)'s recipe with one process a mesh row, in three
+    launches of the ranks: the scan stops at frame CHUNK with a checkpoint;
+    new ranks resume from scan_checkpoint.npz with a refinement checkpoint
+    every 2 iterations, and refinement iteration FAIL_ITERATION fails on
+    every rank; new ranks resume from refine_checkpoint.npz to the end.
+    Checks: the resumed scan's volume, keyframe poses and trajectory equal
+    the one-process 2x2 CLI run (`cli_run`) bit for bit, and the resumed
+    refinement its state `want` within PARITY_TOL with the same stop and
+    iterations; the ranks' state is the same; process 0 alone writes the
+    checkpoints and logs their events; the direct kernels, the cull and the
+    compaction launch once per culled fusion of each rank's slabs, the
+    stopped and the resumed scan making the one-process run's culled
+    fusions between them; no kernel's plain version runs on the card.  Adds the
+    launches to `launches` -> what was measured."""
+    import torch
+
+    cli_pipe = cli_run["pipe"]
+    # the stopped scan runs the whole recipe on an input that ends at frame
+    # CHUNK: a checkpoint holds the visibility words of its run's frame
+    # range, and a resume needs those of its own
+    first = os.path.join(tmp, "tum_first_frames")
+    _first_frames(sh1["input"], CHUNK + 1, first)
+    stop_ckpt = _dist_out(tmp, backend, "stop") + "scan_checkpoint.npz"
+    fail_ckpt = _dist_out(tmp, backend, "fail") + "refine_checkpoint.npz"
+    steps = {
+        "stop": dict(sh1, config=os.path.join(tmp, "dist_stop.json"), input=first + "/",
+                     checkpoint_every=CHUNK, scan_only=True),
+        "fail": dict(sh1, config=os.path.join(tmp, "dist_fail.json"), checkpoint_every=2,
+                     resume=stop_ckpt, fail_iteration=FAIL_ITERATION),
+        "resume": dict(sh1, config=os.path.join(tmp, "dist_resume.json"),
+                       checkpoint_every=2, resume=fail_ckpt)}
+    runs = {}
+    for step, spec in steps.items():
+        job, ranks = _run_ranks(tmp, backend, devices, {step: spec}, step)
+        runs[step] = [res[step] for res in ranks]
+        for r, g in enumerate(runs[step]):
+            what = f"{backend} {step} rank {r}"
+            # the mesh's albedo block forms its data terms eagerly by design
+            # (ROADMAP §2b item 5): no kernel's plain version
+            plain = {k: v for k, v in g["plain_on_card"].items()
+                     if k != "plain_albedo_solve_on_card"}
+            check(not any(plain.values()), f"{what}: a plain path ran on the card: {plain}")
+            calls, slabs = g["culled_fusions"], g["local_slabs"]
+            for name in launches:
+                n = g["launches"][name]
+                check(n == (calls * slabs if DEVICE == "cuda" else 0),
+                      f"{what}: {name} {n} launches, {slabs} slab x {calls} culled fusions")
+                launches[name] += n
+            mine = {e["event"] for k in ("checkpoint", "refine_checkpoint")
+                    for e in g["events"][k]}
+            check(r == 0 or (not g["writes"] and not mine),
+                  f"{what} wrote {g['writes']} and logged {sorted(mine)}")
+    stop, fail, resume = runs["stop"], runs["fail"], runs["resume"]
+    w0 = set(stop[0]["writes"]) | set(fail[0]["writes"])
+    files = {f"{name}{suffix}" for name, suffixes in (
+        ("scan_checkpoint.npz", ("", ".scan", ".json")),
+        ("refine_checkpoint.npz", ("", ".refine", ".images", ".json")))
+        for suffix in suffixes}
+    check(files <= w0, f"{backend}: process 0 wrote {sorted(w0)}")
+    saved = stop[0]["events"]["checkpoint"]
+    check(len(saved) == 1 and saved[0]["frame"] == CHUNK,
+          f"{backend}: the stopped scan logged checkpoints {saved}")
+    with open(_dist_out(tmp, backend, "fail") + "tracking_poses.txt") as fh:
+        check(fh.read() == _read_text(os.path.join(cli_run["out_dir"], "tracking_poses.txt")),
+              f"{backend}: the resumed scan's trajectory differs from the one-process 2x2 run")
+    cli_keyframes = _digest([torch.from_numpy(np.stack(cli_pipe.key_poses))])
+    for r, g in enumerate(fail):
+        check(g["failure"] and f"iteration {FAIL_ITERATION}" in g["failure"],
+              f"{backend} rank {r}: the refinement did not fail where injected: "
+              f"{g['failure']}")
+        check([e["next_frame"] for e in g["events"]["resume"]] == [CHUNK + 1],
+              f"{backend} rank {r}: resume events {g['events']['resume']}")
+        # the file read on the host, and only this rank's slab (mesh row r)
+        # copied to its card
+        check(g["placed"]["source"] == "cpu" and g["placed"]["slabs"] == [
+            devices[r] if k == r else None for k in range(MESH_CLI[0])],
+              f"{backend} rank {r}: the resume placed {g['placed']}")
+        check(g["scan_digest"] == cli_pipe.scan_digest
+              and g["keyframe_digest"] == cli_keyframes,
+              f"{backend} rank {r}: the resumed scan's volume or keyframe poses "
+              "differ from the one-process 2x2 run")
+        check(stop[r]["culled_fusions"] + g["culled_fusions"] == cli_pipe.fuse_culled_calls,
+              f"{backend} rank {r}: {stop[r]['culled_fusions']} + {g['culled_fusions']} "
+              f"culled fusions, one process {cli_pipe.fuse_culled_calls}")
+    for r, g in enumerate(resume):
+        check([e.get("iter") for e in g["events"]["resume"]] == [2],
+              f"{backend} rank {r}: resume events {g['events']['resume']}")
+        check(g["state_digest"] == resume[0]["state_digest"]
+              and g["energy"] == resume[0]["energy"],
+              f"{backend} resume: the processes' poses, state or energies differ")
+    got = torch.load(job["resume"]["state"], weights_only=False)   # rank 0's
+    seen = _compare_states(got, want, f"{backend} resumed against the one-process 2x2 CLI run")
+    return dict(
+        stopped_after_frame=CHUNK, failed_in_iteration=FAIL_ITERATION,
+        resumed_at_iteration=2, relative_difference=seen,
+        iterations=resume[0]["iterations"], stopped=resume[0]["stopped"],
+        culled_fusions={k: v[0]["culled_fusions"] for k, v in runs.items()},
+        mesh_albedo_data_terms={k: v[0]["plain_on_card"]["plain_albedo_solve_on_card"]
+                                for k, v in runs.items()},
+        scan_checkpoints=[dict(frame=e["frame"], seconds=e["seconds"], bytes=e["bytes"])
+                          for g in (stop[0], fail[0]) for e in g["events"]["checkpoint"]],
+        refine_checkpoints=[dict(iteration=e["iter"], seconds=e["seconds"],
+                                 bytes=e["bytes"])
+                            for g in (fail[0], resume[0])
+                            for e in g["events"]["refine_checkpoint"]],
+        resumed_scan_seconds=[g["events"]["scan_done"][0]["seconds"] for g in fail],
+        wall_seconds={k: [g["wall_seconds"] for g in v] for k, v in runs.items()})
+
+
+def _first_frames(root, n, dest):
+    """A TUM directory at `dest` whose associated.txt lists the first `n`
+    frames of the one at `root` (their images named by absolute path)."""
+    os.makedirs(dest, exist_ok=True)
+    shutil.copy(os.path.join(root, "intrinsics.txt"), dest)
+    lines = _read_text(os.path.join(root, "associated.txt")).splitlines()[:n]
+    with open(os.path.join(dest, "associated.txt"), "w") as fh:
+        for line in lines:
+            ts_rgb, rgb, ts_depth, depth = line.split()
+            fh.write(f"{ts_rgb} {os.path.join(root, rgb)} "
+                     f"{ts_depth} {os.path.join(root, depth)}\n")
+
+
+def _read_text(path):
+    with open(path) as fh:
+        return fh.read()
 
 
 def distributed_phase(tmp, root, cli_run, led_run, led_seq):
@@ -5540,7 +5770,9 @@ def distributed_phase(tmp, root, cli_run, led_run, led_seq):
     PARITY_TOL with the same surface count after the upsample; both
     processes hold the same state and energies; each launches each direct
     kernel once per culled fusion of its slab; process 0 alone writes the
-    outputs.  -> (the direct kernels' launches, what was measured)."""
+    outputs.  Then (3) (1)'s recipe stopped, failed and resumed in three
+    launches of the ranks (_dist_resume).  -> (the direct kernels' and the
+    cull's launches, what was measured)."""
     import torch
 
     K, colors, depths, poses = led_seq[:4]
@@ -5566,7 +5798,7 @@ def distributed_phase(tmp, root, cli_run, led_run, led_seq):
     facts = {}
     for backend, devices in routes:
         t0 = time.perf_counter()
-        job, ranks = _run_ranks(tmp, backend, devices, specs)
+        job, ranks = _run_ranks(tmp, backend, devices, specs, "recipes")
         seconds = time.perf_counter() - t0
         seen = {}
         for r, res in enumerate(ranks):
@@ -5621,6 +5853,9 @@ def distributed_phase(tmp, root, cli_run, led_run, led_seq):
                             "wall_seconds", "seconds_per_iteration", "seconds_per_block",
                             "cg_steps", "moves_per_iteration")} for run in ("sh1", "led")})
                    for res in ranks])
+        facts[backend]["resume"] = _dist_resume(
+            tmp, backend, devices, specs["sh1"], cli_run, want["sh1"], launches)
+        facts[backend]["seconds_with_resume"] = time.perf_counter() - t0
     if len(routes) == 1:
         facts["nccl"] = (f"unverified: {torch.cuda.device_count()} card(s) here, NCCL "
                          f"takes one card a process and {DIST_WORLD} processes")
@@ -5847,6 +6082,7 @@ def main():
         if "--profile" in sys.argv[1:]:
             emit("profile", card=card, **profile_scan(
                 tmp, seq, short, runs["dma"]["summary"]["seconds"]))
+            emit("profile_cli", card=card, **profile_cli(tmp, root, short))
             emit("profile_refine", card=card, **profile_refine(
                 main_run["pipe"].refiner))
             emit("profile_first_iteration", card=card,

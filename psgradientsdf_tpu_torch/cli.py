@@ -60,21 +60,20 @@ def _latest_checkpoint(out_dir: str, since: float) -> str:
 
 
 def _profiler(trace_dir: str, device: str):
-    """A torch.profiler context over the whole run that writes a Chrome
-    trace into trace_dir on exit (a null context without a directory)."""
+    """A torch.profiler session over the whole run that writes a Chrome
+    trace into trace_dir on exit (a null context without a directory).  On
+    the card it opens with utils/profiling.py's warm-up, which takes the
+    device records the profiler drops at a session's start."""
     if not trace_dir:
         return contextlib.nullcontext()
-    from torch.profiler import ProfilerActivity, profile
+    from psgradientsdf_tpu_torch.utils import profiling
 
     os.makedirs(trace_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if device == "cuda":
-        activities.append(ProfilerActivity.CUDA)
 
     def write(prof):
         prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
-    return profile(activities=activities, on_trace_ready=write)
+    return profiling.session(cuda=device == "cuda", on_trace_ready=write)
 
 
 def main(argv=None) -> int:

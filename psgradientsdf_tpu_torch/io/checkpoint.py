@@ -24,6 +24,14 @@ it is what a resume looks at first (its "phase" says scan or refinement), so
 a save torn by a crash never shows a valid sidecar over missing arrays.
 Nothing is pickled; loads put the tensors on the device the caller names.
 
+In a process group (parallel/distributed.py) every process calls the
+savers: all join the gathers of the volume and of the refinement's arrays,
+and process 0 alone writes, through distributed.on_process_zero, so that a
+failed write raises on every process.  The file is the one-device file
+whatever the number of processes, and resumes on any number.  Every
+process reads the whole file on the host; a run on a mesh then copies to
+its cards only the slabs, rows and keyframes of its own mesh entries.
+
 The loaders also read the older layouts the JAX package's loader reads:
 companions saved with an ".npz" suffix (<path>.scan.npz, .refine.npz,
 .images.npz), the keyframe images inline in <path>.refine, no prob_* arrays
@@ -50,6 +58,7 @@ import torch
 from psgradientsdf_tpu_torch import convert
 from psgradientsdf_tpu_torch.core.grid import GridGeometry
 from psgradientsdf_tpu_torch.core.volume import GradSdfVolume
+from psgradientsdf_tpu_torch.parallel import distributed
 from psgradientsdf_tpu_torch.refine.problem import RefineProblem, extract_problem
 
 
@@ -131,21 +140,28 @@ class ScanState:
 
 def save_scan_state(path: str, vol: GradSdfVolume, geom: GridGeometry,
                     state: ScanState, key_images: List[np.ndarray]) -> None:
-    _atomic_savez(
-        path + ".scan",
-        cur_pose=np.asarray(state.cur_pose),
-        key_poses=(np.stack(state.key_poses) if state.key_poses
-                   else np.zeros((0, 4, 4))),
-        key_images=(np.stack(key_images) if key_images
-                    else np.zeros((0, 1, 1, 3))),
-    )
-    save_volume(path, vol, geom, meta={
-        "next_frame": int(state.next_frame),
-        "pose_lines": list(state.pose_lines),
-        "key_indices": [int(v) for v in state.key_indices],
-        "key_stamps": list(state.key_stamps),
-        "dist_to_last_kf": int(state.dist_to_last_kf),
-    })
+    """Write the scan's state; `vol` is the whole volume.  In a process
+    group every process calls this with the same arguments and process 0
+    alone writes (parallel/distributed.on_process_zero): every process
+    returns, or every process raises what the write raised."""
+    def write():
+        _atomic_savez(
+            path + ".scan",
+            cur_pose=np.asarray(state.cur_pose),
+            key_poses=(np.stack(state.key_poses) if state.key_poses
+                       else np.zeros((0, 4, 4))),
+            key_images=(np.stack(key_images) if key_images
+                        else np.zeros((0, 1, 1, 3))),
+        )
+        save_volume(path, vol, geom, meta={
+            "next_frame": int(state.next_frame),
+            "pose_lines": list(state.pose_lines),
+            "key_indices": [int(v) for v in state.key_indices],
+            "key_stamps": list(state.key_stamps),
+            "dist_to_last_kf": int(state.dist_to_last_kf),
+        })
+
+    distributed.on_process_zero(write)
 
 
 def companion(path: str, kind: str) -> str:
@@ -165,7 +181,9 @@ def _companion(path: str, kind: str) -> str:
 
 
 def load_scan_state(path: str, device=None):
-    """-> (volume on `device`, geometry, ScanState, key_images as numpy)."""
+    """-> (volume on `device`, geometry, ScanState, key_images as numpy).
+    A scan on a mesh loads onto the host and places its own slabs
+    (parallel/mesh.shard_volume)."""
     vol, geom, meta = load_volume(path, device=device)
     with np.load(_companion(path, "scan")) as data:
         cur_pose = data["cur_pose"]
@@ -195,58 +213,70 @@ def save_refine_state(path: str, refiner) -> None:
     load: refinement moves voxel distances, so a fresh extraction could
     select another active set than the run being resumed.  Saves the loop's
     scalar state (refiner.loop_state) so the resumed loop is exact,
-    including the iteration-indexed upsample and Laplacian branches.
+    including the iteration-indexed upsample and Laplacian branches.  In a
+    process group every process calls this: all join the gathers, in mesh
+    order, and process 0 alone writes (distributed.on_process_zero).
     """
     refiner.sync_to_volume()
     # on a mesh: the global arrays, gathered onto the first device, so the
     # file is the one-device file and resumes anywhere
     first = not getattr(refiner, "_ckpt_images_saved", False)
     prob, dist, albedo, grad_stored, images = refiner.gathered(with_images=first)
-    # the keyframe images do not change during refinement and are the
-    # largest array: written on this run's first checkpoint only (always
-    # then, so a stale .images of an older run can never pair with this one),
-    # and stored, not deflated: zlib takes about 80 ms a MB of these floats
-    # and saves two thirds of the bytes (147 MB at F = 40 and 640x480)
-    if first:
-        _atomic_savez(path + ".images", compressed=False,
-                      images=_f32(images))
-        refiner._ckpt_images_saved = True
-    prob = {f"prob_{k}": v
-            for k, v in convert.problem_to_numpy(prob).items()}
-    _atomic_savez(
-        path + ".refine",
-        poses=_f32(refiner.poses),
-        lights=_f32(refiner.lights),
-        dist=_f32(dist),
-        albedo=_f32(albedo),
-        grad_stored=_f32(grad_stored),
-        loop_state=convert.loop_state_to_numpy(refiner.loop_state),
-        **prob,
-    )
-    # volume + sidecar LAST: the sidecar's phase=refine marker is what
-    # resume selection keys on
-    save_volume(path, refiner.vol, refiner.geom, meta={
-        "keyframe_indices": [int(v) for v in refiner.keyframe_indices],
-        "timestamps": list(refiner.timestamps),
-        "model": refiner.cfg.model,
-        "phase": "refine",
-    })
+
+    def write():
+        # the keyframe images do not change during refinement and are the
+        # largest array: written on this run's first checkpoint only (always
+        # then, so a stale .images of an older run can never pair with this
+        # one), and stored, not deflated: zlib takes about 80 ms a MB of these
+        # floats and saves two thirds of the bytes (147 MB at F = 40 and
+        # 640x480)
+        if first:
+            _atomic_savez(path + ".images", compressed=False,
+                          images=_f32(images))
+        arrays = {f"prob_{k}": v
+                  for k, v in convert.problem_to_numpy(prob).items()}
+        _atomic_savez(
+            path + ".refine",
+            poses=_f32(refiner.poses),
+            lights=_f32(refiner.lights),
+            dist=_f32(dist),
+            albedo=_f32(albedo),
+            grad_stored=_f32(grad_stored),
+            loop_state=convert.loop_state_to_numpy(refiner.loop_state),
+            **arrays,
+        )
+        # volume + sidecar LAST: the sidecar's phase=refine marker is what
+        # resume selection keys on
+        save_volume(path, refiner.vol, refiner.geom, meta={
+            "keyframe_indices": [int(v) for v in refiner.keyframe_indices],
+            "timestamps": list(refiner.timestamps),
+            "model": refiner.cfg.model,
+            "phase": "refine",
+        })
+
+    distributed.on_process_zero(write)
+    refiner._ckpt_images_saved = True
 
 
 def load_refine_state(path: str, refiner) -> None:
     """Restore a refiner saved by save_refine_state (same config) onto the
     refiner's device (its constructor's `device=`); older layouts as the
-    module docstring says.  The arrays come back whole: a refiner on a mesh
-    is placed on it by its place_on_mesh()."""
+    module docstring says.  The arrays come back whole.  A refiner on a mesh
+    gets the problem, its state vectors and the keyframe images on the host:
+    its place_on_mesh() then copies to each of this process's mesh entries
+    only its own share; the volume, the poses and the lights go to the
+    refiner's device, as the refinement keeps them there."""
     dev = refiner.device
+    # what place_on_mesh shares out stays on the host until it does
+    host = torch.device("cpu") if refiner.mesh is not None else dev
     vol, geom, meta = load_volume(path, device=dev)
     refiner.vol = vol
     refiner.geom = geom
     refiner.keyframe_indices = [int(v) for v in meta["keyframe_indices"]]
     refiner.timestamps = list(meta["timestamps"])
 
-    def tensor(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+    def tensor(a, where=host):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(where)
 
     with np.load(_companion(path, "refine")) as data:
         if "images" in data:            # an older layout: the images inline
@@ -254,12 +284,12 @@ def load_refine_state(path: str, refiner) -> None:
         else:
             with np.load(_companion(path, "images")) as im:
                 refiner.images = tensor(im["images"])
-        refiner.poses = tensor(data["poses"])
-        refiner.lights = tensor(data["lights"])
+        refiner.poses = tensor(data["poses"], dev)
+        refiner.lights = tensor(data["lights"], dev)
         if "prob_valid" in data:
             refiner.prob = convert.problem_from_numpy(
                 {k: data[f"prob_{k}"] for k in RefineProblem._fields},
-                device=dev)
+                device=host)
         else:       # an older layout without the frozen active set
             refiner.prob = extract_problem(vol, geom, refiner.keyframe_indices)
         refiner.rebuild_stencil()

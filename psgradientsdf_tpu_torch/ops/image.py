@@ -19,6 +19,14 @@ from __future__ import annotations
 import torch
 
 
+def rgb_float(images: torch.Tensor) -> torch.Tensor:
+    """RGB images as float32 in [0,1], on their own device: raw-wire uint8
+    images divided by 255, float ones cast."""
+    if images.dtype == torch.uint8:
+        return images.to(torch.float32) / 255.0
+    return images.to(torch.float32)
+
+
 def _gather_rc(img: torch.Tensor, ri: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
     """img[(ri, ci)] with clipped integer indices; img is (H, W, C)."""
     H, W = img.shape[0], img.shape[1]

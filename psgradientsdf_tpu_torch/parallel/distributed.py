@@ -36,7 +36,8 @@ from __future__ import annotations
 import datetime
 import math
 import os
-from typing import Dict, List, NamedTuple, Optional, Sequence
+import sys
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -280,6 +281,35 @@ def exchange(parts: Sequence, device) -> List[torch.Tensor]:
         out.append(p.to(device) if r == me else _from_wire(
             recv[r][i * numel:(i + 1) * numel], shape, dtype, device))
     return out
+
+
+def on_process_zero(write: Callable[[], None]) -> None:
+    """write() on process 0 only, its outcome shared: every process
+    returns, or every process raises an error of the type that write()
+    raised, with its text.  A file that only process 0 writes goes through
+    here, so that a failed write (a full disk, a torn rename) does not leave
+    the other processes waiting in their next collective until the group's
+    timeout.  Outside a process group this calls write()."""
+    if not active():
+        write()
+        return
+    failure = None
+    if _STATE["rank"] == 0:
+        try:
+            write()
+        except Exception as e:      # shared below, then raised on every process
+            failure = e
+    outcome = [None if failure is None else
+               (type(failure).__module__, type(failure).__name__, str(failure))]
+    dist.broadcast_object_list(outcome, src=0)
+    if failure is not None:
+        raise failure
+    if outcome[0] is not None:
+        module, name, text = outcome[0]
+        kind = getattr(sys.modules.get(module), name, None)
+        if not (isinstance(kind, type) and issubclass(kind, Exception)):
+            kind, text = RuntimeError, f"{module}.{name}: {text}"
+        raise kind(text)
 
 
 def scatter_slices(partials: Sequence, bounds: Sequence[int],

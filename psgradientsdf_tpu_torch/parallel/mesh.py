@@ -175,7 +175,9 @@ def _own(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
 def shard_volume(vol: GradSdfVolume, mesh: Mesh,
                  interleave: bool = False) -> ShardedVolume:
     """Place a volume on the mesh as Z-slabs, copied: `vol` is left as it
-    was.  interleave=True stores the strided layout (interleave_volume)."""
+    was.  interleave=True stores the strided layout (interleave_volume).
+    `vol` may lie on the host (a checkpoint's): only this process's slabs
+    are copied to their devices, the others' are their Remote."""
     n_z = mesh.shape[Z_AXIS]
     Z = vol.dist.shape[0]
     if Z % n_z:

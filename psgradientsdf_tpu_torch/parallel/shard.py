@@ -54,6 +54,7 @@ from psgradientsdf_tpu_torch.core.volume import (
     pack_tracking_payload,
 )
 from psgradientsdf_tpu_torch.ops import cull
+from psgradientsdf_tpu_torch.ops.image import rgb_float
 from psgradientsdf_tpu_torch.parallel import distributed as pd
 from psgradientsdf_tpu_torch.parallel.halo import padded_slab
 from psgradientsdf_tpu_torch.parallel.mesh import (
@@ -405,7 +406,10 @@ def shard_refine_arrays(mesh: Mesh, prob: RefineProblem,
     the surface-voxel axis N split over "z", the images over "frames" (the
     JAX package's shard_refine_arrays; see RefineLayout for the axes it
     leaves whole).  Every chunk is a copy: the arguments are left as they
-    were, and no two shards share storage."""
+    were, and no two shards share storage.  The arguments may lie on the
+    host: only this process's chunks are copied to its devices, and each
+    keyframe chunk is converted there (ops/image.rgb_float: raw uint8
+    images become float32)."""
     layout = refine_layout(mesh, int(prob.valid.shape[0]), int(images.shape[0]))
     r, fb = layout.rows, layout.frames
     rows = []
@@ -428,7 +432,7 @@ def shard_refine_arrays(mesh: Mesh, prob: RefineProblem,
     for j in range(len(fb) - 1):
         col = replicate(images[fb[j]:fb[j + 1]],
                         [layout.devices[k][j] for k in range(len(rows))])
-        img.append(col)
+        img.append({d: rgb_float(t) for d, t in col.items()})
     img_blocks = tuple(tuple(dev if is_remote(dev) else img[j][dev]
                              for j, dev in enumerate(layout.devices[k]))
                        for k in range(len(rows)))

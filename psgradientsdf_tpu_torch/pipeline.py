@@ -33,8 +33,11 @@ on every process before the pipeline is made) the mesh spans the processes
 and refinement blocks, and every cross-process move is a collective.  Every
 process reads the frames, joins the volume's all-gather at the scan's end
 and extracts the same problem; only process 0 writes the output files and
-runs the writer threads.  Checkpoints and resume across processes raise
-ValueError (ROADMAP).
+runs the writer threads.  Checkpoints and resume work there too: give every
+process the same `checkpoint_every` and `resume`.  Every process joins a
+checkpoint's gathers and process 0 alone writes the file, the one-device
+file (io/checkpoint.py); every process resumes from that one file, reads it
+on the host and places only its own slabs, rows and keyframes.
 """
 
 from __future__ import annotations
@@ -145,9 +148,6 @@ class ReconstructionPipeline:
                  device=None, rows_impl: str = "dma", mesh_devices=None):
         self.device = resolve_device(device)
         tpu = cfg.tpu
-        if distributed.active() and (checkpoint_every or resume):
-            raise ValueError("checkpoints and resume across processes are not "
-                             "ported yet (ROADMAP section 1)")
         # in a process group only process 0 writes files
         self.writes = distributed.rank() == 0
         self.mesh = None
@@ -285,9 +285,18 @@ class ReconstructionPipeline:
             # exact scan resume: the volume after the last collected chunk,
             # the pose it ended at, the trajectory and keyframes so far.  The
             # keyframe images come back on the host only, so the refinement
-            # uploads them (_run_refine_phase)
+            # uploads them (_run_refine_phase).  On a mesh the volume is read
+            # on the host and only this process's slabs go to its devices
             vol, self.geom, state, images = ckpt.load_scan_state(
-                self.resume, device=dev)
+                self.resume, device=dev if self.mesh is None else "cpu")
+            held = 32 * vol.vis.shape[0]
+            if held < self._frame_cap:
+                # a frame past the file's visibility words has no bit to set
+                raise ValueError(
+                    f"{self.resume}: its volume holds visibility bits for "
+                    f"{held} frames, this run's frame range needs "
+                    f"{self._frame_cap}; resume with the frame range (or the "
+                    "'frame cap') of the run that wrote it")
             self.vol = self._scan_layout(vol)
             cur_pose = np.asarray(state.cur_pose, np.float32)
             pose_lines = list(state.pose_lines)
@@ -491,7 +500,9 @@ class ReconstructionPipeline:
                     - self._last_ckpt_frames >= self.checkpoint_every):
                 # this chunk's own volume, NOT self.vol: a later staged chunk
                 # may already be fused into self.vol, and a resume would fuse
-                # its frames twice
+                # its frames twice.  In a process group every process joins
+                # the gather (the condition reads nothing that differs
+                # between them) and process 0 writes
                 t0 = time.perf_counter()
                 path = os.path.join(tr.output, "scan_checkpoint.npz")
                 ckpt.save_scan_state(
@@ -503,9 +514,10 @@ class ReconstructionPipeline:
                         dist_to_last_kf=self._dist_to_last_kf),
                     self.key_images)
                 self._last_ckpt_frames = frames_done
-                self.metrics.log("checkpoint", frame=data[-1][0],
-                                 seconds=time.perf_counter() - t0,
-                                 bytes=ckpt.checkpoint_bytes(path))
+                if self.writes:
+                    self.metrics.log("checkpoint", frame=data[-1][0],
+                                     seconds=time.perf_counter() - t0,
+                                     bytes=ckpt.checkpoint_bytes(path))
             rec["vol_after"] = None       # release the post-chunk volume
 
         self._last_ckpt_frames = frames_done
@@ -568,7 +580,8 @@ class ReconstructionPipeline:
         out = cfg.tracking.output
         # the keyframe images live on the device from the scan, unless the
         # scan was resumed: the checkpoint holds the host copies, and those
-        # are uploaded
+        # are uploaded (on a mesh by place_on_mesh, to this process's blocks
+        # only)
         on_device = len(self.key_images_dev) == len(self.key_images)
         key_indices, key_stamps, images, key_poses = sample_keyframes(
             self.key_indices, self.key_stamps,

@@ -45,9 +45,9 @@ signatures (RefineOps); the exports, the upsample and the checkpoints work
 on the gathered arrays, on the mesh's first device.  On a mesh over
 processes (parallel/distributed.py) every process runs this loop on its own
 device: each stop decision reads energies and CG dots that reach every
-process with the same bits, the gathers of the exports are all-gathers in
-which every process joins, and only process 0 writes files (`writes`);
-mid-run checkpoints across processes are not ported yet (ROADMAP).
+process with the same bits, the gathers of the exports and of the mid-run
+checkpoints are all-gathers in which every process joins, and only process
+0 writes files (`writes`) and logs the `refine_checkpoint` event.
 """
 
 from __future__ import annotations
@@ -65,6 +65,7 @@ from psgradientsdf_tpu_torch.core.grid import GridGeometry
 from psgradientsdf_tpu_torch.core.volume import GradSdfVolume
 from psgradientsdf_tpu_torch.io import ply, sdf_io, trajectory
 from psgradientsdf_tpu_torch.ops import distcg, normaleq, residual
+from psgradientsdf_tpu_torch.ops.image import rgb_float
 from psgradientsdf_tpu_torch.ops.marching_cubes import extract_mesh_from_volume
 from psgradientsdf_tpu_torch.parallel import distributed
 from psgradientsdf_tpu_torch.refine import geometry, jacobians, render, solvers
@@ -404,11 +405,11 @@ class PhotometricRefiner:
     ) -> None:
         if not isinstance(images, torch.Tensor):
             images = torch.from_numpy(np.ascontiguousarray(images))
-        images = images.to(self.device)
-        if images.dtype == torch.uint8:    # raw-wire keyframes: convert on device
-            self.images = images.to(torch.float32) / 255.0
-        else:
-            self.images = images.to(torch.float32)
+        # raw-wire keyframes are converted on the device.  On a mesh the
+        # images stay where they are until place_on_mesh copies each
+        # keyframe chunk to this process's blocks and converts it there
+        self.images = (images if self.mesh is not None
+                       else rgb_float(images.to(self.device)))
         self.poses = torch.as_tensor(
             np.asarray(poses, dtype=np.float32)).to(self.device)
         self.keyframe_indices = list(keyframe_indices)
@@ -555,9 +556,6 @@ class PhotometricRefiner:
     def alternating_optimize(
         self, light: bool, albedo: bool, distance: bool, pose: bool
     ) -> bool:
-        if self.checkpoint_every and self.checkpoint_path and distributed.active():
-            raise ValueError("refinement checkpoints across processes are not "
-                             "ported yet (ROADMAP section 1)")
         try:
             return self._optimize(light, albedo, distance, pose)
         finally:
@@ -736,12 +734,15 @@ class PhotometricRefiner:
                     and it % self.checkpoint_every == 0):
                 from psgradientsdf_tpu_torch.io import checkpoint as ckpt
 
+                # every process joins the save's gathers; process 0 writes
                 T.tic()
                 ckpt.save_refine_state(self.checkpoint_path, self)
-                self.metrics.log(
-                    "refine_checkpoint", iter=it, path=self.checkpoint_path,
-                    seconds=T.toc("refine_checkpoint"),
-                    bytes=ckpt.checkpoint_bytes(self.checkpoint_path))
+                seconds = T.toc("refine_checkpoint")
+                if self.writes:
+                    self.metrics.log(
+                        "refine_checkpoint", iter=it, path=self.checkpoint_path,
+                        seconds=seconds,
+                        bytes=ckpt.checkpoint_bytes(self.checkpoint_path))
             if it % 3 == 0:
                 self.save_poses(f"after_poses_opt_{it}")
                 self._save_artifacts(f"after_iter_{it}", asynchronous=True)

@@ -364,6 +364,24 @@ def test_scan_resume_matches_uninterrupted(tmp_path, tum):
     assert len(pc.key_images_dev) < len(pc.key_images) == len(pc.key_indices)
 
 
+def test_scan_resume_needs_the_visibility_words_of_its_frame_range(tmp_path, tum):
+    """A checkpoint of a 32-frame capacity resumed by a run whose range needs
+    64 is refused at the resume: frames past the file's words have no bit."""
+    out_b = str(tmp_path / "b") + "/"
+    stopped = ReconstructionPipeline(_scan_cfg(tum["data"], out_b, 4), device=CPU,
+                                     checkpoint_every=2)
+    stopped.run(refine=False)
+    stopped.close()
+    ck = out_b + "scan_checkpoint.npz"
+    assert ckpt.load_scan_state(ck, device=CPU)[0].vis.shape[0] == 1
+    pipe = ReconstructionPipeline(_scan_cfg(tum["data"], str(tmp_path / "c") + "/", 7,
+                                            **{"frame cap": 64}),
+                                  device=CPU, resume=ck)
+    with pytest.raises(ValueError, match="visibility bits for 32 frames"):
+        pipe.run(refine=False)
+    pipe.close()
+
+
 def test_scan_resumes_from_a_jax_checkpoint(tmp_path):
     """The JAX package's scan stopped at frame 4 with a checkpoint, the port
     goes on from it to frame 7, on the sequence and grid of the two command

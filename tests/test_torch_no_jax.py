@@ -35,7 +35,7 @@ def test_import_brings_in_no_jax_and_builds_nothing():
     for new in ("native", "io.png", "io.checkpoint", "parallel.refine",
                 "parallel.distributed", "core.resident", "ops.gn", "ops.fuse",
                 "ops.residual", "ops.distcg", "ops.normaleq", "ops.albedo",
-                "ops.cull"):
+                "ops.cull", "utils.profiling"):
         assert "psgradientsdf_tpu_torch." + new in mods
     code = (
         "import importlib, os, sys\n"

@@ -1,6 +1,6 @@
 """One process of tests/test_torch_distributed.py: joins a gloo process group
 through a file:// rendezvous on the CPU, runs the mesh moves, the process
-information, the refused options, a GT-pose scan with two refinement
+information, a GT-pose scan with two refinement
 iterations on a 2x2 mesh and a tracked scan on a 2x1 mesh, each over the
 group, and pickles what it saw for the test to compare.
 
@@ -177,17 +177,6 @@ def main():
     pm.reset_reduce_counts()
     res["moves"] = to_numpy(run_moves(m41, move_inputs()))
     res["move_counts"] = dict(pm.reduce_counts)
-
-    # (e) what is refused across processes
-    raw = dict(job["raw"], output=os.path.join(job["tmp"], "refused") + "/")
-    res["refused"] = []
-    for kw in ({"checkpoint_every": 1}, {"resume": "scan_checkpoint.npz"}):
-        try:
-            pipeline_mod.ReconstructionPipeline(parse_config(raw, save_copy=False),
-                                                device=CPU, prefetch=False, **kw)
-            res["refused"].append(None)
-        except ValueError as e:
-            res["refused"].append(str(e))
 
     # (b) a GT-pose scan and two refinement iterations on a 2x2 mesh
     out = job["refine_out"]
