@@ -142,12 +142,29 @@ last stage, a partial last stage at 40, the first row count past the
 shared-memory tile), times it, and traces one albedo block, which must
 launch exactly the one kernel, no index_add_ and no device-to-host copy.
 
+The scan's preprocessing (csrc/preprocess.cu: the FALS normals and the
+LAPM sharpness, one launch each a chunk) and the refinement's four energies
+(csrc/energy.cu, one launch an evaluation) are held the same way: every
+scan and refinement phase counts two preprocessing launches a chunk (and a
+normals launch for each frame fused outside a chunk) and one energy_sums
+launch an energy evaluation (a block each on a mesh, on each process), and
+no plain chain on the card; phase preprocess_kernels (after scan_kernels)
+holds the normals bit for bit and LAPM within LAPM_TOL on every chunk of
+the sequence, one frame, 1280x960 frames, all-zero and sparse depth and
+each window, and phase energy_kernels (after albedo_kernels) holds the
+energies within ENERGY_TOL on the main and the LED problems under every
+loss, the mesh's two kinds of call, one row and no valid row, each kernel
+twice bit for bit, with their times in the path's order; with --profile
+the traced scan runs no box filter's reflect pad and the traced
+iterations one energy_sums kernel an evaluation.
+
 With --kernels-only the run stops after the kernels and scan_kernels phases
-(build, checks and times of the kernels): a quick look at a changed kernel.
+(and preprocess_kernels; build, checks and times of the kernels): a quick
+look at a changed kernel.
 It drives no path, so it prints no final "ok" line and exits with 3.
 With --refine-only it runs the main run and phases refine,
-refine_led_upsample, refine_kernels, dist_cg_kernels, normal_eq_kernels and
-albedo_kernels only (with --profile also the refinement's traces), and exits with 3 the
+refine_led_upsample, refine_kernels, dist_cg_kernels, normal_eq_kernels,
+albedo_kernels and energy_kernels only (with --profile also the refinement's traces), and exits with 3 the
 same way:
 the quick look at the refinement's kernels.
 With --distributed-only it runs those phases, then phase `distributed`
@@ -360,7 +377,7 @@ EDGE_CHUNK_ROWS = 4096
 # everything the run builds: the CUDA kernels (nvcc) and the host libraries
 # of the PNG decoder and of the exports (g++), all started together
 LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "normaleq", "albedo",
-             "cull", "png_unfilter", "mc")
+             "cull", "preprocess", "energy", "png_unfilter", "mc")
 
 
 class SmokeFailure(Exception):
@@ -954,6 +971,122 @@ def _plain_cull_calls():
     finally:
         for n, fn in real.items():
             setattr(cull, n, fn)
+
+
+# the scan's preprocessing and the refinement's energies (ops/preprocess.py,
+# ops/energy.py): wrapper -> (its source, the JAX function it replaces, by
+# file:line)
+SLICE_KERNELS = {
+    "fals_normals": ("psgradientsdf_tpu_torch/csrc/preprocess.cu",
+                     "psgradientsdf_tpu/tracking/stream.py:74"),
+    "lapm": ("psgradientsdf_tpu_torch/csrc/preprocess.cu",
+             "psgradientsdf_tpu/tracking/stream.py:74"),
+    "energy_sums": ("psgradientsdf_tpu_torch/csrc/energy.cu",
+                    "psgradientsdf_tpu/refine/optimizer.py:60"),
+}
+
+
+@contextlib.contextmanager
+def _slice_calls():
+    """While the body runs, count the scan's chunk preprocessings
+    (tracking/stream._preprocess), its frames fused outside a chunk
+    (pipeline.compute_normals), the energy evaluations' calls of
+    ops/energy.energy_sums, and the plain preprocessing and energy chains
+    on tensors on the card; the launch counts of the three kernels are set
+    to 0 on entry and read on exit -> the dict of counts.  The module
+    functions are wrapped from outside."""
+    import psgradientsdf_tpu_torch.pipeline as pipeline_mod
+    from psgradientsdf_tpu_torch.ops import energy, preprocess
+    from psgradientsdf_tpu_torch.tracking import stream
+
+    calls = dict(chunks=0, frame_normals=0, energy_calls=0,
+                 plain_preprocess_on_card=0, plain_energy_on_card=0)
+    wrapped = {(stream, "_preprocess"): "chunks",
+               (pipeline_mod, "compute_normals"): "frame_normals",
+               (energy, "energy_sums"): "energy_calls"}
+    plain = {(preprocess, "fals_normals_plain"): ("plain_preprocess_on_card", lambda a: a[0]),
+             (preprocess, "lapm_plain"): ("plain_preprocess_on_card", lambda a: a[0]),
+             (energy, "energy_sums_plain"): ("plain_energy_on_card", lambda a: a[1].r)}
+    real = {k: getattr(*k) for k in list(wrapped) + list(plain)}
+
+    def counted(key):
+        def fn(*a, **kw):
+            calls[wrapped[key]] += 1
+            return real[key](*a, **kw)
+        return fn
+
+    def on_card(key):
+        name, tensor_arg = plain[key]
+
+        def fn(*a, **kw):
+            if tensor_arg(a).device.type != "cpu":
+                calls[name] += 1
+            return real[key](*a, **kw)
+        return fn
+
+    preprocess.reset_launch_counts()
+    energy.reset_launch_counts()
+    for key in wrapped:
+        setattr(*key, counted(key))
+    for key in plain:
+        setattr(*key, on_card(key))
+    try:
+        yield calls
+    finally:
+        for key, fn in real.items():
+            setattr(*key, fn)
+        calls.update(preprocess.launch_counts, **energy.launch_counts)
+
+
+def _energy_evaluations(ref):
+    """The energy evaluations of a refinement loop run from its start: one
+    before the loop, a fused iteration's leading pass and one after each
+    block, and one at the upsample."""
+    from psgradientsdf_tpu_torch.refine.optimizer import block_names
+
+    cfg = ref.cfg
+    names = block_names(cfg.opt_light, cfg.opt_albedo, cfg.opt_distance,
+                        cfg.opt_pose, cfg.joint_dp)
+    upsampled = sum(1 for r in ref.energy_trace if r["block"] == "upsample")
+    return 1 + ref.iterations_run * (1 + len(names)) + upsampled
+
+
+def _local_blocks(ref):
+    """The refinement blocks this process runs: 1 on one device, its
+    entries of the mesh's layout on a mesh."""
+    from psgradientsdf_tpu_torch.parallel import mesh as pm
+
+    if ref.mesh is None:
+        return 1
+    return sum(not pm.is_remote(d) for row in ref.prob.layout.devices for d in row)
+
+
+def _check_slice(calls, what, ref=None, card=None):
+    """A chunk preprocessed with one launch of each preprocessing kernel
+    (fals_normals also once a frame fused outside a chunk), an energy
+    evaluation with one energy_sums launch a block (`ref`'s loop run from
+    its start), no plain chain on the card -> what was counted.  `card`:
+    whether the path ran on the card (by default DEVICE's)."""
+    on_card = (lambda n: n if card else 0) if card is not None else _on_card
+    normals = calls["chunks"] + calls["frame_normals"]
+    check(calls["fals_normals"] == on_card(normals)
+          and calls["lapm"] == on_card(calls["chunks"]),
+          f"{what}: fals_normals {calls['fals_normals']} and lapm {calls['lapm']} "
+          f"launches, {calls['chunks']} chunks and {calls['frame_normals']} frames "
+          "fused alone")
+    check(calls["plain_preprocess_on_card"] == 0,
+          f"{what}: {calls['plain_preprocess_on_card']} plain preprocessing chains on the card")
+    check(calls["plain_energy_on_card"] == 0,
+          f"{what}: {calls['plain_energy_on_card']} plain energy chains on the card")
+    out = dict(calls)
+    if ref is not None:
+        want = _energy_evaluations(ref) * _local_blocks(ref)
+        check(calls["energy_calls"] == want and calls["energy_sums"] == on_card(want),
+              f"{what}: energy_sums {calls['energy_sums']} launches, "
+              f"{calls['energy_calls']} calls, expected {_energy_evaluations(ref)} "
+              f"evaluations x {_local_blocks(ref)} blocks")
+        out.update(energy_evaluations=_energy_evaluations(ref), blocks=_local_blocks(ref))
+    return out
 
 
 def _reset_refine_counts():
@@ -1868,11 +2001,14 @@ def run_scan(tmp, tag, seq, last, rows_impl, refine=None, grid=None,
     _reset_scan_counts()
     _reset_refine_counts()
     t0 = time.perf_counter()
-    with _refine_calls() as refine_calls, _plain_cull_calls() as cull_calls:
+    with _refine_calls() as refine_calls, _plain_cull_calls() as cull_calls, \
+            _slice_calls() as slice_calls:
         summary = pipe.run(refine=refine is not None)
         _sync()
     seconds = time.perf_counter() - t0
     counts = _row_counts()                   # and read just after
+    slice_facts = _check_slice(slice_calls, tag, pipe.refiner if refine is not None
+                               and "resume" not in pipe_kw else None)
     check(cull_calls["plain_cull_on_card"] == 0,
           f"{tag}: {cull_calls['plain_cull_on_card']} plain culls or compactions "
           "ran on the card")
@@ -1884,8 +2020,8 @@ def run_scan(tmp, tag, seq, last, rows_impl, refine=None, grid=None,
         events = [json.loads(line) for line in fh]
     return dict(pipe=pipe, summary=summary, counts=counts,
                 scan_counts=scan_counts, refine_counts=refine_counts,
-                refine_calls=refine_calls, seconds=seconds, out_dir=out_dir,
-                pose_text=pose_text, events=events)
+                refine_calls=refine_calls, slice=slice_facts, seconds=seconds,
+                out_dir=out_dir, pose_text=pose_text, events=events)
 
 
 def check_scan(run, seq, n_frames):
@@ -2117,9 +2253,14 @@ def check_refine_launches(run):
               f"expected {albedo_blocks} albedo blocks")
     check(calls["plain_albedo_solve_on_card"] == 0,
           f"{calls['plain_albedo_solve_on_card']} plain albedo solves on the card")
+    # run_scan held energy_sums launches = energy evaluations (_check_slice)
+    sl = run["slice"]
+    check(sl["energy_evaluations"] == passes - (cfg.model == "LED"),
+          f"{sl['energy_evaluations']} energy evaluations, {passes} residual passes")
     return dict(launches, residual_passes=passes, distance_blocks=blocks,
                 distance_or_joint_blocks=jacobians, pose_blocks=pose_blocks,
-                sh_light_blocks=sh_light_blocks, albedo_blocks=albedo_blocks)
+                sh_light_blocks=sh_light_blocks, albedo_blocks=albedo_blocks,
+                energy_sums=sl["energy_sums"], energy_evaluations=sl["energy_evaluations"])
 
 
 def _one_iteration(ref):
@@ -4020,6 +4161,243 @@ def albedo_kernels(main_run, led_run):
     return facts
 
 
+# ------------------------------------- the scan's preprocessing, the energies
+
+
+PREPROCESS_WINDOWS = (3, 5, 11, 31)
+# preprocess_kernels: LAPM's mean against the plain torch.mean, relative;
+# energy_kernels: each sum against the plain chain's, relative
+LAPM_TOL = 1e-6
+ENERGY_TOL = 1e-5
+
+
+def _prep_frames(seq, frames, scale=1):
+    """Frames of `seq` on the device as the scan's chunk holds them (metric
+    depth [C,H,W], float colour [C,H,W,3]); `scale` repeats each pixel
+    scale x scale times (a frame of scale^2 the pixels)."""
+    from psgradientsdf_tpu_torch.tracking.stream import _to_metric, upload_frames
+
+    K, colors, depths = seq[:3]
+    d = np.stack([depths[f] for f in frames])
+    c = np.stack([colors[f] for f in frames])
+    if scale > 1:
+        d = d.repeat(scale, 1).repeat(scale, 2)
+        c = c.repeat(scale, 1).repeat(scale, 2)
+    return _to_metric(upload_frames(d, DEVICE), upload_frames(c, DEVICE), DEPTH_UNIT)
+
+
+def _prep_case(what, depth, color, cache, window, flush):
+    """fals_normals and lapm (csrc/preprocess.cu) against their plain
+    versions on one chunk: the normals bit for bit, LAPM within LAPM_TOL,
+    each kernel twice bit for bit; with `flush` their times in the path's
+    order (_path_ms: the normals, then LAPM), each after the flush, the
+    plain versions', and their byte bounds -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import preprocess as P
+
+    n = P.fals_normals(depth, cache, window)
+    n2 = P.fals_normals(depth, cache, window)
+    n_plain = P.fals_normals_plain(depth, cache, window)
+    _sync()
+    differing = int((n.view(torch.int32) != n_plain.view(torch.int32)).sum())
+    out = dict(case=what, frames=int(depth.shape[0]) if depth.dim() == 3 else 1,
+               height=int(depth.shape[-2]), width=int(depth.shape[-1]), window=window,
+               zero_depths=int((depth == 0).sum()), normals_differing=differing,
+               normals_max_abs_err=_abs_err(n, n_plain))
+    check(_bits_equal(n, n2), f"{what}: two fals_normals launches differ")
+    check(differing == 0, f"{what}: fals_normals differs from its plain version on "
+                          f"{differing} values (max {out['normals_max_abs_err']:.3g})")
+    if color is not None:
+        s, s2, s_plain = P.lapm(color), P.lapm(color), P.lapm_plain(color)
+        rel = float(((s - s_plain).abs() / s_plain.abs().clamp(min=1e-30)).max())
+        out.update(lapm=[float(v) for v in s.reshape(-1)], lapm_rel_err=rel,
+                   lapm_max_abs_err=_abs_err(s, s_plain))
+        check(_bits_equal(s, s2), f"{what}: two lapm launches differ")
+        check(rel <= LAPM_TOL, f"{what}: lapm {rel:.3g} from its plain version")
+    if flush is not None and color is not None:
+        C, Hh, Ww = out["frames"], out["height"], out["width"]
+        path = _path_ms([lambda: P.fals_normals(depth, cache, window),
+                         lambda: P.lapm(color)])
+        out["fals_normals"] = dict(
+            ms=path[0], ms_after_flush=_time_ms(lambda: P.fals_normals(depth, cache, window), flush),
+            plain_ms=_time_ms(lambda: P.fals_normals_plain(depth, cache, window), flush),
+            # the depth and the cache (x0n, y0n, nsi, Q) read once, the
+            # normals written once
+            bound_ms=(C * Hh * Ww * (4 + 12) + Hh * Ww * 36) / HBM_BYTES_PER_S * 1e3,
+            max_abs_err=out["normals_max_abs_err"], library_ms=None)
+        out["lapm"] = dict(
+            ms=path[1], ms_after_flush=_time_ms(lambda: P.lapm(color), flush),
+            plain_ms=_time_ms(lambda: P.lapm_plain(color), flush),
+            # the RGB frames read once (the blue channel's lines hold all
+            # three), the means written once
+            bound_ms=(C * Hh * Ww * 12 + C * 4) / HBM_BYTES_PER_S * 1e3,
+            rel_err=out["lapm_rel_err"], max_abs_err=out["lapm_max_abs_err"],
+            library_ms=None, values=out.pop("lapm"))
+        for k in ("fals_normals", "lapm"):
+            out[k]["share_of_bound"] = out[k]["bound_ms"] / out[k]["ms"]
+    return out
+
+
+def preprocess_kernels(seq):
+    """The scan's preprocessing kernels (csrc/preprocess.cu) against their
+    plain versions on the card (_prep_case): every chunk of the smoke's
+    sequence as the scan holds it (window 11, the pipeline's cache; the
+    first one timed), one frame, a chunk of 1280x960 frames, an all-zero
+    depth chunk, a sparse depth chunk (nine pixels in ten zero, no NaN),
+    each other window the normals take, and a grey chunk's LAPM.  Launches
+    made here are on no path.  -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import preprocess as P
+    from psgradientsdf_tpu_torch.ops.normals import build_fals_cache
+
+    K = seq[0]
+    flush = (torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+             if DEVICE == "cuda" else None)
+    caches = {w: build_fals_cache(H, W, K, window=w, device=DEVICE)
+              for w in PREPROCESS_WINDOWS}
+    cases = []
+    for c0 in range(0, FRAMES, CHUNK):
+        d, c = _prep_frames(seq, range(c0, min(c0 + CHUNK, FRAMES)))
+        cases.append(_prep_case(f"chunk {c0 // CHUNK}", d, c, caches[11],
+                                11, flush if c0 == 0 else None))
+    d, c = _prep_frames(seq, range(CHUNK))
+    cases.append(_prep_case("one frame", d[3], c[3], caches[11], 11, None))
+    for w in PREPROCESS_WINDOWS:
+        if w != 11:
+            cases.append(_prep_case(f"window {w}", d, c, caches[w], w, None))
+    cases.append(_prep_case("all-zero depth", torch.zeros_like(d), c, caches[11], 11, None))
+    keep = torch.from_numpy(np.random.default_rng(SEED).random(tuple(d.shape)) < 0.1)
+    sparse = torch.where(keep.to(d.device), d, torch.zeros_like(d))
+    cases.append(_prep_case("sparse depth", sparse, c, caches[11], 11, None))
+    cases.append(_prep_case("grey", d, c[..., 2].contiguous(), caches[11], 11, None))
+    K2 = np.asarray(K, np.float64).copy()
+    K2[:2] *= 2.0
+    K2[:2, 2] += 0.5                       # a pixel's centre in the doubled grid
+    big = build_fals_cache(2 * H, 2 * W, K2, window=11, device=DEVICE)
+    d2, c2 = _prep_frames(seq, range(CHUNK), scale=2)
+    cases.append(_prep_case(f"{2 * W}x{2 * H}", d2, c2, big, 11, None))
+    check(cases[-1]["normals_differing"] == 0 and cases[-1]["width"] == 2 * W,
+          "the 1280x960 chunk was not held")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return dict(cases=cases, checked=len(cases), lapm_tolerance=LAPM_TOL,
+                grid=dict(tile=[P.TILE_W, P.TILE_H], blocks=list(P.fals_grid(CHUNK, H, W)),
+                          shared_bytes=P.fals_smem(11)),
+                lapm_plan=list(P.lapm_plan(CHUNK, H, _sm_count() if DEVICE == "cuda" else 132)),
+                timed=cases[0])
+
+
+def _energy_inputs(ref, what):
+    """The refiner's final state: its problem, a residual pass there, dist,
+    albedo, the loop's loss keywords and the surface count."""
+    return dict(what=what, prob=ref.prob, rd=ref._rd(), dist=ref.dist,
+                albedo=ref.albedo, kw=ref._energy_kwargs(), n=ref.prob.n_surface,
+                ref=ref)
+
+
+def _energy_rows(c, rows, what):
+    """c on the rows `rows` alone, every stencil neighbour's value frozen
+    in as a constant (parallel/refine.py's block view)."""
+    import torch
+    from psgradientsdf_tpu_torch.parallel.refine import _view
+
+    view = _view(c["prob"], c["dist"], c["albedo"])
+    idx = torch.as_tensor(list(rows), dtype=torch.long, device=c["dist"].device)
+    prob = view._replace(**{f: getattr(view, f)[idx] for f in view._fields
+                            if f != "n_surface"}, n_surface=len(rows))
+    rd = type(c["rd"])(*(t[idx] for t in c["rd"]))
+    return dict(c, what=what, prob=prob, rd=rd, dist=c["dist"][idx],
+                albedo=c["albedo"][idx], n=len(rows))
+
+
+def _energy_case(c, loss, flush=None, terms=None):
+    """energy_sums (csrc/energy.cu) against its plain version on c under
+    `loss`: each sum and energy within ENERGY_TOL (exactly 0 where the
+    plain one is), two launches bit for bit; with `flush` its time in the
+    path's order (_path_ms: the residual pass, then the energies), after
+    the flush, the plain version's, and its byte bound -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import energy as E
+    from psgradientsdf_tpu_torch.ops import residual
+    from psgradientsdf_tpu_torch.utils import robust
+
+    terms = E.ALL_TERMS if terms is None else terms
+    kw = dict(c["kw"], loss=robust.loss_from_name(loss), terms=terms)
+    args = (c["prob"], c["rd"], c["dist"], c["albedo"])
+    sums, en = E.energy_sums(*args, **kw, n_surface=c["n"])
+    sums2, en2 = E.energy_sums(*args, **kw, n_surface=c["n"])
+    plain = E.energy_sums_plain(*args, **kw)
+    plain_en = plain / max(float(c["n"]), 1.0)
+    _sync()
+    rel = [abs(a - b) / abs(b) if b != 0 else (0.0 if a == 0 else float("inf"))
+           for a, b in zip(torch.cat([sums, en]).tolist(),
+                           torch.cat([plain, plain_en]).tolist())]
+    prob, rd = c["prob"], c["rd"]
+    N, F = int(rd.mask.shape[0]), int(rd.mask.shape[1])
+    masked, valid = int(rd.mask.sum()), int(prob.valid.sum())
+    what = f"{c['what']} {loss}" + ("" if terms == E.ALL_TERMS else f" terms {terms}")
+    out = dict(case=what, rows=N, keyframes=F, valid_rows=valid, counted_pairs=masked,
+               sums=[float(v) for v in sums.cpu()], energies=[float(v) for v in en.cpu()],
+               max_rel_err=max(rel), bits_again=_bits_equal(torch.cat([sums, en]),
+                                                            torch.cat([sums2, en2])))
+    check(out["bits_again"], f"{what}: two energy_sums launches differ")
+    check(max(rel) <= ENERGY_TOL, f"{what}: energy_sums {rel} from its plain version")
+    if flush is not None:
+        ref = c["ref"]
+        run = lambda: E.energy_sums(*args, **kw, n_surface=c["n"])
+        path = _path_ms([lambda: residual.residual_pass(*ref._args(), **ref._static_kwargs()),
+                         run])
+        # the mask read for every pair, r for the counted ones; valid for
+        # every row, a valid row's state and stencil once (dist 4, albedo
+        # 12, direction 12, indices 24 + 48, constants 12 + 36 + 24 bytes);
+        # the sums and energies written
+        bound = (N * F + 12 * masked + N + 172 * valid + 32) / HBM_BYTES_PER_S * 1e3
+        out["energy_sums"] = dict(
+            ms=path[1], residual_pass_ms=path[0], ms_after_flush=_time_ms(run, flush),
+            plain_ms=_time_ms(lambda: E.energy_sums_plain(*args, **kw), flush),
+            bound_ms=bound, max_abs_err=max(abs(float(a) - float(b)) for a, b in
+                                            zip(sums.cpu(), plain.cpu())),
+            library_ms=None)
+        out["energy_sums"]["share_of_bound"] = bound / path[1]
+        out["blocks"] = E.energy_blocks(N, F, _sm_count())
+    return out
+
+
+def energy_kernels(main_run, led_run):
+    """The energies' kernel (csrc/energy.cu) against its plain version on
+    the card (_energy_case): the main run's final problem (SH1, 40
+    keyframes) and the LED run's after its upsample, each under every
+    robust loss (the main one under its own loss timed); the mesh's two
+    kinds of call (the PS sum alone, the three regularizers alone); one
+    row; no valid row.  Launches made here are on no path.  -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import energy as E
+
+    flush = (torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+             if DEVICE == "cuda" else None)
+    main = _energy_inputs(main_run["pipe"].refiner, "main SH1")
+    led = _energy_inputs(led_run["pipe"].refiner, "LED after the upsample")
+    loss = REFINE_SH1["loss function"]
+    cases = [_energy_case(main, loss, flush)]
+    for c in (main, led):
+        cases += [_energy_case(c, name) for name in LOSS_NAMES
+                  if c is led or name != loss]
+    cases += [_energy_case(main, loss, terms=E.PS),
+              _energy_case(main, loss, terms=E.REGULARIZERS)]
+    first = int(torch.nonzero(main["prob"].valid)[0])
+    cases.append(_energy_case(_energy_rows(main, [first], "one row"), loss))
+    none = dict(main, what="no valid row",
+                prob=main["prob"]._replace(valid=torch.zeros_like(main["prob"].valid)),
+                rd=main["rd"]._replace(mask=torch.zeros_like(main["rd"].mask)))
+    cases.append(_energy_case(none, loss))
+    check(all(v == 0 for v in cases[-1]["sums"]), "no valid row: a sum is not 0")
+    check(tuple(led["ref"].geom.dims) == (2 * LED_GRID,) * 3,
+          "the LED case is not the upsampled problem")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return dict(cases=cases, checked=len(cases), tolerance=ENERGY_TOL, timed=cases[0])
+
+
 FIRST_BLOCKS = {"albedo": "_albedo_core", "light": "_light_core",
                 "distance": "_dist_core", "pose": "_pose_core"}
 
@@ -4927,7 +5305,7 @@ def profile_refine(ref):
 
     _one_iteration(ref)                       # warm
     torch.cuda.synchronize()
-    with _refine_calls() as calls, _traced() as prof:
+    with _refine_calls() as calls, _traced() as prof, _slice_calls() as energies:
         t0 = time.perf_counter()
         for _ in range(2):
             _one_iteration(ref)
@@ -4948,6 +5326,12 @@ def profile_refine(ref):
               f"{kernel}: {launched} launches for {calls[name]} {name} calls")
     check(not any("normaleq_reduce_kernel" in r[2] for r in rows),
           "a normaleq_reduce_kernel ran in the traced iterations")
+    # an energy evaluation is ONE energy_sums_kernel launch
+    launched = int(sum(r[1] for r in rows if "energy_sums_kernel" in r[2]))
+    check(launched == energies["energy_calls"] == energies["energy_sums"] > 0
+          and energies["plain_energy_on_card"] == 0,
+          f"energy_sums_kernel: {launched} launches for {energies['energy_calls']} "
+          "energy evaluations")
     runtime = _runtime_calls(prof)
     busy = sum(r[0] for r in rows) * 1e-6
     check(busy > 0.0, "the profiler saw no device time")
@@ -4957,6 +5341,8 @@ def profile_refine(ref):
         iterations=2, traced_wall_seconds=wall, device_busy_seconds=busy,
         warmup_dropped=prof.warmup_dropped,
         index_add_kernels=int(sum(r[1] for r in rows if _is_index_add(r[2]))),
+        energy_evaluations=energies["energy_calls"],
+        torch_reduce_kernels=int(sum(r[1] for r in rows if "reduce_kernel" in r[2])),
         device_busy_share=busy / wall,
         device_ops_per_iteration=int(sum(r[1] for r in rows)) // 2,
         device_ms_per_iteration=busy * 1e3 / 2,
@@ -5001,10 +5387,20 @@ def profile_scan(tmp, seq, frames, plain_seconds):
     cull = {k: int(sum(r[1] for r in rows if f"{k}_kernel" in r[2])) for k in CULL_KERNELS}
     check(all(v == calls for v in cull.values()),
           f"the traced scan's cull kernels {cull}, {calls} culled fusions")
+    # a chunk's preprocessing is one launch of each kernel: no box filter's
+    # reflect pad (the plain chain's first op) on the card
+    sl = traced["slice"]
+    pre = {k: int(sum(r[1] for r in rows if f"{k}_kernel" in r[2]))
+           for k in ("fals_normals", "lapm")}
+    pads = [(n, k[:80]) for _, n, k in rows if "reflection_pad" in k.lower()]
+    check(not pads, f"the traced scan ran a box filter's reflect pad: {pads}")
+    check(pre == {"fals_normals": sl["chunks"] + sl["frame_normals"], "lapm": sl["chunks"]},
+          f"the traced scan's preprocessing kernels {pre}, {sl['chunks']} chunks")
     return dict(
         frames=frames, device_busy_seconds=busy, culled_fusions=calls,
         warmup_dropped=prof.warmup_dropped,
-        cull_kernels=cull, eager_cull_kernels=0,
+        cull_kernels=cull, eager_cull_kernels=0, preprocess_kernels=pre,
+        chunks=sl["chunks"], reflect_pad_kernels=0,
         untraced_scan_seconds=plain_seconds,
         traced_scan_seconds=traced["summary"]["seconds"],
         device_busy_share=busy / plain_seconds,
@@ -5148,7 +5544,7 @@ def cli_mesh_run(tmp, root):
     t0 = time.perf_counter()
     try:
         with open(os.path.join(tmp, "cli_mesh_stdout.txt"), "w") as fh, \
-                contextlib.redirect_stdout(fh):
+                contextlib.redirect_stdout(fh), _slice_calls() as slice_calls:
             rc = cli.main([
                 "--config_file", cfg_path, "--summary-json", summary_path,
                 "--mesh", f"{MESH_CLI[0]}x{MESH_CLI[1]}",
@@ -5160,12 +5556,13 @@ def cli_mesh_run(tmp, root):
     wall = time.perf_counter() - t0
     counts = _row_counts()                   # and read just after
     check(rc == 0 and len(made) == 1, f"the command line returned {rc}")
+    slice_facts = _check_slice(slice_calls, "the command line on a mesh", made[0].refiner)
     with open(summary_path) as fh:
         summary = json.load(fh)
     with open(os.path.join(out, "metrics.jsonl")) as fh:
         cli_events = [json.loads(line) for line in fh]
     cli_run = dict(pipe=made[0], summary=summary, counts=counts, out_dir=out,
-                   events=cli_events)
+                   events=cli_events, slice=slice_facts)
     return cli_run, wall
 
 
@@ -5323,12 +5720,14 @@ def mesh_refine(tmp, seq, main_run, led_run, led_seq, root):
     ref.ops = ref.ops._replace(residuals=_held_first_pass(ref.ops.residuals, first))
     pm.reset_reduce_counts()
     t0 = time.perf_counter()
-    with _replayed_albedo(main_run["albedo_decisions"]) as albedo:
+    with _replayed_albedo(main_run["albedo_decisions"]) as albedo, \
+            _slice_calls() as slice_calls:
         ref.alternating_optimize(opt.opt_light, opt.opt_albedo, opt.opt_distance,
                                  opt.opt_pose)
-    _sync()
+        _sync()
     t_loop = time.perf_counter() - t0
     moved = dict(pm.reduce_counts)
+    slice_a = _check_slice(slice_calls, "(a) SH1 4x2", ref)
     check(first.get("bit_identical"), "(a): the first residual pass was not held")
     channels = 3 * ref.prob.n_surface
     check(max(albedo["differing"]) <= ALBEDO_SHARE * channels,
@@ -5350,7 +5749,7 @@ def mesh_refine(tmp, seq, main_run, led_run, led_seq, root):
         surface_voxels=ref.prob.n_surface, capacity=ref.prob.capacity,
         iterations=ref.iterations_run, stopped=ref.stop_reason,
         relative_difference=seen_a, tolerance=PARITY_TOL,
-        first_residual_pass=first,
+        first_residual_pass=first, energy_launches=slice_a,
         albedo_decisions=dict(albedo, voxel_channels=channels,
                               share_limit=ALBEDO_SHARE, edge_limit=ALBEDO_EDGE),
         init_seconds=t_init, refine_seconds=t_loop,
@@ -5370,6 +5769,7 @@ def mesh_refine(tmp, seq, main_run, led_run, led_seq, root):
     check(tuple(led.geom.dims) == (2 * LED_GRID,) * 3, "(b): the grid was not doubled")
     seen_b = _compare_refiners(led, led_one, "(b) LED + upsample 4x2")
     facts_b = dict(
+        energy_launches=run["slice"],
         surface_voxels=led.prob.n_surface, capacity=led.prob.capacity,
         iterations=led.iterations_run, stopped=led.stop_reason,
         relative_difference=seen_b,
@@ -5389,6 +5789,7 @@ def mesh_refine(tmp, seq, main_run, led_run, led_seq, root):
         mesh=list(MESH_CLI), frames=FRAMES, wall_seconds=wall,
         scan_frames_per_s=summary["fps"], ate_mm=facts["ate_mm"],
         culled_fusions=made[0].fuse_culled_calls, launches=_dma_launches(cli_run),
+        preprocess_and_energy_launches=cli_run["slice"],
         iterations=rfacts["iterations"], stopped=rfacts["stopped"],
         ps_energy_ratio=rfacts["ps_energy_ratio"],
         surface_error_mm=rfacts["surface_error_mm"],
@@ -5520,7 +5921,8 @@ def dist_rank(rank, job_path):
         failure = None
         t0 = time.perf_counter()
         with _plain_cull_calls() as cull_calls, _refine_calls() as refine_calls, \
-                _failing_iteration(spec.get("fail_iteration")) as injected:
+                _failing_iteration(spec.get("fail_iteration")) as injected, \
+                _slice_calls() as slice_calls:
             try:
                 summary = pipe.run(refine=not spec.get("scan_only"))
             except RuntimeError as e:
@@ -5532,12 +5934,18 @@ def dist_rank(rank, job_path):
         wall = time.perf_counter() - t0
         counts = _row_counts()               # and read just after
         moved = dict(pm.reduce_counts)
+        # the energy evaluations are counted for a loop run from its start
+        whole = (summary is not None and not spec.get("scan_only")
+                 and "resume" not in spec)
+        slice_facts = _check_slice(slice_calls, f"rank {rank} {run}",
+                                   pipe.refiner if whole else None,
+                                   card=distributed.home().type == "cuda")
         pipe.close()
         with open(log) as fh:
             events = [json.loads(line) for line in fh]
         got = dict(
             local_slabs=slabs, culled_fusions=pipe.fuse_culled_calls, launches=counts,
-            wall_seconds=wall, failure=failure, writes=list(seen),
+            slice=slice_facts, wall_seconds=wall, failure=failure, writes=list(seen),
             placed=getattr(pipe, "placed", None),
             plain_on_card={k: v for k, v in dict(refine_calls, **cull_calls).items()
                            if k.startswith("plain")},
@@ -5849,7 +6257,7 @@ def distributed_phase(tmp, root, cli_run, led_run, led_seq):
             one_process_seconds_per_iteration=_block_times(cli_run["events"])[1],
             ranks=[dict(rank=res["rank"], backend=res["backend"], device=res["device"],
                         **{run: {k: res[run][k] for k in (
-                            "local_slabs", "launches", "frames_per_s", "refine_seconds",
+                            "local_slabs", "launches", "slice", "frames_per_s", "refine_seconds",
                             "wall_seconds", "seconds_per_iteration", "seconds_per_block",
                             "cg_steps", "moves_per_iteration")} for run in ("sh1", "led")})
                    for res in ranks])
@@ -5908,6 +6316,8 @@ def main():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             scan_facts = scan_kernels(tmp, seq)
         emit("scan_kernels", ok=True, card=card, reps=KERNEL_REPS, **scan_facts)
+        prep_facts = preprocess_kernels(seq)
+        emit("preprocess_kernels", ok=True, card=card, reps=KERNEL_REPS, **prep_facts)
     if "--kernels-only" in sys.argv[1:]:
         return 3
     if "--distributed-only" in sys.argv[1:]:
@@ -5944,6 +6354,8 @@ def main():
                  **normal_eq_kernels(main_run, led_run))
             emit("albedo_kernels", ok=True, card=card, reps=KERNEL_REPS,
                  **albedo_kernels(main_run, led_run))
+            emit("energy_kernels", ok=True, card=card, reps=KERNEL_REPS,
+                 **energy_kernels(main_run, led_run))
             if "--profile" in sys.argv[1:]:
                 emit("profile_refine", card=card, **profile_refine(
                     main_run["pipe"].refiner))
@@ -5984,7 +6396,8 @@ def main():
              keyframes=main_run["summary"]["keyframes"],
              overflow_redos=main_run["summary"]["overflow_redos"],
              fuse_capacity=main_run["summary"]["fuse_capacity"],
-             launches=dict(counts, **scan_counts), **facts)
+             launches=dict(counts, **scan_counts),
+             preprocess_and_energy=main_run["slice"], **facts)
         refine_launches = check_refine_launches(main_run)
         emit("refine", ok=True, card=card, launches=refine_launches,
              **check_refine(main_run, seq, MIN_PS_DROP))
@@ -6061,6 +6474,10 @@ def main():
         # ---- the albedo block's one launch against the plain versions
         albedo_facts = albedo_kernels(main_run, led_run)
         emit("albedo_kernels", ok=True, card=card, reps=KERNEL_REPS, **albedo_facts)
+
+        # ---- the energies' one launch against the plain chain
+        energy_facts = energy_kernels(main_run, led_run)
+        emit("energy_kernels", ok=True, card=card, reps=KERNEL_REPS, **energy_facts)
 
         # ---- the command line on the files, a failure mid-refinement, retry
         emit("resume_refine", ok=True, card=card,
@@ -6238,7 +6655,44 @@ def main():
             "(einsum_b_ms: the one einsum that forms b alone)"))}
     for name in ALBEDO_KERNELS:
         check(refine_launches[name] > 0, f"{name} was never launched on its path")
+    # the scan's preprocessing and the energies: the main run's launches,
+    # the times on its first chunk and on its final problem (SH1, its loss)
+    slice_rows = {
+        "fals_normals": dict(prep_facts["timed"]["fals_normals"], work=(
+            f"the first chunk's FALS normals: {CHUNK} frames of {W}x{H}, window "
+            "11, one launch (a block a 32 x 8 tile, its halo in shared memory), "
+            "timed in the path's order before LAPM, no flush; the bound counts "
+            "the depth, the cache (x0n, y0n, nsi, Q) and the normals once; no "
+            "single PyTorch call computes it")),
+        "lapm": dict(prep_facts["timed"]["lapm"], work=(
+            f"the first chunk's LAPM sharpness: {CHUNK} frames of {W}x{H}, one "
+            "launch (bands of rows, double partials, the last block by ticket), "
+            "timed after the normals; the bound counts the RGB frames read once; "
+            "no single PyTorch call computes it")),
+        "energy_sums": dict(energy_facts["timed"]["energy_sums"], work=(
+            f"the main run's four energies at its final state: "
+            f"{energy_facts['timed']['rows']} surface-voxel slots x "
+            f"{energy_facts['timed']['keyframes']} keyframes, "
+            f"{REFINE_SH1['loss function']} loss, one launch of "
+            f"{energy_facts['timed']['blocks']} blocks, timed in the path's order "
+            "after the residual pass, no flush; the bound counts the mask of every "
+            "pair, r of each counted pair, valid, and a valid row's state and "
+            "stencil once; no single PyTorch call computes it"))}
+    slice_launches = {"fals_normals": main_run["slice"]["fals_normals"],
+                      "lapm": main_run["slice"]["lapm"],
+                      "energy_sums": refine_launches["energy_sums"]}
+    for name in SLICE_KERNELS:
+        check(slice_launches[name] > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=SLICE_KERNELS[name][0],
+             replaces=SLICE_KERNELS[name][1], launches=slice_launches[name],
+             max_abs_err=slice_rows[name]["max_abs_err"], ms=slice_rows[name]["ms"],
+             plain_ms=slice_rows[name]["plain_ms"],
+             bound_ms=slice_rows[name]["bound_ms"], bound_by="bytes",
+             library_ms=None, library_note="no single PyTorch call computes it",
+             ms_after_flush=slice_rows[name]["ms_after_flush"],
+             work=slice_rows[name]["work"])
+        for name in SLICE_KERNELS] + [
         dict(name=name, route="cuda", source=ALBEDO_KERNELS[name][0],
              replaces=ALBEDO_KERNELS[name][1], launches=refine_launches[name],
              max_abs_err=albedo_rows[name]["max_abs_err"], ms=albedo_rows[name]["ms"],

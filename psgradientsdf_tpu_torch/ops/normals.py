@@ -7,10 +7,11 @@ reference's double-precision cache()); per frame, normals come from three
 box filters of 1/z-weighted ray components followed by the cached
 closed-form 3x3 solve and normalization.
 
-Box filters are unnormalized window sums with REFLECT_101 borders (OpenCV
-boxFilter defaults), written as separable shifted-slice sums in float32 —
-the same additions in the same order as the JAX package, and no convolution
-library (cuDNN would run a float32 convolution in TF32 by default).
+The per-frame part is ops/preprocess.py's `fals_normals`: a kernel on the
+card, and on the CPU its plain version, whose box filters are unnormalized
+window sums with REFLECT_101 borders (OpenCV boxFilter defaults) written as
+separable shifted-slice sums in float32 — the same additions in the same
+order as the JAX package.
 """
 
 from __future__ import annotations
@@ -19,25 +20,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from psgradientsdf_tpu_torch import resolve_device
-
-
-def _box_filter(img: torch.Tensor, window: int) -> torch.Tensor:
-    """Unnormalized window-sum box filter with reflect-101 borders over the
-    last two dims of a [...,H,W] tensor."""
-    r = window // 2
-    lead = img.shape[:-2]
-    H, W = img.shape[-2], img.shape[-1]
-    x = F.pad(img.reshape(-1, 1, H, W), (r, r, r, r), mode="reflect")[:, 0]
-    acc = x[..., 0:W]
-    for j in range(1, window):
-        acc = acc + x[..., j:W + j]
-    out = acc[..., 0:H, :]
-    for i in range(1, window):
-        out = out + acc[..., i:H + i, :]
-    return out.reshape(lead + (H, W))
+from psgradientsdf_tpu_torch.ops import preprocess
+from psgradientsdf_tpu_torch.ops.preprocess import _box_filter  # noqa: F401 (the plain filter)
 
 
 class FalsCache(NamedTuple):
@@ -114,25 +100,10 @@ def build_fals_cache(height: int, width: int, K, window: int = 11,
 def compute_normals(depth: torch.Tensor, cache: FalsCache,
                     window: int = 11) -> torch.Tensor:
     """Per-frame FALS normals (NormalEstimator.h compute(), :150-176) for a
-    [H,W] depth map or a [C,H,W] batch, on the cache's device.
+    [H,W] depth map or a [C,H,W] batch, on the cache's device: ops/
+    preprocess.py's fals_normals (one kernel launch on the card).
 
     Returns [...,H,W,3] unit normals (inward-pointing, like the reference).
     Pixels with zero depth contribute 0 to the window sums.
     """
-    depth = torch.as_tensor(depth, dtype=torch.float32, device=cache.Q.device)
-    zero = depth == 0.0
-    z_inv = torch.where(
-        zero, torch.zeros_like(depth),
-        1.0 / torch.where(zero, torch.ones_like(depth), depth))
-    b1 = _box_filter(cache.x0_n_sq_inv * z_inv, window)
-    b2 = _box_filter(cache.y0_n_sq_inv * z_inv, window)
-    b3 = _box_filter(cache.n_sq_inv * z_inv, window)
-
-    Q = cache.Q
-    nx = b1 * Q[..., 0] + b2 * Q[..., 1] + b3 * Q[..., 2]
-    ny = b1 * Q[..., 1] + b2 * Q[..., 3] + b3 * Q[..., 4]
-    nz = b1 * Q[..., 2] + b2 * Q[..., 4] + b3 * Q[..., 5]
-
-    n = torch.stack([nx, ny, nz], dim=-1)
-    norm = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
-    return n / torch.clamp(norm, min=1e-20)
+    return preprocess.fals_normals(depth, cache, window)

@@ -1,0 +1,303 @@
+"""The scan's preprocessing: FALS normals and the LAPM sharpness of a chunk
+of frames, one launch each of the hand-written Hopper kernels in
+csrc/preprocess.cu, or their plain PyTorch versions for CPU tensors.
+
+  fals_normals(depth [C,H,W] or [H,W], cache, window) -> [...,H,W,3]
+  lapm(colors [C,H,W,3] or [H,W,3], or grey [C,H,W] / [H,W]) -> [C] or a scalar
+
+They replace the JAX package's psgradientsdf_tpu/tracking/stream.py
+`_preprocess` (:74-80), one device program a chunk over ops/normals.py
+`compute_normals` (:112) and ops/sharpness.py `modified_laplacian` (:47).
+The plain versions are the port's eager chains (formerly in ops/normals.py
+and ops/sharpness.py, which now call the wrappers): three box filters of
+shifted-slice sums, the closed-form 3x3 solve and the normalisation; two
+separable 3-tap filters and a mean.
+
+The normals kernel computes every product, sum and quotient of the plain
+version in the same order, each rounded once, so the two agree on the card
+bit for bit.  LAPM's filtered values follow the plain arithmetic too; its
+mean over the image is summed in double in a fixed order (and the plain
+torch.mean in float in its own), so the two agree to float32 rounding and
+two launches give the same bits.
+
+A wrapper takes the plain version ONLY for tensors that lie on the CPU; for
+CUDA tensors it launches the kernel or raises.  `launch_counts` counts
+kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+_LIB_NAME = "preprocess"
+launch_counts: Dict[str, int] = {"fals_normals": 0, "lapm": 0}
+
+# the odd box-filter windows the normals kernel takes, 1 .. MAX_WINDOW: its
+# shared memory holds a 32 x 8 tile with a halo of window // 2 on each side
+MAX_WINDOW = 31
+TILE_W, TILE_H = 32, 8
+
+# cv::getGaussianKernel(3) and the second difference of cv::Laplacian
+GAUSS3 = (0.25, 0.5, 0.25)
+LAP3 = (-1.0, 2.0, -1.0)
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# the plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _box_filter(img: torch.Tensor, window: int) -> torch.Tensor:
+    """Unnormalized window-sum box filter with reflect-101 borders over the
+    last two dims of a [...,H,W] tensor (OpenCV boxFilter's defaults), as
+    separable shifted-slice sums in float32: the same additions in the same
+    order as the JAX package, and no convolution library (cuDNN would run
+    a float32 convolution in TF32 by default)."""
+    r = window // 2
+    lead = img.shape[:-2]
+    H, W = img.shape[-2], img.shape[-1]
+    x = F.pad(img.reshape(-1, 1, H, W), (r, r, r, r), mode="reflect")[:, 0]
+    acc = x[..., 0:W]
+    for j in range(1, window):
+        acc = acc + x[..., j:W + j]
+    out = acc[..., 0:H, :]
+    for i in range(1, window):
+        out = out + acc[..., i:H + i, :]
+    return out.reshape(lead + (H, W))
+
+
+def fals_normals_plain(depth: torch.Tensor, cache, window: int = 11) -> torch.Tensor:
+    """FALS normals (NormalEstimator.h compute(), :150-176) of a [H,W] depth
+    map or a [C,H,W] batch on the cache's device -> [...,H,W,3] unit
+    normals (inward-pointing, like the reference).  Pixels with zero depth
+    contribute 0 to the window sums."""
+    zero = depth == 0.0
+    z_inv = torch.where(
+        zero, torch.zeros_like(depth),
+        1.0 / torch.where(zero, torch.ones_like(depth), depth))
+    b1 = _box_filter(cache.x0_n_sq_inv * z_inv, window)
+    b2 = _box_filter(cache.y0_n_sq_inv * z_inv, window)
+    b3 = _box_filter(cache.n_sq_inv * z_inv, window)
+
+    Q = cache.Q
+    nx = b1 * Q[..., 0] + b2 * Q[..., 1] + b3 * Q[..., 2]
+    ny = b1 * Q[..., 1] + b2 * Q[..., 3] + b3 * Q[..., 4]
+    nz = b1 * Q[..., 2] + b2 * Q[..., 4] + b3 * Q[..., 5]
+
+    n = torch.stack([nx, ny, nz], dim=-1)
+    norm = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    return n / torch.clamp(norm, min=1e-20)
+
+
+def _pad1(src: torch.Tensor) -> torch.Tensor:
+    """[...,H,W] -> [...,H+2,W+2] with reflect-101 borders."""
+    lead = src.shape[:-2]
+    H, W = src.shape[-2], src.shape[-1]
+    x = F.pad(src.reshape(-1, 1, H, W), (1, 1, 1, 1), mode="reflect")[:, 0]
+    return x.reshape(lead + (H + 2, W + 2))
+
+
+def _sep_filter(img: torch.Tensor, kx, ky) -> torch.Tensor:
+    """Separable 3-tap filter: kx along columns (x), ky along rows (y),
+    reflect-101 borders (cv::sepFilter2D defaults), as shifted-slice sums."""
+    x = _pad1(img)
+    W = img.shape[-1]
+    H = img.shape[-2]
+    x = kx[0] * x[..., 0:W] + kx[1] * x[..., 1:W + 1] + kx[2] * x[..., 2:W + 2]
+    x = ky[0] * x[..., 0:H, :] + ky[1] * x[..., 1:H + 1, :] + ky[2] * x[..., 2:H + 2, :]
+    return x
+
+
+def is_rgb(img: torch.Tensor) -> bool:
+    """The measures' rule: a last dim of 3 on a tensor of 3 dims or more is
+    a colour image, measured on its channel 2 (blue, BGR channel 0)."""
+    return img.dim() >= 3 and img.shape[-1] == 3
+
+
+def measure_channel(img: torch.Tensor) -> torch.Tensor:
+    return img[..., 2] if is_rgb(img) else img
+
+
+def lapm_plain(img: torch.Tensor) -> torch.Tensor:
+    """LAPM (Nayar89): mean(|Lx| + |Ly|) (SharpDetector.h:22-37) of one image
+    or a batch -> a scalar or [C]."""
+    src = measure_channel(img)
+    Lx = _sep_filter(src, LAP3, GAUSS3)
+    Ly = _sep_filter(src, GAUSS3, LAP3)
+    return torch.mean(Lx.abs() + Ly.abs(), dim=(-2, -1))
+
+
+# ---------------------------------------------------------------------------
+# host plans, the C interface and the library
+# ---------------------------------------------------------------------------
+
+
+def check_window(window: int, H: int, W: int) -> None:
+    """Raise unless the normals take `window` on an H x W image: odd, 1 ..
+    MAX_WINDOW, and its half-width under both sides (the reflect-101 pad's
+    rule)."""
+    if (not isinstance(window, int) or window < 1 or window % 2 == 0
+            or window > MAX_WINDOW):
+        raise ValueError(f"fals_normals: the window must be odd, 1 .. {MAX_WINDOW}, "
+                         f"got {window!r}")
+    if window // 2 >= min(H, W):
+        raise ValueError(f"fals_normals: a window of {window} does not fit a "
+                         f"{H} x {W} image")
+
+
+def fals_grid(C: int, H: int, W: int) -> Tuple[int, int, int]:
+    """The normals kernel's grid: a block a 32 x 8 output tile of a frame."""
+    return -(-W // TILE_W), -(-H // TILE_H), C
+
+
+def fals_smem(window: int) -> int:
+    """The normals kernel's shared memory: the three weighted components of
+    a tile with its halo, and their horizontal sums."""
+    r = window // 2
+    return 4 * 3 * (TILE_H + 2 * r) * (TILE_W + 2 * r + TILE_W)
+
+
+def lapm_plan(C: int, H: int, sms: int) -> Tuple[int, int]:
+    """(bands, rows a band) of LAPM's grid: about two blocks an SM over the
+    C frames, a band of whole rows a block."""
+    want = max(1, min(H, -(-2 * sms // C)))
+    rows = -(-H // want)
+    return -(-H // rows), rows
+
+
+class _FalsArgs(ctypes.Structure):
+    """csrc/preprocess.cu FalsArgs, field for field (every field 8 bytes)."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in ("depth", "x0n", "y0n", "nsi", "Q", "out")]
+        + [(n, ctypes.c_int64) for n in ("C", "H", "W", "window")])
+
+
+class _LapmArgs(ctypes.Structure):
+    """csrc/preprocess.cu LapmArgs, field for field (every field 8 bytes)."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in ("img", "out", "part", "ticket")]
+        + [(n, ctypes.c_int64) for n in
+           ("C", "H", "W", "S", "chan", "frame", "bands", "rows_per_band")])
+
+
+_bound = None
+
+
+def _library():
+    global _bound
+    if _bound is None:
+        from psgradientsdf_tpu_torch.kernels import load_library
+
+        lib = load_library(_LIB_NAME)
+        lib.fals_normals.argtypes = [ctypes.POINTER(_FalsArgs), ctypes.c_void_p]
+        lib.fals_normals.restype = ctypes.c_int
+        lib.lapm.argtypes = [ctypes.POINTER(_LapmArgs), ctypes.c_void_p]
+        lib.lapm.restype = ctypes.c_int
+        _bound = lib
+    return _bound
+
+
+def _launch(name: str, args, dev) -> None:
+    with torch.cuda.device(dev):
+        rc = getattr(_library(), name)(ctypes.byref(args),
+                                       torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {rc}")
+    launch_counts[name] += 1
+
+
+# the ticket of LAPM's last block, one a device and stream: zeroed once when
+# made, each launch's last block leaves it at 0 again
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(dev) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    t = _tickets.get(key)
+    if t is None:
+        t = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
+
+def fals_normals(depth, cache, window: int = 11) -> torch.Tensor:
+    """fals_normals_plain's contract, on the cache's device: one kernel
+    launch on the card, the plain version on the CPU."""
+    depth = torch.as_tensor(depth, dtype=torch.float32, device=cache.Q.device)
+    if depth.dim() not in (2, 3):
+        raise ValueError(f"fals_normals: depth must be [H, W] or [C, H, W], "
+                         f"got {tuple(depth.shape)}")
+    H, W = depth.shape[-2], depth.shape[-1]
+    check_window(window, H, W)
+    if depth.device.type == "cpu":
+        return fals_normals_plain(depth, cache, window)
+    dev = depth.device
+    planes = {"x0_n_sq_inv": (H, W), "y0_n_sq_inv": (H, W), "n_sq_inv": (H, W),
+              "Q": (H, W, 6)}
+    for name, shape in planes.items():
+        t = getattr(cache, name)
+        if t.dtype != torch.float32 or t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"fals_normals: cache.{name} must be float32 "
+                             f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    d = depth.contiguous()
+    C = 1 if d.dim() == 2 else d.shape[0]
+    out = torch.empty(tuple(d.shape) + (3,), dtype=torch.float32, device=dev)
+    if C == 0:
+        return out
+    x0n, y0n, nsi, Q = (getattr(cache, n).contiguous() for n in planes)
+    a = _FalsArgs()
+    a.depth, a.x0n, a.y0n, a.nsi, a.Q, a.out = (
+        d.data_ptr(), x0n.data_ptr(), y0n.data_ptr(), nsi.data_ptr(),
+        Q.data_ptr(), out.data_ptr())
+    a.C, a.H, a.W, a.window = C, H, W, window
+    _launch("fals_normals", a, dev)
+    return out
+
+
+def lapm(img: torch.Tensor) -> torch.Tensor:
+    """lapm_plain's contract: one kernel launch on the card (float32
+    images), the plain version on the CPU."""
+    if img.device.type == "cpu":
+        return lapm_plain(img)
+    if img.dtype != torch.float32:
+        raise TypeError(f"lapm: the image must be float32 on the card, got {img.dtype}")
+    rgb = is_rgb(img)
+    if img.dim() < 2 or (rgb and img.dim() < 3):
+        raise ValueError(f"lapm: not an image: {tuple(img.shape)}")
+    S, chan = (3, 2) if rgb else (1, 0)
+    lead = img.shape[:-3] if rgb else img.shape[:-2]
+    H, W = (img.shape[-3], img.shape[-2]) if rgb else (img.shape[-2], img.shape[-1])
+    if H < 2 or W < 2:
+        raise ValueError(f"lapm: a {H} x {W} image has no reflect-101 border")
+    dev = img.device
+    C = math.prod(lead)
+    out = torch.empty(C, dtype=torch.float32, device=dev)
+    if C == 0:
+        return out.reshape(lead)
+    x = img.contiguous()
+    from psgradientsdf_tpu_torch.kernels import sm_count
+
+    bands, rows = lapm_plan(C, H, sm_count(dev))
+    part = torch.empty(C * bands, dtype=torch.float64, device=dev)
+    a = _LapmArgs()
+    a.img, a.out, a.part, a.ticket = (x.data_ptr(), out.data_ptr(), part.data_ptr(),
+                                      _ticket(dev).data_ptr())
+    a.C, a.H, a.W, a.S, a.chan, a.frame, a.bands, a.rows_per_band = (
+        C, H, W, S, chan, H * W * S, bands, rows)
+    _launch("lapm", a, dev)
+    return out.reshape(lead)

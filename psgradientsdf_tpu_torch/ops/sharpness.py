@@ -10,50 +10,24 @@ i.e. only the FIRST (blue) channel of the BGR image enters the decision
 computed on channel 2 (blue).
 
 Every measure takes one image ([H,W] or [H,W,3]) or a batch ([C,H,W,3]) and
-returns a scalar or a [C] tensor.
+returns a scalar or a [C] tensor.  LAPM is ops/preprocess.py's `lapm` (the
+scan's kernel on the card); the other three are plain PyTorch, as the gate
+does not use them.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-# 3-tap Gaussian from cv::getGaussianKernel(3): [0.25, 0.5, 0.25]
-_GAUSS3 = (0.25, 0.5, 0.25)
-_LAP3 = (-1.0, 2.0, -1.0)
-
-
-def _pad1(src: torch.Tensor) -> torch.Tensor:
-    """[...,H,W] -> [...,H+2,W+2] with reflect-101 borders."""
-    lead = src.shape[:-2]
-    H, W = src.shape[-2], src.shape[-1]
-    x = F.pad(src.reshape(-1, 1, H, W), (1, 1, 1, 1), mode="reflect")[:, 0]
-    return x.reshape(lead + (H + 2, W + 2))
-
-
-def _sep_filter(img: torch.Tensor, kx, ky) -> torch.Tensor:
-    """Separable 3-tap filter: kx along columns (x), ky along rows (y),
-    reflect-101 borders (cv::sepFilter2D defaults), as shifted-slice sums."""
-    x = _pad1(img)
-    W = img.shape[-1]
-    H = img.shape[-2]
-    x = kx[0] * x[..., 0:W] + kx[1] * x[..., 1:W + 1] + kx[2] * x[..., 2:W + 2]
-    x = ky[0] * x[..., 0:H, :] + ky[1] * x[..., 1:H + 1, :] + ky[2] * x[..., 2:H + 2, :]
-    return x
-
-
-def _to_measure_channel(img: torch.Tensor) -> torch.Tensor:
-    if img.shape[-1] == 3 and img.dim() >= 3:
-        return img[..., 2]  # blue channel of an RGB image == BGR channel 0
-    return img
+from psgradientsdf_tpu_torch.ops import preprocess
+from psgradientsdf_tpu_torch.ops.preprocess import _pad1, _sep_filter
+from psgradientsdf_tpu_torch.ops.preprocess import measure_channel as _to_measure_channel
 
 
 def modified_laplacian(img: torch.Tensor) -> torch.Tensor:
-    """LAPM (Nayar89): mean(|Lx| + |Ly|) (SharpDetector.h:22-37)."""
-    src = _to_measure_channel(img)
-    Lx = _sep_filter(src, _LAP3, _GAUSS3)
-    Ly = _sep_filter(src, _GAUSS3, _LAP3)
-    return torch.mean(Lx.abs() + Ly.abs(), dim=(-2, -1))
+    """LAPM (Nayar89): mean(|Lx| + |Ly|) (SharpDetector.h:22-37), through
+    ops/preprocess.py's lapm (one kernel launch on the card)."""
+    return preprocess.lapm(img)
 
 
 def variance_of_laplacian(img: torch.Tensor) -> torch.Tensor:

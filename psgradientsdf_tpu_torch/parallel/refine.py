@@ -59,7 +59,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from psgradientsdf_tpu_torch.config import LED
-from psgradientsdf_tpu_torch.ops import normaleq, residual
+from psgradientsdf_tpu_torch.ops import energy, normaleq, residual
 from psgradientsdf_tpu_torch.parallel import mesh as pm
 from psgradientsdf_tpu_torch.parallel.mesh import is_remote, local_map
 from psgradientsdf_tpu_torch.parallel.shard import (
@@ -205,17 +205,14 @@ def compute_residuals(sp: ShardedProblem, geom, dist: Rows, albedo: Rows,
 def energy_from_rd(sp: ShardedProblem, rd: MeshResiduals, dist, albedo, *,
                    loss, lam, voxel_size) -> torch.Tensor:
     """(E_ps, E_normal, E_laplacian, E_rho) [4] on the first device: every
-    block's sums, the per-voxel ones on the row's first block only, in one
-    reduction, over the GLOBAL surface count."""
+    block's sums (ops/energy.py, one launch a block on the card), the
+    per-voxel ones on the row's first block only, in one reduction, over the
+    GLOBAL surface count."""
     def part(k, j, b):
-        ps = render.ps_energy_sum(rd.rd[k][j], loss=loss, lam=lam)
-        if j == 0:
-            return torch.stack([
-                ps,
-                render.normal_energy_sum(b.view, b.dist, voxel_size),
-                render.laplacian_energy_sum(b.view, b.dist, voxel_size),
-                render.albedo_reg_energy_sum(b.view, b.albedo, voxel_size)])
-        return torch.cat([ps[None], ps.new_zeros(3)])
+        return energy.energy_sums(
+            b.view, rd.rd[k][j], b.dist, b.albedo, loss=loss, lam=lam,
+            voxel_size=voxel_size,
+            terms=energy.ALL_TERMS if j == 0 else energy.PS)
 
     return pm.reduce_to_first(_each(rd.blocks, part)) / max(float(sp.n_surface), 1.0)
 

@@ -64,7 +64,7 @@ from psgradientsdf_tpu_torch.config import LED, OptimizerConfig
 from psgradientsdf_tpu_torch.core.grid import GridGeometry
 from psgradientsdf_tpu_torch.core.volume import GradSdfVolume
 from psgradientsdf_tpu_torch.io import ply, sdf_io, trajectory
-from psgradientsdf_tpu_torch.ops import distcg, normaleq, residual
+from psgradientsdf_tpu_torch.ops import distcg, energy, normaleq, residual
 from psgradientsdf_tpu_torch.ops.image import rgb_float
 from psgradientsdf_tpu_torch.ops.marching_cubes import extract_mesh_from_volume
 from psgradientsdf_tpu_torch.parallel import distributed
@@ -82,13 +82,10 @@ from psgradientsdf_tpu_torch.utils.writer import HostCopies, Writer
 def _energy_from_rd(prob, rd, dist, albedo, *, loss, lam, voxel_size):
     """(E_ps, E_normal, E_laplacian, E_rho) as one [4] tensor, from an
     existing residual pass: the alternating loop evaluates energies from the
-    SAME ResidualData it hands the next block as its linearization point."""
-    return torch.stack([
-        render.ps_energy(prob, rd, loss=loss, lam=lam),
-        render.normal_energy(prob, dist, voxel_size),
-        render.laplacian_energy(prob, dist, voxel_size),
-        render.albedo_reg_energy(prob, albedo, voxel_size),
-    ])
+    SAME ResidualData it hands the next block as its linearization point.
+    One launch of ops/energy.py's kernel on the card."""
+    return energy.energy_sums(prob, rd, dist, albedo, loss=loss, lam=lam,
+                              voxel_size=voxel_size, n_surface=prob.n_surface)[1]
 
 
 def _albedo_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,

@@ -6,7 +6,8 @@ uploaded once and worked through on the device:
 
   * ONE batched preprocessing pass per chunk computes FALS normals
     (NormalEstimator.h:150-176) and the LAPM sharpness measure
-    (SharpDetector.h:22-37) for all C frames;
+    (SharpDetector.h:22-37) for all C frames (on the card two launches,
+    ops/preprocess.py);
   * per frame, `_chunk_step` runs the GN tracking solve
     (RigidPointOptimizer.cpp:27-76) seeded from the previous frame's pose
     and a GATED fusion (VolumetricGradSdf.cpp:51-138) that is a masked
@@ -41,8 +42,8 @@ import torch
 from psgradientsdf_tpu_torch import resolve_device
 from psgradientsdf_tpu_torch.core.grid import GridGeometry
 from psgradientsdf_tpu_torch.core.volume import fuse_frame, fuse_frame_culled
-from psgradientsdf_tpu_torch.ops.normals import FalsCache, compute_normals
-from psgradientsdf_tpu_torch.ops.sharpness import modified_laplacian
+from psgradientsdf_tpu_torch.ops import preprocess
+from psgradientsdf_tpu_torch.ops.normals import FalsCache
 from psgradientsdf_tpu_torch.parallel import shard
 from psgradientsdf_tpu_torch.parallel.mesh import Z_AXIS
 from psgradientsdf_tpu_torch.tracking.tracker import track_frame
@@ -87,10 +88,11 @@ def _to_metric(depths: torch.Tensor, colors: torch.Tensor, depth_unit: float):
 
 def _preprocess(depths: torch.Tensor, colors: torch.Tensor, fals: FalsCache,
                 *, window: int, depth_unit: float = 1.0):
-    """Metric frames, FALS normals [C,H,W,3] and LAPM sharpness [C]."""
+    """Metric frames, FALS normals [C,H,W,3] and LAPM sharpness [C]: on the
+    card one launch of each of ops/preprocess.py's kernels."""
     depths, colors = _to_metric(depths, colors, depth_unit)
-    normals = compute_normals(depths, fals, window=window)
-    sharp = modified_laplacian(colors)
+    normals = preprocess.fals_normals(depths, fals, window)
+    sharp = preprocess.lapm(colors)
     return depths, colors, normals, sharp
 
 

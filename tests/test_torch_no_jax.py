@@ -35,7 +35,7 @@ def test_import_brings_in_no_jax_and_builds_nothing():
     for new in ("native", "io.png", "io.checkpoint", "parallel.refine",
                 "parallel.distributed", "core.resident", "ops.gn", "ops.fuse",
                 "ops.residual", "ops.distcg", "ops.normaleq", "ops.albedo",
-                "ops.cull", "utils.profiling"):
+                "ops.cull", "ops.preprocess", "ops.energy", "utils.profiling"):
         assert "psgradientsdf_tpu_torch." + new in mods
     code = (
         "import importlib, os, sys\n"
@@ -140,11 +140,14 @@ def test_kernel_wrappers_raise_on_cuda_tensors_instead_of_falling_back():
     ("distcg", ("dist_system_kernel", "dist_cg_kernel")),
     ("normaleq", ("pose_tiles_kernel", "light_tiles_kernel")),
     ("albedo", ("albedo_block_kernel",)),
-    ("cull", ("row_activity_kernel", "compact_rows_kernel"))])
+    ("cull", ("row_activity_kernel", "compact_rows_kernel")),
+    ("preprocess", ("fals_normals_kernel", "lapm_kernel")),
+    ("energy", ("energy_sums_kernel",))])
 def test_scan_program_wrappers_raise_on_cuda_tensors_instead_of_falling_back(
         module, kernels):
     """ops/gn.py, ops/fuse.py, ops/residual.py, ops/distcg.py,
-    ops/normaleq.py, ops/albedo.py and ops/cull.py take the plain version
+    ops/normaleq.py, ops/albedo.py, ops/cull.py, ops/preprocess.py and
+    ops/energy.py take the plain version
     only for CPU tensors:
     no try/except around a launch, one CPU branch a wrapper, and their
     kernels hand-written in csrc/ with a plain C interface."""

@@ -1,0 +1,284 @@
+"""The scan's preprocessing module of the PyTorch package, ops/preprocess.py,
+on the CPU, where its wrappers run the plain versions: FALS normals and the
+LAPM sharpness of a chunk of frames.
+
+Against the JAX package on the same numpy frames, at
+tests/test_torch_preprocess.py's tolerances (its docstring says why): the
+normals rtol 1e-5 / atol 1e-6 against the JAX package run op by op, atol
+2e-4 against it compiled (at the pipeline's window and wider), LAPM rtol
+1e-5; single frames and batches, zero
+depths, every window the wrapper takes, and the stream's `_preprocess` as a
+whole against the JAX package's.  Within the port: the wrappers on CPU
+tensors are the plain versions and launch nothing, refuse the windows the
+kernel does not take, and `_preprocess` / `compute_normals` /
+`modified_laplacian` go through them.  The kernels' host side: the tile
+grid covers every pixel once, the shared memory fits a block, the LAPM
+bands cover every row once, the ctypes argument blocks have the C side's
+layout, and numpy emulations of the kernels' loops (the normals' tiles with
+their clamped reflect-101 halo and the window sums in the plain order, the
+LAPM value of each pixel) give the plain version's bits.  The kernels are
+held against the plain versions on the card by chip_smoke.py (phase
+preprocess_kernels).
+"""
+
+import ctypes
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from psgradientsdf_tpu.ops import normals as jnormals
+from psgradientsdf_tpu.ops import sharpness as jsharp
+from psgradientsdf_tpu.tracking import stream as jstream
+from psgradientsdf_tpu_torch import convert
+from psgradientsdf_tpu_torch.ops import normals as tnormals
+from psgradientsdf_tpu_torch.ops import preprocess as P
+from psgradientsdf_tpu_torch.ops import sharpness as tsharp
+from psgradientsdf_tpu_torch.tracking import stream as tstream
+
+from helpers_torch import CPU, intrinsics, se3_exp_np, wavy_frame
+
+torch.set_num_threads(1)
+
+H, W = 48, 64
+# the windows of the FALS solve (one of 1 leaves its 3x3 Gram matrix singular)
+# and of the box filter alone
+WINDOWS = [3, 5, 11, 31]
+BOX_WINDOWS = [1] + WINDOWS
+
+
+def _frames(n, seed=0):
+    K = intrinsics(H, W, 55.0)
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        pose = se3_exp_np([0.004 * i, -0.002 * i, 0.003 * i, 0.002 * i, 0.0, 0.001 * i])
+        out.append(wavy_frame(H, W, K, pose))
+    depths = np.stack([f["depth"] for f in out])
+    colors = np.stack([f["color"] for f in out])
+    colors = np.clip(colors + 0.05 * rng.standard_normal(colors.shape), 0, 1).astype(np.float32)
+    return K, depths, colors
+
+
+def _caches(K, window):
+    jf = jnormals.build_fals_cache(H, W, K, window=window)
+    tf = convert.fals_from_numpy(*(np.array(a) for a in jf), device=CPU)
+    return jf, tf
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_fals_normals_plain_matches_jax(window):
+    K, depths, _ = _frames(3)
+    depths[1, 10:14, 20:30] = 0.0             # holes contribute nothing
+    depths[2, :, :5] = 0.0                    # a zero band at the border
+    jf, tf = _caches(K, window)
+    got = P.fals_normals_plain(torch.from_numpy(depths), tf, window).numpy()
+    assert got.shape == (3, H, W, 3)
+    with jax.disable_jit():
+        eager = np.stack([np.asarray(jnormals.compute_normals(
+            jnp.asarray(d), jf, window=window)) for d in depths])
+    np.testing.assert_allclose(got, eager, rtol=1e-5, atol=1e-6)
+    if window >= 11:
+        # XLA's contracted solve lands within 2e-4 where the window is the
+        # pipeline's or wider; a narrower window's rays are nearer parallel
+        # and its solve cancels more (window 3: 9e-4 apart)
+        compiled = np.asarray(jax.vmap(
+            lambda d: jnormals.compute_normals(d, jf, window=window))(jnp.asarray(depths)))
+        np.testing.assert_allclose(got, compiled, rtol=0, atol=2e-4)
+    # the wrapper on CPU tensors is the plain version, a frame or a batch
+    P.reset_launch_counts()
+    wrapped = P.fals_normals(torch.from_numpy(depths), tf, window)
+    assert torch.equal(wrapped, torch.from_numpy(got))
+    one = P.fals_normals(depths[1], tf, window)
+    assert torch.equal(one, wrapped[1])
+    assert P.launch_counts == {"fals_normals": 0, "lapm": 0}
+
+
+def test_fals_normals_of_an_all_zero_frame_are_zero():
+    K, depths, _ = _frames(2)
+    depths[0] = 0.0
+    jf, tf = _caches(K, 11)
+    got = P.fals_normals(torch.from_numpy(depths), tf, 11).numpy()
+    want = np.asarray(jax.vmap(
+        lambda d: jnormals.compute_normals(d, jf, window=11))(jnp.asarray(depths)))
+    assert (got[0] == 0).all() and (want[0] == 0).all()
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("window", [0, 2, 10, 33, -1])
+def test_fals_normals_refuses_the_windows_the_kernel_does_not_take(window):
+    K, depths, _ = _frames(1)
+    _, tf = _caches(K, 11)
+    with pytest.raises(ValueError, match="window"):
+        P.fals_normals(torch.from_numpy(depths), tf, window)
+
+
+def test_fals_normals_refuses_a_window_wider_than_the_image():
+    K = intrinsics(8, 40, 30.0)
+    jf = jnormals.build_fals_cache(8, 40, K, window=11)
+    tf = convert.fals_from_numpy(*(np.array(a) for a in jf), device=CPU)
+    with pytest.raises(ValueError, match="does not fit"):
+        P.fals_normals(torch.ones(8, 40), tf, 17)
+    assert P.fals_normals(torch.ones(8, 40), tf, 15).shape == (8, 40, 3)
+
+
+def test_lapm_plain_matches_jax():
+    _, _, colors = _frames(3)
+    want = np.asarray([jsharp.modified_laplacian(jnp.asarray(c)) for c in colors])
+    P.reset_launch_counts()
+    batched = P.lapm(torch.from_numpy(colors)).numpy()
+    assert batched.shape == (3,)
+    np.testing.assert_allclose(batched, want, rtol=1e-5)
+    np.testing.assert_array_equal(batched, P.lapm_plain(torch.from_numpy(colors)).numpy())
+    single = P.lapm(torch.from_numpy(colors[2])).numpy()
+    assert single.shape == ()
+    np.testing.assert_allclose(single, want[2], rtol=1e-5)
+    gray = colors[0, ..., 2].copy()
+    np.testing.assert_allclose(P.lapm(torch.from_numpy(gray)).numpy(),
+                               np.asarray(jsharp.modified_laplacian(jnp.asarray(gray))),
+                               rtol=1e-5)
+    assert P.launch_counts == {"fals_normals": 0, "lapm": 0}
+
+
+def test_stream_preprocess_matches_jax_and_goes_through_the_wrappers(monkeypatch):
+    """The chunk's preprocessing as a whole, from the wire format (uint16
+    depth as int32, uint8 colour), against the JAX package's `_preprocess`."""
+    K, depths, colors = _frames(4, seed=3)
+    unit = 1.0 / 5000.0
+    raw_d = np.round(depths / unit).astype(np.int32)
+    raw_d[2, 5:9, 5:40] = 0
+    raw_c = np.round(colors * 255).astype(np.uint8)
+    jf, tf = _caches(K, 11)
+    jn, js = jstream._preprocess(jnp.asarray(raw_d), jnp.asarray(raw_c), jf,
+                                 window=11, depth_unit=unit)
+    calls = {"fals_normals": 0, "lapm": 0}
+
+    def counted(name):
+        real = getattr(P, name)
+
+        def fn(*a, **kw):
+            calls[name] += 1
+            return real(*a, **kw)
+        return fn
+
+    for name in calls:
+        monkeypatch.setattr(P, name, counted(name))
+    d, c, n, s = tstream._preprocess(torch.from_numpy(raw_d), torch.from_numpy(raw_c),
+                                     tf, window=11, depth_unit=unit)
+    assert calls == {"fals_normals": 1, "lapm": 1}
+    np.testing.assert_allclose(n.numpy(), np.asarray(jn), rtol=0, atol=2e-4)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-5)
+    # the per-frame callers go through the same wrappers
+    tnormals.compute_normals(d[0], tf, window=11)
+    tsharp.modified_laplacian(c[0])
+    assert calls == {"fals_normals": 2, "lapm": 2}
+
+
+# ---------------------------------------------------------------------------
+# the kernels' host side
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (8, 480, 640), (1, 960, 1280), (3, 48, 64),
+                                   (2, 9, 33)])
+def test_fals_grid_covers_every_pixel_once(shape):
+    C, h, w = shape
+    gx, gy, gz = P.fals_grid(C, h, w)
+    assert gz == C
+    assert gx * P.TILE_W >= w > (gx - 1) * P.TILE_W
+    assert gy * P.TILE_H >= h > (gy - 1) * P.TILE_H
+
+
+def test_fals_shared_memory_fits_a_block():
+    assert P.fals_smem(11) == 4 * 3 * (8 + 10) * (32 + 10 + 32)
+    for window in range(1, P.MAX_WINDOW + 1, 2):
+        assert P.fals_smem(window) <= 232448
+
+
+@pytest.mark.parametrize("sms", [1, 16, 132])
+@pytest.mark.parametrize("C,h", [(1, 2), (1, 480), (8, 480), (8, 960), (3, 7), (300, 48)])
+def test_lapm_bands_cover_every_row_once(C, h, sms):
+    bands, rows = P.lapm_plan(C, h, sms)
+    assert bands >= 1 and rows >= 1
+    assert bands * rows >= h > (bands - 1) * rows
+    assert C * bands <= max(C, 2 * sms + C)
+
+
+def test_the_argument_blocks_have_the_c_layout():
+    assert ctypes.sizeof(P._FalsArgs) == 8 * 10
+    assert ctypes.sizeof(P._LapmArgs) == 8 * 12
+    assert [f[0] for f in P._FalsArgs._fields_][-4:] == ["C", "H", "W", "window"]
+
+
+def _reflect(i, n):
+    i = np.where(i < 0, -i, i)
+    return np.where(i >= n, 2 * (n - 1) - i, i)
+
+
+def _emulated_box_sums(wt, window):
+    """csrc/preprocess.cu fals_normals_kernel's steps 1-2 on one weighted
+    channel [h, w] in float32: each 32 x 8 tile loads its halo (rows and
+    columns past the last padded one clamped, then reflected), sums each
+    halo row over the window, then each column of those sums, in the plain
+    order."""
+    h, w = wt.shape
+    r = window // 2
+    out = np.full((h, w), np.nan, np.float32)
+    for y0 in range(0, h, P.TILE_H):
+        for x0 in range(0, w, P.TILE_W):
+            py = np.arange(P.TILE_H + 2 * r)
+            px = np.arange(P.TILE_W + 2 * r)
+            sy = _reflect(np.minimum(y0 + py - r, h - 1 + r), h)
+            sx = _reflect(np.minimum(x0 + px - r, w - 1 + r), w)
+            tile = wt[np.ix_(sy, sx)]
+            hs = tile[:, 0:P.TILE_W].copy()
+            for j in range(1, window):
+                hs = hs + tile[:, j:j + P.TILE_W]
+            vs = hs[0:P.TILE_H].copy()
+            for i in range(1, window):
+                vs = vs + hs[i:i + P.TILE_H]
+            ys, xs = min(P.TILE_H, h - y0), min(P.TILE_W, w - x0)
+            out[y0:y0 + ys, x0:x0 + xs] = vs[:ys, :xs]
+    return out
+
+
+@pytest.mark.parametrize("window", BOX_WINDOWS)
+@pytest.mark.parametrize("hw", [(48, 64), (17, 45), (40, 33)])
+def test_the_normals_tiles_give_the_plain_window_sums_bit_for_bit(window, hw):
+    h, w = hw
+    if window // 2 >= min(h, w):
+        pytest.skip("the window does not fit the image")
+    rng = np.random.default_rng(window * 100 + h)
+    wt = rng.standard_normal((h, w)).astype(np.float32)
+    want = P._box_filter(torch.from_numpy(wt), window).numpy()
+    got = _emulated_box_sums(wt, window)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("hw", [(48, 64), (2, 2), (7, 13)])
+def test_the_lapm_pixels_give_the_plain_values_bit_for_bit(hw):
+    """csrc/preprocess.cu lapm_kernel's value of each pixel, |Lx| + |Ly|
+    from its 3 x 3 reflected neighbours in the plain order, and the mean of
+    its double sum within float32 rounding of the plain mean."""
+    h, w = hw
+    rng = np.random.default_rng(h * w)
+    img = rng.random((h, w)).astype(np.float32)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    f = np.float32
+
+    def tap(k, a, b, c):
+        return (f(k[0]) * a + f(k[1]) * b) + f(k[2]) * c
+
+    rows = [_reflect(ys + dy, h) for dy in (-1, 0, 1)]
+    cols = [_reflect(xs + dx, w) for dx in (-1, 0, 1)]
+    lap = [tap(P.LAP3, *(img[r, c] for c in cols)) for r in rows]
+    gau = [tap(P.GAUSS3, *(img[r, c] for c in cols)) for r in rows]
+    value = np.abs(tap(P.GAUSS3, *lap)) + np.abs(tap(P.LAP3, *gau))
+    src = torch.from_numpy(img)
+    want = (P._sep_filter(src, P.LAP3, P.GAUSS3).abs()
+            + P._sep_filter(src, P.GAUSS3, P.LAP3).abs()).numpy()
+    np.testing.assert_array_equal(value.view(np.int32), want.view(np.int32))
+    mean = np.float32(value.astype(np.float64).sum() / (h * w))
+    np.testing.assert_allclose(mean, P.lapm_plain(src).numpy(), rtol=1e-6)
