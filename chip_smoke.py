@@ -158,13 +158,30 @@ twice bit for bit, with their times in the path's order; with --profile
 the traced scan runs no box filter's reflect pad and the traced
 iterations one energy_sums kernel an evaluation.
 
+The distance block's eager tail (its regularizer operators and its update,
+csrc/distreg.cu, one launch each a block) and the LED light's normal
+equations (csrc/normaleq.cu light_led_kernel, one launch a block) are held
+the same way: every refinement phase counts one operators launch and one
+update launch a distance or joint block (a row each on a mesh, on each
+process) and one LED light launch a block (a block each on a mesh), and no
+plain chain on the card; phase dist_tail_kernels (after energy_kernels)
+holds the operators and the update bit for bit on the main and the LED
+problems and their edges (one row, no valid row, frozen neighbours, every
+step refused or accepted, steps at the threshold and one ulp either side,
+the gradient alone) and the LED light within NORMAL_EQ_TOL before and after
+the upsample, on one keyframe, one row and no counted pair, each kernel
+twice bit for bit, with their times in the path's order beside an empty
+launch; dist_cg_kernels' traced distance block launches one of each; with
+--profile profile_refine_led also traces two warm LED iterations.
+
 With --kernels-only the run stops after the kernels and scan_kernels phases
 (and preprocess_kernels; build, checks and times of the kernels): a quick
 look at a changed kernel.
 It drives no path, so it prints no final "ok" line and exits with 3.
 With --refine-only it runs the main run and phases refine,
 refine_led_upsample, refine_kernels, dist_cg_kernels, normal_eq_kernels,
-albedo_kernels and energy_kernels only (with --profile also the refinement's traces), and exits with 3 the
+albedo_kernels, energy_kernels and dist_tail_kernels only (with --profile
+also the refinement's traces), and exits with 3 the
 same way:
 the quick look at the refinement's kernels.
 With --distributed-only it runs those phases, then phase `distributed`
@@ -377,7 +394,7 @@ EDGE_CHUNK_ROWS = 4096
 # everything the run builds: the CUDA kernels (nvcc) and the host libraries
 # of the PNG decoder and of the exports (g++), all started together
 LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "normaleq", "albedo",
-             "cull", "preprocess", "energy", "png_unfilter", "mc")
+             "cull", "preprocess", "energy", "distreg", "png_unfilter", "mc")
 
 
 class SmokeFailure(Exception):
@@ -986,27 +1003,51 @@ SLICE_KERNELS = {
 }
 
 
+# the distance block's eager tail and the LED light's normal equations
+# (ops/distreg.py, ops/normaleq.py): wrapper -> (its source, the JAX
+# function it replaces, by file:line)
+TAIL_KERNELS = {
+    "reg_operators": ("psgradientsdf_tpu_torch/csrc/distreg.cu",
+                      "psgradientsdf_tpu/refine/solvers.py:135"),
+    "dist_update": ("psgradientsdf_tpu_torch/csrc/distreg.cu",
+                    "psgradientsdf_tpu/refine/solvers.py:307"),
+    "light_normal_eqs_led": ("psgradientsdf_tpu_torch/csrc/normaleq.cu",
+                             "psgradientsdf_tpu/refine/solvers.py:538"),
+}
+
+
 @contextlib.contextmanager
 def _slice_calls():
     """While the body runs, count the scan's chunk preprocessings
     (tracking/stream._preprocess), its frames fused outside a chunk
     (pipeline.compute_normals), the energy evaluations' calls of
-    ops/energy.energy_sums, and the plain preprocessing and energy chains
-    on tensors on the card; the launch counts of the three kernels are set
-    to 0 on entry and read on exit -> the dict of counts.  The module
-    functions are wrapped from outside."""
+    ops/energy.energy_sums, the calls of ops/distreg.py's two wrappers
+    (the distance tail) and of ops/normaleq.light_normal_eqs_led, and the
+    plain preprocessing, energy, distance tail and LED light chains on
+    tensors on the card; the launch counts of the six kernels are set to 0
+    on entry and read on exit -> the dict of counts.  The module functions
+    are wrapped from outside."""
     import psgradientsdf_tpu_torch.pipeline as pipeline_mod
-    from psgradientsdf_tpu_torch.ops import energy, preprocess
+    from psgradientsdf_tpu_torch.ops import distreg, energy, normaleq, preprocess
     from psgradientsdf_tpu_torch.tracking import stream
 
-    calls = dict(chunks=0, frame_normals=0, energy_calls=0,
-                 plain_preprocess_on_card=0, plain_energy_on_card=0)
+    calls = dict(chunks=0, frame_normals=0, energy_calls=0, reg_operators_calls=0,
+                 dist_update_calls=0, light_led_calls=0,
+                 plain_preprocess_on_card=0, plain_energy_on_card=0,
+                 plain_dist_tail_on_card=0, plain_led_light_on_card=0)
     wrapped = {(stream, "_preprocess"): "chunks",
                (pipeline_mod, "compute_normals"): "frame_normals",
-               (energy, "energy_sums"): "energy_calls"}
+               (energy, "energy_sums"): "energy_calls",
+               (distreg, "reg_operators"): "reg_operators_calls",
+               (distreg, "dist_update"): "dist_update_calls",
+               (normaleq, "light_normal_eqs_led"): "light_led_calls"}
     plain = {(preprocess, "fals_normals_plain"): ("plain_preprocess_on_card", lambda a: a[0]),
              (preprocess, "lapm_plain"): ("plain_preprocess_on_card", lambda a: a[0]),
-             (energy, "energy_sums_plain"): ("plain_energy_on_card", lambda a: a[1].r)}
+             (energy, "energy_sums_plain"): ("plain_energy_on_card", lambda a: a[1].r),
+             (distreg, "reg_operators_plain"): ("plain_dist_tail_on_card", lambda a: a[1]),
+             (distreg, "dist_update_plain"): ("plain_dist_tail_on_card", lambda a: a[1]),
+             (normaleq, "light_normal_eqs_led_plain"): ("plain_led_light_on_card",
+                                                        lambda a: a[0].w)}
     real = {k: getattr(*k) for k in list(wrapped) + list(plain)}
 
     def counted(key):
@@ -1026,6 +1067,8 @@ def _slice_calls():
 
     preprocess.reset_launch_counts()
     energy.reset_launch_counts()
+    distreg.reset_launch_counts()
+    normaleq.launch_counts["light_normal_eqs_led"] = 0
     for key in wrapped:
         setattr(*key, counted(key))
     for key in plain:
@@ -1035,7 +1078,9 @@ def _slice_calls():
     finally:
         for key, fn in real.items():
             setattr(*key, fn)
-        calls.update(preprocess.launch_counts, **energy.launch_counts)
+        calls.update(preprocess.launch_counts, **energy.launch_counts,
+                     **distreg.launch_counts,
+                     light_normal_eqs_led=normaleq.launch_counts["light_normal_eqs_led"])
 
 
 def _energy_evaluations(ref):
@@ -1061,6 +1106,29 @@ def _local_blocks(ref):
     return sum(not pm.is_remote(d) for row in ref.prob.layout.devices for d in row)
 
 
+def _local_rows(ref):
+    """The rows of the surface set's split this process holds: 1 on one
+    device, its rows of the mesh's layout on a mesh."""
+    from psgradientsdf_tpu_torch.parallel import mesh as pm
+
+    if ref.mesh is None:
+        return 1
+    return sum(not pm.is_remote(row[0]) for row in ref.prob.layout.devices)
+
+
+def _tail_blocks(ref):
+    """(distance and joint blocks, LED light blocks) of a refinement loop
+    run from its start."""
+    from psgradientsdf_tpu_torch.refine.optimizer import block_names
+
+    cfg = ref.cfg
+    names = block_names(cfg.opt_light, cfg.opt_albedo, cfg.opt_distance,
+                        cfg.opt_pose, cfg.joint_dp)
+    dist = ref.iterations_run * sum(n in ("distance", "joint_dp") for n in names)
+    led = ref.iterations_run * names.count("light") * (cfg.model == "LED")
+    return dist, led
+
+
 def _check_slice(calls, what, ref=None, card=None):
     """A chunk preprocessed with one launch of each preprocessing kernel
     (fals_normals also once a frame fused outside a chunk), an energy
@@ -1078,8 +1146,24 @@ def _check_slice(calls, what, ref=None, card=None):
           f"{what}: {calls['plain_preprocess_on_card']} plain preprocessing chains on the card")
     check(calls["plain_energy_on_card"] == 0,
           f"{what}: {calls['plain_energy_on_card']} plain energy chains on the card")
+    check(calls["plain_dist_tail_on_card"] == 0 and calls["plain_led_light_on_card"] == 0,
+          f"{what}: {calls['plain_dist_tail_on_card']} plain distance tails and "
+          f"{calls['plain_led_light_on_card']} plain LED light sums on the card")
     out = dict(calls)
     if ref is not None:
+        # a distance or joint block: one operators call and one update call
+        # a row of the surface set's split; an LED light block one call a
+        # block
+        dist_blocks, led_blocks = _tail_blocks(ref)
+        for name, want in (("reg_operators", dist_blocks * _local_rows(ref)),
+                           ("dist_update", dist_blocks * _local_rows(ref)),
+                           ("light_normal_eqs_led", led_blocks * _local_blocks(ref))):
+            got = calls["light_led_calls" if name == "light_normal_eqs_led"
+                        else name + "_calls"]
+            check(got == want and calls[name] == on_card(want),
+                  f"{what}: {name} {calls[name]} launches, {got} calls, expected {want}")
+        out.update(distance_blocks=dist_blocks, led_light_blocks=led_blocks,
+                   rows=_local_rows(ref))
         want = _energy_evaluations(ref) * _local_blocks(ref)
         check(calls["energy_calls"] == want and calls["energy_sums"] == on_card(want),
               f"{what}: energy_sums {calls['energy_sums']} launches, "
@@ -2253,14 +2337,22 @@ def check_refine_launches(run):
               f"expected {albedo_blocks} albedo blocks")
     check(calls["plain_albedo_solve_on_card"] == 0,
           f"{calls['plain_albedo_solve_on_card']} plain albedo solves on the card")
-    # run_scan held energy_sums launches = energy evaluations (_check_slice)
+    # run_scan held energy_sums launches = energy evaluations, and the
+    # distance tail's and the LED light's launches (_check_slice)
     sl = run["slice"]
     check(sl["energy_evaluations"] == passes - (cfg.model == "LED"),
           f"{sl['energy_evaluations']} energy evaluations, {passes} residual passes")
+    led_light_blocks = iters * names.count("light") * (cfg.model == "LED")
+    for name, want in (("reg_operators", jacobians), ("dist_update", jacobians),
+                       ("light_normal_eqs_led", led_light_blocks)):
+        check(sl[name] == _on_card(want),
+              f"{name}: {sl[name]} launches, expected {want} blocks")
     return dict(launches, residual_passes=passes, distance_blocks=blocks,
                 distance_or_joint_blocks=jacobians, pose_blocks=pose_blocks,
                 sh_light_blocks=sh_light_blocks, albedo_blocks=albedo_blocks,
-                energy_sums=sl["energy_sums"], energy_evaluations=sl["energy_evaluations"])
+                led_light_blocks=led_light_blocks,
+                energy_sums=sl["energy_sums"], energy_evaluations=sl["energy_evaluations"],
+                **{name: sl[name] for name in TAIL_KERNELS})
 
 
 def _one_iteration(ref):
@@ -3165,6 +3257,10 @@ def _distance_block_traces(ref, w_n, w_l):
     check(out["device_kernels"] > 0, "the profiler saw no kernel of a distance block")
     check(out["index_add_kernels"] == 0,
           f"the distance block ran {out['index_add_kernels']} index_add_ kernels")
+    out["tail_kernels"] = {k: int(sum(r[1] for r in rows if k in r[2]))
+                           for k in ("reg_operators_kernel", "dist_update_kernel")}
+    check(all(v == 1 for v in out["tail_kernels"].values()),
+          f"the distance block's tail kernels: {out['tail_kernels']}")
     return out
 
 
@@ -4398,6 +4494,347 @@ def energy_kernels(main_run, led_run):
     return dict(cases=cases, checked=len(cases), tolerance=ENERGY_TOL, timed=cases[0])
 
 
+@contextlib.contextmanager
+def _first_led_light():
+    """While the body runs, keep the arguments of the first call of
+    ops/normaleq.light_normal_eqs_led (an LED run's first light block,
+    before its upsample), w and r copied -> the dict, "args" once called.
+    The module function is wrapped from outside."""
+    from psgradientsdf_tpu_torch.ops import normaleq
+
+    seen = {}
+    real = normaleq.light_normal_eqs_led
+
+    def fn(rd, *a):
+        if "args" not in seen:
+            seen["args"] = (rd._replace(w=rd.w.clone(), r=rd.r.clone()),) + tuple(
+                t.clone() if hasattr(t, "clone") else t for t in a)
+        return real(rd, *a)
+
+    normaleq.light_normal_eqs_led = fn
+    try:
+        yield seen
+    finally:
+        normaleq.light_normal_eqs_led = real
+
+
+def _tail_inputs(ref, w_n, w_l, what, diag_only=False):
+    """A refiner's distance block at its state: its problem, dist, the
+    step h, the operators its weights turn on, and the step its solve
+    takes there (dist_system and dist_cg on _dist_inputs) -> dict."""
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    c = _dist_inputs(ref, w_n, w_l, diag_only)
+    A, t = DC.dist_system(c["rd"], c["DJ"], c["eik"], reg_weight_n=w_n)
+    cg_kw = dict(reg_weight_l=w_l, damping=c["damping"], cg_iters=100, cg_tol=1e-6,
+                 cg_static=False)
+    delta = DC.dist_cg(A, t, c["prob"].valid, c["stencil"], c["lap"], **cg_kw)
+    return dict(what=what, prob=c["prob"], dist=ref.dist,
+                h=float(ref._static_kwargs()["voxel_size"]), eikonal=w_n != 0.0,
+                laplacian=w_l != 0.0, diag_only=diag_only, delta=delta,
+                system=(A, t, c["prob"].valid, c["stencil"], c["lap"], cg_kw, w_n, c))
+
+
+def _tail_rows(c, rows, what):
+    """c on the rows `rows` alone, every stencil neighbour's value frozen
+    in as a constant (parallel/refine.py's distance view)."""
+    import torch
+    from psgradientsdf_tpu_torch.parallel.refine import _dist_view
+
+    view = _dist_view(c["prob"], c["dist"])
+    idx = torch.as_tensor(list(rows), dtype=torch.long, device=c["dist"].device)
+    prob = view._replace(**{f: getattr(view, f)[idx] for f in view._fields
+                            if f != "n_surface"}, n_surface=len(rows))
+    return dict(c, what=what, prob=prob, dist=c["dist"][idx], delta=c["delta"][idx],
+                system=None)
+
+
+def _empty_launch_ms():
+    """Device ms of an empty launch (a spin kernel of 0 cycles) timed as
+    _path_ms times a path's kernels."""
+    import torch
+
+    return _path_ms([lambda: torch.cuda._sleep(0)])[0]
+
+
+def _ops_case(c, flush=None):
+    """reg_operators (csrc/distreg.cu) twice and its plain version on c:
+    every output bit for bit, the second launch too; with `flush` its time
+    in the distance block's order (_path_ms: the operators, dist_system,
+    dist_cg, the update), after the flush, the plain chain's, and its byte
+    bound -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+    from psgradientsdf_tpu_torch.ops import distreg as DR
+
+    args = (c["prob"], c["dist"], c["h"])
+    kw = dict(eikonal=c["eikonal"], laplacian=c["laplacian"], diag_only=c["diag_only"])
+    got, again, plain = (DR.reg_operators(*args, **kw), DR.reg_operators(*args, **kw),
+                         DR.reg_operators_plain(*args, **kw))
+    _sync()
+    outs = {}
+    for op, a, b, p in zip(("eikonal", "laplacian"), got, again, plain):
+        check((a is None) == (p is None) == (not kw[op]), f"{c['what']}: {op} asked for or not")
+        if a is None:
+            continue
+        for name in a._fields:
+            x, y, z = getattr(a, name), getattr(b, name), getattr(p, name)
+            if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
+                outs[f"{op}.{name}"] = _abs_err(x, z)
+                check(_bits_equal(x, z), f"reg_operators differs from its plain version: "
+                                         f"{c['what']}, {op} {name}, by up to {_abs_err(x, z)}")
+                check(_bits_equal(x, y), f"{c['what']}: two reg_operators launches differ")
+            else:
+                check(x is z or x == z, f"{c['what']}: {op} {name} differs")
+    p = c["prob"]
+    N = int(p.valid.shape[0])
+    valid = p.valid
+    out = dict(case=c["what"], rows=N, valid_rows=int(valid.sum()), **kw,
+               frozen_links=int((p.nbr_idx[valid] < 0).sum()), bit_identical=True,
+               max_abs_err=0.0)
+    if not bool(valid.any()):
+        check(all(float(op.r.abs().max()) == 0.0 for op in got if op is not None),
+              f"{c['what']}: a residual of no valid row is not 0")
+    if flush is not None and DEVICE == "cuda":
+        A, t, v, st, lap, cg_kw, w_n, dc = c["system"]
+        path = _path_ms([lambda: DR.reg_operators(*args, **kw),
+                         lambda: DC.dist_system(dc["rd"], dc["DJ"], dc["eik"], reg_weight_n=w_n),
+                         lambda: DC.dist_cg(A, t, v, st, lap, **cg_kw),
+                         lambda: DR.dist_update(p, c["dist"], c["delta"], c["h"])])
+        # each input read once (valid, dist, the direction, the indices and
+        # the constants; lap_idx and its constants with the Laplacian), each
+        # output written once (r, J0, Ji; the Laplacian's r)
+        read = 53 + (72 if c["laplacian"] else 0)
+        written = (20 if c["eikonal"] else 0) + (4 if c["laplacian"] else 0)
+        bound = N * (read + written) / HBM_BYTES_PER_S * 1e3
+        out["reg_operators"] = dict(
+            ms=path[0], ms_after_flush=_time_ms(lambda: DR.reg_operators(*args, **kw), flush),
+            plain_ms=_time_ms(lambda: DR.reg_operators_plain(*args, **kw), flush),
+            bound_ms=bound, bytes=N * (read + written), max_abs_err=0.0, library_ms=None,
+            blocks=DR.row_blocks(N, _sm_count()))
+        out["reg_operators"]["share_of_bound"] = bound / path[0]
+        out["path_ms"] = dict(reg_operators=path[0], dist_system=path[1], dist_cg=path[2],
+                              dist_update=path[3])
+    return out
+
+
+def _dist_update_case(c, delta, what, flush=None, path=None):
+    """dist_update (csrc/distreg.cu) twice and its plain version on c's
+    problem and dist with the step `delta` (None: the gradient alone):
+    both outputs bit for bit, the second launch too; with `flush` its time
+    (`path`: the distance block's, _ops_case), after the flush, the plain
+    chain's and its byte bound -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distreg as DR
+
+    args = (c["prob"], c["dist"], delta, c["h"])
+    got, again, plain = DR.dist_update(*args), DR.dist_update(*args), DR.dist_update_plain(*args)
+    _sync()
+    for name, a, b, p in zip(("new_dist", "new_grad"), got, again, plain):
+        check(_bits_equal(a, p), f"dist_update differs from its plain version: {what}, "
+                                 f"{name}, by up to {_abs_err(a, p)}")
+        check(_bits_equal(a, b), f"{what}: two dist_update launches differ")
+    N = int(c["dist"].shape[0])
+    accepted = int((got[0] != c["dist"]).sum()) if delta is not None else 0
+    out = dict(case=what, rows=N, valid_rows=int(c["prob"].valid.sum()),
+               step=delta is not None, accepted=accepted, bit_identical=True)
+    if flush is not None and DEVICE == "cuda":
+        # valid, dist, delta, the direction, the indices and the constants
+        # read once, the new distances and gradient written once
+        nbytes = N * (57 + 16)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out["dist_update"] = dict(
+            ms=path["dist_update"], ms_after_flush=_time_ms(lambda: DR.dist_update(*args), flush),
+            plain_ms=_time_ms(lambda: DR.dist_update_plain(*args), flush),
+            bound_ms=bound, bytes=nbytes, max_abs_err=0.0, library_ms=None,
+            blocks=DR.row_blocks(N, _sm_count()))
+        out["dist_update"]["share_of_bound"] = bound / path["dist_update"]
+    return out
+
+
+def _edge_steps(c):
+    """Steps of exactly the threshold (the float the plain rule compares
+    with) and one ulp either side, of both signs, row by row."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distreg as DR
+
+    thr = torch.tensor(DR.accept_threshold(c["h"]), dtype=torch.float32)
+    below = torch.nextafter(thr, torch.tensor(0.0))
+    above = torch.nextafter(thr, torch.tensor(1.0))
+    six = torch.stack([below, thr, above, -below, -thr, -above])
+    N = int(c["dist"].shape[0])
+    return six.repeat(-(-N // 6))[:N].to(c["dist"].device), six
+
+
+def _led_inputs(what, rd, prob, geom, dist, grad, albedo, poses):
+    return dict(what=what, args=(rd, prob, geom, dist, grad, albedo, poses))
+
+
+def _led_case(c, flush=None, ref=None):
+    """light_normal_eqs_led (csrc/normaleq.cu) twice and its plain version
+    on c: H within NORMAL_EQ_TOL of the plain version's max|H|, g within it
+    of each channel's sum of |w r J| (0 where the plain one is), the second
+    launch bit for bit; with `flush` its time in the light block's order
+    (_path_ms: the residual pass of `ref`, then the sums), after the flush,
+    the plain chain's and its byte bound -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import normaleq as NE
+    from psgradientsdf_tpu_torch.ops import residual as RS
+    from psgradientsdf_tpu_torch.refine import jacobians
+
+    args = c["args"]
+    rd, prob, geom, dist, grad, albedo, poses = args
+    H, g = NE.light_normal_eqs_led(*args)
+    H2, g2 = NE.light_normal_eqs_led(*args)
+    Hp, gp = NE.light_normal_eqs_led_plain(*args)
+    J = jacobians.light_jacobian_led(prob, geom, dist, grad, albedo, poses)
+    g_scale = (rd.w * J * rd.r).abs().sum(dim=(0, 1))
+    _sync()
+    h_err = float((H - Hp).abs().max() / Hp.abs().max().clamp(min=1e-30))
+    if float(Hp.abs().max()) == 0.0:
+        h_err = float(H.abs().max())
+    g_err = float(torch.where(g_scale > 0, (g - gp).abs() / g_scale.clamp(min=1e-30),
+                              (g - gp).abs()).max())
+    N, F = int(rd.w.shape[0]), int(rd.w.shape[1])
+    out = dict(case=c["what"], rows=N, keyframes=F, H=[float(v) for v in H.cpu()],
+               g=[float(v) for v in g.cpu()], H_rel_err=h_err, g_rel_err=g_err,
+               counted_pairs=int((rd.w != 0).any(-1).sum()),
+               bits_again=_bits_equal(torch.cat([H, g]), torch.cat([H2, g2])),
+               max_abs_err=max(_abs_err(H, Hp), _abs_err(g, gp)))
+    check(out["bits_again"], f"{c['what']}: two light_normal_eqs_led launches differ")
+    check(h_err <= NORMAL_EQ_TOL and g_err <= NORMAL_EQ_TOL,
+          f"{c['what']}: light_normal_eqs_led H {h_err:.3g}, g {g_err:.3g} from its plain "
+          f"version (limit {NORMAL_EQ_TOL})")
+    if flush is not None and DEVICE == "cuda":
+        skw = ref._static_kwargs()
+        path = _path_ms([lambda: RS.residual_pass(*ref._args(), **skw),
+                         lambda: NE.light_normal_eqs_led(*args)])
+        # w and r of every pair, a row's voxel, dist, gradient and albedo,
+        # the poses read once; H and g written
+        nbytes = N * F * 24 + N * 40 + F * 64 + 24
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out["light_normal_eqs_led"] = dict(
+            ms=path[1], residual_pass_ms=path[0],
+            ms_after_flush=_time_ms(lambda: NE.light_normal_eqs_led(*args), flush),
+            plain_ms=_time_ms(lambda: NE.light_normal_eqs_led_plain(*args), flush),
+            bound_ms=bound, bytes=nbytes, max_abs_err=out["max_abs_err"], library_ms=None,
+            blocks=NE.led_blocks(N, F, _sm_count()))
+        out["light_normal_eqs_led"]["share_of_bound"] = bound / path[1]
+    return out
+
+
+def dist_tail_kernels(main_run, led_run, led_first):
+    """The distance tail's kernels and the LED light's (csrc/distreg.cu,
+    csrc/normaleq.cu light_led_kernel) against their plain versions on the
+    card.  reg_operators, bit for bit: the main run's final problem (SH1,
+    the Eikonal operator alone at its loop's weight, timed), the LED run's
+    after the upsample (both operators; the Laplacian's diagonal alone),
+    one row, no valid row, a row whose every neighbour is frozen.
+    dist_update, bit for bit: the main and the LED problems with their
+    solves' steps (the main one timed), every step refused, every step
+    accepted, steps at the threshold and one ulp either side (the card's
+    rule read off: the ulp below accepted, the threshold and above not),
+    the gradient alone (delta=None), one row, no valid row.
+    light_normal_eqs_led, within NORMAL_EQ_TOL: the LED run's block after
+    the upsample (timed) and before it (`led_first`: its first light
+    block's arguments), one keyframe, one row, no counted pair.  Each
+    kernel twice bit for bit.  Launches made here are on no path.
+    -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distreg as DR
+
+    flush = (torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+             if DEVICE == "cuda" else None)
+    ref, led = main_run["pipe"].refiner, led_run["pipe"].refiner
+    main_w, led_w = _loop_weights(ref), _loop_weights(led)
+    check(main_w[0] > 0 and main_w[1] == 0 and led_w[0] > 0 and led_w[1] > 0,
+          f"the loops' weights: {main_w}, {led_w}")
+    main = _tail_inputs(ref, *main_w, "main SH1")
+    lc = _tail_inputs(led, *led_w, "LED after the upsample")
+    ops = [_ops_case(main, flush)]
+    path = ops[0].get("path_ms")
+    ops.append(_ops_case(lc))
+    ops.append(_ops_case(dict(lc, what="LED, the Laplacian's diagonal alone", diag_only=True)))
+    p = lc["prob"]
+    valid_rows = torch.nonzero(p.valid)[:, 0]
+    row = int(valid_rows[len(valid_rows) // 2])
+    ops.append(_ops_case(_tail_rows(lc, [row], "one row")))
+    ops.append(_ops_case(dict(lc, what="no valid row",
+                              prob=p._replace(valid=torch.zeros_like(p.valid)))))
+    nbr, lap = p.nbr_idx.clone(), p.lap_idx.clone()
+    nbr[row], lap[row] = -1, -1
+    cut = dict(lc, what="a row with every neighbour frozen",
+               prob=p._replace(nbr_idx=nbr, lap_idx=lap))
+    ops.append(_ops_case(cut))
+    check(ops[0]["eikonal"] and not ops[0]["laplacian"] and ops[1]["laplacian"],
+          "the main case is not the Eikonal operator alone or the LED case not both")
+
+    upd = [_dist_update_case(main, main["delta"], "main SH1, its solve's step", flush, path),
+           _dist_update_case(lc, lc["delta"], "LED after the upsample, its solve's step")]
+    thr = DR.accept_threshold(main["h"])
+    upd.append(_dist_update_case(main, torch.full_like(main["dist"], 2.0 * thr),
+                            "main SH1, every step refused"))
+    check(upd[-1]["accepted"] == 0, "every step refused: a row moved")
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    sign = torch.where(torch.rand(main["dist"].shape, generator=gen) < 0.5, -1.0, 1.0)
+    upd.append(_dist_update_case(main, (0.5 * thr * sign).to(main["dist"].device),
+                            "main SH1, every step accepted"))
+    check(upd[-1]["accepted"] == upd[-1]["valid_rows"],
+          f"every step accepted: {upd[-1]['accepted']} of {upd[-1]['valid_rows']} rows moved")
+    steps, six = _edge_steps(main)
+    upd.append(_dist_update_case(main, steps, "main SH1, steps at the threshold and one ulp "
+                                         "either side"))
+    got = DR.dist_update(main["prob"], main["dist"], steps, main["h"])[0]
+    moved = (got != main["dist"]) & main["prob"].valid
+    taken = [bool(moved[k::6][main["prob"].valid[k::6]].all()) for k in range(6)]
+    refused = [not bool(moved[k::6].any()) for k in range(6)]
+    check(taken[0] and taken[3] and all(refused[k] for k in (1, 2, 4, 5)),
+          f"the threshold on the card: taken {taken}, refused {refused}")
+    upd[-1].update(threshold=float(six[1]), steps=[float(v) for v in six],
+                   accepted_by_kind=taken)
+    upd.append(_dist_update_case(main, None, "main SH1, the gradient alone (delta=None)"))
+    upd.append(_dist_update_case(_tail_rows(lc, [row], "one row"), None, "LED one row, gradient"))
+    one = _tail_rows(lc, [row], "one row")
+    upd.append(_dist_update_case(one, one["delta"], "LED one row, its step"))
+    none = lc["prob"]._replace(valid=torch.zeros_like(lc["prob"].valid))
+    upd.append(_dist_update_case(dict(lc, prob=none), lc["delta"], "LED, no valid row"))
+    check(upd[-1]["accepted"] == 0, "no valid row: a row moved")
+
+    rd_led = led._rd()
+    after = _led_inputs("LED after the upsample", rd_led, led.prob, led.geom, led.dist,
+                        led.grad_stored, led.albedo, led.poses)
+    lights = [_led_case(after, flush, led)]
+    check(bool(led_first.get("args")), "the LED run's first light block was not recorded")
+    first = led_first["args"]
+    lights.append(_led_case(_led_inputs("LED before the upsample", *first)))
+    check(lights[-1]["rows"] < lights[0]["rows"], "the recorded block is not the smaller "
+                                                  "problem before the upsample")
+    rd, prob, geom, dist, grad, albedo, poses = after["args"]
+    lights.append(_led_case(_led_inputs(
+        "one keyframe", rd._replace(w=rd.w[:, :1].contiguous(), r=rd.r[:, :1].contiguous()),
+        prob, geom, dist, grad, albedo, poses[:1].contiguous())))
+    lights.append(_led_case(_led_inputs(
+        "one row", rd._replace(w=rd.w[row:row + 1], r=rd.r[row:row + 1]),
+        prob._replace(idx_xyz=prob.idx_xyz[row:row + 1]), geom, dist[row:row + 1],
+        grad[row:row + 1], albedo[row:row + 1], poses)))
+    lights.append(_led_case(_led_inputs(
+        "no counted pair", rd._replace(w=torch.zeros_like(rd.w)), prob, geom, dist, grad,
+        albedo, poses)))
+    check(all(v == 0.0 for v in lights[-1]["H"] + lights[-1]["g"]),
+          "no counted pair: H or g is not 0")
+    facts = dict(reg_operators=ops, dist_update=upd, light_normal_eqs_led=lights,
+                 checked=len(ops) + len(upd) + len(lights), tolerance=NORMAL_EQ_TOL,
+                 timed=dict(reg_operators=ops[0].get("reg_operators"),
+                            dist_update=upd[0].get("dist_update"),
+                            light_normal_eqs_led=lights[0].get("light_normal_eqs_led"),
+                            rows=ops[0]["rows"], led_rows=lights[0]["rows"],
+                            led_keyframes=lights[0]["keyframes"], path_ms=path))
+    if DEVICE == "cuda":
+        facts["timed"]["empty_launch_ms"] = _empty_launch_ms()
+        torch.cuda.empty_cache()
+    return facts
+
+
 FIRST_BLOCKS = {"albedo": "_albedo_core", "light": "_light_core",
                 "distance": "_dist_core", "pose": "_pose_core"}
 
@@ -5311,11 +5748,24 @@ def profile_refine(ref):
             _one_iteration(ref)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    led = ref.cfg.model == "LED"
     for name in list(NORMAL_EQ_KERNELS) + list(ALBEDO_KERNELS):
-        check(calls[name] == 2, f"{name}: {calls[name]} calls in two iterations")
+        want = 0 if led and name == "light_normal_eqs_sh" else 2
+        check(calls[name] == want, f"{name}: {calls[name]} calls in two iterations")
     check(calls["plain_normal_eqs_on_card"] == 0 and calls["plain_albedo_solve_on_card"] == 0,
           "plain normal equations or albedo solves ran on the card in the traced iterations")
     rows = sorted(_kernel_rows(prof), reverse=True)
+    # a distance block launches ONE reg_operators_kernel and ONE
+    # dist_update_kernel, an LED light block ONE light_led_kernel
+    tail = {}
+    for name, kernel, want in (("reg_operators", "reg_operators_kernel", 2),
+                               ("dist_update", "dist_update_kernel", 2),
+                               ("light_normal_eqs_led", "light_led_kernel", 2 * led)):
+        tail[kernel] = int(sum(r[1] for r in rows if kernel in r[2]))
+        check(tail[kernel] == energies[name] == want,
+              f"{kernel}: {tail[kernel]} launches, {energies[name]} counted, {want} blocks")
+    check(energies["plain_dist_tail_on_card"] == 0 and energies["plain_led_light_on_card"] == 0,
+          "a plain distance tail or LED light chain ran in the traced iterations")
     # a pose or SH light block launches ONE normal-equation kernel, an
     # albedo block ONE albedo_block_kernel
     for name, kernel in (("pose_normal_eqs", "pose_tiles_kernel"),
@@ -5338,8 +5788,12 @@ def profile_refine(ref):
     check(not any("gemmSN" in r[2] for r in rows),
           "a cuBLAS gemmSN kernel ran in the traced iterations")
     return dict(
+        model=ref.cfg.model, surface_voxels=ref.prob.n_surface,
         iterations=2, traced_wall_seconds=wall, device_busy_seconds=busy,
-        warmup_dropped=prof.warmup_dropped,
+        warmup_dropped=prof.warmup_dropped, tail_kernels=tail,
+        # a report, not a limit: a warm SH1 iteration before the distance
+        # tail's and the LED light's kernels (commit 87b6a9e on an H100)
+        parent_sh1_per_iteration=dict(device_ops=165, runtime_calls=197),
         index_add_kernels=int(sum(r[1] for r in rows if _is_index_add(r[2]))),
         energy_evaluations=energies["energy_calls"],
         torch_reduce_kernels=int(sum(r[1] for r in rows if "reduce_kernel" in r[2])),
@@ -6343,7 +6797,8 @@ def main():
             # the refinement's kernels on the main run and the LED run
             emit("refine", ok=True, card=card, launches=check_refine_launches(main_run),
                  **check_refine(main_run, seq, MIN_PS_DROP))
-            led_run, _, facts = run_led_upsample(tmp)
+            with _first_led_light() as led_first:
+                led_run, _, facts = run_led_upsample(tmp)
             emit("refine_led_upsample", ok=True, card=card,
                  launches=check_refine_launches(led_run), **facts)
             emit("refine_kernels", ok=True, card=card, reps=KERNEL_REPS,
@@ -6356,9 +6811,13 @@ def main():
                  **albedo_kernels(main_run, led_run))
             emit("energy_kernels", ok=True, card=card, reps=KERNEL_REPS,
                  **energy_kernels(main_run, led_run))
+            emit("dist_tail_kernels", ok=True, card=card, reps=KERNEL_REPS,
+                 **dist_tail_kernels(main_run, led_run, led_first))
             if "--profile" in sys.argv[1:]:
                 emit("profile_refine", card=card, **profile_refine(
                     main_run["pipe"].refiner))
+                emit("profile_refine_led", card=card, **profile_refine(
+                    led_run["pipe"].refiner))
                 emit("profile_first_iteration", card=card,
                      blocks=_checked_blocks(first_blocks))
             print(smi, flush=True)
@@ -6455,7 +6914,8 @@ def main():
             runs["dma"], main_run["pipe"].cfg.optimizer))
 
         # ---- the LED model and the upsample, at a smaller depth
-        led_run, led_seq, facts = run_led_upsample(tmp)
+        with _first_led_light() as led_first:
+            led_run, led_seq, facts = run_led_upsample(tmp)
         emit("refine_led_upsample", ok=True, card=card,
              launches=check_refine_launches(led_run), **facts)
 
@@ -6478,6 +6938,11 @@ def main():
         # ---- the energies' one launch against the plain chain
         energy_facts = energy_kernels(main_run, led_run)
         emit("energy_kernels", ok=True, card=card, reps=KERNEL_REPS, **energy_facts)
+
+        # ---- the distance tail's and the LED light's launches against the
+        # plain chains
+        tail_facts = dist_tail_kernels(main_run, led_run, led_first)
+        emit("dist_tail_kernels", ok=True, card=card, reps=KERNEL_REPS, **tail_facts)
 
         # ---- the command line on the files, a failure mid-refinement, retry
         emit("resume_refine", ok=True, card=card,
@@ -6502,6 +6967,8 @@ def main():
             emit("profile_cli", card=card, **profile_cli(tmp, root, short))
             emit("profile_refine", card=card, **profile_refine(
                 main_run["pipe"].refiner))
+            emit("profile_refine_led", card=card, **profile_refine(
+                led_run["pipe"].refiner))
             emit("profile_first_iteration", card=card,
                  blocks=_checked_blocks(first_blocks))
 
@@ -6683,7 +7150,45 @@ def main():
                       "energy_sums": refine_launches["energy_sums"]}
     for name in SLICE_KERNELS:
         check(slice_launches[name] > 0, f"{name} was never launched on its path")
+    # the distance tail and the LED light: the main run's launches (the LED
+    # light's: the LED run's), the times on their final problems in the
+    # path's order
+    tail_launches = {"reg_operators": refine_launches["reg_operators"],
+                     "dist_update": refine_launches["dist_update"],
+                     "light_normal_eqs_led": led_run["slice"]["light_normal_eqs_led"]}
+    timed = tail_facts["timed"]
+    tail_rows = {
+        "reg_operators": dict(timed["reg_operators"], work=(
+            f"the main run's Eikonal operator at its final state: {timed['rows']} "
+            "surface-voxel slots, a thread a row, timed in the distance block's order "
+            "(the operators, dist_system, dist_cg, the update), no flush; the bound "
+            "counts valid, dist, the direction, the indices and the constants read "
+            "once and r, J0, Ji written once; empty_launch_ms is a launch of an "
+            "empty kernel timed the same way; no single PyTorch call computes it")),
+        "dist_update": dict(timed["dist_update"], work=(
+            f"the main run's accept rule and new gradient on its solve's step: "
+            f"{timed['rows']} slots, each neighbour's acceptance recomputed in place, "
+            "timed after dist_cg; the bound counts valid, dist, delta, the direction, "
+            "the indices and the constants read once and the new distances and "
+            "gradient written once; no single PyTorch call computes it")),
+        "light_normal_eqs_led": dict(timed["light_normal_eqs_led"], work=(
+            f"the LED run's light block after the upsample: {timed['led_rows']} "
+            f"surface-voxel slots x {timed['led_keyframes']} keyframes, the reflectance "
+            "formed per pair, the sums in double, the last block by ticket, timed "
+            "after the residual pass; the bound counts w and r read once (24 bytes a "
+            "pair), the voxel's state once; no single PyTorch call computes it"))}
+    for name in TAIL_KERNELS:
+        check(tail_launches[name] > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=TAIL_KERNELS[name][0],
+             replaces=TAIL_KERNELS[name][1], launches=tail_launches[name],
+             max_abs_err=tail_rows[name]["max_abs_err"], ms=tail_rows[name]["ms"],
+             plain_ms=tail_rows[name]["plain_ms"],
+             bound_ms=tail_rows[name]["bound_ms"], bound_by="bytes",
+             library_ms=None, library_note="no single PyTorch call computes it",
+             ms_after_flush=tail_rows[name]["ms_after_flush"],
+             empty_launch_ms=timed["empty_launch_ms"], work=tail_rows[name]["work"])
+        for name in TAIL_KERNELS] + [
         dict(name=name, route="cuda", source=SLICE_KERNELS[name][0],
              replaces=SLICE_KERNELS[name][1], launches=slice_launches[name],
              max_abs_err=slice_rows[name]["max_abs_err"], ms=slice_rows[name]["ms"],

@@ -107,6 +107,7 @@
 
 #include "async_copy.cuh"
 #include "cg_sync.cuh"
+#include "stencil.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -166,33 +167,6 @@ constexpr int kHeader = kCgWarps * kSlots * 4 + 16;
 // the block's own vectors, 3 floats a row each (ops/albedo.py _VECTORS)
 constexpr int kX = 0, kR = 1, kZ = 2, kAp = 3, kP = 4, kDsafe = 5, kDd = 6, kDps = 7;
 constexpr int kVectors = 8;
-
-// ------------------------------------------------------------- arithmetic
-
-__device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float fdiv(float a, float b) { return __fdiv_rn(a, b); }
-
-// torch.clamp(min=): a NaN input is returned as it is
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-  return isnan(v) ? v : fmaxf(v, lo);
-}
-
-// geometry.dot3: (a0 b0 + a1 b1) + a2 b2
-__device__ __forceinline__ float dot3(const float* a, const float* b) {
-  return fadd(fadd(fmul(a[0], b[0]), fmul(a[1], b[1])), fmul(a[2], b[2]));
-}
-
-// geometry.norm3: s = fma(v2, v2, fma(v1, v1, v0 v0)), each fma the exact
-// product plus s in double rounded to float, then the root in double
-// rounded to float
-__device__ __forceinline__ float norm3(const float* v) {
-  float s = fmul(v[0], v[0]);
-  s = __double2float_rn(__dadd_rn(__dmul_rn(v[1], v[1]), static_cast<double>(s)));
-  s = __double2float_rn(__dadd_rn(__dmul_rn(v[2], v[2]), static_cast<double>(s)));
-  return __double2float_rn(__dsqrt_rn(static_cast<double>(s)));
-}
 
 struct BlockParams {
   const float* __restrict__ w;

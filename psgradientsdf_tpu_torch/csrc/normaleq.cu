@@ -4,6 +4,7 @@
 //
 //   pose_normal_eqs      H [F,6,6], g [F,6] of the pose block (SH and LED)
 //   light_normal_eqs_sh  H [F,B,B], g [F,B] of the SH light block (B = 4, 9)
+//   light_normal_eqs_led H [3], g [3] of the LED light block
 //
 // pose_normal_eqs replaces the JAX package's psgradientsdf_tpu/refine/
 // optimizer.py `_pose_normal_eqs` (:208) and its chunk loop in `_pose_core`
@@ -12,6 +13,10 @@
 // and nfc,nfcb,nfc->fb.  light_normal_eqs_sh replaces refine/solvers.py
 // `solve_light_sh`'s (:512) einsums nfc,ncb,ncd->fbd and nfc,ncb,nfc->fb
 // (:526-527); its batched eigen-solve stays in PyTorch.
+// light_normal_eqs_led replaces refine/solvers.py `solve_light_led`'s (:538)
+// two einsums nfc,nfc->c over refine/jacobians.py `light_jacobian_led`
+// (:161); its damped 3-element solve stays in PyTorch.  It is the last
+// section of this file (light_led_kernel): simpler than the tiles above.
 //
 // Bound by bytes.  A pose pair (voxel, keyframe) reads g_img (24 bytes),
 // p_cam, w and r (12 each): 60 bytes, 118 MB at N = 49152, F = 40, 0.035
@@ -83,6 +88,7 @@
 #include <type_traits>
 
 #include "async_copy.cuh"
+#include "stencil.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -132,6 +138,22 @@ struct LightArgs {                  // ops/normaleq._LightArgs
   float* g;                         // [F,B]
   int64_t n, f, basis;
   NormalEqPlan plan;
+};
+
+struct LightLedArgs {               // ops/normaleq._LightLedArgs
+  const float* w;                   // [N,F,3]
+  const float* r;                   // [N,F,3]
+  const int32_t* idx_xyz;           // [N,3] voxel coordinates
+  const float* dist;                // [N]
+  const float* grad;                // [N,3] the stored gradient
+  const float* albedo;              // [N,3]
+  const float* poses;               // [F,4,4]
+  double* partial;                  // [blocks, 6]
+  unsigned* ticket;                 // one, 0 between calls
+  float* H;                         // [3]
+  float* g;                         // [3]
+  int64_t n, f, blocks;
+  double origin_x, origin_y, origin_z, grid_voxel;
 };
 
 namespace {
@@ -868,6 +890,89 @@ int active_clusters(void (*kernel)(Args), int64_t smem, int cluster, int* out) {
   return static_cast<int>(cudaOccupancyMaxActiveClusters(out, kernel, &cfg));
 }
 
+// ------------------------------------------------------------ the LED light
+//
+// light_led_kernel: a thread a pair (voxel n, keyframe f), a grid of
+// `blocks` blocks striding over the N F pairs.  A pair forms its Jacobian
+// row J_c = refl rho_c in registers, as refine/jacobians.py
+// light_jacobian_led does: the surface point x = c_v - d ghat (ghat the
+// normalized stored gradient, c_v the voxel centre), p = R^T (x - t),
+// refl = (ghat . R p) / max(|p|, 1e-12)^3, every operation an _rn
+// intrinsic in the plain chain's order (stencil.cuh); then w J and the
+// products w J J and w J r of each channel, added in double.  Every pair
+// is taken, as the plain sums take them (w is 0 off the mask).  A block
+// adds its threads' six sums in a fixed tree and writes them to
+// partial[block]; the last block, elected by an integer ticket, adds the
+// partials in block order, writes H and g as floats and resets the ticket.
+// Bound by bytes: w and r (24 bytes a pair), the voxel's state once.
+
+constexpr int kLedThreads = 256;
+
+__global__ void __launch_bounds__(kLedThreads)
+light_led_kernel(LightLedArgs a) {
+  __shared__ double red[6][kLedThreads];
+  __shared__ bool last;
+  const float o[3] = {static_cast<float>(a.origin_x), static_cast<float>(a.origin_y),
+                      static_cast<float>(a.origin_z)};
+  const float h = static_cast<float>(a.grid_voxel);
+  const int64_t pairs = a.n * a.f;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kLedThreads;
+  double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  for (int64_t q = static_cast<int64_t>(blockIdx.x) * kLedThreads + threadIdx.x; q < pairs;
+       q += stride) {
+    const int64_t n = q / a.f, f = q - n * a.f;
+    const float gs[3] = {a.grad[3 * n], a.grad[3 * n + 1], a.grad[3 * n + 2]};
+    float ghat[3];
+    normalize(gs, ghat);
+    const float d = a.dist[n];
+    const float* P = a.poses + 16 * f;
+    float R[9], dx[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      R[3 * i] = __ldg(P + 4 * i);
+      R[3 * i + 1] = __ldg(P + 4 * i + 1);
+      R[3 * i + 2] = __ldg(P + 4 * i + 2);
+      const float c = fadd(o[i], fmul(h, static_cast<float>(a.idx_xyz[3 * n + i])));
+      dx[i] = fsub(fsub(c, fmul(d, ghat[i])), __ldg(P + 4 * i + 3));
+    }
+    float p[3], Rp[3];
+    rot(R, dx, true, p);
+    rot(R, p, false, Rp);
+    const float pn = clamp_min(norm3(p), 1e-12f);
+    const float refl = fdiv(dot3(ghat, Rp), fmul(fmul(pn, pn), pn));
+    const float* w = a.w + 3 * q;
+    const float* r = a.r + 3 * q;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float J = fmul(refl, a.albedo[3 * n + c]);
+      const float wJ = fmul(w[c], J);
+      acc[c] += static_cast<double>(fmul(wJ, J));
+      acc[3 + c] += static_cast<double>(fmul(wJ, r[c]));
+    }
+  }
+  for (int k = 0; k < 6; ++k) red[k][threadIdx.x] = acc[k];
+  __syncthreads();
+  for (int s = kLedThreads / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s)
+      for (int k = 0; k < 6; ++k) red[k][threadIdx.x] += red[k][threadIdx.x + s];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 6; ++k) a.partial[6 * blockIdx.x + k] = red[k][0];
+    last = ticket_add(a.ticket) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (threadIdx.x < 6) {
+    const int k = threadIdx.x;
+    double s = 0.0;
+    for (unsigned b = 0; b < gridDim.x; ++b) s += __ldcg(a.partial + 6 * b + k);
+    (k < 3 ? a.H : a.g)[k % 3] = static_cast<float>(s);
+  }
+  if (threadIdx.x == 0) *a.ticket = 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -880,6 +985,12 @@ int pose_normal_eqs(const PoseArgs* a, cudaStream_t stream) {
 int light_normal_eqs_sh(const LightArgs* a, cudaStream_t stream) {
   if (a->basis != 4 && a->basis != 9) return static_cast<int>(cudaErrorInvalidValue);
   return launch(a->basis == 4 ? light_tiles_kernel<4> : light_tiles_kernel<9>, *a, stream);
+}
+
+int light_normal_eqs_led(const LightLedArgs* a, cudaStream_t stream) {
+  if (a->n < 0 || a->f < 0 || a->blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  light_led_kernel<<<static_cast<unsigned>(a->blocks), kLedThreads, 0, stream>>>(*a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // kernel: 0 the SH pose, 1 the LED pose, 2 the light B = 4, 3 B = 9 -> *out

@@ -3,9 +3,10 @@
 Each source under csrc/ becomes a shared library with a plain C interface,
 loaded with ctypes: a CUDA source (.cu: the row copies, the Gauss-Newton
 solve, the fusion update, the refinement's residual pass and distance
-Jacobian, the distance block's assembled system and CG, the pose and light
-normal equations, the albedo block's system and CG, the culled fusion's
-cull and compaction, the scan's preprocessing, the refinement's energies)
+Jacobian, the distance block's assembled system and CG, its regularizer
+operators and update, the pose and light normal equations, the albedo
+block's system and CG, the culled fusion's cull and compaction, the scan's
+preprocessing, the refinement's energies)
 is compiled with nvcc
 for sm_90a, a host C++ source (.cpp: the PNG unfilter, marching cubes and
 the PLY writers) with g++.  The build happens at first use, from the
@@ -47,7 +48,7 @@ GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # the package's CUDA kernels, one source each (csrc/<name>.cu): the first of
 # them asked for starts nvcc on every one not yet built, all together
 CUDA_LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "normaleq",
-                  "albedo", "cull", "preprocess", "energy")
+                  "albedo", "cull", "preprocess", "energy", "distreg")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

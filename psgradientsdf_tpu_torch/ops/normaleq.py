@@ -7,6 +7,8 @@ versions for CPU tensors.
   pose_normal_eqs(rd, K, poses, albedo, grad_stored, lights, model)
       -> (H [F,6,6], g [F,6])
   light_normal_eqs_sh(rd, J_l) -> (H [F,B,B], g [F,B])   (B = 4 or 9)
+  light_normal_eqs_led(rd, prob, geom, dist, grad_stored, albedo, poses)
+      -> (H [3], g [3])
 
 pose_normal_eqs replaces the JAX package's psgradientsdf_tpu/refine/
 optimizer.py `_pose_normal_eqs` (:208) and its chunk loop in `_pose_core`
@@ -15,7 +17,15 @@ or `pose_jacobian_led` (:84), and the einsums nfc,nfcb,nfcd->fbd and
 nfc,nfcb,nfc->fb.  light_normal_eqs_sh replaces refine/solvers.py
 `solve_light_sh`'s (:512) einsums nfc,ncb,ncd->fbd and nfc,ncb,nfc->fb
 (:526-527); the batched eigen-solve after it (solvers.
-solve_light_from_normal_eqs) stays in PyTorch.
+solve_light_from_normal_eqs) stays in PyTorch.  light_normal_eqs_led
+replaces refine/solvers.py `solve_light_led`'s (:538) two einsums over
+refine/jacobians.py `light_jacobian_led` (:161); its damped 3-element solve
+(solvers.solve_light_led_from_normal_eqs) stays in PyTorch.  Its kernel
+never forms the [N,F,3] Jacobian: a thread a pair forms the pair's
+reflectance from the state in registers, as the plain chain does, and adds
+w J J and w J r in double; a block's threads in a fixed tree, the blocks in
+order by the last block (an integer ticket), so two runs give the same bits
+and the plain sums (float, torch's order) agree to float32 rounding.
 
 The plain versions are the port's eager chains: pose_normal_eqs_plain forms
 the pose Jacobian [n,F,3,6] of N-chunks of at most _POSE_CHUNK voxels and
@@ -50,7 +60,8 @@ from psgradientsdf_tpu_torch.refine import jacobians, solvers
 from psgradientsdf_tpu_torch.refine.render import ResidualData
 
 _LIB_NAME = "normaleq"
-launch_counts: Dict[str, int] = {"pose_normal_eqs": 0, "light_normal_eqs_sh": 0}
+launch_counts: Dict[str, int] = {"pose_normal_eqs": 0, "light_normal_eqs_sh": 0,
+                                 "light_normal_eqs_led": 0}
 
 
 def reset_launch_counts() -> None:
@@ -104,6 +115,15 @@ def pose_normal_eqs_plain(rd, K, poses, albedo, grad_stored, lights, model):
     return H, g
 
 
+def light_normal_eqs_led_plain(rd: ResidualData, prob, geom, dist, grad_stored,
+                               albedo, poses) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(H [3], g [3]) of the LED light block: the eager Jacobian
+    (jacobians.light_jacobian_led) and its two sums
+    (solvers.light_normal_eqs_led)."""
+    J = jacobians.light_jacobian_led(prob, geom, dist, grad_stored, albedo, poses)
+    return solvers.light_normal_eqs_led(rd, J)
+
+
 # ---------------------------------------------------------------------------
 # the host plan
 # ---------------------------------------------------------------------------
@@ -132,6 +152,18 @@ SMEM_BLOCK = 232448      # an H100 block's shared memory, at most
 ALIGN = 16               # a bulk copy's alignment of address and size
 # csrc/normaleq.cu normaleq_active_clusters: the kernel of each block
 KERNEL_IDS = {(6, False): 0, (6, True): 1, (4, False): 2, (9, False): 3}
+
+
+# the LED light's kernel: a thread a pair, at most LED_BLOCKS_PER_SM blocks
+# of LED_THREADS an SM striding over the pairs
+LED_THREADS = 256
+LED_BLOCKS_PER_SM = 4
+
+
+def led_blocks(N: int, F: int, sms: int) -> int:
+    """The LED light kernel's grid, a function of the shapes and the card
+    alone (so a call's bits are too)."""
+    return max(1, min(LED_BLOCKS_PER_SM * sms, -(-N * F // LED_THREADS)))
 
 
 def terms(dim: int) -> int:
@@ -305,6 +337,17 @@ class _LightArgs(ctypes.Structure):
         + [("plan", _Plan)])
 
 
+class _LightLedArgs(ctypes.Structure):
+    """csrc/normaleq.cu LightLedArgs, field for field (every field 8 bytes)."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in
+         ("w", "r", "idx_xyz", "dist", "grad", "albedo", "poses", "partial", "ticket",
+          "H", "g")]
+        + [(n, ctypes.c_int64) for n in ("n", "f", "blocks")]
+        + [(n, ctypes.c_double) for n in ("origin_x", "origin_y", "origin_z",
+                                          "grid_voxel")])
+
+
 def _check(what: str, dev, named) -> None:
     for name, t, shape, dtype in named:
         if t.device != dev:
@@ -325,6 +368,8 @@ def _bind(lib):
     lib.pose_normal_eqs.restype = ctypes.c_int
     lib.light_normal_eqs_sh.argtypes = [ctypes.POINTER(_LightArgs), ctypes.c_void_p]
     lib.light_normal_eqs_sh.restype = ctypes.c_int
+    lib.light_normal_eqs_led.argtypes = [ctypes.POINTER(_LightLedArgs), ctypes.c_void_p]
+    lib.light_normal_eqs_led.restype = ctypes.c_int
     lib.normaleq_active_clusters.argtypes = [
         ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.normaleq_active_clusters.restype = ctypes.c_int
@@ -354,9 +399,10 @@ def _launch(name: str, args, dev) -> None:
 _tickets: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def _tickets_for(dev, plan: NormalEqPlan) -> torch.Tensor:
+def _tickets_for(dev, need: int) -> torch.Tensor:
+    """At least `need` tickets of the device's current stream (a call's
+    kernel leaves them at 0; the calls of one stream run in turn)."""
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    need = plan.chunks * plan.cluster
     t = _tickets.get(key)
     if t is None or t.numel() < need:
         t = _tickets[key] = torch.zeros(max(64, need), dtype=torch.int32, device=dev)
@@ -371,7 +417,7 @@ def _outputs(dev, F, dim, plan):
         dtype=torch.float64, device=dev)
     H = torch.empty((F, dim, dim), dtype=torch.float32, device=dev)
     g = torch.empty((F, dim), dtype=torch.float32, device=dev)
-    return partial, _tickets_for(dev, plan), H, g
+    return partial, _tickets_for(dev, plan.chunks * plan.cluster), H, g
 
 
 # ---------------------------------------------------------------------------
@@ -451,3 +497,42 @@ def light_normal_eqs_sh(rd: ResidualData, J_l: torch.Tensor
     a.plan = _c_plan(plan)
     _launch("light_normal_eqs_sh", a, dev)
     return H, g
+
+
+def light_normal_eqs_led(rd: ResidualData, prob, geom, dist, grad_stored, albedo,
+                         poses) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(H [3], g [3]) of the LED light block from the residual pass rd (w,
+    r) at the state (the problem's voxel coordinates on the grid `geom`,
+    dist, grad_stored, albedo, poses): one launch of the kernel on CUDA
+    tensors, light_normal_eqs_led_plain on CPU tensors."""
+    w = rd.w
+    if w.device.type == "cpu":
+        return light_normal_eqs_led_plain(rd, prob, geom, dist, grad_stored, albedo, poses)
+    N, F = w.shape[0], w.shape[1]
+    dev = w.device
+    f32 = torch.float32
+    ins = {"rd.w": (w, (N, F, 3), f32), "rd.r": (rd.r, (N, F, 3), f32),
+           "idx_xyz": (prob.idx_xyz.contiguous(), (N, 3), torch.int32),
+           "dist": (dist.contiguous(), (N,), f32),
+           "grad_stored": (grad_stored.contiguous(), (N, 3), f32),
+           "albedo": (albedo.contiguous(), (N, 3), f32),
+           "poses": (poses.contiguous(), (F, 4, 4), f32)}
+    _check("light_normal_eqs_led", dev,
+           [(name, t, shape, dtype) for name, (t, shape, dtype) in ins.items()])
+    from psgradientsdf_tpu_torch.kernels import sm_count
+
+    blocks = led_blocks(N, F, sm_count(dev))
+    partial = torch.empty(6 * blocks, dtype=torch.float64, device=dev)
+    Hg = torch.empty(6, dtype=f32, device=dev)
+    a = _LightLedArgs()
+    for field, name in (("w", "rd.w"), ("r", "rd.r"), ("idx_xyz", "idx_xyz"),
+                        ("dist", "dist"), ("grad", "grad_stored"), ("albedo", "albedo"),
+                        ("poses", "poses")):
+        setattr(a, field, ins[name][0].data_ptr())
+    a.partial, a.ticket = partial.data_ptr(), _tickets_for(dev, 1).data_ptr()
+    a.H, a.g = Hg.data_ptr(), Hg[3:].data_ptr()
+    a.n, a.f, a.blocks = N, F, blocks
+    a.origin_x, a.origin_y, a.origin_z = (float(v) for v in geom.origin)
+    a.grid_voxel = float(geom.voxel_size)
+    _launch("light_normal_eqs_led", a, dev)
+    return Hg[:3], Hg[3:]

@@ -326,9 +326,8 @@ def _light(sp, geom, rd: MeshResiduals, dist, albedo, grad, poses, K, lights,
     def part(k, j, b):
         r = rd.rd[k][j]
         if model == LED:
-            J = jacobians.light_jacobian_led(b.view, geom, b.dist, b.grad,
-                                             b.albedo, b.poses)
-            return torch.stack(solvers.light_normal_eqs_led(r, J))
+            return torch.stack(normaleq.light_normal_eqs_led(
+                r, b.view, geom, b.dist, b.grad, b.albedo, b.poses))
         J = jacobians.light_jacobian_sh(b.view, b.albedo, b.grad, order)
         H, g = normaleq.light_normal_eqs_sh(r, J)
         return b, torch.cat([H, g[..., None]], dim=-1)               # [F_j,B,B+1]
@@ -417,14 +416,15 @@ def _distance_system(sp, rd: MeshResiduals, DJ, regs, rw, damping, minus=None):
 
 
 def _accept(sp, geom, dist, delta, voxel_size):
-    """d -= delta where accepted, then the FD gradient of the new distances
-    (their neighbours all-gathered)."""
+    """d -= delta where accepted, each row's own rule, then the FD gradient
+    of the new distances on each row's view (their neighbours
+    all-gathered): one update kernel launch a row on the card."""
     lay = sp.layout
     new = tuple(local_map(lambda p, d, dl: solvers.accept_distance(
         p, d, torch.where(p.valid, dl, 0.0), voxel_size), sp.rows, dist, delta))
     full = pm.all_gather(new, lay.row_devices)
-    grad = tuple(local_map(lambda p, d: geometry.fd_grad(
-        _dist_view(p, full[d.device]), d, voxel_size), sp.rows, new))
+    grad = tuple(local_map(lambda p, d: solvers.update_distance(
+        _dist_view(p, full[d.device]), d, None, voxel_size)[1], sp.rows, new))
     return new, grad
 
 

@@ -10,9 +10,10 @@ All functions are dense over [N] compacted surface voxels; frozen
 RefineProblem — no searches, no scatter, pure gathers.
 
 Every sum over the three axes is written out as (a0 b0 + a1 b1) + a2 b2
-(dot3; a norm's as a fused multiply-add chain, norm3), never a library
-reduction, so that every device rounds it alike and the residual kernels
-(csrc/residual.cu) can equal these functions on the card bit for bit.
+(dot3; a norm's as a fused multiply-add chain, norm3), and the Laplacian's
+six neighbours left to right, never a library reduction, so that every
+device rounds it alike and the kernels (csrc/residual.cu, csrc/distreg.cu)
+can equal these functions on the card bit for bit.
 """
 
 from __future__ import annotations
@@ -48,9 +49,13 @@ def fd_albedo_grad(prob: RefineProblem, albedo: torch.Tensor, voxel_size: float)
 
 
 def fd_laplacian(prob: RefineProblem, dist: torch.Tensor, voxel_size: float) -> torch.Tensor:
-    """(d_x+ + d_x- + d_y+ + d_y- + d_z+ + d_z- - 6 d) / h^2 -> [N]."""
+    """(d_x+ + d_x- + d_y+ + d_y- + d_z+ + d_z- - 6 d) / h^2 -> [N], the six
+    neighbours summed left to right."""
     d_nbr = gather_nbr(dist, prob.lap_idx, prob.lap_dist_const)   # [N,6]
-    return (torch.sum(d_nbr, dim=-1) - 6.0 * dist) / (voxel_size * voxel_size)
+    s = d_nbr[:, 0]
+    for k in range(1, 6):
+        s = s + d_nbr[:, k]
+    return (s - 6.0 * dist) / (voxel_size * voxel_size)
 
 
 def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

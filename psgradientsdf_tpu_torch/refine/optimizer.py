@@ -107,8 +107,8 @@ def _albedo_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
 def _light_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
                 *, model, order, loss, lam, voxel_size, damping):
     if model == LED:
-        J = jacobians.light_jacobian_led(prob, geom, dist, grad_stored, albedo, poses)
-        delta = solvers.solve_light_led(rd, J, damping)
+        H, g = normaleq.light_normal_eqs_led(rd, prob, geom, dist, grad_stored, albedo, poses)
+        delta = solvers.solve_light_led_from_normal_eqs(H, g, damping)
     else:
         J = jacobians.light_jacobian_sh(prob, albedo, grad_stored, order)
         delta = solvers.solve_light_from_normal_eqs(*normaleq.light_normal_eqs_sh(rd, J))

@@ -47,7 +47,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from psgradientsdf_tpu_torch.ops import albedo as albedo_ops
-from psgradientsdf_tpu_torch.ops import distcg
+from psgradientsdf_tpu_torch.ops import distcg, distreg
 from psgradientsdf_tpu_torch.ops.distcg import jacobi_diag
 from psgradientsdf_tpu_torch.refine import geometry
 from psgradientsdf_tpu_torch.refine.jacobians import DistJacobian
@@ -221,13 +221,15 @@ class RegOperator(NamedTuple):
 
 
 def eikonal_operator(prob: RefineProblem, dist: torch.Tensor, voxel_size: float) -> RegOperator:
-    """(||grad d|| - 1) residual + Jacobian (Optimizer.cpp:196-218,477-537)."""
+    """(||grad d|| - 1) residual + Jacobian (Optimizer.cpp:196-218,477-537):
+    the plain version of ops/distreg.py's kernel, every sum in a fixed
+    order."""
     grad = geometry.fd_grad(prob, dist, voxel_size)           # [N,3]
-    gnorm = torch.linalg.vector_norm(grad, dim=-1)
+    gnorm = geometry.norm3(grad)
     r = torch.where(prob.valid, gnorm - 1.0, 0.0)
     inv_h = 1.0 / voxel_size
     n_d0 = -inv_h * prob.nbr_dir                              # [N,3]
-    J0 = torch.sum(grad * n_d0, dim=-1)
+    J0 = geometry.dot3(grad, n_d0)
     Ji = grad * prob.nbr_dir * inv_h                          # [N,3]
     scale = torch.where(gnorm > 0.0, 1.0 / torch.clamp(gnorm, min=1e-12), 1.0)
     J0 = torch.where(prob.valid, J0 * scale, 0.0)
@@ -296,14 +298,13 @@ def reg_operators(prob: RefineProblem, dist: torch.Tensor, voxel_size: float,
                   *, reg_weight_n: float, reg_weight_l: float,
                   laplacian_diag_only: bool):
     """(eik, lap) regularizer operators of the distance block, None where
-    the weight is 0."""
-    eik = eikonal_operator(prob, dist, voxel_size) if reg_weight_n != 0.0 else None
-    lap = (
-        laplacian_operator(prob, dist, voxel_size, laplacian_diag_only)
-        if reg_weight_l != 0.0
-        else None
-    )
-    return eik, lap
+    the weight is 0: both in one call of ops/distreg.reg_operators (one
+    kernel launch on the card)."""
+    if reg_weight_n == 0.0 and reg_weight_l == 0.0:
+        return None, None
+    return distreg.reg_operators(prob, dist, voxel_size, eikonal=reg_weight_n != 0.0,
+                                 laplacian=reg_weight_l != 0.0,
+                                 diag_only=laplacian_diag_only)
 
 
 def distance_rhs(prob: RefineProblem, rd: ResidualData, DJ: DistJacobian,
@@ -415,20 +416,21 @@ def solve_distance(
 
 def accept_distance(prob: RefineProblem, dist: torch.Tensor,
                     delta: torch.Tensor, voxel_size: float) -> torch.Tensor:
-    """d - delta where |delta| < sqrt(3) h, else d."""
+    """d - delta where |delta| < sqrt(3) h on a valid row, else d."""
     ok = (delta.abs() < math.sqrt(3.0) * voxel_size) & prob.valid
     return torch.where(ok, dist - delta, dist)
 
 
 def update_distance(
-    prob: RefineProblem, dist: torch.Tensor, delta: torch.Tensor, voxel_size: float
+    prob: RefineProblem, dist: torch.Tensor, delta: Optional[torch.Tensor],
+    voxel_size: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """d -= delta where |delta| < sqrt(3) h (OptimizerAux.cpp:162-188), then
-    refresh the stored gradient (updateGrad: grad := FD grad).
-    Returns (new_dist, new_grad_stored)."""
-    new_dist = accept_distance(prob, dist, delta, voxel_size)
-    new_grad = geometry.fd_grad(prob, new_dist, voxel_size)
-    return new_dist, new_grad
+    refresh the stored gradient (updateGrad: grad := FD grad); delta=None
+    leaves d as it is.  Returns (new_dist, new_grad_stored): one call of
+    ops/distreg.dist_update (one kernel launch on the card; its plain
+    version accept_distance, then geometry.fd_grad)."""
+    return distreg.dist_update(prob, dist, delta, voxel_size)
 
 
 # --------------------------------------------- joint distance+pose (Schur)

@@ -35,7 +35,8 @@ def test_import_brings_in_no_jax_and_builds_nothing():
     for new in ("native", "io.png", "io.checkpoint", "parallel.refine",
                 "parallel.distributed", "core.resident", "ops.gn", "ops.fuse",
                 "ops.residual", "ops.distcg", "ops.normaleq", "ops.albedo",
-                "ops.cull", "ops.preprocess", "ops.energy", "utils.profiling"):
+                "ops.cull", "ops.preprocess", "ops.energy", "ops.distreg",
+                "utils.profiling"):
         assert "psgradientsdf_tpu_torch." + new in mods
     code = (
         "import importlib, os, sys\n"
@@ -138,16 +139,17 @@ def test_kernel_wrappers_raise_on_cuda_tensors_instead_of_falling_back():
     ("gn", ("gn_solve_kernel", "gn_gram_kernel")), ("fuse", ("fuse_rows_kernel",)),
     ("residual", ("residual_pass_kernel", "dist_jacobian_kernel")),
     ("distcg", ("dist_system_kernel", "dist_cg_kernel")),
-    ("normaleq", ("pose_tiles_kernel", "light_tiles_kernel")),
+    ("normaleq", ("pose_tiles_kernel", "light_tiles_kernel", "light_led_kernel")),
     ("albedo", ("albedo_block_kernel",)),
     ("cull", ("row_activity_kernel", "compact_rows_kernel")),
     ("preprocess", ("fals_normals_kernel", "lapm_kernel")),
-    ("energy", ("energy_sums_kernel",))])
+    ("energy", ("energy_sums_kernel",)),
+    ("distreg", ("reg_operators_kernel", "dist_update_kernel"))])
 def test_scan_program_wrappers_raise_on_cuda_tensors_instead_of_falling_back(
         module, kernels):
     """ops/gn.py, ops/fuse.py, ops/residual.py, ops/distcg.py,
-    ops/normaleq.py, ops/albedo.py, ops/cull.py, ops/preprocess.py and
-    ops/energy.py take the plain version
+    ops/normaleq.py, ops/albedo.py, ops/cull.py, ops/preprocess.py,
+    ops/energy.py and ops/distreg.py take the plain version
     only for CPU tensors:
     no try/except around a launch, one CPU branch a wrapper, and their
     kernels hand-written in csrc/ with a plain C interface."""

@@ -117,7 +117,8 @@ def test_pose_normal_eqs_match_the_jax_package(model, N, F):
     H, g = _pose_got(x, model)
     _hold(H, g, *_pose_want(x, model))
     assert H.shape == (F, 6, 6) and g.shape == (F, 6)
-    assert normaleq.launch_counts == {"pose_normal_eqs": 0, "light_normal_eqs_sh": 0}
+    assert normaleq.launch_counts == {"pose_normal_eqs": 0, "light_normal_eqs_sh": 0,
+                                      "light_normal_eqs_led": 0}
 
 
 @pytest.mark.parametrize("model", ["SH1", "LED"])
@@ -175,7 +176,8 @@ def test_light_normal_eqs_match_the_jax_package(order, B, N, F):
     H, g = normaleq.light_normal_eqs_sh(_trd(x), J)
     assert H.shape == (F, B, B) and g.shape == (F, B)
     _hold(H, g, *_light_want(x, order))
-    assert normaleq.launch_counts == {"pose_normal_eqs": 0, "light_normal_eqs_sh": 0}
+    assert normaleq.launch_counts == {"pose_normal_eqs": 0, "light_normal_eqs_sh": 0,
+                                      "light_normal_eqs_led": 0}
 
 
 @pytest.mark.parametrize("order", [1, 2])

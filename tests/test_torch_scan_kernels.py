@@ -424,8 +424,8 @@ def test_the_first_cuda_library_asked_for_builds_the_others_beside_it(
     from psgradientsdf_tpu_torch import kernels
 
     cu = sorted(f[:-3] for f in os.listdir(kernels.CSRC_DIR) if f.endswith(".cu"))
-    assert sorted(kernels.CUDA_LIBRARIES) == cu == ["albedo", "cull", "distcg", "energy",
-                                                    "fuse", "gn", "normaleq",
+    assert sorted(kernels.CUDA_LIBRARIES) == cu == ["albedo", "cull", "distcg", "distreg",
+                                                    "energy", "fuse", "gn", "normaleq",
                                                     "preprocess", "residual",
                                                     "rowcopy"]
     src = tmp_path / "csrc"
