@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--profile | --kernels-only | --refine-only |
                            --distributed-only] [--residual-parent <residual.cu>]
                           [--distcg-parent <distcg.cu>] [--system-parent <distcg.cu>]
-                          [--gram-parent <gn.cu>]
+                          [--gram-parent <gn.cu>] [--fals-parent <preprocess.cu>]
+                          [--energy-parent <energy.cu>]
 
 Builds the package's CUDA kernels and its host C++ libraries (PNG unfilter,
 marching cubes and PLY writers) from csrc/, holds each kernel against its
@@ -156,7 +157,19 @@ energies within ENERGY_TOL on the main and the LED problems under every
 loss, the mesh's two kinds of call, one row and no valid row, each kernel
 twice bit for bit, with their times in the path's order; with --profile
 the traced scan runs no box filter's reflect pad and the traced
-iterations one energy_sums kernel an evaluation.
+iterations one energy_sums kernel an evaluation.  Both kernels are
+persistent grids, and the phases hold their edges too: the
+normals on 1, 3 and 9 frames, on 17x45 and 481x641 images (partial edge
+tiles) and at every window on the latter; the energies on 33 keyframes of
+1001 rows (pairs not a multiple of the vector width), on that problem's
+rows 1: as views (r and the mask off their vector boundary: the same bits
+as on an aligned copy) with all terms, PS alone and the rows alone, and on
+one block's worth of pairs; energy_kernels also times the kernel with the
+PS sum alone, the rows alone and its grid cut to 132 blocks and to 1.
+With --fals-parent <preprocess.cu> / --energy-parent <energy.cu> (an
+earlier source of the same C interface, or a prefix of it) each kernel is
+also timed in turns with that build in the path's order, and the earlier
+energy kernel is timed with the same cuts.
 
 The distance block's eager tail (its regularizer operators and its update,
 csrc/distreg.cu, one launch each a block) and the LED light's normal
@@ -3350,7 +3363,13 @@ def _ptxas(src):
                                ("albedo_block_kernel<sh, reg>", "albedo_block_kernelILb0ELb1E"),
                                ("albedo_block_kernel<led>", "albedo_block_kernelILb1ELb0E"),
                                ("albedo_block_kernel<led, reg>",
-                                "albedo_block_kernelILb1ELb1E")):
+                                "albedo_block_kernelILb1ELb1E"),
+                               ("fals_normals_kernel", "fals_normals_kernel"),
+                               ("lapm_kernel", "lapm_kernel"),
+                               ("energy_sums_kernel<cauchy, vector loads>",
+                                "energy_sums_kernelILi1ELb1E"),
+                               ("energy_sums_kernel<cauchy, scalar loads>",
+                                "energy_sums_kernelILi1ELb0E")):
                 if pat in name:
                     name = short
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -4334,14 +4353,99 @@ def _prep_case(what, depth, color, cache, window, flush):
     return out
 
 
+def _prep_shaped(seq, frames, h, w, y0=0, x0=0):
+    """Depth and colour of `frames` cut to h x w from (y0, x0), or where h
+    or w exceeds the frame, edge-padded past its bottom and right, with K's
+    principal point moved with the cut -> (depth, colour, K)."""
+    import torch.nn.functional as TF
+
+    d, c = _prep_frames(seq, frames)
+    ph, pw = max(0, y0 + h - H), max(0, x0 + w - W)
+    if ph or pw:
+        d = TF.pad(d[:, None], (0, pw, 0, ph), mode="replicate")[:, 0]
+        c = TF.pad(c.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="replicate").permute(0, 2, 3, 1)
+    K = np.asarray(seq[0], np.float64).copy()
+    K[0, 2] -= x0
+    K[1, 2] -= y0
+    return (d[:, y0:y0 + h, x0:x0 + w].contiguous(),
+            c[:, y0:y0 + h, x0:x0 + w].contiguous(), K)
+
+
+def _fals_edges(seq, caches):
+    """The normals' persistent grid at its edges (_prep_case): frame counts
+    that do not fill a block's walk (1, 3, 9 frames of 640x480), images
+    whose sides are not multiples of the 32 x 32 tile (17x45: one partial
+    tile; 481x641: a partial row and column of tiles) and every odd window
+    1 .. MAX_WINDOW on the latter's edge tiles (at window 1 the 3x3 solve is
+    singular and every normal NaN: the NaNs' bits are held too) -> [facts]."""
+    from psgradientsdf_tpu_torch.ops import preprocess as P
+    from psgradientsdf_tpu_torch.ops.normals import build_fals_cache
+
+    out = []
+    for C in (1, 3, 9):
+        d, c = _prep_frames(seq, range(C))
+        out.append(_prep_case(f"{C} frames", d, c, caches[11], 11, None))
+    for (h, w), windows, at in (((17, 45), (1, 11, 31), (200, 300)),
+                                ((H + 1, W + 1), range(1, P.MAX_WINDOW + 1, 2), (0, 0))):
+        d, c, K = _prep_shaped(seq, range(2), h, w, *at)
+        for win in windows:
+            cache = build_fals_cache(h, w, K, window=win, device=DEVICE)
+            out.append(_prep_case(f"{w}x{h} window {win}", d, c if win == 11 else None,
+                                  cache, win, None))
+    return out
+
+
+def _fals_launch(lib, depth, cache, window, per_sm):
+    """One launch of fals_normals from library `lib` (this build, or an
+    earlier one whose FalsArgs is a prefix of this one's) on this call's
+    grid -> the normals (not counted)."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import preprocess as P
+
+    C, Hh, Ww = depth.shape
+    out = torch.empty(tuple(depth.shape) + (3,), dtype=torch.float32, device=depth.device)
+    a = P._FalsArgs(depth=depth.data_ptr(), x0n=cache.x0_n_sq_inv.data_ptr(),
+                    y0n=cache.y0_n_sq_inv.data_ptr(), nsi=cache.n_sq_inv.data_ptr(),
+                    Q=cache.Q.data_ptr(), out=out.data_ptr(), C=C, H=Hh, W=Ww, window=window,
+                    blocks=P.fals_grid(C, Hh, Ww, _sm_count() * per_sm)[3])
+    rc = lib.fals_normals(ctypes.byref(a), torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"fals_normals ({lib}): CUDA error {rc}")
+    return out
+
+
+def _fals_parent_ab(depth, color, cache, flush):
+    """fals_normals on this preprocess.cu and on the --fals-parent source
+    (built here into a temporary directory; its launches on no path and not
+    counted), the parent's normals bit for bit with this kernel's, timed in
+    turns in the path's order (_path_ms: the normals, then LAPM): this,
+    the parent, the parent, this -> {"this"|"parent": [ms, ms]}."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import preprocess as P
+
+    src = sys.argv[sys.argv.index("--fals-parent") + 1]
+    with tempfile.TemporaryDirectory(prefix="fals_parent_") as tmp:
+        parent = _parent_build(src, tmp, "preprocess_parent")
+        parent.fals_normals.argtypes = [ctypes.POINTER(P._FalsArgs), ctypes.c_void_p]
+        runs = dict(this=lambda: P.fals_normals(depth, cache, 11),
+                    parent=lambda: _fals_launch(parent, depth, cache, 11, 1))
+        check(_bits_equal(runs["parent"](), runs["this"]()),
+              "the parent's fals_normals differs from this one's")
+        times = {"this": [], "parent": []}
+        for name in ("this", "parent", "parent", "this"):
+            times[name].append(_path_ms([runs[name], lambda: P.lapm(color)])[0])
+        torch.cuda.synchronize()
+    return times
+
+
 def preprocess_kernels(seq):
     """The scan's preprocessing kernels (csrc/preprocess.cu) against their
     plain versions on the card (_prep_case): every chunk of the smoke's
     sequence as the scan holds it (window 11, the pipeline's cache; the
     first one timed), one frame, a chunk of 1280x960 frames, an all-zero
     depth chunk, a sparse depth chunk (nine pixels in ten zero, no NaN),
-    each other window the normals take, and a grey chunk's LAPM.  Launches
-    made here are on no path.  -> facts."""
+    each other window the normals take, a grey chunk's LAPM and the normals'
+    edges (_fals_edges); with --fals-parent the normals in turns with an
+    earlier build.  Launches made here are on no path.  -> facts."""
     import torch
     from psgradientsdf_tpu_torch.ops import preprocess as P
     from psgradientsdf_tpu_torch.ops.normals import build_fals_cache
@@ -4374,13 +4478,24 @@ def preprocess_kernels(seq):
     cases.append(_prep_case(f"{2 * W}x{2 * H}", d2, c2, big, 11, None))
     check(cases[-1]["normals_differing"] == 0 and cases[-1]["width"] == 2 * W,
           "the 1280x960 chunk was not held")
+    cases += _fals_edges(seq, caches)
+    facts = {}
+    sms = _sm_count() if DEVICE == "cuda" else 132
+    per_sm = P.fals_blocks_per_sm(torch.device(DEVICE), 11) if DEVICE == "cuda" else 1
     if DEVICE == "cuda":
+        facts["registers"] = _ptxas(os.path.join("psgradientsdf_tpu_torch", "csrc",
+                                                 "preprocess.cu"))
+        if "--fals-parent" in sys.argv[1:]:
+            d, c = _prep_frames(seq, range(CHUNK))
+            facts["parent"] = _fals_parent_ab(d, c, caches[11], flush)
         torch.cuda.empty_cache()
     return dict(cases=cases, checked=len(cases), lapm_tolerance=LAPM_TOL,
-                grid=dict(tile=[P.TILE_W, P.TILE_H], blocks=list(P.fals_grid(CHUNK, H, W)),
-                          shared_bytes=P.fals_smem(11)),
-                lapm_plan=list(P.lapm_plan(CHUNK, H, _sm_count() if DEVICE == "cuda" else 132)),
-                timed=cases[0])
+                grid=dict(tile=P.TILE, blocks_per_sm=per_sm,
+                          plan=list(P.fals_grid(CHUNK, H, W, sms * per_sm)),
+                          shared_bytes=P.fals_smem(11),
+                          shared_bytes_window_31=P.fals_smem(P.MAX_WINDOW)),
+                lapm_plan=list(P.lapm_plan(CHUNK, H, sms)),
+                timed=cases[0], **facts)
 
 
 def _energy_inputs(ref, what):
@@ -4459,13 +4574,151 @@ def _energy_case(c, loss, flush=None, terms=None):
     return out
 
 
+def _energy_frames(c, frames, rows, what):
+    """c on its first `rows` rows (_energy_rows) and keyframes `frames`."""
+    out = _energy_rows(c, range(rows), what)
+    return dict(out, rd=_rd_frames(out["rd"], frames))
+
+
+def _energy_sliced(c, what):
+    """c's rows 1: as views of its tensors: r and the mask start one row in,
+    off the vector loads' boundaries where F is odd."""
+    prob = c["prob"]._replace(**{f: getattr(c["prob"], f)[1:] for f in c["prob"]._fields
+                                 if f != "n_surface"}, n_surface=c["n"] - 1)
+    return dict(c, what=what, prob=prob, rd=type(c["rd"])(*(t[1:] for t in c["rd"])),
+                dist=c["dist"][1:], albedo=c["albedo"][1:], n=c["n"] - 1)
+
+
+def _energy_edges(main, loss):
+    """The persistent grid's edges (_energy_case): 33 keyframes of 1001 rows
+    (33033 pairs: a partial last group of four, read by scalar loads); its
+    rows 1: as views (r and the mask off their 16- and 4-byte boundaries:
+    every group read by scalar loads) with every term, the PS sum alone and
+    the rows alone, each bit for bit with the same call on an aligned copy
+    (the order does not depend on the alignment); 25 rows of 40 keyframes
+    (one block's worth of pairs) -> [facts]."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import energy as E
+    from psgradientsdf_tpu_torch.utils import robust
+
+    odd = _energy_frames(main, slice(0, 33), 1001, "33 keyframes of 1001 rows")
+    check(odd["rd"].mask.numel() % E.GROUP != 0, "the odd case fills its last group")
+    out = [_energy_case(odd, loss)]
+    sliced = _energy_sliced(odd, "its rows 1: as views")
+    check(sliced["rd"].r.data_ptr() % 16 != 0 and sliced["rd"].mask.data_ptr() % 4 != 0,
+          "the sliced case is aligned")
+    copy = dict(sliced, prob=sliced["prob"]._replace(**{
+        f: getattr(sliced["prob"], f).clone() for f in sliced["prob"]._fields
+        if f != "n_surface"}), rd=type(sliced["rd"])(*(t.clone() for t in sliced["rd"])))
+    for terms in (E.ALL_TERMS, E.PS, E.REGULARIZERS):
+        case = _energy_case(sliced, loss, terms=terms)
+        kw = dict(sliced["kw"], loss=robust.loss_from_name(loss), terms=terms)
+        got = E.energy_sums(sliced["prob"], sliced["rd"], sliced["dist"], sliced["albedo"], **kw)
+        want = E.energy_sums(copy["prob"], copy["rd"], copy["dist"], copy["albedo"], **kw)
+        case["bits_as_aligned_copy"] = _bits_equal(got, want)
+        check(case["bits_as_aligned_copy"],
+              f"{case['case']}: the sums differ from an aligned copy's")
+        out.append(case)
+    rows = [int(i) for i in torch.nonzero(main["prob"].valid)[:25, 0]]
+    one = _energy_rows(main, rows, "25 rows")
+    check(E.energy_blocks(25, int(one["rd"].mask.shape[1]), _sm_count()
+                          if DEVICE == "cuda" else 132) == 1, "25 rows take more than a block")
+    out.append(_energy_case(one, loss))
+    return out
+
+
+def _energy_launch(lib, c, loss, terms, blocks):
+    """One launch of energy_sums_kernel from library `lib` (this build, or an
+    earlier one with the same EnergyArgs) on c at `blocks` blocks -> the
+    sums and energies [8] (not counted)."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import energy as E
+    from psgradientsdf_tpu_torch.utils import robust
+
+    dev = c["rd"].r.device
+    N, F, ins = E._inputs(c["prob"], c["rd"], c["dist"], c["albedo"], terms, dev)
+    out = torch.empty(8, dtype=torch.float32, device=dev)
+    part = torch.empty(4 * blocks, dtype=torch.float64, device=dev)
+    a = E._EnergyArgs(**{k: t.data_ptr() for k, t in ins.items()})
+    a.part, a.ticket, a.out = part.data_ptr(), E._ticket(dev).data_ptr(), out.data_ptr()
+    a.N, a.F, a.terms = N, F, terms
+    a.loss = E.LOSS_KINDS.index(robust.loss_from_name(loss))
+    a.has_count, a.blocks = 1, blocks
+    a.lam, a.voxel = float(c["kw"]["lam"]), float(c["kw"]["voxel_size"])
+    a.count = max(float(c["n"]), 1.0)
+    rc = lib.energy_sums(ctypes.byref(a), torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"energy_sums ({lib}): CUDA error {rc}")
+    return out
+
+
+def _parent_energy_blocks(N, F, sms):
+    """The grid of the energy kernel's first design (csrc/energy.cu before
+    the persistent grid): a thread a pair or a row, at most four blocks of
+    256 an SM."""
+    return max(1, min(4 * sms, -(-max(N * F, N, 1) // 256)))
+
+
+def _energy_cuts(lib, c, loss, blocks):
+    """energy_sums_kernel from `lib` timed in the path's order (_path_ms:
+    the residual pass, then the energies) with every term, the PS sum alone,
+    the rows alone, and every term at 132 blocks and at one: which part
+    sets a launch's time -> {cut: ms}."""
+    from psgradientsdf_tpu_torch.ops import energy as E
+    from psgradientsdf_tpu_torch.ops import residual
+
+    ref = c["ref"]
+    first = lambda: residual.residual_pass(*ref._args(), **ref._static_kwargs())
+    cuts = {"all terms": (E.ALL_TERMS, blocks), "PS alone": (E.PS, blocks),
+            "rows alone": (E.REGULARIZERS, blocks), "132 blocks": (E.ALL_TERMS, 132),
+            "1 block": (E.ALL_TERMS, 1)}
+    return {k: _path_ms([first, lambda t=t, b=b: _energy_launch(lib, c, loss, t, b)])[1]
+            for k, (t, b) in cuts.items()}
+
+
+def _energy_parent_ab(c, loss):
+    """energy_sums on this energy.cu and on the --energy-parent source
+    (built here into a temporary directory; its launches on no path and not
+    counted), the parent held to the plain sums within ENERGY_TOL, timed
+    in turns in the path's order (this, the parent, the parent, this) and
+    with the cuts of _energy_cuts -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import energy as E
+    from psgradientsdf_tpu_torch.ops import residual
+    from psgradientsdf_tpu_torch.utils import robust
+
+    src = sys.argv[sys.argv.index("--energy-parent") + 1]
+    N, F = (int(s) for s in c["rd"].mask.shape)
+    pblocks = _parent_energy_blocks(N, F, _sm_count())
+    with tempfile.TemporaryDirectory(prefix="energy_parent_") as tmp:
+        parent = _parent_build(src, tmp, "energy_parent")
+        parent.energy_sums.argtypes = [ctypes.POINTER(E._EnergyArgs), ctypes.c_void_p]
+        got = _energy_launch(parent, c, loss, E.ALL_TERMS, pblocks)[:4]
+        plain = E.energy_sums_plain(c["prob"], c["rd"], c["dist"], c["albedo"],
+                                    **dict(c["kw"], loss=robust.loss_from_name(loss)))
+        rel = float(((got - plain).abs() / plain.abs().clamp(min=1e-30)).max())
+        check(rel <= ENERGY_TOL, f"the parent's energy_sums is {rel:.3g} from the plain sums")
+        ref = c["ref"]
+        first = lambda: residual.residual_pass(*ref._args(), **ref._static_kwargs())
+        kw = dict(c["kw"], loss=robust.loss_from_name(loss), n_surface=c["n"])
+        runs = dict(this=lambda: E.energy_sums(c["prob"], c["rd"], c["dist"], c["albedo"], **kw),
+                    parent=lambda: _energy_launch(parent, c, loss, E.ALL_TERMS, pblocks))
+        times = {"this": [], "parent": []}
+        for name in ("this", "parent", "parent", "this"):
+            times[name].append(_path_ms([first, runs[name]])[1])
+        cuts = _energy_cuts(parent, c, loss, pblocks)
+        torch.cuda.synchronize()
+    return dict(times, blocks=pblocks, max_rel_err=rel, cuts=cuts)
+
+
 def energy_kernels(main_run, led_run):
     """The energies' kernel (csrc/energy.cu) against its plain version on
     the card (_energy_case): the main run's final problem (SH1, 40
     keyframes) and the LED run's after its upsample, each under every
-    robust loss (the main one under its own loss timed); the mesh's two
-    kinds of call (the PS sum alone, the three regularizers alone); one
-    row; no valid row.  Launches made here are on no path.  -> facts."""
+    robust loss (the main one under its own loss timed, and with the cuts
+    of _energy_cuts); the mesh's two kinds of call (the PS sum alone, the
+    three regularizers alone); one row; no valid row; the persistent grid's
+    edges (_energy_edges); with --energy-parent the main case in turns with
+    an earlier build.  Launches made here are on no path.  -> facts."""
     import torch
     from psgradientsdf_tpu_torch.ops import energy as E
 
@@ -4489,9 +4742,19 @@ def energy_kernels(main_run, led_run):
     check(all(v == 0 for v in cases[-1]["sums"]), "no valid row: a sum is not 0")
     check(tuple(led["ref"].geom.dims) == (2 * LED_GRID,) * 3,
           "the LED case is not the upsampled problem")
+    cases += _energy_edges(main, loss)
+    facts = {}
     if DEVICE == "cuda":
+        N, F = (int(s) for s in main["rd"].mask.shape)
+        facts["cuts"] = _energy_cuts(E._library(), main, loss,
+                                     E.energy_blocks(N, F, _sm_count()))
+        facts["registers"] = _ptxas(os.path.join("psgradientsdf_tpu_torch", "csrc",
+                                                 "energy.cu"))
+        if "--energy-parent" in sys.argv[1:]:
+            facts["parent"] = _energy_parent_ab(main, loss)
         torch.cuda.empty_cache()
-    return dict(cases=cases, checked=len(cases), tolerance=ENERGY_TOL, timed=cases[0])
+    return dict(cases=cases, checked=len(cases), tolerance=ENERGY_TOL, timed=cases[0],
+                **facts)
 
 
 @contextlib.contextmanager
@@ -7127,8 +7390,10 @@ def main():
     slice_rows = {
         "fals_normals": dict(prep_facts["timed"]["fals_normals"], work=(
             f"the first chunk's FALS normals: {CHUNK} frames of {W}x{H}, window "
-            "11, one launch (a block a 32 x 8 tile, its halo in shared memory), "
-            "timed in the path's order before LAPM, no flush; the bound counts "
+            "11, one launch (a persistent grid over (32 x 32 tile, frame) units, a "
+            "block walking the frames of its tile: the cache planes loaded once a "
+            "tile, each frame's depth halo copied in while the one before "
+            "computes), timed in the path's order before LAPM, no flush; the bound counts "
             "the depth, the cache (x0n, y0n, nsi, Q) and the normals once; no "
             "single PyTorch call computes it")),
         "lapm": dict(prep_facts["timed"]["lapm"], work=(
@@ -7141,7 +7406,9 @@ def main():
             f"{energy_facts['timed']['rows']} surface-voxel slots x "
             f"{energy_facts['timed']['keyframes']} keyframes, "
             f"{REFINE_SH1['loss function']} loss, one launch of "
-            f"{energy_facts['timed']['blocks']} blocks, timed in the path's order "
+            f"{energy_facts['timed']['blocks']} persistent blocks (pair warps streaming "
+            "groups of four pairs, row warps beside them), timed in the "
+            "path's order "
             "after the residual pass, no flush; the bound counts the mask of every "
             "pair, r of each counted pair, valid, and a valid row's state and "
             "stencil once; no single PyTorch call computes it"))}

@@ -10,22 +10,43 @@
 // division (about 90 ops), and two separable 3-tap filters, abs, add and a
 // mean (about 25).
 //
-// fals_normals_kernel: a block per 32 x 8 output tile of one frame.
-//   1. The tile's rows and columns with a halo of r = window / 2 on each
-//      side are loaded into shared memory as the three 1/z-weighted ray
-//      components x0n z_inv, y0n z_inv, nsi z_inv, the reflect-101 border
-//      applied on load (a pixel of the padded image is the product at its
-//      reflected source pixel, as padding the product is).
-//   2. Horizontal sums over the window of every halo row, for the tile's
-//      32 columns, into shared memory; then vertical sums of those over the
-//      window: acc = x[0]; acc += x[j], j = 1 .. window - 1, in the plain
-//      version's order, every addition rounded once.
-//   3. n = Q b with the packed symmetric Q [H, W, 6], each product and sum
+// fals_normals_kernel: a persistent grid over the units (32 x 32 output
+//   tile, frame), tile-major with the frame fastest; block b of B takes the
+//   units [b U / B, (b + 1) U / B) (ops/preprocess.py fals_plan: B fills the
+//   SMs at the occupancy the window's shared memory allows), so a block
+//   walks over frames of one tile, or of two.
+//   0. On a new tile the block places the halo (r = window / 2 on each
+//      side): the source row and column of each halo pixel, the reflect-101
+//      border applied there (an overhang past the image's last padded row
+//      or column clamped first: never read by an output); the three cache
+//      planes x0n, y0n, nsi of the halo into shared memory (4-byte cp.async
+//      copies), and each thread's four pixels of Q into registers.  All are
+//      frame-independent.
+//   1. Each frame's depth halo is brought into one of two shared buffers by
+//      4-byte cp.async copies two units ahead, while the units before it
+//      compute: a unit's work is [horizontal sums, barrier, vertical sums
+//      and the solve, the next unit's weighted halo, barrier].
+//   2. The three 1/z-weighted ray components x0n z_inv, y0n z_inv,
+//      nsi z_inv of the halo (a pixel of the padded image is the product at
+//      its reflected source pixel, as padding the product is).
+//   3. Horizontal window sums of every halo row: a thread eight neighbouring
+//      columns of one row (a warp's lanes on 32 rows of an odd pitch: no
+//      bank conflict), each value read once and added to the sums it
+//      belongs to; then vertical sums of those: a thread four neighbouring
+//      rows of one column.  Each sum is acc = x[0]; acc += x[j], j = 1 ..
+//      window - 1, in the plain version's order, every addition rounded
+//      once: the sharing changes which thread adds, not the order.
+//   4. n = Q b with the packed symmetric Q [H, W, 6], each product and sum
 //      rounded once in the plain version's order, then n / max(|n|, 1e-20)
 //      (NaN kept, as torch.clamp keeps it).
 //   Every product, sum and quotient is an _rn intrinsic, so nvcc contracts
 //   none of them into a fused multiply-add, and z_inv = 1 / d is the
-//   correctly rounded quotient that PyTorch's reciprocal computes.
+//   correctly rounded quotient that PyTorch's reciprocal computes.  The
+//   kernel's first design, a block a 32 x 8 tile of one frame, loaded 2.95
+//   times its pixels at window 11 and read the cache again for each frame;
+//   this tile loads 1.72 times them and the cache once a tile, and the
+//   shared sums read a value about 2.25 (horizontal) and 3.5 (vertical)
+//   times an output where each output read it 11 times.
 //
 // lapm_kernel: per frame, mean(|Lx| + |Ly|) of channel `chan` of a
 //   [C, H, W, S] image (S = 3: the blue channel of RGB; S = 1: grey), with
@@ -53,6 +74,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 // The C interface's argument blocks: every field 8 bytes wide, in this
 // order (ops/preprocess.py builds the same blocks with ctypes).
 struct FalsArgs {
@@ -63,6 +86,7 @@ struct FalsArgs {
   const float* Q;      // [H, W, 6]
   float* out;          // [C, H, W, 3]
   int64_t C, H, W, window;
+  int64_t blocks;      // the persistent grid (ops/preprocess.py fals_plan)
 };
 
 struct LapmArgs {
@@ -75,9 +99,11 @@ struct LapmArgs {
 
 namespace {
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 8;
-constexpr int kThreads = kTileW * kTileH;
+constexpr int kTile = 32;          // the normals' output tile, 32 x 32
+constexpr int kThreads = 256;
+constexpr int kHCols = 8;          // horizontal sums a thread, neighbouring columns
+constexpr int kVRows = 4;          // vertical sums a thread, neighbouring rows
+constexpr int kHsPitch = kTile + 1;
 constexpr int kLapmThreads = 256;
 
 // reflect-101 of an index in [-(n - 1), 2 n - 2]
@@ -87,79 +113,233 @@ __device__ __forceinline__ int reflect101(int i, int n) {
   return i;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The normals kernel's shared memory for a window, in floats (the layout
+// of fals_normals_kernel; ops/preprocess.py fals_smem computes the same).
+__host__ __device__ inline int fals_smem_floats(int window) {
+  const int r = window / 2, P = kTile + 2 * r, Pp = P | 1;
+  return 6 * P * Pp + 3 * P * kHsPitch + 2 * P * P + 2 * P;
+}
+
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(s)), "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// acc[k] = p[k s] + p[(k + 1) s] + ... + p[(k + window - 1) s] for k < K,
+// each added left to right as the plain shifted-slice sums add (acc = x[0];
+// acc += x[j]), every addition rounded once.  For window >= K each value is
+// read once and added to every sum it belongs to, in the same order.
+template <int K>
+__device__ __forceinline__ void window_sums(const float* p, int s, int window,
+                                            float (&acc)[K]) {
+  if (window >= K) {
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      const float v = p[m * s];
+#pragma unroll
+      for (int k = 0; k <= m; ++k) acc[k] = k == m ? v : __fadd_rn(acc[k], v);
+    }
+#pragma unroll 4
+    for (int m = K; m < window; ++m) {
+      const float v = p[m * s];
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[k] = __fadd_rn(acc[k], v);
+    }
+#pragma unroll
+    for (int q = 0; q < K - 1; ++q) {
+      const float v = p[(window + q) * s];
+#pragma unroll
+      for (int k = q + 1; k < K; ++k) acc[k] = __fadd_rn(acc[k], v);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float a = p[k * s];
+      for (int j = 1; j < window; ++j) a = __fadd_rn(a, p[(k + j) * s]);
+      acc[k] = a;
+    }
+  }
+}
+
+// i / n for 0 <= i < 4096 and 1 <= n <= 64, by a float product: the
+// quotient's fraction lies at least 1 / (2 n) from the next integer, far
+// beyond the product's rounding
+__device__ __forceinline__ int small_div(int i, float inv_n) {
+  return __float2int_rz((static_cast<float>(i) + 0.5f) * inv_n);
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
 fals_normals_kernel(FalsArgs a) {
   extern __shared__ float smem[];
-  const int H = static_cast<int>(a.H), W = static_cast<int>(a.W);
+  const int H = static_cast<int>(a.H), W = static_cast<int>(a.W), C = static_cast<int>(a.C);
   const int window = static_cast<int>(a.window), r = window / 2;
-  const int PH = kTileH + 2 * r, PW = kTileW + 2 * r;
-  float* wt = smem;                         // [3][PH][PW] weighted components
-  float* hs = smem + 3 * PH * PW;           // [3][PH][kTileW] horizontal sums
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
-  const int c = blockIdx.z;
-  const float* depth = a.depth + static_cast<int64_t>(c) * H * W;
-  const int t = threadIdx.y * kTileW + threadIdx.x;
+  const int P = kTile + 2 * r, Pp = P | 1;       // halo side, odd pitch
+  const float inv_p = 1.0f / static_cast<float>(P);
+  float* cache = smem;                           // [3][P][Pp] x0n, y0n, nsi
+  float* wt = cache + 3 * P * Pp;                // [3][P][Pp] weighted
+  float* hs = wt + 3 * P * Pp;                   // [3][P][kHsPitch] horizontal sums
+  float* dep = hs + 3 * P * kHsPitch;            // [2][P][P] depth halos
+  int* srow = reinterpret_cast<int*>(dep + 2 * P * P);   // [P] source row * W
+  int* scol = srow + P;                                  // [P] source column
+  const int tiles_x = (W + kTile - 1) / kTile;
+  const int64_t units = static_cast<int64_t>(tiles_x) * ((H + kTile - 1) / kTile) * C;
+  const int64_t u0 = blockIdx.x * units / gridDim.x;
+  const int64_t u1 = (blockIdx.x + 1) * units / gridDim.x;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t frame = static_cast<int64_t>(H) * W;
+  int x0 = 0, y0 = 0;
+  float q[kVRows][6];
 
-  // 1. the weighted components of the tile and its halo, reflected on load
-  //    (rows or columns past the image's last padded one are clamped: the
-  //    tile's overhang, never read by an output)
-  for (int i = t; i < PH * PW; i += kThreads) {
-    const int py = i / PW, px = i - py * PW;
-    const int sy = reflect101(min(y0 + py - r, H - 1 + r), H);
-    const int sx = reflect101(min(x0 + px - r, W - 1 + r), W);
-    const int64_t p = static_cast<int64_t>(sy) * W + sx;
-    const float d = depth[p];
-    const float zi = d == 0.0f ? 0.0f : __fdiv_rn(1.0f, d);
-    wt[i] = __fmul_rn(a.x0n[p], zi);
-    wt[PH * PW + i] = __fmul_rn(a.y0n[p], zi);
-    wt[2 * PH * PW + i] = __fmul_rn(a.nsi[p], zi);
+  // units x and y (< u1) of one tile
+  auto same = [&](int64_t x, int64_t y) { return y < u1 && x / C == y / C; };
+
+  // the depth halo of unit u into dep[u & 1], by 4-byte async copies
+  auto fetch = [&](int64_t u) {
+    const float* d = a.depth + (u % C) * frame;
+    float* dst = dep + (u & 1) * P * P;
+    for (int i = t; i < P * P; i += kThreads) {
+      const int py = small_div(i, inv_p), px = i - py * P;
+      cp_async4(dst + i, d + srow[py] + scol[px]);
+    }
+    cp_async_commit();
+  };
+
+  // 0. unit u's tile: its halo's sources (reflect-101, the overhang clamped
+  //    first), its cache planes (async copies, committed with the first
+  //    depth halo) and this thread's pixels of Q
+  auto setup = [&](int64_t u) {
+    const int64_t tile = u / C;
+    x0 = static_cast<int>(tile % tiles_x) * kTile;
+    y0 = static_cast<int>(tile / tiles_x) * kTile;
+    if (t < P) {
+      srow[t] = reflect101(min(y0 + t - r, H - 1 + r), H) * W;
+    } else if (t < 2 * P) {
+      scol[t - P] = reflect101(min(x0 + t - P - r, W - 1 + r), W);
+    }
+    const int x = x0 + lane;
+#pragma unroll
+    for (int k = 0; k < kVRows; ++k) {
+      const int y = y0 + kVRows * warp + k;
+      const bool in = x < W && y < H;
+#pragma unroll
+      for (int j = 0; j < 6; ++j)
+        q[k][j] = in ? __ldg(a.Q + (static_cast<int64_t>(y) * W + x) * 6 + j) : 0.0f;
+    }
+    __syncthreads();
+    for (int i = t; i < P * P; i += kThreads) {
+      const int py = small_div(i, inv_p), px = i - py * P;
+      const int64_t p = static_cast<int64_t>(srow[py]) + scol[px];
+      const int o = py * Pp + px;
+      cp_async4(cache + o, a.x0n + p);
+      cp_async4(cache + P * Pp + o, a.y0n + p);
+      cp_async4(cache + 2 * P * Pp + o, a.nsi + p);
+    }
+  };
+
+  // 2. the weighted components of unit u's halo
+  auto weighting = [&](int64_t u) {
+    const float* d = dep + (u & 1) * P * P;
+    for (int i = t; i < P * P; i += kThreads) {
+      const int py = small_div(i, inv_p), px = i - py * P;
+      const float z = d[i];
+      const float zi = z == 0.0f ? 0.0f : __fdiv_rn(1.0f, z);
+      const int o = py * Pp + px;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) wt[ch * P * Pp + o] = __fmul_rn(cache[ch * P * Pp + o], zi);
+    }
+  };
+
+  // 1. a new tile's first units: the setup, their depth halos, then wait
+  //    for unit u's (the next one's stays in flight)
+  auto start_tile = [&](int64_t u) {
+    setup(u);
+    fetch(u);
+    if (same(u, u + 1)) {
+      fetch(u + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    weighting(u);
+    __syncthreads();
+  };
+
+  start_tile(u0);
+  for (int64_t u = u0; u < u1; ++u) {
+    const int c = static_cast<int>(u % C);
+    // unit u + 2's depth halo in flight for the next two units' work
+    const bool ahead = same(u, u + 1) && same(u + 1, u + 2);
+    if (ahead) fetch(u + 2);
+
+    // 3a. horizontal window sums: item (channel, column group, halo row),
+    //     the row fastest so that a warp's lanes take neighbouring rows
+    for (int i = t; i < 3 * (kTile / kHCols) * P; i += kThreads) {
+      const int rest = small_div(i, inv_p), py = i - rest * P;
+      const int g = rest % (kTile / kHCols), ch = rest / (kTile / kHCols);
+      float acc[kHCols];
+      window_sums<kHCols>(wt + ch * P * Pp + py * Pp + kHCols * g, 1, window, acc);
+      float* o = hs + ch * P * kHsPitch + py * kHsPitch + kHCols * g;
+#pragma unroll
+      for (int k = 0; k < kHCols; ++k) o[k] = acc[k];
+    }
+    if (same(u, u + 1)) {
+      if (ahead) cp_async_wait<1>(); else cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // 3b. vertical window sums, rows kVRows warp .. + kVRows - 1 of column
+    //     lane; 4. the solve and the normalisation
+    {
+      float b[3][kVRows];
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+        window_sums<kVRows>(hs + ch * P * kHsPitch + kVRows * warp * kHsPitch + lane,
+                            kHsPitch, window, b[ch]);
+      const int x = x0 + lane;
+#pragma unroll
+      for (int k = 0; k < kVRows; ++k) {
+        const int y = y0 + kVRows * warp + k;
+        if (x >= W || y >= H) continue;
+        const float q11 = q[k][0], q12 = q[k][1], q13 = q[k][2];
+        const float q22 = q[k][3], q23 = q[k][4], q33 = q[k][5];
+        const float b0 = b[0][k], b1 = b[1][k], b2 = b[2][k];
+        const float nx = __fadd_rn(__fadd_rn(__fmul_rn(b0, q11), __fmul_rn(b1, q12)),
+                                   __fmul_rn(b2, q13));
+        const float ny = __fadd_rn(__fadd_rn(__fmul_rn(b0, q12), __fmul_rn(b1, q22)),
+                                   __fmul_rn(b2, q23));
+        const float nz = __fadd_rn(__fadd_rn(__fmul_rn(b0, q13), __fmul_rn(b1, q23)),
+                                   __fmul_rn(b2, q33));
+        // torch.linalg.vector_norm over the last dim of 3 on the card: the
+        // squares of elements 0 and 2 summed first, then element 1's
+        const float s = __fadd_rn(__fadd_rn(__fmul_rn(nx, nx), __fmul_rn(nz, nz)),
+                                  __fmul_rn(ny, ny));
+        float norm = __fsqrt_rn(s);
+        if (norm < 1e-20f) norm = 1e-20f;      // NaN stays NaN
+        float* o = a.out + (c * frame + static_cast<int64_t>(y) * W + x) * 3;
+        o[0] = __fdiv_rn(nx, norm);
+        o[1] = __fdiv_rn(ny, norm);
+        o[2] = __fdiv_rn(nz, norm);
+      }
+    }
+
+    // the next unit's weighted halo (its tile's setup first if it is new)
+    if (same(u, u + 1)) {
+      weighting(u + 1);
+      __syncthreads();
+    } else if (u + 1 < u1) {
+      start_tile(u + 1);
+    }
   }
-  __syncthreads();
-
-  // 2a. horizontal window sums of every halo row, in the plain order
-  for (int i = t; i < 3 * PH * kTileW; i += kThreads) {
-    const int ch = i / (PH * kTileW);
-    const int rem = i - ch * PH * kTileW;
-    const int py = rem / kTileW, tx = rem - py * kTileW;
-    const float* row = wt + ch * PH * PW + py * PW + tx;
-    float acc = row[0];
-    for (int j = 1; j < window; ++j) acc = __fadd_rn(acc, row[j]);
-    hs[i] = acc;
-  }
-  __syncthreads();
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int x = x0 + tx, y = y0 + ty;
-  if (x >= W || y >= H) return;
-
-  // 2b. vertical window sums, in the plain order
-  float b[3];
-  for (int ch = 0; ch < 3; ++ch) {
-    const float* col = hs + ch * PH * kTileW + ty * kTileW + tx;
-    float acc = col[0];
-    for (int i = 1; i < window; ++i) acc = __fadd_rn(acc, col[i * kTileW]);
-    b[ch] = acc;
-  }
-
-  // 3. n = Q b, normalised
-  const float* q = a.Q + (static_cast<int64_t>(y) * W + x) * 6;
-  const float q11 = q[0], q12 = q[1], q13 = q[2], q22 = q[3], q23 = q[4], q33 = q[5];
-  const float nx = __fadd_rn(__fadd_rn(__fmul_rn(b[0], q11), __fmul_rn(b[1], q12)),
-                             __fmul_rn(b[2], q13));
-  const float ny = __fadd_rn(__fadd_rn(__fmul_rn(b[0], q12), __fmul_rn(b[1], q22)),
-                             __fmul_rn(b[2], q23));
-  const float nz = __fadd_rn(__fadd_rn(__fmul_rn(b[0], q13), __fmul_rn(b[1], q23)),
-                             __fmul_rn(b[2], q33));
-  // torch.linalg.vector_norm over the last dim of 3 on the card: the
-  // squares of elements 0 and 2 summed first, then element 1's
-  const float s = __fadd_rn(__fadd_rn(__fmul_rn(nx, nx), __fmul_rn(nz, nz)),
-                            __fmul_rn(ny, ny));
-  float norm = __fsqrt_rn(s);
-  if (norm < 1e-20f) norm = 1e-20f;          // NaN stays NaN
-  float* o = a.out + ((static_cast<int64_t>(c) * H + y) * W + x) * 3;
-  o[0] = __fdiv_rn(nx, norm);
-  o[1] = __fdiv_rn(ny, norm);
-  o[2] = __fdiv_rn(nz, norm);
 }
 
 // one separable 3-tap pass as the plain version writes it:
@@ -223,19 +403,31 @@ lapm_kernel(LapmArgs a) {
 
 }  // namespace
 
-extern "C" int fals_normals(const FalsArgs* a, void* stream) {
-  const int r = static_cast<int>(a->window / 2);
-  if (a->C <= 0 || a->H <= r || a->W <= r || a->window < 1 || a->window % 2 == 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * 3 * (kTileH + 2 * r) * (kTileW + 2 * r + kTileW);
+// The normals kernel's blocks an SM at this window's shared memory (the
+// host plan's input) -> 0 or the CUDA error.
+extern "C" int fals_normals_occupancy(int64_t window, int64_t* blocks_per_sm) {
+  const size_t smem = sizeof(float) * fals_smem_floats(static_cast<int>(window));
   cudaError_t e = cudaFuncSetAttribute(fals_normals_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>((a->W + kTileW - 1) / kTileW),
-                  static_cast<unsigned>((a->H + kTileH - 1) / kTileH),
-                  static_cast<unsigned>(a->C));
-  fals_normals_kernel<<<grid, dim3(kTileW, kTileH), smem,
+  int n = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fals_normals_kernel, kThreads, smem);
+  *blocks_per_sm = n;
+  return static_cast<int>(e);
+}
+
+extern "C" int fals_normals(const FalsArgs* a, void* stream) {
+  const int r = static_cast<int>(a->window / 2);
+  if (a->C <= 0 || a->H <= r || a->W <= r || a->window < 1 || a->window % 2 == 0 ||
+      a->blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * fals_smem_floats(static_cast<int>(a->window));
+  cudaError_t e = cudaFuncSetAttribute(fals_normals_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fals_normals_kernel<<<static_cast<unsigned>(a->blocks), kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }

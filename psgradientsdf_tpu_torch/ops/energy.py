@@ -17,10 +17,16 @@ PS, NORMAL, LAPLACIAN, ALBEDO) selects the sums: the mesh asks for a
 a term left out sums to 0 and its inputs are not read (albedo may then be
 None).
 
-The kernel sums each term in double in a fixed order (a thread's values,
-a tree over a block's threads, the blocks in order), the plain version in
-float in torch's order, so the two agree to float32 rounding; two launches
-give the same bits.
+The kernel is a persistent grid (`energy_blocks`): its pair warps stream
+the pairs in groups of GROUP (pair thread q of Q: groups q, q + Q, ...),
+its row warps take the voxel rows.  It sums each term in double in a
+fixed order (a thread's groups or its rows in turn, each warp's xor
+butterfly, the warps in order, then the blocks' partials by a fixed
+stride and the same tree), the plain version in float in torch's order,
+so the two agree to float32 rounding; two launches give the same bits.
+The order depends on the shapes and the block count alone: where r or the
+mask is off the vector loads' alignment (a row slice), the kernel reads
+the same groups by scalar loads.
 
 A wrapper takes the plain version ONLY for tensors that lie on the CPU; for
 CUDA tensors it launches the kernel or raises.  `launch_counts` counts
@@ -47,8 +53,13 @@ REGULARIZERS = NORMAL | LAPLACIAN | ALBEDO
 # (csrc/energy.cu `Loss`)
 LOSS_KINDS = (robust.L2, robust.CAUCHY, robust.HUBER, robust.TUKEY, robust.TRUNC_L2)
 
-THREADS = 256
-BLOCKS_PER_SM = 4
+# the kernel's block: PAIR_THREADS stream the pairs in groups of GROUP,
+# ROW_THREADS take the rows (csrc/energy.cu)
+THREADS = 512
+PAIR_THREADS = 256
+ROW_THREADS = THREADS - PAIR_THREADS
+GROUP = 4
+BLOCKS_PER_SM = 2
 
 
 def reset_launch_counts() -> None:
@@ -82,11 +93,13 @@ def energy_sums_plain(prob, rd, dist, albedo, *, loss: int, lam: float,
 
 
 def energy_blocks(N: int, F: int, sms: int) -> int:
-    """The kernel's grid: a thread a pair (or a row) where the work is
-    small, at most BLOCKS_PER_SM blocks an SM striding over it.  A function
-    of the shapes and the card alone, so a call's bits are too."""
-    work = max(N * F, N, 1)
-    return max(1, min(BLOCKS_PER_SM * sms, -(-work // THREADS)))
+    """The kernel's persistent grid: at most BLOCKS_PER_SM blocks an SM,
+    and no more than give each pair thread a group of GROUP pairs or each
+    row thread a row.  A function of the shapes and the card alone, so a
+    call's order of addition, and its bits, are too."""
+    groups = -(-N * F // GROUP)
+    need = max(-(-groups // PAIR_THREADS), -(-N // ROW_THREADS), 1)
+    return min(BLOCKS_PER_SM * sms, need)
 
 
 class _EnergyArgs(ctypes.Structure):

@@ -15,10 +15,15 @@ separable 3-tap filters and a mean.
 
 The normals kernel computes every product, sum and quotient of the plain
 version in the same order, each rounded once, so the two agree on the card
-bit for bit.  LAPM's filtered values follow the plain arithmetic too; its
-mean over the image is summed in double in a fixed order (and the plain
-torch.mean in float in its own), so the two agree to float32 rounding and
-two launches give the same bits.
+bit for bit.  It is a persistent grid (`fals_grid`) over (32 x 32 tile,
+frame) units, a block walking over the frames of its tile with the cache
+planes loaded once a tile and each frame's depth halo copied in while the
+units before it compute; a thread's window sums share the values they read
+(`window_sums` in csrc/preprocess.cu), which changes who adds, not the
+order of any sum.  LAPM's filtered values follow the plain arithmetic too;
+its mean over the image is summed in double in a fixed order (and the
+plain torch.mean in float in its own), so the two agree to float32
+rounding and two launches give the same bits.
 
 A wrapper takes the plain version ONLY for tensors that lie on the CPU; for
 CUDA tensors it launches the kernel or raises.  `launch_counts` counts
@@ -38,9 +43,13 @@ _LIB_NAME = "preprocess"
 launch_counts: Dict[str, int] = {"fals_normals": 0, "lapm": 0}
 
 # the odd box-filter windows the normals kernel takes, 1 .. MAX_WINDOW: its
-# shared memory holds a 32 x 8 tile with a halo of window // 2 on each side
+# shared memory holds a TILE x TILE output tile with a halo of window // 2
+# on each side (csrc/preprocess.cu fals_normals_kernel)
 MAX_WINDOW = 31
-TILE_W, TILE_H = 32, 8
+TILE = 32
+H_COLS = 8            # horizontal window sums a thread: neighbouring columns
+V_ROWS = 4            # vertical window sums a thread: neighbouring rows
+HS_PITCH = TILE + 1   # the horizontal sums' row pitch, in floats
 
 # cv::getGaussianKernel(3) and the second difference of cv::Laplacian
 GAUSS3 = (0.25, 0.5, 0.25)
@@ -155,16 +164,30 @@ def check_window(window: int, H: int, W: int) -> None:
                          f"{H} x {W} image")
 
 
-def fals_grid(C: int, H: int, W: int) -> Tuple[int, int, int]:
-    """The normals kernel's grid: a block a 32 x 8 output tile of a frame."""
-    return -(-W // TILE_W), -(-H // TILE_H), C
+def fals_grid(C: int, H: int, W: int, slots: int) -> Tuple[int, int, int, int]:
+    """The normals kernel's persistent grid -> (tiles across, tiles down,
+    units, blocks): a unit is (TILE x TILE output tile, frame), tile-major
+    with the frame fastest, and `slots` (the SMs times the blocks an SM
+    holds at the window's shared memory) bounds the blocks.  Block b takes
+    the units fals_units(b, blocks, units)."""
+    tx, ty = -(-W // TILE), -(-H // TILE)
+    units = tx * ty * C
+    return tx, ty, units, max(1, min(units, slots))
+
+
+def fals_units(b: int, blocks: int, units: int) -> range:
+    """Block b's units, as the kernel cuts them: [b U / B, (b + 1) U / B)."""
+    return range(b * units // blocks, (b + 1) * units // blocks)
 
 
 def fals_smem(window: int) -> int:
-    """The normals kernel's shared memory: the three weighted components of
-    a tile with its halo, and their horizontal sums."""
+    """The normals kernel's shared memory in bytes: the three cache planes
+    and the three weighted components of a tile's halo (an odd row pitch),
+    their horizontal sums, two depth halos and the halo's source rows and
+    columns."""
     r = window // 2
-    return 4 * 3 * (TILE_H + 2 * r) * (TILE_W + 2 * r + TILE_W)
+    P = TILE + 2 * r
+    return 4 * (6 * P * (P | 1) + 3 * P * HS_PITCH + 2 * P * P + 2 * P)
 
 
 def lapm_plan(C: int, H: int, sms: int) -> Tuple[int, int]:
@@ -179,7 +202,7 @@ class _FalsArgs(ctypes.Structure):
     """csrc/preprocess.cu FalsArgs, field for field (every field 8 bytes)."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in ("depth", "x0n", "y0n", "nsi", "Q", "out")]
-        + [(n, ctypes.c_int64) for n in ("C", "H", "W", "window")])
+        + [(n, ctypes.c_int64) for n in ("C", "H", "W", "window", "blocks")])
 
 
 class _LapmArgs(ctypes.Structure):
@@ -201,6 +224,9 @@ def _library():
         lib = load_library(_LIB_NAME)
         lib.fals_normals.argtypes = [ctypes.POINTER(_FalsArgs), ctypes.c_void_p]
         lib.fals_normals.restype = ctypes.c_int
+        lib.fals_normals_occupancy.argtypes = [ctypes.c_int64,
+                                               ctypes.POINTER(ctypes.c_int64)]
+        lib.fals_normals_occupancy.restype = ctypes.c_int
         lib.lapm.argtypes = [ctypes.POINTER(_LapmArgs), ctypes.c_void_p]
         lib.lapm.restype = ctypes.c_int
         _bound = lib
@@ -214,6 +240,25 @@ def _launch(name: str, args, dev) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {rc}")
     launch_counts[name] += 1
+
+
+# the normals kernel's blocks an SM at a window's shared memory, asked once
+# a device and window
+_per_sm: Dict[Tuple[int, int], int] = {}
+
+
+def fals_blocks_per_sm(dev, window: int) -> int:
+    key = (dev.index, window)
+    n = _per_sm.get(key)
+    if n is None:
+        out = ctypes.c_int64()
+        with torch.cuda.device(dev):
+            rc = _library().fals_normals_occupancy(window, ctypes.byref(out))
+        if rc != 0 or out.value < 1:
+            raise RuntimeError(f"fals_normals: no block of window {window} fits an SM "
+                               f"(CUDA error {rc})")
+        n = _per_sm[key] = int(out.value)
+    return n
 
 
 # the ticket of LAPM's last block, one a device and stream: zeroed once when
@@ -264,7 +309,10 @@ def fals_normals(depth, cache, window: int = 11) -> torch.Tensor:
     a.depth, a.x0n, a.y0n, a.nsi, a.Q, a.out = (
         d.data_ptr(), x0n.data_ptr(), y0n.data_ptr(), nsi.data_ptr(),
         Q.data_ptr(), out.data_ptr())
+    from psgradientsdf_tpu_torch.kernels import sm_count
+
     a.C, a.H, a.W, a.window = C, H, W, window
+    a.blocks = fals_grid(C, H, W, sm_count(dev) * fals_blocks_per_sm(dev, window))[3]
     _launch("fals_normals", a, dev)
     return out
 

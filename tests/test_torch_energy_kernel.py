@@ -11,11 +11,16 @@ valid row; rtol 1e-5 (XLA sums in its own order).  Within the port: the
 `terms` mask selects the sums; the wrapper on CPU tensors is the plain
 version and launches nothing; the refiner's `_energy_from_rd` and the
 mesh's `energy_from_rd` (one call a block) go through it; the kernel's grid
-(`energy_blocks`) and argument block; and a numpy emulation of the kernel's
+(`energy_blocks`) and argument block; a numpy emulation of the kernel's
 arithmetic (each pair's and row's terms in float32 from the raw arrays with
 the C side's indexing, summed in double) agrees with the plain version to
-float32 rounding.  The kernel is held against the plain version on the card
-by chip_smoke.py (phase energy_kernels).
+float32 rounding; and a numpy emulation of its order of addition (the pair
+threads' groups of four, read by vector or by scalar loads, the row
+threads' rows two a step, each warp's butterfly, the warps, the blocks'
+partials by the last block's fixed stride) agrees with the plain version
+and gives the same bits wherever the inputs differ only in what the kernel
+does not read or in their alignment.  The kernel is held against the plain
+version on the card by chip_smoke.py (phase energy_kernels).
 """
 
 import ctypes
@@ -219,10 +224,13 @@ def test_the_loop_and_the_mesh_evaluate_through_energy_sums(model, monkeypatch):
 def test_energy_blocks(N, F, sms):
     b = E.energy_blocks(N, F, sms)
     assert b == E.energy_blocks(N, F, sms) >= 1
-    assert b <= max(1, E.BLOCKS_PER_SM * sms)
-    work = max(N * F, N)
-    # no block without a pair or a row where the work is small
-    assert (b - 1) * E.THREADS < max(work, 1)
+    assert b <= E.BLOCKS_PER_SM * sms
+    assert E.PAIR_THREADS + E.ROW_THREADS == E.THREADS and E.PAIR_THREADS % 32 == 0
+    groups = -(-N * F // E.GROUP)
+    # no block without a group of pairs or a row where the work is small
+    assert (b - 1) * E.PAIR_THREADS < groups or (b - 1) * E.ROW_THREADS < N or b == 1
+    if groups > E.BLOCKS_PER_SM * sms * E.PAIR_THREADS:
+        assert b == E.BLOCKS_PER_SM * sms          # a persistent grid fills the SMs
 
 
 def test_the_argument_block_has_the_c_layout():
@@ -235,8 +243,18 @@ def test_the_argument_block_has_the_c_layout():
 def _emulated_sums(p, rd, dist, albedo, loss, lam, h):
     """csrc/energy.cu energy_sums_kernel's terms in float32, read from the
     raw arrays with the C side's indexing, each summed in double."""
+    pairs, rows = _emulated_values(p, rd, dist, albedo, loss, lam, h)
+    return np.asarray([pairs.astype(np.float64).sum()]
+                      + [v.astype(np.float64).sum() for v in rows])
+
+
+def _emulated_values(p, rd, dist, albedo, loss, lam, h, r=None):
+    """The kernel's float32 value of each pair ([N F], 0 where the mask is
+    not set; r [N F 3] as the kernel's loads gave it, rd's by default) and
+    of each row's three regularizer terms ([3, N], 0 where not valid)."""
     f = np.float32
-    r, mask = rd["r"].reshape(-1, 3), rd["mask"].reshape(-1)
+    r = rd["r"].reshape(-1, 3) if r is None else r
+    mask = rd["mask"].reshape(-1)
     lam32, inv = f(lam), f(1) / f(lam)
     lam_sq, half = f(lam * lam), f(0.5 * lam)
 
@@ -255,8 +273,9 @@ def _emulated_sums(p, rd, dist, albedo, loss, lam, h):
             return c * c
         return x * x
 
-    rr = r[mask]
-    ps = ((rho(rr[:, 0]) + rho(rr[:, 1])) + rho(rr[:, 2])).astype(np.float64).sum()
+    with np.errstate(all="ignore"):
+        per = (rho(r[:, 0]) + rho(r[:, 1])) + rho(r[:, 2])
+    pairs = np.where(mask, per, f(0))
     v = p["valid"]
     inv_h, inv_h2 = f(1) / f(h), f(1) / f(h * h)
     nbr, lap = p["nbr_idx"].reshape(-1), p["lap_idx"].reshape(-1)
@@ -266,13 +285,11 @@ def _emulated_sums(p, rd, dist, albedo, loss, lam, h):
                             p["nbr_dist_const"].reshape(-1)[3 * n + i]) for i in range(3)])
     g = (p["nbr_dir"].reshape(-1)[3 * n + np.arange(3)[:, None]] * (dn - d0)) * inv_h
     e = np.sqrt((g[0] * g[0] + g[1] * g[1]) + g[2] * g[2]) - f(1)
-    normal = (e * e).astype(np.float64).sum()
     s = np.zeros(len(n), np.float32)
     for i in range(6):
         s = s + np.where(lap[6 * n + i] >= 0, dist[np.maximum(lap[6 * n + i], 0)],
                          p["lap_dist_const"].reshape(-1)[6 * n + i])
     l = (s - f(6) * d0) * inv_h2
-    laplacian = (l * l).astype(np.float64).sum()
     a, ac = albedo.reshape(-1), p["nbr_albedo_const"].reshape(-1)
     sq = np.zeros((3, len(n)), np.float32)
     for i in range(3):
@@ -281,8 +298,11 @@ def _emulated_sums(p, rd, dist, albedo, loss, lam, h):
             an = np.where(m >= 0, a[3 * np.maximum(m, 0) + ch], ac[9 * n + 3 * i + ch])
             gg = (p["nbr_dir"].reshape(-1)[3 * n + i] * (an - a[3 * n + ch])) * inv_h
             sq[ch] = sq[ch] + gg * gg
-    alb = ((np.sqrt(sq[0]) + np.sqrt(sq[1])) + np.sqrt(sq[2])).astype(np.float64).sum()
-    return np.asarray([ps, normal, laplacian, alb])
+    rows = np.zeros((3, len(v)), np.float32)
+    rows[0, n] = e * e
+    rows[1, n] = l * l
+    rows[2, n] = (np.sqrt(sq[0]) + np.sqrt(sq[1])) + np.sqrt(sq[2])
+    return pairs, rows
 
 
 @pytest.mark.parametrize("model", MODELS)
@@ -293,3 +313,103 @@ def test_the_kernels_arithmetic_emulated_agrees_with_the_plain_sums(model, loss)
     got = _emulated_sums(p, rd, dist, albedo, LOSSES[loss], LAM[model], h)
     want = _port(tp, rd, dist, albedo, LOSSES[loss], LAM[model], h).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL)
+
+
+def _butterfly(v):
+    """__shfl_xor_sync's sum over each warp's 32 lanes [..., 32] (every lane
+    ends with the same bits; lane 0's)."""
+    v = v.copy()
+    for s in (16, 8, 4, 2, 1):
+        v = v + v[..., np.arange(32) ^ s]
+    return v[..., 0]
+
+
+def _load_r(rd, offset):
+    """The floats of r as the kernel reads them, the buffer placed at
+    `offset` floats into a larger one: each full group of four pairs as
+    three 16-byte loads where r lies on a 16-byte boundary, the rest (and
+    every group where it does not) a float at a time -> r [N F, 3] (the
+    uncounted pairs' floats too: the values the kernel ignores)."""
+    flat = rd["r"].reshape(-1)
+    buf = np.full(flat.size + 8, np.nan, np.float32)
+    buf[offset:offset + flat.size] = flat
+    r = buf[offset:offset + flat.size].copy()
+    if offset % 4 == 0:
+        full = flat.size // 12
+        vec = buf[offset:offset + 12 * full].reshape(full, 3, 4)   # [group, load, float]
+        r = np.concatenate([vec.reshape(-1), r[12 * full:]])
+    return r.reshape(-1, 3)
+
+
+def _emulated_kernel_sums(p, rd, dist, albedo, loss, lam, h, blocks, offset=0):
+    """csrc/energy.cu energy_sums_kernel's four float sums, in its order of
+    addition: pair thread q of Q = blocks * PAIR_THREADS adds the counted
+    pairs of groups q, q + Q, ... in double; row thread j of R = blocks *
+    ROW_THREADS the valid rows j, j + R, ...; each warp's butterfly; a
+    block's 16 warps in order; the last block's thread j of a term adds the
+    partials j, j + 128, ..., then its warp's butterfly, then term k's four
+    warps in order."""
+    f8 = np.float64
+    pair_v, row_v = _emulated_values(p, rd, dist, albedo, loss, lam, h,
+                                     r=_load_r(rd, offset))
+    Q, R = blocks * E.PAIR_THREADS, blocks * E.ROW_THREADS
+    groups = -(-pair_v.size // E.GROUP)
+    steps = max(1, -(-groups // Q))
+    g = np.zeros(steps * Q * E.GROUP, np.float32)
+    g[:pair_v.size] = pair_v
+    g = g.reshape(steps, Q, E.GROUP)                     # [step, thread, pair]
+    acc = np.zeros((4, blocks, E.THREADS))
+    pair_acc = np.zeros(Q)
+    for s in range(steps):
+        for j in range(E.GROUP):
+            pair_acc = pair_acc + g[s, :, j].astype(f8)
+    acc[0, :, :E.PAIR_THREADS] = pair_acc.reshape(blocks, E.PAIR_THREADS)
+    steps = max(1, -(-row_v.shape[1] // R))
+    rv = np.zeros((3, steps * R), np.float32)
+    rv[:, :row_v.shape[1]] = row_v
+    rv = rv.reshape(3, steps, R)
+    row_acc = np.zeros((3, R))
+    for s in range(steps):
+        row_acc = row_acc + rv[:, s].astype(f8)
+    acc[1:, :, E.PAIR_THREADS:] = row_acc.reshape(3, blocks, E.ROW_THREADS)
+    warps = _butterfly(acc.reshape(4, blocks, E.THREADS // 32, 32))
+    part = np.zeros((4, blocks))
+    for w in range(E.THREADS // 32):
+        part = part + warps[:, :, w]
+    last = np.zeros((4, 128))
+    for b0 in range(0, blocks, 128):
+        chunk = part[:, b0:b0 + 128]
+        last[:, :chunk.shape[1]] = last[:, :chunk.shape[1]] + chunk
+    wsum = _butterfly(last.reshape(4, 4, 32))
+    out = np.zeros(4)
+    for w in range(4):
+        out = out + wsum[:, w]
+    return out.astype(np.float32)
+
+
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("blocks", [1, 3, 264])
+def test_the_kernels_order_of_addition_emulated(model, blocks):
+    """The emulated order agrees with the plain sums within RTOL, and gives
+    the same bits when the uncounted pairs' r, the invalid rows' stencil
+    and the alignment of r change: the values the kernel does not read,
+    and its two ways of loading r."""
+    jp, tp, dist, albedo, jrd, rd, h = _case(model)
+    p = ht.problem_j_to_numpy(jp)
+    loss, lam = robust.TUKEY, LAM[model]
+    got = _emulated_kernel_sums(p, rd, dist, albedo, loss, lam, h, blocks)
+    want = _port(tp, rd, dist, albedo, loss, lam, h).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+    m, valid = rd["mask"], p["valid"]
+    assert (~m).sum() > 10 and (~valid).sum() > 10
+    noisy = dict(rd, r=np.where(m[..., None], rd["r"], np.float32(np.nan)))
+    noisy["r"][~m] = np.float32(3e38)
+    q = dict(p)
+    for name in ("nbr_idx", "lap_idx", "nbr_dir", "nbr_dist_const", "lap_dist_const",
+                 "nbr_albedo_const"):
+        q[name] = p[name].copy()
+        q[name][~valid] = 0 if q[name].dtype.kind == "i" else np.float32(np.nan)
+    for args, offset in (((q, noisy), 0), ((p, rd), 1), ((p, rd), 3), ((q, noisy), 2)):
+        again = _emulated_kernel_sums(args[0], args[1], dist, albedo, loss, lam, h, blocks,
+                                      offset)
+        np.testing.assert_array_equal(again.view(np.int32), got.view(np.int32))

@@ -11,11 +11,13 @@ depths, every window the wrapper takes, and the stream's `_preprocess` as a
 whole against the JAX package's.  Within the port: the wrappers on CPU
 tensors are the plain versions and launch nothing, refuse the windows the
 kernel does not take, and `_preprocess` / `compute_normals` /
-`modified_laplacian` go through them.  The kernels' host side: the tile
-grid covers every pixel once, the shared memory fits a block, the LAPM
-bands cover every row once, the ctypes argument blocks have the C side's
-layout, and numpy emulations of the kernels' loops (the normals' tiles with
-their clamped reflect-101 halo and the window sums in the plain order, the
+`modified_laplacian` go through them.  The kernels' host side: the normals'
+persistent grid covers every pixel of every frame once, the shared memory
+fits a block at every window, the LAPM bands cover every row once, the
+ctypes argument blocks have the C side's layout, and numpy emulations of
+the kernels' loops (the normals' blocks walking their (32 x 32 tile, frame)
+units, each tile's clamped reflect-101 halo, the window sums a thread
+shares over eight columns and then four rows, each in the plain order; the
 LAPM value of each pixel) give the plain version's bits.  The kernels are
 held against the plain versions on the card by chip_smoke.py (phase
 preprocess_kernels).
@@ -185,14 +187,21 @@ def test_stream_preprocess_matches_jax_and_goes_through_the_wrappers(monkeypatch
                                    (2, 9, 33)])
 def test_fals_grid_covers_every_pixel_once(shape):
     C, h, w = shape
-    gx, gy, gz = P.fals_grid(C, h, w)
-    assert gz == C
-    assert gx * P.TILE_W >= w > (gx - 1) * P.TILE_W
-    assert gy * P.TILE_H >= h > (gy - 1) * P.TILE_H
+    for slots in (1, 7, 132 * 3, 10 ** 6):
+        gx, gy, units, blocks = P.fals_grid(C, h, w, slots)
+        assert gx * P.TILE >= w > (gx - 1) * P.TILE
+        assert gy * P.TILE >= h > (gy - 1) * P.TILE
+        assert units == gx * gy * C and 1 <= blocks <= min(slots, units)
+        seen = [u for b in range(blocks) for u in P.fals_units(b, blocks, units)]
+        assert seen == list(range(units))          # each (tile, frame) once, in order
+        per = [len(P.fals_units(b, blocks, units)) for b in range(blocks)]
+        assert min(per) >= 1 and max(per) - min(per) <= 1
 
 
 def test_fals_shared_memory_fits_a_block():
-    assert P.fals_smem(11) == 4 * 3 * (8 + 10) * (32 + 10 + 32)
+    # the cache planes and weighted components (42 x 43 each), the
+    # horizontal sums (42 x 33), two depth halos (42 x 42), the sources (84)
+    assert P.fals_smem(11) == 4 * (6 * 42 * 43 + 3 * 42 * 33 + 2 * 42 * 42 + 84)
     for window in range(1, P.MAX_WINDOW + 1, 2):
         assert P.fals_smem(window) <= 232448
 
@@ -207,9 +216,9 @@ def test_lapm_bands_cover_every_row_once(C, h, sms):
 
 
 def test_the_argument_blocks_have_the_c_layout():
-    assert ctypes.sizeof(P._FalsArgs) == 8 * 10
+    assert ctypes.sizeof(P._FalsArgs) == 8 * 11
     assert ctypes.sizeof(P._LapmArgs) == 8 * 12
-    assert [f[0] for f in P._FalsArgs._fields_][-4:] == ["C", "H", "W", "window"]
+    assert [f[0] for f in P._FalsArgs._fields_][-5:] == ["C", "H", "W", "window", "blocks"]
 
 
 def _reflect(i, n):
@@ -217,30 +226,59 @@ def _reflect(i, n):
     return np.where(i >= n, 2 * (n - 1) - i, i)
 
 
-def _emulated_box_sums(wt, window):
-    """csrc/preprocess.cu fals_normals_kernel's steps 1-2 on one weighted
-    channel [h, w] in float32: each 32 x 8 tile loads its halo (rows and
-    columns past the last padded one clamped, then reflected), sums each
-    halo row over the window, then each column of those sums, in the plain
-    order."""
-    h, w = wt.shape
-    r = window // 2
-    out = np.full((h, w), np.nan, np.float32)
-    for y0 in range(0, h, P.TILE_H):
-        for x0 in range(0, w, P.TILE_W):
-            py = np.arange(P.TILE_H + 2 * r)
-            px = np.arange(P.TILE_W + 2 * r)
-            sy = _reflect(np.minimum(y0 + py - r, h - 1 + r), h)
-            sx = _reflect(np.minimum(x0 + px - r, w - 1 + r), w)
-            tile = wt[np.ix_(sy, sx)]
-            hs = tile[:, 0:P.TILE_W].copy()
+def _window_sums(v, window, K):
+    """csrc/preprocess.cu window_sums<K> over the last axis of v [..., L]:
+    acc[k] = v[k] + v[k + 1] + ... + v[k + window - 1], k < K, each value
+    read once and added, in float32, to every sum it belongs to (where
+    window >= K: the sums' first values, the values all K take, the last
+    ones), else each sum on its own; left to right either way -> [..., K]."""
+    acc = [None] * K
+    if window >= K:
+        for m in range(K):
+            for k in range(m + 1):
+                acc[k] = v[..., m].copy() if k == m else acc[k] + v[..., m]
+        for m in range(K, window):
+            for k in range(K):
+                acc[k] = acc[k] + v[..., m]
+        for q in range(K - 1):
+            for k in range(q + 1, K):
+                acc[k] = acc[k] + v[..., window + q]
+    else:
+        for k in range(K):
+            a = v[..., k].copy()
             for j in range(1, window):
-                hs = hs + tile[:, j:j + P.TILE_W]
-            vs = hs[0:P.TILE_H].copy()
-            for i in range(1, window):
-                vs = vs + hs[i:i + P.TILE_H]
-            ys, xs = min(P.TILE_H, h - y0), min(P.TILE_W, w - x0)
-            out[y0:y0 + ys, x0:x0 + xs] = vs[:ys, :xs]
+                a = a + v[..., k + j]
+            acc[k] = a
+    return np.stack(acc, axis=-1)
+
+
+def _emulated_box_sums(wt, window, slots):
+    """csrc/preprocess.cu fals_normals_kernel's steps 0-3 on one weighted
+    channel [C, h, w] in float32: each block of fals_grid(C, h, w, slots)
+    walks its (32 x 32 tile, frame) units; on a new tile it places the halo
+    (rows and columns past the last padded one clamped, then reflected);
+    a frame's halo rows are summed over the window eight columns a thread,
+    then those sums' columns four rows a thread (_window_sums)."""
+    C, h, w = wt.shape
+    r, T = window // 2, P.TILE
+    tx, _, units, blocks = P.fals_grid(C, h, w, slots)
+    out = np.full((C, h, w), np.nan, np.float32)
+    for b in range(blocks):
+        tile = None
+        for u in P.fals_units(b, blocks, units):
+            if u // C != tile:
+                tile = u // C
+                y0, x0 = (tile // tx) * T, (tile % tx) * T
+                halo = np.arange(T + 2 * r)
+                sy = _reflect(np.minimum(y0 + halo - r, h - 1 + r), h)
+                sx = _reflect(np.minimum(x0 + halo - r, w - 1 + r), w)
+            frame = wt[u % C][np.ix_(sy, sx)]
+            hs = np.concatenate([_window_sums(frame[:, P.H_COLS * g:], window, P.H_COLS)
+                                 for g in range(T // P.H_COLS)], axis=1)
+            vs = np.concatenate([_window_sums(hs[P.V_ROWS * g:].T, window, P.V_ROWS).T
+                                 for g in range(T // P.V_ROWS)], axis=0)
+            ys, xs = min(T, h - y0), min(T, w - x0)
+            out[u % C, y0:y0 + ys, x0:x0 + xs] = vs[:ys, :xs]
     return out
 
 
@@ -251,9 +289,10 @@ def test_the_normals_tiles_give_the_plain_window_sums_bit_for_bit(window, hw):
     if window // 2 >= min(h, w):
         pytest.skip("the window does not fit the image")
     rng = np.random.default_rng(window * 100 + h)
-    wt = rng.standard_normal((h, w)).astype(np.float32)
+    wt = rng.standard_normal((3, h, w)).astype(np.float32)
     want = P._box_filter(torch.from_numpy(wt), window).numpy()
-    got = _emulated_box_sums(wt, window)
+    # five blocks: each walks frames of one tile or of two
+    got = _emulated_box_sums(wt, window, 5)
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
