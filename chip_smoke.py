@@ -5,7 +5,7 @@
                            --distributed-only] [--residual-parent <residual.cu>]
                           [--distcg-parent <distcg.cu>] [--system-parent <distcg.cu>]
                           [--gram-parent <gn.cu>] [--fals-parent <preprocess.cu>]
-                          [--energy-parent <energy.cu>]
+                          [--energy-parent <energy.cu>] [--cull-parent <cull.cu>]
 
 Builds the package's CUDA kernels and its host C++ libraries (PNG unfilter,
 marching cubes and PLY writers) from csrc/, holds each kernel against its
@@ -69,14 +69,20 @@ sequence, and 48 frames tracked under each named tracker configuration
 clusters; with --gram-parent <gn.cu> timed in turns with that earlier
 source); the scan phase then checks that every tracked frame and every
 update of the main run went through them.  It also holds the culled
-fusion's cull and compaction (csrc/cull.cu, one cooperative launch each)
-against their plain versions bit for bit on 76 cases (every frame, a
+fusion's cull and compaction (csrc/cull.cu: ONE cooperative launch of
+cull_compact for both, and for a K-frame union) against their plain version
+bit for bit (the mask, the indices under both padding contracts, n_active,
+live and overflow, two launches bit for bit) on 78 cases (every frame, a
 1280x960 frame, 512^3, segments, slabs, the resident margins, a False
 gate, no valid and NaN depths, the grid behind the camera and around it,
-capacities at and below the active count, a K-frame union) and times them
-in the path's order; every scan phase then counts one cull and one
-compaction a culled fusion (a slab each on a mesh) and no plain cull on the
-card.
+capacities at and below the active count, the unions of 1 to 8 frames in
+one launch, resident_alloc's allow, capacity 0), and times it in the path's
+order beside empty launches crossing two grid barriers and one; with
+--cull-parent <cull.cu> (PR 21-25's source: a cull launch a frame, then a
+compaction) that pair is held bit for bit against it and timed in turns
+with it.  Every scan phase then counts one cull_compact launch a culled
+fusion (a slab each on a mesh, one a K-frame batch) and no plain cull on
+the card.
 
 The refinement's two kernels (the residual pass and the distance block's
 Jacobian, csrc/residual.cu) are held the same way: phases refine and
@@ -307,14 +313,13 @@ SCAN_KERNELS = {
                 "psgradientsdf_tpu/tracking/tracker.py:286"),
     "fuse_rows": ("psgradientsdf_tpu_torch/csrc/fuse.cu",
                   "psgradientsdf_tpu/core/volume.py:104"),
-    "row_activity": ("psgradientsdf_tpu_torch/csrc/cull.cu",
+    "cull_compact": ("psgradientsdf_tpu_torch/csrc/cull.cu",
                      "psgradientsdf_tpu/core/volume.py:252"),
-    "compact_rows": ("psgradientsdf_tpu_torch/csrc/cull.cu",
-                     "psgradientsdf_tpu/core/volume.py:516"),
 }
-# the culled fusion's cull and compaction (ops/cull.py): the kernels whose
-# launches every culled fusion path counts beside the direct row copies'
-CULL_KERNELS = ("row_activity", "compact_rows")
+# the culled fusion's cull and compaction in one launch (ops/cull.py): the
+# kernel whose launches every culled fusion path counts beside the direct
+# row copies'
+CULL_KERNELS = ("cull_compact",)
 # scan_kernels: the spin that keeps the card busy while the host enqueues a
 # path's kernels, so that events between them time the device alone
 SPIN_CYCLES = 2_000_000
@@ -984,7 +989,8 @@ def _plain_cull_calls():
     from psgradientsdf_tpu_torch.ops import cull
 
     calls = {"plain_cull_on_card": 0}
-    names = ("row_activity_plain", "compact_active_plain", "compact_padded_plain")
+    names = ("row_activity_plain", "compact_active_plain", "compact_padded_plain",
+             "cull_compact_plain")
     real = {n: getattr(cull, n) for n in names}
 
     def counted(name, pos):
@@ -995,7 +1001,7 @@ def _plain_cull_calls():
         return fn
 
     for n in names:
-        setattr(cull, n, counted(n, 1 if n == "row_activity_plain" else 0))
+        setattr(cull, n, counted(n, 0 if n.startswith("compact") else 1))
     try:
         yield calls
     finally:
@@ -1371,8 +1377,9 @@ def scan_kernels(tmp, seq):
         plain loop within GN_POSE_TOL.
     (d) frame 24 at 1280x960, whose records go to device memory
         (_big_frame).
-    (e) the culled fusion's cull and compaction, bit for bit on the cases
-        of _cull_kernels, with their times in the path's order.
+    (e) the culled fusion's cull and compaction (one cull_compact launch),
+        bit for bit on the cases of _cull_kernels, with its times in the
+        path's order.
     Launches made here are on no path.  -> facts."""
     import torch
     from psgradientsdf_tpu_torch.core.grid import GridGeometry
@@ -1820,8 +1827,9 @@ def _path_ms(fns):
 
 
 def _compaction_checks(what, flat, cap):
-    """compact_active and compact_padded against their plain versions at
-    capacity `cap`: indices, n_active, live and overflow equal, and each
+    """compact_active and compact_padded (the kernel without its cull: one
+    launch of cull_compact_kernel<false> each) against their plain versions
+    at capacity `cap`: indices, n_active, live and overflow equal, and each
     kernel twice bit for bit."""
     import torch
     from psgradientsdf_tpu_torch.ops import cull as C
@@ -1853,33 +1861,58 @@ def _compaction_checks(what, flat, cap):
           f"compact_padded's live or overflow: {what}, capacity {cap}")
 
 
-def _cull_case(what, geom, depth, K, pose, kw, caps=(), gate=None, union=None):
-    """row_activity against its plain version on the card, mask element for
-    mask element and twice bit for bit (gated, and ORed into `union` when
-    one is given), then the compaction of its mask at each capacity
-    (`caps`; callables of the active count) -> dict."""
+def _merged_checks(what, geom, depths, K, poses, kw, cap, padded, gates, allow):
+    """One cull_compact launch (mask=True) against cull_compact_plain on the
+    same inputs: the mask, the indices, n_active, live and overflow bit for
+    bit, and two launches bit for bit -> the plain version's result."""
     import torch
     from psgradientsdf_tpu_torch.ops import cull as C
 
-    want = C.row_activity_plain(geom, depth, K, pose, **kw)
-    if gate is not None:
-        want = want & gate
-    if union is not None:
-        want = want | union
-    runs = [C.row_activity(geom, depth, K, pose, gate=gate,
-                           union=None if union is None else union.clone(), **kw)
-            for _ in range(2)]
+    args = dict(capacity=cap, padded=padded, gates=gates, allow=allow, mask=True, **kw)
+    runs = [C.cull_compact(geom, depths, K, poses, **args) for _ in range(2)]
     _sync()
-    check(torch.equal(runs[0], runs[1]), f"row_activity: two runs differ: {what}")
-    check(torch.equal(runs[0], want),
-          f"row_activity differs from its plain version: {what}, "
-          f"{int((runs[0] != want).sum())} of {want.numel()} entries")
-    flat = want.reshape(-1)
-    n = int(flat.sum())
+    want = C.cull_compact_plain(geom, depths, K, poses, **args)
+    for field in want._fields:
+        a, b, c = (getattr(r, field) for r in (runs[0], runs[1], want))
+        check(torch.equal(a, b), f"cull_compact: two runs differ in {field}: {what}, "
+                                 f"capacity {cap}, padded {padded}")
+        check(a.dtype == c.dtype and torch.equal(a, c),
+              f"cull_compact's {field} differs from its plain version: {what}, "
+              f"capacity {cap}, padded {padded}"
+              + (f", {int((a != c).sum())} of {c.numel()} entries"
+                 if a.shape == c.shape else ""))
+    return want
+
+
+def _cull_case(what, geom, depth, K, pose, kw, caps=(), gate=None, allow=None):
+    """cull_compact (the cull and the compaction in ONE launch; K frames
+    where depth is [K, H, W] and pose [K, 4, 4], each ANDed with its gate)
+    against cull_compact_plain on the card at each capacity (`caps`;
+    callables of the active count), under both padding contracts
+    (_merged_checks); then the same mask through row_activity (one frame:
+    the kernel writing its mask alone) and through compact_active /
+    compact_padded (the kernel without its cull) -> dict."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import cull as C
+
+    frames = 1 if depth.dim() == 2 else depth.shape[0]
+    want = C.cull_compact_plain(geom, depth, K, pose, capacity=0, padded=False,
+                                gates=gate, allow=allow, mask=True, **kw)
+    n = int(want.n_active)
     done = sorted({max(0, c(n) if callable(c) else c) for c in caps})
     for cap in done:
+        for padded in (True, False):
+            _merged_checks(what, geom, depth, K, pose, kw, cap, padded, gate, allow)
+    flat = want.mask.reshape(-1)
+    if depth.dim() == 2 and allow is None:
+        got = C.row_activity(geom, depth, K, pose, gate=gate, **kw)
+        _sync()
+        check(torch.equal(got, want.mask), f"row_activity differs from its plain "
+                                           f"version: {what}")
+    for cap in done:
         _compaction_checks(what, flat, cap)
-    return dict(case=what, entries=flat.numel(), active=n, capacities=done)
+    return dict(case=what, frames=frames, entries=flat.numel(), active=n,
+                capacities=done, allow=allow is not None)
 
 
 def _log2_spans():
@@ -1896,69 +1929,194 @@ def _log2_spans():
     return 4096
 
 
-def _cull_times(what, geom, depth, K, pose, kw, cap, gate, flush):
-    """The cull and the gated compaction of one culled fusion, timed in the
-    path's order (_path_ms) and each after _time_ms's flush, beside the
-    plain versions, their byte bounds, an empty cooperative launch of each
-    one's grid crossing one barrier, and torch.nonzero (the compaction's
-    one-call yardstick, which reads the count back to the host) -> dict."""
+def _cull_times(what, geom, depths, K, poses, kw, cap, gates, flush):
+    """One culled fusion's cull and compaction (cull_compact, one launch),
+    timed in the path's order (_path_ms: behind the spin, no flush) and
+    after _time_ms's flush, beside its plain version, its byte bound (the K
+    depth images read once, the int32 slots and the scalars written once),
+    empty cooperative launches of its grid and shared memory crossing two
+    grid barriers (its floor) and one, and torch.nonzero over its mask (the
+    compaction's one-call yardstick, which reads the count back to the host)
+    -> dict."""
     import torch
     from psgradientsdf_tpu_torch.kernels import sm_count
     from psgradientsdf_tpu_torch.ops import cull as C
 
-    H, W = depth.shape
-    dev = depth.device
+    frames = 1 if depths.dim() == 2 else depths.shape[0]
+    H, W = depths.shape[-2:]
+    dev = depths.device
+    args = dict(capacity=cap, padded=True, gates=gates, **kw)
 
-    def cull():
-        return C.row_activity(geom, depth, K, pose, gate=gate, **kw)
+    def merged():
+        return C.cull_compact(geom, depths, K, poses, **args)
 
-    def plain_cull():
-        return C.row_activity_plain(geom, depth, K, pose, **kw) & gate
+    mask = C.cull_compact(geom, depths, K, poses, **dict(args, capacity=0),
+                          mask=True).mask.reshape(-1)
+    n_seg, n = mask.numel(), int(mask.sum())
+    blocks = C.cull_compact_blocks(H, frames, n_seg, sm_count(dev))
+    smem = C.cull_compact_smem(H, frames, n_seg, blocks)
+    floors = _path_ms([lambda: C.barrier_floor(dev, blocks, smem, 2),
+                       lambda: C.barrier_floor(dev, blocks, smem, 1)])
+    out = dict(case=what, frames=frames, entries=n_seg, active=n, capacity=cap,
+               ms=_path_ms([merged])[0], ms_after_flush=_time_ms(merged, flush),
+               plain_ms=_time_ms(lambda: C.cull_compact_plain(
+                   geom, depths, K, poses, **args), flush),
+               bound_ms=(frames * H * W * 4 + cap * 4 + 17) / HBM_BYTES_PER_S * 1e3,
+               latency_floor_ms=floors[0], one_barrier_floor_ms=floors[1],
+               blocks=blocks, shared_bytes=smem,
+               frames_per_pass=C.cull_compact_pass(H, frames, n_seg, blocks),
+               library_ms=_time_ms(lambda: torch.nonzero(mask), flush))
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
 
-    flat = cull().reshape(-1)
-    n_seg, n = flat.numel(), int(flat.sum())
+
+class _ParentCullArgs(ctypes.Structure):
+    """The CullArgs of PR 21-25's csrc/cull.cu (row_activity), for
+    --cull-parent."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in
+         ("depth", "K", "pose", "z_map", "gate", "out", "row_max")]
+        + [(n, ctypes.c_int64) for n in
+           ("H", "W", "levels", "z_rows", "Y", "S", "NS", "has_z0", "accumulate")]
+        + [(n, ctypes.c_double) for n in
+           ("z0", "origin_x", "origin_y", "origin_z", "voxel", "truncation",
+            "zmin", "zmax", "margin_px", "margin_t")])
+
+
+class _ParentCompactArgs(ctypes.Structure):
+    """The CompactArgs of PR 21-25's csrc/cull.cu (compact_rows)."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in ("flags", "idx", "scalars", "overflow", "part")]
+        + [(n, ctypes.c_int64) for n in ("n", "capacity", "idx64", "padded", "blocks")])
+
+
+def _parent_pair(lib, geom, depths, K, poses, kw, cap, gates):
+    """PR 21-25's launches of a culled fusion through an earlier cull.cu of
+    that C interface: a row_activity a frame (ORed into the first one's
+    mask) and one compact_rows, each with its wrapper's allocations and its
+    own block plan -> a list of the calls, which return (mask, idx,
+    scalars, overflow) at the last."""
+    import torch
+    from psgradientsdf_tpu_torch.kernels import sm_count
+    from psgradientsdf_tpu_torch.ops import cull as C
+
+    dev = depths.device
+    depths3 = depths if depths.dim() == 3 else depths[None]
+    poses3 = poses if poses.dim() == 3 else poses[None]
+    gates1 = None if gates is None else gates.reshape(-1)
+    H, W = depths3.shape[1:]
+    X, Y, Z = geom.dims
     sms = sm_count(dev)
-    cull_blocks = C.cull_blocks(H, n_seg, sms)
-    smem = C.table_levels(H) * H * 4
-    compact_blocks = C.compact_blocks(n_seg, sms)
-    path = _path_ms([cull, lambda: C.compact_padded(flat, cap)])
-    floors = _path_ms([lambda: C.barrier_floor(dev, cull_blocks, smem),
-                       lambda: C.barrier_floor(dev, compact_blocks)])
-    out = {"case": what, "entries": n_seg, "active": n, "capacity": cap}
-    out["row_activity"] = dict(
-        ms=path[0], ms_after_flush=_time_ms(cull, flush),
-        plain_ms=_time_ms(plain_cull, flush),
-        # the depth image read once, the mask written once
-        bound_ms=(H * W * 4 + n_seg) / HBM_BYTES_PER_S * 1e3,
-        latency_floor_ms=floors[0], blocks=cull_blocks, table_bytes=smem,
-        library_ms=None)
-    out["compact_rows"] = dict(
-        ms=path[1], ms_after_flush=_time_ms(lambda: C.compact_padded(flat, cap), flush),
-        plain_ms=_time_ms(lambda: C.compact_padded_plain(flat, cap), flush),
-        # the flags read once, the int32 indices and the scalars written once
-        bound_ms=(n_seg + cap * 4 + 17) / HBM_BYTES_PER_S * 1e3,
-        latency_floor_ms=floors[1], blocks=compact_blocks,
-        library_ms=_time_ms(lambda: torch.nonzero(flat), flush))
-    for k in CULL_KERNELS:
-        out[k]["share_of_bound"] = out[k]["bound_ms"] / out[k]["ms"]
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    state = {}
+
+    def cull(k):
+        def fn():
+            out = state["mask"] if k else torch.empty((Z, Y), dtype=torch.bool, device=dev)
+            row_max = torch.empty(H, dtype=torch.float32, device=dev)
+            a = _ParentCullArgs()
+            a.depth, a.K, a.pose = (depths3[k].data_ptr(), K.data_ptr(),
+                                    poses3[k].data_ptr())
+            a.z_map = None
+            a.gate = None if gates1 is None else gates1[k:k + 1].data_ptr()
+            a.out, a.row_max = out.data_ptr(), row_max.data_ptr()
+            a.H, a.W, a.levels, a.z_rows, a.Y, a.S, a.NS = (
+                H, W, C.table_levels(H), Z, Y, X, 1)
+            a.has_z0, a.z0, a.accumulate = 0, 0.0, int(k > 0)
+            a.origin_x, a.origin_y, a.origin_z = geom.origin
+            a.voxel, a.truncation, a.zmin, a.zmax = (
+                geom.voxel_size, kw["truncation"], kw["zmin"], kw["zmax"])
+            a.margin_px, a.margin_t = 0.0, 0.0
+            blocks = max(1, min(sms, max(-(-H // 16), -(-(Z * Y) // 512))))
+            rc = lib.row_activity(ctypes.byref(a), blocks, stream())
+            check(rc == 0, f"the parent's row_activity: CUDA error {rc}")
+            state["mask"] = out
+        return fn
+
+    def compact():
+        flat = state["mask"].reshape(-1)
+        n = flat.numel()
+        blocks = max(1, min(sms, -(-(-(-n // 32)) // 16)))
+        idx = torch.empty(cap, dtype=torch.int32, device=dev)
+        scalars = torch.empty(2, dtype=torch.int64, device=dev)
+        overflow = torch.empty((), dtype=torch.bool, device=dev)
+        part = torch.empty(2 * blocks, dtype=torch.int32, device=dev)
+        a = _ParentCompactArgs()
+        a.flags, a.idx, a.scalars, a.overflow, a.part = (
+            flat.data_ptr(), idx.data_ptr(), scalars.data_ptr(),
+            overflow.data_ptr(), part.data_ptr())
+        a.n, a.capacity, a.idx64, a.padded, a.blocks = n, cap, 0, 1, blocks
+        rc = lib.compact_rows(ctypes.byref(a), stream())
+        check(rc == 0, f"the parent's compact_rows: CUDA error {rc}")
+        return state["mask"], idx, scalars, overflow
+
+    return [cull(k) for k in range(depths3.shape[0])] + [compact]
+
+
+def _cull_parent_ab(cases, flush):
+    """cull_compact on this cull.cu against PR 21-25's pair on the
+    --cull-parent source (built here into a temporary directory; its
+    launches on no path and not counted): the parent's mask, indices,
+    n_active, live and overflow bit for bit with the merged launch's, then
+    both timed in turns in the path's order (_path_ms): this, the parent,
+    the parent, this -> {case: {"this": [ms, ms], "parent": [ms, ms],
+    "parent_launches": [ms of each, first turn]}}."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import cull as C
+
+    src = sys.argv[sys.argv.index("--cull-parent") + 1]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="cull_parent_") as tmp:
+        parent = _parent_build(src, tmp, "cull_parent")
+        parent.row_activity.argtypes = [ctypes.POINTER(_ParentCullArgs), ctypes.c_int,
+                                        ctypes.c_void_p]
+        parent.compact_rows.argtypes = [ctypes.POINTER(_ParentCompactArgs), ctypes.c_void_p]
+        for what, geom, depths, K, poses, kw, cap, gates in cases:
+            calls = _parent_pair(parent, geom, depths, K, poses, kw, cap, gates)
+            for fn in calls:
+                res = fn()
+            mask, idx, scalars, overflow = res
+            this = C.cull_compact(geom, depths, K, poses, capacity=cap, padded=True,
+                                  gates=gates, mask=True, **kw)
+            _sync()
+            check(torch.equal(mask, this.mask) and torch.equal(idx, this.idx)
+                  and int(scalars[0]) == int(this.n_active)
+                  and int(scalars[1]) == int(this.live)
+                  and bool(overflow) == bool(this.overflow),
+                  f"the parent's cull and compaction differ from cull_compact: {what}")
+            times = {"this": [], "parent": []}
+            for name in ("this", "parent", "parent", "this"):
+                if name == "this":
+                    times[name].append(_path_ms([lambda: C.cull_compact(
+                        geom, depths, K, poses, capacity=cap, padded=True,
+                        gates=gates, **kw)])[0])
+                else:
+                    parts = _path_ms(calls)
+                    times.setdefault("parent_launches", parts)
+                    times[name].append(sum(parts))
+            out[what] = times
+        torch.cuda.synchronize()
     return out
 
 
 def _cull_kernels(st, flush):
-    """The culled fusion's cull and compaction (csrc/cull.cu) against their
-    plain versions on the card, bit for bit (_cull_case): the FRAMES frames
-    at their generating poses (each compacted at the fusion's capacity, at
-    its active count and one less: an overflow), frame 24 at 1280x960, 512^3
-    rows, seg_x = 8, four contiguous slabs (z0) and four interleaved ones
-    (z_idx), the resident margins (rows and segments), a gate that is False,
-    a frame with no valid depth (0 active) and one with NaN depths, a pose
-    that puts the grid behind the camera and one inside it (mixed rows), a
-    K-frame union; the table level on the card for every span up to 4096;
-    times of frame 24 at 128^3 and of the 512^3 and 1280x960 cases
-    (_cull_times) -> facts.  Launches made here are on no path."""
+    """The culled fusion's cull and compaction (csrc/cull.cu, ONE launch of
+    cull_compact) against cull_compact_plain on the card, bit for bit
+    (_cull_case): the FRAMES frames at their generating poses (each at the
+    fusion's capacity, at its active count and one less: an overflow),
+    frame 24 at 1280x960, 512^3 rows, seg_x = 8, four contiguous slabs (z0)
+    and four interleaved ones (z_idx), the resident margins (rows and
+    segments), a gate that is False, a frame with no valid depth (0 active)
+    and one with NaN depths, a pose that puts the grid behind the camera and
+    one inside it (mixed rows), the K-frame unions of frames 1..k for k = 1
+    .. PACKED_K in one launch each (gated), resident_alloc's `allow` (the
+    rows that hold no slot) and a count at capacity 0; the table level on
+    the card for every span up to 4096; times of frame 24 at 128^3 and of
+    the 512^3, 1280x960 and K = PACKED_K cases (_cull_times); with
+    --cull-parent the main and 512^3 cases in turns with PR 21-25's pair
+    (_cull_parent_ab) -> facts.  Launches made here are on no path."""
     import torch
     from psgradientsdf_tpu_torch.core.grid import GridGeometry
-    from psgradientsdf_tpu_torch.ops import cull as C
 
     geom, zkw, K = st["geom"], st["zkw"], st["K"]
     X, Y, Z = geom.dims
@@ -2019,28 +2177,49 @@ def _cull_kernels(st, flush):
     inside = pose.clone()
     inside[:3, 3] = torch.tensor(geom.origin, device=DEVICE) + geom.voxel_size * X / 2
     cases.append(_cull_case("camera inside the grid", geom, depth, K, inside, zkw, caps))
-    # fuse_frames_culled's union: each frame's cull ORed into the frames'
-    # before it
-    union = torch.zeros((Z, Y), dtype=torch.bool, device=DEVICE)
-    for g in range(1, 1 + PACKED_K):
-        cases.append(_cull_case(f"frame {g} into the union of frames 1-{g - 1}", geom,
-                                st["depths"][g], K, st["gt"][g], zkw, (), gate=true,
-                                union=union))
-        union = union | C.row_activity_plain(geom, st["depths"][g], K, st["gt"][g],
-                                             **zkw)
+    # fuse_frames_culled's union: frames 1..k in one launch, frame 2 gated off
+    gates = torch.ones(PACKED_K, dtype=torch.bool, device=DEVICE)
+    gates[1] = False
+    for k in range(1, 1 + PACKED_K):
+        b = list(range(1, 1 + k))
+        cases.append(_cull_case(f"the union of frames 1-{k}", geom, st["depths"][b], K,
+                                torch.stack([st["gt"][g] for g in b]), zkw, caps,
+                                gate=gates[:k]))
+    # resident_alloc's allow: the active rows that hold no resident slot
+    rng = np.random.default_rng(SEED)
+    allow = torch.from_numpy(rng.random(Z * Y) < 0.5).to(DEVICE)
+    cases.append(_cull_case("allow (resident_alloc)", geom, depth, K, pose,
+                            dict(zkw, **margins), (Z * Y // 4, lambda n: n,
+                                                   lambda n: n - 1, 0), allow=allow))
+    cases.append(_cull_case("capacity 0", geom, depth, K, pose, zkw, (0,)))
     facts = dict(cases=cases, n_cases=len(cases), spans_checked=_log2_spans(),
                  bit_identical=True)
     check(any(c["active"] == 0 for c in cases)
-          and any(c["case"] == "camera inside the grid" and c["active"] > 0 for c in cases),
-          "the cull cases miss the empty mask or the mixed rows")
+          and any(c["case"] == "camera inside the grid" and c["active"] > 0 for c in cases)
+          and any(c["frames"] == PACKED_K for c in cases),
+          "the cull cases miss the empty mask, the mixed rows or the K-frame union")
     if DEVICE == "cuda":
+        facts["registers"] = _ptxas(os.path.join("psgradientsdf_tpu_torch", "csrc",
+                                                 "cull.cu"))
+        union = list(range(1, 1 + PACKED_K))
+        union_depths = st["depths"][union]
+        union_poses = torch.stack([st["gt"][g] for g in union])
         facts["times"] = [
             _cull_times(f"frame {f} at {X}^3, 640x480", geom, depth, K, pose, zkw,
                         cap, true, flush),
             _cull_times(f"frame {f} at {PACKED_BIG_GRID}^3", big, depth, K, pose,
                         big_kw, big_cap, true, flush),
             _cull_times(f"frame {f} at 1280x960", geom, big_depth, big_K, pose, zkw,
-                        cap, true, flush)]
+                        cap, true, flush),
+            _cull_times(f"frames 1-{PACKED_K} at {X}^3 (one K-frame launch)", geom,
+                        union_depths, K, union_poses, zkw, cap, None, flush)]
+        if "--cull-parent" in sys.argv[1:]:
+            facts["parent"] = _cull_parent_ab([
+                (f"frame {f} at {X}^3, 640x480", geom, depth, K, pose, zkw, cap, true),
+                (f"frame {f} at {PACKED_BIG_GRID}^3", big, depth, K, pose, big_kw,
+                 big_cap, true),
+                (f"frames 1-{PACKED_K} at {X}^3", geom, union_depths, K, union_poses,
+                 zkw, cap, None)], flush)
     return facts
 
 
@@ -5515,8 +5694,8 @@ def packed_phase(tmp, seq):
         check(counts[name] == _on_card(n) == counts[scat]
               and sum(counts[k] for k in KERNELS) == _on_card(2 * n),
               f"{tag}: launches {counts}, one gather and one scatter a frame")
-        check(counts["row_activity"] == _on_card(n) == counts["compact_rows"],
-              f"{tag}: launches {counts}, one cull and one compaction a frame")
+        check(counts["cull_compact"] == _on_card(n),
+              f"{tag}: launches {counts}, one cull_compact a frame")
         add(counts)
         if tag in loops:
             check(np.array_equal(poses, loops[tag]["poses"])
@@ -5551,11 +5730,9 @@ def packed_phase(tmp, seq):
     for tag in _turns(list(runs)):
         vol, counts, secs = _counted(runs[tag])
         check(counts["gather_rows_dma"] == _on_card(want[tag])
-              == counts["scatter_rows_dma"] == counts["compact_rows"],
+              == counts["scatter_rows_dma"] == counts["cull_compact"],
               f"{tag}: launches {counts}, one gather, one scatter and one "
-              f"compaction a {'batch' if tag == 'batched' else 'frame'}")
-        check(counts["row_activity"] == _on_card(n),
-              f"{tag}: launches {counts}, one cull a frame")
+              f"cull_compact a {'batch' if tag == 'batched' else 'frame'}")
         add(counts)
         ms[tag].append(secs * 1e3 / n)
         check(_equal_volumes(vol, vols.setdefault(tag, vol)),
@@ -5593,8 +5770,7 @@ def packed_phase(tmp, seq):
         add(counts)
         want = _on_card(1 if tag == "batched" else len(frames))
         check(counts["gather_rows_dma"] == want == counts["scatter_rows_dma"]
-              == counts["compact_rows"]
-              and counts["row_activity"] == _on_card(len(frames)),
+              == counts["cull_compact"],
               f"512^3 {tag}: launches {counts}")
         big_facts["ms_per_frame"].setdefault(tag, []).append(secs * 1e3 / len(frames))
         if tag in vols:
@@ -5682,20 +5858,19 @@ def packed_phase(tmp, seq):
     check(torch.equal(fused.payload, canon.payload),
           f"resident GT stream: payload differs by up to {diff}")
     allocs = _on_card(len(chunks) + (m - 1))
-    check(counts["gather_rows_dma"] == allocs == counts["scatter_rows_dma"]
-          == counts["compact_rows"],
+    check(counts["gather_rows_dma"] == allocs == counts["scatter_rows_dma"],
           f"resident GT stream: launches {counts}, {allocs} expected")
-    # a cull for each refresh and allocation, and one a fusion
-    check(counts["row_activity"] == _on_card(len(chunks) + 2 * (m - 1)),
+    # a cull_compact for each refresh and allocation (allow: the rows with
+    # no slot), and one a fusion (its mask)
+    check(counts["cull_compact"] == _on_card(len(chunks) + 2 * (m - 1)),
           f"resident GT stream: launches {counts}")
     add(counts)
     _, poses, flag, miss, counts_t, ms_track = resident_stream(tracked=True)
     check(flag == 0 and not miss, f"resident tracked stream: flags {flag}, miss {miss}")
     allocs = _on_card(len(chunks) + 2 * (m - 1))
-    check(counts_t["gather_rows_dma"] == allocs == counts_t["scatter_rows_dma"]
-          == counts_t["compact_rows"],
+    check(counts_t["gather_rows_dma"] == allocs == counts_t["scatter_rows_dma"],
           f"resident tracked stream: launches {counts_t}, {allocs} expected")
-    check(counts_t["row_activity"] == _on_card(len(chunks) + 3 * (m - 1)),
+    check(counts_t["cull_compact"] == _on_card(len(chunks) + 3 * (m - 1)),
           f"resident tracked stream: launches {counts_t}")
     ate_res = ate_rmse(list(poses), seq[3][:m])
     ate_can = ate_rmse(list(canonical_poses[:m]), seq[3][:m])
@@ -7277,22 +7452,23 @@ def main():
                                "bound counts 72 bytes a live voxel, the pixel "
                                "table and the row ids once")}
     cull_time = scan_facts["cull"]["times"][0]
-    scan_rows["row_activity"] = dict(cull_time["row_activity"], max_abs_err=0.0, work=(
-        f"{cull_time['case']}'s gated cull in one cooperative launch "
-        f"({cull_time['row_activity']['blocks']} blocks, one grid barrier), timed "
-        "in the path's order before the compaction, no flush: the row maxima, "
-        f"then the mask of {cull_time['entries']} rows; the bound counts the "
-        "depth image read and the mask written once; latency_floor_ms is an "
-        "empty cooperative launch of the same grid and table crossing one "
-        "barrier; no single PyTorch call computes the cull"))
-    scan_rows["compact_rows"] = dict(cull_time["compact_rows"], max_abs_err=0.0, work=(
-        f"that mask's compaction with duplicate-first padding in one cooperative "
-        f"launch ({cull_time['compact_rows']['blocks']} blocks, one grid "
-        f"barrier): {cull_time['active']} active rows into {cull_time['capacity']} "
-        "int32 slots, n_active, live and overflow on the card; the bound counts "
-        "the flags read and the slots and scalars written once; library_ms is "
-        "one torch.nonzero over the mask, which reads its count back to the "
-        "host (a yardstick only)"))
+    scan_rows["cull_compact"] = dict(cull_time, max_abs_err=0.0, work=(
+        f"{cull_time['case']}'s gated cull and its compaction with "
+        f"duplicate-first padding in ONE cooperative launch ({cull_time['blocks']} "
+        "blocks, two grid barriers), timed in the path's order, no flush: the "
+        f"row maxima, then the mask of {cull_time['entries']} rows in shared "
+        f"memory, then {cull_time['active']} active rows into "
+        f"{cull_time['capacity']} int32 slots, n_active, live and overflow on "
+        "the card; the bound counts the depth image read and the slots and "
+        "scalars written once; latency_floor_ms is an empty cooperative launch "
+        "of the same grid and shared memory crossing two barriers; library_ms "
+        "is one torch.nonzero over the mask, which reads its count back to the "
+        "host (a yardstick only)"), library_call="torch.nonzero(mask)")
+    parent = scan_facts["cull"].get("parent")
+    if parent:
+        # PR 21-25's row_activity + compact_rows on the same inputs, in turns
+        scan_rows["cull_compact"]["earlier_ms"] = statistics.median(
+            next(iter(parent.values()))["parent"])
     for name in SCAN_KERNELS:
         check(scan_counts[name] > 0, f"{name} was never launched on its path")
     # the refinement's kernels: the main run's launches, the times on its
@@ -7513,8 +7689,7 @@ def main():
              bound_ms=scan_rows[name]["bound_ms"], bound_by="bytes",
              library_ms=scan_rows[name].get("library_ms"),
              library_note=scan_rows[name].get(
-                 "library_call", "torch.nonzero(flags)" if name == "compact_rows"
-                 else "no single PyTorch call computes it"),
+                 "library_call", "no single PyTorch call computes it"),
              **{k: scan_rows[name][k] for k in ("latency_floor_ms", "ms_after_flush", "earlier_ms")
                 if k in scan_rows[name]},
              work=scan_rows[name]["work"])

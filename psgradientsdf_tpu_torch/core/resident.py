@@ -168,15 +168,17 @@ def _scatter_rows(tables, idx, rows_list, live, impl):
         _scatter(tabs, idx, rows, live, impl)
 
 
-def _act_flat(geom, depth, K, pose, *, truncation, zmin, zmax, S,
-              margin_px=0.0, margin_t=0.0, gate=None):
-    """Flattened slot-granularity activity mask ([NSEG] at slot length S),
-    gated: one cull launch on the card."""
+def _culled(geom, depth, K, pose, *, truncation, zmin, zmax, S, capacity,
+            margin_px=0.0, margin_t=0.0, gate=None, allow=None, mask=False):
+    """The slot-granularity cull (slot length S), gated, ANDed with
+    `allow`, compacted to `capacity` slots with the fill value NSEG
+    (ops/cull.cull_compact: one launch on the card) -> cull.Culled."""
     seg = None if S == geom.dims[0] else S
-    return cull.row_activity(geom, depth, K, pose, truncation=truncation,
-                             zmin=zmin, zmax=zmax, seg_x=seg,
-                             margin_px=margin_px, margin_t=margin_t,
-                             gate=gate).reshape(-1)
+    return cull.cull_compact(geom, depth, K, pose, capacity=capacity,
+                             padded=False, truncation=truncation, zmin=zmin,
+                             zmax=zmax, seg_x=seg, margin_px=margin_px,
+                             margin_t=margin_t, gates=gate, allow=allow,
+                             mask=mask)
 
 
 def fused_ever_from_vis(pvol: PackedVolume, seg_x: Optional[int] = None
@@ -216,9 +218,9 @@ def resident_refresh(
     dev = resolve_device(device)
     depth, K, pose = _on(dev, depth, K, pose)
     Wc, NSEG, S = _shapes(pvol, seg_x)
-    act = _act_flat(geom, depth, K, pose, truncation=truncation, zmin=zmin,
-                    zmax=zmax, S=S, margin_px=margin_px, margin_t=margin_t)
-    ridx, n_act = cull.compact_active(act, capacity)          # fill value NSEG
+    ridx, n_act = _culled(geom, depth, K, pose, truncation=truncation,
+                          zmin=zmin, zmax=zmax, S=S, capacity=capacity,
+                          margin_px=margin_px, margin_t=margin_t)[:2]
     ok = ridx < NSEG
     safe = torch.clamp(ridx, max=NSEG - 1).to(torch.int32).contiguous()
     moved = _gather_rows(_tables(pvol, seg_x), safe, rows_impl)
@@ -281,7 +283,7 @@ def resident_alloc(
     one gather call from the canonical tables, one direct scatter into slots
     n_used.. of the compact tables.
 
-    margin_px / margin_t widen the cull (ops/cull.row_activity) so the
+    margin_px / margin_t widen the cull (ops/cull.cull_compact) so the
     admitted set also covers the rows a tracking solve may query while it
     moves the pose away from `pose`: the allocation before tracking passes
     the expected inter-frame motion (reprojection pixels / camera-depth
@@ -293,10 +295,11 @@ def resident_alloc(
         res = res.clone()
     CAPR, S = res.rows.shape[0], res.rows.shape[1] // 8
     NSEG = res.row_slot.shape[0]
-    act = _act_flat(geom, depth, K, pose, truncation=truncation, zmin=zmin,
-                    zmax=zmax, S=S, margin_px=margin_px, margin_t=margin_t)
-    new_mask = act & (res.row_slot >= CAPR)
-    didx, n_new = cull.compact_active(new_mask, delta_capacity)   # fill NSEG
+    # the active rows that are not resident, compacted (fill value NSEG)
+    didx, n_new = _culled(geom, depth, K, pose, truncation=truncation,
+                          zmin=zmin, zmax=zmax, S=S, capacity=delta_capacity,
+                          margin_px=margin_px, margin_t=margin_t,
+                          allow=res.row_slot >= CAPR)[:2]
     n_used = res.n_used.to(torch.int64)
     ar = torch.arange(delta_capacity, dtype=torch.int64, device=dev)
     slots_new = n_used + ar
@@ -362,8 +365,8 @@ def fuse_frame_resident(
     CAPR, S = res.rows.shape[0], res.rows.shape[1] // 8
     NSEG = res.row_slot.shape[0]
 
-    act = _act_flat(geom, depth, K, pose, truncation=truncation, zmin=zmin,
-                    zmax=zmax, S=S, gate=gate)
+    act = _culled(geom, depth, K, pose, truncation=truncation, zmin=zmin,
+                  zmax=zmax, S=S, capacity=0, gate=gate, mask=True).mask.reshape(-1)
     coverage_bad = (act & (res.row_slot >= CAPR)).any()
     act_pad = torch.cat([act, act.new_zeros(1)])
     slot_rows = res.slot_rows.long()

@@ -20,9 +20,10 @@ Fusion (`fuse_frame`) evaluates the reference's per-voxel update
 to the nearest pixel, gate (z-range / fusion weight / normal validity /
 viewing angle), then masked running-mean updates.  `fuse_frame_culled` does
 the same on the rows that survive a conservative cull, compacted to a
-static capacity (ops/cull.py: one launch each on the card), moving their
+static capacity (ops/cull.cull_compact: one launch on the card), moving their
 state rows with the row-copy kernels (ops/rowcopy.py); `fuse_frames_culled`
-fuses K frames at given poses with one row move for the batch.  Every path runs
+fuses K frames at given poses with one cull launch and one row move for the
+batch.  Every path runs
 the update itself through ops/fuse.fuse_rows, in place on rows of state: one
 kernel launch a frame on the card (csrc/fuse.cu), the plain PyTorch version
 on the CPU.
@@ -178,13 +179,13 @@ def count_active_rows(
 ) -> torch.Tensor:
     """Number of rows (or X-segments, with seg_x) fuse_frame_culled would
     process for this frame — the capacity-sizing probe for callers
-    choosing row_capacity: the cull and a compaction of capacity 0 (an
-    int64 scalar on the device)."""
+    choosing row_capacity: the cull and a compaction of capacity 0, one
+    launch on the card (an int64 scalar on the device)."""
     dev = resolve_device(device)
     depth, K, pose = _on(dev, depth, K, pose)
-    act = cull.row_activity(geom, depth, K, pose, truncation=truncation,
-                            zmin=zmin, zmax=zmax, seg_x=seg_x)
-    return cull.compact_active(act.reshape(-1), 0)[1]
+    return cull.cull_compact(geom, depth, K, pose, capacity=0, padded=False,
+                             truncation=truncation, zmin=zmin, zmax=zmax,
+                             seg_x=seg_x).n_active
 
 
 def _gather(tables2d, idx, impl):
@@ -239,11 +240,12 @@ def fuse_frame_culled(
     """Two-level-culled fusion: exact fuse_frame semantics on a fraction of
     the voxels.
 
-      1. `ops/cull.row_activity` culls at X-row (or, with seg_x=S,
+      1. `ops/cull.cull_compact` culls at X-row (or, with seg_x=S,
          X-segment) granularity: contiguous [1,1,X] lines, so state moves as
-         whole rows; the gate is ANDed in (one launch on the card).
-      2. `_fuse_culled_slab` compacts the surviving rows to a STATIC
-         row_capacity (`ops/cull.compact_padded`, one launch), gathers
+         whole rows; the gate is ANDed in; and compacts the surviving rows
+         to a STATIC row_capacity with duplicate-first padding (one launch
+         on the card for both).
+      2. `_fuse_culled_slab` gathers
          their state rows from the five row tables (dist, grad, weight,
          color and the frame's visibility word) by one call, runs the exact
          per-voxel update on them, and scatters the rows of all five tables
@@ -271,31 +273,33 @@ def fuse_frame_culled(
     retry with a larger capacity (the stream executor surfaces the flag per
     frame; the pipeline re-runs the chunk from its kept pre-chunk volume).
     """
-    active, pix_payload, K, pose, gate, img_hw = _culled_frame(
+    compacted, pix_payload, K, pose, gate, img_hw = _culled_frame(
         geom, color, depth, normals, n_sq_inv, K, pose, gate,
         truncation=truncation, zmin=zmin, zmax=zmax, seg_x=seg_x,
-        device=device)
+        row_capacity=row_capacity, device=device)
     return _fuse_culled_slab(
-        vol if inplace else vol.clone(), geom, None, geom.dims[2], active,
+        vol if inplace else vol.clone(), geom, None, geom.dims[2], compacted,
         pix_payload, K, pose, img_hw, frame_idx, gate,
         truncation=truncation, zmin=zmin, zmax=zmax,
-        cos_thresh_sq=cos_thresh_sq, row_capacity=row_capacity, seg_x=seg_x,
-        rows_impl=rows_impl)
+        cos_thresh_sq=cos_thresh_sq, seg_x=seg_x, rows_impl=rows_impl)
 
 
 def _culled_frame(geom, color, depth, normals, n_sq_inv, K, pose, gate, *,
-                  truncation, zmin, zmax, seg_x, device):
-    """A frame's inputs on the device, its level-1 cull (gated) and its
-    packed pixel payload -> (active, pix_payload, K, pose, gate, (H, W))."""
+                  truncation, zmin, zmax, seg_x, row_capacity, device):
+    """A frame's inputs on the device, its level-1 cull (gated) compacted
+    to row_capacity slots with duplicate-first padding (ops/cull.cull_compact,
+    one launch on the card), and its packed pixel payload ->
+    ((safe_rows, live, overflow), pix_payload, K, pose, gate, (H, W))."""
     dev = resolve_device(device)
     color, depth, normals, n_sq_inv, K, pose = _on(
         dev, color, depth, normals, n_sq_inv, K, pose)
     gate = _gate_tensor(gate, dev)
-    active = cull.row_activity(
-        geom, depth, K, pose, truncation=truncation, zmin=zmin, zmax=zmax,
-        seg_x=seg_x, gate=gate)
+    c = cull.cull_compact(
+        geom, depth, K, pose, capacity=row_capacity, padded=True,
+        truncation=truncation, zmin=zmin, zmax=zmax, seg_x=seg_x, gates=gate)
     pix_payload = pack_pixel_payload(color, depth, normals, n_sq_inv)
-    return active, pix_payload, K, pose, gate, tuple(depth.shape)
+    return ((c.idx, c.live, c.overflow), pix_payload, K, pose, gate,
+            tuple(depth.shape))
 
 
 def _fuse_culled_slab(
@@ -303,7 +307,8 @@ def _fuse_culled_slab(
     geom: GridGeometry,
     z0: Optional[int],        # slab z-offset (None -> 0)
     z_rows: int,
-    active: torch.Tensor,     # [Zl,Y] (rows) or [Zl,Y,NS] (segments)
+    compacted,                # (safe_rows int32 [CAP], live, overflow) of
+                              # ops/cull.cull_compact(padded=True)
     pix_payload: torch.Tensor,
     K: torch.Tensor,
     pose: torch.Tensor,
@@ -315,14 +320,14 @@ def _fuse_culled_slab(
     zmin: float,
     zmax: float,
     cos_thresh_sq: float,
-    row_capacity: int,
     seg_x: Optional[int] = None,
     rows_impl: str = "dma",
     z_map: Optional[torch.Tensor] = None,  # [z_rows] global z per local
                                            # plane (interleaved; overrides z0)
 ) -> Tuple[GradSdfVolume, torch.Tensor]:
-    """Level 2 of the culled fusion on a Z-slab, IN PLACE on `vol`: compact
-    the active rows (or S-voxel X-segments) to the static capacity, gather
+    """Level 2 of the culled fusion on a Z-slab, IN PLACE on `vol`: given
+    the active rows (or S-voxel X-segments) compacted to the static capacity
+    (the slab's cull_compact), gather
     their state rows, run the exact per-voxel update on them in place
     (ops/fuse.fuse_rows: one kernel launch on the card, the live slots
     only), scatter them back.
@@ -335,9 +340,8 @@ def _fuse_culled_slab(
     S = X if seg_x is None else seg_x
     NS = X // S
     NSEG = z_rows * Y * NS
-
-    safe_rows, live, overflow = cull.compact_padded(active.reshape(-1),
-                                                    row_capacity)
+    safe_rows, live, overflow = compacted
+    row_capacity = safe_rows.shape[0]
 
     word, bit = _vis_word_bit(frame_idx)
     t_dist = vol.dist.view(NSEG, S)
@@ -417,8 +421,8 @@ def fuse_frame_culled_packed(
     device=None,
 ) -> Tuple[PackedVolume, torch.Tensor]:
     """fuse_frame_culled on PackedVolume state: the same level-1 cull, the
-    same padding and the same per-voxel update (shared ops/cull.row_activity,
-    compact_padded, ops/fuse.fuse_rows), so the volume is
+    same padding and the same per-voxel update (shared ops/cull.cull_compact
+    and ops/fuse.fuse_rows), so the volume is
     fuse_frame_culled's bit for bit; but the level-2 move is ONE gather
     call and ONE scatter call over two tables, the payload's [S*8]-float
     rows and the frame's visibility word, the update reads and writes the
@@ -428,10 +432,10 @@ def fuse_frame_culled_packed(
     rows_impl, inplace, seg_x, device and the returned overflow flag are
     fuse_frame_culled's."""
     _check_rows_impl(rows_impl)
-    active, pix_payload, K, pose, gate, img_hw = _culled_frame(
+    (safe_rows, live, overflow), pix_payload, K, pose, gate, img_hw = _culled_frame(
         geom, color, depth, normals, n_sq_inv, K, pose, gate,
         truncation=truncation, zmin=zmin, zmax=zmax, seg_x=seg_x,
-        device=device)
+        row_capacity=row_capacity, device=device)
     if not inplace:
         pvol = pvol.clone()
     X, Y, Zd = geom.dims
@@ -439,8 +443,6 @@ def fuse_frame_culled_packed(
     NS = X // S
     NSEG = Zd * Y * NS
     cap = row_capacity
-
-    safe_rows, live, overflow = cull.compact_padded(active.reshape(-1), cap)
     word, bit = _vis_word_bit(frame_idx)
     tables = [pvol.payload.view(NSEG, S * 8), pvol.vis[word].view(NSEG, S)]
     rows, vw_r = _gather(tables, safe_rows, rows_impl)
@@ -481,7 +483,8 @@ def fuse_frames_culled(
     scatter call for the batch.
 
     The cull is the UNION of the K frames' row culls (each gated), compacted
-    and padded as in fuse_frame_culled; row_capacity must cover the union.
+    and padded as in fuse_frame_culled, all in one ops/cull.cull_compact
+    launch on the card; row_capacity must cover the union.
     The rows of dist, grad, weight, colour and of the two visibility words
     the batch writes are gathered once (six tables), the K per-voxel updates
     are applied IN ORDER on them — a row of the union that a frame does not
@@ -521,13 +524,10 @@ def fuse_frames_culled(
     w_hi = min(word_lo + 1, n_words - 1)
     bad_words = any(f // 32 not in (word_lo, word_lo + 1) for f in fids)
 
-    # one cull launch a frame, each ORed into the first one's mask
-    active = None
-    for k in range(KF):
-        active = cull.row_activity(
-            geom, depths[k], K, poses[k], truncation=truncation, zmin=zmin,
-            zmax=zmax, gate=None if gates is None else gates[k], union=active)
-    safe_rows, live, overflow = cull.compact_padded(active.reshape(-1), cap)
+    # the K frames' gated culls ORed and compacted: one launch
+    safe_rows, _, live, overflow, _ = cull.cull_compact(
+        geom, depths, K, poses, capacity=cap, padded=True,
+        truncation=truncation, zmin=zmin, zmax=zmax, gates=gates)
 
     if not inplace:
         vol = vol.clone()

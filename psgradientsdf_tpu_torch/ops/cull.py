@@ -1,7 +1,11 @@
-"""The culled fusion's level-1 cull and level-2 compaction: one launch each
-of the hand-written Hopper kernels in csrc/cull.cu, or their plain PyTorch
-versions for CPU tensors.
+"""The culled fusion's level-1 cull and level-2 compaction: ONE launch of
+the hand-written Hopper kernel in csrc/cull.cu (`cull_compact_kernel`), or
+their plain PyTorch versions for CPU tensors.
 
+  cull_compact(geom, depths, K, poses, *, capacity, padded, truncation,
+               zmin, zmax, z0=, z_rows=, z_idx=, seg_x=, margin_px=,
+               margin_t=, gates=, allow=, mask=)
+      -> Culled(idx, n_active, live, overflow, mask)
   row_activity(geom, depth, K, pose, *, truncation, zmin, zmax, z0=,
                z_rows=, z_idx=, seg_x=, margin_px=, margin_t=, gate=,
                union=) -> bool [z_rows, Y] (rows) or [z_rows, Y, X/seg_x]
@@ -12,19 +16,25 @@ versions for CPU tensors.
                                             overflow bool scalar)
 
 They replace the JAX package's psgradientsdf_tpu/core/volume.py
-`_row_activity` (:252) and the `jnp.nonzero(active_flat, size=row_capacity,
+`_row_activity` (:252), the `jnp.nonzero(active_flat, size=row_capacity,
 fill_value=NSEG)` compaction with its duplicate-first padding inside
 `_fuse_culled_slab` (:513-528), both parts of the one device program
-`fuse_frame_culled` (:396).  The plain versions are the port's eager
-chains (formerly in core/volume.py), where the card runs one launch each.
+`fuse_frame_culled` (:396), and the K-frame union of `fuse_frames_culled`
+(:679-728).
 
-row_activity ANDs `gate` (a bool scalar on the device) into the mask, and
-ORs the mask into `union` (a mask of the same shape, in place) when one is
-given: fuse_frames_culled culls its K frames into one union that way, one
-launch a frame.  The kernel equals the plain version mask element for mask
-element on the card: the same float operations in the same order, each
-rounded once.  The compaction's kernel writes the same indices and
-scalars as its plain version.
+cull_compact culls K frames (depths [K, H, W] and poses [K, 4, 4], or one
+frame: [H, W] and [4, 4]), ANDs each frame's mask with its gate (`gates`:
+bools on the device, one a frame), ORs the frames' masks, ANDs `allow` (a
+bool [n] on the device, n the mask's entries) in, and compacts the result
+to `capacity` slots: padded=True gives compact_padded's contract (int32,
+duplicate-first padding), padded=False compact_active's (int64, fill value
+n).  The mask leaves the kernel only with mask=True; a capacity of 0 counts
+only.  row_activity is the cull alone (its mask ORed into `union` in place
+when one is given), compact_active / compact_padded the compaction of a
+caller's flags: each is one launch of the same kernel on the card.  The
+kernel equals the plain versions bit for bit on the card: the same float
+operations in the same order, each rounded once, and the same indices and
+scalars.
 
 A wrapper takes the plain version ONLY for tensors that lie on the CPU; for
 CUDA tensors it launches the kernel or raises.  `launch_counts` counts
@@ -35,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -43,12 +53,22 @@ from psgradientsdf_tpu_torch.core.grid import GridGeometry
 from psgradientsdf_tpu_torch.ops.fuse import rot_apply
 
 _LIB_NAME = "cull"
-launch_counts: Dict[str, int] = {"row_activity": 0, "compact_rows": 0}
+launch_counts: Dict[str, int] = {"cull_compact": 0}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+class Culled(NamedTuple):
+    """What a cull and compaction leaves on the device."""
+
+    idx: torch.Tensor        # [capacity] int32 (padded) or int64 (fill n)
+    n_active: torch.Tensor   # int64 scalar: the set entries
+    live: torch.Tensor       # int64 scalar: max(n_active, 1)
+    overflow: torch.Tensor   # bool scalar: n_active > capacity
+    mask: Optional[torch.Tensor]   # the mask's shape, with mask=True
 
 
 # ---------------------------------------------------------------------------
@@ -240,55 +260,140 @@ def compact_padded_plain(active_flat: torch.Tensor, capacity: int):
             torch.clamp(n_active, min=1), n_active > capacity)
 
 
+def _frames(depths: torch.Tensor, poses: torch.Tensor, gates):
+    """One frame or K: depths [K, H, W], poses [K, 4, 4], gates [K] or
+    None."""
+    if depths.dim() == 2:
+        depths = depths[None]
+    if poses.dim() == 2:
+        poses = poses[None]
+    if depths.dim() != 3 or tuple(poses.shape) != (depths.shape[0], 4, 4):
+        raise ValueError(f"cull: depths {tuple(depths.shape)} and poses "
+                         f"{tuple(poses.shape)} are not K frames [K, H, W], [K, 4, 4]")
+    if gates is not None:
+        gates = gates.reshape(-1)
+        if gates.shape[0] != depths.shape[0]:
+            raise ValueError(f"cull: {gates.shape[0]} gates for "
+                             f"{depths.shape[0]} frames")
+    return depths, poses, gates
+
+
+def _counted_only(flat: torch.Tensor, capacity: int, padded: bool):
+    """A compaction of capacity 0: no slot, the scalars only."""
+    n_active = torch.sum(flat, dtype=torch.int64)
+    idx = torch.empty(0, dtype=torch.int32 if padded else torch.int64,
+                      device=flat.device)
+    return idx, n_active
+
+
+def cull_compact_plain(
+    geom: GridGeometry,
+    depths: torch.Tensor,
+    K: torch.Tensor,
+    poses: torch.Tensor,
+    *,
+    capacity: int,
+    padded: bool,
+    truncation: float,
+    zmin: float,
+    zmax: float,
+    z0: Optional[int] = None,
+    z_rows: Optional[int] = None,
+    z_idx: Optional[torch.Tensor] = None,
+    seg_x: Optional[int] = None,
+    margin_px: float = 0.0,
+    margin_t: float = 0.0,
+    gates: Optional[torch.Tensor] = None,
+    allow: Optional[torch.Tensor] = None,
+    mask: bool = False,
+) -> Culled:
+    """cull_compact's plain version: the K frames' plain culls, each ANDed
+    with its gate, ORed; `allow` ANDed in; then compact_padded_plain or
+    compact_active_plain (a capacity of 0 counts only)."""
+    depths, poses, gates = _frames(depths, poses, gates)
+    act = None
+    for k in range(depths.shape[0]):
+        a = row_activity_plain(
+            geom, depths[k], K, poses[k], truncation=truncation, zmin=zmin,
+            zmax=zmax, z0=z0, z_rows=z_rows, z_idx=z_idx, seg_x=seg_x,
+            margin_px=margin_px, margin_t=margin_t)
+        if gates is not None:
+            a = a & gates[k]
+        act = a if act is None else act | a
+    flat = act.reshape(-1)
+    if allow is not None:
+        flat = flat & allow.reshape(-1)
+    if capacity == 0:
+        idx, n_active = _counted_only(flat, capacity, padded)
+    elif padded:
+        idx, _, _ = compact_padded_plain(flat, capacity)
+        n_active = torch.sum(flat, dtype=torch.int64)
+    else:
+        idx, n_active = compact_active_plain(flat, capacity)
+    return Culled(idx, n_active, torch.clamp(n_active, min=1), n_active > capacity,
+                  flat.view(act.shape) if mask else None)
+
+
 # ---------------------------------------------------------------------------
-# argument checks and the library binding
+# the launch plan, argument checks and the library binding
 # ---------------------------------------------------------------------------
 
 
-class _CullArgs(ctypes.Structure):
-    """csrc/cull.cu CullArgs, field for field (every field 8 bytes)."""
+class _CullCompactArgs(ctypes.Structure):
+    """csrc/cull.cu CullCompactArgs, field for field (every field 8 bytes)."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in
-         ("depth", "K", "pose", "z_map", "gate", "out", "row_max")]
+         ("depth", "K", "pose", "z_map", "gates", "flags", "allow", "mask",
+          "idx", "scalars", "scratch")]
         + [(n, ctypes.c_int64) for n in
-           ("H", "W", "levels", "z_rows", "Y", "S", "NS", "has_z0",
-            "accumulate")]
+           ("cull", "frames", "H", "W", "levels", "n", "Y", "S", "NS", "has_z0",
+            "accumulate", "capacity", "idx64", "padded", "blocks",
+            "frames_per_pass")]
         + [(n, ctypes.c_double) for n in
            ("z0", "origin_x", "origin_y", "origin_z", "voxel", "truncation",
             "zmin", "zmax", "margin_px", "margin_t")])
 
 
-class _CompactArgs(ctypes.Structure):
-    """csrc/cull.cu CompactArgs, field for field (every field 8 bytes)."""
-    _fields_ = (
-        [(n, ctypes.c_void_p) for n in
-         ("flags", "idx", "scalars", "overflow", "part")]
-        + [(n, ctypes.c_int64) for n in
-           ("n", "capacity", "idx64", "padded", "blocks")])
+# the kernel's block: WARPS warps of 32 threads, a thread an entry, a warp's
+# ballot a 32-entry group (one mask word)
+WARPS = 16
+# a block's dynamic shared memory (the run's mask words, then a pass's range
+# tables of levels x H floats each), at most; the frames a pass, at most
+MAX_SHARED_BYTES = 200 * 1024
+MAX_PASS = 16
 
 
-# the compaction's block: COMPACT_WARPS warps, a warp walking groups of 32
-# flags (one ballot each)
-COMPACT_WARPS = 16
-CULL_THREADS = 512
-# the shared-memory range-maximum table of levels x H floats, at most
-MAX_TABLE_BYTES = 200 * 1024
-
-
-def compact_blocks(n: int, sms: int) -> int:
-    """Blocks of the compaction over n flags on `sms` SMs: one an SM at most
-    (a cooperative launch), and no more than give each warp a group of 32
-    flags."""
+def cull_compact_blocks(H: int, K: int, n: int, sms: int) -> int:
+    """Blocks of the launch over n entries (and, culling, K frames of H image
+    rows; H = K = 0 for the compaction alone) on `sms` SMs: one an SM at most
+    (a cooperative launch), and no more than give each warp a 32-entry group
+    of the mask or an image row of the row maxima."""
     groups = -(-n // 32)
-    return max(1, min(sms, -(-groups // COMPACT_WARPS)))
+    return max(1, min(sms, max(-(-groups // WARPS), -(-(K * H) // WARPS))))
 
 
-def cull_blocks(H: int, nseg: int, sms: int) -> int:
-    """Blocks of the cull: one an SM at most (a cooperative launch), enough
-    for a warp an image row in the row maxima and a thread an entry of the
-    mask where the SMs allow."""
-    warps = CULL_THREADS // 32
-    return max(1, min(sms, max(-(-H // warps), -(-nseg // CULL_THREADS))))
+def cull_compact_run(n: int, blocks: int) -> int:
+    """The entries a block owns: its share of n in whole 32-entry groups
+    (csrc/cull.cu computes the same)."""
+    share = -(-n // blocks)
+    return -(-share // 32) * 32
+
+
+def cull_compact_pass(H: int, K: int, n: int, blocks: int) -> int:
+    """The frames a pass of the cull builds the range tables of, side by
+    side: as many of the K as shared memory holds beside the run's words
+    (at least one, at most MAX_PASS); 0 for the compaction alone (K = 0)."""
+    if K == 0:
+        return 0
+    room = MAX_SHARED_BYTES // 4 - cull_compact_run(n, blocks) // 32
+    return max(1, min(K, MAX_PASS, room // (table_levels(H) * H)))
+
+
+def cull_compact_smem(H: int, K: int, n: int, blocks: int) -> int:
+    """A block's dynamic shared memory in bytes: the run's mask words and,
+    culling (K frames of H rows), a pass's range tables."""
+    tables = cull_compact_pass(H, K, n, blocks) * table_levels(H) * H if K else 0
+    return (cull_compact_run(n, blocks) // 32 + tables) * 4
 
 
 _bound = None
@@ -300,12 +405,10 @@ def _library():
         from psgradientsdf_tpu_torch.kernels import load_library
 
         lib = load_library(_LIB_NAME)
-        lib.row_activity.argtypes = [ctypes.POINTER(_CullArgs), ctypes.c_int,
-                                     ctypes.c_void_p]
-        lib.row_activity.restype = ctypes.c_int
-        lib.compact_rows.argtypes = [ctypes.POINTER(_CompactArgs), ctypes.c_void_p]
-        lib.compact_rows.restype = ctypes.c_int
-        lib.barrier_floor.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.cull_compact.argtypes = [ctypes.POINTER(_CullCompactArgs), ctypes.c_void_p]
+        lib.cull_compact.restype = ctypes.c_int
+        lib.barrier_floor.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
         lib.barrier_floor.restype = ctypes.c_int
         _bound = lib
     return _bound
@@ -317,21 +420,16 @@ def _sms(dev) -> int:
     return sm_count(dev)
 
 
-def barrier_floor(dev, blocks: int, smem: int = 0) -> None:
-    """An empty cooperative kernel of `blocks` blocks of the kernels' threads
-    (and `smem` bytes of dynamic shared memory) crossing one grid barrier on
-    `dev`: the latency floor of a cull or a compaction launch.  Timed by
-    chip_smoke.py; counted nowhere, on no path."""
-    rc = _library().barrier_floor(blocks, smem, torch.cuda.current_stream(dev).cuda_stream)
+def barrier_floor(dev, blocks: int, smem: int = 0, barriers: int = 1) -> None:
+    """An empty cooperative kernel of `blocks` blocks of the kernel's threads
+    (and `smem` bytes of dynamic shared memory) crossing `barriers` grid
+    barriers on `dev`: the latency floor of a cull_compact launch (two
+    barriers; one for the compaction alone).  Timed by chip_smoke.py;
+    counted nowhere, on no path."""
+    rc = _library().barrier_floor(blocks, smem, barriers,
+                                  torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"barrier_floor: kernel launch failed, CUDA error {rc}")
-
-
-def _launch(fn, args, *extra, dev, what):
-    with torch.cuda.device(dev):
-        rc = fn(ctypes.byref(args), *extra, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed, CUDA error {rc}")
 
 
 def _check_flags(active_flat: torch.Tensor, capacity: int) -> None:
@@ -342,35 +440,141 @@ def _check_flags(active_flat: torch.Tensor, capacity: int) -> None:
         raise ValueError(f"compaction: {active_flat.shape[0]} flags, capacity {capacity}")
 
 
-def _compact_launch(active_flat: torch.Tensor, capacity: int, padded: bool):
-    """One compact_rows launch -> (idx, scalars [n_active, live] int64,
-    overflow bool scalar)."""
-    dev = active_flat.device
-    n = active_flat.shape[0]
+def _cull_fields(a, geom, depths, K, poses, gates, *, z0, z_rows, z_idx, seg_x,
+                 truncation, zmin, zmax, margin_px, margin_t):
+    """The cull's fields of the argument block, checked -> (the mask's
+    shape, the tensors the launch reads, kept alive until it is enqueued)."""
+    dev = depths.device
+    depths, poses, gates = _frames(depths, poses, gates)
+    KF, H, W = depths.shape
+    X, Y, Zd = geom.dims
+    zr = Zd if z_rows is None else z_rows
+    S = X if seg_x is None else seg_x
+    if X % S != 0:
+        raise ValueError(f"cull: seg_x={S} must divide X={X}")
+    NS = X // S
+    for name, t in (("depths", depths), ("K", K), ("poses", poses)):
+        if t.dtype != torch.float32 or t.device != dev:
+            raise TypeError(f"cull: {name} must be float32 on {dev}")
+    if tuple(K.shape) != (3, 3):
+        raise ValueError("cull: K must be [3, 3]")
+    if gates is not None and (gates.dtype != torch.bool or gates.device != dev):
+        raise TypeError(f"cull: gates must be bools on {dev}")
+    z_map = None
+    if z_idx is not None:
+        if z_idx.shape[0] != zr:
+            raise ValueError(f"cull: z_idx has {z_idx.shape[0]} planes, z_rows {zr}")
+        z_map = z_idx.to(dev, torch.float32).contiguous()
+    keep = [t.contiguous() for t in (depths, K, poses)]
+    if gates is not None:
+        keep.append(gates.contiguous())
+    a.depth, a.K, a.pose = (t.data_ptr() for t in keep[:3])
+    a.gates = None if gates is None else keep[3].data_ptr()
+    a.z_map = None if z_map is None else z_map.data_ptr()
+    a.cull, a.frames, a.H, a.W, a.levels = 1, KF, H, W, table_levels(H)
+    a.Y, a.S, a.NS = Y, S, NS
+    a.has_z0, a.z0 = int(z0 is not None), float(z0 or 0)
+    a.origin_x, a.origin_y, a.origin_z = geom.origin
+    a.voxel, a.truncation, a.zmin, a.zmax, a.margin_px, a.margin_t = (
+        geom.voxel_size, truncation, zmin, zmax, margin_px, margin_t)
+    shape = (zr, Y) if seg_x is None else (zr, Y, NS)
+    return shape, keep + [z_map]
+
+
+def _launch(a, dev, n: int, *, capacity: int, padded: bool,
+            allow: Optional[torch.Tensor], mask_out: Optional[torch.Tensor],
+            accumulate: bool) -> Culled:
+    """The argument block's common fields, the outputs, ONE launch ->
+    Culled (its mask: mask_out).  The caller holds the tensors the block
+    points at until this returns (the launch is then enqueued)."""
     if n >= 2 ** 31 - 1 or capacity >= 2 ** 31 - 1:
-        raise ValueError(f"compaction: {n} flags or capacity {capacity} past int32")
+        raise ValueError(f"cull: {n} entries or capacity {capacity} past int32")
+    frames, H = a.frames, a.H                  # 0 for the compaction alone
+    blocks = cull_compact_blocks(H, frames, n, _sms(dev))
+    smem = cull_compact_smem(H, frames, n, blocks)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"cull: a block's table and mask words ({smem} bytes: "
+                         f"{H} image rows, {n} entries on {blocks} blocks) do "
+                         "not fit shared memory")
+    if allow is not None:
+        if (allow.dtype != torch.bool or allow.numel() != n or allow.device != dev):
+            raise ValueError(f"cull: allow must be {n} bools on {dev}")
+        allow = allow.contiguous()
     lib = _library()
-    flags = active_flat.contiguous()
-    blocks = compact_blocks(n, _sms(dev))
-    idx = torch.empty(capacity, dtype=torch.int32 if padded else torch.int64,
-                      device=dev)
-    scalars = torch.empty(2, dtype=torch.int64, device=dev)
-    overflow = torch.empty((), dtype=torch.bool, device=dev)
-    part = torch.empty(2 * blocks, dtype=torch.int32, device=dev)
-    a = _CompactArgs()
-    a.flags, a.idx, a.scalars, a.overflow, a.part = (
-        flags.data_ptr(), idx.data_ptr(), scalars.data_ptr(),
-        overflow.data_ptr(), part.data_ptr())
+    idx = torch.empty(capacity, dtype=torch.int32 if padded else torch.int64, device=dev)
+    meta = torch.empty(3, dtype=torch.int64, device=dev)    # n_active, live, overflow
+    scratch = torch.empty(frames * H + 2 * blocks, dtype=torch.int32, device=dev)
+    a.allow = None if allow is None else allow.data_ptr()
+    a.mask = None if mask_out is None else mask_out.data_ptr()
+    a.idx, a.scalars, a.scratch = idx.data_ptr(), meta.data_ptr(), scratch.data_ptr()
     a.n, a.capacity, a.idx64, a.padded, a.blocks = (
         n, capacity, int(not padded), int(padded), blocks)
-    _launch(lib.compact_rows, a, dev=dev, what="compact_rows")
-    launch_counts["compact_rows"] += 1
-    return idx, scalars, overflow
+    a.frames_per_pass = cull_compact_pass(H, frames, n, blocks)
+    a.accumulate = int(accumulate)
+    with torch.cuda.device(dev):
+        rc = lib.cull_compact(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"cull_compact: kernel launch failed, CUDA error {rc}")
+    launch_counts["cull_compact"] += 1
+    return Culled(idx, meta[0], meta[1], meta.view(torch.bool)[16], mask_out)
+
+
+def _compact_launch(active_flat: torch.Tensor, capacity: int, padded: bool) -> Culled:
+    """The compaction alone of a flag array: one launch of
+    cull_compact_kernel<false>."""
+    _library()
+    flags = active_flat.contiguous()
+    a = _CullCompactArgs()
+    a.flags = flags.data_ptr()
+    return _launch(a, flags.device, flags.shape[0], capacity=capacity,
+                   padded=padded, allow=None, mask_out=None, accumulate=False)
 
 
 # ---------------------------------------------------------------------------
 # the wrappers
 # ---------------------------------------------------------------------------
+
+
+def cull_compact(
+    geom: GridGeometry,
+    depths: torch.Tensor,
+    K: torch.Tensor,
+    poses: torch.Tensor,
+    *,
+    capacity: int,
+    padded: bool,
+    truncation: float,
+    zmin: float,
+    zmax: float,
+    z0: Optional[int] = None,
+    z_rows: Optional[int] = None,
+    z_idx: Optional[torch.Tensor] = None,
+    seg_x: Optional[int] = None,
+    margin_px: float = 0.0,
+    margin_t: float = 0.0,
+    gates: Optional[torch.Tensor] = None,
+    allow: Optional[torch.Tensor] = None,
+    mask: bool = False,
+) -> Culled:
+    """The K frames' gated culls ORed, `allow` ANDed in, compacted to
+    `capacity` slots (see the module docstring): ONE kernel launch on CUDA
+    tensors, cull_compact_plain on CPU tensors."""
+    kw = dict(truncation=truncation, zmin=zmin, zmax=zmax, z0=z0, z_rows=z_rows,
+              z_idx=z_idx, seg_x=seg_x, margin_px=margin_px, margin_t=margin_t)
+    if capacity < 0:
+        raise ValueError(f"cull: capacity {capacity}")
+    if depths.device.type == "cpu":
+        return cull_compact_plain(geom, depths, K, poses, capacity=capacity,
+                                  padded=padded, gates=gates, allow=allow,
+                                  mask=mask, **kw)
+    _library()                         # built (or refused) before any pointer
+    a = _CullCompactArgs()
+    shape, keep = _cull_fields(a, geom, depths, K, poses, gates, **kw)
+    out = torch.empty(shape, dtype=torch.bool, device=depths.device) if mask else None
+    culled = _launch(a, depths.device, math.prod(shape), capacity=capacity,
+                     padded=padded, allow=allow, mask_out=out, accumulate=False)
+    del keep
+    return culled
 
 
 def row_activity(
@@ -392,8 +596,9 @@ def row_activity(
     union: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The level-1 cull (row_activity_plain), ANDed with `gate` and ORed
-    into `union` in place when given: one kernel launch on CUDA tensors, the
-    plain version on CPU tensors."""
+    into `union` in place when given: one kernel launch on CUDA tensors (a
+    cull_compact of capacity 0 that writes its mask), the plain version on
+    CPU tensors."""
     kw = dict(truncation=truncation, zmin=zmin, zmax=zmax, z0=z0,
               z_rows=z_rows, z_idx=z_idx, seg_x=seg_x, margin_px=margin_px,
               margin_t=margin_t)
@@ -405,28 +610,14 @@ def row_activity(
             union |= act
             return union
         return act
+    if depth.dim() != 2 or tuple(pose.shape) != (4, 4):
+        raise ValueError("row_activity: one frame, depth [H, W] and pose [4, 4]")
+    if gate is not None and gate.numel() != 1:
+        raise TypeError("row_activity: gate must be one bool")
+    _library()
+    a = _CullCompactArgs()
+    shape, keep = _cull_fields(a, geom, depth, K, pose, gate, **kw)
     dev = depth.device
-    H, W = depth.shape
-    X, Y, Zd = geom.dims
-    zr = Zd if z_rows is None else z_rows
-    S = X if seg_x is None else seg_x
-    if X % S != 0:
-        raise ValueError(f"row_activity: seg_x={S} must divide X={X}")
-    NS = X // S
-    shape = (zr, Y) if seg_x is None else (zr, Y, NS)
-    levels = table_levels(H)
-    if levels * H * 4 > MAX_TABLE_BYTES:
-        raise ValueError(f"row_activity: a {H}-row image's range table "
-                         f"({levels} x {H} floats) does not fit shared memory")
-    for name, t, dt in (("depth", depth, torch.float32), ("K", K, torch.float32),
-                        ("pose", pose, torch.float32)):
-        if t.dtype != dt or t.device != dev:
-            raise TypeError(f"row_activity: {name} must be {dt} on {dev}")
-    if tuple(K.shape) != (3, 3) or tuple(pose.shape) != (4, 4):
-        raise ValueError("row_activity: K must be [3, 3] and pose [4, 4]")
-    if gate is not None and (gate.dtype != torch.bool or gate.numel() != 1
-                             or gate.device != dev):
-        raise TypeError(f"row_activity: gate must be one bool on {dev}")
     if union is not None:
         if (tuple(union.shape) != shape or union.dtype != torch.bool
                 or union.device != dev or not union.is_contiguous()):
@@ -435,30 +626,9 @@ def row_activity(
         out = union
     else:
         out = torch.empty(shape, dtype=torch.bool, device=dev)
-    z_map = None
-    if z_idx is not None:
-        if z_idx.shape[0] != zr:
-            raise ValueError(f"row_activity: z_idx has {z_idx.shape[0]} planes, "
-                             f"z_rows {zr}")
-        z_map = z_idx.to(dev, torch.float32).contiguous()
-    depth, K, pose = depth.contiguous(), K.contiguous(), pose.contiguous()
-    row_max = torch.empty(H, dtype=torch.float32, device=dev)
-    lib = _library()
-    a = _CullArgs()
-    a.depth, a.K, a.pose, a.out, a.row_max = (
-        depth.data_ptr(), K.data_ptr(), pose.data_ptr(), out.data_ptr(),
-        row_max.data_ptr())
-    a.z_map = None if z_map is None else z_map.data_ptr()
-    a.gate = None if gate is None else gate.data_ptr()
-    a.H, a.W, a.levels, a.z_rows, a.Y, a.S, a.NS = H, W, levels, zr, Y, S, NS
-    a.has_z0, a.z0 = int(z0 is not None), float(z0 or 0)
-    a.accumulate = int(union is not None)
-    a.origin_x, a.origin_y, a.origin_z = geom.origin
-    a.voxel, a.truncation, a.zmin, a.zmax, a.margin_px, a.margin_t = (
-        geom.voxel_size, truncation, zmin, zmax, margin_px, margin_t)
-    blocks = cull_blocks(H, out.numel(), _sms(dev))
-    _launch(lib.row_activity, a, blocks, dev=dev, what="row_activity")
-    launch_counts["row_activity"] += 1
+    _launch(a, dev, out.numel(), capacity=0, padded=False,
+            allow=None, mask_out=out, accumulate=union is not None)
+    del keep
     return out
 
 
@@ -468,16 +638,17 @@ def compact_active(active_flat: torch.Tensor, capacity: int):
     _check_flags(active_flat, capacity)
     if active_flat.device.type == "cpu":
         return compact_active_plain(active_flat, capacity)
-    idx, scalars, _ = _compact_launch(active_flat, capacity, padded=False)
-    return idx, scalars[0]
+    c = _compact_launch(active_flat, capacity, padded=False)
+    return c.idx, c.n_active
 
 
 def compact_padded(active_flat: torch.Tensor, capacity: int):
     """compact_padded_plain's contract (duplicate-first padding, int32
     indices, live and overflow): one kernel launch on CUDA tensors, the
-    plain version on CPU tensors."""
+    plain version on CPU tensors (which cannot take a capacity of 0; the
+    kernel can)."""
     _check_flags(active_flat, capacity)
     if active_flat.device.type == "cpu":
         return compact_padded_plain(active_flat, capacity)
-    idx, scalars, overflow = _compact_launch(active_flat, capacity, padded=True)
-    return idx, scalars[1], overflow
+    c = _compact_launch(active_flat, capacity, padded=True)
+    return c.idx, c.live, c.overflow

@@ -8,9 +8,9 @@ them; here one process runs each slab's body in turn on the slab's device
 (parallel/mesh.py) and joins them through mesh.reduce_to_first:
 
   * fusion is voxel-local, so a slab fuses on its own: the culled fusion
-    culls the slab's own rows (ops/cull.row_activity with the slab's
-    planes) and runs the shared compaction / row-copy gather / update /
-    row-copy scatter on them (core/volume._fuse_culled_slab) — one gather
+    culls and compacts the slab's own rows (ops/cull.cull_compact with the
+    slab's planes, one launch) and runs the shared row-copy gather / update
+    / row-copy scatter on them (core/volume._fuse_culled_slab) — one gather
     and one scatter launch per slab a frame — and only the overflow flags
     are summed;
   * the tracker's per-pixel record gather is slab-local (each slab gathers
@@ -151,9 +151,10 @@ def sharded_fuse_frame_culled_fn(
     interleave_z: bool = False,
     rows_impl: str = "dma",
 ):
-    """Per-slab row-culled fusion.  Each Z-slab runs the level-1 cull on its
-    own rows and the shared level-2 compact / gather / update / scatter
-    (one row-copy gather and one scatter call a slab); the only
+    """Per-slab row-culled fusion.  Each Z-slab culls and compacts its own
+    rows (one cull_compact launch a slab) and runs the shared level-2
+    gather / update / scatter (one row-copy gather and one scatter call a
+    slab); the only
     cross-device traffic is the sum of the overflow flags.  `row_capacity`
     is PER SHARD.
 
@@ -180,17 +181,18 @@ def sharded_fuse_frame_culled_fn(
                 continue
             z0, z_map = _planes(k, n_z, Zl, interleave_z, dev)
             g = None if gates is None else gates[dev]
-            active = cull.row_activity(
-                geom, depth[dev], K[dev], pose[dev], truncation=truncation,
-                zmin=zmin, zmax=zmax, z0=z0, z_rows=Zl, z_idx=z_map, gate=g)
+            c = cull.cull_compact(
+                geom, depth[dev], K[dev], pose[dev], capacity=row_capacity,
+                padded=True, truncation=truncation, zmin=zmin, zmax=zmax,
+                z0=z0, z_rows=Zl, z_idx=z_map, gates=g)
             if dev not in payload:
                 payload[dev] = pack_pixel_payload(
                     color[dev], depth[dev], normals[dev], n_sq_inv[dev])
             _, overflow = _fuse_culled_slab(
-                slab, geom, z0, Zl, active, payload[dev], K[dev], pose[dev],
-                depth[dev].shape, frame_idx, g, truncation=truncation,
-                zmin=zmin, zmax=zmax, cos_thresh_sq=cos_thresh_sq,
-                row_capacity=row_capacity, rows_impl=rows_impl, z_map=z_map)
+                slab, geom, z0, Zl, (c.idx, c.live, c.overflow), payload[dev],
+                K[dev], pose[dev], depth[dev].shape, frame_idx, g,
+                truncation=truncation, zmin=zmin, zmax=zmax,
+                cos_thresh_sq=cos_thresh_sq, rows_impl=rows_impl, z_map=z_map)
             flags.append(overflow.to(torch.int32))
         return svol, reduce_to_first(flags) > 0
 

@@ -141,7 +141,7 @@ def test_kernel_wrappers_raise_on_cuda_tensors_instead_of_falling_back():
     ("distcg", ("dist_system_kernel", "dist_cg_kernel")),
     ("normaleq", ("pose_tiles_kernel", "light_tiles_kernel", "light_led_kernel")),
     ("albedo", ("albedo_block_kernel",)),
-    ("cull", ("row_activity_kernel", "compact_rows_kernel")),
+    ("cull", ("cull_compact_kernel",)),
     ("preprocess", ("fals_normals_kernel", "lapm_kernel")),
     ("energy", ("energy_sums_kernel",)),
     ("distreg", ("reg_operators_kernel", "dist_update_kernel"))])

@@ -405,4 +405,4 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
     assert int(n_act) == int(live) == int(tvolume.count_active_rows(
         sc["tg"], sc["fr"]["depth"], sc["K"], np.eye(4, dtype=np.float32),
         truncation=sc["T"], device=CPU, **ZKW)) > 0
-    assert cull.launch_counts == {"row_activity": 0, "compact_rows": 0}
+    assert cull.launch_counts == {"cull_compact": 0}
