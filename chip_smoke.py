@@ -6,6 +6,7 @@
                           [--distcg-parent <distcg.cu>] [--system-parent <distcg.cu>]
                           [--gram-parent <gn.cu>] [--fals-parent <preprocess.cu>]
                           [--energy-parent <energy.cu>] [--cull-parent <cull.cu>]
+                          [--led-parent <normaleq.cu>]
 
 Builds the package's CUDA kernels and its host C++ libraries (PNG unfilter,
 marching cubes and PLY writers) from csrc/, holds each kernel against its
@@ -175,7 +176,13 @@ PS sum alone, the rows alone and its grid cut to 132 blocks and to 1.
 With --fals-parent <preprocess.cu> / --energy-parent <energy.cu> (an
 earlier source of the same C interface, or a prefix of it) each kernel is
 also timed in turns with that build in the path's order, and the earlier
-energy kernel is timed with the same cuts.
+energy kernel is timed with the same cuts; --fals-parent times the
+earlier LAPM too (on its own grid), after each build's normals.  LAPM (a
+ring of row spans bulk-copied into shared memory, each row's x passes
+once) is also held bit for bit on copies whose bases lie 4, 8 and 12 bytes
+off a 16-byte boundary against an aligned copy, on the RGB chunk, a grey
+chunk, one frame, nine frames and 1280x960 frames, and timed beside an
+empty launch of its grid in its place in the path.
 
 The distance block's eager tail (its regularizer operators and its update,
 csrc/distreg.cu, one launch each a block) and the LED light's normal
@@ -188,9 +195,15 @@ holds the operators and the update bit for bit on the main and the LED
 problems and their edges (one row, no valid row, frozen neighbours, every
 step refused or accepted, steps at the threshold and one ulp either side,
 the gradient alone) and the LED light within NORMAL_EQ_TOL before and after
-the upsample, on one keyframe, one row and no counted pair, each kernel
-twice bit for bit, with their times in the path's order beside an empty
-launch; dist_cg_kernels' traced distance block launches one of each; with
+the upsample, on one keyframe, one row and no counted pair, and on its
+plan's edges (F = 1, 33 and 40 keyframes, one row of 33, row slices and
+copies of w and r off a 16-byte boundary bit for bit against aligned
+copies, the mesh_refine (b) block), each kernel twice bit for bit, with
+their times in the path's order beside an empty launch (the LED light's:
+of its own grid) and the LED light's beside one einsum forming H and g;
+with --led-parent <normaleq.cu> (an earlier source whose LightLedArgs is a
+prefix of this one's) the LED light is timed in turns with that build;
+dist_cg_kernels' traced distance block launches one of each; with
 --profile profile_refine_led also traces two warm LED iterations.
 
 With --kernels-only the run stops after the kernels and scan_kernels phases
@@ -3223,15 +3236,22 @@ def _cg_plan_facts(plan):
                 smem_bytes=plan.smem_bytes, barriers_per_step=plan.barriers)
 
 
+def _off_boundary(t, floats=1):
+    """A copy of the float tensor t whose base lies `floats` floats past a
+    16-byte boundary (the caching allocator's blocks are 512-byte aligned)."""
+    import torch
+
+    buf = torch.empty(t.numel() + floats, dtype=t.dtype, device=t.device)
+    v = buf[floats:].view(t.shape)
+    v.copy_(t)
+    check(v.data_ptr() % 16 == 4 * floats, f"a copy {floats} floats off a 16-byte boundary")
+    return v
+
+
 def _misaligned(rd):
     """rd with w one float off a 16-byte boundary (a copy): dist_system's
     lanes then read device memory in place of the bulk-copied ring."""
-    import torch
-
-    w = rd.w
-    buf = torch.empty(w.numel() + 1, dtype=w.dtype, device=w.device)
-    buf[1:] = w.reshape(-1)
-    return rd._replace(w=buf[1:].view(w.shape))
+    return rd._replace(w=_off_boundary(rd.w))
 
 
 def _system_case(what, c, frames=None, copies=1, rows=None):
@@ -3545,6 +3565,8 @@ def _ptxas(src):
                                 "albedo_block_kernelILb1ELb1E"),
                                ("fals_normals_kernel", "fals_normals_kernel"),
                                ("lapm_kernel", "lapm_kernel"),
+                               ("light_led_kernel<F <= 32>", "light_led_kernelILb0E"),
+                               ("light_led_kernel<F > 32>", "light_led_kernelILb1E"),
                                ("energy_sums_kernel<cauchy, vector loads>",
                                 "energy_sums_kernelILi1ELb1E"),
                                ("energy_sums_kernel<cauchy, scalar loads>",
@@ -4521,6 +4543,10 @@ def _prep_case(what, depth, color, cache, window, flush):
             max_abs_err=out["normals_max_abs_err"], library_ms=None)
         out["lapm"] = dict(
             ms=path[1], ms_after_flush=_time_ms(lambda: P.lapm(color), flush),
+            # an empty kernel on lapm's grid, block and shared memory, in its
+            # place in the path
+            empty_launch_ms=_path_ms([lambda: P.fals_normals(depth, cache, window),
+                                      lambda: P.lapm_floor(color)])[1],
             plain_ms=_time_ms(lambda: P.lapm_plain(color), flush),
             # the RGB frames read once (the blue channel's lines hold all
             # three), the means written once
@@ -4530,6 +4556,28 @@ def _prep_case(what, depth, color, cache, window, flush):
         for k in ("fals_normals", "lapm"):
             out[k]["share_of_bound"] = out[k]["bound_ms"] / out[k]["ms"]
     return out
+
+
+def _lapm_views(what, color):
+    """lapm on copies of `color` whose bases lie 4, 8 and 12 bytes past a
+    16-byte boundary (the kernel's producer then loads each row span's
+    ragged head and tail itself), each bit for bit against lapm on an
+    aligned copy, which holds LAPM_TOL of the plain means -> facts."""
+    from psgradientsdf_tpu_torch.ops import preprocess as P
+
+    aligned = color.clone()
+    check(aligned.data_ptr() % 16 == 0, f"{what}: the copy is not 16-byte aligned")
+    want, plain = P.lapm(aligned), P.lapm_plain(aligned)
+    rel = float(((want - plain).abs() / plain.abs().clamp(min=1e-30)).max())
+    check(rel <= LAPM_TOL, f"{what}: lapm {rel:.3g} from its plain version")
+    offsets = []
+    for off in (1, 2, 3):
+        check(_bits_equal(P.lapm(_off_boundary(color, off)), want),
+              f"{what}: lapm on a copy {4 * off} bytes off a 16-byte boundary differs "
+              f"from an aligned one")
+        offsets.append(4 * off)
+    return dict(case=what, shape=list(color.shape), rel_err=rel, view_offsets=offsets,
+                bits_as_aligned=True)
 
 
 def _prep_shaped(seq, frames, h, w, y0=0, x0=0):
@@ -4592,12 +4640,47 @@ def _fals_launch(lib, depth, cache, window, per_sm):
     return out
 
 
+def _parent_lapm_plan(C, Hh, sms):
+    """(bands, rows a band) of the first LAPM design (a412c9f's
+    lapm_plan): about two blocks of 256 threads an SM over the frames."""
+    want = max(1, min(Hh, -(-2 * sms // C)))
+    rows = -(-Hh // want)
+    return -(-Hh // rows), rows
+
+
+def _lapm_launch(lib, color, parent):
+    """One launch of lapm from library `lib` on an RGB or grey chunk: with
+    `parent`, an earlier build whose LapmArgs is a prefix of this one's
+    (the first design's: bands x frames blocks of 256 threads), on its own
+    plan; else this build on lapm_plan -> the means (not counted)."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import preprocess as P
+
+    C, Hh, Ww, S, chan, lead = P._lapm_shape(color)
+    plan = P.lapm_plan(C, Hh, Ww, S, _sm_count())
+    if parent:
+        plan = plan._replace(**dict(zip(("bands", "rows"), _parent_lapm_plan(C, Hh,
+                                                                           _sm_count()))),
+                             strips=1)
+    x = color.contiguous()
+    out = torch.empty(C, dtype=torch.float32, device=x.device)
+    part = torch.empty(C * plan.bands * plan.strips, dtype=torch.float64, device=x.device)
+    a = P._lapm_args(C, Hh, Ww, S, chan, plan)
+    a.img, a.out, a.part, a.ticket = (x.data_ptr(), out.data_ptr(), part.data_ptr(),
+                                      P._ticket(x.device).data_ptr())
+    rc = lib.lapm(ctypes.byref(a), torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"lapm ({lib}): CUDA error {rc}")
+    return out.reshape(lead)
+
+
 def _fals_parent_ab(depth, color, cache, flush):
-    """fals_normals on this preprocess.cu and on the --fals-parent source
-    (built here into a temporary directory; its launches on no path and not
-    counted), the parent's normals bit for bit with this kernel's, timed in
-    turns in the path's order (_path_ms: the normals, then LAPM): this,
-    the parent, the parent, this -> {"this"|"parent": [ms, ms]}."""
+    """fals_normals and lapm on this preprocess.cu and on the --fals-parent
+    source (built here into a temporary directory; its launches on no path
+    and not counted), the parent's normals bit for bit with this kernel's
+    and its LAPM within LAPM_TOL of the plain means, timed in turns in the
+    path's order (_path_ms: the normals, then LAPM), each build's pair:
+    this, the parent, the parent, this -> {"this"|"parent": [ms, ms]} of the
+    normals, {"lapm_this"|"lapm_parent": [ms, ms]} of LAPM."""
     import torch
     from psgradientsdf_tpu_torch.ops import preprocess as P
 
@@ -4605,15 +4688,23 @@ def _fals_parent_ab(depth, color, cache, flush):
     with tempfile.TemporaryDirectory(prefix="fals_parent_") as tmp:
         parent = _parent_build(src, tmp, "preprocess_parent")
         parent.fals_normals.argtypes = [ctypes.POINTER(P._FalsArgs), ctypes.c_void_p]
+        parent.lapm.argtypes = [ctypes.POINTER(P._LapmArgs), ctypes.c_void_p]
         runs = dict(this=lambda: P.fals_normals(depth, cache, 11),
                     parent=lambda: _fals_launch(parent, depth, cache, 11, 1))
+        lapms = dict(this=lambda: P.lapm(color),
+                     parent=lambda: _lapm_launch(parent, color, True))
         check(_bits_equal(runs["parent"](), runs["this"]()),
               "the parent's fals_normals differs from this one's")
-        times = {"this": [], "parent": []}
+        plain = P.lapm_plain(color)
+        rel = float(((lapms["parent"]() - plain).abs() / plain.abs()).max())
+        check(rel <= LAPM_TOL, f"the parent's lapm {rel:.3g} from its plain version")
+        times = {"this": [], "parent": [], "lapm_this": [], "lapm_parent": []}
         for name in ("this", "parent", "parent", "this"):
-            times[name].append(_path_ms([runs[name], lambda: P.lapm(color)])[0])
+            path = _path_ms([runs[name], lapms[name]])
+            times[name].append(path[0])
+            times["lapm_" + name].append(path[1])
         torch.cuda.synchronize()
-    return times
+    return dict(times, width=int(color.shape[-2]), parent_lapm_rel_err=rel)
 
 
 def preprocess_kernels(seq):
@@ -4658,6 +4749,10 @@ def preprocess_kernels(seq):
     check(cases[-1]["normals_differing"] == 0 and cases[-1]["width"] == 2 * W,
           "the 1280x960 chunk was not held")
     cases += _fals_edges(seq, caches)
+    d9, c9 = _prep_frames(seq, range(9))
+    views = [_lapm_views("RGB chunk 0", c), _lapm_views("grey", c[..., 2].contiguous()),
+             _lapm_views("one frame", c[3]), _lapm_views("nine frames", c9),
+             _lapm_views(f"{2 * W}x{2 * H}", c2)]
     facts = {}
     sms = _sm_count() if DEVICE == "cuda" else 132
     per_sm = P.fals_blocks_per_sm(torch.device(DEVICE), 11) if DEVICE == "cuda" else 1
@@ -4667,13 +4762,15 @@ def preprocess_kernels(seq):
         if "--fals-parent" in sys.argv[1:]:
             d, c = _prep_frames(seq, range(CHUNK))
             facts["parent"] = _fals_parent_ab(d, c, caches[11], flush)
+            facts["parent_1280x960"] = _fals_parent_ab(d2, c2, big, None)
         torch.cuda.empty_cache()
-    return dict(cases=cases, checked=len(cases), lapm_tolerance=LAPM_TOL,
+    return dict(cases=cases, checked=len(cases) + len(views), lapm_views=views,
+                lapm_tolerance=LAPM_TOL,
                 grid=dict(tile=P.TILE, blocks_per_sm=per_sm,
                           plan=list(P.fals_grid(CHUNK, H, W, sms * per_sm)),
                           shared_bytes=P.fals_smem(11),
                           shared_bytes_window_31=P.fals_smem(P.MAX_WINDOW)),
-                lapm_plan=list(P.lapm_plan(CHUNK, H, sms)),
+                lapm_plan=list(P.lapm_plan(CHUNK, H, W, 3, sms)),
                 timed=cases[0], **facts)
 
 
@@ -5112,13 +5209,52 @@ def _led_inputs(what, rd, prob, geom, dist, grad, albedo, poses):
     return dict(what=what, args=(rd, prob, geom, dist, grad, albedo, poses))
 
 
+def _parent_led_blocks(N, F, sms):
+    """The first LED light design's grid (a412c9f's led_blocks): a thread a
+    pair, at most four blocks of 256 an SM."""
+    return max(1, min(4 * sms, -(-N * F // 256)))
+
+
+def _led_launch(lib, args, parent):
+    """One launch of light_normal_eqs_led from library `lib` on the
+    arguments of a call: with `parent`, an earlier build whose LightLedArgs
+    is a prefix of this one's (the first design's), on its own grid; else
+    this build on led_plan -> (H, g) (not counted)."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import normaleq as NE
+
+    rd, prob, geom, dist, grad, albedo, poses = args
+    N, F = int(rd.w.shape[0]), int(rd.w.shape[1])
+    dev = rd.w.device
+    plan = NE.led_plan(N, F, _sm_count())
+    if parent:
+        plan = plan._replace(blocks=_parent_led_blocks(N, F, _sm_count()))
+    keep = [rd.w, rd.r, prob.idx_xyz.contiguous(), dist.contiguous(), grad.contiguous(),
+            albedo.contiguous(), poses.contiguous()]
+    partial = torch.empty(6 * plan.blocks, dtype=torch.float64, device=dev)
+    Hg = torch.empty(6, dtype=torch.float32, device=dev)
+    a = NE._LightLedArgs()
+    for field, t in zip(("w", "r", "idx_xyz", "dist", "grad", "albedo", "poses"), keep):
+        setattr(a, field, t.data_ptr())
+    a.partial, a.ticket = partial.data_ptr(), NE._tickets_for(dev, 1).data_ptr()
+    a.H, a.g = Hg.data_ptr(), Hg[3:].data_ptr()
+    NE._led_plan_args(a, N, F, plan)
+    a.origin_x, a.origin_y, a.origin_z = (float(v) for v in geom.origin)
+    a.grid_voxel = float(geom.voxel_size)
+    rc = lib.light_normal_eqs_led(ctypes.byref(a), torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"light_normal_eqs_led ({lib}): CUDA error {rc}")
+    return Hg[:3], Hg[3:]
+
+
 def _led_case(c, flush=None, ref=None):
     """light_normal_eqs_led (csrc/normaleq.cu) twice and its plain version
     on c: H within NORMAL_EQ_TOL of the plain version's max|H|, g within it
     of each channel's sum of |w r J| (0 where the plain one is), the second
     launch bit for bit; with `flush` its time in the light block's order
-    (_path_ms: the residual pass of `ref`, then the sums), after the flush,
-    the plain chain's and its byte bound -> facts."""
+    (_path_ms: the residual pass of `ref`, then the sums) beside an empty
+    launch of its grid there, after the flush, the plain chain's, one
+    einsum's forming H and g from w J, J and r formed beforehand
+    (library_ms) and its byte bound -> facts."""
     import torch
     from psgradientsdf_tpu_torch.ops import normaleq as NE
     from psgradientsdf_tpu_torch.ops import residual as RS
@@ -5155,14 +5291,121 @@ def _led_case(c, flush=None, ref=None):
         # the poses read once; H and g written
         nbytes = N * F * 24 + N * 40 + F * 64 + 24
         bound = nbytes / HBM_BYTES_PER_S * 1e3
+        # one PyTorch call forming H and g: an einsum of w J against J and
+        # r stacked, both formed beforehand
+        wJ, JR = (rd.w * J).contiguous(), torch.stack([J, rd.r], -1).contiguous()
         out["light_normal_eqs_led"] = dict(
             ms=path[1], residual_pass_ms=path[0],
+            # an empty kernel on the light's grid, block and shared memory,
+            # in its place in the path
+            empty_launch_ms=_path_ms([lambda: RS.residual_pass(*ref._args(), **skw),
+                                      lambda: NE.light_led_floor(N, F, rd.w.device)])[1],
             ms_after_flush=_time_ms(lambda: NE.light_normal_eqs_led(*args), flush),
             plain_ms=_time_ms(lambda: NE.light_normal_eqs_led_plain(*args), flush),
-            bound_ms=bound, bytes=nbytes, max_abs_err=out["max_abs_err"], library_ms=None,
-            blocks=NE.led_blocks(N, F, _sm_count()))
+            library_ms=_time_ms(lambda: torch.einsum("nfc,nfck->ck", wJ, JR), flush),
+            bound_ms=bound, bytes=nbytes, max_abs_err=out["max_abs_err"],
+            plan=list(NE.led_plan(N, F, _sm_count())))
         out["light_normal_eqs_led"]["share_of_bound"] = bound / path[1]
     return out
+
+
+def _led_frames(args, F):
+    """The LED light's arguments with F keyframes: the block's keyframes
+    repeated in turn (w, r and the poses; contiguous copies)."""
+    import torch
+
+    rd, prob, geom, dist, grad, albedo, poses = args
+    idx = torch.arange(F, device=rd.w.device) % rd.w.shape[1]
+    return (rd._replace(w=rd.w[:, idx].contiguous(), r=rd.r[:, idx].contiguous()), prob,
+            geom, dist, grad, albedo, poses[idx].contiguous())
+
+
+def _led_rows(args, lo, hi):
+    """The LED light's arguments on rows [lo, hi): w and r as row-slice views
+    (as the mesh passes a block's rows), the voxel state cut alike."""
+    rd, prob, geom, dist, grad, albedo, poses = args
+    return (rd._replace(w=rd.w[lo:hi], r=rd.r[lo:hi]),
+            prob._replace(idx_xyz=prob.idx_xyz[lo:hi]), geom, dist[lo:hi], grad[lo:hi],
+            albedo[lo:hi], poses)
+
+
+def _led_edges(args):
+    """light_normal_eqs_led on the plan's edges (_led_case each): F = 1, 33
+    and 40 keyframes (a warp's step: 32 / F voxels, or 32 pairs past 32), one
+    row of 33, row slices of w and r off a 16-byte boundary (F = 33 from row
+    1; copies of F = 8 and F = 33 one float past a boundary) each bit for bit against
+    an aligned copy, and the mesh_refine (b) block: the LED run's rows of
+    its second Z-slab and the first half of its keyframes, as the 4x2 mesh
+    passes them -> [facts]."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import normaleq as NE
+
+    def aligned(a):
+        rd = a[0]
+        return (rd._replace(w=rd.w.clone(), r=rd.r.clone()),) + a[1:]
+
+    def moved(a):
+        rd = a[0]
+        return (rd._replace(w=_off_boundary(rd.w), r=_off_boundary(rd.r)),) + a[1:]
+
+    def held(what, a):
+        got = torch.cat(NE.light_normal_eqs_led(*a))
+        want = torch.cat(NE.light_normal_eqs_led(*aligned(a)))
+        check(_bits_equal(got, want), f"{what}: light_normal_eqs_led differs from an "
+                                      "aligned copy's")
+        fact = _led_case(_led_inputs(what, *a))
+        fact.update(w_offset=int(a[0].w.data_ptr() % 16), bits_as_aligned=True)
+        return fact
+
+    N = int(args[0].w.shape[0])
+    f1 = _led_frames(args, 1)
+    f33, f40 = _led_frames(args, 33), _led_frames(args, 40)
+    out = [_led_case(_led_inputs("F = 1", *f1)), _led_case(_led_inputs("F = 33", *f33)),
+           _led_case(_led_inputs("F = 40", *f40)),
+           _led_case(_led_inputs("one row of F = 33", *_led_rows(f33, 0, 1)))]
+    out.append(held("F = 33 from row 1 (a row slice)", _led_rows(f33, 1, N)))
+    out.append(held("F = 8 off a 16-byte boundary", moved(args)))
+    out.append(held("F = 33 off a 16-byte boundary", moved(f33)))
+    z, nf = MESH_REFINE["z"], MESH_REFINE["frames"]
+    rows, F = -(-N // z), int(args[0].w.shape[1])
+    mesh = _led_frames(_led_rows(args, rows, 2 * rows), F // nf)
+    out.append(held(f"the mesh_refine (b) block: {rows} rows x {F // nf} keyframes",
+                    _led_rows(mesh, 0, rows)))
+    check(out[0]["keyframes"] == 1 and out[2]["keyframes"] == 40 and out[3]["rows"] == 1,
+          "the LED light's edges are not the plan's")
+    return out
+
+
+def _led_parent_ab(args, ref):
+    """light_normal_eqs_led on this normaleq.cu and on the --led-parent
+    source (built here into a temporary directory; its launches on no path
+    and not counted), the parent's H and g within NORMAL_EQ_TOL of the plain
+    version's as this kernel's, timed in turns in the light block's order
+    (_path_ms: the residual pass of `ref`, then the sums): this, the
+    parent, the parent, this -> {"this"|"parent": [ms, ms]}."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import normaleq as NE
+    from psgradientsdf_tpu_torch.ops import residual as RS
+
+    src = sys.argv[sys.argv.index("--led-parent") + 1]
+    skw = ref._static_kwargs()
+    with tempfile.TemporaryDirectory(prefix="led_parent_") as tmp:
+        parent = _parent_build(src, tmp, "normaleq_parent")
+        parent.light_normal_eqs_led.argtypes = [ctypes.POINTER(NE._LightLedArgs),
+                                                ctypes.c_void_p]
+        runs = dict(this=lambda: NE.light_normal_eqs_led(*args),
+                    parent=lambda: _led_launch(parent, args, True))
+        Hp, gp = NE.light_normal_eqs_led_plain(*args)
+        H, g = runs["parent"]()
+        h_err = float((H - Hp).abs().max() / Hp.abs().max().clamp(min=1e-30))
+        check(h_err <= NORMAL_EQ_TOL, f"the parent's LED light H {h_err:.3g} from its plain "
+                                      "version")
+        times = {"this": [], "parent": []}
+        for name in ("this", "parent", "parent", "this"):
+            times[name].append(_path_ms([lambda: RS.residual_pass(*ref._args(), **skw),
+                                         runs[name]])[1])
+        torch.cuda.synchronize()
+    return dict(times, parent_H_rel_err=h_err)
 
 
 def dist_tail_kernels(main_run, led_run, led_first):
@@ -5264,6 +5507,7 @@ def dist_tail_kernels(main_run, led_run, led_first):
         albedo, poses)))
     check(all(v == 0.0 for v in lights[-1]["H"] + lights[-1]["g"]),
           "no counted pair: H or g is not 0")
+    lights += _led_edges(after["args"])
     facts = dict(reg_operators=ops, dist_update=upd, light_normal_eqs_led=lights,
                  checked=len(ops) + len(upd) + len(lights), tolerance=NORMAL_EQ_TOL,
                  timed=dict(reg_operators=ops[0].get("reg_operators"),
@@ -5273,6 +5517,8 @@ def dist_tail_kernels(main_run, led_run, led_first):
                             led_keyframes=lights[0]["keyframes"], path_ms=path))
     if DEVICE == "cuda":
         facts["timed"]["empty_launch_ms"] = _empty_launch_ms()
+        if "--led-parent" in sys.argv[1:]:
+            facts["parent"] = _led_parent_ab(after["args"], led)
         torch.cuda.empty_cache()
     return facts
 
@@ -7574,9 +7820,12 @@ def main():
             "single PyTorch call computes it")),
         "lapm": dict(prep_facts["timed"]["lapm"], work=(
             f"the first chunk's LAPM sharpness: {CHUNK} frames of {W}x{H}, one "
-            "launch (bands of rows, double partials, the last block by ticket), "
-            "timed after the normals; the bound counts the RGB frames read once; "
-            "no single PyTorch call computes it")),
+            "launch (bands of rows, each row's span bulk-copied into a ring in "
+            "shared memory, its x passes once, the y pass from registers, double "
+            "partials, the last block by ticket), timed after the normals (their "
+            "dirty lines in the L2); the bound counts the RGB frames read once; "
+            "empty_launch_ms is an empty kernel on its grid in its place; no "
+            "single PyTorch call computes it")),
         "energy_sums": dict(energy_facts["timed"]["energy_sums"], work=(
             f"the main run's four energies at its final state: "
             f"{energy_facts['timed']['rows']} surface-voxel slots x "
@@ -7616,10 +7865,14 @@ def main():
             "gradient written once; no single PyTorch call computes it")),
         "light_normal_eqs_led": dict(timed["light_normal_eqs_led"], work=(
             f"the LED run's light block after the upsample: {timed['led_rows']} "
-            f"surface-voxel slots x {timed['led_keyframes']} keyframes, the reflectance "
-            "formed per pair, the sums in double, the last block by ticket, timed "
-            "after the residual pass; the bound counts w and r read once (24 bytes a "
-            "pair), the voxel's state once; no single PyTorch call computes it"))}
+            f"surface-voxel slots x {timed['led_keyframes']} keyframes, a warp's unit "
+            "of voxels, each voxel's terms once and shuffled to its pairs' lanes, the "
+            "lanes' own loads of w and r, the reflectance formed per pair, the sums "
+            "in double, the last block by "
+            "ticket, timed after the residual pass; the bound counts w and r read "
+            "once (24 bytes a pair), the voxel's state once; empty_launch_ms is an "
+            "empty kernel on its grid in its place; library_ms is one einsum "
+            "nfc,nfck->ck forming H and g from w J and [J, r] formed beforehand"))}
     for name in TAIL_KERNELS:
         check(tail_launches[name] > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [
@@ -7628,9 +7881,12 @@ def main():
              max_abs_err=tail_rows[name]["max_abs_err"], ms=tail_rows[name]["ms"],
              plain_ms=tail_rows[name]["plain_ms"],
              bound_ms=tail_rows[name]["bound_ms"], bound_by="bytes",
-             library_ms=None, library_note="no single PyTorch call computes it",
+             library_ms=tail_rows[name].get("library_ms"),
+             **({} if tail_rows[name].get("library_ms") is not None else
+                {"library_note": "no single PyTorch call computes it"}),
              ms_after_flush=tail_rows[name]["ms_after_flush"],
-             empty_launch_ms=timed["empty_launch_ms"], work=tail_rows[name]["work"])
+             empty_launch_ms=tail_rows[name].get("empty_launch_ms", timed["empty_launch_ms"]),
+             work=tail_rows[name]["work"])
         for name in TAIL_KERNELS] + [
         dict(name=name, route="cuda", source=SLICE_KERNELS[name][0],
              replaces=SLICE_KERNELS[name][1], launches=slice_launches[name],
@@ -7639,6 +7895,8 @@ def main():
              bound_ms=slice_rows[name]["bound_ms"], bound_by="bytes",
              library_ms=None, library_note="no single PyTorch call computes it",
              ms_after_flush=slice_rows[name]["ms_after_flush"],
+             **({"empty_launch_ms": slice_rows[name]["empty_launch_ms"]}
+                if "empty_launch_ms" in slice_rows[name] else {}),
              work=slice_rows[name]["work"])
         for name in SLICE_KERNELS] + [
         dict(name=name, route="cuda", source=ALBEDO_KERNELS[name][0],

@@ -148,12 +148,15 @@ struct LightLedArgs {               // ops/normaleq._LightLedArgs
   const float* grad;                // [N,3] the stored gradient
   const float* albedo;              // [N,3]
   const float* poses;               // [F,4,4]
-  double* partial;                  // [blocks, 6]
+  double* partial;                  // [6, blocks]
   unsigned* ticket;                 // one, 0 between calls
   float* H;                         // [3]
   float* g;                         // [3]
   int64_t n, f, blocks;
   double origin_x, origin_y, origin_z, grid_voxel;
+  // the rest of the host plan (ops/normaleq.led_plan)
+  int64_t unit_voxels;              // voxels a warp's unit (at most 32)
+  int64_t smem;                     // dynamic shared memory a block
 };
 
 namespace {
@@ -892,85 +895,269 @@ int active_clusters(void (*kernel)(Args), int64_t smem, int cluster, int* out) {
 
 // ------------------------------------------------------------ the LED light
 //
-// light_led_kernel: a thread a pair (voxel n, keyframe f), a grid of
-// `blocks` blocks striding over the N F pairs.  A pair forms its Jacobian
-// row J_c = refl rho_c in registers, as refine/jacobians.py
-// light_jacobian_led does: the surface point x = c_v - d ghat (ghat the
-// normalized stored gradient, c_v the voxel centre), p = R^T (x - t),
-// refl = (ghat . R p) / max(|p|, 1e-12)^3, every operation an _rn
-// intrinsic in the plain chain's order (stencil.cuh); then w J and the
-// products w J J and w J r of each channel, added in double.  Every pair
-// is taken, as the plain sums take them (w is 0 off the mask).  A block
-// adds its threads' six sums in a fixed tree and writes them to
-// partial[block]; the last block, elected by an integer ticket, adds the
-// partials in block order, writes H and g as floats and resets the ticket.
-// Bound by bytes: w and r (24 bytes a pair), the voxel's state once.
+// light_led_kernel<WIDE>: `blocks` blocks of kLedWarps warps (ops/normaleq.
+// led_plan: one wave, from N, F and the SM count).  A warp's unit is
+// `unit_voxels` (UV <= 32) consecutive voxels, whose pairs are one
+// contiguous span of w and of r; warp gw of the grid takes the units gw,
+// gw + warps, ...
+//   - The keyframes' rotations and translations are staged once a block
+//     into shared memory, component-major ([12][F]: no bank conflict).
+//   - The voxel once: lane v forms voxel v's terms of the unit, the
+//     normalized stored gradient ghat, the surface point c - d ghat and the
+//     albedo (nine floats, every operation an _rn intrinsic in the plain
+//     chain's order, stencil.cuh); the pairs' lanes take them by shuffles.
+//     The next unit's voxel state is loaded while this one's pairs compute.
+//   - The pairs: a lane reads its pair's w and r from device memory, a
+//     step's 32 pairs one contiguous span, in an order that does not depend
+//     on the base's alignment (a row slice of the mesh takes the same
+//     path).  Under WIDE = false (F <= 32) a step of the warp takes
+//     V = 32 / F whole voxels, lane l the pair (l / F, l % F), so a lane's
+//     keyframe is fixed and its pose sits in registers; under WIDE a step
+//     takes the unit's next 32 pairs (a lane's voxel and keyframe advanced
+//     by 32 pairs a step), each pose read from shared memory.  A pair forms
+//     p = R^T (x - t), R p, refl = (ghat . R p) / max(|p|, 1e-12)^3 and
+//     J_c = refl rho_c as
+//     refine/jacobians.py light_jacobian_led does (the first design's bits),
+//     and adds w J J and w J r of each channel in double.  Every pair is
+//     taken, as the plain sums take them (w is 0 off the mask).
+//   - The sums: a lane's six doubles in its order, each warp's lanes by an
+//     xor butterfly, the warps in order into partial[k][block] by thread
+//     0, whose integer ticket's add releases them; the last block, elected
+//     so, reads the partials with six warps (a term each, lanes striding
+//     over the blocks, the butterfly), writes H and g as floats and resets
+//     the ticket.
+// Bound by bytes: w and r (24 bytes a pair), the voxel's state once.  The
+// first design took a thread a pair: a 64-bit division, the voxel's
+// state reloaded and its ghat and point formed again for each of its F
+// pairs, w and r as scalar loads at a 12-byte stride, a shared-memory tree.
 
-constexpr int kLedThreads = 256;
+constexpr int kLedWarps = 8;                  // ops/normaleq.LED_WARPS
+constexpr int kLedThreads = 32 * kLedWarps;
 
-__global__ void __launch_bounds__(kLedThreads)
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int s = 16; s >= 1; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  return v;
+}
+
+// The LED block's shared memory: the poses [12][F], the warps' sums and the
+// flag (ops/normaleq.led_plan computes the same size)
+struct LedSmem {
+  float* pose;
+  double* wsum;
+  unsigned* last;
+};
+
+__device__ __forceinline__ LedSmem led_smem(unsigned char* smem, const LightLedArgs& a) {
+  LedSmem m;
+  m.pose = reinterpret_cast<float*>(smem);
+  m.wsum = reinterpret_cast<double*>(m.pose + 12 * a.f);   // 48 F bytes: 16-byte aligned
+  m.last = reinterpret_cast<unsigned*>(m.wsum + 6 * kLedWarps);
+  return m;
+}
+
+// The six sums of one pair: x, ghat, rho its voxel's terms, R, t its
+// keyframe's pose, wp and rp its w and r.
+__device__ __forceinline__ void led_pair(const float (&x)[3], const float (&gh)[3],
+                                         const float (&rho)[3], const float (&R)[9],
+                                         const float (&t)[3], const float* wp, const float* rp,
+                                         double (&acc)[6]) {
+  const float dx[3] = {fsub(x[0], t[0]), fsub(x[1], t[1]), fsub(x[2], t[2])};
+  float p[3], Rp[3];
+  rot(R, dx, true, p);
+  rot(R, p, false, Rp);
+  const float pn = clamp_min(norm3(p), 1e-12f);
+  const float refl = fdiv(dot3(gh, Rp), fmul(fmul(pn, pn), pn));
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float J = fmul(refl, rho[c]);
+    const float wJ = fmul(wp[c], J);
+    acc[c] += static_cast<double>(fmul(wJ, J));
+    acc[3 + c] += static_cast<double>(fmul(wJ, rp[c]));
+  }
+}
+
+// A voxel's state as loaded: the stored gradient, dist, coordinates, albedo
+struct LedVoxel {
+  float g[3], d, rho[3];
+  int idx[3];
+};
+
+__device__ __forceinline__ LedVoxel led_voxel_load(const LightLedArgs& a, int64_t n) {
+  LedVoxel v;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    v.g[i] = __ldg(a.grad + 3 * n + i);
+    v.rho[i] = __ldg(a.albedo + 3 * n + i);
+    v.idx[i] = __ldg(a.idx_xyz + 3 * n + i);
+  }
+  v.d = __ldg(a.dist + n);
+  return v;
+}
+
+template <bool WIDE>
+__global__ void __launch_bounds__(kLedThreads, 2)
 light_led_kernel(LightLedArgs a) {
-  __shared__ double red[6][kLedThreads];
-  __shared__ bool last;
+  extern __shared__ __align__(16) unsigned char led_shared[];
+  const LedSmem m = led_smem(led_shared, a);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t N = a.n;
+  const int F = static_cast<int>(a.f);
+  const int UV = static_cast<int>(a.unit_voxels);
   const float o[3] = {static_cast<float>(a.origin_x), static_cast<float>(a.origin_y),
                       static_cast<float>(a.origin_z)};
   const float h = static_cast<float>(a.grid_voxel);
-  const int64_t pairs = a.n * a.f;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kLedThreads;
+
+  const int64_t units = N > 0 && F > 0 ? (N + UV - 1) / UV : 0;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kLedWarps;
+  const int64_t u0 = static_cast<int64_t>(blockIdx.x) * kLedWarps + warp;
+  // the first unit's voxel state in flight before the block's set-up
+  LedVoxel next{};
+  if (u0 < units && lane < UV && u0 * UV + lane < N) next = led_voxel_load(a, u0 * UV + lane);
+
+  // component k (R row-major, then t) of keyframe f's pose at m.pose[k F + f]
+  for (int i = t; i < 12 * F; i += kLedThreads) {
+    const int k = i / F, f = i - k * F;
+    m.pose[i] = __ldg(a.poses + 16 * f + (k < 9 ? 4 * (k / 3) + k % 3 : 4 * (k - 9) + 3));
+  }
+  __syncthreads();
+
+  // a NARROW lane's place in a step and its keyframe's pose, once
+  const int Fd = F > 0 ? F : 1;
+  const int V = WIDE ? 1 : 32 / Fd;
+  const int lv = WIDE ? 0 : lane / Fd, lf = WIDE ? lane : lane - lv * Fd;
+  const bool lane_on = WIDE || lane < V * F;
+  float R[9], tr[3];
+  if (!WIDE) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) R[k] = lane_on ? m.pose[k * F + lf] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) tr[i] = lane_on ? m.pose[(9 + i) * F + lf] : 0.0f;
+  }
+
   double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  for (int64_t q = static_cast<int64_t>(blockIdx.x) * kLedThreads + threadIdx.x; q < pairs;
-       q += stride) {
-    const int64_t n = q / a.f, f = q - n * a.f;
-    const float gs[3] = {a.grad[3 * n], a.grad[3 * n + 1], a.grad[3 * n + 2]};
-    float ghat[3];
-    normalize(gs, ghat);
-    const float d = a.dist[n];
-    const float* P = a.poses + 16 * f;
-    float R[9], dx[3];
+  for (int64_t u = u0; u < units; u += stride) {
+    const int64_t n0 = u * UV;
+    const int nv = static_cast<int>(N - n0 < UV ? N - n0 : UV);
+    // lane v's voxel terms: ghat, the surface point, the albedo
+    const LedVoxel cur = next;
+    float gh[3], x[3];
+    normalize(cur.g, gh);
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      R[3 * i] = __ldg(P + 4 * i);
-      R[3 * i + 1] = __ldg(P + 4 * i + 1);
-      R[3 * i + 2] = __ldg(P + 4 * i + 2);
-      const float c = fadd(o[i], fmul(h, static_cast<float>(a.idx_xyz[3 * n + i])));
-      dx[i] = fsub(fsub(c, fmul(d, ghat[i])), __ldg(P + 4 * i + 3));
+      const float c = fadd(o[i], fmul(h, static_cast<float>(cur.idx[i])));
+      x[i] = fsub(c, fmul(cur.d, gh[i]));
     }
-    float p[3], Rp[3];
-    rot(R, dx, true, p);
-    rot(R, p, false, Rp);
-    const float pn = clamp_min(norm3(p), 1e-12f);
-    const float refl = fdiv(dot3(ghat, Rp), fmul(fmul(pn, pn), pn));
-    const float* w = a.w + 3 * q;
-    const float* r = a.r + 3 * q;
+    const int64_t un = u + stride;
+    if (un < units && lane < UV && un * UV + lane < N) next = led_voxel_load(a, un * UV + lane);
+
+    const float* wb = a.w + 3 * n0 * F;
+    const float* rb = a.r + 3 * n0 * F;
+    if (!WIDE) {
+      for (int v0 = 0; v0 < nv; v0 += V) {
+        const int v = v0 + lv;
+        const bool on = lane_on && v < nv;
+        // the pair's w and r first, then its voxel's terms
+        float wp[3] = {0.0f, 0.0f, 0.0f}, rp[3] = {0.0f, 0.0f, 0.0f};
+        if (on) {
+          const int q = 3 * (v * F + lf);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float J = fmul(refl, a.albedo[3 * n + c]);
-      const float wJ = fmul(w[c], J);
-      acc[c] += static_cast<double>(fmul(wJ, J));
-      acc[3 + c] += static_cast<double>(fmul(wJ, r[c]));
+          for (int c = 0; c < 3; ++c) {
+            wp[c] = wb[q + c];
+            rp[c] = rb[q + c];
+          }
+        }
+        float vx[3], vg[3], vr[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          vx[i] = __shfl_sync(0xffffffffu, x[i], v & 31);
+          vg[i] = __shfl_sync(0xffffffffu, gh[i], v & 31);
+          vr[i] = __shfl_sync(0xffffffffu, cur.rho[i], v & 31);
+        }
+        if (on) led_pair(vx, vg, vr, R, tr, wp, rp, acc);
+      }
+    } else {
+      // a step: the unit's next 32 pairs, lane l pair q0 + l of voxel v,
+      // keyframe f (advanced by 32 a step: F > 32 wraps at most once)
+      int v = 0, f = lane;
+      for (int q0 = 0; q0 < nv * F; q0 += 32) {
+        float vx[3], vg[3], vr[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          vx[i] = __shfl_sync(0xffffffffu, x[i], v & 31);
+          vg[i] = __shfl_sync(0xffffffffu, gh[i], v & 31);
+          vr[i] = __shfl_sync(0xffffffffu, cur.rho[i], v & 31);
+        }
+        if (v < nv) {
+          float Rf[9], tf[3];
+#pragma unroll
+          for (int k = 0; k < 9; ++k) Rf[k] = m.pose[k * F + f];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) tf[i] = m.pose[(9 + i) * F + f];
+          const int q = 3 * (q0 + lane);
+          led_pair(vx, vg, vr, Rf, tf, wb + q, rb + q, acc);
+        }
+        f += 32;
+        if (f >= F) {
+          f -= F;
+          ++v;
+        }
+      }
     }
   }
-  for (int k = 0; k < 6; ++k) red[k][threadIdx.x] = acc[k];
-  __syncthreads();
-  for (int s = kLedThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s)
-      for (int k = 0; k < 6; ++k) red[k][threadIdx.x] += red[k][threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < 6; ++k) a.partial[6 * blockIdx.x + k] = red[k][0];
-    last = ticket_add(a.ticket) == gridDim.x - 1;
+
+  // the block's partials: each warp's butterfly, then the warps in order
+  const int B = static_cast<int>(gridDim.x);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const double v = warp_sum(acc[k]);
+    if (lane == 0) m.wsum[warp * 6 + k] = v;
   }
   __syncthreads();
-  if (!last) return;
-  __threadfence();
-  if (threadIdx.x < 6) {
-    const int k = threadIdx.x;
+  if (t == 0) {
+    for (int k = 0; k < 6; ++k) {
+      double s = 0.0;
+      for (int w = 0; w < kLedWarps; ++w) s += m.wsum[w * 6 + k];
+      a.partial[static_cast<int64_t>(k) * B + blockIdx.x] = s;
+    }
+    // the ticket's add releases the partials and acquires the others'
+    *m.last = ticket_add(a.ticket) == static_cast<unsigned>(B - 1);
+  }
+  __syncthreads();
+  if (!*m.last) return;
+  // the last block (thread 0's add acquired the partials, the barrier
+  // orders its threads' reads after it): term k by warp k, its lanes over
+  // the blocks
+  if (warp < 6) {
     double s = 0.0;
-    for (unsigned b = 0; b < gridDim.x; ++b) s += __ldcg(a.partial + 6 * b + k);
-    (k < 3 ? a.H : a.g)[k % 3] = static_cast<float>(s);
+    for (int b = lane; b < B; b += 32) s += __ldcg(a.partial + static_cast<int64_t>(warp) * B + b);
+    s = warp_sum(s);
+    if (lane == 0) (warp < 3 ? a.H : a.g)[warp % 3] = static_cast<float>(s);
   }
-  if (threadIdx.x == 0) *a.ticket = 0;
+  if (t == 0) *a.ticket = 0;
+}
+
+// an empty kernel on light_led_kernel's grid, block and shared memory: the
+// launch's floor (timed beside it, counted nowhere)
+__global__ void light_led_floor_kernel(LightLedArgs) {}
+
+// light_led_kernel's launch, or (empty) its floor's
+int light_led_launch(const LightLedArgs* a, cudaStream_t stream, bool empty) {
+  if (a->n < 0 || a->f < 0 || a->blocks <= 0 || a->unit_voxels < 1 || a->unit_voxels > 32 ||
+      a->smem < 48 * a->f + 8 * 6 * kLedWarps + 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(LightLedArgs) = empty ? light_led_floor_kernel
+                                 : a->f > 32 ? light_led_kernel<true> : light_led_kernel<false>;
+  // past the default 48 KB only (F > 1015 keyframes), so the main paths'
+  // launches make no runtime call of it
+  if (a->smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(a->smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(a->blocks), kLedThreads, static_cast<size_t>(a->smem), stream>>>(
+      *a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -988,9 +1175,11 @@ int light_normal_eqs_sh(const LightArgs* a, cudaStream_t stream) {
 }
 
 int light_normal_eqs_led(const LightLedArgs* a, cudaStream_t stream) {
-  if (a->n < 0 || a->f < 0 || a->blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  light_led_kernel<<<static_cast<unsigned>(a->blocks), kLedThreads, 0, stream>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+  return light_led_launch(a, stream, false);
+}
+
+int light_led_floor(const LightLedArgs* a, cudaStream_t stream) {
+  return light_led_launch(a, stream, true);
 }
 
 // kernel: 0 the SH pose, 1 the LED pose, 2 the light B = 4, 3 B = 9 -> *out

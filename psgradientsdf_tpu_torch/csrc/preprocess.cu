@@ -52,11 +52,36 @@
 //   [C, H, W, S] image (S = 3: the blue channel of RGB; S = 1: grey), with
 //   Lx the [-1, 2, -1] filter along x and [0.25, 0.5, 0.25] along y, Ly the
 //   transposed pair, reflect-101 borders, each filtered value computed as
-//   the plain version computes it.  A block (band, frame) sums its band's
-//   values in double, in a fixed order (a thread's pixels in turn, then a
-//   tree over the threads); the last block to finish, elected by an integer
-//   ticket, adds each frame's band sums in band order and divides by H W.
-//   No float atomics: two runs give the same bits.
+//   the plain version computes it.  Block (band, strip, frame) of a host
+//   plan (ops/preprocess.lapm_plan, a function of C, H, W, S and the SMs):
+//   the band's rows of the strip's columns.
+//   - A producer warp stages the strip's span of each row (its columns and
+//     one neighbour on each side, all S channels: contiguous bytes) into a
+//     ring of `depth` row buffers, from the row above the band to the row
+//     below it (reflected at the image's edges), by one bulk asynchronous
+//     copy a row (cp.async.bulk on the buffer's mbarrier) of the span's
+//     16-byte-aligned body; its lanes load the ragged head and tail (at
+//     most 12 bytes each) themselves.  The span sits in its buffer at its
+//     address modulo 16.
+//   - A consumer thread owns the columns x0 + t + k T (k < kLapmCols, T
+//     consumer threads): neighbouring lanes read neighbouring pixels, S
+//     words apart (no bank conflict).  The reflected neighbours' offsets
+//     are placed once, before the rows.  For each staged row it computes
+//     the x passes lap and gau of its columns once and keeps the last three
+//     rows' in registers; from the third row on, the y pass of the row
+//     between reads registers only.  Every tap is tap3's (k0 a + k1 b) + k2
+//     c, each product and sum rounded once: the plain version's bits.
+//   - A thread adds its pixels' |Lx| + |Ly| in double, rows in order, its
+//     columns in order; each warp's lanes by an xor butterfly, the warps in
+//     order into the block's partial.  The last block to finish, elected by
+//     an integer ticket, reads the partials with all its threads (a warp a
+//     frame, its lanes striding over the frame's partials, then the
+//     butterfly) and divides by H W.  No float atomics: two runs give the
+//     same bits.
+//   The first design took a thread a pixel: a 64-bit division and
+//   six reflections a pixel, nine loads a pixel straight from device memory
+//   (each value loaded nine times), each row's x passes computed three
+//   times, and about two blocks an SM.
 //
 // Bound on the card: bytes.  The normals read the depth (4 bytes a pixel
 // and frame) and the cache once (x0n, y0n, nsi and Q: 36 bytes a pixel) and
@@ -92,9 +117,14 @@ struct FalsArgs {
 struct LapmArgs {
   const float* img;    // frame c, pixel (y, x): img[c * frame + (y * W + x) * S + chan]
   float* out;          // [C]
-  double* part;        // [C * bands]
+  double* part;        // [C][bands * strips]
   int* ticket;         // one int, 0 between launches
   int64_t C, H, W, S, chan, frame, bands, rows_per_band;
+  // the rest of the host plan (ops/preprocess.lapm_plan)
+  int64_t strips, strip_cols;   // column strips a row, columns a strip
+  int64_t threads;              // consumer threads a block (a multiple of 32)
+  int64_t depth, pitch;         // row buffers of the ring, bytes a buffer
+  int64_t smem;                 // dynamic shared memory a block
 };
 
 namespace {
@@ -104,7 +134,8 @@ constexpr int kThreads = 256;
 constexpr int kHCols = 8;          // horizontal sums a thread, neighbouring columns
 constexpr int kVRows = 4;          // vertical sums a thread, neighbouring rows
 constexpr int kHsPitch = kTile + 1;
-constexpr int kLapmThreads = 256;
+constexpr int kLapmCols = 4;       // columns a consumer thread, ops/preprocess.LAPM_COLS
+constexpr int kLapmMaxThreads = 1024;
 
 // reflect-101 of an index in [-(n - 1), 2 n - 2]
 __device__ __forceinline__ int reflect101(int i, int n) {
@@ -349,57 +380,175 @@ __device__ __forceinline__ float tap3(float k0, float k1, float k2,
   return __fadd_rn(__fadd_rn(__fmul_rn(k0, a), __fmul_rn(k1, b)), __fmul_rn(k2, c));
 }
 
-__global__ void __launch_bounds__(kLapmThreads)
-lapm_kernel(LapmArgs a) {
-  __shared__ double red[kLapmThreads];
-  __shared__ int last;
-  const int H = static_cast<int>(a.H), W = static_cast<int>(a.W);
-  const int S = static_cast<int>(a.S);
-  const int band = blockIdx.x, c = blockIdx.y;
-  const int bands = static_cast<int>(a.bands);
-  const float* img = a.img + static_cast<int64_t>(c) * a.frame + a.chan;
-  const int ylo = band * static_cast<int>(a.rows_per_band);
-  const int yhi = min(H, ylo + static_cast<int>(a.rows_per_band));
-  double acc = 0.0;
-  for (int64_t i = threadIdx.x; i < static_cast<int64_t>(yhi - ylo) * W; i += kLapmThreads) {
-    const int y = ylo + static_cast<int>(i / W), x = static_cast<int>(i % W);
-    const int xs[3] = {reflect101(x - 1, W), x, reflect101(x + 1, W)};
-    const int ys[3] = {reflect101(y - 1, H), y, reflect101(y + 1, H)};
-    float lap[3], gau[3];                   // the x passes of the three rows
-    for (int k = 0; k < 3; ++k) {
-      const float* row = img + static_cast<int64_t>(ys[k]) * W * S;
-      const float u = row[xs[0] * S], v = row[xs[1] * S], w = row[xs[2] * S];
-      lap[k] = tap3(-1.0f, 2.0f, -1.0f, u, v, w);
-      gau[k] = tap3(0.25f, 0.5f, 0.25f, u, v, w);
-    }
-    const float lx = tap3(0.25f, 0.5f, 0.25f, lap[0], lap[1], lap[2]);
-    const float ly = tap3(-1.0f, 2.0f, -1.0f, gau[0], gau[1], gau[2]);
-    acc += static_cast<double>(__fadd_rn(fabsf(lx), fabsf(ly)));
-  }
-  red[threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = kLapmThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    a.part[static_cast<int64_t>(c) * bands + band] = red[0];
-    __threadfence();
-    const int total = bands * static_cast<int>(a.C);
-    last = atomicAdd(a.ticket, 1) == total - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const double hw = static_cast<double>(H) * static_cast<double>(W);
-  for (int f = threadIdx.x; f < static_cast<int>(a.C); f += kLapmThreads) {
-    const volatile double* p = a.part + static_cast<int64_t>(f) * bands;
-    double s = 0.0;
-    for (int k = 0; k < bands; ++k) s += p[k];
-    a.out[f] = static_cast<float>(s / hw);
-  }
-  if (threadIdx.x == 0) *a.ticket = 0;
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int s = 16; s >= 1; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  return v;
 }
+
+// The LAPM block's shared memory: the ring of row buffers at 0, then the
+// full and empty barriers of each buffer, the warps' sums and the flag
+// (ops/preprocess.lapm_plan computes the same size).
+struct LapmSmem {
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  double* wsum;
+  int* last;
+};
+
+__device__ __forceinline__ LapmSmem lapm_smem(unsigned char* smem, const LapmArgs& a) {
+  LapmSmem m;
+  m.ring = smem;
+  m.full = reinterpret_cast<uint64_t*>(smem + a.depth * a.pitch);
+  m.empty = m.full + a.depth;
+  m.wsum = reinterpret_cast<double*>(m.empty + a.depth);
+  m.last = reinterpret_cast<int*>(m.wsum + 32);
+  return m;
+}
+
+__global__ void __launch_bounds__(kLapmMaxThreads)
+lapm_kernel(LapmArgs a) {
+  extern __shared__ __align__(16) unsigned char lapm_shared[];
+  const LapmSmem m = lapm_smem(lapm_shared, a);
+  const int H = static_cast<int>(a.H), W = static_cast<int>(a.W);
+  const int S = static_cast<int>(a.S), chan = static_cast<int>(a.chan);
+  const int T = static_cast<int>(a.threads), D = static_cast<int>(a.depth);
+  const int strips = static_cast<int>(a.strips);
+  const int band = blockIdx.x / strips, strip = blockIdx.x - band * strips;
+  const int c = blockIdx.y;
+  const int y0 = band * static_cast<int>(a.rows_per_band);
+  const int y1 = min(H, y0 + static_cast<int>(a.rows_per_band));
+  const int x0 = strip * static_cast<int>(a.strip_cols);
+  const int x1 = min(W, x0 + static_cast<int>(a.strip_cols));
+  const int xs0 = max(x0 - 1, 0), xs1 = min(x1 + 1, W);  // the staged span's columns
+  const int64_t bytes = static_cast<int64_t>(xs1 - xs0) * S * 4;
+  const int rows = y1 - y0 + 2;                         // staged: the band and its halo
+  const float* frame = a.img + static_cast<int64_t>(c) * a.frame;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+
+  // the span of staged row j in device memory
+  auto span = [&](int j) {
+    const int ys = reflect101(y0 - 1 + j, H);
+    return reinterpret_cast<uintptr_t>(frame + (static_cast<int64_t>(ys) * W + xs0) * S);
+  };
+
+  if (t == 0) {
+    for (int i = 0; i < D; ++i) {
+      mbar_init(&m.full[i], 2);
+      mbar_init(&m.empty[i], T / 32);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  double acc = 0.0;
+  if (t >= T) {
+    // the producer warp: row j into buffer j % D once its consumers have
+    // released the row before it there
+    for (int j = 0; j < rows; ++j) {
+      const int buf = j % D;
+      if (j >= D) mbar_wait(&m.empty[buf], ((j / D) - 1) & 1);
+      fence_proxy_async();
+      const uintptr_t g = span(j);
+      unsigned char* s = m.ring + buf * a.pitch + (g & 15);
+      int64_t head = static_cast<int64_t>((16 - (g & 15)) & 15);
+      if (head > bytes) head = bytes;
+      const int64_t body = (bytes - head) & ~static_cast<int64_t>(15);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&m.full[buf], static_cast<uint32_t>(body));
+        if (body > 0)
+          bulk_load(s + head, reinterpret_cast<const void*>(g + head),
+                    static_cast<uint32_t>(body), &m.full[buf]);
+      }
+      // the ragged head and tail, a float a lane (at most three each)
+      const int64_t o = 4 * lane < head ? 4 * lane : 4 * lane + body;
+      if (4 * lane < bytes - body)
+        *reinterpret_cast<float*>(s + o) = __ldg(reinterpret_cast<const float*>(g + o));
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&m.full[buf]);
+    }
+  } else {
+    // a consumer: its columns' offsets in a staged span, neighbours
+    // reflected at the image's first and last column
+    bool on[kLapmCols];
+    int ol[kLapmCols], oc[kLapmCols], orr[kLapmCols];
+#pragma unroll
+    for (int k = 0; k < kLapmCols; ++k) {
+      const int x = x0 + t + k * T;
+      on[k] = x < x1;
+      const int xl = x == 0 ? 1 : x - 1, xr = x == W - 1 ? W - 2 : x + 1;
+      ol[k] = ((xl - xs0) * S + chan) * 4;
+      oc[k] = ((x - xs0) * S + chan) * 4;
+      orr[k] = ((xr - xs0) * S + chan) * 4;
+    }
+    float lap[3][kLapmCols] = {}, gau[3][kLapmCols] = {};   // the last three rows' x passes
+    for (int j = 0; j < rows; ++j) {
+      const int buf = j % D;
+      mbar_wait(&m.full[buf], (j / D) & 1);
+      const unsigned char* s = m.ring + buf * a.pitch + (span(j) & 15);
+#pragma unroll
+      for (int k = 0; k < kLapmCols; ++k) {
+        lap[0][k] = lap[1][k];
+        lap[1][k] = lap[2][k];
+        gau[0][k] = gau[1][k];
+        gau[1][k] = gau[2][k];
+        if (on[k]) {
+          const float u = *reinterpret_cast<const float*>(s + ol[k]);
+          const float v = *reinterpret_cast<const float*>(s + oc[k]);
+          const float w = *reinterpret_cast<const float*>(s + orr[k]);
+          lap[2][k] = tap3(-1.0f, 2.0f, -1.0f, u, v, w);
+          gau[2][k] = tap3(0.25f, 0.5f, 0.25f, u, v, w);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&m.empty[buf]);
+      if (j >= 2) {
+#pragma unroll
+        for (int k = 0; k < kLapmCols; ++k) {
+          if (!on[k]) continue;
+          const float lx = tap3(0.25f, 0.5f, 0.25f, lap[0][k], lap[1][k], lap[2][k]);
+          const float ly = tap3(-1.0f, 2.0f, -1.0f, gau[0][k], gau[1][k], gau[2][k]);
+          acc += static_cast<double>(__fadd_rn(fabsf(lx), fabsf(ly)));
+        }
+      }
+    }
+  }
+
+  // the block's partial: each consumer warp's butterfly, the warps in order
+  const int parts = static_cast<int>(a.bands) * strips;
+  acc = warp_sum(acc);
+  if (lane == 0 && t < T) m.wsum[warp] = acc;
+  __syncthreads();
+  if (t == 0) {
+    double s = 0.0;
+    for (int w = 0; w < T / 32; ++w) s += m.wsum[w];
+    a.part[static_cast<int64_t>(c) * parts + blockIdx.x] = s;
+    // the ticket's add releases the partial and acquires the others'
+    int old;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;" : "=r"(old) : "l"(a.ticket) : "memory");
+    *m.last = old == parts * static_cast<int>(a.C) - 1;
+  }
+  __syncthreads();
+  if (!*m.last) return;
+
+  // the last block (thread 0's add acquired the partials, the barrier
+  // orders its threads' reads after it): a warp a frame, its lanes over the
+  // frame's partials
+  const double hw = static_cast<double>(H) * static_cast<double>(W);
+  for (int f = warp; f < static_cast<int>(a.C); f += blockDim.x / 32) {
+    const double* p = a.part + static_cast<int64_t>(f) * parts;
+    double s = 0.0;
+    for (int k = lane; k < parts; k += 32) s += __ldcg(p + k);
+    s = warp_sum(s);
+    if (lane == 0) a.out[f] = static_cast<float>(s / hw);
+  }
+  if (t == 0) *a.ticket = 0;
+}
+
+// an empty kernel on lapm_kernel's grid, block and shared memory: the
+// launch's floor (timed beside it, counted nowhere)
+__global__ void lapm_floor_kernel(LapmArgs) {}
 
 }  // namespace
 
@@ -432,10 +581,30 @@ extern "C" int fals_normals(const FalsArgs* a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int lapm(const LapmArgs* a, void* stream) {
-  if (a->C <= 0 || a->H < 2 || a->W < 2 || a->bands <= 0 || a->rows_per_band <= 0)
+// lapm_kernel's launch, or (empty) its floor's
+static int lapm_launch(const LapmArgs* a, void* stream, bool empty) {
+  if (a->C <= 0 || a->H < 2 || a->W < 2 || a->bands <= 0 || a->rows_per_band <= 0 ||
+      a->strips <= 0 || a->strip_cols <= 0 || a->threads <= 0 || a->threads % 32 != 0 ||
+      a->threads + 32 > kLapmMaxThreads || a->strip_cols > kLapmCols * a->threads ||
+      a->depth <= 0 || a->pitch % 16 != 0 ||
+      a->pitch < (a->strip_cols + 2) * a->S * 4 + 12)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(a->bands), static_cast<unsigned>(a->C));
-  lapm_kernel<<<grid, kLapmThreads, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  void (*kernel)(LapmArgs) = empty ? lapm_floor_kernel : lapm_kernel;
+  // past the default 48 KB only (lapm_plan's strips stay under it), so the
+  // scan's launches make no runtime call of it
+  if (a->smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(a->smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(static_cast<unsigned>(a->bands * a->strips), static_cast<unsigned>(a->C));
+  kernel<<<grid, static_cast<unsigned>(a->threads + 32), static_cast<size_t>(a->smem),
+           static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int lapm(const LapmArgs* a, void* stream) { return lapm_launch(a, stream, false); }
+
+extern "C" int lapm_floor(const LapmArgs* a, void* stream) {
+  return lapm_launch(a, stream, true);
 }

@@ -21,11 +21,13 @@ solve_light_from_normal_eqs) stays in PyTorch.  light_normal_eqs_led
 replaces refine/solvers.py `solve_light_led`'s (:538) two einsums over
 refine/jacobians.py `light_jacobian_led` (:161); its damped 3-element solve
 (solvers.solve_light_led_from_normal_eqs) stays in PyTorch.  Its kernel
-never forms the [N,F,3] Jacobian: a thread a pair forms the pair's
-reflectance from the state in registers, as the plain chain does, and adds
-w J J and w J r in double; a block's threads in a fixed tree, the blocks in
-order by the last block (an integer ticket), so two runs give the same bits
-and the plain sums (float, torch's order) agree to float32 rounding.
+never forms the [N,F,3] Jacobian: a warp takes units of voxels (`led_plan`),
+lane v forms voxel v's normalized gradient, surface point and albedo once
+and the pairs' lanes take them by shuffles; each pair forms its reflectance
+in registers, as the plain chain does, and adds w J J and w J r in double;
+a warp's lanes by a butterfly, the warps and the blocks in a fixed order
+(the last block by an integer ticket), so two runs give the same bits and
+the plain sums (float, torch's order) agree to float32 rounding.
 
 The plain versions are the port's eager chains: pose_normal_eqs_plain forms
 the pose Jacobian [n,F,3,6] of N-chunks of at most _POSE_CHUNK voxels and
@@ -154,16 +156,51 @@ ALIGN = 16               # a bulk copy's alignment of address and size
 KERNEL_IDS = {(6, False): 0, (6, True): 1, (4, False): 2, (9, False): 3}
 
 
-# the LED light's kernel: a thread a pair, at most LED_BLOCKS_PER_SM blocks
-# of LED_THREADS an SM striding over the pairs
-LED_THREADS = 256
-LED_BLOCKS_PER_SM = 4
+# the LED light's kernel (csrc/normaleq.cu light_led_kernel): LED_WARPS
+# warps a block, at most LED_BLOCKS_PER_SM blocks an SM in one wave; a warp's
+# unit holds about LED_UNIT_PAIRS pairs of at most 32 voxels; the poses
+# [12][F] in shared memory, so at most LED_MAX_F keyframes
+LED_WARPS = 8
+LED_BLOCKS_PER_SM = 2
+LED_UNIT_PAIRS = 256
+_LED_SUMS = 8 * 6 * LED_WARPS + 16     # the warps' six sums, the flag
+LED_MAX_F = (SMEM_BLOCK - _LED_SUMS) // 48
 
 
-def led_blocks(N: int, F: int, sms: int) -> int:
-    """The LED light kernel's grid, a function of the shapes and the card
-    alone (so a call's bits are too)."""
-    return max(1, min(LED_BLOCKS_PER_SM * sms, -(-N * F // LED_THREADS)))
+class LedPlan(NamedTuple):
+    blocks: int         # the grid
+    unit_voxels: int    # voxels a warp's unit (lane v forms voxel v's terms)
+    smem: int           # dynamic shared memory a block
+
+
+def led_unit_voxels(F: int) -> int:
+    """Voxels a warp's unit: for F <= 32 a whole number of the steps (32 //
+    F voxels a step), past that any number (a step takes the unit's next 32
+    pairs), in about LED_UNIT_PAIRS pairs, at most 32 (a lane a voxel's
+    terms), at least 1."""
+    F = max(F, 1)
+    if F <= 32:
+        V = 32 // F
+        return V * max(1, min(32 // V, LED_UNIT_PAIRS // (V * F)))
+    return max(1, min(32, LED_UNIT_PAIRS // F))
+
+
+def led_plan(N: int, F: int, sms: int) -> LedPlan:
+    """The LED light kernel's plan, a function of the shapes and the card
+    alone (so a call's bits are too): units of led_unit_voxels(F) voxels,
+    warp gw of the grid the units gw, gw + LED_WARPS blocks, ...; one wave
+    of at most LED_BLOCKS_PER_SM blocks an SM.  Refuses more than LED_MAX_F
+    keyframes (their poses would not fit a block's shared memory)."""
+    if F > LED_MAX_F:
+        raise ValueError(f"light_normal_eqs_led: {F} keyframes, at most {LED_MAX_F} "
+                         "(the poses are staged in a block's shared memory)")
+    uv = led_unit_voxels(F)
+    units = -(-N // uv) if N > 0 and F > 0 else 0
+    # the poses, the warps' six sums, the flag
+    smem = 48 * F + _LED_SUMS
+    per_sm = max(1, min(LED_BLOCKS_PER_SM, SMEM_BLOCK // smem))
+    blocks = max(1, min(per_sm * sms, -(-units // LED_WARPS)))
+    return LedPlan(blocks, uv, smem)
 
 
 def terms(dim: int) -> int:
@@ -345,7 +382,8 @@ class _LightLedArgs(ctypes.Structure):
           "H", "g")]
         + [(n, ctypes.c_int64) for n in ("n", "f", "blocks")]
         + [(n, ctypes.c_double) for n in ("origin_x", "origin_y", "origin_z",
-                                          "grid_voxel")])
+                                          "grid_voxel")]
+        + [(n, ctypes.c_int64) for n in ("unit_voxels", "smem")])
 
 
 def _check(what: str, dev, named) -> None:
@@ -368,8 +406,9 @@ def _bind(lib):
     lib.pose_normal_eqs.restype = ctypes.c_int
     lib.light_normal_eqs_sh.argtypes = [ctypes.POINTER(_LightArgs), ctypes.c_void_p]
     lib.light_normal_eqs_sh.restype = ctypes.c_int
-    lib.light_normal_eqs_led.argtypes = [ctypes.POINTER(_LightLedArgs), ctypes.c_void_p]
-    lib.light_normal_eqs_led.restype = ctypes.c_int
+    for name in ("light_normal_eqs_led", "light_led_floor"):
+        getattr(lib, name).argtypes = [ctypes.POINTER(_LightLedArgs), ctypes.c_void_p]
+        getattr(lib, name).restype = ctypes.c_int
     lib.normaleq_active_clusters.argtypes = [
         ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.normaleq_active_clusters.restype = ctypes.c_int
@@ -418,6 +457,27 @@ def _outputs(dev, F, dim, plan):
     H = torch.empty((F, dim, dim), dtype=torch.float32, device=dev)
     g = torch.empty((F, dim), dtype=torch.float32, device=dev)
     return partial, _tickets_for(dev, plan.chunks * plan.cluster), H, g
+
+
+def _led_plan_args(a: _LightLedArgs, N: int, F: int, plan: LedPlan) -> None:
+    a.n, a.f, a.blocks = N, F, plan.blocks
+    a.unit_voxels, a.smem = plan.unit_voxels, plan.smem
+
+
+def light_led_floor(N: int, F: int, dev) -> None:
+    """An empty kernel launched on light_normal_eqs_led's grid, block and
+    shared memory for N voxels and F keyframes: the launch's floor, timed
+    beside it and counted nowhere."""
+    from psgradientsdf_tpu_torch.kernels import sm_count
+
+    a = _LightLedArgs()
+    _led_plan_args(a, N, F, led_plan(N, F, sm_count(dev)))
+    with torch.cuda.device(dev):
+        rc = _library().light_led_floor(ctypes.byref(a),
+                                        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"light_led_floor: kernel launch failed, CUDA error {rc}")
+
 
 
 # ---------------------------------------------------------------------------
@@ -521,8 +581,8 @@ def light_normal_eqs_led(rd: ResidualData, prob, geom, dist, grad_stored, albedo
            [(name, t, shape, dtype) for name, (t, shape, dtype) in ins.items()])
     from psgradientsdf_tpu_torch.kernels import sm_count
 
-    blocks = led_blocks(N, F, sm_count(dev))
-    partial = torch.empty(6 * blocks, dtype=torch.float64, device=dev)
+    plan = led_plan(N, F, sm_count(dev))
+    partial = torch.empty(6 * plan.blocks, dtype=torch.float64, device=dev)
     Hg = torch.empty(6, dtype=f32, device=dev)
     a = _LightLedArgs()
     for field, name in (("w", "rd.w"), ("r", "rd.r"), ("idx_xyz", "idx_xyz"),
@@ -531,7 +591,7 @@ def light_normal_eqs_led(rd: ResidualData, prob, geom, dist, grad_stored, albedo
         setattr(a, field, ins[name][0].data_ptr())
     a.partial, a.ticket = partial.data_ptr(), _tickets_for(dev, 1).data_ptr()
     a.H, a.g = Hg.data_ptr(), Hg[3:].data_ptr()
-    a.n, a.f, a.blocks = N, F, blocks
+    _led_plan_args(a, N, F, plan)
     a.origin_x, a.origin_y, a.origin_z = (float(v) for v in geom.origin)
     a.grid_voxel = float(geom.voxel_size)
     _launch("light_normal_eqs_led", a, dev)

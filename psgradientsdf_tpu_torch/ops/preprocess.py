@@ -20,10 +20,12 @@ frame) units, a block walking over the frames of its tile with the cache
 planes loaded once a tile and each frame's depth halo copied in while the
 units before it compute; a thread's window sums share the values they read
 (`window_sums` in csrc/preprocess.cu), which changes who adds, not the
-order of any sum.  LAPM's filtered values follow the plain arithmetic too;
-its mean over the image is summed in double in a fixed order (and the
-plain torch.mean in float in its own), so the two agree to float32
-rounding and two launches give the same bits.
+order of any sum.  LAPM's kernel stages each row's span into shared memory
+by bulk copies and computes each row's x passes once (`lapm_plan`: bands
+of rows, strips of columns, a ring of row buffers); its filtered values
+follow the plain arithmetic too, and its mean over the image is summed in
+double in a fixed order (and the plain torch.mean in float in its own), so
+the two agree to float32 rounding and two launches give the same bits.
 
 A wrapper takes the plain version ONLY for tensors that lie on the CPU; for
 CUDA tensors it launches the kernel or raises.  `launch_counts` counts
@@ -34,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -190,12 +192,46 @@ def fals_smem(window: int) -> int:
     return 4 * (6 * P * (P | 1) + 3 * P * HS_PITCH + 2 * P * P + 2 * P)
 
 
-def lapm_plan(C: int, H: int, sms: int) -> Tuple[int, int]:
-    """(bands, rows a band) of LAPM's grid: about two blocks an SM over the
-    C frames, a band of whole rows a block."""
-    want = max(1, min(H, -(-2 * sms // C)))
+# LAPM's host plan (csrc/preprocess.cu lapm_kernel): a consumer thread owns
+# at most LAPM_COLS columns of its block's strip, a strip at most
+# LAPM_MAX_STRIP columns; at most LAPM_BLOCKS_PER_SM blocks an SM, each with a
+# ring of at most LAPM_DEPTH row buffers (measured on an H100: PERF.md §6)
+LAPM_COLS = 4
+LAPM_MAX_STRIP = 1024
+LAPM_BLOCKS_PER_SM = 2
+LAPM_DEPTH = 3
+
+
+class LapmPlan(NamedTuple):
+    bands: int          # bands of rows a frame
+    rows: int           # rows a band (the last band may have fewer)
+    strips: int         # strips of columns a row
+    strip_cols: int     # columns a strip (the last strip may have fewer)
+    threads: int        # consumer threads a block (the producer warp besides)
+    depth: int          # row buffers of a block's ring
+    pitch: int          # bytes a buffer
+    smem: int           # dynamic shared memory a block
+
+
+def lapm_plan(C: int, H: int, W: int, S: int, sms: int) -> LapmPlan:
+    """LAPM's grid, a function of the shapes and the SM count alone: strips
+    of at most LAPM_MAX_STRIP columns, bands of whole rows of one frame
+    giving at most LAPM_BLOCKS_PER_SM blocks an SM over the C frames (at
+    least a band a frame and strip), and a block's ring of row buffers (a
+    buffer holds the strip's span of a row, its columns and one neighbour on
+    each side, at the span's address modulo 16).  Block (band b, strip s,
+    frame c) sums rows [b rows, (b + 1) rows) and columns [s strip_cols,
+    (s + 1) strip_cols), cut at H and W."""
+    strips = -(-W // LAPM_MAX_STRIP)
+    cols = -(-W // strips)
+    threads = 32 * -(-cols // (32 * LAPM_COLS))
+    want = max(1, min(H, LAPM_BLOCKS_PER_SM * sms // (C * strips)))
     rows = -(-H // want)
-    return -(-H // rows), rows
+    depth = min(LAPM_DEPTH, rows + 2)
+    pitch = 16 * -(-((cols + 2) * S * 4 + 12) // 16)
+    # the ring, a full and an empty barrier a buffer, 32 warps' sums, the flag
+    smem = depth * pitch + 16 * depth + 8 * 32 + 16
+    return LapmPlan(-(-H // rows), rows, strips, cols, threads, depth, pitch, smem)
 
 
 class _FalsArgs(ctypes.Structure):
@@ -210,7 +246,8 @@ class _LapmArgs(ctypes.Structure):
     _fields_ = (
         [(n, ctypes.c_void_p) for n in ("img", "out", "part", "ticket")]
         + [(n, ctypes.c_int64) for n in
-           ("C", "H", "W", "S", "chan", "frame", "bands", "rows_per_band")])
+           ("C", "H", "W", "S", "chan", "frame", "bands", "rows_per_band", "strips",
+            "strip_cols", "threads", "depth", "pitch", "smem")])
 
 
 _bound = None
@@ -227,8 +264,9 @@ def _library():
         lib.fals_normals_occupancy.argtypes = [ctypes.c_int64,
                                                ctypes.POINTER(ctypes.c_int64)]
         lib.fals_normals_occupancy.restype = ctypes.c_int
-        lib.lapm.argtypes = [ctypes.POINTER(_LapmArgs), ctypes.c_void_p]
-        lib.lapm.restype = ctypes.c_int
+        for name in ("lapm", "lapm_floor"):
+            getattr(lib, name).argtypes = [ctypes.POINTER(_LapmArgs), ctypes.c_void_p]
+            getattr(lib, name).restype = ctypes.c_int
         _bound = lib
     return _bound
 
@@ -272,6 +310,47 @@ def _ticket(dev) -> torch.Tensor:
     if t is None:
         t = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
     return t
+
+
+def _lapm_shape(img: torch.Tensor):
+    """(C, H, W, S, chan, lead) of an RGB or grey image or batch, raising on
+    what the kernel does not take."""
+    if img.dtype != torch.float32:
+        raise TypeError(f"lapm: the image must be float32 on the card, got {img.dtype}")
+    rgb = is_rgb(img)
+    if img.dim() < 2 or (rgb and img.dim() < 3):
+        raise ValueError(f"lapm: not an image: {tuple(img.shape)}")
+    S, chan = (3, 2) if rgb else (1, 0)
+    lead = img.shape[:-3] if rgb else img.shape[:-2]
+    H, W = (img.shape[-3], img.shape[-2]) if rgb else (img.shape[-2], img.shape[-1])
+    if H < 2 or W < 2:
+        raise ValueError(f"lapm: a {H} x {W} image has no reflect-101 border")
+    return math.prod(lead), H, W, S, chan, lead
+
+
+def _lapm_args(C, H, W, S, chan, plan: LapmPlan) -> _LapmArgs:
+    a = _LapmArgs()
+    a.C, a.H, a.W, a.S, a.chan, a.frame = C, H, W, S, chan, H * W * S
+    a.bands, a.rows_per_band, a.strips, a.strip_cols = (plan.bands, plan.rows, plan.strips,
+                                                        plan.strip_cols)
+    a.threads, a.depth, a.pitch, a.smem = plan.threads, plan.depth, plan.pitch, plan.smem
+    return a
+
+
+def lapm_floor(img: torch.Tensor) -> None:
+    """An empty kernel launched on lapm's grid, block and shared memory for
+    `img` on the card: the launch's floor, timed beside it and counted
+    nowhere."""
+    C, H, W, S, chan, _ = _lapm_shape(img)
+    from psgradientsdf_tpu_torch.kernels import sm_count
+
+    dev = img.device
+    a = _lapm_args(C, H, W, S, chan, lapm_plan(C, H, W, S, sm_count(dev)))
+    with torch.cuda.device(dev):
+        rc = _library().lapm_floor(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lapm_floor: kernel launch failed, CUDA error {rc}")
+
 
 
 # ---------------------------------------------------------------------------
@@ -322,30 +401,18 @@ def lapm(img: torch.Tensor) -> torch.Tensor:
     images), the plain version on the CPU."""
     if img.device.type == "cpu":
         return lapm_plain(img)
-    if img.dtype != torch.float32:
-        raise TypeError(f"lapm: the image must be float32 on the card, got {img.dtype}")
-    rgb = is_rgb(img)
-    if img.dim() < 2 or (rgb and img.dim() < 3):
-        raise ValueError(f"lapm: not an image: {tuple(img.shape)}")
-    S, chan = (3, 2) if rgb else (1, 0)
-    lead = img.shape[:-3] if rgb else img.shape[:-2]
-    H, W = (img.shape[-3], img.shape[-2]) if rgb else (img.shape[-2], img.shape[-1])
-    if H < 2 or W < 2:
-        raise ValueError(f"lapm: a {H} x {W} image has no reflect-101 border")
+    C, H, W, S, chan, lead = _lapm_shape(img)
     dev = img.device
-    C = math.prod(lead)
     out = torch.empty(C, dtype=torch.float32, device=dev)
     if C == 0:
         return out.reshape(lead)
     x = img.contiguous()
     from psgradientsdf_tpu_torch.kernels import sm_count
 
-    bands, rows = lapm_plan(C, H, sm_count(dev))
-    part = torch.empty(C * bands, dtype=torch.float64, device=dev)
-    a = _LapmArgs()
+    plan = lapm_plan(C, H, W, S, sm_count(dev))
+    part = torch.empty(C * plan.bands * plan.strips, dtype=torch.float64, device=dev)
+    a = _lapm_args(C, H, W, S, chan, plan)
     a.img, a.out, a.part, a.ticket = (x.data_ptr(), out.data_ptr(), part.data_ptr(),
                                       _ticket(dev).data_ptr())
-    a.C, a.H, a.W, a.S, a.chan, a.frame, a.bands, a.rows_per_band = (
-        C, H, W, S, chan, H * W * S, bands, rows)
     _launch("lapm", a, dev)
     return out.reshape(lead)

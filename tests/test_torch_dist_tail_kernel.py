@@ -295,7 +295,9 @@ def test_the_wrappers_launch_off_the_cpu_with_the_hosts_constants(monkeypatch):
     F = poses.shape[0]
     assert (a.n, a.f, a.grid_voxel) == (N, F, tg.voxel_size)
     assert (a.origin_x, a.origin_y, a.origin_z) == tg.origin
-    assert a.blocks == normaleq.led_blocks(N, F, 132) and H.shape == g.shape == (3,)
+    plan = normaleq.led_plan(N, F, 132)
+    assert H.shape == g.shape == (3,)
+    assert (a.blocks, a.unit_voxels, a.smem) == tuple(plan)
     assert distreg.launch_counts == {"reg_operators": 0, "dist_update": 0}
 
 
@@ -319,7 +321,7 @@ def test_the_wrappers_refuse_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("struct,fields,size", [
     (distreg._RegArgs, ("valid", "voxel"), 8 * 16),
     (distreg._UpdateArgs, ("valid", "accept"), 8 * 12),
-    (normaleq._LightLedArgs, ("w", "grid_voxel"), 8 * 18)])
+    (normaleq._LightLedArgs, ("w", "smem"), 8 * 20)])
 def test_the_argument_blocks_have_the_c_layout(struct, fields, size):
     assert ctypes.sizeof(struct) == size
     names = [f[0] for f in struct._fields_]
@@ -334,10 +336,71 @@ def test_the_grids(N, sms):
     assert 1 <= b <= max(1, distreg.BLOCKS_PER_SM * sms)
     assert (b - 1) * distreg.THREADS < max(N, 1)
     for F in (1, 8, 40):
-        lb = normaleq.led_blocks(N, F, sms)
+        lb = normaleq.led_plan(N, F, sms).blocks
         assert 1 <= lb <= max(1, normaleq.LED_BLOCKS_PER_SM * sms)
-        assert (lb - 1) * normaleq.LED_THREADS < max(N * F, 1)
+        units = -(-N // normaleq.led_unit_voxels(F))
+        assert (lb - 1) * normaleq.LED_WARPS < max(units, 1)
 
+
+def _led_lanes(plan, N, F):
+    """csrc/normaleq.cu light_led_kernel's walk: for each warp of the grid,
+    its units in order, and in each unit its steps, each step's active lanes
+    as (lane, voxel n, keyframe f) -> {warp: [[(lane, n, f), ...] a step]}."""
+    uv, warps = plan.unit_voxels, plan.blocks * normaleq.LED_WARPS
+    out = {}
+    for gw in range(warps):
+        steps = []
+        for u in range(gw, -(-N // uv), warps):
+            n0 = u * uv
+            nv = min(uv, N - n0)
+            if F <= 32:
+                V = 32 // F
+                for v0 in range(0, nv, V):
+                    steps.append([(l, n0 + v0 + l // F, l % F) for l in range(V * F)
+                                  if v0 + l // F < nv])
+            else:
+                for q0 in range(0, nv * F, 32):
+                    steps.append([(l, n0 + (q0 + l) // F, (q0 + l) % F) for l in range(32)
+                                  if q0 + l < nv * F])
+        out[gw] = steps
+    return out
+
+
+@pytest.mark.parametrize("N,F", [(1, 1), (1, 8), (1, 33), (7, 32), (100, 1), (100, 5),
+                                 (33, 32), (65, 33), (49, 40), (3, 257), (2000, 8),
+                                 (49152 // 64, 8)])
+@pytest.mark.parametrize("sms", [1, 2, 132])
+def test_the_led_plan_covers_every_pair_once(N, F, sms):
+    """Every pair (voxel, keyframe) in one lane of one step of one warp, a
+    step's lanes on consecutive pairs of at most 32 voxels' unit, one wave,
+    the poses [12][F] and the warps' sums in a block's shared memory."""
+    plan = normaleq.led_plan(N, F, sms)
+    uv = plan.unit_voxels
+    assert 1 <= uv <= 32 and (F > 32 or uv % (32 // F) == 0)
+    assert plan.smem == 48 * F + 8 * 6 * normaleq.LED_WARPS + 16 <= normaleq.SMEM_BLOCK
+    assert 1 <= plan.blocks <= normaleq.LED_BLOCKS_PER_SM * sms
+    seen = np.zeros((N, F), np.int32)
+    for steps in _led_lanes(plan, N, F).values():
+        for lanes in steps:
+            q = [n * F + f for _, n, f in lanes]
+            assert q == list(range(q[0], q[0] + len(q)))      # consecutive pairs
+            assert [l for l, _, _ in lanes] == list(range(len(lanes)))
+            for _, n, f in lanes:
+                seen[n, f] += 1
+    assert (seen == 1).all()
+
+
+
+@pytest.mark.parametrize("F", [1015, 1016, normaleq.LED_MAX_F])
+def test_the_led_plan_takes_the_poses_a_block_holds(F):
+    """Up to LED_MAX_F keyframes the poses fit a block's shared memory (past
+    1015 beyond the 48 KB a launch gets without asking); one more is
+    refused."""
+    plan = normaleq.led_plan(49152, F, 132)
+    assert plan.smem <= normaleq.SMEM_BLOCK
+    assert (plan.smem > 48 * 1024) == (F > 1015)
+    with pytest.raises(ValueError, match="keyframes"):
+        normaleq.led_plan(49152, normaleq.LED_MAX_F + 1, 132)
 
 # ---------------------------------------------------------------------------
 # the paths that reach the wrappers
@@ -485,7 +548,8 @@ def test_the_kernels_arithmetic_emulated_equals_the_plain_versions(model, upsamp
     new, grad = distreg.dist_update(tp, td, torch.from_numpy(step), h)
     e_new, e_grad = _emulated_update(p, dist, step, h)
     assert _bits(e_new, new) and _bits(e_grad, grad)
-    # the LED light: each pair's Jacobian row as light_led_kernel forms it
+    # the LED light: each voxel's terms once (ghat, the surface point), then
+    # each pair's Jacobian row from them, as light_led_kernel forms them
     grad_s = p["grad_stored"]
     ghat = grad_s / np.maximum(_norm3(grad_s), f32(1e-12))[:, None]
     c = (np.asarray(tg.origin, f32) + f32(tg.voxel_size) * p["idx_xyz"].astype(f32))
@@ -501,10 +565,45 @@ def test_the_kernels_arithmetic_emulated_equals_the_plain_versions(model, upsamp
                                  torch.from_numpy(poses))
     assert _bits(J, Jt)
     wJ = rd["w"] * J
-    H = (wJ * J).astype(np.float64).sum(axis=(0, 1))
-    g = (wJ * rd["r"]).astype(np.float64).sum(axis=(0, 1))
     Hp, gp = normaleq.light_normal_eqs_led(_t_rd(rd), tp, tg, td, tp.grad_stored,
                                            torch.from_numpy(albedo), torch.from_numpy(poses))
-    np.testing.assert_allclose(H, Hp.numpy(), rtol=LIGHT_TOL)
-    np.testing.assert_allclose(g, gp.numpy(), rtol=LIGHT_TOL,
-                               atol=LIGHT_TOL * float(np.abs(wJ * rd["r"]).sum()))
+    g_scale = float(np.abs(wJ * rd["r"]).sum())
+    for sms in (1, 3, 132):
+        H, g = _emulated_led_sums(wJ * J, wJ * rd["r"], sms)
+        np.testing.assert_allclose(H, Hp.numpy(), rtol=LIGHT_TOL)
+        np.testing.assert_allclose(g, gp.numpy(), rtol=LIGHT_TOL, atol=LIGHT_TOL * g_scale)
+
+
+def _emulated_led_sums(hh, gg, sms):
+    """light_led_kernel's sums of the pairs' float32 products hh = w J J and
+    gg = w J r [N,F,3] in double: each lane's pairs in its walk's order
+    (_led_lanes), each warp's xor butterfly, the warps of a block in order,
+    then the last block's lanes over the blocks and the butterfly -> (H [3],
+    g [3]) float32."""
+    N, F = hh.shape[:2]
+    plan = normaleq.led_plan(N, F, sms)
+    terms = np.concatenate([hh, gg], axis=-1).astype(np.float64)      # [N,F,6]
+    lanes_of = _led_lanes(plan, N, F)
+    partial = np.zeros((6, plan.blocks))
+    for b in range(plan.blocks):
+        total = np.zeros(6)
+        for w in range(normaleq.LED_WARPS):
+            acc = np.zeros((32, 6))
+            for step in lanes_of[b * normaleq.LED_WARPS + w]:
+                for lane, n, f in step:
+                    acc[lane] += terms[n, f]
+            total = total + _warp_butterfly(acc.T)
+        partial[:, b] = total
+    lanes = np.zeros((6, 32))
+    for b in range(plan.blocks):
+        lanes[:, b % 32] += partial[:, b]
+    out = _warp_butterfly(lanes).astype(f32)
+    return out[:3], out[3:]
+
+
+def _warp_butterfly(v):
+    """An xor butterfly over the last axis of v [..., 32] in double."""
+    idx = np.arange(32)
+    for s in (16, 8, 4, 2, 1):
+        v = v + v[..., idx ^ s]
+    return v[..., 0]

@@ -206,19 +206,51 @@ def test_fals_shared_memory_fits_a_block():
         assert P.fals_smem(window) <= 232448
 
 
+def _lapm_blocks(plan, C, h, w):
+    """LAPM's blocks as csrc/preprocess.cu lapm_kernel cuts them: (frame,
+    band, strip, rows [y0, y1), columns [x0, x1))."""
+    for c in range(C):
+        for b in range(plan.bands):
+            for s in range(plan.strips):
+                y0, x0 = b * plan.rows, s * plan.strip_cols
+                yield c, b, s, y0, min(h, y0 + plan.rows), x0, min(w, x0 + plan.strip_cols)
+
+
 @pytest.mark.parametrize("sms", [1, 16, 132])
 @pytest.mark.parametrize("C,h", [(1, 2), (1, 480), (8, 480), (8, 960), (3, 7), (300, 48)])
 def test_lapm_bands_cover_every_row_once(C, h, sms):
-    bands, rows = P.lapm_plan(C, h, sms)
-    assert bands >= 1 and rows >= 1
-    assert bands * rows >= h > (bands - 1) * rows
-    assert C * bands <= max(C, 2 * sms + C)
+    """Every pixel of every frame in one block, a consumer thread's columns
+    cover its strip, the ring holds a strip's span of a row at any address
+    and the shared memory fits a block, at several widths (grey and RGB)."""
+    for w, S in ((2, 1), (45, 3), (640, 3), (641, 1), (1280, 3), (2500, 3)):
+        plan = P.lapm_plan(C, h, w, S, sms)
+        assert plan.bands * plan.rows >= h > (plan.bands - 1) * plan.rows
+        assert plan.strips * plan.strip_cols >= w > (plan.strips - 1) * plan.strip_cols
+        assert plan.strip_cols <= P.LAPM_MAX_STRIP
+        assert plan.threads % 32 == 0 and plan.threads + 32 <= 1024
+        assert plan.threads * P.LAPM_COLS >= plan.strip_cols > (plan.threads - 32) * P.LAPM_COLS
+        assert plan.pitch % 16 == 0 and plan.pitch >= (plan.strip_cols + 2) * S * 4 + 12
+        assert 1 <= plan.depth <= min(P.LAPM_DEPTH, plan.rows + 2)
+        assert plan.smem == plan.depth * (plan.pitch + 16) + 8 * 32 + 16 <= 232448
+        blocks = C * plan.bands * plan.strips
+        assert blocks <= max(C * plan.strips, P.LAPM_BLOCKS_PER_SM * sms + C * plan.strips)
+        if C * h * w <= 10 ** 6:
+            seen = np.zeros((C, h, w), np.int32)
+            for c, _, _, y0, y1, x0, x1 in _lapm_blocks(plan, C, h, w):
+                assert y1 > y0 and x1 > x0
+                seen[c, y0:y1, x0:x1] += 1
+            assert (seen == 1).all()
 
 
 def test_the_argument_blocks_have_the_c_layout():
     assert ctypes.sizeof(P._FalsArgs) == 8 * 11
-    assert ctypes.sizeof(P._LapmArgs) == 8 * 12
+    assert ctypes.sizeof(P._LapmArgs) == 8 * 18
     assert [f[0] for f in P._FalsArgs._fields_][-5:] == ["C", "H", "W", "window", "blocks"]
+    # an earlier lapm (the first design's LapmArgs) reads the prefix
+    assert [f[0] for f in P._LapmArgs._fields_][:12] == [
+        "img", "out", "part", "ticket", "C", "H", "W", "S", "chan", "frame", "bands",
+        "rows_per_band"]
+    assert [f[0] for f in P._LapmArgs._fields_][12:] == list(P.LapmPlan._fields[2:])
 
 
 def _reflect(i, n):
@@ -296,28 +328,108 @@ def test_the_normals_tiles_give_the_plain_window_sums_bit_for_bit(window, hw):
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
-@pytest.mark.parametrize("hw", [(48, 64), (2, 2), (7, 13)])
-def test_the_lapm_pixels_give_the_plain_values_bit_for_bit(hw):
-    """csrc/preprocess.cu lapm_kernel's value of each pixel, |Lx| + |Ly|
-    from its 3 x 3 reflected neighbours in the plain order, and the mean of
-    its double sum within float32 rounding of the plain mean."""
-    h, w = hw
-    rng = np.random.default_rng(h * w)
-    img = rng.random((h, w)).astype(np.float32)
-    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+def _tap(k, a, b, c):
     f = np.float32
+    return (f(k[0]) * a + f(k[1]) * b) + f(k[2]) * c
 
-    def tap(k, a, b, c):
-        return (f(k[0]) * a + f(k[1]) * b) + f(k[2]) * c
 
-    rows = [_reflect(ys + dy, h) for dy in (-1, 0, 1)]
-    cols = [_reflect(xs + dx, w) for dx in (-1, 0, 1)]
-    lap = [tap(P.LAP3, *(img[r, c] for c in cols)) for r in rows]
-    gau = [tap(P.GAUSS3, *(img[r, c] for c in cols)) for r in rows]
-    value = np.abs(tap(P.GAUSS3, *lap)) + np.abs(tap(P.LAP3, *gau))
+def _warp_butterfly(v):
+    """An xor butterfly over the last axis of v [..., 32] in double: every
+    lane ends with the same sum, in the kernel's order."""
+    v = v.copy()
+    lanes = np.arange(32)
+    for s in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ s]
+    return v[..., 0]
+
+
+def _emulated_lapm(img, plan):
+    """csrc/preprocess.cu lapm_kernel on a [C, h, w] channel in numpy: each
+    block's staged rows (the band and a reflected row on each side) and
+    each thread's columns x0 + t + k T, the x passes once a staged row, the
+    y pass from the last three; a thread's double sum (rows in order, its
+    columns in order), each warp's butterfly, the warps in order, then the
+    last block's lanes over a frame's partials and the butterfly -> (the
+    pixels' values [C, h, w], the means [C] float32)."""
+    C, h, w = img.shape
+    T = plan.threads
+    parts = np.zeros((C, plan.bands * plan.strips))
+    values = np.full((C, h, w), np.nan, np.float32)
+    for c, b, s, y0, y1, x0, x1 in _lapm_blocks(plan, C, h, w):
+        xs = x0 + np.arange(T)[:, None] + T * np.arange(P.LAPM_COLS)[None]   # [T, K]
+        on = xs < x1
+        x = np.minimum(xs, w - 1)
+        xl, xr = np.where(x == 0, 1, x - 1), np.where(x == w - 1, w - 2, x + 1)
+        acc = np.zeros(T)
+        lap, gau = [], []
+        for j in range(y1 - y0 + 2):
+            row = img[c, _reflect(np.asarray(y0 - 1 + j), h)]
+            u, v, r = row[xl], row[x], row[xr]
+            lap, gau = (lap + [_tap(P.LAP3, u, v, r)])[-3:], (gau + [_tap(P.GAUSS3, u, v, r)])[-3:]
+            if j < 2:
+                continue
+            val = np.abs(_tap(P.GAUSS3, *lap)) + np.abs(_tap(P.LAP3, *gau))
+            values[c, y0 + j - 2, x[on]] = val[on]
+            for k in range(P.LAPM_COLS):
+                acc = np.where(on[:, k], acc + val[:, k].astype(np.float64), acc)
+        warps = _warp_butterfly(acc.reshape(T // 32, 32))
+        total = 0.0
+        for ws in warps:
+            total += ws
+        parts[c, b * plan.strips + s] = total
+    means = np.zeros(C, np.float32)
+    for c in range(C):
+        lanes = np.zeros(32)
+        for k in range(parts.shape[1]):
+            lanes[k % 32] += parts[c, k]
+        means[c] = np.float32(_warp_butterfly(lanes) / (h * w))
+    return values, means
+
+
+@pytest.mark.parametrize("hw", [(48, 64), (2, 2), (7, 13), (33, 45)])
+@pytest.mark.parametrize("sms", [1, 16, 132])
+def test_the_lapm_pixels_give_the_plain_values_bit_for_bit(hw, sms, monkeypatch):
+    """csrc/preprocess.cu lapm_kernel's value of each pixel, |Lx| + |Ly|
+    from its 3 x 3 reflected neighbours in the plain order (each row's x
+    passes formed once, the y pass from the last three rows), on several
+    bands and strips (the strip's limit cut to 16 columns), and the mean of
+    its double sums in the kernel's order within float32 rounding of the
+    plain mean."""
+    h, w = hw
+    monkeypatch.setattr(P, "LAPM_MAX_STRIP", 16)
+    rng = np.random.default_rng(h * w + sms)
+    img = rng.random((3, h, w)).astype(np.float32)
+    plan = P.lapm_plan(3, h, w, 1, sms)
+    assert plan.strips == -(-w // 16)
+    values, means = _emulated_lapm(img, plan)
     src = torch.from_numpy(img)
     want = (P._sep_filter(src, P.LAP3, P.GAUSS3).abs()
             + P._sep_filter(src, P.GAUSS3, P.LAP3).abs()).numpy()
-    np.testing.assert_array_equal(value.view(np.int32), want.view(np.int32))
-    mean = np.float32(value.astype(np.float64).sum() / (h * w))
-    np.testing.assert_allclose(mean, P.lapm_plain(src).numpy(), rtol=1e-6)
+    np.testing.assert_array_equal(values.view(np.int32), want.view(np.int32))
+    np.testing.assert_allclose(means, P.lapm_plain(src).numpy(), rtol=1e-6)
+
+
+def test_the_lapm_wrapper_launches_its_plan_off_the_cpu(monkeypatch):
+    """Off the CPU lapm goes to its kernel (the launch captured on meta
+    tensors, so that no card is needed) with the plan of lapm_plan: RGB
+    reads the blue channel at S = 3, grey S = 1, and a view keeps its
+    base (the kernel's producer loads an unaligned span's ragged ends)."""
+    from psgradientsdf_tpu_torch import kernels
+
+    seen = []
+    monkeypatch.setattr(kernels, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(P, "_launch", lambda name, a, dev: seen.append((name, a)))
+    monkeypatch.setattr(P, "_ticket", lambda dev: torch.zeros(1, dtype=torch.int32,
+                                                             device="meta"))
+    rgb = torch.empty((8, 480, 640, 3), device="meta")
+    assert P.lapm(rgb).shape == (8,)
+    name, a = seen[-1]
+    plan = P.lapm_plan(8, 480, 640, 3, 132)
+    assert name == "lapm" and (a.S, a.chan, a.frame) == (3, 2, 480 * 640 * 3)
+    assert (a.bands, a.rows_per_band, a.strips, a.strip_cols, a.threads, a.depth, a.pitch,
+            a.smem) == tuple(plan)
+    assert P.lapm(torch.empty((45, 17), device="meta")).shape == ()
+    assert (seen[-1][1].S, seen[-1][1].chan, seen[-1][1].C) == (1, 0, 1)
+    with pytest.raises(TypeError, match="float32"):
+        P.lapm(torch.empty((4, 4), dtype=torch.float64, device="meta"))
+    assert P.launch_counts["lapm"] == 0
