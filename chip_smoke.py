@@ -7,6 +7,7 @@
                           [--gram-parent <gn.cu>] [--fals-parent <preprocess.cu>]
                           [--energy-parent <energy.cu>] [--cull-parent <cull.cu>]
                           [--led-parent <normaleq.cu>]
+                          [--distreg-parent <distreg.cu>]
 
 Builds the package's CUDA kernels and its host C++ libraries (PNG unfilter,
 marching cubes and PLY writers) from csrc/, holds each kernel against its
@@ -184,26 +185,45 @@ off a 16-byte boundary against an aligned copy, on the RGB chunk, a grey
 chunk, one frame, nine frames and 1280x960 frames, and timed beside an
 empty launch of its grid in its place in the path.
 
-The distance block's eager tail (its regularizer operators and its update,
-csrc/distreg.cu, one launch each a block) and the LED light's normal
-equations (csrc/normaleq.cu light_led_kernel, one launch a block) are held
-the same way: every refinement phase counts one operators launch and one
-update launch a distance or joint block (a row each on a mesh, on each
-process) and one LED light launch a block (a block each on a mesh), and no
-plain chain on the card; phase dist_tail_kernels (after energy_kernels)
-holds the operators and the update bit for bit on the main and the LED
-problems and their edges (one row, no valid row, frozen neighbours, every
-step refused or accepted, steps at the threshold and one ulp either side,
-the gradient alone) and the LED light within NORMAL_EQ_TOL before and after
-the upsample, on one keyframe, one row and no counted pair, and on its
-plan's edges (F = 1, 33 and 40 keyframes, one row of 33, row slices and
+The distance block's tail (its regularizer operators and its update) and
+the LED light's normal equations (csrc/normaleq.cu light_led_kernel, one
+launch a block) are held the same way. On one card a distance block is
+three launches: dist_jacobian, dist_system with the regularizer stage
+(ops/distcg.dist_system_reg) and dist_cg with the update stage
+(dist_cg_update), through refine/solvers.distance_step; the standalone
+kernels of csrc/distreg.cu (one launch each) serve the joint block and the
+mesh. Every refinement phase counts one fused distance step a one-card
+distance block and no standalone launch there, one operators launch and one
+update launch a joint block and, on a mesh, a distance or joint block (a
+row each, on each process), one LED light launch a block (a block each on a
+mesh), and no plain chain on the card; dist_cg_kernels' traced warm
+distance block makes exactly three launches. Phase dist_tail_kernels (after
+energy_kernels) holds the fused stages bit for bit against the plain chains
+(dist_system's A, t and lap_r against reg_operators_plain then
+dist_system_plain, bulk-copied and with the lanes' loads: main SH1 with the
+Eikonal operator alone, LED with both operators and with the Laplacian's
+diagonal alone, one row, no valid row, a row whose every neighbour is
+frozen; dist_cg's delta and steps against the unfused dist_cg on the same A
+and t and its new_dist and new_grad against dist_update_plain on that
+delta, on those cases and in every plan layout; each twice bit for bit),
+times both fused kernels in the distance block's order beside their bounds
+and the update barrier's empty-launch floor, and with --distreg-parent
+<distreg.cu> (an earlier source; its distcg.cu and the headers beside it,
+e.g. 517c0dd's csrc/ unpacked into archive_check/) times the whole distance
+block in turns: the three launches against the five of that build
+(dist_jacobian, reg_operators, dist_system, dist_cg, dist_update). It also
+holds the standalone operators and update bit for bit on the main and the
+LED problems and their edges (one row, no valid row, frozen neighbours,
+every step refused or accepted, steps at the threshold and one ulp either
+side, the gradient alone) and the LED light within NORMAL_EQ_TOL before and
+after the upsample, on one keyframe, one row and no counted pair, and on
+its plan's edges (F = 1, 33 and 40 keyframes, one row of 33, row slices and
 copies of w and r off a 16-byte boundary bit for bit against aligned
 copies, the mesh_refine (b) block), each kernel twice bit for bit, with
-their times in the path's order beside an empty launch (the LED light's:
-of its own grid) and the LED light's beside one einsum forming H and g;
-with --led-parent <normaleq.cu> (an earlier source whose LightLedArgs is a
-prefix of this one's) the LED light is timed in turns with that build;
-dist_cg_kernels' traced distance block launches one of each; with
+their times in the path's order beside an empty launch (the LED light's: of
+its own grid) and the LED light's beside one einsum forming H and g; with
+--led-parent <normaleq.cu> (an earlier source whose LightLedArgs is a
+prefix of this one's) the LED light is timed in turns with that build; with
 --profile profile_refine_led also traces two warm LED iterations.
 
 With --kernels-only the run stops after the kernels and scan_kernels phases
@@ -1054,17 +1074,20 @@ def _slice_calls():
     (tracking/stream._preprocess), its frames fused outside a chunk
     (pipeline.compute_normals), the energy evaluations' calls of
     ops/energy.energy_sums, the calls of ops/distreg.py's two wrappers
-    (the distance tail) and of ops/normaleq.light_normal_eqs_led, and the
+    (the distance tail's standalone kernels), of refine/solvers.distance_step
+    (the one-card distance block's fused step) and of
+    ops/normaleq.light_normal_eqs_led, and the
     plain preprocessing, energy, distance tail and LED light chains on
     tensors on the card; the launch counts of the six kernels are set to 0
     on entry and read on exit -> the dict of counts.  The module functions
     are wrapped from outside."""
     import psgradientsdf_tpu_torch.pipeline as pipeline_mod
     from psgradientsdf_tpu_torch.ops import distreg, energy, normaleq, preprocess
+    from psgradientsdf_tpu_torch.refine import solvers
     from psgradientsdf_tpu_torch.tracking import stream
 
     calls = dict(chunks=0, frame_normals=0, energy_calls=0, reg_operators_calls=0,
-                 dist_update_calls=0, light_led_calls=0,
+                 dist_update_calls=0, distance_step_calls=0, light_led_calls=0,
                  plain_preprocess_on_card=0, plain_energy_on_card=0,
                  plain_dist_tail_on_card=0, plain_led_light_on_card=0)
     wrapped = {(stream, "_preprocess"): "chunks",
@@ -1072,6 +1095,7 @@ def _slice_calls():
                (energy, "energy_sums"): "energy_calls",
                (distreg, "reg_operators"): "reg_operators_calls",
                (distreg, "dist_update"): "dist_update_calls",
+               (solvers, "distance_step"): "distance_step_calls",
                (normaleq, "light_normal_eqs_led"): "light_led_calls"}
     plain = {(preprocess, "fals_normals_plain"): ("plain_preprocess_on_card", lambda a: a[0]),
              (preprocess, "lapm_plain"): ("plain_preprocess_on_card", lambda a: a[0]),
@@ -1149,16 +1173,16 @@ def _local_rows(ref):
 
 
 def _tail_blocks(ref):
-    """(distance and joint blocks, LED light blocks) of a refinement loop
-    run from its start."""
+    """(distance blocks, joint blocks, LED light blocks) of a refinement
+    loop run from its start."""
     from psgradientsdf_tpu_torch.refine.optimizer import block_names
 
     cfg = ref.cfg
     names = block_names(cfg.opt_light, cfg.opt_albedo, cfg.opt_distance,
                         cfg.opt_pose, cfg.joint_dp)
-    dist = ref.iterations_run * sum(n in ("distance", "joint_dp") for n in names)
-    led = ref.iterations_run * names.count("light") * (cfg.model == "LED")
-    return dist, led
+    it = ref.iterations_run
+    led = it * names.count("light") * (cfg.model == "LED")
+    return it * names.count("distance"), it * names.count("joint_dp"), led
 
 
 def _check_slice(calls, what, ref=None, card=None):
@@ -1183,18 +1207,25 @@ def _check_slice(calls, what, ref=None, card=None):
           f"{calls['plain_led_light_on_card']} plain LED light sums on the card")
     out = dict(calls)
     if ref is not None:
-        # a distance or joint block: one operators call and one update call
-        # a row of the surface set's split; an LED light block one call a
-        # block
-        dist_blocks, led_blocks = _tail_blocks(ref)
-        for name, want in (("reg_operators", dist_blocks * _local_rows(ref)),
-                           ("dist_update", dist_blocks * _local_rows(ref)),
+        # on one device a distance block is one fused distance step (its
+        # tail stages of dist_system and dist_cg) and a joint block one
+        # operators call and one update call; on a mesh a distance or joint
+        # block one operators call and one update call a row of the surface
+        # set's split; an LED light block one call a block
+        dist_blocks, joint_blocks, led_blocks = _tail_blocks(ref)
+        fused = dist_blocks if ref.mesh is None else 0
+        standalone = (dist_blocks + joint_blocks - fused) * _local_rows(ref)
+        check(calls["distance_step_calls"] == fused,
+              f"{what}: {calls['distance_step_calls']} fused distance steps, "
+              f"expected {fused}")
+        for name, want in (("reg_operators", standalone), ("dist_update", standalone),
                            ("light_normal_eqs_led", led_blocks * _local_blocks(ref))):
             got = calls["light_led_calls" if name == "light_normal_eqs_led"
                         else name + "_calls"]
             check(got == want and calls[name] == on_card(want),
                   f"{what}: {name} {calls[name]} launches, {got} calls, expected {want}")
-        out.update(distance_blocks=dist_blocks, led_light_blocks=led_blocks,
+        out.update(distance_blocks=dist_blocks, joint_blocks=joint_blocks,
+                   fused_distance_steps=fused, led_light_blocks=led_blocks,
                    rows=_local_rows(ref))
         want = _energy_evaluations(ref) * _local_blocks(ref)
         check(calls["energy_calls"] == want and calls["energy_sums"] == on_card(want),
@@ -1202,6 +1233,19 @@ def _check_slice(calls, what, ref=None, card=None):
               f"{calls['energy_calls']} calls, expected {_energy_evaluations(ref)} "
               f"evaluations x {_local_blocks(ref)} blocks")
         out.update(energy_evaluations=_energy_evaluations(ref), blocks=_local_blocks(ref))
+    return out
+
+
+def _one_card_tail(calls, blocks, what):
+    """A one-card refinement's distance blocks through the fused step
+    (solvers.distance_step, its tail stages of dist_system and dist_cg):
+    `blocks` fused steps, no standalone tail call or launch -> the counts."""
+    out = {k: calls[k] for k in ("distance_step_calls", "reg_operators", "dist_update",
+                                 "reg_operators_calls", "dist_update_calls")}
+    check(out["distance_step_calls"] == blocks
+          and not any(v for k, v in out.items() if k != "distance_step_calls"),
+          f"{what}: the distance tail's calls and launches {out}, expected {blocks} "
+          "fused distance steps and no standalone tail")
     return out
 
 
@@ -1226,7 +1270,9 @@ def _refine_counts():
 def _refine_calls():
     """While the body runs, count the calls of ops/residual.py's two
     wrappers (a residual pass, a distance Jacobian, kernel or plain), of
-    ops/distcg.py's two (the distance block's rows and its CG), of
+    ops/distcg.py's two (the distance block's rows and its CG; the forms
+    with the tail's stages, dist_system_reg and dist_cg_update, count as
+    theirs), of
     ops/normaleq.py's two (the pose and the SH light normal equations) and
     of ops/albedo.py's one (the albedo block), and the
     plain residual passes, plain distance solves (rows or CG), plain normal
@@ -1244,7 +1290,8 @@ def _refine_calls():
                  plain_albedo_solve_on_card=0)
     modules = {"residual_pass": residual, "dist_jacobian": residual,
                "residual_pass_plain": residual, "dist_system": distcg,
-               "dist_cg": distcg, "dist_system_plain": distcg,
+               "dist_cg": distcg, "dist_system_reg": distcg, "dist_cg_update": distcg,
+               "dist_system_plain": distcg,
                "dist_cg_plain": distcg, "pose_normal_eqs": normaleq,
                "light_normal_eqs_sh": normaleq, "pose_normal_eqs_plain": normaleq,
                "albedo_block": albedo,
@@ -1253,9 +1300,9 @@ def _refine_calls():
     real = {n: getattr(m, n) for n, m in modules.items()}
     light_plain = solvers.light_normal_eqs_sh
 
-    def counted(name):
+    def counted(name, key=None):
         def fn(*a, **kw):
-            calls[name] += 1
+            calls[key or name] += 1
             return real[name](*a, **kw)
         return fn
 
@@ -1274,6 +1321,9 @@ def _refine_calls():
     for n in ("residual_pass", "dist_jacobian", "dist_system", "dist_cg",
               "pose_normal_eqs", "light_normal_eqs_sh", "albedo_block"):
         setattr(modules[n], n, counted(n))
+    # the distance block's launches with its tail stages: their kernels' calls
+    distcg.dist_system_reg = counted("dist_system_reg", "dist_system")
+    distcg.dist_cg_update = counted("dist_cg_update", "dist_cg")
     residual.residual_pass_plain = plain(
         "residual_pass_plain", lambda a: a[2], "plain_residual_pass_on_card")
     distcg.dist_system_plain = plain(
@@ -2548,7 +2598,12 @@ def check_refine_launches(run):
     check(sl["energy_evaluations"] == passes - (cfg.model == "LED"),
           f"{sl['energy_evaluations']} energy evaluations, {passes} residual passes")
     led_light_blocks = iters * names.count("light") * (cfg.model == "LED")
-    for name, want in (("reg_operators", jacobians), ("dist_update", jacobians),
+    # one card: the standalone tail kernels only in joint blocks, a distance
+    # block's tail a stage of its dist_system and dist_cg launches
+    joint = jacobians - blocks
+    check(sl["distance_step_calls"] == blocks,
+          f"{sl['distance_step_calls']} fused distance steps, {blocks} distance blocks")
+    for name, want in (("reg_operators", joint), ("dist_update", joint),
                        ("light_normal_eqs_led", led_light_blocks)):
         check(sl[name] == _on_card(want),
               f"{name}: {sl[name]} launches, expected {want} blocks")
@@ -2556,6 +2611,7 @@ def check_refine_launches(run):
                 distance_or_joint_blocks=jacobians, pose_blocks=pose_blocks,
                 sh_light_blocks=sh_light_blocks, albedo_blocks=albedo_blocks,
                 led_light_blocks=led_light_blocks,
+                fused_distance_steps=sl["distance_step_calls"],
                 energy_sums=sl["energy_sums"], energy_evaluations=sl["energy_evaluations"],
                 **{name: sl[name] for name in TAIL_KERNELS})
 
@@ -2615,9 +2671,11 @@ def refine_parity(scan, refine_cfg):
     for name in ("dist", "albedo", "grad_stored", "poses", "lights"):
         setattr(on_cpu, name, getattr(on_card, name).cpu())
     t0 = time.perf_counter()
-    got = _one_iteration(on_card)
-    _sync()
+    with _slice_calls() as tail_calls:
+        got = _one_iteration(on_card)
+        _sync()
     t_card = time.perf_counter() - t0
+    tail = _one_card_tail(tail_calls, 1, "refine_parity")
     t0 = time.perf_counter()
     want = _one_iteration(on_cpu)
     t_cpu = time.perf_counter() - t0
@@ -2639,7 +2697,8 @@ def refine_parity(scan, refine_cfg):
     return dict(keyframes=len(kf), surface_voxels=on_card.prob.n_surface,
                 capacity=int(on_card.prob.valid.shape[0]), tolerance=PARITY_TOL,
                 relative_difference=seen, seconds_on_card=t_card,
-                seconds_on_cpu=t_cpu, light_steps=light_steps(on_card, on_cpu))
+                seconds_on_cpu=t_cpu, distance_tail=tail,
+                light_steps=light_steps(on_card, on_cpu))
 
 
 def _rel(a, b):
@@ -3149,9 +3208,9 @@ def _loop_weights(ref):
 
 def _dist_inputs(ref, w_n, w_l, diag_only=False):
     """The refiner's distance block at its state: the residual pass, the
-    distance Jacobian, the regularizer operators (the Laplacian's diagonal
-    alone with `diag_only`) and the refiner's reverse stencil table ->
-    dict."""
+    distance Jacobian (and a call that forms it again), the regularizer
+    operators (the Laplacian's diagonal alone with `diag_only`) and the
+    refiner's reverse stencil table -> dict."""
     from psgradientsdf_tpu_torch.ops import residual as RS
     from psgradientsdf_tpu_torch.refine import solvers
 
@@ -3164,8 +3223,11 @@ def _dist_inputs(ref, w_n, w_l, diag_only=False):
                              voxel_size=skw["voxel_size"])
     eik, lap = solvers.reg_operators(prob, dist, skw["voxel_size"], reg_weight_n=w_n,
                                      reg_weight_l=w_l, laplacian_diag_only=diag_only)
+    jacobian = lambda: RS.dist_jacobian(prob, geom, rd, dist, albedo, grad, poses, K, lights,
+                                        model=skw["model"], order=skw["order"],
+                                        voxel_size=skw["voxel_size"])[1]
     return dict(prob=prob, rd=rd, DJ=DJ, eik=eik, lap=lap, stencil=ref.stencil,
-                w_n=w_n, w_l=w_l, damping=float(ref.cfg.damping))
+                w_n=w_n, w_l=w_l, damping=float(ref.cfg.damping), jacobian=jacobian)
 
 
 def _rows_alone(c, rows):
@@ -3218,12 +3280,13 @@ def _cg_check(what, A, t, valid, st, lap, kw):
                 plan=_cg_plan_facts(_cg_plan_of(A, lap)))
 
 
-def _cg_plan_of(A, lap):
-    """dist_cg's plan for these rows: the card's (cg_plan); in a CPU
-    rehearsal the plan for an H100's 132 SMs."""
+def _cg_plan_of(A, lap, update=False):
+    """dist_cg's plan for these rows (with the update stage's barrier): the
+    card's (cg_plan); in a CPU rehearsal the plan for an H100's 132 SMs."""
     from psgradientsdf_tpu_torch.ops import distcg as DC
 
-    kw = dict(use_lap=lap is not None, lap_nbr=lap is not None and lap.nbr_coef != 0.0)
+    kw = dict(use_lap=lap is not None, lap_nbr=lap is not None and lap.nbr_coef != 0.0,
+              update=update)
     if DEVICE == "cuda":
         return DC.cg_plan(A.device, A.shape[0], **kw)
     return DC._cg_plan(A.shape[0], sms=132, **kw)
@@ -3233,7 +3296,8 @@ def _cg_plan_facts(plan):
     from psgradientsdf_tpu_torch.ops import distcg as DC
 
     return dict(blocks=plan.blocks, rows_per_block=plan.tile, mode=DC.MODES[plan.mode],
-                smem_bytes=plan.smem_bytes, barriers_per_step=plan.barriers)
+                smem_bytes=plan.smem_bytes, barriers_per_step=plan.barriers,
+                barriers_after=plan.tail)
 
 
 def _off_boundary(t, floats=1):
@@ -3429,8 +3493,9 @@ def _is_index_add(name):
 
 def _distance_block_traces(ref, w_n, w_l):
     """One distance block from the main run's final state through
-    ops/distcg.py (optimizer._dist_core on the refiner's table), traced ->
-    its device kernels, index_add_ kernels (none may run), device time,
+    ops/distcg.py (optimizer._dist_core on the refiner's table), traced:
+    exactly three launches (dist_jacobian, dist_system and dist_cg with the
+    tail's stages) -> its device kernels, index_add_ kernels (none may run), device time,
     host seconds (median of 3 untraced) and the warm-up records the trace
     lost (_traced)."""
     import torch
@@ -3469,10 +3534,18 @@ def _distance_block_traces(ref, w_n, w_l):
     check(out["device_kernels"] > 0, "the profiler saw no kernel of a distance block")
     check(out["index_add_kernels"] == 0,
           f"the distance block ran {out['index_add_kernels']} index_add_ kernels")
+    # three launches: the Jacobian, dist_system with the regularizer stage,
+    # dist_cg with the update stage; no standalone tail kernel
     out["tail_kernels"] = {k: int(sum(r[1] for r in rows if k in r[2]))
                            for k in ("reg_operators_kernel", "dist_update_kernel")}
-    check(all(v == 1 for v in out["tail_kernels"].values()),
-          f"the distance block's tail kernels: {out['tail_kernels']}")
+    out["block_kernels"] = {k: int(sum(r[1] for r in rows if k in r[2]))
+                            for k in ("dist_jacobian_kernel", "dist_system_kernel",
+                                      "dist_cg_kernel")}
+    check(all(v == 0 for v in out["tail_kernels"].values())
+          and all(v == 1 for v in out["block_kernels"].values())
+          and out["device_kernels"] == 3,
+          f"the distance block's launches: {out['device_kernels']} kernels, "
+          f"{out['block_kernels']}, standalone tail {out['tail_kernels']}")
     return out
 
 
@@ -5205,6 +5278,253 @@ def _edge_steps(c):
     return six.repeat(-(-N // 6))[:N].to(c["dist"].device), six
 
 
+def _fused_inputs(c, what, prob=None, rows=None, diag_only=None):
+    """A distance tail case (_tail_inputs) as the fused stages take it: its
+    residual pass and Jacobian (rows `rows` alone), its problem (`prob`:
+    another one of the same rows) and that problem's reverse stencil table,
+    the weights and the CG's arguments -> dict."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    _, _, _, st, _, cg_kw, w_n, dc = c["system"]
+    rd, DJ, dist = dc["rd"], dc["DJ"], c["dist"]
+    prob = c["prob"] if prob is None else prob
+    if rows is not None:
+        idx = torch.as_tensor(rows, dtype=torch.long, device=dist.device)
+        rd = rd._replace(w=rd.w[idx].contiguous(), r=rd.r[idx].contiguous())
+        DJ = DJ._replace(J0=DJ.J0[idx].contiguous(), Ji=DJ.Ji[idx].contiguous())
+        dist = dist[idx]
+    if st.source is not prob.nbr_idx:
+        st = DC.stencil_reverse(prob)
+    return dict(what=what, prob=prob, dist=dist, h=c["h"], rd=rd, DJ=DJ, stencil=st,
+                w_n=w_n, w_l=cg_kw["reg_weight_l"], cg_kw=cg_kw,
+                diag_only=c["diag_only"] if diag_only is None else diag_only,
+                jacobian=dc["jacobian"] if rows is None else None)
+
+
+def _fused_system_case(f):
+    """dist_system with its regularizer stage (ops/distcg.dist_system_reg)
+    twice, bulk-copied and with the lanes' loads (w one float off a 16-byte
+    boundary), against the plain chain (reg_operators_plain, then
+    dist_system_plain): A, t and the Laplacian's residual bit for bit ->
+    (facts, (A, t, lap))."""
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+    from psgradientsdf_tpu_torch.ops import distreg as DR
+
+    prob, dist, h, st = f["prob"], f["dist"], f["h"], f["stencil"]
+    kw = dict(reg_weight_n=f["w_n"], reg_weight_l=f["w_l"], diag_only=f["diag_only"])
+    eik, lap = DR.reg_operators_plain(prob, dist, h, eikonal=f["w_n"] != 0.0,
+                                      laplacian=f["w_l"] != 0.0, diag_only=f["diag_only"])
+    want = DC.dist_system_plain(f["rd"], f["DJ"], eik, reg_weight_n=f["w_n"])
+    out = dict(case=f["what"], rows=int(dist.shape[0]), valid_rows=int(prob.valid.sum()),
+               eikonal=eik is not None, laplacian=lap is not None, diag_only=f["diag_only"])
+    for form, rd in (("bulk-copied", f["rd"]), ("lanes' loads", _misaligned(f["rd"]))):
+        got = DC.dist_system_reg(rd, f["DJ"], prob, dist, st, h, **kw)
+        again = DC.dist_system_reg(rd, f["DJ"], prob, dist, st, h, **kw)
+        _sync()
+        for name, a, b, w in (("A", got[0], again[0], want[0]), ("t", got[1], again[1], want[1])):
+            check(_bits_same(a, w), f"dist_system with the regularizer stage differs from "
+                                    f"the plain chain: {f['what']}, {form}, {name}, by up to "
+                                    f"{_abs_err(a, w)}")
+            check(_bits_same(a, b), f"{f['what']}, {form}: two fused dist_system runs differ")
+        check((got[2] is None) == (lap is None), f"{f['what']}: the Laplacian asked for or not")
+        if lap is not None:
+            check(_bits_same(got[2].r, lap.r) and _bits_same(again[2].r, lap.r),
+                  f"{f['what']}, {form}: lap_r differs from reg_operators_plain's by up to "
+                  f"{_abs_err(got[2].r, lap.r)}")
+            check((got[2].diag_coef, got[2].nbr_coef) == (lap.diag_coef, lap.nbr_coef),
+                  f"{f['what']}: the Laplacian's coefficients")
+        if DEVICE == "cuda":
+            N, F = rd.w.shape[:2]
+            out["plan" if form == "bulk-copied" else "plan_lanes_loads"] = DC.system_plan(
+                rd.w.device, N, 3 * F, staged=form == "bulk-copied")._asdict()
+    out["bit_identical"] = True
+    return out, got
+
+
+def _fused_cg_case(what, A, t, prob, dist, st, lap, h, cg_kw):
+    """dist_cg with its update stage (ops/distcg.dist_cg_update) twice
+    against the unfused dist_cg on the same A, t (delta and the steps bit for
+    bit) and dist_update_plain on that delta (new_dist and new_grad bit for
+    bit) -> facts with the plan."""
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+    from psgradientsdf_tpu_torch.ops import distreg as DR
+
+    s0, s1, s2 = [], [], []
+    d0 = DC.dist_cg(A, t, prob.valid, st, lap, **cg_kw, steps_out=s0)
+    d1, n1, g1 = DC.dist_cg_update(A, t, prob, dist, st, lap, h, **cg_kw, steps_out=s1)
+    d2, n2, g2 = DC.dist_cg_update(A, t, prob, dist, st, lap, h, **cg_kw, steps_out=s2)
+    nu, gu = DR.dist_update_plain(prob, dist, d0, h)
+    _sync()
+    k = [int(s[0]) for s in (s0, s1, s2)]
+    check(_bits_same(d1, d0) and k[1] == k[0],
+          f"dist_cg with the update stage: delta or its {k[1]} steps differ from the unfused "
+          f"dist_cg's ({k[0]}), by up to {_abs_err(d1, d0)} ({what})")
+    for name, a, b, w in (("new_dist", n1, n2, nu), ("new_grad", g1, g2, gu)):
+        check(_bits_same(a, w), f"dist_cg's update stage differs from dist_update_plain: "
+                                f"{what}, {name}, by up to {_abs_err(a, w)}")
+        check(_bits_same(a, b), f"{what}: two fused dist_cg runs differ ({name})")
+    check(_bits_same(d2, d1) and k[2] == k[1], f"{what}: two fused dist_cg runs differ")
+    return dict(case=what, rows=int(A.shape[0]), valid_rows=int(prob.valid.sum()),
+                laplacian=lap is not None, steps=k[1], accepted=int((n1 != dist).sum()),
+                bit_identical=True, plan=_cg_plan_facts(_cg_plan_of(A, lap, update=True)))
+
+
+def _tiled_update_case(f, what, rows, mode):
+    """The fused dist_cg (_fused_cg_case) on `rows` rows of copies of the
+    main block's system (_tiled_inputs: the links past the cut cut), the
+    problem's per-row update inputs and dist copied alike; its plan must
+    take layout `mode` (None: any) -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+
+    from psgradientsdf_tpu_torch.ops import distreg as DR
+
+    p = f["prob"]
+    eik = DR.reg_operators_plain(p, f["dist"], f["h"], eikonal=True, laplacian=False,
+                                 diag_only=False)[0]
+    N = p.valid.shape[0]
+    A, t, valid, st = _tiled_inputs(dict(f, eik=eik), rows)
+    copies = -(-rows // N)
+    rep = lambda x: x.repeat(copies, *([1] * (x.dim() - 1)))[:rows].contiguous()
+    prob = p._replace(valid=valid, nbr_idx=st.nbr.long(), nbr_dir=rep(p.nbr_dir),
+                      nbr_dist_const=rep(p.nbr_dist_const), lap_idx=st.lap.long(),
+                      lap_dist_const=rep(p.lap_dist_const), idx_xyz=rep(p.idx_xyz))
+    st = DC.StencilReverse(st.nbr, st.rev, st.lap, prob.nbr_idx)
+    out = _fused_cg_case(what, A, t, prob, rep(f["dist"]), st, None, f["h"],
+                         dict(f["cg_kw"], reg_weight_l=0.0))
+    check(mode in (None, out["plan"]["mode"]),
+          f"{what}: the {out['plan']['mode']} layout, expected {mode}")
+    return out
+
+
+def _fused_times(f, system, flush):
+    """The main block's two fused launches in the distance block's order
+    (dist_jacobian, dist_system with the regularizer stage, dist_cg with the
+    update stage; _path_ms), each beside its byte bound, its plain chain's
+    time and, for dist_cg, empty cooperative launches on its grid crossing
+    its barriers with and without the update's; then the whole block timed
+    in turns against this build's five launches (the standalone tail
+    kernels) -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+    from psgradientsdf_tpu_torch.ops import distreg as DR
+
+    prob, dist, h, st, rd = f["prob"], f["dist"], f["h"], f["stencil"], f["rd"]
+    skw = dict(reg_weight_n=f["w_n"], reg_weight_l=f["w_l"], diag_only=f["diag_only"])
+    cg_kw = f["cg_kw"]
+    DJ = f["jacobian"]()
+    A, t, lap = system
+    N, F = rd.w.shape[:2]
+    dev = rd.w.device
+    path = _path_ms([f["jacobian"],
+                     lambda: DC.dist_system_reg(rd, DJ, prob, dist, st, h, **skw),
+                     lambda: DC.dist_cg_update(A, t, prob, dist, st, lap, h, **cg_kw)])
+    steps = []
+    DC.dist_cg_update(A, t, prob, dist, st, lap, h, **cg_kw, steps_out=steps)
+    k = int(steps[0])
+    laplacian, lap_nbr = lap is not None, lap is not None and lap.nbr_coef != 0.0
+    # dist_system: w, r, J0, Ji read once (24 bytes a pair), A and t written
+    # (56 bytes a row), the stage's stencil read once (valid, dist, the
+    # int32 indices, the constants and the direction: 41 bytes a row; the
+    # Laplacian's indices and constants 48 and lap_r written 4)
+    sys_bytes = N * (24 * 3 * F + 56 + 41 + (52 if laplacian else 0))
+    # dist_cg: A, t, nbr and rev (int32) and the mask read, delta written
+    # (97 bytes a row; the Laplacian's residual and lap_idx where read), and
+    # the update stage's dist, direction and constants read and new_dist and
+    # new_grad written (44)
+    cg_bytes = N * (97 + 44 + (4 if laplacian else 0) + (24 if lap_nbr else 0))
+    plan = _cg_plan_of(A, lap, update=True)
+    barriers = DC.grid_barriers(plan, k)
+    floors = _path_ms([lambda: DC.barrier_floor(dev, plan, barriers),
+                       lambda: DC.barrier_floor(dev, plan, barriers - 1)])
+    eik_plain = lambda: DR.reg_operators_plain(prob, dist, h, eikonal=f["w_n"] != 0.0,
+                                               laplacian=laplacian, diag_only=f["diag_only"])
+    out = dict(
+        path_ms=dict(dist_jacobian=path[0], dist_system=path[1], dist_cg=path[2]),
+        dist_system=dict(
+            ms=path[1], bound_ms=sys_bytes / HBM_BYTES_PER_S * 1e3, bytes=sys_bytes,
+            plain_ms=_time_ms(lambda: DC.dist_system_plain(rd, DJ, eik_plain()[0],
+                                                           reg_weight_n=f["w_n"]), flush),
+            max_abs_err=0.0),
+        dist_cg=dict(
+            ms=path[2], bound_ms=cg_bytes / HBM_BYTES_PER_S * 1e3, bytes=cg_bytes,
+            steps=k, grid_barriers=barriers, blocks=plan.blocks,
+            barrier_floor_ms=floors[0], barrier_floor_without_update_ms=floors[1],
+            update_barrier_ms=floors[0] - floors[1],
+            plain_ms=_time_ms(lambda: DR.dist_update_plain(
+                prob, dist, DC.dist_cg_plain(A, t, prob.valid, st, lap, **cg_kw), h), flush),
+            max_abs_err=0.0, library_ms=None))
+    for name in ("dist_system", "dist_cg"):
+        out[name]["share_of_bound"] = out[name]["bound_ms"] / out[name]["ms"]
+
+    def three():
+        DJ3 = f["jacobian"]()
+        A3, t3, lap3 = DC.dist_system_reg(rd, DJ3, prob, dist, st, h, **skw)
+        return DC.dist_cg_update(A3, t3, prob, dist, st, lap3, h, **cg_kw)[1:]
+
+    def five():
+        DJ5 = f["jacobian"]()
+        eik5, lap5 = DR.reg_operators(prob, dist, h, eikonal=f["w_n"] != 0.0,
+                                      laplacian=laplacian, diag_only=f["diag_only"])
+        A5, t5 = DC.dist_system(rd, DJ5, eik5, reg_weight_n=f["w_n"])
+        return DR.dist_update(prob, dist, DC.dist_cg(A5, t5, prob.valid, st, lap5, **cg_kw), h)
+
+    out["block"] = _block_turns(dict(three=three, five=five))
+    if "--distreg-parent" in sys.argv[1:]:
+        out["parent"] = _tail_parent_ab(three, five)
+    return out
+
+
+def _block_turns(runs):
+    """Each of `runs` (a name -> a callable making a whole distance block)
+    once for its outputs, which must agree bit for bit, then timed in
+    turns (the first, the second, the second, the first; _path_ms of the
+    block as one unit) -> {name: [ms, ms]}."""
+    names = list(runs)
+    outs = [runs[n]() for n in names]
+    _sync()
+    for n, o in zip(names[1:], outs[1:]):
+        check(all(_bits_same(a, b) for a, b in zip(o, outs[0])),
+              f"the distance block through {n} differs from {names[0]}")
+    times = {n: [] for n in names}
+    for n in (names[0], names[1], names[1], names[0]):
+        times[n].append(_path_ms([runs[n]])[0])
+    return times
+
+
+def _tail_parent_ab(three, five):
+    """The whole distance block on the --distreg-parent build (its
+    distreg.cu and the distcg.cu beside it, with the headers beside them;
+    built here into a temporary directory): five launches, this build's
+    wrappers on the parent's libraries (its C argument blocks are prefixes
+    of this build's), bit for bit against this build's three, timed in
+    turns: the parent, this, this, the parent -> {"parent"|"this": [ms, ms],
+    sources}.  Its launches are on no path."""
+    from psgradientsdf_tpu_torch.ops import distcg as DC
+    from psgradientsdf_tpu_torch.ops import distreg as DR
+
+    src = sys.argv[sys.argv.index("--distreg-parent") + 1]
+    cg_src = os.path.join(os.path.dirname(src), "distcg.cu")
+    with tempfile.TemporaryDirectory(prefix="tail_parent_") as tmp:
+        reg_lib = _parent_build(src, tmp, "distreg_parent")
+        reg_lib.reg_operators.argtypes = [ctypes.POINTER(DR._RegArgs), ctypes.c_void_p]
+        reg_lib.dist_update.argtypes = [ctypes.POINTER(DR._UpdateArgs), ctypes.c_void_p]
+        cg_lib = DC._bind(_parent_build(cg_src, tmp, "distcg_parent"))
+        this_reg, this_cg = DR._library(), DC._library()
+
+        def parent():
+            DR._bound, DC._bound = reg_lib, cg_lib
+            try:
+                return five()
+            finally:
+                DR._bound, DC._bound = this_reg, this_cg
+
+        times = _block_turns(dict(parent=parent, this=three))
+    return dict(times, sources=[os.path.relpath(src), os.path.relpath(cg_src)],
+                parent_registers=_ptxas(cg_src))
+
+
 def _led_inputs(what, rd, prob, geom, dist, grad, albedo, poses):
     return dict(what=what, args=(rd, prob, geom, dist, grad, albedo, poses))
 
@@ -5423,9 +5743,18 @@ def dist_tail_kernels(main_run, led_run, led_first):
     light_normal_eqs_led, within NORMAL_EQ_TOL: the LED run's block after
     the upsample (timed) and before it (`led_first`: its first light
     block's arguments), one keyframe, one row, no counted pair.  Each
-    kernel twice bit for bit.  Launches made here are on no path.
+    kernel twice bit for bit.
+    The tail as stages of the one-card block's launches, bit for bit
+    against the plain chains (_fused_system_case, _fused_cg_case): the main
+    SH1 and LED cases, the Laplacian's diagonal alone, one row, no valid
+    row, a frozen row; the update stage also on copies of the main block in
+    every layout of dist_cg's plan (_tiled_update_case); on the card both
+    fused kernels timed in the block's order and the whole block in turns
+    with five launches (_fused_times; with --distreg-parent also the
+    parent's).  Launches made here are on no path.
     -> facts."""
     import torch
+    from psgradientsdf_tpu_torch.ops import distcg as DC
     from psgradientsdf_tpu_torch.ops import distreg as DR
 
     flush = (torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
@@ -5485,6 +5814,44 @@ def dist_tail_kernels(main_run, led_run, led_first):
     upd.append(_dist_update_case(dict(lc, prob=none), lc["delta"], "LED, no valid row"))
     check(upd[-1]["accepted"] == 0, "no valid row: a row moved")
 
+    # the one-card block's tail as stages of its dist_system and dist_cg
+    # launches, against the plain chains, on the same cases (the frozen row's
+    # Laplacian links cut both ways, so that the stencil stays symmetric)
+    nbr2, lap2 = p.nbr_idx.clone(), p.lap_idx.clone()
+    nbr2[row], lap2[row] = -1, -1
+    lap2[lap2 == row] = -1
+    fused_cases = [
+        _fused_inputs(main, "main SH1"), _fused_inputs(lc, "LED after the upsample"),
+        _fused_inputs(lc, "LED, the Laplacian's diagonal alone", diag_only=True),
+        _fused_inputs(lc, "one row", prob=_tail_rows(lc, [row], "one row")["prob"], rows=[row]),
+        _fused_inputs(lc, "no valid row", prob=p._replace(valid=torch.zeros_like(p.valid))),
+        _fused_inputs(lc, "a row with every neighbour frozen",
+                      prob=p._replace(nbr_idx=nbr2, lap_idx=lap2))]
+    fused_systems, fused_cgs, main_system = [], [], None
+    for f in fused_cases:
+        facts_f, system = _fused_system_case(f)
+        fused_systems.append(facts_f)
+        main_system = main_system or system
+        fused_cgs.append(_fused_cg_case(f["what"], *system[:2], f["prob"], f["dist"],
+                                        f["stencil"], system[2], f["h"], f["cg_kw"]))
+    check(fused_systems[0]["eikonal"] and not fused_systems[0]["laplacian"]
+          and fused_systems[1]["eikonal"] and fused_systems[1]["laplacian"],
+          "the fused main case is not the Eikonal operator alone or the LED case not both")
+    N_main = int(main["dist"].shape[0])
+    sms = _sm_count() if DEVICE == "cuda" else 132
+    for what, rows, mode in (
+            ("four copies of the main block", 4 * N_main, None),
+            ("the first row count past the resident tile",
+             sms * DC.resident_tile_limit(False) + 1, "vectors"),
+            ("eight copies of the main block", 8 * N_main, None),
+            ("the first row count past the vectors' tile",
+             sms * DC.vector_tile_limit(False) + 1, "global")):
+        fused_cgs.append(_tiled_update_case(fused_cases[0], what, rows, mode))
+    check({c["plan"]["mode"] for c in fused_cgs} == set(DC.MODES),
+          "a layout of dist_cg's plan was not run with the update stage")
+    fused_timed = (_fused_times(fused_cases[0], main_system, flush) if DEVICE == "cuda"
+                   else None)
+
     rd_led = led._rd()
     after = _led_inputs("LED after the upsample", rd_led, led.prob, led.geom, led.dist,
                         led.grad_stored, led.albedo, led.poses)
@@ -5509,12 +5876,15 @@ def dist_tail_kernels(main_run, led_run, led_first):
           "no counted pair: H or g is not 0")
     lights += _led_edges(after["args"])
     facts = dict(reg_operators=ops, dist_update=upd, light_normal_eqs_led=lights,
-                 checked=len(ops) + len(upd) + len(lights), tolerance=NORMAL_EQ_TOL,
+                 fused=dict(dist_system=fused_systems, dist_cg=fused_cgs),
+                 checked=len(ops) + len(upd) + len(lights) + len(fused_systems)
+                 + len(fused_cgs), tolerance=NORMAL_EQ_TOL,
                  timed=dict(reg_operators=ops[0].get("reg_operators"),
                             dist_update=upd[0].get("dist_update"),
                             light_normal_eqs_led=lights[0].get("light_normal_eqs_led"),
                             rows=ops[0]["rows"], led_rows=lights[0]["rows"],
-                            led_keyframes=lights[0]["keyframes"], path_ms=path))
+                            led_keyframes=lights[0]["keyframes"], path_ms=path,
+                            fused=fused_timed))
     if DEVICE == "cuda":
         facts["timed"]["empty_launch_ms"] = _empty_launch_ms()
         if "--led-parent" in sys.argv[1:]:
@@ -6273,7 +6643,7 @@ def resume_refine(tmp, root, main_run):
     try:
         # the command line's own output (metrics echo, summary) to a file
         with open(os.path.join(tmp, "cli_stdout.txt"), "w") as fh, \
-                contextlib.redirect_stdout(fh):
+                contextlib.redirect_stdout(fh), _slice_calls() as tail_calls:
             rc = cli.main(["--config_file", cfg_path, "--checkpoint-every", "2",
                            "--retries", "1", "--summary-json", summary_path,
                            "--platform", "cpu" if DEVICE == "cpu" else "gpu"])
@@ -6287,6 +6657,8 @@ def resume_refine(tmp, root, main_run):
     check(rc == 0, f"the command line returned {rc}")
     check(calls["n"] > FAIL_ITERATION + 1, "the refinement did not reach the "
           f"iteration of the injected failure ({calls['n']} iterations run)")
+    # every iteration but the failed one ran its distance block on the card
+    tail = _one_card_tail(tail_calls, calls["n"] - 1, "resume_refine")
     with open(summary_path) as fh:
         summary = json.load(fh)
     with open(os.path.join(out, "metrics.jsonl")) as fh:
@@ -6332,7 +6704,7 @@ def resume_refine(tmp, root, main_run):
                                bytes=e["bytes"]) for e in scan_ckpt],
         refine_checkpoints=[dict(iteration=e["iter"], seconds=e["seconds"],
                                  bytes=e["bytes"]) for e in ref_ckpt],
-        refined_mesh=list(mesh))
+        refined_mesh=list(mesh), distance_tail=tail)
 
 
 def dumps(ref, truncation, main_run):
@@ -6439,11 +6811,14 @@ def profile_refine(ref):
     check(calls["plain_normal_eqs_on_card"] == 0 and calls["plain_albedo_solve_on_card"] == 0,
           "plain normal equations or albedo solves ran on the card in the traced iterations")
     rows = sorted(_kernel_rows(prof), reverse=True)
-    # a distance block launches ONE reg_operators_kernel and ONE
-    # dist_update_kernel, an LED light block ONE light_led_kernel
+    # a distance block launches no standalone reg_operators_kernel or
+    # dist_update_kernel (its tail is a stage of dist_system and dist_cg),
+    # an LED light block ONE light_led_kernel
     tail = {}
-    for name, kernel, want in (("reg_operators", "reg_operators_kernel", 2),
-                               ("dist_update", "dist_update_kernel", 2),
+    check(energies["distance_step_calls"] == 2,
+          f"{energies['distance_step_calls']} fused distance steps in two iterations")
+    for name, kernel, want in (("reg_operators", "reg_operators_kernel", 0),
+                               ("dist_update", "dist_update_kernel", 0),
                                ("light_normal_eqs_led", "light_led_kernel", 2 * led)):
         tail[kernel] = int(sum(r[1] for r in rows if kernel in r[2]))
         check(tail[kernel] == energies[name] == want,
@@ -6476,8 +6851,10 @@ def profile_refine(ref):
         iterations=2, traced_wall_seconds=wall, device_busy_seconds=busy,
         warmup_dropped=prof.warmup_dropped, tail_kernels=tail,
         # a report, not a limit: a warm SH1 iteration before the distance
-        # tail's and the LED light's kernels (commit 87b6a9e on an H100)
+        # tail's and the LED light's kernels (commit 87b6a9e on an H100),
+        # and with the tail's two standalone launches (517c0dd)
         parent_sh1_per_iteration=dict(device_ops=165, runtime_calls=197),
+        tail_launches_sh1_per_iteration=dict(device_ops=127, runtime_calls=159),
         index_add_kernels=int(sum(r[1] for r in rows if _is_index_add(r[2]))),
         energy_evaluations=energies["energy_calls"],
         torch_reduce_kernels=int(sum(r[1] for r in rows if "reduce_kernel" in r[2])),
@@ -7633,13 +8010,14 @@ def main():
              **resume_refine(tmp, root, main_run))
 
         # ---- the refinement on a mesh: 4x2 and the command line on 2x2
-        mesh_refine_launches, facts, cli_run = mesh_refine(
+        mesh_refine_launches, mesh_refine_facts, cli_run = mesh_refine(
             tmp, seq, main_run, led_run, led_seq, root)
-        emit("mesh_refine", ok=True, card=card, **facts)
+        emit("mesh_refine", ok=True, card=card, **mesh_refine_facts)
 
         # ---- the same recipes with one process a mesh row
-        dist_launches, facts = distributed_phase(tmp, root, cli_run, led_run, led_seq)
-        emit("distributed", ok=True, card=card, **facts)
+        dist_launches, distributed_facts = distributed_phase(
+            tmp, root, cli_run, led_run, led_seq)
+        emit("distributed", ok=True, card=card, **distributed_facts)
 
         # ---- the host's marching cubes and PLY writers
         emit("dumps", ok=True, card=card, **dumps(
@@ -7736,30 +8114,50 @@ def main():
     for name in REFINE_KERNELS:
         check(refine_launches[name] > 0, f"{name} was never launched on its path")
     # the distance block's solve: the main run's launches, the times on its
-    # final problem (SH1, scipy's stop rule)
+    # final problem (SH1, scipy's stop rule): the launches the main path
+    # makes, dist_system with the regularizer stage and dist_cg with the
+    # update stage, in the block's order (dist_tail_kernels), beside the
+    # kernels without their stages (dist_cg_kernels, L2 flushed)
     dist_case = next(c for c in dist_facts["cases"]
                      if c["case"] == "main SH1" and not c["static"])
+    fused = tail_facts["timed"]["fused"]
+    unfused = {k: {"unfused_" + f: dist_case[k][f] for f in ("ms", "bound_ms", "plain_ms")}
+               for k in ("dist_system", "dist_cg")}
     dist_rows = {
-        "dist_system": dict(dist_case["dist_system"], max_abs_err=0.0, work=(
-            f"the main run's distance block at its final state: "
-            f"{dist_case['rows']} surface-voxel slots x {dist_case['keyframes']} "
+        "dist_system": dict(fused["dist_system"], **unfused["dist_system"],
+                            library_ms=dist_case["dist_system"]["library_ms"], work=(
+            f"the main run's distance block at its final state with the regularizer "
+            f"stage: {dist_case['rows']} surface-voxel slots x {dist_case['keyframes']} "
             f"keyframes, {dist_case['dist_system']['lanes']} lanes a row, the tiles "
-            "bulk-copied into a ring; the bound counts w, r, J0 and Ji read once "
-            "(24 bytes a pair), the Eikonal row and A, t written (56 bytes a row); "
-            "library_ms is the one einsum that forms A from [N, F*3, 4]")),
-        "dist_cg": dict(dist_case["dist_cg"], max_abs_err=dist_case["max_abs_err"],
-                        latency_floor_ms=dist_facts["latency_floor_ms"], work=(
-            f"that block's whole Jacobi-PCG ({dist_case['steps']} steps, one "
-            f"cooperative launch, {dist_case['plan']['blocks']} blocks of "
+            "bulk-copied into a ring while the producer warp's lanes form each row's "
+            "Eikonal row from its stencil, timed in the block's order after "
+            "dist_jacobian, no flush; the bound counts w, r, J0 and Ji read once (24 "
+            "bytes a pair), A and t written (56 bytes a row) and the stencil read "
+            "(41 bytes a row); plain_ms is reg_operators_plain's Eikonal operator "
+            "then dist_system_plain; library_ms is the one einsum that forms A from "
+            "[N, F*3, 4]; unfused_* the kernel without the stage on the Eikonal "
+            "row formed beforehand, L2 flushed")),
+        "dist_cg": dict(fused["dist_cg"], **unfused["dist_cg"],
+                        max_abs_err=dist_case["max_abs_err"],
+                        latency_floor_ms=dist_facts["latency_floor_ms"],
+                        grid_sync_floor_ms=dist_case["dist_cg"]["grid_sync_floor_ms"], work=(
+            f"that block's whole Jacobi-PCG and its update ({fused['dist_cg']['steps']} "
+            f"steps, one cooperative launch, {dist_case['plan']['blocks']} blocks of "
             f"{dist_case['plan']['rows_per_block']} rows, the "
             f"{dist_case['plan']['mode']} layout, "
-            f"{dist_case['plan']['barriers_per_step']} grid barriers a step); the "
-            "bound counts A, t, nbr and rev (int32) and the mask read once and "
-            "delta written once (the Laplacian's residual and lap_idx only "
-            "where the kernel reads them, off here); latency_floor_ms is the same launch on "
-            "one row (one step), barrier_floor_ms an empty cooperative kernel "
-            "on the same grid crossing as many of its barriers, "
-            "grid_sync_floor_ms as many grid.syncs"))}
+            f"{dist_case['plan']['barriers_per_step']} grid barriers a step and one "
+            "after the last, then the accept rule and the new gradient), timed in "
+            "the block's order after dist_system, no flush; the bound counts A, t, "
+            "nbr and rev (int32) and the mask read once, delta written once, and "
+            "dist, the direction and the constants read and new_dist and new_grad "
+            "written once (the Laplacian's residual and lap_idx off here); "
+            "max_abs_err is delta's against the plain solve's; plain_ms is "
+            "dist_cg_plain then dist_update_plain; latency_floor_ms is the launch "
+            "without the stage on one row (one step), barrier_floor_ms an empty "
+            "cooperative kernel on the same grid crossing as many barriers "
+            "(barrier_floor_without_update_ms one fewer), grid_sync_floor_ms as "
+            "many grid.syncs as the launch without the stage; unfused_* the "
+            "kernel without the stage, L2 flushed"))}
     for name in DIST_KERNELS:
         check(refine_launches[name] > 0, f"{name} was never launched on its path")
     # the normal equations: the main run's launches, the times on its final
@@ -7845,22 +8243,32 @@ def main():
     # the distance tail and the LED light: the main run's launches (the LED
     # light's: the LED run's), the times on their final problems in the
     # path's order
-    tail_launches = {"reg_operators": refine_launches["reg_operators"],
-                     "dist_update": refine_launches["dist_update"],
-                     "light_normal_eqs_led": led_run["slice"]["light_normal_eqs_led"]}
+    # the standalone tail kernels run on the mesh paths (and the joint
+    # block): their launches are mesh_refine's (a), (b), (c) and the
+    # distributed ranks'; the one-card runs launch none (check_refine_launches)
+    mesh_slices = [mesh_refine_facts["sh1"]["energy_launches"],
+                   mesh_refine_facts["led_upsample"]["energy_launches"],
+                   mesh_refine_facts["cli"]["preprocess_and_energy_launches"]] + [
+        r[run]["slice"] for b in distributed_facts.values() if isinstance(b, dict)
+        for r in b.get("ranks", []) for run in ("sh1", "led")]
+    tail_launches = {name: refine_launches[name] + sum(sl[name] for sl in mesh_slices)
+                     for name in ("reg_operators", "dist_update")}
+    tail_launches["light_normal_eqs_led"] = led_run["slice"]["light_normal_eqs_led"]
     timed = tail_facts["timed"]
     tail_rows = {
         "reg_operators": dict(timed["reg_operators"], work=(
             f"the main run's Eikonal operator at its final state: {timed['rows']} "
-            "surface-voxel slots, a thread a row, timed in the distance block's order "
-            "(the operators, dist_system, dist_cg, the update), no flush; the bound "
+            "surface-voxel slots, a thread a row (the standalone launch of the joint "
+            "block and the mesh; launches: the mesh paths'), timed in the five-launch "
+            "block's order (the operators, dist_system, dist_cg, the update), no flush; the bound "
             "counts valid, dist, the direction, the indices and the constants read "
             "once and r, J0, Ji written once; empty_launch_ms is a launch of an "
             "empty kernel timed the same way; no single PyTorch call computes it")),
         "dist_update": dict(timed["dist_update"], work=(
             f"the main run's accept rule and new gradient on its solve's step: "
-            f"{timed['rows']} slots, each neighbour's acceptance recomputed in place, "
-            "timed after dist_cg; the bound counts valid, dist, delta, the direction, "
+            f"{timed['rows']} slots, each neighbour's acceptance recomputed in place "
+            "(the standalone launch; launches: the mesh paths'), timed after dist_cg; "
+            "the bound counts valid, dist, delta, the direction, "
             "the indices and the constants read once and the new distances and "
             "gradient written once; no single PyTorch call computes it")),
         "light_normal_eqs_led": dict(timed["light_normal_eqs_led"], work=(
@@ -7925,8 +8333,11 @@ def main():
              library_ms=dist_rows[name]["library_ms"],
              **({"earlier_ms": dist_rows[name]["earlier_ms"]}
                 if "earlier_ms" in dist_rows[name] else {}),
+             **{k: v for k, v in dist_rows[name].items() if k.startswith("unfused_")},
              **({"latency_floor_ms": dist_rows[name]["latency_floor_ms"],
                  "barrier_floor_ms": dist_rows[name]["barrier_floor_ms"],
+                 "barrier_floor_without_update_ms":
+                     dist_rows[name]["barrier_floor_without_update_ms"],
                  "grid_sync_floor_ms": dist_rows[name]["grid_sync_floor_ms"],
                  "library_note": "no single PyTorch call computes it"}
                 if name == "dist_cg" else {}),

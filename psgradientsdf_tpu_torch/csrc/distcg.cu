@@ -1,6 +1,9 @@
 // The distance block's solve for Hopper (sm_90a): its normal equations
 // assembled per row (dist_system), and the whole Jacobi-preconditioned CG in
-// ONE cooperative launch (dist_cg).
+// ONE cooperative launch (dist_cg).  On the one-card refinement the block's
+// regularizer operators are a stage of dist_system and its update a stage
+// of dist_cg, so a distance block is three launches: dist_jacobian
+// (csrc/residual.cu), dist_system, dist_cg.
 //
 // Together they replace the JAX package's distance solve as
 // psgradientsdf_tpu/refine/optimizer.py `_dist_block` (:186) runs it:
@@ -33,9 +36,9 @@
 // (ops/distcg.dist_system_plain) emulates that order: the kernel equals it
 // bit for bit.  The launch follows the host plan ops/distcg._system_plan:
 // a persistent grid (kSysBlocks blocks an SM where two ring stages fit,
-// else one) over tiles of consecutive rows, 8 consumer warps and one
-// producer warp a block, each consumer warp one row group a lane (32 / G
-// rows) of a tile.
+// else one) over tiles of consecutive rows, 8 consumer warps, one
+// producer warp and one regularizer warp a block, each consumer warp one
+// row group a lane (32 / G rows) of a tile.
 // A tile's inputs are seven contiguous runs (w, r, J0 [rows][F*3], Ji
 // [rows][3][F*3], the Eikonal row's r, J0 [rows] and Ji [rows][3]); the
 // producer's lane 0 copies them into a ring of up to 4 shared-memory stages
@@ -49,6 +52,23 @@
 // 49152, F = 40, 0.042 ms at 3.35 TB/s), 20 bytes a row of the Eikonal row
 // and 56 bytes a row written; at F = 40 it reads at a plain torch.sum's rate
 // over as many bytes (PERF.md §6 records the designs measured).
+// The regularizer stage (reg): the Eikonal row and the Laplacian's residual
+// are formed here from the rows' stencils in place of three staged runs
+// (csrc/distreg.cu reg_operators_kernel's arithmetic, stencil.cuh, so the
+// bits are the standalone kernel's): each work below a launch's own
+// latency, it needs no launch of its own.  While the producer's lane 0
+// issues a tile's bulk copies, the regularizer warp's 32 lanes gather the
+// tile's rows' distances (valid, dist, the one-sided stencil's index,
+// constant and direction; the Laplacian's six) and write each row's
+// Eikonal terms into the stage's slots and its Laplacian residual to lap_r
+// [N] (dist_cg's input), a tile ahead of the stage, then arrive on the
+// stage's reg mbarrier (32 arrivals).  The consumers wait on it only after
+// their pairs' sums, before they add the Eikonal row: its dependent gathers
+// hold back neither the copies nor the sums (the producer's idle lanes
+// doing the same, on the full mbarrier, were measured slower, PERF.md §6).  In the
+// lanes' loads variant each row group forms its
+// row's terms itself.  It reads 41 bytes a row of stencil in place of the
+// 20 of the Eikonal row (+ 52 with the Laplacian: its stencil and lap_r).
 //
 // dist_cg_kernel: ONE cooperative launch runs the whole PCG.  The host plan
 // (ops/distcg._cg_plan) gives each block a contiguous tile of rows whose
@@ -120,6 +140,15 @@
 // without the Laplacian, 1.4 us at N = 49152); the time is set by the
 // steps' scattered loads and their barriers (chip_smoke.py times an empty
 // cooperative kernel crossing as many).
+// The update stage (update): after the last step and delta, one more
+// barrier, then each block applies the accept rule (|delta| < thr on a
+// valid row, thr = sqrt(3) h rounded once to float) to its rows and their
+// three neighbours and writes new_dist and the one-sided gradient of the
+// accepted distances new_grad (csrc/distreg.cu dist_update_kernel's
+// arithmetic, stencil.cuh): a row's own step and its tile's from x in the
+// block's vectors, another tile's from delta by ld.global.cg.  It leaves
+// delta's and the steps' bits as they are, and adds 44 bytes a row (dist,
+// the direction and the constants read; new_dist and new_grad written).
 //
 // Plain C interface (loaded with ctypes): dist_system() and dist_cg() launch
 // on the stream they are given; dist_cg_occupancy() checks the plan's
@@ -132,6 +161,7 @@
 
 #include "async_copy.cuh"
 #include "cg_sync.cuh"
+#include "stencil.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -144,7 +174,7 @@ struct SystemArgs {            // ops/distcg.py _SystemArgs, field for field
   const float* r;
   const float* J0;
   const float* Ji;
-  const float* eik_r;
+  const float* eik_r;          // the Eikonal row, formed beforehand (reg 0)
   const float* eik_J0;
   const float* eik_Ji;
   float* A;
@@ -152,12 +182,25 @@ struct SystemArgs {            // ops/distcg.py _SystemArgs, field for field
   int64_t n, pairs, eik;
   double reg_weight_n;
   SystemPlan plan;
+  // the regularizer stage (reg 1): the Eikonal row (eik) and the
+  // Laplacian's residual (laplacian) formed from the rows' stencils
+  const unsigned char* valid;  // [N]
+  const float* dist;           // [N]
+  const int32_t* nbr;          // [N, 3] the one-sided stencil
+  const float* nbr_dir;        // [N, 3]
+  const float* nbr_const;      // [N, 3] a frozen neighbour's distance
+  const int32_t* lap;          // [N, 6] the Laplacian's stencil
+  const float* lap_const;      // [N, 6]
+  float* lap_r;                // [N] written: the Laplacian's residual
+  int64_t reg, laplacian;
+  double voxel;                // h
 };
 
 struct CgPlan {                // ops/distcg.py CgPlan, field for field
   int64_t blocks, tile, mode, smem_bytes, barriers;
   // byte offsets of the tile's regions in shared memory (0: not there)
   int64_t A, nbr, rev, lap, valid, vec;
+  int64_t tail;                // grid barriers after the last step: 1 with the update stage
 };
 
 struct CgArgs {                // ops/distcg.py _CgArgs, field for field
@@ -176,6 +219,15 @@ struct CgArgs {                // ops/distcg.py _CgArgs, field for field
   double reg_weight_l, diag_coef, nbr_coef, diag_coef_sq, nbr_coef_sq,
       damping, tol_sq, atol_sq;
   CgPlan plan;
+  // the update stage (update 1): the accept rule and the new gradient
+  const float* dist;           // [N]
+  const float* nbr_dir;        // [N, 3]
+  const float* nbr_const;      // [N, 3]
+  float* new_dist;             // [N] written
+  float* new_grad;             // [N, 3] written
+  int64_t update;
+  double voxel;                // h
+  double accept;               // the threshold sqrt(3) h, a float's value
 };
 
 namespace {
@@ -183,9 +235,9 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSysWarps = 8;                        // ops/distcg.SYSTEM_WARPS
 constexpr int kSysBlocks = 2;                       // ops/distcg.SYSTEM_BLOCKS
-constexpr int kSysThreads = 32 * (kSysWarps + 1);   // and the producer warp
+constexpr int kSysThreads = 32 * (kSysWarps + 2);   // and the producer and regularizer warps
 constexpr int kSysDepth = 4;                        // ops/distcg.SYSTEM_DEPTH
-constexpr int kSysBarriers = 2 * kSysDepth * 8;     // full[4], empty[4]
+constexpr int kSysBarriers = 3 * kSysDepth * 8;     // full[4], empty[4], reg[4]
 constexpr int kUnroll = 4;        // pairs a lane has in flight
 
 // A's 10 entries in the order 00 01 02 03 11 12 13 22 23 33: entry q is
@@ -214,10 +266,40 @@ struct SystemParams {
   const float* __restrict__ eik_Ji;
   float* __restrict__ A;
   float* __restrict__ t;
+  const unsigned char* __restrict__ valid;   // the regularizer stage
+  const float* __restrict__ dist;
+  const int32_t* __restrict__ nbr;
+  const float* __restrict__ nbr_dir;
+  const float* __restrict__ nbr_const;
+  const int32_t* __restrict__ lap;
+  const float* __restrict__ lap_const;
+  float* __restrict__ lap_r;
   int64_t n, tiles;
-  int pairs, eik, tile, depth, ring;
+  int pairs, eik, tile, depth, ring, reg, laplacian;
   float lam;
+  RegConsts rc;
 };
+
+// The regularizer stage of row n from its stencil, in reg_operators_kernel's
+// arithmetic (stencil.cuh): the Eikonal row's terms e = (J0, Ji, r), 0 on an
+// invalid row or without the Eikonal term, and with the Laplacian (and
+// `write_lap`) its residual into lap_r[n], 0 on an invalid row.  Every
+// neighbour's distance is gathered before any arithmetic, so the row's
+// nine gathers are in flight together.
+__device__ __forceinline__ void reg_row(const SystemParams& p, int64_t n, float (&e)[5],
+                                        bool write_lap) {
+  const bool valid = p.valid[n] != 0;
+  const float d = __ldg(p.dist + n);
+  const bool lap = p.laplacian && write_lap;
+  auto value = [&](int64_t j) { return __ldg(p.dist + j); };
+  float dn[3], dl[6];
+  if (p.eik) gather_row(value, p.nbr + 3 * n, p.nbr_const + 3 * n, dn);
+  if (lap) gather_row(value, p.lap + 6 * n, p.lap_const + 6 * n, dl);
+#pragma unroll
+  for (int q = 0; q < 5; ++q) e[q] = 0.0f;
+  if (p.eik && valid) eikonal_row(dn, p.nbr_dir + 3 * n, d, p.rc, e);
+  if (lap) p.lap_r[n] = valid ? laplacian_row(dl, d, p.rc.inv_h2) : 0.0f;
+}
 
 // a pair's input: from the ring (shared memory) or from device memory
 template <bool kStaged>
@@ -285,8 +367,9 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[16], int gl) {
   }
 }
 
-// Dynamic shared memory: full[kSysDepth] and empty[kSysDepth] mbarriers
-// (kSysBarriers bytes), each consumer warp's staged outputs [32 / G] x (A's
+// Dynamic shared memory: full[kSysDepth], empty[kSysDepth] and
+// reg[kSysDepth] mbarriers (kSysBarriers bytes), each consumer warp's staged
+// outputs [32 / G] x (A's
 // 10, then t's 4 a row), then from byte p.ring the ring: p.depth
 // stages of the tile's w, r, J0 [tile][pairs], Ji [tile][3][pairs] and the
 // Eikonal row's r, J0 [tile] and Ji [tile][3].
@@ -298,6 +381,7 @@ dist_system_kernel(const __grid_constant__ SystemParams p) {
   constexpr int kMine = G < 32 ? 16 / G : 1;        // values a lane ends with
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kSysDepth;
+  uint64_t* regd = empty + kSysDepth;               // the regularizer warp's rows in
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int J = p.pairs, R = p.tile, D = p.depth;
   const int64_t run = static_cast<int64_t>(R) * J;  // a stage: 6 such runs, then 5 R
@@ -305,9 +389,12 @@ dist_system_kernel(const __grid_constant__ SystemParams p) {
   float* ring = reinterpret_cast<float*>(smem + p.ring);
   if constexpr (kStaged) {
     if (threadIdx.x == 0) {
+      // full: the bulk copies' bytes and the producer's arrival; regd: the
+      // regularizer warp's 32 lanes' once their rows are in the stage
       for (int s = 0; s < D; ++s) {
         mbar_init(&full[s], 1);
         mbar_init(&empty[s], kSysWarps);
+        mbar_init(&regd[s], 32);
       }
       fence_mbar_init();
     }
@@ -316,7 +403,7 @@ dist_system_kernel(const __grid_constant__ SystemParams p) {
   if (warp == kSysWarps) {                          // the producer
     if constexpr (kStaged) {
       if (lane != 0) return;
-      const int runs = p.eik ? 7 : 4;
+      const int runs = p.eik && !p.reg ? 7 : 4;
       int k = 0;
       for (int64_t tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++k) {
         const int s = k % D;
@@ -339,6 +426,40 @@ dist_system_kernel(const __grid_constant__ SystemParams p) {
 #pragma unroll
         for (int a = 0; a < 7; ++a)
           if (a < runs) bulk_run(d[a], g[a], bytes[a], &full[s]);
+      }
+    }
+    return;
+  }
+  if (warp == kSysWarps + 1) {                      // the regularizer stage
+    if constexpr (kStaged) {
+      if (!p.reg) return;
+      // tile by tile beside the producer: lane l forms rows l and l + 32
+      // of the tile (a tile has at most 64 rows) into registers (their
+      // Laplacian residuals into lap_r) before the tile's stage is free,
+      // then writes them into the stage's Eikonal slots and arrives, so
+      // its gathers run a tile ahead of the copies
+      int k = 0;
+      for (int64_t tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++k) {
+        const int64_t n0 = tile * R;
+        const int rows = static_cast<int>(p.n - n0 < R ? p.n - n0 : R);
+        float e[2][5];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (lane + 32 * h < rows) reg_row(p, n0 + lane + 32 * h, e[h], true);
+        const int s = k % D;
+        if (k >= D) mbar_wait(&empty[s], ((k / D) - 1) & 1);
+        float* er = ring + stage * s + 6 * run;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = lane + 32 * h;
+          if (row < rows) {
+            er[row] = e[h][4];
+            er[R + row] = e[h][0];
+#pragma unroll
+            for (int i = 0; i < 3; ++i) er[2 * R + 3 * row + i] = e[h][1 + i];
+          }
+        }
+        mbar_arrive(&regd[s]);
       }
     }
     return;
@@ -371,7 +492,9 @@ dist_system_kernel(const __grid_constant__ SystemParams p) {
 #pragma unroll
       for (int q = 0; q < 16; ++q) v[q] = 0.0f;
       if (live) {
-        if (p.eik) {                                // J0, Ji, r: in flight with the pairs
+        if (!kStaged && p.reg) {                    // the lanes' loads: the stage here
+          reg_row(p, n0 + lr, e, gl == 0);
+        } else if (p.eik && !p.reg) {               // J0, Ji, r: in flight with the pairs
           e[0] = ld_pair<kStaged>(ej0 + lr);
           e[1] = ld_pair<kStaged>(eji + 3 * lr);
           e[2] = ld_pair<kStaged>(eji + 3 * lr + 1);
@@ -409,6 +532,16 @@ dist_system_kernel(const __grid_constant__ SystemParams p) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) v[10 + i] = __fadd_rn(v[10 + i], __fmul_rn(wr_, a[u][i]));
           }
+        }
+      }
+      if (kStaged && p.reg) {                       // the regularizer warp's rows,
+        mbar_wait(&regd[k % D], (k / D) & 1);       // needed only now
+        if (live && p.eik) {
+          e[0] = ej0[lr];
+          e[1] = eji[3 * lr];
+          e[2] = eji[3 * lr + 1];
+          e[3] = eji[3 * lr + 2];
+          e[4] = er[lr];
         }
       }
       reduce_scatter<G>(v, gl);
@@ -488,9 +621,14 @@ struct CgParams {
   float* own;                           // kGlobal: the blocks' s [N][4], vectors [8][N]
   uint32_t* counter;                    // the barriers' arrivals
   float* part;                          // [2][blocks][2]: the blocks' partials
-  int n, tile, blocks, maxiter, fixed, use_lap, lap_nbr;
+  const float* __restrict__ dist;       // the update stage's inputs
+  const float* __restrict__ nbr_dir;
+  const float* __restrict__ nbr_const;
+  float* new_dist;
+  float* new_grad;
+  int n, tile, blocks, maxiter, fixed, use_lap, lap_nbr, update;
   int off_A, off_nbr, off_rev, off_lap, off_valid, off_vec;
-  float w_l, dc, nc, dc2, nc2, damping, one_plus_damping, tol2, atol2;
+  float w_l, dc, nc, dc2, nc2, damping, one_plus_damping, tol2, atol2, inv_h_div, thr;
 };
 
 // ------------------------------------------ shared-memory copies, barriers
@@ -941,6 +1079,32 @@ dist_cg_kernel(const __grid_constant__ CgParams p) {
   for (int l = tid; l < rows; l += kCgThreads)
     p.delta[begin + l] = tValid[l] != 0 ? vx[l] : 0.0f;
   if (blockIdx.x == 0 && tid == 0) *p.steps = steps;
+  if (!p.update) return;
+
+  // ---- the update stage: once every block's delta is written (one more
+  // barrier), each row's accept rule and the one-sided gradient of the
+  // accepted distances, in dist_update_kernel's arithmetic (stencil.cuh).
+  // A row's neighbour's step: the block's own from x (= delta on a valid
+  // row; an invalid row's step is not read), another tile's from delta,
+  // written in this launch (ld.global.cg)
+  barrier(p, ++epoch);
+  auto accepted_at = [&](int64_t j64) -> float {
+    const int j = static_cast<int>(j64);
+    const bool o = on(j);
+    const float mine = vx[o ? j - begin : 0];
+    const float other = ldcg_if(!o, p.delta + j);
+    return accepted(__ldg(p.dist + j), o ? mine : other, valid_at(j), p.thr);
+  };
+  for (int l = tid; l < rows; l += kCgThreads) {
+    const size_t m = static_cast<size_t>(begin + l);
+    const float d = accepted(__ldg(p.dist + m), vx[l], tValid[l] != 0, p.thr);
+    float dn[3], g[3];
+    gather_row(accepted_at, tNbr + 3 * l, p.nbr_const + 3 * m, dn);
+    fd_row(dn, p.nbr_dir + 3 * m, d, p.inv_h_div, g);
+    p.new_dist[m] = d;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) p.new_grad[3 * m + i] = g[i];
+  }
 }
 
 // An empty cooperative kernel on dist_cg's grid: kind 0 crosses `barriers`
@@ -1022,18 +1186,30 @@ extern "C" int dist_system(const SystemArgs* a, void* stream) {
   const void* kernel = system_kernel(pl.lanes, pl.depth > 0);
   const int64_t stage = pl.tile * (24 * a->pairs + 20);
   const auto aligned = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) == 0; };
-  if (a->n < 1 || a->pairs < 1 || (a->eik && (!a->eik_r || !a->eik_J0 || !a->eik_Ji)) ||
+  const bool staged_eik = a->eik && !a->reg;      // the Eikonal row from eik_*
+  const bool reg_ok =
+      a->reg ? (a->eik || a->laplacian) && a->valid && a->dist && a->nbr && a->nbr_dir &&
+                   a->nbr_const && (!a->laplacian || (a->lap && a->lap_const && a->lap_r))
+             : !a->laplacian;
+  if (a->n < 1 || a->pairs < 1 || !reg_ok ||
+      (staged_eik && (!a->eik_r || !a->eik_J0 || !a->eik_Ji)) ||
       !kernel || pl.tile != kSysWarps * (32 / pl.lanes) || pl.depth < 0 || pl.depth == 1 ||
       pl.depth > kSysDepth || pl.blocks < 1 || pl.ring % 128 != 0 ||
       pl.ring < kSysBarriers + 56 * pl.tile || pl.smem_bytes != pl.ring + pl.depth * stage ||
       (pl.depth > 0 && !(aligned(a->w) && aligned(a->r) && aligned(a->J0) && aligned(a->Ji) &&
-                         (!a->eik || (aligned(a->eik_r) && aligned(a->eik_J0) &&
-                                      aligned(a->eik_Ji))))))
+                         (!staged_eik || (aligned(a->eik_r) && aligned(a->eik_J0) &&
+                                          aligned(a->eik_Ji))))))
     return static_cast<int>(cudaErrorInvalidValue);
   SystemParams p;
   p.w = a->w;  p.r = a->r;  p.J0 = a->J0;  p.Ji = a->Ji;
   p.eik_r = a->eik_r;  p.eik_J0 = a->eik_J0;  p.eik_Ji = a->eik_Ji;
   p.A = a->A;  p.t = a->t;
+  p.valid = a->valid;  p.dist = a->dist;  p.nbr = a->nbr;  p.nbr_dir = a->nbr_dir;
+  p.nbr_const = a->nbr_const;  p.lap = a->lap;  p.lap_const = a->lap_const;
+  p.lap_r = a->lap_r;
+  p.reg = static_cast<int>(a->reg);
+  p.laplacian = static_cast<int>(a->laplacian);
+  p.rc = reg_consts(a->voxel);
   p.n = a->n;
   p.tiles = (a->n + pl.tile - 1) / pl.tile;
   p.pairs = static_cast<int>(a->pairs);
@@ -1084,7 +1260,9 @@ extern "C" int dist_cg(const CgArgs* a, void* stream) {
   const int64_t n = a->n;
   const CgPlan& plan = a->plan;
   if (n < 1 || a->maxiter < 0 || n > (int64_t{1} << 30) / 16 ||
-      (a->use_lap && a->lap_r == nullptr) || plan.mode < kTile || plan.mode > kGlobal ||
+      (a->use_lap && a->lap_r == nullptr) || plan.tail != (a->update ? 1 : 0) ||
+      (a->update && !(a->dist && a->nbr_dir && a->nbr_const && a->new_dist && a->new_grad)) ||
+      plan.mode < kTile || plan.mode > kGlobal ||
       plan.tile < 16 || plan.tile % 16 != 0 || plan.blocks < 1 ||
       (plan.blocks - 1) * plan.tile >= n || plan.blocks * plan.tile < n ||
       plan.smem_bytes < kHeader)
@@ -1115,6 +1293,11 @@ extern "C" int dist_cg(const CgArgs* a, void* stream) {
   p.one_plus_damping = static_cast<float>(1.0 + a->damping);
   p.tol2 = static_cast<float>(a->tol_sq);
   p.atol2 = static_cast<float>(a->atol_sq);
+  p.update = static_cast<int>(a->update);
+  p.dist = a->dist;  p.nbr_dir = a->nbr_dir;  p.nbr_const = a->nbr_const;
+  p.new_dist = a->new_dist;  p.new_grad = a->new_grad;
+  p.inv_h_div = reg_consts(a->voxel).inv_h_div;
+  p.thr = static_cast<float>(a->accept);
   void* args[] = {&p};
   return cooperative(cg_kernel(plan.mode), plan.blocks, plan.smem_bytes, args, stream);
 }

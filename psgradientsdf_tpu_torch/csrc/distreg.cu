@@ -28,6 +28,13 @@
 //     no second pass and no grid barrier.  Without delta it forms the
 //     gradient of dist alone.
 //
+// The one-card refinement runs neither kernel: their rows are
+// stages of csrc/distcg.cu's dist_system (the Eikonal row and the
+// Laplacian's residual) and dist_cg (the update).  They stay for the joint
+// step and the mesh's shards.  The per-row arithmetic is stencil.cuh's
+// (gather_row, eikonal_row, laplacian_row, accepted, fd_row), shared with
+// those stages.
+//
 // Bits.  Every product, sum and quotient is an explicit _rn intrinsic
 // (stencil.cuh) in the plain chain's order; a division by the voxel size is
 // a product with the float reciprocal, as PyTorch divides a CUDA tensor by
@@ -88,69 +95,53 @@ namespace {
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
-reg_operators_kernel(RegArgs a, float inv_h_div, float inv_h, float neg_inv_h,
-                     float inv_h2) {
+reg_operators_kernel(RegArgs a, RegConsts c) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  auto value = [&](int64_t j) { return a.dist[j]; };
   for (int64_t n = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; n < a.N;
        n += stride) {
     const bool valid = a.valid[n] != 0;
     const float d = a.dist[n];
     if (a.eikonal) {
-      float r = 0.0f, J0 = 0.0f, Ji[3] = {0.0f, 0.0f, 0.0f};
+      float e[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};   // J0, Ji, r
       if (valid) {
-        float g[3];
-        fd_grad(a.dist, a.nbr_idx, a.nbr_dist_const, a.nbr_dir, n, d, inv_h_div, g);
-        const float gnorm = norm3(g);
-        r = fsub(gnorm, 1.0f);
-        const float* dir = a.nbr_dir + 3 * n;
-        const float nd0[3] = {fmul(dir[0], neg_inv_h), fmul(dir[1], neg_inv_h),
-                              fmul(dir[2], neg_inv_h)};
-        const float scale = gnorm > 0.0f ? frcp(clamp_min(gnorm, 1e-12f)) : 1.0f;
-        J0 = fmul(dot3(g, nd0), scale);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) Ji[i] = fmul(fmul(fmul(g[i], dir[i]), inv_h), scale);
+        float dn[3];
+        gather_row(value, a.nbr_idx + 3 * n, a.nbr_dist_const + 3 * n, dn);
+        eikonal_row(dn, a.nbr_dir + 3 * n, d, c, e);
       }
-      a.r[n] = r;
-      a.J0[n] = J0;
+      a.r[n] = e[4];
+      a.J0[n] = e[0];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) a.Ji[3 * n + i] = Ji[i];
+      for (int i = 0; i < 3; ++i) a.Ji[3 * n + i] = e[1 + i];
     }
     if (a.laplacian) {
       float lap = 0.0f;
       if (valid) {
-        float s = nbr_value(a.dist, a.lap_idx[6 * n], a.lap_dist_const[6 * n]);
-#pragma unroll
-        for (int i = 1; i < 6; ++i)
-          s = fadd(s, nbr_value(a.dist, a.lap_idx[6 * n + i], a.lap_dist_const[6 * n + i]));
-        lap = fmul(fsub(s, fmul(6.0f, d)), inv_h2);
+        float dl[6];
+        gather_row(value, a.lap_idx + 6 * n, a.lap_dist_const + 6 * n, dl);
+        lap = laplacian_row(dl, d, c.inv_h2);
       }
       a.lap_r[n] = lap;
     }
   }
 }
 
-// the accept rule's distance of row m: d - delta where |delta| < thr and
-// the row is valid, else d
-__device__ __forceinline__ float accepted(const UpdateArgs& a, int64_t m, float thr) {
-  const float d = a.dist[m];
-  if (a.delta == nullptr) return d;
-  const float dl = a.delta[m];
-  return (fabsf(dl) < thr) & (a.valid[m] != 0) ? fsub(d, dl) : d;
-}
-
 __global__ void __launch_bounds__(kThreads)
 dist_update_kernel(UpdateArgs a, float inv_h_div, float thr) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  // the accept rule's distance of row m (dist itself without delta)
+  auto acc = [&](int64_t m) {
+    return a.delta == nullptr ? a.dist[m] : accepted(a.dist[m], a.delta[m], a.valid[m] != 0, thr);
+  };
   for (int64_t n = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; n < a.N;
        n += stride) {
-    const float d = accepted(a, n, thr);
+    const float d = acc(n);
     if (a.delta != nullptr) a.new_dist[n] = d;
+    float dn[3], g[3];
+    gather_row(acc, a.nbr_idx + 3 * n, a.nbr_dist_const + 3 * n, dn);
+    fd_row(dn, a.nbr_dir + 3 * n, d, inv_h_div, g);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const int64_t j = a.nbr_idx[3 * n + i];
-      const float dn = j >= 0 ? accepted(a, j, thr) : a.nbr_dist_const[3 * n + i];
-      a.new_grad[3 * n + i] = fmul(fmul(a.nbr_dir[3 * n + i], fsub(dn, d)), inv_h_div);
-    }
+    for (int i = 0; i < 3; ++i) a.new_grad[3 * n + i] = g[i];
   }
 }
 
@@ -162,26 +153,17 @@ int reg_operators(const RegArgs* a, void* stream) {
   if (a->N < 0 || a->blocks <= 0 || !(a->eikonal || a->laplacian))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a->N == 0) return 0;
-  // 1 / (float)h, as a CUDA tensor is divided by h; the Python numbers
-  // -1 / h and 1 / h rounded to float, as a tensor is multiplied by them;
-  // 1 / (float)(h h), as fd_laplacian divides by h^2
-  const float inv_h_div = 1.0f / static_cast<float>(a->voxel);
-  const float inv_h = static_cast<float>(1.0 / a->voxel);
-  const float neg_inv_h = static_cast<float>(-(1.0 / a->voxel));
-  const float inv_h2 = 1.0f / static_cast<float>(a->voxel * a->voxel);
   reg_operators_kernel<<<static_cast<unsigned>(a->blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(*a, inv_h_div, inv_h,
-                                                              neg_inv_h, inv_h2);
+                         static_cast<cudaStream_t>(stream)>>>(*a, reg_consts(a->voxel));
   return static_cast<int>(cudaGetLastError());
 }
 
 int dist_update(const UpdateArgs* a, void* stream) {
   if (a->N < 0 || a->blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (a->N == 0) return 0;
-  const float inv_h_div = 1.0f / static_cast<float>(a->voxel);
   dist_update_kernel<<<static_cast<unsigned>(a->blocks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      *a, inv_h_div, static_cast<float>(a->accept));
+      *a, reg_consts(a->voxel).inv_h_div, static_cast<float>(a->accept));
   return static_cast<int>(cudaGetLastError());
 }
 

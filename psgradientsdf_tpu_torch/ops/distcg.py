@@ -8,6 +8,14 @@ versions for CPU tensors.
   dist_cg(A, t, valid, stencil, lap, *, reg_weight_l, damping, cg_iters,
           cg_tol, cg_static, atol=0.0, steps_out=None) -> delta [N]
 
+and the same two launches with the distance block's tail as their stages
+(the one-card refinement's path, refine/solvers.distance_step):
+
+  dist_system_reg(rd, DJ, prob, dist, stencil, voxel_size, *, reg_weight_n,
+                  reg_weight_l, diag_only) -> (A, t, lap)
+  dist_cg_update(A, t, prob, dist, stencil, lap, voxel_size, *, ...)
+      -> (delta, new_dist [N], new_grad [N,3])
+
 Together they replace the JAX package's distance solve as
 psgradientsdf_tpu/refine/optimizer.py `_dist_block` (:186) runs it:
 refine/solvers.py `solve_distance` (:265) with jax.scipy.sparse.linalg.cg
@@ -71,9 +79,19 @@ when it is not, which hp_gather_plain emulates (equal to operator_apply bit
 for bit); so a step crosses two grid barriers, three under the Laplacian's
 neighbour term.
 
+The stages.  dist_system_reg forms the Eikonal row and the Laplacian's
+residual from the rows' stencils inside dist_system's launch (the arithmetic
+of ops/distreg.reg_operators' kernel), in place of reading them from a
+launch of their own; dist_cg_update ends dist_cg's launch with one more grid
+barrier and ops/distreg.dist_update's accept rule and gradient.  Their plain
+versions are the unfused chains: distreg.reg_operators_plain, then
+dist_system_plain; dist_cg_plain, then distreg.dist_update_plain; the kernels
+equal them bit for bit (the CG's delta to float32 rounding, as dist_cg's).
+
 A wrapper takes the plain version ONLY for tensors that lie on the CPU; for
 CUDA tensors it launches the kernel or raises.  `launch_counts` counts
-kernel launches and nothing else.
+kernel launches and nothing else (a launch with a stage counts as its
+kernel's).
 """
 
 from __future__ import annotations
@@ -84,6 +102,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from psgradientsdf_tpu_torch.ops import distreg
 from psgradientsdf_tpu_torch.refine.problem import RefineProblem
 
 _LIB_NAME = "distcg"
@@ -387,15 +406,16 @@ def dist_cg_plain(A, t, valid, stencil: StencilReverse, lap, *,
 # ---------------------------------------------------------------------------
 
 
-# dist_system's launch: consumer warps a block (and one producer warp),
-# blocks an SM (csrc/distcg.cu kSysBlocks), the stages at most, the shared
-# memory of an SM the blocks share; the stages' mbarriers (full and empty, 8
-# bytes each) ahead of the rows' staged outputs (csrc/distcg.cu kSys*)
+# dist_system's launch: consumer warps a block (and one producer and one
+# regularizer warp), blocks an SM (csrc/distcg.cu kSysBlocks), the stages at
+# most, the shared memory of an SM the blocks share; the stages' mbarriers
+# (full, empty and reg, 8 bytes each) ahead of the rows' staged outputs
+# (csrc/distcg.cu kSys*)
 SYSTEM_WARPS = 8
 SYSTEM_BLOCKS = 2
 SYSTEM_DEPTH = 4
 SYSTEM_SM_SMEM = 220 * 1024
-_SYSTEM_BARRIERS = 2 * SYSTEM_DEPTH * 8
+_SYSTEM_BARRIERS = 3 * SYSTEM_DEPTH * 8
 # bytes a pair (w, r, J0, Ji), a row's Eikonal row (r, J0, Ji) and its
 # outputs (A's 10, t's 4)
 _PAIR_BYTES = 24
@@ -451,12 +471,16 @@ class _SystemPlan(ctypes.Structure):
 
 
 class _SystemArgs(ctypes.Structure):
-    """csrc/distcg.cu SystemArgs, field for field (every field 8 bytes)."""
+    """csrc/distcg.cu SystemArgs, field for field (every field 8 bytes); the
+    regularizer stage's fields after the plan."""
     _p, _i, _d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
     _fields_ = [("w", _p), ("r", _p), ("J0", _p), ("Ji", _p), ("eik_r", _p),
                 ("eik_J0", _p), ("eik_Ji", _p), ("A", _p), ("t", _p),
                 ("n", _i), ("pairs", _i), ("eik", _i), ("reg_weight_n", _d),
-                ("plan", _SystemPlan)]
+                ("plan", _SystemPlan),
+                ("valid", _p), ("dist", _p), ("nbr", _p), ("nbr_dir", _p),
+                ("nbr_const", _p), ("lap", _p), ("lap_const", _p), ("lap_r", _p),
+                ("reg", _i), ("laplacian", _i), ("voxel", _d)]
 
 
 # dist_cg's launch: threads a block, the three layouts of a block's tile,
@@ -497,6 +521,14 @@ class CgPlan(NamedTuple):
     lap: int
     valid: int
     vec: int
+    tail: int = 0          # grid barriers after the last step: 1 with the update stage
+
+
+def grid_barriers(plan: CgPlan, steps: int) -> int:
+    """The grid barriers a dist_cg launch on `plan` crosses in `steps`
+    steps: the prologue's grid.sync, the plan's barriers a step and its
+    tail (the update stage's)."""
+    return 1 + plan.barriers * steps + plan.tail
 
 
 def _up16(x: int) -> int:
@@ -527,12 +559,15 @@ def vector_tile_limit(lap_nbr: bool) -> int:
     return (SMEM_PER_BLOCK - _HEADER) // per * TILE_ROWS
 
 
-def _cg_plan(N: int, *, use_lap: bool, lap_nbr: bool, sms: int) -> CgPlan:
+def _cg_plan(N: int, *, use_lap: bool, lap_nbr: bool, sms: int,
+             update: bool = False) -> CgPlan:
     """dist_cg's launch for N rows on a card of `sms` SMs: one block an SM
     at most, contiguous tiles on multiples of TILE_ROWS rows (the last
     shorter), every block at least one row; the first layout whose shared
     memory fits a block (TILE, then VECTORS, then GLOBAL) and its regions;
-    the grid barriers a step (2, 3 under the Laplacian's neighbour term)."""
+    the grid barriers a step (2, 3 under the Laplacian's neighbour term)
+    and after the last (1 with the update stage, which needs no more shared
+    memory: its rows' steps are in the vectors already)."""
     if N < 1 or sms < 1:
         raise ValueError(f"dist_cg: no plan for {N} rows on {sms} SMs")
     nbr_term = bool(use_lap and lap_nbr)
@@ -558,7 +593,7 @@ def _cg_plan(N: int, *, use_lap: bool, lap_nbr: bool, sms: int) -> CgPlan:
         off += vec_bytes
     else:
         mode, off = GLOBAL, _HEADER
-    return CgPlan(blocks, tile, mode, off, barriers, **regions)
+    return CgPlan(blocks, tile, mode, off, barriers, **regions, tail=int(update))
 
 
 _bound = None
@@ -580,7 +615,9 @@ class _CgArgs(ctypes.Structure):
                 ("fixed", _i), ("use_lap", _i), ("lap_nbr", _i),
                 ("reg_weight_l", _d), ("diag_coef", _d), ("nbr_coef", _d),
                 ("diag_coef_sq", _d), ("nbr_coef_sq", _d), ("damping", _d),
-                ("tol_sq", _d), ("atol_sq", _d), ("plan", _CgPlan)]
+                ("tol_sq", _d), ("atol_sq", _d), ("plan", _CgPlan),
+                ("dist", _p), ("nbr_dir", _p), ("nbr_const", _p), ("new_dist", _p),
+                ("new_grad", _p), ("update", _i), ("voxel", _d), ("accept", _d)]
 
 
 def _check(what: str, dev, named) -> None:
@@ -618,15 +655,16 @@ def _library():
     return _bound
 
 
-def cg_plan(dev: torch.device, N: int, *, use_lap: bool, lap_nbr: bool) -> CgPlan:
+def cg_plan(dev: torch.device, N: int, *, use_lap: bool, lap_nbr: bool,
+            update: bool = False) -> CgPlan:
     """_cg_plan on `dev`'s SMs, found once; its layout's cooperative
     occupancy at its shared memory checked once per (device, mode, bytes):
     a layout the card cannot run raises."""
-    key = (dev.index, N, bool(use_lap), bool(use_lap and lap_nbr))
+    key = (dev.index, N, bool(use_lap), bool(use_lap and lap_nbr), bool(update))
     plan = _plans.get(key)
     if plan is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = _cg_plan(N, use_lap=use_lap, lap_nbr=lap_nbr, sms=sms)
+        plan = _cg_plan(N, use_lap=use_lap, lap_nbr=lap_nbr, sms=sms, update=update)
         okey = (dev.index, plan.mode, plan.smem_bytes)
         if okey not in _occupancy:
             per_sm = ctypes.c_int64()
@@ -688,62 +726,42 @@ def _launch(name: str, args, dev) -> None:
     launch_counts[name] += 1
 
 
-# ---------------------------------------------------------------------------
-# the wrappers
-# ---------------------------------------------------------------------------
-
-
-def dist_system(rd, DJ, eik, *, reg_weight_n: float
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The distance block's rows (A [N,10], t [N,4]) from the residual pass
-    rd (w, r [N,F,3]), the distance Jacobian DJ (J0 [N,F,3], Ji [N,3,F,3])
-    and the Eikonal operator (r, J0 [N], Ji [N,3]; None when its weight is
-    0): one kernel launch on the card, dist_system_plain on the CPU.  The
-    tiles are bulk-copied where every input starts on a 16-byte boundary,
-    else the lanes read device memory; the same bits either way."""
-    w = rd.w
-    if w.device.type == "cpu":
-        return dist_system_plain(rd, DJ, eik, reg_weight_n=reg_weight_n)
-    N, F = w.shape[0], w.shape[1]
+def _system_inputs(rd, DJ, N: int, F: int):
     f32 = torch.float32
-    named = [("rd.w", w, (N, F, 3), f32), ("rd.r", rd.r, (N, F, 3), f32),
-             ("DJ.J0", DJ.J0, (N, F, 3), f32), ("DJ.Ji", DJ.Ji, (N, 3, F, 3), f32)]
-    if eik is not None:
-        named += [("eik.r", eik.r, (N,), f32), ("eik.J0", eik.J0, (N,), f32),
-                  ("eik.Ji", eik.Ji, (N, 3), f32)]
-    _check("dist_system", w.device, named)
-    A = torch.empty((N, 10), dtype=f32, device=w.device)
-    t = torch.empty((N, 4), dtype=f32, device=w.device)
-    a = _SystemArgs()
+    return [("rd.w", rd.w, (N, F, 3), f32), ("rd.r", rd.r, (N, F, 3), f32),
+            ("DJ.J0", DJ.J0, (N, F, 3), f32), ("DJ.Ji", DJ.Ji, (N, 3, F, 3), f32)]
+
+
+def _system_launch(rd, DJ, a: _SystemArgs, staged_inputs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dist_system's launch with the argument block `a` (its inputs set
+    beside the pairs'): A and t allocated, the pairs' pointers and the plan
+    set (bulk-copied where every input of `staged_inputs` starts on a
+    16-byte boundary)."""
+    w = rd.w
+    N, F = w.shape[0], w.shape[1]
+    A = torch.empty((N, 10), dtype=torch.float32, device=w.device)
+    t = torch.empty((N, 4), dtype=torch.float32, device=w.device)
     a.w, a.r, a.J0, a.Ji = (w.data_ptr(), rd.r.data_ptr(), DJ.J0.data_ptr(),
                             DJ.Ji.data_ptr())
-    if eik is not None:
-        a.eik_r, a.eik_J0, a.eik_Ji = (eik.r.data_ptr(), eik.J0.data_ptr(),
-                                       eik.Ji.data_ptr())
     a.A, a.t = A.data_ptr(), t.data_ptr()
-    a.n, a.pairs, a.eik = N, F * 3, int(eik is not None)
-    a.reg_weight_n = float(reg_weight_n)
-    staged_inputs = [w, rd.r, DJ.J0, DJ.Ji] + ([] if eik is None else [eik.r, eik.J0, eik.Ji])
-    aligned = all(x.data_ptr() % 16 == 0 for x in staged_inputs)
+    a.n, a.pairs = N, F * 3
+    aligned = all(x.data_ptr() % 16 == 0 for x in [w, rd.r, DJ.J0, DJ.Ji] + staged_inputs)
     a.plan = _SystemPlan(*system_plan(w.device, N, F * 3, staged=aligned))
     _launch("dist_system", a, w.device)
     return A, t
 
 
-def dist_cg(A: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
-            stencil: StencilReverse, lap, *, reg_weight_l: float,
-            damping: float, cg_iters: int, cg_tol: float, cg_static: bool,
-            atol: float = 0.0, steps_out: Optional[List] = None) -> torch.Tensor:
-    """The distance step delta [N] (0 on invalid rows) from the assembled
-    rows: the whole Jacobi-PCG in ONE cooperative launch on the card, its
-    stop decided there (nothing read back; `steps_out` receives the step
-    count as a 0-dim int64 tensor on the card), dist_cg_plain on the CPU.
-    `lap` is the Laplacian operator (r [N], diag_coef, nbr_coef), None when
-    its weight is 0."""
-    if A.device.type == "cpu":
-        return dist_cg_plain(A, t, valid, stencil, lap, reg_weight_l=reg_weight_l,
-                             damping=damping, cg_iters=cg_iters, cg_tol=cg_tol,
-                             cg_static=cg_static, atol=atol, steps_out=steps_out)
+def _same_problem(what: str, prob: RefineProblem, stencil: StencilReverse) -> None:
+    if stencil is None or stencil.source is not prob.nbr_idx:
+        raise ValueError(f"{what}: the stencil table is missing or was built for "
+                         "another problem")
+
+
+def _cg_launch(A, t, valid, stencil: StencilReverse, lap, *, reg_weight_l: float,
+               damping: float, cg_iters: int, cg_tol: float, cg_static: bool,
+               atol: float, steps_out: Optional[List], update=None) -> torch.Tensor:
+    """dist_cg's launch -> delta; `update` (prob, dist, voxel_size, new_dist,
+    new_grad) adds the update stage, which writes the last two."""
     N = A.shape[0]
     f32, i32 = torch.float32, torch.int32
     named = [("A", A, (N, 10), f32), ("t", t, (N, 4), f32),
@@ -753,12 +771,17 @@ def dist_cg(A: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
              ("stencil.lap", stencil.lap, (N, 6), i32)]
     if lap is not None:
         named.append(("lap.r", lap.r, (N,), f32))
+    if update is not None:
+        prob, dist = update[0], update[1]
+        named += [("dist", dist, (N,), f32), ("nbr_dir", prob.nbr_dir, (N, 3), f32),
+                  ("nbr_dist_const", prob.nbr_dist_const, (N, 3), f32)]
     _check("dist_cg", A.device, named)
     if cg_iters < 0:
         raise ValueError(f"dist_cg: cg_iters must be >= 0, got {cg_iters}")
     dev = A.device
     lap_nbr = lap is not None and lap.nbr_coef != 0.0
-    plan = cg_plan(dev, N, use_lap=lap is not None, lap_nbr=lap_nbr)
+    plan = cg_plan(dev, N, use_lap=lap is not None, lap_nbr=lap_nbr,
+                   update=update is not None)
     if plan.mode == TILE:
         staged = [("A", A), ("valid", valid), ("stencil.nbr", stencil.nbr),
                   ("stencil.rev", stencil.rev)] + ([("stencil.lap", stencil.lap)]
@@ -786,7 +809,134 @@ def dist_cg(A: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
         a.diag_coef_sq, a.nbr_coef_sq = lap.diag_coef ** 2, lap.nbr_coef ** 2
     a.damping = float(damping)
     a.tol_sq, a.atol_sq = cg_tol * cg_tol, atol * atol
+    if update is not None:
+        prob, dist, voxel_size, new_dist, new_grad = update
+        a.update, a.dist = 1, dist.data_ptr()
+        a.nbr_dir, a.nbr_const = prob.nbr_dir.data_ptr(), prob.nbr_dist_const.data_ptr()
+        a.new_dist, a.new_grad = new_dist.data_ptr(), new_grad.data_ptr()
+        a.voxel, a.accept = float(voxel_size), distreg.accept_threshold(voxel_size)
     _launch("dist_cg", a, dev)
     if steps_out is not None:
         steps_out.append(steps.view(()))
     return delta
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
+
+def dist_system(rd, DJ, eik, *, reg_weight_n: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The distance block's rows (A [N,10], t [N,4]) from the residual pass
+    rd (w, r [N,F,3]), the distance Jacobian DJ (J0 [N,F,3], Ji [N,3,F,3])
+    and the Eikonal operator (r, J0 [N], Ji [N,3]; None when its weight is
+    0): one kernel launch on the card, dist_system_plain on the CPU.  The
+    tiles are bulk-copied where every input starts on a 16-byte boundary,
+    else the lanes read device memory; the same bits either way."""
+    w = rd.w
+    if w.device.type == "cpu":
+        return dist_system_plain(rd, DJ, eik, reg_weight_n=reg_weight_n)
+    N, F = w.shape[0], w.shape[1]
+    f32 = torch.float32
+    named = _system_inputs(rd, DJ, N, F)
+    if eik is not None:
+        named += [("eik.r", eik.r, (N,), f32), ("eik.J0", eik.J0, (N,), f32),
+                  ("eik.Ji", eik.Ji, (N, 3), f32)]
+    _check("dist_system", w.device, named)
+    a = _SystemArgs()
+    if eik is not None:
+        a.eik_r, a.eik_J0, a.eik_Ji = (eik.r.data_ptr(), eik.J0.data_ptr(),
+                                       eik.Ji.data_ptr())
+    a.eik = int(eik is not None)
+    a.reg_weight_n = float(reg_weight_n)
+    return _system_launch(rd, DJ, a, [] if eik is None else [eik.r, eik.J0, eik.Ji])
+
+
+def dist_system_reg(rd, DJ, prob: RefineProblem, dist: torch.Tensor,
+                    stencil: StencilReverse, voxel_size: float, *, reg_weight_n: float,
+                    reg_weight_l: float, diag_only: bool):
+    """dist_system with its regularizer stage -> (A [N,10], t [N,4], lap):
+    the Eikonal row (where reg_weight_n is not 0) formed from dist and the
+    problem's one-sided stencil, and the Laplacian operator (where
+    reg_weight_l is not 0; else None) whose residual r [N] the same launch
+    writes from the six-neighbour stencil.  One kernel launch on the card
+    (the stencils as `stencil`'s int32 tables, which must be this problem's),
+    reg_operators_plain then dist_system_plain on the CPU."""
+    _same_problem("dist_system_reg", prob, stencil)
+    eikonal, laplacian = reg_weight_n != 0.0, reg_weight_l != 0.0
+    w = rd.w
+    if w.device.type == "cpu":
+        eik, lap = distreg.reg_operators_plain(prob, dist, voxel_size, eikonal=eikonal,
+                                               laplacian=laplacian, diag_only=diag_only)
+        return (*dist_system_plain(rd, DJ, eik, reg_weight_n=reg_weight_n), lap)
+    N, F = w.shape[0], w.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    named = _system_inputs(rd, DJ, N, F)
+    if eikonal or laplacian:
+        named += [("valid", prob.valid, (N,), torch.bool), ("dist", dist, (N,), f32),
+                  ("stencil.nbr", stencil.nbr, (N, 3), i32),
+                  ("nbr_dir", prob.nbr_dir, (N, 3), f32),
+                  ("nbr_dist_const", prob.nbr_dist_const, (N, 3), f32)]
+    if laplacian:
+        named += [("stencil.lap", stencil.lap, (N, 6), i32),
+                  ("lap_dist_const", prob.lap_dist_const, (N, 6), f32)]
+    _check("dist_system_reg", w.device, named)
+    lap_r = torch.empty((N,), dtype=f32, device=w.device) if laplacian else None
+    a = _SystemArgs()
+    a.reg_weight_n = float(reg_weight_n)
+    if eikonal or laplacian:                  # else the rows alone, no stage
+        a.eik, a.reg, a.laplacian = int(eikonal), 1, int(laplacian)
+        a.voxel = float(voxel_size)
+        a.valid, a.dist = prob.valid.data_ptr(), dist.data_ptr()
+        a.nbr, a.nbr_dir = stencil.nbr.data_ptr(), prob.nbr_dir.data_ptr()
+        a.nbr_const = prob.nbr_dist_const.data_ptr()
+    if laplacian:
+        a.lap, a.lap_const = stencil.lap.data_ptr(), prob.lap_dist_const.data_ptr()
+        a.lap_r = lap_r.data_ptr()
+    A, t = _system_launch(rd, DJ, a, [])
+    lap = (distreg.lap_operator(prob, lap_r, voxel_size, diag_only) if laplacian
+           else None)
+    return A, t, lap
+
+
+def dist_cg(A: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
+            stencil: StencilReverse, lap, *, reg_weight_l: float,
+            damping: float, cg_iters: int, cg_tol: float, cg_static: bool,
+            atol: float = 0.0, steps_out: Optional[List] = None) -> torch.Tensor:
+    """The distance step delta [N] (0 on invalid rows) from the assembled
+    rows: the whole Jacobi-PCG in ONE cooperative launch on the card, its
+    stop decided there (nothing read back; `steps_out` receives the step
+    count as a 0-dim int64 tensor on the card), dist_cg_plain on the CPU.
+    `lap` is the Laplacian operator (r [N], diag_coef, nbr_coef), None when
+    its weight is 0."""
+    kw = dict(reg_weight_l=reg_weight_l, damping=damping, cg_iters=cg_iters,
+              cg_tol=cg_tol, cg_static=cg_static, atol=atol, steps_out=steps_out)
+    if A.device.type == "cpu":
+        return dist_cg_plain(A, t, valid, stencil, lap, **kw)
+    return _cg_launch(A, t, valid, stencil, lap, **kw)
+
+
+def dist_cg_update(A: torch.Tensor, t: torch.Tensor, prob: RefineProblem,
+                   dist: torch.Tensor, stencil: StencilReverse, lap, voxel_size: float, *,
+                   reg_weight_l: float, damping: float, cg_iters: int, cg_tol: float,
+                   cg_static: bool, atol: float = 0.0, steps_out: Optional[List] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dist_cg with its update stage -> (delta, new_dist [N], new_grad
+    [N,3]): the solve as dist_cg on the problem's rows (prob.valid), then the
+    accept rule (|delta| < sqrt(3) h on a valid row) and the one-sided
+    gradient of the accepted distances, as ops/distreg.dist_update gives
+    them.  One cooperative launch on the card (the stencil must be this
+    problem's), dist_cg_plain then dist_update_plain on the CPU."""
+    _same_problem("dist_cg_update", prob, stencil)
+    kw = dict(reg_weight_l=reg_weight_l, damping=damping, cg_iters=cg_iters,
+              cg_tol=cg_tol, cg_static=cg_static, atol=atol, steps_out=steps_out)
+    if A.device.type == "cpu":
+        delta = dist_cg_plain(A, t, prob.valid, stencil, lap, **kw)
+        return (delta, *distreg.dist_update_plain(prob, dist, delta, voxel_size))
+    N = A.shape[0]
+    new_dist = torch.empty((N,), dtype=torch.float32, device=A.device)
+    new_grad = torch.empty((N, 3), dtype=torch.float32, device=A.device)
+    delta = _cg_launch(A, t, prob.valid, stencil, lap, **kw,
+                       update=(prob, dist, voxel_size, new_dist, new_grad))
+    return delta, new_dist, new_grad

@@ -18,6 +18,11 @@ are refine/solvers.py's `eikonal_operator`, `laplacian_operator` and
 a fixed order (geometry.dot3, norm3, fd_laplacian's left-to-right
 neighbour sum), so that the kernels equal them on the card bit for bit.
 
+On the one-card refinement neither launches: the operators are a stage of
+ops/distcg.py's dist_system (dist_system_reg) and the update one of its
+dist_cg (dist_cg_update), on the same row arithmetic (csrc/stencil.cuh).
+These launches serve the joint step and the mesh.
+
 A wrapper takes the plain version ONLY for tensors that lie on the CPU; for
 CUDA tensors it launches the kernel or raises.  `launch_counts` counts
 kernel launches and nothing else.
@@ -83,6 +88,14 @@ def dist_update_plain(prob: RefineProblem, dist: torch.Tensor,
     new_dist = dist if delta is None else _solvers().accept_distance(
         prob, dist, delta, voxel_size)
     return new_dist, geometry.fd_grad(prob, new_dist, voxel_size)
+
+
+def lap_operator(prob: RefineProblem, r: torch.Tensor, voxel_size: float, diag_only: bool):
+    """refine/solvers.py's LapOperator of the residual r a kernel wrote: its
+    coefficients host floats, as laplacian_operator gives them."""
+    inv_h2 = 1.0 / (voxel_size * voxel_size)
+    return _solvers().LapOperator(r=r, lap_idx=prob.lap_idx, diag_coef=-6.0 * inv_h2,
+                                  nbr_coef=0.0 if diag_only else inv_h2)
 
 
 # ---------------------------------------------------------------------------
@@ -196,13 +209,9 @@ def reg_operators(prob: RefineProblem, dist: torch.Tensor, voxel_size: float, *,
     a.N, a.eikonal, a.laplacian = N, int(eikonal), int(laplacian)
     a.blocks, a.voxel = row_blocks(N, sm_count(dev)), float(voxel_size)
     _launch("reg_operators", a, dev)
-    s = _solvers()
-    eik = s.RegOperator(r=r, J0=J0, Ji=Ji, nbr_idx=prob.nbr_idx) if eikonal else None
-    lap = None
-    if laplacian:
-        inv_h2 = 1.0 / (voxel_size * voxel_size)
-        lap = s.LapOperator(r=lap_r, lap_idx=prob.lap_idx, diag_coef=-6.0 * inv_h2,
-                            nbr_coef=0.0 if diag_only else inv_h2)
+    eik = (_solvers().RegOperator(r=r, J0=J0, Ji=Ji, nbr_idx=prob.nbr_idx) if eikonal
+           else None)
+    lap = lap_operator(prob, lap_r, voxel_size, diag_only) if laplacian else None
     return eik, lap
 
 

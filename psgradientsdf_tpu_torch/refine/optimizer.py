@@ -119,19 +119,19 @@ def _dist_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
                *, model, order, loss, lam, voxel_size, reg_weight_n,
                reg_weight_l, damping, laplacian_diag_only, stencil,
                steps_out=None):
-    """Distance GN update: the Jacobian, then the assembled system and its
-    CG (ops/distcg.py through solvers.solve_distance) over the problem's
+    """Distance GN update: the Jacobian, then the assembled system, its CG
+    and the update (ops/distcg.py through solvers.distance_step: three
+    launches a block on the card with the Jacobian's) over the problem's
     reverse stencil table `stencil`."""
     _, DJ = residual.dist_jacobian(prob, geom, rd, dist, albedo, grad_stored,
                                    poses, K, lights, model=model, order=order,
                                    voxel_size=voxel_size)
-    delta = solvers.solve_distance(
+    return solvers.distance_step(
         prob, rd, DJ, dist, voxel_size,
         reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l, damping=damping,
         laplacian_diag_only=laplacian_diag_only, steps_out=steps_out,
         stencil=stencil,
     )
-    return solvers.update_distance(prob, dist, delta, voxel_size)
 
 
 def _pose_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,

@@ -18,7 +18,9 @@ The scatter-adds are `index_add_`.  On a CUDA device it adds with atomics in
 no fixed order, so two runs there agree to rounding, not bit for bit, and
 the device is held against the CPU by tolerance.  The distance and albedo
 blocks' solves on one device have none: `solve_distance` assembles the
-normal equations per row and runs the whole CG through ops/distcg.py, and
+normal equations per row and runs the whole CG through ops/distcg.py
+(`distance_step`, the one-device block's, with its regularizers and update
+as stages of those two launches), and
 `solve_albedo` forms its system and runs its CG and update through
 ops/albedo.py (one kernel launch on the card), with the transposes in
 gather form.  The albedo block's eager operators below (albedo_data_terms,
@@ -412,6 +414,39 @@ def solve_distance(
                           reg_weight_l=reg_weight_l, damping=damping,
                           cg_iters=cg_iters, cg_tol=cg_tol,
                           cg_static=cg_static, steps_out=steps_out)
+
+
+def distance_step(
+    prob: RefineProblem,
+    rd: ResidualData,
+    DJ: DistJacobian,
+    dist: torch.Tensor,
+    voxel_size: float,
+    *,
+    reg_weight_n: float,
+    reg_weight_l: float,
+    damping: float,
+    laplacian_diag_only: bool = False,
+    cg_iters: int = 100,
+    cg_tol: float = 1e-6,
+    cg_static: bool = False,
+    steps_out: Optional[List] = None,
+    stencil: distcg.StencilReverse,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The distance block's step and update in one: solve_distance, then
+    update_distance -> (new_dist, new_grad_stored).  Two launches on the
+    card: distcg.dist_system_reg (the regularizer operators a stage of the
+    assembly) and distcg.dist_cg_update (the update a stage of the CG); on
+    the CPU the same plain chain as solve_distance + update_distance, bit for
+    bit.  `stencil` as solve_distance's; `steps_out` receives the steps."""
+    A, t, lap = distcg.dist_system_reg(rd, DJ, prob, dist, stencil, voxel_size,
+                                       reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l,
+                                       diag_only=laplacian_diag_only)
+    _, new_dist, new_grad = distcg.dist_cg_update(
+        A, t, prob, dist, stencil, lap, voxel_size, reg_weight_l=reg_weight_l,
+        damping=damping, cg_iters=cg_iters, cg_tol=cg_tol, cg_static=cg_static,
+        steps_out=steps_out)
+    return new_dist, new_grad
 
 
 def accept_distance(prob: RefineProblem, dist: torch.Tensor,

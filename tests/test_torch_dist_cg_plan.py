@@ -1,8 +1,8 @@
 """dist_cg's host plan (ops/distcg._cg_plan): the tiles cover the rows once,
 in order, on 16-row starts; a block's shared memory stays within the card's;
 the layout moves from TILE to VECTORS to GLOBAL at the first row count whose
-tile does not fit; the grid barriers a step; one row, and fewer rows than
-blocks.  Pure host arithmetic: the kernel's launch on the card is held by
+tile does not fit; the grid barriers a step and the update stage's one
+after the last; one row, and fewer rows than blocks.  Pure host arithmetic: the kernel's launch on the card is held by
 chip_smoke.py (phase dist_cg_kernels)."""
 
 import pytest
@@ -112,6 +112,27 @@ def test_work_buffer(N):
 @pytest.mark.parametrize("lap,want", zip(LAPS + [(False, True)], [2, 2, 3, 2]))
 def test_grid_barriers_a_step(lap, want):
     assert _plan(49152, lap).barriers == want
+
+
+@pytest.mark.parametrize("lap", LAPS, ids=["no-lap", "lap-diag", "lap-nbr"])
+@pytest.mark.parametrize("N", ROWS)
+def test_the_update_stage_adds_one_barrier_after_the_last_step(N, lap):
+    """With the update stage (dist_cg_update) the plan is the same launch
+    (grid, tile, layout, shared memory, barriers a step) and one grid
+    barrier more after the last step, in every layout."""
+    use_lap, lap_nbr = lap
+    plain = _plan(N, lap)
+    fused = D._cg_plan(N, use_lap=use_lap, lap_nbr=lap_nbr, sms=SMS, update=True)
+    assert (plain.tail, fused.tail) == (0, 1)
+    assert fused._replace(tail=0) == plain
+    for steps in (0, 1, 12, 100):
+        assert D.grid_barriers(plain, steps) == 1 + plain.barriers * steps
+        assert D.grid_barriers(fused, steps) == D.grid_barriers(plain, steps) + 1
+
+
+def test_the_rows_reach_every_layout():
+    modes = {_plan(N, lap).mode for N in ROWS for lap in LAPS}
+    assert modes == {D.TILE, D.VECTORS, D.GLOBAL}
 
 
 @pytest.mark.parametrize("N", [1, 2, 16, 17, 31, 100, 131 * 16])

@@ -431,11 +431,16 @@ def _refiner(model, mesh=None, **cfg):
 @pytest.mark.parametrize("joint", [False, True], ids=["distance", "joint"])
 def test_the_blocks_go_through_the_wrappers(mesh, joint, monkeypatch):
     """One iteration of the LED light and the distance (or the joint) block:
-    a call of each wrapper a block on one device; on a 4x2 mesh one
-    operators call and one gradient call (delta=None) a row of the Z-split,
-    one light call a block."""
-    calls = {"reg_operators": [], "dist_update": [], "light_normal_eqs_led": 0}
-    real = (distreg.reg_operators, distreg.dist_update, normaleq.light_normal_eqs_led)
+    on one device the distance block is one fused distance step
+    (solvers.distance_step: its regularizers and update stages of
+    ops/distcg.py's two launches) and calls neither standalone wrapper, the
+    joint block one call of each; on a 4x2 mesh one operators call and one
+    gradient call (delta=None) a row of the Z-split and no fused step; one
+    light call a block."""
+    calls = {"reg_operators": [], "dist_update": [], "light_normal_eqs_led": 0,
+             "distance_step": 0}
+    real = (distreg.reg_operators, distreg.dist_update, normaleq.light_normal_eqs_led,
+            tsolvers.distance_step)
 
     def reg(*a, **kw):
         calls["reg_operators"].append((kw["eikonal"], kw["laplacian"]))
@@ -449,9 +454,14 @@ def test_the_blocks_go_through_the_wrappers(mesh, joint, monkeypatch):
         calls["light_normal_eqs_led"] += 1
         return real[2](*a, **kw)
 
+    def step(*a, **kw):
+        calls["distance_step"] += 1
+        return real[3](*a, **kw)
+
     monkeypatch.setattr(distreg, "reg_operators", reg)
     monkeypatch.setattr(distreg, "dist_update", upd)
     monkeypatch.setattr(normaleq, "light_normal_eqs_led", led)
+    monkeypatch.setattr(tsolvers, "distance_step", step)
     ref = _refiner("LED", mesh)
     cfg = ref.cfg
     before = [t if not isinstance(t, tuple) else tuple(t) for t in ref._state()]
@@ -463,8 +473,10 @@ def test_the_blocks_go_through_the_wrappers(mesh, joint, monkeypatch):
         ops=ref.ops, stencil=ref.stencil)
     rows = 1 if mesh is None else mesh[0]
     blocks = 1 if mesh is None else mesh[0] * mesh[1]
-    assert calls["reg_operators"] == [(True, True)] * rows
-    assert calls["dist_update"] == [mesh is not None] * rows
+    fused = mesh is None and not joint
+    assert calls["distance_step"] == int(fused)
+    assert calls["reg_operators"] == ([] if fused else [(True, True)] * rows)
+    assert calls["dist_update"] == ([] if fused else [mesh is not None] * rows)
     assert calls["light_normal_eqs_led"] == blocks
     assert out[4] is not before[4]             # the light moved
     d0 = before[0] if mesh is None else torch.cat(before[0])

@@ -208,8 +208,7 @@ def _blocks(systems, flush):
             dp = DC.dist_cg_plain(A, t, valid, st, lap, **kw, steps_out=sp)
             scale = float(dp.abs().max())
             for sms in (132, 96, 64):
-                DC.cg_plan = lambda dev, n, *, use_lap, lap_nbr, sms=sms: DC._cg_plan(
-                    n, use_lap=use_lap, lap_nbr=lap_nbr, sms=sms)
+                DC.cg_plan = lambda dev, n, *, sms=sms, **kw: DC._cg_plan(n, sms=sms, **kw)
                 s1 = []
                 d1 = DC.dist_cg(A, t, valid, st, lap, **kw, steps_out=s1)
                 torch.cuda.synchronize()
