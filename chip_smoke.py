@@ -445,7 +445,25 @@ EDGE_CHUNK_ROWS = 4096
 # everything the run builds: the CUDA kernels (nvcc) and the host libraries
 # of the PNG decoder and of the exports (g++), all started together
 LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "normaleq", "albedo",
-             "cull", "preprocess", "energy", "distreg", "png_unfilter", "mc")
+             "cull", "preprocess", "energy", "distreg", "smallsolve", "png_unfilter",
+             "mc")
+# the SH light block's eigen-solve (csrc/smallsolve.cu): wrapper -> (its
+# source, the JAX function it replaces, by file:line)
+SOLVE_KERNELS = {
+    "light_solve": ("psgradientsdf_tpu_torch/csrc/smallsolve.cu",
+                    "psgradientsdf_tpu/refine/solvers.py:531"),
+}
+# light_solve_kernels: the kernel's step within this of max|delta| of the
+# plain solve's (torch.linalg.eigh in float64 on the card; the kernel's
+# Jacobi rotations reach the same float64 answer to rounding, both rounded
+# once to float32); the H100 SXM's float64 rate outside the tensor cores
+# (NVIDIA's data sheet), the operations bound of its work
+LIGHT_SOLVE_TOL = 1e-6
+FP64_FLOPS = 34e12
+# refine_graph: the SH2 recipe (its optimizer keys), and the graphed and
+# eager refinements run in turns this many times each (seconds: best of)
+SH2_CONFIG = "configs/sokrates_sh2.json"
+GRAPH_TURNS = 3
 
 
 class SmokeFailure(Exception):
@@ -1083,7 +1101,7 @@ def _slice_calls():
     are wrapped from outside."""
     import psgradientsdf_tpu_torch.pipeline as pipeline_mod
     from psgradientsdf_tpu_torch.ops import distreg, energy, normaleq, preprocess
-    from psgradientsdf_tpu_torch.refine import solvers
+    from psgradientsdf_tpu_torch.refine import graph, solvers
     from psgradientsdf_tpu_torch.tracking import stream
 
     calls = dict(chunks=0, frame_normals=0, energy_calls=0, reg_operators_calls=0,
@@ -1130,7 +1148,10 @@ def _slice_calls():
     for key in plain:
         setattr(*key, on_card(key))
     try:
-        yield calls
+        # a graphed iteration's calls are made at its capture: each replay
+        # adds what the capture counted (refine/graph.py)
+        with graph.registered(calls):
+            yield calls
     finally:
         for key, fn in real.items():
             setattr(*key, fn)
@@ -1250,20 +1271,22 @@ def _one_card_tail(calls, blocks, what):
 
 
 def _reset_refine_counts():
-    """Launch counts of the refinement's eight kernels, set to 0."""
-    from psgradientsdf_tpu_torch.ops import albedo, distcg, normaleq, residual
+    """Launch counts of the refinement's nine kernels, set to 0."""
+    from psgradientsdf_tpu_torch.ops import albedo, distcg, normaleq, residual, smallsolve
 
     residual.reset_launch_counts()
     distcg.reset_launch_counts()
     normaleq.reset_launch_counts()
     albedo.reset_launch_counts()
+    smallsolve.reset_launch_counts()
 
 
 def _refine_counts():
-    from psgradientsdf_tpu_torch.ops import albedo, distcg, normaleq, residual
+    from psgradientsdf_tpu_torch.ops import albedo, distcg, normaleq, residual, smallsolve
 
     return dict(residual.launch_counts, **distcg.launch_counts,
-                **normaleq.launch_counts, **albedo.launch_counts)
+                **normaleq.launch_counts, **albedo.launch_counts,
+                **smallsolve.launch_counts)
 
 
 @contextlib.contextmanager
@@ -1273,21 +1296,24 @@ def _refine_calls():
     ops/distcg.py's two (the distance block's rows and its CG; the forms
     with the tail's stages, dist_system_reg and dist_cg_update, count as
     theirs), of
-    ops/normaleq.py's two (the pose and the SH light normal equations) and
-    of ops/albedo.py's one (the albedo block), and the
+    ops/normaleq.py's two (the pose and the SH light normal equations), of
+    ops/albedo.py's one (the albedo block) and of ops/smallsolve.py's one
+    (the SH light's eigen-solve), and the
     plain residual passes, plain distance solves (rows or CG), plain normal
-    equations (the pose chain or the light's product) and plain albedo
-    solves (its system, its CG, or the eager chain's data terms) on tensors
-    on the card -> the dict of counts.  The module functions are wrapped
+    equations (the pose chain or the light's product), plain albedo
+    solves (its system, its CG, or the eager chain's data terms) and plain
+    light solves on tensors on the card -> the dict of counts.  A graphed
+    iteration's calls are counted at its capture and again at each replay
+    (refine/graph.registered).  The module functions are wrapped
     from outside; the package has no switch for it."""
-    from psgradientsdf_tpu_torch.ops import albedo, distcg, normaleq, residual
-    from psgradientsdf_tpu_torch.refine import solvers
+    from psgradientsdf_tpu_torch.ops import albedo, distcg, normaleq, residual, smallsolve
+    from psgradientsdf_tpu_torch.refine import graph, solvers
 
     calls = dict(residual_pass=0, dist_jacobian=0, dist_system=0, dist_cg=0,
                  pose_normal_eqs=0, light_normal_eqs_sh=0, albedo_block=0,
-                 plain_residual_pass_on_card=0,
+                 light_solve=0, plain_residual_pass_on_card=0,
                  plain_distance_solve_on_card=0, plain_normal_eqs_on_card=0,
-                 plain_albedo_solve_on_card=0)
+                 plain_albedo_solve_on_card=0, plain_light_solve_on_card=0)
     modules = {"residual_pass": residual, "dist_jacobian": residual,
                "residual_pass_plain": residual, "dist_system": distcg,
                "dist_cg": distcg, "dist_system_reg": distcg, "dist_cg_update": distcg,
@@ -1296,7 +1322,8 @@ def _refine_calls():
                "light_normal_eqs_sh": normaleq, "pose_normal_eqs_plain": normaleq,
                "albedo_block": albedo,
                "albedo_system_plain": albedo, "albedo_cg_plain": albedo,
-               "albedo_data_terms": solvers}
+               "albedo_data_terms": solvers, "light_solve": smallsolve,
+               "light_solve_plain": smallsolve}
     real = {n: getattr(m, n) for n, m in modules.items()}
     light_plain = solvers.light_normal_eqs_sh
 
@@ -1319,7 +1346,7 @@ def _refine_calls():
         return light_plain(*a, **kw)
 
     for n in ("residual_pass", "dist_jacobian", "dist_system", "dist_cg",
-              "pose_normal_eqs", "light_normal_eqs_sh", "albedo_block"):
+              "pose_normal_eqs", "light_normal_eqs_sh", "albedo_block", "light_solve"):
         setattr(modules[n], n, counted(n))
     # the distance block's launches with its tail stages: their kernels' calls
     distcg.dist_system_reg = counted("dist_system_reg", "dist_system")
@@ -1338,9 +1365,12 @@ def _refine_calls():
         "albedo_cg_plain", lambda a: a[0].b, "plain_albedo_solve_on_card")
     solvers.albedo_data_terms = plain(
         "albedo_data_terms", lambda a: a[0].w, "plain_albedo_solve_on_card")
+    smallsolve.light_solve_plain = plain(
+        "light_solve_plain", lambda a: a[0], "plain_light_solve_on_card")
     solvers.light_normal_eqs_sh = light_on_card
     try:
-        yield calls
+        with graph.registered(calls):
+            yield calls
     finally:
         for n, fn in real.items():
             setattr(modules[n], n, fn)
@@ -2537,16 +2567,17 @@ def check_refine(run, seq, min_drop):
 
 
 def check_refine_launches(run):
-    """The refinement of `run` went through its eight kernels: a residual
+    """The refinement of `run` went through its nine kernels: a residual
     pass launch for each residual pass the loop made (the LED light's
     initialisation, one before the loop, then a fused iteration's leading
     pass and one after each block, and one at the upsample), a distance
     Jacobian launch for each distance or joint block, a dist_system and a
     dist_cg launch for each distance block, a pose_normal_eqs call for each
-    pose block, a light_normal_eqs_sh call for each SH light block, an
-    albedo_block launch for each albedo block; no plain
-    residual pass, distance solve, normal equations or albedo solve on the
-    card -> the launches."""
+    pose block, a light_normal_eqs_sh and a light_solve call for each SH
+    light block, an albedo_block launch for each albedo block (a graphed
+    loop's replays count as its capture's calls and launches); no plain
+    residual pass, distance solve, normal equations, albedo or light solve
+    on the card -> the launches."""
     from psgradientsdf_tpu_torch.refine.optimizer import block_names
 
     ref, summary = run["pipe"].refiner, run["summary"]
@@ -2585,6 +2616,14 @@ def check_refine_launches(run):
               f"expected {want} blocks")
     check(calls["plain_normal_eqs_on_card"] == 0,
           f"{calls['plain_normal_eqs_on_card']} plain normal equations on the card")
+    # an SH light block's eigen-solve: one light_solve launch, no plain
+    # (torch.linalg.eigh) solve on the card
+    for name in SOLVE_KERNELS:
+        check(calls[name] == sh_light_blocks and launches[name] == _on_card(sh_light_blocks),
+              f"{name}: {launches[name]} launches, {calls[name]} calls, "
+              f"expected {sh_light_blocks} SH light blocks")
+    check(calls["plain_light_solve_on_card"] == 0,
+          f"{calls['plain_light_solve_on_card']} plain light solves on the card")
     albedo_blocks = iters * names.count("albedo")
     for name in ALBEDO_KERNELS:
         check(calls[name] == albedo_blocks and launches[name] == _on_card(albedo_blocks),
@@ -2603,11 +2642,20 @@ def check_refine_launches(run):
     joint = jacobians - blocks
     check(sl["distance_step_calls"] == blocks,
           f"{sl['distance_step_calls']} fused distance steps, {blocks} distance blocks")
+    # one card: the loop replays one CUDA graph an iteration, captured once
+    # and again after the upsample
+    loops = [e for e in run["events"] if e["event"] == "refine_loop"]
+    captures = sum(1 for e in run["events"] if e["event"] == "refine_graph")
+    want_loop = "graph" if DEVICE == "cuda" else "eager"
+    check(len(loops) == 1 and loops[0]["loop"] == want_loop
+          and captures == _on_card(1 + upsampled),
+          f"the refinement's loop {loops}, {captures} graphs captured")
     for name, want in (("reg_operators", joint), ("dist_update", joint),
                        ("light_normal_eqs_led", led_light_blocks)):
         check(sl[name] == _on_card(want),
               f"{name}: {sl[name]} launches, expected {want} blocks")
-    return dict(launches, residual_passes=passes, distance_blocks=blocks,
+    return dict(launches, loop=loops[0]["loop"], graphs_captured=captures,
+                residual_passes=passes, distance_blocks=blocks,
                 distance_or_joint_blocks=jacobians, pose_blocks=pose_blocks,
                 sh_light_blocks=sh_light_blocks, albedo_blocks=albedo_blocks,
                 led_light_blocks=led_light_blocks,
@@ -2754,6 +2802,330 @@ def light_steps(on_card, on_cpu):
     vals = torch.linalg.eigvalsh(want["H"].double())
     return dict(chained=chained, isolated=isolated,
                 gram_condition=[float(v) for v in (vals[:, -1] / vals[:, 0].abs())])
+
+
+# ------------------------------------------- the SH light's eigen-solve
+
+
+def _light_system(ref, order):
+    """(H [F,B,B], g [F,B]) of the SH light block at a refiner's state, the
+    basis of `order` (order 2: the order-1 lights with _sh2_lights'
+    quadratic coefficients) -> (H, g, rd, J)."""
+    from psgradientsdf_tpu_torch.ops import normaleq
+    from psgradientsdf_tpu_torch.refine import jacobians, render
+
+    args = list(ref._args())
+    skw = ref._static_kwargs()
+    if order == 2:
+        args[8] = _sh2_lights(args[8], SEED)
+        skw = dict(skw, order=2)
+    rd = render.compute_residuals(*args, **skw)
+    J = jacobians.light_jacobian_sh(ref.prob, ref.albedo, ref.grad_stored, order)
+    H, g = normaleq.light_normal_eqs_sh(rd, J)
+    return H, g, rd, J
+
+
+def _solve_case(what, H, g):
+    """light_solve against light_solve_plain (float64 eigh on the card) on
+    H, g: within LIGHT_SOLVE_TOL of max|delta| (0 where the plain step is
+    0), finite, twice bit for bit -> facts."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import smallsolve as SS
+
+    want = SS.light_solve_plain(H, g)
+    rot = []
+    got = SS.light_solve(H, g, rotations_out=rot)
+    again = SS.light_solve(H, g)
+    _sync()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), f"light_solve {what}: a step is not finite")
+    check(err <= LIGHT_SOLVE_TOL * scale if scale > 0 else err == 0.0,
+          f"light_solve {what}: {err:.3g} from the plain solve, max|delta| {scale:.3g}")
+    check(_bits_same(got, again), f"light_solve {what}: two runs differ")
+    return dict(case=what, keyframes=int(H.shape[0]), basis=int(H.shape[1]),
+                max_abs_err=err, max_abs_delta=scale,
+                rotations_max=int(rot[0].max()) if rot and H.shape[0] else None,
+                rotations=int(rot[0].sum()) if rot and H.shape[0] else None)
+
+
+def _synthetic_grams(B, F, dev, seed):
+    """(name, H, g) of the edges: a flat scene's rank-1 Gram (every voxel
+    the same basis vector), H = 0 (no counted pair), and eigenvalues at
+    twice and half the clip (1e-6 of the largest) beside well-separated
+    ones."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    b = torch.randn(F, B, 1, generator=gen, dtype=torch.float64)
+    g = torch.randn(F, B, generator=gen, dtype=torch.float64)
+    flat = 37.0 * (b @ b.mT)
+    Q, _ = torch.linalg.qr(torch.randn(F, B, B, generator=gen, dtype=torch.float64))
+    lam = torch.logspace(0, -3, B, dtype=torch.float64)
+    lam[-2], lam[-1] = 2e-6, 0.5e-6
+    straddle = (Q * lam) @ Q.mT
+    f32 = lambda t: t.to(torch.float32).to(dev)
+    return [("flat rank-1", f32(flat), f32(g)), ("H = 0", f32(0 * flat), f32(g)),
+            ("eigenvalues at 2 and 0.5 x the clip", f32(straddle), f32(g))]
+
+
+def light_solve_kernels(main_run):
+    """The SH light block's eigen-solve (ops/smallsolve.light_solve, one
+    launch) against its plain version on the card, LIGHT_SOLVE_TOL of
+    max|delta|, twice bit for bit: the main run's SH1 light block at its
+    final state (F = 40, B = 4) and that problem under SH2 lights (B = 9),
+    each also on its first keyframe and its first 33; under each basis the
+    flat scene's rank-1 Gram, H = 0 and eigenvalues straddling the clip at
+    F = 1, 33 and 40.  Then the times of the main SH1 and SH2 solves in the
+    path's order (after light_normal_eqs_sh), beside an empty launch of its
+    grid, the plain solve, and torch.linalg.eigh with the clip's products in
+    float32 (the port's solve before this kernel) and in float64
+    (library_ms); bound_ms from this run's bytes and its rotations' float64
+    operations."""
+    import torch
+    from psgradientsdf_tpu_torch.ops import normaleq
+    from psgradientsdf_tpu_torch.ops import smallsolve as SS
+
+    ref = main_run["pipe"].refiner
+    dev = ref.device
+    cases, systems = [], {}
+    for order in (1, 2):
+        H, g, rd, J = _light_system(ref, order)
+        systems[order] = (H, g, rd, J)
+        name = f"main SH{order}"
+        for F in (H.shape[0], 1, EDGE_ODD_F):
+            cases.append(_solve_case(f"{name}, {F} keyframes", H[:F].contiguous(),
+                                     g[:F].contiguous()))
+        for F in (1, EDGE_ODD_F, H.shape[0]):
+            for what, Hs, gs in _synthetic_grams(H.shape[1], F, dev, SEED + 10 * F + order):
+                cases.append(_solve_case(f"SH{order} {what}, {F} keyframes", Hs, gs))
+
+    def eigh_chain(H, g, dtype):
+        vals, vecs = torch.linalg.eigh(H.to(dtype))
+        vmax = torch.amax(vals, dim=-1, keepdim=True)
+        inv = torch.where(vals > torch.clamp(vmax, min=0.0) * SS.CLIP, 1.0 / vals, 0.0)
+        gv = torch.einsum("fdb,fd->fb", vecs, g.to(dtype))
+        return torch.einsum("fbd,fd->fb", vecs, inv * gv).to(torch.float32)
+
+    timed = {}
+    for order, (H, g, rd, J) in (systems.items() if DEVICE == "cuda" else ()):
+        F, B = H.shape[0], H.shape[1]
+        ms = _path_ms([lambda: normaleq.light_normal_eqs_sh(rd, J),
+                       lambda: SS.light_solve(H, g)])[1]
+        floor = _path_ms([lambda: normaleq.light_normal_eqs_sh(rd, J),
+                          lambda: SS.light_solve_floor(F, B, dev)])[1]
+        plain = _path_ms([lambda: SS.light_solve_plain(H, g)])[0]
+        lib32 = _path_ms([lambda: eigh_chain(H, g, torch.float32)])[0]
+        lib64 = _path_ms([lambda: eigh_chain(H, g, torch.float64)])[0]
+        f32_err = float((eigh_chain(H, g, torch.float32) - SS.light_solve_plain(H, g)).abs().max())
+        rot = []
+        SS.light_solve(H, g, rotations_out=rot)
+        rotations = int(rot[0].sum())
+        # bytes: H and g read, delta written; operations: a rotation's
+        # (c, s, t) and its 2 x 6 B row and column updates, then V^T g and
+        # V inv V^T g
+        nbytes = 4 * (F * B * B + 2 * F * B)
+        flops = rotations * (12 * B + 12) + F * (4 * B * B + B)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP64_FLOPS * 1e3
+        timed[f"SH{order}"] = dict(
+            keyframes=F, basis=B, ms=ms, empty_launch_ms=floor, plain_ms=plain,
+            library_ms=lib64, library_f32_ms=lib32, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes,
+            fp64_operations=flops, rotations=rotations,
+            max_abs_err=next(c["max_abs_err"] for c in cases
+                             if c["case"] == f"main SH{order}, {F} keyframes"),
+            float32_eigh_max_abs_err=f32_err)
+    return dict(cases=cases, tolerance=LIGHT_SOLVE_TOL, timed=timed)
+
+
+# ------------------------------------- the refinement as one CUDA graph
+
+
+class _Records:
+    """A metrics logger that keeps its records."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, event, **fields):
+        self.records.append(dict(event=event, **fields))
+        return self.records[-1]
+
+
+def _refiner_on(pipe, capture):
+    """A refiner on the scan of `pipe` as the pipeline makes one (its
+    sampled keyframes, its recipe), the volume copied, init() run."""
+    import torch
+    from psgradientsdf_tpu_torch.core.volume import GradSdfVolume
+    from psgradientsdf_tpu_torch.pipeline import sample_keyframes
+    from psgradientsdf_tpu_torch.refine.optimizer import PhotometricRefiner
+
+    cfg = pipe.cfg
+    key_indices, key_stamps, images, key_poses = sample_keyframes(
+        pipe.key_indices, pipe.key_stamps, pipe.key_images_dev, pipe.key_poses,
+        cfg.tpu.keyframe_cap)
+    ref = PhotometricRefiner(GradSdfVolume(*(t.clone() for t in pipe.vol)), pipe.geom,
+                             cfg.optimizer, pipe.K, truncation=cfg.truncation,
+                             metrics=_Records(), capture=capture)
+    ref.set_keyframes(torch.stack(images), np.stack(key_poses), key_indices, key_stamps)
+    ref.init()
+    return ref
+
+
+def _refine_once(pipe, capture):
+    """One whole refinement on `pipe`'s scan -> (refiner, records, wall
+    seconds of its loop)."""
+    ref = _refiner_on(pipe, capture)
+    opt = pipe.cfg.optimizer
+    t0 = time.perf_counter()
+    ref.alternating_optimize(opt.opt_light, opt.opt_albedo, opt.opt_distance, opt.opt_pose)
+    _sync()
+    return ref, ref.metrics.records, time.perf_counter() - t0
+
+
+def _loop_seconds(records, wall):
+    """Iteration 0's seconds, the later iterations' and their mean, each
+    graph's seconds of warm-up and capture and of its warm-up alone, the
+    loop's wall seconds."""
+    its = [r["seconds"] for r in records if r["event"] == "iteration"]
+    later = its[1:]
+    return dict(iteration0=its[0], later=later,
+                later_mean=statistics.mean(later) if later else None,
+                capture_seconds=[r["seconds"] for r in records if r["event"] == "refine_graph"],
+                warmup_seconds=[r["warmup_seconds"] for r in records
+                                if r["event"] == "refine_graph"],
+                loop_wall_seconds=wall)
+
+
+def _cg_steps(records):
+    return [(r["iter"], r["block"], r.get("cg_steps")) for r in records
+            if r["event"] == "block"]
+
+
+def _traced_steps(pipe, capture):
+    """Two warm fused iterations of a fresh refiner on `pipe`'s scan at the
+    recipe's own weights, traced: the graph's replays and their reads
+    (capture) or the eager fused iteration and its read -> device ops,
+    device-to-host copies, runtime calls, device ms per iteration, the busy
+    share, the wall seconds."""
+    import torch
+    from psgradientsdf_tpu_torch.refine import optimizer as opt_mod
+
+    ref = _refiner_on(pipe, capture)
+    ref.init_albedo()
+    opt = pipe.cfg.optimizer
+    kw = dict(ref._static_kwargs(), reg_weight_n=opt.reg_weight_n,
+              reg_weight_l=opt.reg_weight_l, reg_weight_rho=opt.reg_weight_rho,
+              damping=opt.damping, laplacian_diag_only=False, do_light=opt.opt_light,
+              do_albedo=opt.opt_albedo, do_distance=opt.opt_distance,
+              do_pose=opt.opt_pose, joint_dp=False)
+    # the loop's weights before an upsample turns the Laplacian on
+    kw["reg_weight_l"] = 0.0 if opt.upsample else opt.reg_weight_l
+    runner = ref._graph_for(kw) if capture else None
+    opt_mod._fused_step(ref, runner, kw)                 # warm
+    torch.cuda.synchronize()
+    with _traced() as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            opt_mod._fused_step(ref, runner, kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ref._release_graph()
+    rows = sorted(_kernel_rows(prof), reverse=True)
+    copies = int(sum(r[1] for r in rows if "DtoH" in r[2]))
+    busy = sum(r[0] for r in rows) * 1e-6
+    return dict(device_ops_per_iteration=int(sum(r[1] for r in rows)) / 2,
+                top=[dict(name=k[:80], per_iteration=c / 2, device_ms=us * 1e-3 / 2)
+                     for us, c, k in rows[:12]],
+                copies=[dict(name=k[:80], per_iteration=c / 2) for _, c, k in rows
+                        if "Memcpy" in k],
+                device_to_host_copies_per_iteration=copies / 2,
+                runtime_calls_per_iteration=int(_runtime_calls(prof)) / 2,
+                device_ms_per_iteration=busy * 1e3 / 2, device_busy_share=busy / wall,
+                traced_wall_seconds_per_iteration=wall / 2,
+                warmup_dropped=prof.warmup_dropped)
+
+
+def _graph_cell(pipe, what, captures):
+    """The graphed loop against capture=False on `pipe`'s scan, GRAPH_TURNS
+    turns each (graph, eager, graph, ...): the first graphed run bit for bit
+    against the first eager one in state, every energy, every CG step
+    count, stop and iteration count, every graphed run equal to the first;
+    `captures` graphs a graphed run; the loops named in their records;
+    then the traced windows -> facts."""
+    import torch
+
+    runs = {True: [], False: []}
+    for _ in range(GRAPH_TURNS):
+        for capture in (True, False):
+            runs[capture].append(_refine_once(pipe, capture))
+    g_ref, g_rec, _ = runs[True][0]
+    e_ref, e_rec, _ = runs[False][0]
+    for capture in (True, False):
+        want = "graph" if capture and DEVICE == "cuda" else "eager"
+        for ref, rec, _ in runs[capture]:
+            loops = [r for r in rec if r["event"] == "refine_loop"]
+            check(len(loops) == 1 and loops[0]["loop"] == want,
+                  f"refine_graph {what}: loops {loops}, expected {want}")
+            check(ref.graph_captures == (_on_card(captures) if capture else 0),
+                  f"refine_graph {what}: {ref.graph_captures} captures")
+    check(g_ref.stop_reason == e_ref.stop_reason
+          and g_ref.iterations_run == e_ref.iterations_run,
+          f"refine_graph {what}: graph {g_ref.stop_reason} after {g_ref.iterations_run}, "
+          f"eager {e_ref.stop_reason} after {e_ref.iterations_run}")
+    check(g_ref.energy_trace == e_ref.energy_trace,
+          f"refine_graph {what}: the energy traces differ")
+    check(_cg_steps(g_rec) == _cg_steps(e_rec),
+          f"refine_graph {what}: CG steps differ")
+    for name in STATE_TENSORS:
+        check(_bits_same(getattr(g_ref, name), getattr(e_ref, name)),
+              f"refine_graph {what}: {name} differs from the eager loop's")
+    for ref, rec, _ in runs[True][1:]:
+        check(ref.energy_trace == g_ref.energy_trace and _cg_steps(rec) == _cg_steps(g_rec),
+              f"refine_graph {what}: two graphed runs differ")
+    seconds = {k: [_loop_seconds(rec, wall) for _, rec, wall in v]
+               for k, v in (("graph", runs[True]), ("eager", runs[False]))}
+    out = dict(
+        stopped=g_ref.stop_reason, iterations=g_ref.iterations_run,
+        surface_voxels=g_ref.prob.n_surface, keyframes=len(g_ref.keyframe_indices),
+        captures=g_ref.graph_captures, bit_identical=True,
+        cg_steps=[s for s in _cg_steps(g_rec) if s[2] is not None],
+        seconds=seconds,
+        best_later_mean={k: min(s["later_mean"] for s in v) for k, v in seconds.items()},
+        best_iteration0={k: min(s["iteration0"] for s in v) for k, v in seconds.items()},
+        best_loop_wall={k: min(s["loop_wall_seconds"] for s in v)
+                        for k, v in seconds.items()},
+        traced=None)
+    if DEVICE == "cuda":
+        out["traced"] = {"graph": _traced_steps(pipe, True), "eager": _traced_steps(pipe, False)}
+        copies = out["traced"]["graph"]["device_to_host_copies_per_iteration"]
+        check(copies == 1, f"refine_graph {what}: {copies} device-to-host copies a "
+                           "replayed iteration, expected 1")
+        del runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def refine_graph(tmp, seq, led_seq):
+    """The one-card refinement as one CUDA graph an iteration
+    (refine/graph.py) against the eager loop (capture=False), on three
+    recipes: SH1 (the main run's, 40 keyframes at 128^3), a whole SH2
+    refinement (configs/sokrates_sh2.json's weights on the main scan) and
+    the LED run with its upsample (two captures) -> facts (_graph_cell)."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), SH2_CONFIG)) as fh:
+        sh2 = json.load(fh)
+    recipes = (
+        ("SH1", dict(seq=seq, last=FRAMES - 1, recipe=REFINE_SH1, kw={}), 1),
+        ("SH2", dict(seq=seq, last=FRAMES - 1,
+                     recipe={k: sh2[k] for k in REFINE_SH1}, kw={}), 1),
+        ("LED upsample", dict(seq=led_seq, last=LED_FRAMES - 1, recipe=REFINE_LED,
+                              kw=dict(grid=LED_GRID, gt_poses=True)), 2))
+    out = {}
+    for what, c, captures in recipes:
+        scan = run_scan(tmp, "graph_" + what.split()[0].lower(), c["seq"], c["last"], "dma",
+                        config=c["recipe"], **c["kw"])
+        out[what] = _graph_cell(scan["pipe"], what, captures)
+    return out
 
 
 def run_led_upsample(tmp):
@@ -5905,7 +6277,10 @@ def _first_iteration_blocks(enabled):
     card (_traced), the profiler started once beforehand so that its own
     set-up is in no block -> {block: its seconds, device kernels and device
     time, the operations that took the most host and device time, the
-    warm-up records the trace lost}."""
+    warm-up records the trace lost}.  On one card the loop's iterations are
+    graph replays, which run no Python: the first calls traced are those of
+    the graph's warm-up, iteration 0 run eagerly on a copy of its state
+    (refine/graph.py)."""
     facts = {}
     if not enabled:
         yield facts
@@ -6627,7 +7002,9 @@ def resume_refine(tmp, root, main_run):
     cfg_path = os.path.join(tmp, "cli.json")
     write_config(cfg_path, out, FRAMES - 1, refine=REFINE_SH1, input_dir=root + "/")
     summary_path = os.path.join(tmp, "cli_summary.json")
-    real, calls = opt_mod._iteration_core, {"n": 0}
+    # the fused loop's step (a graph replay on the card, the eager
+    # iteration elsewhere) runs once an iteration
+    real, calls = opt_mod._fused_step, {"n": 0}
 
     def failing_once(*args, **kw):
         calls["n"] += 1
@@ -6638,7 +7015,7 @@ def resume_refine(tmp, root, main_run):
 
     backoff = os.environ.get("PSGSDF_RETRY_BACKOFF")
     os.environ["PSGSDF_RETRY_BACKOFF"] = "0"
-    opt_mod._iteration_core = failing_once
+    opt_mod._fused_step = failing_once
     t0 = time.perf_counter()
     try:
         # the command line's own output (metrics echo, summary) to a file
@@ -6648,7 +7025,7 @@ def resume_refine(tmp, root, main_run):
                            "--retries", "1", "--summary-json", summary_path,
                            "--platform", "cpu" if DEVICE == "cpu" else "gpu"])
     finally:
-        opt_mod._iteration_core = real
+        opt_mod._fused_step = real
         if backoff is None:
             del os.environ["PSGSDF_RETRY_BACKOFF"]
         else:
@@ -6835,6 +7212,13 @@ def profile_refine(ref):
               f"{kernel}: {launched} launches for {calls[name]} {name} calls")
     check(not any("normaleq_reduce_kernel" in r[2] for r in rows),
           "a normaleq_reduce_kernel ran in the traced iterations")
+    # an SH light block's eigen-solve is ONE light_solve_kernel, and no
+    # cuSOLVER eigen-solver kernel runs
+    launched = int(sum(r[1] for r in rows if "light_solve_kernel" in r[2]))
+    check(launched == calls["light_solve"] == (0 if led else 2),
+          f"light_solve_kernel: {launched} launches, {calls['light_solve']} calls")
+    check(not any("syev" in r[2].lower() for r in rows),
+          "a cuSOLVER eigen-solver kernel ran in the traced iterations")
     # an energy evaluation is ONE energy_sums_kernel launch
     launched = int(sum(r[1] for r in rows if "energy_sums_kernel" in r[2]))
     check(launched == energies["energy_calls"] == energies["energy_sums"] > 0
@@ -7086,15 +7470,25 @@ def _albedo_decisions():
     """While the body runs, record each one-device albedo block's (0, 1)
     acceptance, made in ops/albedo.albedo_block (the kernel's epilogue on
     the card, update_albedo's rule): its candidates rho - delta and its
-    accept mask, on the device -> the list of (candidates, accepted)."""
+    accept mask, on the device -> the list of (candidates, accepted).  Of a
+    graphed loop: not its warm-up's, and each replay's, copied after it
+    (refine/graph.after_replay)."""
+    import torch
     from psgradientsdf_tpu_torch.ops import albedo as AL
+    from psgradientsdf_tpu_torch.refine import graph
 
     real, seen = AL.albedo_block, []
 
     def recording(prob, rd, albedo, *a, **kw):
         delta, new = real(prob, rd, albedo, *a, **kw)
+        if graph.warming():
+            return delta, new
         cand = albedo - delta
-        seen.append((cand, (cand > 0.0) & (cand < 1.0) & prob.valid[:, None]))
+        ok = (cand > 0.0) & (cand < 1.0) & prob.valid[:, None]
+        if cand.is_cuda and torch.cuda.is_current_stream_capturing():
+            graph.after_replay(lambda: seen.append((cand.clone(), ok.clone())))
+        else:
+            seen.append((cand, ok))
         return delta, new
 
     AL.albedo_block = recording
@@ -7360,12 +7754,12 @@ def _record_writes(out_dir):
 def _failing_iteration(iteration):
     """While the body runs, refinement iteration `iteration` (counted from 0
     in this process) raises, by a wrapper of the module function that runs
-    an iteration (None: no failure) -> the dict whose "failed" says whether
-    it did."""
+    a fused iteration, a graph replay or an eager one (None: no failure) ->
+    the dict whose "failed" says whether it did."""
     from psgradientsdf_tpu_torch.refine import optimizer as opt_mod
 
     state = {"calls": 0, "failed": False}
-    real = opt_mod._iteration_core
+    real = opt_mod._fused_step
 
     def failing(*args, **kw):
         state["calls"] += 1
@@ -7375,11 +7769,11 @@ def _failing_iteration(iteration):
         return real(*args, **kw)
 
     if iteration is not None:
-        opt_mod._iteration_core = failing
+        opt_mod._fused_step = failing
     try:
         yield state
     finally:
-        opt_mod._iteration_core = real
+        opt_mod._fused_step = real
 
 
 def dist_rank(rank, job_path):
@@ -7874,6 +8268,10 @@ def main():
                  **energy_kernels(main_run, led_run))
             emit("dist_tail_kernels", ok=True, card=card, reps=KERNEL_REPS,
                  **dist_tail_kernels(main_run, led_run, led_first))
+            emit("light_solve_kernels", ok=True, card=card, reps=KERNEL_REPS,
+                 **light_solve_kernels(main_run))
+            led_seq = make_sequence(LED_FRAMES, shading="led", step=LED_STEP, seed=SEED + 1)
+            emit("refine_graph", ok=True, card=card, **refine_graph(tmp, seq, led_seq))
             if "--profile" in sys.argv[1:]:
                 emit("profile_refine", card=card, **profile_refine(
                     main_run["pipe"].refiner))
@@ -8004,6 +8402,14 @@ def main():
         # plain chains
         tail_facts = dist_tail_kernels(main_run, led_run, led_first)
         emit("dist_tail_kernels", ok=True, card=card, reps=KERNEL_REPS, **tail_facts)
+
+        # ---- the SH light's eigen-solve against its plain version
+        solve_facts = light_solve_kernels(main_run)
+        emit("light_solve_kernels", ok=True, card=card, reps=KERNEL_REPS, **solve_facts)
+
+        # ---- the one-card refinement as one CUDA graph an iteration against
+        # the eager loop: SH1, a whole SH2 refinement, LED with its upsample
+        emit("refine_graph", ok=True, card=card, **refine_graph(tmp, seq, led_seq))
 
         # ---- the command line on the files, a failure mid-refinement, retry
         emit("resume_refine", ok=True, card=card,
@@ -8283,7 +8689,33 @@ def main():
             "nfc,nfck->ck forming H and g from w J and [J, r] formed beforehand"))}
     for name in TAIL_KERNELS:
         check(tail_launches[name] > 0, f"{name} was never launched on its path")
+    # the SH light's eigen-solve: the main run's launches (a graph replay's
+    # counted as its capture's), the times of its SH1 solve in the path's order
+    solve_timed = solve_facts["timed"]["SH1"]
+    solve_rows = {"light_solve": dict(solve_timed, work=(
+        f"the main run's SH1 light block at its final state: {solve_timed['keyframes']} "
+        f"keyframes of a {solve_timed['basis']}x{solve_timed['basis']} Gram, a warp a "
+        f"keyframe, cyclic Jacobi in double ({solve_timed['rotations']} rotations in all), "
+        "the clip and the products, timed after light_normal_eqs_sh as the path runs it; "
+        "the bound counts H and g read and delta written once, and the rotations' and "
+        "products' float64 operations at 34 TFLOP/s; empty_launch_ms is an empty kernel "
+        "on its grid in its place; plain_ms is light_solve_plain (torch.linalg.eigh in "
+        "float64, which waits for the host); library_ms is torch.linalg.eigh with the "
+        "clip's products in float64, library_f32_ms in float32 (the port's solve before "
+        "this kernel)"))}
+    for name in SOLVE_KERNELS:
+        check(refine_launches[name] > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=SOLVE_KERNELS[name][0],
+             replaces=SOLVE_KERNELS[name][1], launches=refine_launches[name],
+             max_abs_err=solve_rows[name]["max_abs_err"], ms=solve_rows[name]["ms"],
+             plain_ms=solve_rows[name]["plain_ms"], bound_ms=solve_rows[name]["bound_ms"],
+             bound_by=solve_rows[name]["bound_by"],
+             library_ms=solve_rows[name]["library_ms"],
+             library_f32_ms=solve_rows[name]["library_f32_ms"],
+             empty_launch_ms=solve_rows[name]["empty_launch_ms"],
+             work=solve_rows[name]["work"])
+        for name in SOLVE_KERNELS] + [
         dict(name=name, route="cuda", source=TAIL_KERNELS[name][0],
              replaces=TAIL_KERNELS[name][1], launches=tail_launches[name],
              max_abs_err=tail_rows[name]["max_abs_err"], ms=tail_rows[name]["ms"],

@@ -6,7 +6,7 @@ solve, the fusion update, the refinement's residual pass and distance
 Jacobian, the distance block's assembled system and CG, its regularizer
 operators and update, the pose and light normal equations, the albedo
 block's system and CG, the culled fusion's cull and compaction, the scan's
-preprocessing, the refinement's energies)
+preprocessing, the refinement's energies, the SH light's eigen-solve)
 is compiled with nvcc
 for sm_90a, a host C++ source (.cpp: the PNG unfilter, marching cubes and
 the PLY writers) with g++.  The build happens at first use, from the
@@ -48,7 +48,8 @@ GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # the package's CUDA kernels, one source each (csrc/<name>.cu): the first of
 # them asked for starts nvcc on every one not yet built, all together
 CUDA_LIBRARIES = ("rowcopy", "gn", "fuse", "residual", "distcg", "normaleq",
-                  "albedo", "cull", "preprocess", "energy", "distreg")
+                  "albedo", "cull", "preprocess", "energy", "distreg",
+                  "smallsolve")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

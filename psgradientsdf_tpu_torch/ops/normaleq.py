@@ -16,8 +16,8 @@ optimizer.py `_pose_normal_eqs` (:208) and its chunk loop in `_pose_core`
 or `pose_jacobian_led` (:84), and the einsums nfc,nfcb,nfcd->fbd and
 nfc,nfcb,nfc->fb.  light_normal_eqs_sh replaces refine/solvers.py
 `solve_light_sh`'s (:512) einsums nfc,ncb,ncd->fbd and nfc,ncb,nfc->fb
-(:526-527); the batched eigen-solve after it (solvers.
-solve_light_from_normal_eqs) stays in PyTorch.  light_normal_eqs_led
+(:526-527); the eigen-solve after it (solvers.
+solve_light_from_normal_eqs) is ops/smallsolve.py's kernel.  light_normal_eqs_led
 replaces refine/solvers.py `solve_light_led`'s (:538) two einsums over
 refine/jacobians.py `light_jacobian_led` (:161); its damped 3-element solve
 (solvers.solve_light_led_from_normal_eqs) stays in PyTorch.  Its kernel

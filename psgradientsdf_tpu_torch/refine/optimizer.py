@@ -19,10 +19,18 @@ Reference behaviors carried over:
     iter 15 (PsOptimizer.cpp:386-413)
   * artifact dumps every 3 iterations (PsOptimizer.cpp:419-423)
 
-Host reads: the four energies after every block (one small copy), the CG
-stop flag every few steps (refine/solvers.py; the distance and albedo
-blocks' CGs on one device decide their stop on the card, ops/distcg.py and
-ops/albedo.py), and the dense factorisations' status.  The periodic
+Host reads: the fused loop (the default) reads the device ONCE an
+iteration: every block's energies and CG steps and the pose solve's status
+in one small copy (iteration_readout, _fused_step), as the JAX package
+reads its one-dispatch iteration; the per-block loop reads each block's
+energies.  The CG stop flag is read every few steps on a mesh
+(refine/solvers.py; the distance and albedo blocks' CGs on one device
+decide their stop on the card, ops/distcg.py and ops/albedo.py).  On one
+card the fused iteration is ONE CUDA graph, captured once per problem and
+static arguments and replayed once an iteration (refine/graph.py; the
+upsample captures anew); `capture=False` runs it eagerly, and the mesh's
+loop, the joint block and the CPU run it eagerly too (`loop_kind`, logged
+as `refine_loop`).  The periodic
 every-3-iteration dumps (PsOptimizer.cpp:419-423) run on a writer thread
 (utils/writer.py): the loop starts the device->host copies of what the
 dump reads and goes on, the thread runs marching cubes and writes the PLY
@@ -68,7 +76,7 @@ from psgradientsdf_tpu_torch.ops import distcg, energy, normaleq, residual
 from psgradientsdf_tpu_torch.ops.image import rgb_float
 from psgradientsdf_tpu_torch.ops.marching_cubes import extract_mesh_from_volume
 from psgradientsdf_tpu_torch.parallel import distributed
-from psgradientsdf_tpu_torch.refine import geometry, jacobians, render, solvers
+from psgradientsdf_tpu_torch.refine import geometry, graph, jacobians, render, solvers
 from psgradientsdf_tpu_torch.refine.problem import RefineProblem, extract_problem, writeback
 from psgradientsdf_tpu_torch.refine.upsample import upsample_volume
 from psgradientsdf_tpu_torch.utils import sh as sh_mod
@@ -135,9 +143,11 @@ def _dist_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
 
 
 def _pose_core(prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
-               *, model, order, loss, lam, voxel_size, damping):
+               *, model, order, loss, lam, voxel_size, damping, info_out=None):
+    """Pose GN update; with `info_out` the per-keyframe solve's status goes
+    there for the caller's one read (solvers.solve_pose_from_normal_eqs)."""
     H, g = normaleq.pose_normal_eqs(rd, K, poses, albedo, grad_stored, lights, model)
-    delta = solvers.solve_pose_from_normal_eqs(H, g, damping)
+    delta = solvers.solve_pose_from_normal_eqs(H, g, damping, info_out=info_out)
     return solvers.update_poses(poses, delta)
 
 
@@ -185,10 +195,11 @@ def block_names(light, albedo, distance, pose, joint_dp) -> List[str]:
 
 def _run_block(name, prob, geom, rd, dist, albedo, grad_stored, poses, K, lights,
                *, kw, reg_weight_n, reg_weight_l, reg_weight_rho, damping,
-               laplacian_diag_only, steps_out=None, stencil=None):
+               laplacian_diag_only, steps_out=None, stencil=None, info_out=None):
     """One block's update from the residual pass `rd` at the current state
     -> (dist, albedo, grad_stored, poses, lights); `stencil` is the
-    problem's reverse stencil table for the distance and albedo blocks."""
+    problem's reverse stencil table for the distance and albedo blocks;
+    `info_out` takes the pose solve's status (_pose_core)."""
     args = (prob, geom, rd, dist, albedo, grad_stored, poses, K, lights)
     dkw = dict(reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l,
                damping=damping, laplacian_diag_only=laplacian_diag_only,
@@ -203,7 +214,7 @@ def _run_block(name, prob, geom, rd, dist, albedo, grad_stored, poses, K, lights
     elif name == "distance":
         dist, grad_stored = _dist_core(*args, **kw, **dkw, stencil=stencil)
     elif name == "pose":
-        poses = _pose_core(*args, **kw, damping=damping)
+        poses = _pose_core(*args, **kw, damping=damping, info_out=info_out)
     else:
         raise ValueError(f"unknown block {name!r}")
     return dist, albedo, grad_stored, poses, lights
@@ -215,7 +226,7 @@ def _iteration_core(prob, geom, dist, albedo, grad_stored, poses, images, K,
                     laplacian_diag_only, do_light, do_albedo, do_distance,
                     do_pose, joint_dp, steps_out=None,
                     block_done: Optional[Callable] = None, ops=None,
-                    stencil=None):
+                    stencil=None, info_out=None):
     """ONE full alternating iteration — every enabled block plus its
     residual refresh and post-block energies — from the state alone: it
     makes its own leading residual pass, where the per-block path of the
@@ -231,9 +242,12 @@ def _iteration_core(prob, geom, dist, albedo, grad_stored, poses, images, K,
     single-device ones by default, a mesh's from parallel/refine.py;
     `stencil` is the problem's reverse stencil table (ops/distcg.py), which
     a distance block (and an albedo block under its regularizer) on one
-    device needs; a mesh's ops take none.
+    device needs; a mesh's ops take none.  `info_out` (single-device ops
+    only) collects the pose solve's status, read by the caller: a singular
+    block then raises there, not here.
     """
     ops = SINGLE if ops is None else ops
+    extra = {} if info_out is None else {"info_out": info_out}
     kw = dict(model=model, order=order, loss=loss, lam=lam,
               voxel_size=voxel_size)
 
@@ -251,12 +265,62 @@ def _iteration_core(prob, geom, dist, albedo, grad_stored, poses, images, K,
             kw=kw, reg_weight_n=reg_weight_n, reg_weight_l=reg_weight_l,
             reg_weight_rho=reg_weight_rho, damping=damping,
             laplacian_diag_only=laplacian_diag_only, steps_out=steps_out,
-            stencil=stencil)
+            stencil=stencil, **extra)
         rd, e = refresh()
         energies.append(e)
         if block_done is not None:
             block_done(name, e)
     return dist, albedo, grad_stored, poses, lights, tuple(energies)
+
+
+def iteration_readout(prob, geom, dist, albedo, grad_stored, poses, images, K,
+                      lights, *, ops=None, stencil=None, **kw):
+    """_iteration_core with what the loop reads of it packed into ONE
+    device tensor -> (the new state (dist, albedo, grad_stored, poses,
+    lights), graph.pack's readout [n] float64: each block's energies and CG
+    steps, then the pose solve's status, ok: a 0-dim bool, whether no pose
+    block was singular, or None without a pose solve's status).  The eager
+    fused loop and the graph's capture (refine/graph.py) both run this, so
+    the card's graph and the CPU read the device the same way."""
+    ops = SINGLE if ops is None else ops
+    steps: List = []
+    info: Optional[List] = [] if ops is SINGLE else None
+    blocks, seen = [], [0]
+
+    def done(name, e):
+        # with the CG step count this block appended, if any
+        blocks.append((e, steps[-1] if len(steps) > seen[0] else None))
+        seen[0] = len(steps)
+
+    out = _iteration_core(prob, geom, dist, albedo, grad_stored, poses, images, K,
+                          lights, **kw, steps_out=steps, block_done=done, ops=ops,
+                          stencil=stencil, info_out=info)
+    status = info[-1] if info else None
+    readout = graph.pack([b[0] for b in blocks], [b[1] for b in blocks], status)
+    return out[:5], readout, None if status is None else torch.all(status == 0)
+
+
+def _fused_step(ref, runner, kw):
+    """ONE fused iteration of the refiner `ref` and its ONE read of the
+    device: a replay of `runner` (a refine/graph.IterationGraph) or, with
+    none, iteration_readout run eagerly -> (each block's four energies, each
+    block's CG steps or None), host numbers.  A singular pose block raises
+    torch.linalg.LinAlgError after the read, and the state stays as it was
+    (on the card the graph commits nothing; eagerly nothing is set)."""
+    new = None
+    if runner is not None:
+        ref._set_state(runner.load(ref._state()))
+        values = runner.replay()
+    else:
+        new, readout, _ = iteration_readout(*ref._args(), **kw, ops=ref.ops,
+                                            stencil=ref.stencil)
+        values = readout.tolist()
+    energies, steps, info = graph.unpack(values, len(block_names(
+        kw["do_light"], kw["do_albedo"], kw["do_distance"], kw["do_pose"], kw["joint_dp"])))
+    solvers.check_pose_info(info)
+    if new is not None:
+        ref._set_state(new)
+    return energies, steps
 
 
 def albedo_sums(prob, geom, dist, grad_stored, poses, images, K):
@@ -332,6 +396,7 @@ class PhotometricRefiner:
         laplacian_diag_only: bool = False,
         mesh=None,
         device=None,
+        capture: bool = True,
     ):
         self.mesh = mesh
         if mesh is not None:
@@ -368,6 +433,11 @@ class PhotometricRefiner:
         # True: each iteration walks _iteration_core; False: the per-block
         # path, which reuses the residual pass it holds.  Same arithmetic.
         self.fused_iterations = bool(getattr(cfg, "fused_iterations", True))
+        # on one card the fused loop replays one CUDA graph an iteration
+        # (refine/graph.py); False runs it eagerly (the checks' loop)
+        self.capture = bool(capture)
+        self._graph: Optional[graph.IterationGraph] = None
+        self.graph_captures: int = 0         # graphs captured by this refiner
         self.images = None
         self.poses = None
         self.keyframe_indices: List[int] = []
@@ -559,6 +629,57 @@ class PhotometricRefiner:
             # a failure between a periodic dump and the terminal one must not
             # leave the dump thread running; what it raised is logged
             self._join_dump()
+            self._release_graph()
+
+    def loop_kind(self):
+        """("graph" or "eager", why): the loop this refiner runs.  The
+        graph needs the fused iteration on one card; the mesh's loop and
+        the joint block keep the eager one."""
+        if not self.fused_iterations:
+            return "eager", "fused_iterations is off: the per-block loop"
+        if self.device.type != "cuda":
+            return "eager", f"the state is on {self.device}: no graph off the card"
+        if self.mesh is not None:
+            return "eager", "a device mesh runs the eager loop"
+        if self.cfg.joint_dp:
+            return "eager", "the joint block runs the eager loop"
+        if not self.capture:
+            return "eager", "capture=False"
+        return "graph", "one CUDA graph replayed an iteration"
+
+    def _graph_for(self, kw) -> graph.IterationGraph:
+        """The graph of the fused iteration under `kw` on the current
+        problem: the one held if it was captured for the same problem and
+        static arguments, else a new warm-up and capture (the old graph and
+        its memory pool released first)."""
+        key = (id(self.prob), id(self.images), id(self.K), id(self.stencil),
+               tuple(sorted(kw.items())))
+        if self._graph is not None and self._graph.key == key:
+            return self._graph
+        self._release_graph()
+        prob, geom, images, K, stencil = (self.prob, self.geom, self.images,
+                                          self.K, self.stencil)
+
+        def step(state):
+            dist, albedo, grad_stored, poses, lights = state
+            return iteration_readout(prob, geom, dist, albedo, grad_stored, poses,
+                                     images, K, lights, **kw, ops=SINGLE,
+                                     stencil=stencil)
+
+        t0 = time.perf_counter()
+        self._graph = graph.IterationGraph(step, self._state(), key)
+        self._set_state(self._graph.state)
+        self.graph_captures += 1
+        self.metrics.log("refine_graph", captures=self.graph_captures,
+                         surface_voxels=self.prob.n_surface,
+                         seconds=time.perf_counter() - t0,
+                         warmup_seconds=self._graph.warmup_seconds)
+        return self._graph
+
+    def _release_graph(self) -> None:
+        if self._graph is not None:
+            self._graph.release()
+            self._graph = None
 
     def _optimize(self, light, albedo, distance, pose) -> bool:
         cfg = self.cfg
@@ -627,16 +748,15 @@ class PhotometricRefiner:
                 reg_weight_rho=w_rho, damping=damping,
                 laplacian_diag_only=self.laplacian_diag_only)
 
-        def book(name, e_dev, steps):
-            """Energy bookkeeping after a block.  The reference refreshes each
+        def book(name, e, steps, dt):
+            """Energy bookkeeping after a block, from its energies `e` and
+            CG steps read off the device.  The reference refreshes each
             reg energy ONLY while its regularizer is active
             (PsOptimizer.cpp:311,338-339): with upsample the pre-iter-5
             Laplacian term is a frozen constant in the total — refreshing it
             would wiggle the convergence metric and fire spurious divergence
             aborts."""
             nonlocal E, E_n, E_l, E_r, E_total
-            e = e_dev.tolist()              # the block's one read of the device
-            dt = T.toc(name)
             E = e[0]
             if name == "albedo" and albedo_reg:
                 E_r = e[3]
@@ -648,25 +768,30 @@ class PhotometricRefiner:
             E_total = self._total_energy(E, E_n, E_l, E_r, w_n, w_l, w_rho,
                                          iter=it, block=name)
             rec = dict(iter=it, block=name, seconds=dt)
-            if name in _CG_BLOCKS and steps:
-                rec["cg_steps"] = int(steps[-1])
+            if name in _CG_BLOCKS and steps is not None:
+                rec["cg_steps"] = steps
             self.metrics.log("block", **rec)
 
+        loop, why = self.loop_kind()
+        self.metrics.log("refine_loop", loop=loop, reason=why)
         while it < cfg.max_it:
             if self.fused_iterations:
-                steps: List = []
+                kw = dict(skw, **weights(), do_light=light, do_albedo=albedo,
+                          do_distance=distance, do_pose=pose, joint_dp=cfg.joint_dp)
+                # a new problem or new weights are captured before the timer
+                runner = self._graph_for(kw) if loop == "graph" else None
                 T.tic()
-                out = _iteration_core(
-                    *self._args(), **skw, **weights(),
-                    do_light=light, do_albedo=albedo, do_distance=distance,
-                    do_pose=pose, joint_dp=cfg.joint_dp, steps_out=steps,
-                    block_done=lambda name, e: book(name, e, steps), ops=self.ops,
-                    stencil=self.stencil)
-                self._set_state(out[:5])
+                energies, steps = _fused_step(self, runner, kw)   # ONE read
+                dt = T.toc("iteration")
+                # the JAX package's bookkeeping: the iteration's time split
+                # evenly over its blocks
+                for name, e, s in zip(names, energies, steps):
+                    book(name, e, s, dt / max(len(names), 1))
                 rd = None   # stale; the per-block path recomputes on demand
             else:
                 if rd is None:
                     rd = self._rd()
+                dt = 0.0
                 for name in names:
                     steps = []
                     T.tic()
@@ -674,13 +799,17 @@ class PhotometricRefiner:
                         name, self.prob, self.geom, rd, *self._state()[:4],
                         self.K, self.lights, kw=skw, **weights(),
                         steps_out=steps, stencil=self.stencil))
-                    rd, e = refresh()
-                    book(name, e, steps)
+                    rd, e_dev = refresh()
+                    e = e_dev.tolist()      # the block's one read of the device
+                    block_dt = T.toc(name)
+                    dt += block_dt
+                    book(name, e, int(steps[-1]) if steps else None, block_dt)
 
             self.iterations_run = it + 1
             E_vec.append(E_total)
             rel_diff = abs(E_vec[-2] - E_total) / max(abs(E_vec[-2]), 1e-12)
-            self.metrics.log("iteration", iter=it, rel_diff=rel_diff, total=E_total)
+            self.metrics.log("iteration", iter=it, rel_diff=rel_diff, total=E_total,
+                             seconds=dt)
 
             if rel_diff < cfg.conv_threshold:
                 self.metrics.log("converged", iter=it)

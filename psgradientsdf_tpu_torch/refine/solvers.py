@@ -49,7 +49,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from psgradientsdf_tpu_torch.ops import albedo as albedo_ops
-from psgradientsdf_tpu_torch.ops import distcg, distreg
+from psgradientsdf_tpu_torch.ops import distcg, distreg, smallsolve
 from psgradientsdf_tpu_torch.ops.distcg import jacobi_diag
 from psgradientsdf_tpu_torch.refine import geometry
 from psgradientsdf_tpu_torch.refine.jacobians import DistJacobian
@@ -728,13 +728,11 @@ def light_normal_eqs_sh(rd: ResidualData, J_l: torch.Tensor):
 
 
 def solve_light_from_normal_eqs(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """delta_l [F,B] = V inv V^T g from the batched eigen-decomposition of H,
-    directions of eigenvalue <= 1e-6 * lambda_max dropped (solve_light_sh)."""
-    vals, vecs = torch.linalg.eigh(H)                     # [F,B], [F,B,B]
-    vmax = torch.amax(vals, dim=-1, keepdim=True)
-    inv = torch.where(vals > torch.clamp(vmax, min=0.0) * 1e-6, 1.0 / vals, 0.0)
-    gv = torch.einsum("fdb,fd->fb", vecs, g)              # V^T g
-    return torch.einsum("fbd,fd->fb", vecs, inv * gv)     # V inv V^T g
+    """delta_l [F,B] = V inv V^T g from the eigen-decomposition of H in
+    float64, directions of eigenvalue <= 1e-6 * lambda_max dropped
+    (solve_light_sh): ops/smallsolve.light_solve, one launch on the card
+    that waits for nothing."""
+    return smallsolve.light_solve(H, g)
 
 
 def solve_light_led(rd: ResidualData, J_l: torch.Tensor, damping: float) -> torch.Tensor:
@@ -764,15 +762,34 @@ def pose_normal_eqs(rd: ResidualData, J_c: torch.Tensor):
     return H, g
 
 
-def solve_pose_from_normal_eqs(H: torch.Tensor, g: torch.Tensor, damping: float) -> torch.Tensor:
+def solve_pose_from_normal_eqs(H: torch.Tensor, g: torch.Tensor, damping: float,
+                               info_out: Optional[List] = None) -> torch.Tensor:
     """Per-frame 6x6 solves given assembled normal equations H [F,6,6],
     g [F,6] (poseJacobian + CG, PsOptimizer.cpp:207-234; block-diagonal ->
-    exact). Returns delta_xi [F,6].  A singular block raises."""
+    exact). Returns delta_xi [F,6].  A singular block raises
+    torch.linalg.LinAlgError: here, or, with `info_out`, where the caller
+    reads the factorisation's status [F] int32, which `info_out` receives
+    (torch.linalg.solve_ex: nothing waits for the host here)."""
     diag = torch.diagonal(H, dim1=-2, dim2=-1)
     # multiplicative damping on the diagonal (PsOptimizer.cpp:103-105)
     H = H + torch.diag_embed(damping * diag)
     jitter = 1e-8 * torch.eye(6, dtype=H.dtype, device=H.device)
-    return torch.linalg.solve(H + jitter, g[..., None])[..., 0]
+    x, info = torch.linalg.solve_ex(H + jitter, g[..., None])
+    if info_out is None:
+        check_pose_info(info.tolist())
+    else:
+        info_out.append(info)
+    return x[..., 0]
+
+
+def check_pose_info(info: Sequence[int]) -> None:
+    """Raise as torch.linalg.solve does for the first singular block of a
+    pose solve's status (solve_pose_from_normal_eqs)."""
+    for f, v in enumerate(info):
+        if v:
+            raise torch.linalg.LinAlgError(
+                f"torch.linalg.solve: (Batch element {f}): The solver failed because "
+                "the input matrix is singular.")
 
 
 def update_poses(poses: torch.Tensor, delta_xi: torch.Tensor) -> torch.Tensor:

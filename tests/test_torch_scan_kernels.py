@@ -427,7 +427,7 @@ def test_the_first_cuda_library_asked_for_builds_the_others_beside_it(
     assert sorted(kernels.CUDA_LIBRARIES) == cu == ["albedo", "cull", "distcg", "distreg",
                                                     "energy", "fuse", "gn", "normaleq",
                                                     "preprocess", "residual",
-                                                    "rowcopy"]
+                                                    "rowcopy", "smallsolve"]
     src = tmp_path / "csrc"
     src.mkdir()
     for name in ("one", "two"):
