@@ -460,6 +460,9 @@ SOLVE_KERNELS = {
 # (NVIDIA's data sheet), the operations bound of its work
 LIGHT_SOLVE_TOL = 1e-6
 FP64_FLOPS = 34e12
+# the cyclic-order design of the eigen-solve that csrc/smallsolve.cu's
+# round-robin design replaced (the same C interface), timed in turns with it
+EARLIER_SOLVE = "tools/smallsolve_cyclic.cu"
 # refine_graph: the SH2 recipe (its optimizer keys), and the graphed and
 # eager refinements run in turns this many times each (seconds: best of)
 SH2_CONFIG = "configs/sokrates_sh2.json"
@@ -2828,13 +2831,14 @@ def _light_system(ref, order):
 def _solve_case(what, H, g):
     """light_solve against light_solve_plain (float64 eigh on the card) on
     H, g: within LIGHT_SOLVE_TOL of max|delta| (0 where the plain step is
-    0), finite, twice bit for bit -> facts."""
+    0), finite, twice bit for bit -> facts (with the most rotations and
+    rounds that rotated a keyframe)."""
     import torch
     from psgradientsdf_tpu_torch.ops import smallsolve as SS
 
     want = SS.light_solve_plain(H, g)
-    rot = []
-    got = SS.light_solve(H, g, rotations_out=rot)
+    rot, rounds = [], []
+    got = SS.light_solve(H, g, rotations_out=rot, rounds_out=rounds)
     again = SS.light_solve(H, g)
     _sync()
     scale = float(want.abs().max())
@@ -2843,30 +2847,98 @@ def _solve_case(what, H, g):
     check(err <= LIGHT_SOLVE_TOL * scale if scale > 0 else err == 0.0,
           f"light_solve {what}: {err:.3g} from the plain solve, max|delta| {scale:.3g}")
     check(_bits_same(got, again), f"light_solve {what}: two runs differ")
+    counted = bool(rot) and H.shape[0] > 0
     return dict(case=what, keyframes=int(H.shape[0]), basis=int(H.shape[1]),
                 max_abs_err=err, max_abs_delta=scale,
-                rotations_max=int(rot[0].max()) if rot and H.shape[0] else None,
-                rotations=int(rot[0].sum()) if rot and H.shape[0] else None)
+                rotations_max=int(rot[0].max()) if counted else None,
+                rotations=int(rot[0].sum()) if counted else None,
+                rounds_max=int(rounds[0].max()) if counted else None)
 
 
 def _synthetic_grams(B, F, dev, seed):
-    """(name, H, g) of the edges: a flat scene's rank-1 Gram (every voxel
-    the same basis vector), H = 0 (no counted pair), and eigenvalues at
-    twice and half the clip (1e-6 of the largest) beside well-separated
-    ones."""
+    """(name, H, g) of the edges, F keyframes of a BxB Gram each: random
+    SPD, a flat scene's rank-1 Gram (every voxel the same basis vector),
+    H = 0 (no counted pair), a diagonal H (no rotation), eigenvalues
+    repeated in threes, eigenvalues geometric from 1 to 1.5e-6 (a spread of
+    6.7e5, all kept), and eigenvalues at twice and half the clip (1e-6 of
+    the largest) beside well-separated ones (B = 2: half only; B = 1: -1,
+    dropped)."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
-    b = torch.randn(F, B, 1, generator=gen, dtype=torch.float64)
-    g = torch.randn(F, B, generator=gen, dtype=torch.float64)
+    f64 = dict(generator=gen, dtype=torch.float64)
+    b = torch.randn(F, B, 1, **f64)
+    g = torch.randn(F, B, **f64)
+    M = torch.randn(F, B, B, **f64)
+    spd = M @ M.mT / B + 0.1 * torch.eye(B, dtype=torch.float64)
     flat = 37.0 * (b @ b.mT)
-    Q, _ = torch.linalg.qr(torch.randn(F, B, B, generator=gen, dtype=torch.float64))
+    diagonal = torch.diag_embed(0.5 + 1.5 * torch.rand(F, B, **f64))
+    Q, _ = torch.linalg.qr(torch.randn(F, B, B, **f64))
+    repeated = 1.0 + torch.arange(B, dtype=torch.float64) // 3
+    spread = torch.logspace(0, np.log10(1.5e-6), B, dtype=torch.float64)
     lam = torch.logspace(0, -3, B, dtype=torch.float64)
-    lam[-2], lam[-1] = 2e-6, 0.5e-6
-    straddle = (Q * lam) @ Q.mT
+    lam[-1] = 0.5e-6 if B > 1 else -1.0
+    if B > 2:
+        lam[-2] = 2e-6
     f32 = lambda t: t.to(torch.float32).to(dev)
-    return [("flat rank-1", f32(flat), f32(g)), ("H = 0", f32(0 * flat), f32(g)),
-            ("eigenvalues at 2 and 0.5 x the clip", f32(straddle), f32(g))]
+    return [("random SPD", f32(spd), f32(g)), ("flat rank-1", f32(flat), f32(g)),
+            ("H = 0", f32(0 * flat), f32(g)), ("diagonal", f32(diagonal), f32(g)),
+            ("eigenvalues repeated in threes", f32((Q * repeated) @ Q.mT), f32(g)),
+            ("eigenvalues spread 6.7e5", f32((Q * spread) @ Q.mT), f32(g)),
+            ("eigenvalues at 2 and 0.5 x the clip", f32((Q * lam) @ Q.mT), f32(g))]
+
+
+def _solve_ab(systems, src, turns=1):
+    """light_solve on this build and on `src` (an earlier smallsolve.cu
+    whose SolveArgs is a prefix of this one's, as the cyclic-order design
+    tools/smallsolve_cyclic.cu; built here into a temporary directory, its
+    launches on no path and not counted): each within LIGHT_SOLVE_TOL of
+    max|delta| of light_solve_plain on every (H, g, rd, J) of `systems`,
+    then timed in turns (this, earlier, earlier, this; `turns` times) in
+    the path's order, after light_normal_eqs_sh -> {"SH<order>": {"this":
+    [ms], "earlier": [ms], "max_abs_err": {...}, "rotations": {...}}}."""
+    from psgradientsdf_tpu_torch.ops import normaleq
+    from psgradientsdf_tpu_torch.ops import smallsolve as SS
+
+    package, counts = SS._library(), dict(SS.launch_counts)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="light_solve_ab_") as tmp:
+        earlier = _parent_build(src, tmp, "smallsolve_earlier")
+        for name in ("light_solve", "light_solve_floor"):
+            getattr(earlier, name).argtypes = [ctypes.POINTER(SS._SolveArgs),
+                                               ctypes.c_void_p]
+            getattr(earlier, name).restype = ctypes.c_int
+        builds = {"this": package, "earlier": earlier}
+
+        def solve(which, H, g, **kw):
+            SS._bound = builds[which]
+            try:
+                return SS.light_solve(H, g, **kw)
+            finally:
+                SS._bound = package
+
+        for order, (H, g, rd, J) in systems.items():
+            want = SS.light_solve_plain(H, g)
+            scale = float(want.abs().max())
+            errs, rotations = {}, {}
+            for which in builds:
+                rot = []
+                got = solve(which, H, g, rotations_out=rot)
+                _sync()
+                errs[which] = float((got - want).abs().max())
+                rotations[which] = int(rot[0].sum())
+                check(errs[which] <= LIGHT_SOLVE_TOL * scale,
+                      f"light_solve ({which} build), SH{order}: {errs[which]:.3g} from "
+                      f"the plain solve, max|delta| {scale:.3g}")
+            times = {"this": [], "earlier": []}
+            for _ in range(turns):
+                for which in ("this", "earlier", "earlier", "this"):
+                    times[which].append(_path_ms([
+                        lambda: normaleq.light_normal_eqs_sh(rd, J),
+                        lambda: solve(which, H, g)])[1])
+            out[f"SH{order}"] = dict(times, max_abs_err=errs, rotations=rotations)
+    SS.launch_counts.update(counts)
+    return out
 
 
 def light_solve_kernels(main_run):
@@ -2874,14 +2946,15 @@ def light_solve_kernels(main_run):
     launch) against its plain version on the card, LIGHT_SOLVE_TOL of
     max|delta|, twice bit for bit: the main run's SH1 light block at its
     final state (F = 40, B = 4) and that problem under SH2 lights (B = 9),
-    each also on its first keyframe and its first 33; under each basis the
-    flat scene's rank-1 Gram, H = 0 and eigenvalues straddling the clip at
-    F = 1, 33 and 40.  Then the times of the main SH1 and SH2 solves in the
-    path's order (after light_normal_eqs_sh), beside an empty launch of its
-    grid, the plain solve, and torch.linalg.eigh with the clip's products in
-    float32 (the port's solve before this kernel) and in float64
-    (library_ms); bound_ms from this run's bytes and its rotations' float64
-    operations."""
+    each also on its first keyframe and its first 33; under each basis
+    _synthetic_grams' edges at F = 1, 33 and 40, and at every other B from
+    1 to 8 at F = 40.  Then the times of the main SH1 and SH2 solves in the
+    path's order (after light_normal_eqs_sh), in turns with the cyclic-order
+    design it replaced (EARLIER_SOLVE, _solve_ab), beside an empty launch of
+    its grid, the plain solve, and torch.linalg.eigh with the clip's
+    products in float32 (the port's solve before these kernels) and in
+    float64 (library_ms); bound_ms from this run's bytes and its rotations'
+    float64 operations."""
     import torch
     from psgradientsdf_tpu_torch.ops import normaleq
     from psgradientsdf_tpu_torch.ops import smallsolve as SS
@@ -2899,6 +2972,11 @@ def light_solve_kernels(main_run):
         for F in (1, EDGE_ODD_F, H.shape[0]):
             for what, Hs, gs in _synthetic_grams(H.shape[1], F, dev, SEED + 10 * F + order):
                 cases.append(_solve_case(f"SH{order} {what}, {F} keyframes", Hs, gs))
+    F_main = systems[1][0].shape[0]
+    for B in range(1, SS.MAX_BASIS + 1):
+        if B not in (systems[1][0].shape[1], systems[2][0].shape[1]):
+            for what, Hs, gs in _synthetic_grams(B, F_main, dev, SEED + 100 * B):
+                cases.append(_solve_case(f"B = {B} {what}, {F_main} keyframes", Hs, gs))
 
     def eigh_chain(H, g, dtype):
         vals, vecs = torch.linalg.eigh(H.to(dtype))
@@ -2908,18 +2986,20 @@ def light_solve_kernels(main_run):
         return torch.einsum("fbd,fd->fb", vecs, inv * gv).to(torch.float32)
 
     timed = {}
+    turns = (_solve_ab(systems, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                             EARLIER_SOLVE))
+             if DEVICE == "cuda" else {})
     for order, (H, g, rd, J) in (systems.items() if DEVICE == "cuda" else ()):
         F, B = H.shape[0], H.shape[1]
-        ms = _path_ms([lambda: normaleq.light_normal_eqs_sh(rd, J),
-                       lambda: SS.light_solve(H, g)])[1]
+        ab = turns[f"SH{order}"]
         floor = _path_ms([lambda: normaleq.light_normal_eqs_sh(rd, J),
                           lambda: SS.light_solve_floor(F, B, dev)])[1]
         plain = _path_ms([lambda: SS.light_solve_plain(H, g)])[0]
         lib32 = _path_ms([lambda: eigh_chain(H, g, torch.float32)])[0]
         lib64 = _path_ms([lambda: eigh_chain(H, g, torch.float64)])[0]
         f32_err = float((eigh_chain(H, g, torch.float32) - SS.light_solve_plain(H, g)).abs().max())
-        rot = []
-        SS.light_solve(H, g, rotations_out=rot)
+        rot, rounds = [], []
+        SS.light_solve(H, g, rotations_out=rot, rounds_out=rounds)
         rotations = int(rot[0].sum())
         # bytes: H and g read, delta written; operations: a rotation's
         # (c, s, t) and its 2 x 6 B row and column updates, then V^T g and
@@ -2928,14 +3008,22 @@ def light_solve_kernels(main_run):
         flops = rotations * (12 * B + 12) + F * (4 * B * B + B)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP64_FLOPS * 1e3
         timed[f"SH{order}"] = dict(
-            keyframes=F, basis=B, ms=ms, empty_launch_ms=floor, plain_ms=plain,
+            keyframes=F, basis=B, ms=statistics.median(ab["this"]),
+            earlier_ms=statistics.median(ab["earlier"]),
+            in_turns=dict(this=ab["this"], earlier=ab["earlier"]),
+            empty_launch_ms=floor, plain_ms=plain,
             library_ms=lib64, library_f32_ms=lib32, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes,
             fp64_operations=flops, rotations=rotations,
+            rounds_max=int(rounds[0].max()), rounds=int(rounds[0].sum()),
+            earlier_rotations=ab["rotations"]["earlier"],
+            earlier_max_abs_err=ab["max_abs_err"]["earlier"],
             max_abs_err=next(c["max_abs_err"] for c in cases
                              if c["case"] == f"main SH{order}, {F} keyframes"),
             float32_eigh_max_abs_err=f32_err)
-    return dict(cases=cases, tolerance=LIGHT_SOLVE_TOL, timed=timed)
+    return dict(cases=cases, tolerance=LIGHT_SOLVE_TOL, timed=timed,
+                rounds_max=max(c["rounds_max"] or 0 for c in cases),
+                rotations_max=max(c["rotations_max"] or 0 for c in cases))
 
 
 # ------------------------------------- the refinement as one CUDA graph
@@ -8692,17 +8780,25 @@ def main():
     # the SH light's eigen-solve: the main run's launches (a graph replay's
     # counted as its capture's), the times of its SH1 solve in the path's order
     solve_timed = solve_facts["timed"]["SH1"]
-    solve_rows = {"light_solve": dict(solve_timed, work=(
+    sh2 = solve_facts["timed"]["SH2"]
+    solve_rows = {"light_solve": dict(solve_timed, sh2={k: sh2[k] for k in (
+        "ms", "earlier_ms", "rotations", "rounds_max", "max_abs_err", "bound_ms")},
+        work=(
         f"the main run's SH1 light block at its final state: {solve_timed['keyframes']} "
         f"keyframes of a {solve_timed['basis']}x{solve_timed['basis']} Gram, a warp a "
-        f"keyframe, cyclic Jacobi in double ({solve_timed['rotations']} rotations in all), "
-        "the clip and the products, timed after light_normal_eqs_sh as the path runs it; "
+        "keyframe, Jacobi in double in a parallel (round-robin) order: a round's "
+        "disjoint rotations at once, one lane a pair, then J^T A J and V J over the "
+        f"warp's lanes ({solve_timed['rotations']} rotations in all, at most "
+        f"{solve_timed['rounds_max']} rounds that rotated a keyframe), the clip and the "
+        "products, timed after light_normal_eqs_sh as the path runs it, in turns with "
+        "the cyclic-order design it replaced (earlier_ms, tools/smallsolve_cyclic.cu; "
+        "sh2: the same problem under SH2 lights); "
         "the bound counts H and g read and delta written once, and the rotations' and "
         "products' float64 operations at 34 TFLOP/s; empty_launch_ms is an empty kernel "
         "on its grid in its place; plain_ms is light_solve_plain (torch.linalg.eigh in "
         "float64, which waits for the host); library_ms is torch.linalg.eigh with the "
         "clip's products in float64, library_f32_ms in float32 (the port's solve before "
-        "this kernel)"))}
+        "these kernels)"))}
     for name in SOLVE_KERNELS:
         check(refine_launches[name] > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [
@@ -8714,6 +8810,8 @@ def main():
              library_ms=solve_rows[name]["library_ms"],
              library_f32_ms=solve_rows[name]["library_f32_ms"],
              empty_launch_ms=solve_rows[name]["empty_launch_ms"],
+             **{k: solve_rows[name][k] for k in ("earlier_ms", "rotations", "rounds_max",
+                                                 "sh2")},
              work=solve_rows[name]["work"])
         for name in SOLVE_KERNELS] + [
         dict(name=name, route="cuda", source=TAIL_KERNELS[name][0],
