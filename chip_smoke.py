@@ -226,6 +226,26 @@ its own grid) and the LED light's beside one einsum forming H and g; with
 prefix of this one's) the LED light is timed in turns with that build; with
 --profile profile_refine_led also traces two warm LED iterations.
 
+On one card the scan's chunks run in the static buffers of a rotation
+(tracking/graph.py) and a full chunk as one replayed CUDA graph, so every
+scan phase on one card drives the graph, its launch counts kept by the
+replays' arithmetic.  Phase scan_graph (after refine) holds the graphed scan
+against capture=False bit for bit (the volume's tables, tracking_poses.txt,
+every frame's converged flag, iterations, energy and pixel count, the
+keyframes, their poses and device images) under each named tracker
+configuration and with ground-truth poses (no tracker), with a capacity under the active rows (a redo and new
+captures) and a ragged last chunk, and a graphed scan resumed from a scan
+checkpoint against the whole graphed scan; checks the scan phase's launch
+counts on the graphed runs and the captures and replays the rotation made;
+holds fuse_rows with the frame id read on the device (the visibility word
+picked by the kernel) against its plain version and the host bit on frame
+24's rows, bit for bit, and times both forms in turns; times the smoke scan's
+frames/s graphed and eager in turns (best of GRAPH_TURNS), and two
+steady-state chunks (replays) of a chunk runner untraced in turns and
+traced: runtime calls a chunk, device ops a frame, device time and busy
+share, graphed and eager.  With --scan-graph-only the run builds the
+kernels, runs that phase alone and exits with 3.
+
 With --kernels-only the run stops after the kernels and scan_kernels phases
 (and preprocess_kernels; build, checks and times of the kernels): a quick
 look at a changed kernel.
@@ -2348,12 +2368,14 @@ def _sync():
 
 
 def run_scan(tmp, tag, seq, last, rows_impl, refine=None, grid=None,
-             gt_poses=False, loader=None, config=None, **pipe_kw):
+             gt_poses=False, loader=None, config=None, tracker=None, **pipe_kw):
     """Drive ReconstructionPipeline.run over frames 0..last of `seq`; with
     `refine` (a dict of the recipe's optimizer keys) the refinement runs too.
     The frames come from memory unless a `loader` is given; `config` adds
-    recipe keys ("mesh shape"); `pipe_kw` (checkpoint_every, resume,
-    mesh_devices) go to the pipeline."""
+    recipe keys ("mesh shape"); `tracker` names a configuration of
+    tracking/configs.py to track with (the recipe names only three);
+    `pipe_kw` (checkpoint_every, resume, mesh_devices, capture) go to the
+    pipeline."""
     from psgradientsdf_tpu_torch.config import load_config
     from psgradientsdf_tpu_torch.pipeline import ReconstructionPipeline
     from psgradientsdf_tpu_torch.utils.metrics import MetricsLogger
@@ -2363,6 +2385,13 @@ def run_scan(tmp, tag, seq, last, rows_impl, refine=None, grid=None,
     cfg_path = os.path.join(tmp, tag + ".json")
     write_config(cfg_path, out_dir, last, grid, refine, config=config)
     cfg = load_config(cfg_path)
+    if tracker is not None:
+        kw = _solve_kw(tracker)
+        cfg.tracking.num_iterations = kw["num_iterations"]
+        cfg.tracking.conv_threshold = kw["conv_threshold_sq"] ** 0.5
+        cfg.tracking.damping = kw["damping"]
+        cfg.tpu.track_regather = kw["regather_every"]
+        cfg.tpu.track_static = not kw["early_exit"]
     pipe = ReconstructionPipeline(
         cfg, loader=loader or memory_loader(
             K, colors[: last + 1], depths[: last + 1],
@@ -3213,6 +3242,336 @@ def refine_graph(tmp, seq, led_seq):
         scan = run_scan(tmp, "graph_" + what.split()[0].lower(), c["seq"], c["last"], "dma",
                         config=c["recipe"], **c["kw"])
         out[what] = _graph_cell(scan["pipe"], what, captures)
+    return out
+
+
+# ------------------------------------------------ the scan as a CUDA graph
+
+
+SCAN_GRAPH_OVERFLOW_ROWS = 0.25     # "fuse rows" under the active rows
+SCAN_GRAPH_STOP = 2 * CHUNK         # the stopped scan's last frame
+SCAN_GRAPH_CHUNKS = 6               # full chunks the chunk runner runs
+
+
+def _scan_facts(run):
+    """What a scan run made that the graphed and the eager run must share."""
+    pipe = run["pipe"]
+    return dict(
+        track=[(r["frame"], r["converged"], r["iters"], r["energy"], r["valid"])
+               for r in run["summary"]["track_log"]],
+        keyframes=list(pipe.key_indices), key_poses=[p.tolist() for p in pipe.key_poses])
+
+
+def _same_scan(got, want, what):
+    """Two scans bit for bit: volume tables, tracking_poses.txt, every
+    frame's converged flag, iterations, energy and pixel count, the
+    keyframes, their poses and their device images."""
+    import torch
+
+    check(_equal_volumes(got["pipe"].vol, want["pipe"].vol),
+          f"scan_graph {what}: the volume differs from the eager scan's")
+    check(got["pose_text"] == want["pose_text"],
+          f"scan_graph {what}: tracking_poses.txt differs from the eager scan's")
+    a, b = _scan_facts(got), _scan_facts(want)
+    for k in a:
+        check(a[k] == b[k], f"scan_graph {what}: {k} differ from the eager scan's")
+    imgs = (got["pipe"].key_images_dev, want["pipe"].key_images_dev)
+    check(len(imgs[0]) == len(imgs[1])
+          and all(bool(torch.equal(x, y)) for x, y in zip(*imgs)),
+          f"scan_graph {what}: the keyframe images differ")
+
+
+def _graph_stats(run, what, captures=None, replays=None):
+    """The graphed run's rotation: its captures (exactly `captures` where
+    given) and replays (at least one) -> its stats."""
+    st = run["summary"]["scan_graph"]
+    check(st is not None and st["graph"] == (DEVICE == "cuda"),
+          f"scan_graph {what}: the scan ran no rotation, or no graph on the card: {st}")
+    if DEVICE == "cuda":
+        check(st["replays"] >= 1, f"scan_graph {what}: no chunk was replayed: {st}")
+        check(captures is None or st["captures"] == captures,
+              f"scan_graph {what}: {st['captures']} captures, expected {captures}")
+        check(replays is None or st["replays"] == replays,
+              f"scan_graph {what}: {st['replays']} replays, expected {replays}")
+    return st
+
+
+def _chunk_runner(pipe, seq, capture, traced=None):
+    """process_chunk driven as the pipeline drives it, on a rotation of its
+    own: frame 0 fused at the identity, then SCAN_GRAPH_CHUNKS full chunks
+    of the sequence's frames 1.. (the first ones again where the sequence
+    runs out), each read once, after the next is launched; with `traced`, a
+    callable taking the last two chunks' work (and the last read) -> (each
+    chunk's seconds from its launch to the next's, the last chunk's to its
+    read excluded; rotation stats; the last volume)."""
+    import torch
+    from psgradientsdf_tpu_torch.core.volume import fuse_frame, make_volume
+    from psgradientsdf_tpu_torch.ops.normals import compute_normals
+    from psgradientsdf_tpu_torch.tracking.graph import ScanRotation
+    from psgradientsdf_tpu_torch.tracking.stream import process_chunk, read_result
+
+    K, colors, depths = seq[:3]
+    cfg, geom, fals = pipe.cfg, pipe.geom, pipe.fals
+    tr, tpu = cfg.tracking, cfg.tpu
+    K_dev = torch.as_tensor(K, dtype=torch.float32, device=DEVICE)
+    eye = torch.eye(4, dtype=torch.float32, device=DEVICE)
+    d0 = torch.as_tensor(depths[0].astype(np.float32) * np.float32(DEPTH_UNIT),
+                         device=DEVICE)
+    c0 = torch.as_tensor(colors[0].astype(np.float32) / 255.0, device=DEVICE)
+    zkw = dict(truncation=cfg.truncation, zmin=tr.zmin, zmax=tr.zmax)
+    vol = fuse_frame(make_volume(geom, cfg.truncation, pipe._frame_cap, device=DEVICE),
+                     geom, c0, d0, compute_normals(d0, fals, window=11), fals.n_sq_inv,
+                     K_dev, eye, 0, device=DEVICE, **zkw)
+    rot = ScanRotation(vol, CHUNK, capture=capture)
+    kw = dict(num_iterations=tr.num_iterations, conv_threshold_sq=tr.conv_threshold ** 2,
+              damping=tr.damping, stride=tpu.track_stride, use_gt=False,
+              depth_unit=DEPTH_UNIT, regather_every=tpu.track_regather,
+              early_exit=not tpu.track_static, fuse_row_capacity=pipe._fuse_cap,
+              rows_impl="dma", rotation=rot, capture=capture, device=DEVICE, **zkw)
+    gtp = np.broadcast_to(np.eye(4, dtype=np.float32), (CHUNK, 4, 4)).copy()
+    valid = np.ones(CHUNK, bool)
+    pose, seconds = eye, []
+
+    pending = []
+
+    def chunk(k):
+        # as the pipeline: a chunk's results are read after the next chunk
+        # is launched, so the host stacks and copies while the card works
+        nonlocal vol, pose
+        first = 1 + (k * CHUNK) % (FRAMES - 1 - CHUNK)
+        sel = list(range(first, first + CHUNK))
+        t0 = time.perf_counter()
+        vol, res = process_chunk(
+            vol, geom, np.stack([colors[i] for i in sel]),
+            np.stack([depths[i] for i in sel]), K_dev, pose,
+            np.arange(1 + k * CHUNK, 1 + (k + 1) * CHUNK, dtype=np.int32) % pipe._frame_cap,
+            valid, gtp, fals, **kw)
+        if pending:
+            read_result(pending.pop())
+        pending.append(res)
+        pose = res.poses[CHUNK - 1]
+        seconds.append(time.perf_counter() - t0)
+
+    def last_two():
+        for k in range(SCAN_GRAPH_CHUNKS - 2, SCAN_GRAPH_CHUNKS):
+            chunk(k)
+        read_result(pending.pop())
+
+    for k in range(SCAN_GRAPH_CHUNKS - 2):
+        chunk(k)
+    if traced is None:
+        last_two()
+    else:
+        traced(last_two)
+    stats = rot.stats()
+    rot.release()
+    return seconds, stats, vol
+
+
+def _traced_chunks(pipe, seq, capture):
+    """The chunk runner's last two chunks (replays where `capture`) traced
+    -> runtime calls a chunk, device ops a frame, device time, busy share."""
+    import torch
+
+    out = {}
+
+    def traced(work):
+        torch.cuda.synchronize()
+        with _traced() as prof:
+            t0 = time.perf_counter()
+            work()
+            torch.cuda.synchronize()
+            out["wall"] = time.perf_counter() - t0
+        out["prof"] = prof
+
+    _, stats, _ = _chunk_runner(pipe, seq, capture, traced)
+    # the warm-up, three captures, and the traced two chunks replays only
+    check(stats["captures"] == (3 if capture else 0)
+          and stats["replays"] == (SCAN_GRAPH_CHUNKS - 1 if capture else 0),
+          f"scan_graph: the chunk runner's rotation {stats}")
+    prof = out["prof"]
+    rows = sorted(_kernel_rows(prof), reverse=True)
+    busy = sum(r[0] for r in rows) * 1e-6
+    check(busy > 0.0, "scan_graph: the profiler saw no device time")
+    n = 2
+    return dict(
+        runtime_calls_per_chunk=int(_runtime_calls(prof)) / n,
+        # by name, the trace's warm-up and closing calls included
+        runtime_calls=sorted(((e.key, e.count) for e in prof.key_averages()
+                              if not str(e.device_type).endswith("CUDA")
+                              and e.key.startswith("cu")), key=lambda r: -r[1]),
+        device_ops_per_frame=int(sum(r[1] for r in rows)) / (n * CHUNK),
+        device_ms_per_chunk=busy * 1e3 / n, device_busy_share=busy / out["wall"],
+        traced_wall_seconds_per_chunk=out["wall"] / n,
+        device_to_host_copies_per_chunk=int(sum(r[1] for r in rows if "DtoH" in r[2])) / n,
+        rotation=stats, warmup_dropped=prof.warmup_dropped,
+        top=[dict(name=k[:80], per_chunk=c / n, device_ms=us * 1e-3 / n)
+             for us, c, k in rows[:10]])
+
+
+def _update_device_frame(st, vol, geom, truncation, f):
+    """fuse_rows with the frame id on the device (the whole visibility
+    table, the word picked by the kernel) against its plain version and
+    against the host-bit form on frame f's rows, bit for bit; both forms
+    timed in turns in the path's order -> dict."""
+    import torch
+    from psgradientsdf_tpu_torch.core import volume as V
+    from psgradientsdf_tpu_torch.ops import fuse as F, rowcopy
+
+    X, Y, Z = geom.dims
+    depth, K, pose = st["depths"][f], st["K"], st["gt"][f]
+    kz = dict(st["zkw"], truncation=truncation)
+    cap = _fuse_capacity(geom)
+    act = V._row_activity(geom, depth, K, pose, **kz)
+    idx, live, _ = V._compact_padded(act.reshape(-1), cap)
+    word, bit = V._vis_word_bit(f)
+    NW = vol.vis.shape[0]
+    tables = [vol.dist.view(Z * Y, X), vol.grad.view(Z * Y, 3 * X),
+              vol.weight.view(Z * Y, X), vol.color.view(Z * Y, 3 * X),
+              vol.vis[word].view(Z * Y, X)]
+    rows = rowcopy.gather_tables_dma(tables, idx)
+    pix = V.pack_pixel_payload(st["colors"][f], depth, st["normals"][f], st["n_sq_inv"])
+    fid = torch.tensor(f, dtype=torch.int32, device=DEVICE)
+    kw = dict(geom=geom, S=X, rows=idx, live=live, cos_thresh_sq=0.25 * 0.25, **kz)
+
+    def fields(r):
+        return r[0], r[1].view(cap, X, 3), r[2], r[3].view(cap, X, 3)
+
+    host = [r.clone() for r in rows]
+    dev = [r.clone() for r in rows[:4]]
+    plain = [r.clone() for r in rows[:4]]
+    tab_dev, tab_plain = vol.vis.clone(), vol.vis.clone()
+    HW = tuple(depth.shape)
+    F.fuse_rows(*fields(host), host[4], pix, K, pose, HW, bit, None, **kw)
+    F.fuse_rows(*fields(dev), tab_dev.view(NW, Z * Y, X), pix, K, pose, HW, None,
+                None, frame=fid, **kw)
+    F.fuse_rows_plain(*fields(plain), tab_plain.view(NW, Z * Y, X), pix, K, pose, HW,
+                      None, None, frame=fid, **kw)
+    _sync()
+    n = int(live)
+    for a, b, c in zip(dev, plain, host):
+        check(_bits_equal(a[:n], b[:n]) and _bits_equal(a[:n], c[:n]),
+              f"fuse_rows with the device frame id differs: frame {f}")
+    check(_bits_equal(tab_dev, tab_plain), f"the device frame id's words differ: frame {f}")
+    got = tab_dev[word].view(Z * Y, X)[idx[:n].long()]
+    check(_bits_equal(got, host[4][:n]), f"the device frame id's words differ from "
+                                         f"the host bit's: frame {f}")
+    rest = torch.ones(NW, dtype=torch.bool, device=DEVICE)
+    rest[word] = False
+    check(_bits_equal(tab_dev[rest], vol.vis[rest]), "another word was written")
+    out = dict(frame=f, live_rows=n, bit_identical=True)
+    if DEVICE == "cuda":
+        # in turns, back to back in one timed path (_path_ms: no flush)
+        turns = [_path_ms([
+            lambda: F.fuse_rows(*fields(host), host[4], pix, K, pose, HW, bit, None, **kw),
+            lambda: F.fuse_rows(*fields(dev), tab_dev.view(NW, Z * Y, X), pix, K, pose,
+                                HW, None, None, frame=fid, **kw)]) for _ in range(3)]
+        out.update(turns_ms=turns, ms=dict(host_bit=min(t[0] for t in turns),
+                                           device_frame=min(t[1] for t in turns)))
+    return out
+
+
+def scan_graph(tmp, seq):
+    """The one-card scan as one CUDA graph a chunk (tracking/graph.py)
+    against capture=False: the smoke scan under each of GN_CONFIGS, with a
+    forced overflow (a redo and a recapture), its ragged last chunk, and a
+    resume from a scan checkpoint, bit for bit; the scan phase's launch
+    checks on the graphed runs; the fusion's device frame id against its
+    plain version and the host bit; runtime calls a chunk and device ops a
+    frame from traced replayed and eager chunks; frames/s in turns -> facts."""
+    import torch
+
+    out = dict(configs={})
+    last = FRAMES - 1
+    for name in GN_CONFIGS:
+        g = run_scan(tmp, "sg_" + name.lower(), seq, last, "dma", tracker=name)
+        e = run_scan(tmp, "sge_" + name.lower(), seq, last, "dma", tracker=name,
+                     capture=False)
+        _same_scan(g, e, name)
+        # 5 full chunks and a ragged one: the warm-up, three captures (one a
+        # slot), one more replay, the ragged chunk eagerly
+        st = _graph_stats(g, name, captures=_on_card(3), replays=_on_card(4))
+        calls = g["pipe"].fuse_culled_calls
+        _check_dma_launches(g["counts"], calls, f"scan_graph {name}")
+        sc = g["scan_counts"]
+        check(sc["gn_solve"] == _on_card(sc["frames_solved"])
+              and sc["fuse_rows"] == _on_card(calls + 1),
+              f"scan_graph {name}: gn_solve {sc['gn_solve']}, fuse_rows "
+              f"{sc['fuse_rows']}, {sc['frames_solved']} solved, {calls} culled fusions")
+        check(e["summary"]["scan_graph"]["captures"] == 0,
+              f"scan_graph {name}: capture=False captured")
+        out["configs"][name] = dict(
+            bit_identical=True, frames_per_s={"graph": g["summary"]["fps"],
+                                              "eager": e["summary"]["fps"]},
+            rotation=st, eager_rotation=e["summary"]["scan_graph"],
+            launches=dict(g["counts"], **sc),
+            mean_iterations=float(np.mean([r["iters"] for r in g["summary"]["track_log"]])))
+        if name == "REFERENCE":
+            ref_g, ref_e = g, e
+    # ground-truth poses (use_gt): the same graph with no tracker in it
+    g = run_scan(tmp, "sg_gt", seq, last, "dma", gt_poses=True)
+    e = run_scan(tmp, "sge_gt", seq, last, "dma", gt_poses=True, capture=False)
+    _same_scan(g, e, "GT")
+    check(g["scan_counts"]["gn_solve"] == 0, "scan_graph GT: the tracker ran")
+    out["configs"]["GT"] = dict(
+        bit_identical=True, frames_per_s={"graph": g["summary"]["fps"],
+                                          "eager": e["summary"]["fps"]},
+        rotation=_graph_stats(g, "GT", captures=_on_card(3), replays=_on_card(4)))
+    # a capacity under the active rows: a redo, a grown capacity, new captures
+    cfg = {"fuse rows": SCAN_GRAPH_OVERFLOW_ROWS}
+    g = run_scan(tmp, "sg_overflow", seq, last, "dma", config=cfg)
+    e = run_scan(tmp, "sge_overflow", seq, last, "dma", config=cfg, capture=False)
+    _same_scan(g, e, "overflow")
+    redos = g["summary"]["overflow_redos"]
+    check(redos >= 1 and redos == e["summary"]["overflow_redos"],
+          f"scan_graph overflow: {redos} redos graphed, "
+          f"{e['summary']['overflow_redos']} eager")
+    st = _graph_stats(g, "overflow")
+    check(DEVICE != "cuda" or st["captures"] > 3,
+          f"scan_graph overflow: {st['captures']} captures, no recapture")
+    _check_dma_launches(g["counts"], g["pipe"].fuse_culled_calls, "scan_graph overflow")
+    out["overflow"] = dict(bit_identical=True, overflow_redos=redos,
+                           capacity=g["summary"]["fuse_capacity"], rotation=st)
+    # a scan stopped at a checkpoint and resumed, graphed
+    # the stopped run holds the whole run's visibility words (its own frame
+    # range would size fewer, and a resume refuses those)
+    a = run_scan(tmp, "sg_stop", seq, SCAN_GRAPH_STOP, "dma", checkpoint_every=CHUNK,
+                 config={"frame cap": -(-FRAMES // 32) * 32})
+    path = os.path.join(a["out_dir"], "scan_checkpoint.npz")
+    b = run_scan(tmp, "sg_resume", seq, last, "dma", resume=path)
+    check(b["pose_text"] == ref_g["pose_text"] and _equal_volumes(b["pipe"].vol,
+                                                                   ref_g["pipe"].vol),
+          "scan_graph resume: the resumed graphed scan differs from the whole one")
+    out["resume"] = dict(bit_identical=True, stopped_after_frame=SCAN_GRAPH_STOP,
+                         rotation=_graph_stats(b, "resume"))
+    # the fusion's frame id on the device, on frame 24's rows
+    st_ = _stream_setup(tmp, seq, FRAMES)
+    out["device_frame_id"] = _update_device_frame(
+        st_, ref_e["pipe"].vol, st_["geom"], st_["truncation"], 24)
+    del st_
+    # frames/s of the smoke scan in turns, best of GRAPH_TURNS
+    fps = {"graph": [], "eager": []}
+    for t in range(GRAPH_TURNS):
+        for cap in (True, False):
+            r = run_scan(tmp, f"sg_turn{t}_{cap}", seq, last, "dma", capture=cap)
+            fps["graph" if cap else "eager"].append(r["summary"]["fps"])
+            del r
+    out["frames_per_s_turns"] = fps
+    out["best_frames_per_s"] = {k: max(v) for k, v in fps.items()}
+    # steady-state chunks: untraced seconds in turns, then traced windows
+    secs = {"graph": [], "eager": []}
+    for _ in range(GRAPH_TURNS):
+        for cap in (True, False):
+            s, stats, _ = _chunk_runner(ref_g["pipe"], seq, cap)
+            secs["graph" if cap else "eager"].append(s)
+    out["chunk_seconds"] = secs
+    out["best_steady_chunk_seconds"] = {
+        k: min(min(s[-2:]) for s in v) for k, v in secs.items()}
+    out["runner_rotation"] = stats
+    if DEVICE == "cuda":
+        out["traced"] = {"graph": _traced_chunks(ref_g["pipe"], seq, True),
+                         "eager": _traced_chunks(ref_g["pipe"], seq, False)}
+        torch.cuda.empty_cache()
     return out
 
 
@@ -8269,6 +8628,9 @@ def distributed_phase(tmp, root, cli_run, led_run, led_seq):
 
 def main():
     t_all = time.perf_counter()
+    # no CUPTI teardown between traced sessions in a process that replays
+    # CUDA graphs (utils/profiling.py), set before torch loads the profiler
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import torch
 
     if not torch.cuda.is_available():
@@ -8305,6 +8667,11 @@ def main():
 
     # ---- kernels against their plain versions
     seq = make_sequence(FRAMES)
+    if "--scan-graph-only" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            emit("scan_graph", ok=True, card=card, **scan_graph(tmp, seq))
+        print(smi, flush=True)
+        return 3
     if "--refine-only" not in sys.argv[1:]:
         times, shapes, worst, n_checked, packed_widths = check_kernels(rowcopy)
         emit("kernels", ok=True, cases_checked=n_checked, card=card,
@@ -8407,6 +8774,11 @@ def main():
         refine_launches = check_refine_launches(main_run)
         emit("refine", ok=True, card=card, launches=refine_launches,
              **check_refine(main_run, seq, MIN_PS_DROP))
+
+        # ---- the one-card scan as one CUDA graph a chunk against the eager
+        # chunks: four tracker configs, an overflow redo, a resume
+        graph_facts = scan_graph(tmp, seq)
+        emit("scan_graph", ok=True, card=card, **graph_facts)
 
         # ---- the second pass: staged kernels, and plain row movement
         short = 2 * CHUNK + 1
@@ -8564,6 +8936,9 @@ def main():
             "the depth map and the [N, 8] records once; latency_floor_ms is an "
             "empty kernel of the same grid and clusters")),
         "fuse_rows": dict(update, max_abs_err=0.0,
+                          # the form the scan's graph replays, in turns with
+                          # the host bit's (phase scan_graph)
+                          device_frame_id_ms=graph_facts["device_frame_id"]["ms"],
                           work=f"frame 24's update at 128^3 on the gathered SoA "
                                f"rows: {update['live_rows']} live rows of "
                                f"{update['slots']} slots, 128 voxels a row; the "

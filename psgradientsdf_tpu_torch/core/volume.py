@@ -87,7 +87,9 @@ def make_volume(geom: GridGeometry, truncation: float, frame_cap: int = 256,
 
 def _vis_word_bit(frame_idx: int) -> Tuple[int, int]:
     """(word, bit value as an int32 bit pattern) for a frame's visibility
-    bit; bit 31 is the sign bit of the int32 word."""
+    bit given on the host; bit 31 is the sign bit of the int32 word.  A
+    frame id on the device (an int32 scalar tensor: the one-card scan's,
+    which a CUDA graph replays) goes to ops/fuse.fuse_rows as it is."""
     frame_idx = int(frame_idx)
     b = frame_idx % 32
     bit = 1 << b
@@ -124,7 +126,8 @@ def fuse_frame(
     n_sq_inv,              # [H,W] cached 1/(1+x0^2+y0^2) from the FALS cache
     K,                     # [3,3]
     pose,                  # [4,4] camera-to-world
-    frame_idx: int,        # visibility bit to set (a host integer)
+    frame_idx,             # visibility bit to set: a host int, or an int32
+                           # scalar on the device
     gate=None,             # scalar bool (tensor) — False => no-op update
     *,
     truncation: float,
@@ -154,15 +157,25 @@ def fuse_frame(
     pix_payload = pack_pixel_payload(color, depth, normals, n_sq_inv)
     X, Y = geom.dims[0], geom.dims[1]
     nseg = vol.dist.shape[0] * Y
-    word, bit = _vis_word_bit(frame_idx)
     new = vol.clone()
+    vis, bit, frame = _vis_rows(new.vis, frame_idx, nseg, X)
     fuse.fuse_rows(
         new.dist.view(nseg, X), new.grad.view(nseg, X, 3),
         new.weight.view(nseg, X), new.color.view(nseg, X, 3),
-        new.vis[word].view(nseg, X), pix_payload, K, pose, tuple(depth.shape),
-        bit, gate, geom=geom, S=X, z0=z0, z_map=z_map, truncation=truncation,
+        vis, pix_payload, K, pose, tuple(depth.shape), bit, gate, geom=geom,
+        S=X, z0=z0, z_map=z_map, frame=frame, truncation=truncation,
         zmin=zmin, zmax=zmax, cos_thresh_sq=cos_thresh_sq)
     return new
+
+
+def _vis_rows(vis: torch.Tensor, frame_idx, nseg: int, S: int):
+    """fuse_rows' visibility arguments for a frame id -> (vis, bit, frame):
+    a host id picks its word here ([nseg, S] rows, its bit); a device id
+    hands fuse_rows the whole table [words, nseg, S] and itself."""
+    if isinstance(frame_idx, torch.Tensor):
+        return vis.view(vis.shape[0], nseg, S), None, frame_idx
+    word, bit = _vis_word_bit(frame_idx)
+    return vis[word].view(nseg, S), bit, None
 
 
 def count_active_rows(
@@ -224,7 +237,7 @@ def fuse_frame_culled(
     n_sq_inv,
     K,
     pose,
-    frame_idx: int,
+    frame_idx,
     gate=None,
     *,
     truncation: float,
@@ -250,7 +263,10 @@ def fuse_frame_culled(
          color and the frame's visibility word) by one call, runs the exact
          per-voxel update on them, and scatters the rows of all five tables
          back by one call: two row-copy launches a frame (three with the
-         ordered scatter's winner pass).
+         ordered scatter's winner pass).  With `frame_idx` an int32 scalar
+         on the device (the one-card scan's, which a CUDA graph replays)
+         the four float tables move and fuse_rows picks the visibility
+         word on the device and ORs the bit into the table's rows in place.
 
     rows_impl picks the row-movement kernels (ops/rowcopy.py): "dma" (direct
     gather / direct scatter, the default and what the pipeline uses) or
@@ -343,21 +359,20 @@ def _fuse_culled_slab(
     safe_rows, live, overflow = compacted
     row_capacity = safe_rows.shape[0]
 
-    word, bit = _vis_word_bit(frame_idx)
-    t_dist = vol.dist.view(NSEG, S)
-    t_grad = vol.grad.view(NSEG, S * 3)
-    t_weight = vol.weight.view(NSEG, S)
-    t_color = vol.color.view(NSEG, S * 3)
-    t_vis = vol.vis[word].view(NSEG, S)
-
-    tables = [t_dist, t_grad, t_weight, t_color, t_vis]
-    d_r, g_r, w_r, c_r, vw_r = _gather(tables, safe_rows, rows_impl)
+    vis, bit, frame = _vis_rows(vol.vis, frame_idx, NSEG, S)
+    tables = [vol.dist.view(NSEG, S), vol.grad.view(NSEG, S * 3),
+              vol.weight.view(NSEG, S), vol.color.view(NSEG, S * 3)]
+    if frame is None:
+        tables.append(vis)          # the frame's word moves with the rows
+    rows = _gather(tables, safe_rows, rows_impl)
+    d_r, g_r, w_r, c_r = rows[:4]
     fuse.fuse_rows(
         d_r, g_r.view(row_capacity, S, 3), w_r, c_r.view(row_capacity, S, 3),
-        vw_r, pix_payload, K, pose, (H, W), bit, gate, geom=geom, S=S, NS=NS,
-        rows=safe_rows, live=live, z0=z0, z_map=z_map, truncation=truncation,
-        zmin=zmin, zmax=zmax, cos_thresh_sq=cos_thresh_sq)
-    _scatter(tables, safe_rows, [d_r, g_r, w_r, c_r, vw_r], live, rows_impl)
+        vis if frame is not None else rows[4], pix_payload, K, pose, (H, W),
+        bit, gate, geom=geom, S=S, NS=NS, rows=safe_rows, live=live, z0=z0,
+        z_map=z_map, frame=frame, truncation=truncation, zmin=zmin, zmax=zmax,
+        cos_thresh_sq=cos_thresh_sq)
+    _scatter(tables, safe_rows, rows, live, rows_impl)
     return vol, overflow
 
 

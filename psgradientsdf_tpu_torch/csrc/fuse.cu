@@ -40,6 +40,17 @@
 // float4s through the read-only path.  The visibility pointer may be null
 // (a K-batched fusion that drops the bits of a word that does not exist).
 //
+// The frame's visibility bit: a number the host gives (`bit`, the frame's
+// word already picked as the vis rows of the slots), or, with `frame` set,
+// the frame id read on the device, as the JAX package takes it traced
+// (psgradientsdf_tpu/core/volume.py:529-531): `vis` is then the whole table
+// [words, rows, S], the word frame / 32 (clamped to the table, as
+// dynamic_index_in_dim clamps) is picked on the device and the slot's row
+// read and written in place at its grid row r, the bit 1 << frame % 32.  A
+// CUDA graph of the scan (tracking/graph.py) replays this form: nothing of
+// the frame is frozen into the launch.  The live slots' rows are distinct,
+// so no two warps touch one word.
+//
 // Rounding: every operation is written with the _rn intrinsics in the plain
 // version's order (the fixed multiply-add order of rot_apply, the divisions
 // where PyTorch divides, no contraction into FMAs), so the kernel equals the
@@ -82,6 +93,9 @@ struct FuseArgs {
   int64_t packed;    // 1: dist is the base of [cap, S, 8] rows, 16-byte aligned
   double z0, origin_x, origin_y, origin_z, voxel, truncation, zmin, zmax,
       cos_thresh_sq;
+  const int32_t* frame;   // device frame id, or null: `bit` and vis by slot
+  int64_t vis_ws;         // with frame: the table's word stride (elements)
+  int64_t vis_words;      // with frame: the table's words
 };
 
 namespace {
@@ -108,6 +122,7 @@ struct FuseParams {
   const float* pose;
   int cap, S, NS, Y, YNS, H, W, bit, has_z0;
   float z0, ox, oy, oz, h, trunc, neg_trunc, inv_trunc, zmin, zmax, cos_sq;
+  const int32_t* frame;  int64_t vis_ws;  int vis_words;
 };
 
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
@@ -137,13 +152,24 @@ struct Voxel {
 template <bool kPacked>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fuse_rows_kernel(const __grid_constant__ FuseParams p) {
-  __shared__ int live_slots;
+  __shared__ int live_slots, frame_id;
   if (threadIdx.x == 0) {
     const int64_t l = p.live != nullptr ? *p.live : p.cap;
     live_slots = static_cast<int>(l < p.cap ? (l > 0 ? l : 0) : p.cap);
+    frame_id = p.frame != nullptr ? *p.frame : 0;
   }
   __syncthreads();
   const int live = live_slots;
+  // the frame's word and bit: the host's, or from the device frame id
+  int32_t* vis_base = p.vis;
+  int32_t bit = p.bit;
+  if (p.frame != nullptr) {
+    const int f = frame_id;
+    int word = f >= 0 ? f >> 5 : -((-f + 31) >> 5);    // floor(f / 32)
+    word = word < 0 ? 0 : (word < p.vis_words ? word : p.vis_words - 1);
+    bit = static_cast<int32_t>(1u << (f & 31));        // f mod 32
+    if (vis_base != nullptr) vis_base += static_cast<int64_t>(word) * p.vis_ws;
+  }
   const int lane = threadIdx.x & 31;
   const int warps = gridDim.x * kWarps;
 
@@ -183,7 +209,10 @@ fuse_rows_kernel(const __grid_constant__ FuseParams p) {
     float* grad = p.grad + s64 * p.grad_rs;
     float* weight = p.weight + s64 * p.weight_rs;
     float* color = p.color + s64 * p.color_rs;
-    int32_t* vis = p.vis != nullptr ? p.vis + s64 * p.vis_rs : nullptr;
+    // the slot's visibility row: gathered by slot, or the table's row r
+    int32_t* vis = vis_base != nullptr
+        ? vis_base + (p.frame != nullptr ? static_cast<int64_t>(r) : s64) * p.vis_rs
+        : nullptr;
 
     // camera coordinates of voxel j: R^T (p - t)
     auto camera = [&](int j, float& pcx, float& pcy, float& pz) {
@@ -278,7 +307,7 @@ fuse_rows_kernel(const __grid_constant__ FuseParams p) {
           gp[0] = o.g0; gp[1] = o.g1; gp[2] = o.g2;
           cp[0] = o.c0; cp[1] = o.c1; cp[2] = o.c2;
         }
-        if (mask && vis != nullptr) vis[j * p.vis_vs] = word[b] | p.bit;
+        if (mask && vis != nullptr) vis[j * p.vis_vs] = word[b] | bit;
       }
     }
   }
@@ -347,6 +376,9 @@ extern "C" int fuse_rows(const FuseArgs* a, void* stream) {
   p.zmin = static_cast<float>(a->zmin);
   p.zmax = static_cast<float>(a->zmax);
   p.cos_sq = static_cast<float>(a->cos_thresh_sq);
+  p.frame = a->frame;
+  p.vis_ws = a->vis_ws;
+  p.vis_words = static_cast<int>(a->vis_words);
   if (p.cap > 0 && p.S > 0) {
     const bool packed = a->packed != 0;
     int blocks = 0;

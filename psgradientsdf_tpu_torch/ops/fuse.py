@@ -3,7 +3,7 @@ a fused frame of the hand-written Hopper kernel in csrc/fuse.cu, or its
 plain PyTorch version for CPU tensors.
 
   fuse_rows(dist, grad, weight, color, vis, pix_payload, K, pose, img_hw,
-            bit, gate, geom=, S=, NS=, rows=, live=, z0=, z_map=, ...)
+            bit, gate, geom=, S=, NS=, rows=, live=, z0=, z_map=, frame=, ...)
 
 updates the [CAP, S] state of CAP rows (or S-voxel X-segments) of a grid in
 place: dist [CAP,S], grad [CAP,S,3], weight [CAP,S], color [CAP,S,3] and
@@ -17,6 +17,18 @@ row_world_coords'.  `live` (an int64 scalar on the device) says the slots
 at and past it are padding: they are left as they are.  `gate`: None, a
 bool scalar, or one bool a slot ([CAP] or [CAP,1]); False makes the slot's
 update a masked no-op.
+
+The frame's visibility bit comes in one of two forms.  `bit` (a host int,
+the int32 bit pattern) with `vis` the frame's word already picked, [CAP,S]
+by slot; or `frame`, the frame id as an int32 scalar on the device, with
+`vis` the whole table [words, rows, S]: the word frame // 32 (clamped to the
+table, as the JAX package's dynamic_index_in_dim clamps a traced index,
+psgradientsdf_tpu/core/volume.py:529-531) is picked on the device, slot s
+reads and writes its grid row rows[s] (slot s when rows is None) of it in
+place, and the bit is 1 << frame % 32.  The second form freezes nothing of
+the frame into the launch, so a CUDA graph of the scan replays it
+(tracking/graph.py), and it moves the words once: no gathered copy of them
+goes through the row-copy kernels.
 
 It replaces the JAX package's psgradientsdf_tpu/core/volume.py
 _fuse_voxel_update (:104) on _row_world_coords (:785) as XLA fuses them
@@ -157,6 +169,18 @@ def fuse_voxel_update(
     return new_dist, new_grad, new_weight, new_color, vis_or
 
 
+def vis_word_bit(frame: torch.Tensor, words: int):
+    """A device frame id (an int32 scalar) -> (word [int64 scalar], bit
+    [int32 scalar, the bit pattern]) on its device, with no host read: the
+    word frame // 32 clamped to [0, words), the bit 1 << frame % 32 (bit 31
+    the sign bit), as the JAX package forms them from a traced id."""
+    f = frame.to(torch.int64)
+    word = torch.clamp(torch.div(f, 32, rounding_mode="floor"), 0, words - 1)
+    b = torch.bitwise_left_shift(torch.ones_like(f), torch.remainder(f, 32))
+    bit = torch.where(b >= 2 ** 31, b - 2 ** 32, b).to(torch.int32)
+    return word, bit
+
+
 def row_world_coords(geom: GridGeometry, safe_rows: torch.Tensor,
                      z0: Optional[int], S: int, NS: int,
                      z_map: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -191,11 +215,12 @@ def row_world_coords(geom: GridGeometry, safe_rows: torch.Tensor,
 def fuse_rows_plain(dist, grad, weight, color, vis, pix_payload, K, pose,
                     img_hw, bit, gate, *, geom: GridGeometry, S: int,
                     NS: int = 1, rows=None, live=None, z0=None, z_map=None,
-                    truncation: float, zmin: float, zmax: float,
+                    frame=None, truncation: float, zmin: float, zmax: float,
                     cos_thresh_sq: float) -> None:
     """fuse_rows with eager PyTorch ops: row_world_coords and
     fuse_voxel_update on the slots before `live` (read back to the host),
-    written into the fields in place."""
+    written into the fields in place; with `frame`, the word and the bit
+    formed on the device (vis_word_bit) and the table's rows ORed in place."""
     cap = dist.shape[0]
     k = cap if live is None else max(0, min(int(live), cap))
     if rows is None:
@@ -203,6 +228,9 @@ def fuse_rows_plain(dist, grad, weight, color, vis, pix_payload, K, pose,
     p_w = row_world_coords(geom, rows[:k], z0, S, NS, z_map)
     if gate is not None and gate.dim() > 0:
         gate = gate.reshape(cap, -1)[:k]
+    word = None
+    if frame is not None:
+        word, bit = vis_word_bit(frame, vis.shape[0])
     nd, ng, nw, nc, vis_or = fuse_voxel_update(
         p_w, dist[:k], grad[:k], weight[:k], color[:k], pix_payload, K, pose,
         img_hw, bit, gate, truncation=truncation, zmin=zmin, zmax=zmax,
@@ -211,8 +239,13 @@ def fuse_rows_plain(dist, grad, weight, color, vis, pix_payload, K, pose,
     grad[:k] = ng
     weight[:k] = nw
     color[:k] = nc
-    if vis is not None:
+    if vis is None:
+        return
+    if word is None:
         vis[:k] |= vis_or
+        return
+    at = (word.expand(k), rows[:k].long())
+    vis.index_put_(at, vis[at] | vis_or)
 
 
 # ---------------------------------------------------------------------------
@@ -235,11 +268,13 @@ class _FuseArgs(ctypes.Structure):
            ("cap", "S", "NS", "Y", "H", "W", "bit", "has_z0", "packed")]
         + [(n, ctypes.c_double) for n in
            ("z0", "origin_x", "origin_y", "origin_z", "voxel", "truncation",
-            "zmin", "zmax", "cos_thresh_sq")])
+            "zmin", "zmax", "cos_thresh_sq")]
+        + [("frame", ctypes.c_void_p), ("vis_ws", ctypes.c_int64),
+           ("vis_words", ctypes.c_int64)])
 
 
 def _check(dist, grad, weight, color, vis, pix_payload, K, pose, S, rows,
-           live, gate, z_map) -> None:
+           live, gate, z_map, frame) -> None:
     cap = dist.shape[0]
     dev = dist.device
     want = {"dist": (dist, (cap, S), torch.float32),
@@ -249,7 +284,16 @@ def _check(dist, grad, weight, color, vis, pix_payload, K, pose, S, rows,
             "pix_payload": (pix_payload, None, torch.float32),
             "K": (K, (3, 3), torch.float32),
             "pose": (pose, (4, 4), torch.float32)}
-    if vis is not None:
+    if frame is not None:
+        want["frame"] = (frame, (), torch.int32)
+        if vis is None or vis.dim() != 3 or vis.shape[2] != S:
+            raise ValueError(f"fuse_rows: with a device frame id vis must be the "
+                             f"table [words, rows, {S}], got "
+                             f"{None if vis is None else tuple(vis.shape)}")
+        if vis.stride(2) != 1:
+            raise ValueError("fuse_rows: the table's rows must be contiguous")
+        want["vis"] = (vis, None, torch.int32)
+    elif vis is not None:
         want["vis"] = (vis, (cap, S), torch.int32)
     if rows is not None:
         want["rows"] = (rows, (cap,), torch.int32)
@@ -314,22 +358,23 @@ def _is_packed(dist, grad, weight, color) -> bool:
 
 
 def fuse_rows(dist, grad, weight, color, vis, pix_payload, K, pose, img_hw,
-              bit: int, gate, *, geom: GridGeometry, S: int, NS: int = 1,
+              bit: Optional[int], gate, *, geom: GridGeometry, S: int, NS: int = 1,
               rows: Optional[torch.Tensor] = None,
               live: Optional[torch.Tensor] = None, z0: Optional[int] = None,
-              z_map: Optional[torch.Tensor] = None, truncation: float,
+              z_map: Optional[torch.Tensor] = None,
+              frame: Optional[torch.Tensor] = None, truncation: float,
               zmin: float, zmax: float, cos_thresh_sq: float) -> None:
     """The fusion update of a frame on CAP rows of state, IN PLACE (see the
     module docstring): one kernel launch on CUDA tensors, the plain version
-    on CPU tensors."""
+    on CPU tensors.  `bit` is ignored where `frame` is given."""
     H, W = img_hw
     _check(dist, grad, weight, color, vis, pix_payload, K, pose, S, rows,
-           live, gate, z_map)
+           live, gate, z_map, frame)
     if pix_payload.shape[0] != H * W:
         raise ValueError(f"fuse_rows: pix_payload has {pix_payload.shape[0]} "
                          f"rows for a {H}x{W} image")
     kw = dict(geom=geom, S=S, NS=NS, rows=rows, live=live, z0=z0, z_map=z_map,
-              truncation=truncation, zmin=zmin, zmax=zmax,
+              frame=frame, truncation=truncation, zmin=zmin, zmax=zmax,
               cos_thresh_sq=cos_thresh_sq)
     if dist.device.type == "cpu":
         return fuse_rows_plain(dist, grad, weight, color, vis, pix_payload, K,
@@ -342,11 +387,17 @@ def fuse_rows(dist, grad, weight, color, vis, pix_payload, K, pose, img_hw,
         z_map = z_map.to(torch.float32).contiguous()
     a = _FuseArgs()
     for name, t in (("dist", dist), ("grad", grad), ("weight", weight),
-                    ("color", color), ("vis", vis)):
+                    ("color", color)):
         setattr(a, name, _ptr(t))
-        if t is not None:
-            setattr(a, name + "_rs", t.stride(0))
-            setattr(a, name + "_vs", t.stride(1))
+        setattr(a, name + "_rs", t.stride(0))
+        setattr(a, name + "_vs", t.stride(1))
+    a.vis = _ptr(vis)
+    if frame is not None:
+        # the whole table: its words, rows and voxels
+        a.frame, a.vis_ws, a.vis_words = frame.data_ptr(), vis.stride(0), vis.shape[0]
+        a.vis_rs, a.vis_vs = vis.stride(1), vis.stride(2)
+    elif vis is not None:
+        a.vis_rs, a.vis_vs = vis.stride(0), vis.stride(1)
     a.rows, a.live, a.pix, a.K, a.pose = (
         _ptr(rows), _ptr(live), _ptr(pix_payload), _ptr(K), _ptr(pose))
     if gate is not None:
@@ -355,7 +406,7 @@ def fuse_rows(dist, grad, weight, color, vis, pix_payload, K, pose, img_hw,
     if z_map is not None:
         a.z_map, a.z_map_len = z_map.data_ptr(), z_map.shape[0]
     a.cap, a.S, a.NS, a.Y, a.H, a.W = dist.shape[0], S, NS, geom.dims[1], H, W
-    a.bit, a.has_z0, a.z0 = int(bit), int(z0 is not None), float(z0 or 0)
+    a.bit, a.has_z0, a.z0 = int(bit or 0), int(z0 is not None), float(z0 or 0)
     a.packed = int(_is_packed(dist, grad, weight, color))
     a.origin_x, a.origin_y, a.origin_z = geom.origin
     a.voxel, a.truncation, a.zmin, a.zmax, a.cos_thresh_sq = (

@@ -76,7 +76,8 @@ from psgradientsdf_tpu_torch.parallel.mesh import (
 )
 from psgradientsdf_tpu_torch.parallel.shard import sharded_fuse_frame
 from psgradientsdf_tpu_torch.refine.optimizer import PhotometricRefiner
-from psgradientsdf_tpu_torch.tracking.stream import process_chunk, upload_frames
+from psgradientsdf_tpu_torch.tracking.graph import ScanRotation
+from psgradientsdf_tpu_torch.tracking.stream import process_chunk, read_result, upload_frames
 from psgradientsdf_tpu_torch.utils.metrics import MetricsLogger
 from psgradientsdf_tpu_torch.utils.timer import Timer
 from psgradientsdf_tpu_torch.utils.writer import HostCopies, Writer
@@ -123,12 +124,26 @@ def sample_keyframes(key_indices, key_stamps, key_images, key_poses, max_num: in
     return pick(key_indices), pick(key_stamps), pick(key_images), pick(key_poses)
 
 
+def _copied_frames(frames: torch.Tensor, keep: List[int]) -> List[torch.Tensor]:
+    """Frames `keep` of a chunk's device frames, copied out of them (a
+    rotation's staging buffer is filled again three chunks later): one copy
+    for a contiguous run, else one a frame (no index goes up, so the host
+    does not wait for the card)."""
+    if keep and keep == list(range(keep[0], keep[-1] + 1)):
+        return list(frames[keep[0]:keep[-1] + 1].clone().unbind(0))
+    return [frames[j].clone() for j in keep]
+
+
 class ReconstructionPipeline:
     """The full voxelPS pipeline (main_ps.cpp), with checkpoints and resume.
 
     `device` is "cuda" unless the caller asks for "cpu"; with no card and no
     such request the constructor raises.  `rows_impl` picks the row-movement
-    kernels of the culled fusion (core/volume.fuse_frame_culled).
+    kernels of the culled fusion (core/volume.fuse_frame_culled).  On one
+    device with the culled fusion the scan's chunks run in the static
+    buffers of a tracking/graph.ScanRotation and, with `capture` (the
+    default) on a card, a full chunk as one replay of a CUDA graph;
+    capture=False runs the same buffers eagerly.
     `checkpoint_every` N > 0 writes a scan checkpoint every N frames and a
     refinement checkpoint every N iterations into the output directory;
     `resume` names a scan_checkpoint.npz or refine_checkpoint.npz to go on
@@ -145,8 +160,10 @@ class ReconstructionPipeline:
     def __init__(self, cfg: PipelineConfig, loader: Optional[ImageLoader] = None,
                  metrics: Optional[MetricsLogger] = None, prefetch: bool = True,
                  checkpoint_every: int = 0, resume: str = "",
-                 device=None, rows_impl: str = "dma", mesh_devices=None):
+                 device=None, rows_impl: str = "dma", mesh_devices=None,
+                 capture: bool = True):
         self.device = resolve_device(device)
+        self.capture = bool(capture)
         tpu = cfg.tpu
         # in a process group only process 0 writes files
         self.writes = distributed.rank() == 0
@@ -207,6 +224,8 @@ class ReconstructionPipeline:
         self._dist_to_last_kf = 0
         self._last_ckpt_frames = 0
         self._fuse_cap = 0
+        self._rotation: Optional[ScanRotation] = None
+        self.scan_graph: Optional[Dict] = None    # the rotation's captures and replays
         # visibility capacity: the reference's per-voxel vector<bool> grows
         # with the frame counter without limit (VolumetricGradSdf.cpp:
         # 129-131); the bit-packed volume auto-sizes its static capacity to
@@ -354,6 +373,11 @@ class ReconstructionPipeline:
             self._fuse_cap = min(ZY, max(256, -(-int(ZY * cfg.tpu.fuse_rows) // 256) * 256))
         else:
             self._fuse_cap = 0
+        # on one device the culled fusion's chunks run in the rotation's
+        # static buffers (tracking/graph.py), as one CUDA graph a chunk on a
+        # card unless capture is off
+        self._rotation = (ScanRotation(self.vol, C, capture=self.capture)
+                          if self.mesh is None and self._fuse_cap else None)
 
         # ---- double-buffered chunk pipelining: `stage` uploads a chunk's
         # frames and enqueues its work, chaining the tracking seed off the
@@ -399,11 +423,13 @@ class ReconstructionPipeline:
                 early_exit=not cfg.tpu.track_static,
                 fuse_row_capacity=self._fuse_cap,
                 rows_impl=self.rows_impl, mesh=self.mesh,
-                interleave_z=cfg.tpu.mesh_interleave_z, device=dev,
+                interleave_z=cfg.tpu.mesh_interleave_z,
+                rotation=self._rotation if self._fuse_cap else None,
+                capture=self.capture, device=dev,
             )
 
-        def _overflowed(res) -> bool:
-            return bool(self._fuse_cap and res.fuse_overflow.any())
+        def _overflowed(host) -> bool:
+            return bool(self._fuse_cap and host["fuse_overflow"].any())
 
         def grow_capacity() -> None:
             grown = min(ZY, max(self._fuse_cap * 3 // 2, 256))
@@ -420,19 +446,22 @@ class ReconstructionPipeline:
                 self.overflow_redos += 1
                 new_vol, res = dispatch(
                     rec["vol_before"], rec["pose_before"], rec["arrs"])
-                if _overflowed(res):
+                host = read_result(res)
+                if _overflowed(host):
                     grow_capacity()
                     continue
                 rec["vol_after"], rec["res"] = new_vol, res
-                return new_vol, res
+                return new_vol, res, host
 
         def stage(data) -> None:
             nonlocal cur_pose_dev
             self.timer.tic()
             arrs = make_arrays(data)
-            # upload the chunk's frames ONCE (a redo reuses the device copy)
-            arrs["colors"] = upload_frames(arrs["colors"], dev)
-            arrs["depths"] = upload_frames(arrs["depths"], dev)
+            if self._rotation is None:
+                # upload the chunk's frames ONCE (a redo reuses the device
+                # copy); a rotation copies them into its staging slot
+                arrs["colors"] = upload_frames(arrs["colors"], dev)
+                arrs["depths"] = upload_frames(arrs["depths"], dev)
             rec = dict(data=data, arrs=arrs,
                        vol_before=self.vol, pose_before=cur_pose_dev,
                        t_stage=time.perf_counter())
@@ -454,33 +483,31 @@ class ReconstructionPipeline:
             data = rec["data"]
             n = len(data)
             res = rec["res"]
-            if _overflowed(res):
+            host = read_result(res)          # the chunk's one readout
+            if _overflowed(host):
                 # the culled fusion dropped rows: redo this chunk — and any
                 # chunk already staged on top of its (incomplete) volume —
                 # from the recorded pre-states at a grown capacity
                 grow_capacity()
-                new_vol, res = redo_sync(rec)
+                new_vol, res, host = redo_sync(rec)
                 nxt = pending[0]
                 if nxt is not None and nxt is not rec:
                     nxt["vol_before"] = new_vol
                     nxt["pose_before"] = res.poses[n - 1]
-                    v2, r2 = redo_sync(nxt)
+                    v2, r2, _ = redo_sync(nxt)
                     self.vol = v2
                     cur_pose_dev = r2.poses[len(nxt["data"]) - 1]
                 else:
                     self.vol = new_vol
                     cur_pose_dev = res.poses[n - 1]
             rec["vol_before"] = None      # release the pre-chunk volume
-            poses = res.poses.cpu().numpy()
-            conv = res.converged.cpu().numpy()
-            fused = res.fused.cpu().numpy()
-            iters = res.iterations.cpu().numpy()
-            energies = res.energy.cpu().numpy()
-            nvalid = res.num_valid.cpu().numpy()
-            sharp = res.sharpness.cpu().numpy()
+            poses, conv, fused = host["poses"], host["converged"], host["fused"]
+            iters, energies = host["iterations"], host["energy"]
+            nvalid, sharp = host["num_valid"], host["sharpness"]
             dt = time.perf_counter() - rec["t_stage"]
             self.metrics.log("chunk", frames=n, seconds=dt,
                              fps=n / max(dt, 1e-9))
+            keys = []
             for j in range(n):
                 idx, col_j, _, rgb_ts, depth_ts = data[j]
                 cur_pose = poses[j]
@@ -490,12 +517,12 @@ class ReconstructionPipeline:
                         energy=float(energies[j]), valid=int(nvalid[j]),
                         seconds=dt / n,
                     ))
-                if fused[j]:
-                    self._keyframe_gate(
-                        col_j, idx - tr.first, cur_pose, float(sharp[j]), rgb_ts,
-                        rec["arrs"]["colors"][j])
+                if fused[j] and self._keyframe_gate(
+                        col_j, idx - tr.first, cur_pose, float(sharp[j]), rgb_ts):
+                    keys.append(j)
                 pose_lines.append(trajectory.pose_line(depth_ts, cur_pose))
                 frames_done += 1
+            self.key_images_dev.extend(_copied_frames(res.colors, keys))
             if (self.checkpoint_every > 0 and tr.output and frames_done
                     - self._last_ckpt_frames >= self.checkpoint_every):
                 # this chunk's own volume, NOT self.vol: a later staged chunk
@@ -544,6 +571,13 @@ class ReconstructionPipeline:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         scan_secs = time.perf_counter() - t_scan
+        if self._rotation is not None:
+            # the scan's volume stays in its slot; the graphs and the other
+            # slots go
+            self.scan_graph = self._rotation.stats()
+            self.metrics.log("scan_graph", **self.scan_graph)
+            self._rotation.release()
+            self._rotation = None
         self.metrics.log(
             "scan_done", frames=frames_done, seconds=scan_secs,
             fps=frames_done / max(scan_secs, 1e-9), keyframes=len(key_indices),
@@ -561,6 +595,7 @@ class ReconstructionPipeline:
             keyframes=len(key_indices), track_log=self.track_log,
             frame_cap=self._frame_cap, vis_overflow=self._vis_overflowed,
             fuse_capacity=self._fuse_cap, overflow_redos=self.overflow_redos,
+            scan_graph=self.scan_graph,
         )
         try:
             if refine and key_images:
@@ -723,18 +758,19 @@ class ReconstructionPipeline:
         self.timer.toc("fuse", depth_d)
 
     def _keyframe_gate(self, color, frame_counter, pose_np, sharp: float,
-                       rgb_ts: str, color_dev: torch.Tensor) -> None:
+                       rgb_ts: str) -> bool:
         """Sharpness-or-gap keyframe gate (main_ps.cpp:222-258); the LAPM
-        measure arrives precomputed from the chunk scan."""
+        measure arrives precomputed from the chunk scan.  -> whether the
+        frame is a keyframe (the caller keeps its device image)."""
         if sharp >= self.cfg.tracking.sharpness_threshold or self._dist_to_last_kf > 5:
             self.key_indices.append(frame_counter)
             self.key_stamps.append(rgb_ts)
             self.key_images.append(color)
-            self.key_images_dev.append(color_dev)
             self.key_poses.append(pose_np)
             self._dist_to_last_kf = 0
-        else:
-            self._dist_to_last_kf += 1
+            return True
+        self._dist_to_last_kf += 1
+        return False
 
     def _join_export(self, swallow: bool = False) -> None:
         """Join the initial export's thread and surface its outcome: what it

@@ -26,16 +26,16 @@ place of some 150 runtime calls, and reads the device once after it.
     library loaded, every host plan, stencil table, ticket and cached
     buffer made on the capture's stream), restores every launch count
     (`counters`) after the warm-up, takes the capture's difference of them
-    and adds it again at every replay.  A caller can register its own
-    dicts of counts (`registered`) and functions to run after every replay
-    of what is being captured (`after_replay`).
+    and adds it again at every replay (utils/capture.py, the machinery the
+    scan's graph, tracking/graph.py, shares).  A caller can register its
+    own dicts of counts (`registered`) and functions to run after every
+    replay of what is being captured (`after_replay`).
   * A capture or a replay that fails raises: nothing falls back to the
     eager loop.  There is no graph on the CPU.
 """
 
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -43,11 +43,12 @@ import torch
 
 from psgradientsdf_tpu_torch.ops import (albedo, distcg, distreg, energy, normaleq,
                                          residual, smallsolve)
+from psgradientsdf_tpu_torch.utils import capture
+from psgradientsdf_tpu_torch.utils.capture import registered  # noqa: F401
 
 # readout slots a block: E, E_n, E_l, E_r, then its CG steps (-1: no CG)
 BLOCK_SLOTS = 5
 
-_registered: List[Dict[str, int]] = []
 _warming = False
 _capturing: Optional["IterationGraph"] = None
 
@@ -94,22 +95,15 @@ def counters() -> List[Dict[str, int]]:
     kernels it runs, and those a caller registered."""
     return [residual.launch_counts, energy.launch_counts, albedo.launch_counts,
             normaleq.launch_counts, smallsolve.launch_counts, distcg.launch_counts,
-            distreg.launch_counts] + _registered
+            distreg.launch_counts] + capture.registered_counts()
 
 
 def _snapshot() -> List[Tuple[Dict[str, int], Dict[str, int]]]:
-    return [(c, dict(c)) for c in counters()]
+    return capture.snapshot(counters())
 
 
-def _restore(snap) -> None:
-    for c, s in snap:
-        for k in c:
-            c[k] = s.get(k, 0)
-
-
-def _difference(snap) -> List[Tuple[Dict[str, int], Dict[str, int]]]:
-    return [(c, {k: v - s.get(k, 0) for k, v in c.items() if v != s.get(k, 0)})
-            for c, s in snap]
+_restore = capture.restore
+_difference = capture.difference
 
 
 def warming() -> bool:
@@ -139,8 +133,7 @@ class IterationGraph:
     def __init__(self, step: Callable, state: Sequence[torch.Tensor], key):
         global _warming, _capturing
         dev = state[0].device
-        if dev.type != "cuda":
-            raise ValueError(f"IterationGraph: the state is on {dev}; a graph needs a card")
+        capture.needs_card(dev, "IterationGraph")
         self.key, self.device = key, dev
         self.state = tuple(t.clone() for t in state)
         self._after: List[Callable[[], None]] = []
@@ -159,19 +152,19 @@ class IterationGraph:
             _warming = False
             _restore(snap)
         self.warmup_seconds = time.perf_counter() - t0
-        self.graph = torch.cuda.CUDAGraph()
+
+        def body():
+            new, self.readout, ok = step(self.state)
+            for s, n in zip(self.state, new):
+                if n is not s:
+                    s.copy_(n if ok is None else torch.where(ok, n, s))
+
         _capturing = self
         try:
-            with torch.cuda.graph(self.graph, stream=self.stream,
-                                  capture_error_mode="thread_local"):
-                new, self.readout, ok = step(self.state)
-                for s, n in zip(self.state, new):
-                    if n is not s:
-                        s.copy_(n if ok is None else torch.where(ok, n, s))
-            self.counts = _difference(snap)
+            self._captured = capture.Captured(body, dev, self.stream, counters())
         finally:
             _capturing = None
-            _restore(snap)
+        self.graph, self.counts = self._captured.graph, self._captured.counts
 
     def load(self, tensors: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         """Copy into the static state each of `tensors` that is not already
@@ -185,9 +178,7 @@ class IterationGraph:
         """One replay and its ONE device-to-host copy -> the readout."""
         with torch.cuda.device(self.device):
             self.graph.replay()
-            for c, d in self.counts:
-                for k, v in d.items():
-                    c[k] = c.get(k, 0) + v
+            capture.add(self.counts)
             values = self.readout.tolist()
         for fn in self._after:
             fn()
@@ -195,19 +186,7 @@ class IterationGraph:
 
     def release(self) -> None:
         """Drop the graph and its memory pool."""
-        self.graph.reset()
-        self.graph = self.readout = None
+        self._captured.release()
+        self.graph = self.readout = self._captured = None
         self._after = []
 
-
-@contextlib.contextmanager
-def registered(counts: Dict[str, int]):
-    """For the body's duration, count `counts` (a dict of ints that the
-    iteration's calls add to) as the launch counts are: restored after a
-    warm-up, the capture's difference added at every replay."""
-    _registered.append(counts)
-    try:
-        yield counts
-    finally:
-        # by identity: two registered dicts may hold equal counts
-        del _registered[next(i for i, c in enumerate(_registered) if c is counts)]

@@ -16,10 +16,19 @@ uploaded once and worked through on the device:
   * the per-frame results stay on the device until the caller reads them.
 
 Fusion gating is a mask, not a branch on a device value, so `_chunk_step`
-reads nothing back (the tracker's early-exit poll is the one exception, see
-tracking/tracker.py).  Ragged chunk tails are padded by the caller and
-marked in `valid`; a padding frame is skipped: it leaves the volume and the
-pose untouched and reports converged=False, fused=False and zeros.
+reads nothing back (on the card a frame's whole tracking solve is one
+launch that ends its loop on the device).  Ragged chunk tails are padded by
+the caller and marked in `valid`; a padding frame is skipped: it leaves the
+volume and the pose untouched and reports converged=False, fused=False and
+zeros.  A chunk's results come back with one readout (`read_result`: one
+device-to-host copy).
+
+On one card with the culled fusion, `rotation` (a tracking/graph.
+ScanRotation) runs the chunk in static buffers, its frame ids on the
+device, and, with `capture` on a card, as ONE CUDA graph a chunk once its
+key is captured (tracking/graph.py): the counterpart of JAX's chunk of
+jitted programs dispatched with no host read.  capture=False runs the same
+buffers eagerly (the A/B of the graph); on the CPU there is no graph.
 
 With `mesh` (parallel/mesh.py) the volume is a ShardedVolume of Z-slabs: the
 chunk is preprocessed once on the mesh's first device, each frame's inputs
@@ -34,7 +43,7 @@ process.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +55,7 @@ from psgradientsdf_tpu_torch.ops import preprocess
 from psgradientsdf_tpu_torch.ops.normals import FalsCache
 from psgradientsdf_tpu_torch.parallel import shard
 from psgradientsdf_tpu_torch.parallel.mesh import Z_AXIS
+from psgradientsdf_tpu_torch.tracking import graph as scan_graph
 from psgradientsdf_tpu_torch.tracking.tracker import track_frame
 
 
@@ -61,18 +71,40 @@ class ChunkResult(NamedTuple):
                                  # the frame's update is incomplete and the
                                  # caller must redo the chunk (pipeline keeps
                                  # the pre-chunk volume)
+    readout: Optional[torch.Tensor] = None  # [C, READ_COLS] float64: the
+                                 # fields above a frame, read by read_result
+    colors: Optional[torch.Tensor] = None   # [C,H,W,3] the chunk's colour
+                                 # frames on the device, wire format (in a
+                                 # rotation: its staging, reused later)
+
+
+def pack_readout(poses, conv, fused, iters, energy, nvalid, sharp, overflow):
+    """The chunk's results as one [C, READ_COLS] float64 tensor (every
+    value exact: float32, int32 and bools all fit a float64)."""
+    f64 = torch.float64
+    cols = [poses.reshape(poses.shape[0], 16).to(f64)] + [
+        t.to(f64)[:, None] for t in (conv, fused, iters, energy, nvalid, sharp, overflow)]
+    return torch.cat(cols, dim=1)
+
+
+def read_result(res: ChunkResult) -> dict:
+    """A chunk's results on the host with ONE device-to-host copy of its
+    readout -> numpy arrays by field name."""
+    v = res.readout.cpu().numpy()
+    C = v.shape[0]
+    return dict(poses=v[:, :16].reshape(C, 4, 4).astype(np.float32),
+                converged=v[:, 16] != 0, fused=v[:, 17] != 0,
+                iterations=v[:, 18].astype(np.int32),
+                energy=v[:, 19].astype(np.float32),
+                num_valid=v[:, 20].astype(np.int32),
+                sharpness=v[:, 21].astype(np.float32), fuse_overflow=v[:, 22] != 0)
 
 
 def upload_frames(arr, device) -> torch.Tensor:
-    """A chunk's frames on the device in their wire format.  uint16 depth is
-    widened to int32 on the host first (torch has no uint16 arithmetic on
-    older builds); uint8 colour and float arrays go up as they are."""
-    if isinstance(arr, torch.Tensor):
-        return arr.to(device)
-    arr = np.asarray(arr)
-    if arr.dtype == np.uint16:
-        arr = arr.astype(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    """A chunk's frames on the device in their wire format
+    (tracking/graph.host_frames: uint16 depth widened to int32 on the host
+    first; uint8 colour and float arrays go up as they are)."""
+    return scan_graph.host_frames(arr).to(device)
 
 
 def _to_metric(depths: torch.Tensor, colors: torch.Tensor, depth_unit: float):
@@ -149,6 +181,8 @@ def process_chunk(
     rows_impl: str = "dma",
     mesh=None,
     interleave_z: bool = False,
+    rotation: Optional[scan_graph.ScanRotation] = None,
+    capture: bool = True,
     device=None,
 ) -> Tuple[object, ChunkResult]:
     """Track + fuse a chunk of frames.
@@ -160,21 +194,75 @@ def process_chunk(
     (the pipeline makes them on the host), so no flag is read back from the
     device here; the returned ChunkResult holds device tensors.
 
+    With `rotation` (one device, fuse_row_capacity > 0) the clone is the
+    copy of `vol` into the rotation's next slot, the inputs are copied into
+    that slot's buffers, the frame ids go to the fusion as device values,
+    and the returned volume and results are that slot's: they hold until
+    the rotation writes the slot again, three chunks later.  With
+    `capture` on a card a full chunk (no padding) of the direct row copies
+    is one replay of a CUDA graph once its key is captured
+    (tracking/graph.py); otherwise it runs eagerly, bit for bit the same.
+
     With `mesh`, `vol` is a ShardedVolume (stored interleaved when
     `interleave_z`) and the work runs on the mesh as the module docstring
     says; `fuse_row_capacity` stays the whole grid's, and each shard gets
     ceil(capacity / n_z).  The results lie on the mesh's first device.
     """
     dev = resolve_device(device) if mesh is None else mesh.first_device
-    colors = upload_frames(colors, dev)
-    depths = upload_frames(depths, dev)
     K = torch.as_tensor(K, dtype=torch.float32, device=dev)
-    pose = torch.as_tensor(init_pose, dtype=torch.float32, device=dev)
-    gt_poses = torch.as_tensor(gt_poses, dtype=torch.float32, device=dev)
-    fids = [int(f) for f in np.asarray(frame_ids).tolist()]
     valid = [bool(v) for v in np.asarray(valid).tolist()]
-    C = int(colors.shape[0])
+    kw = dict(geom=geom, fals=fals, truncation=truncation, zmin=zmin, zmax=zmax,
+              num_iterations=num_iterations, conv_threshold_sq=conv_threshold_sq,
+              damping=damping, stride=stride, window=window, use_gt=use_gt,
+              depth_unit=depth_unit, regather_every=regather_every,
+              early_exit=early_exit, fuse_row_capacity=fuse_row_capacity,
+              rows_impl=rows_impl, mesh=mesh, interleave_z=interleave_z, dev=dev)
+    if rotation is None:
+        colors = upload_frames(colors, dev)
+        depths = upload_frames(depths, dev)
+        pose = torch.as_tensor(init_pose, dtype=torch.float32, device=dev)
+        gt_poses = torch.as_tensor(gt_poses, dtype=torch.float32, device=dev)
+        fids = [int(f) for f in np.asarray(frame_ids).tolist()]
+        return _chunk(vol.clone(), colors, depths, K, pose, fids, valid, gt_poses, **kw)
 
+    if mesh is not None or fuse_row_capacity <= 0:
+        raise ValueError("process_chunk: a rotation serves the one-device culled "
+                         "fusion (fuse_row_capacity > 0, no mesh)")
+    if len(valid) != rotation.C:
+        raise ValueError(f"process_chunk: a chunk of {len(valid)} frames, the "
+                         f"rotation's hold {rotation.C}")
+    source = rotation.source_of(vol)
+    slot = rotation.slots[rotation.target_of(source)]
+    slot.stage(colors, depths, init_pose, frame_ids, gt_poses if use_gt else None)
+
+    def body():
+        for t, v in zip(slot.vol, vol):
+            t.copy_(v)
+        _, res = _chunk(slot.vol, slot.colors, slot.depths, K, slot.seed, slot.fids,
+                        valid, slot.gtp, **kw)
+        for t, r in zip(slot.results() + (slot.readout,), res):
+            t.copy_(r)
+
+    static = (tuple(sorted((k, v) for k, v in kw.items() if k not in ("fals", "mesh"))),
+              id(fals), K.data_ptr(), id(K))
+    key = scan_graph.ScanKey(source, rotation.target_of(source),
+                             fuse_row_capacity, static)
+    rotation.run(key, body, graphable=capture and all(valid) and rows_impl == "dma",
+                 reads=tuple(vol) if source is None else ())
+    return slot.vol, ChunkResult(*slot.results(), readout=slot.readout,
+                                 colors=slot.colors)
+
+
+def _chunk(vol, colors, depths, K, pose, fids, valid, gt_poses, *, geom, fals,
+           truncation, zmin, zmax, num_iterations, conv_threshold_sq, damping,
+           stride, window, use_gt, depth_unit, regather_every, early_exit,
+           fuse_row_capacity, rows_impl, mesh, interleave_z, dev
+           ) -> Tuple[object, ChunkResult]:
+    """The chunk's work on device tensors -> (volume, results): the
+    preprocessing, then a `_chunk_step` a valid frame; the culled fusion
+    writes into `vol` in place.  `fids`: host ints, or an int32 [C] tensor
+    on the device (each frame's id a device value)."""
+    C = int(colors.shape[0])
     depths_m, colors_m, normals, sharp = _preprocess(
         depths, colors, fals, window=window, depth_unit=depth_unit)
     zkw = dict(truncation=truncation, zmin=zmin, zmax=zmax)
@@ -230,7 +318,6 @@ def process_chunk(
 
             return track, fuse
 
-    vol = vol.clone()
     zero_b = torch.zeros((), dtype=torch.bool, device=dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     zero_f = torch.zeros((), dtype=torch.float32, device=dev)
@@ -251,4 +338,6 @@ def process_chunk(
         poses=poses, converged=conv, fused=fused, iterations=iters,
         energy=energy, num_valid=nvalid, sharpness=sharp,
         fuse_overflow=overflow,
+        readout=pack_readout(poses, conv, fused, iters, energy, nvalid, sharp, overflow),
+        colors=colors,
     )

@@ -8,11 +8,19 @@ therefore opens with WARMUP throwaway spin kernels and a synchronize, which
 take those losses; `warmup_kept` says how many of them arrived, and a
 session that kept none may have lost its body's first records too.  A
 session on the CPU alone opens with no warm-up.
+
+The port captures and replays CUDA graphs (the scan's chunk and the
+refinement's iteration), and CUPTI's teardown at a session's end and its
+re-initialisation for the next do not work well beside CUDA graphs: torch
+turns the teardown off for its own graphs (TEARDOWN_CUPTI=0,
+torch/profiler/profiler.py), and a session here does the same unless the
+environment already says otherwise.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
@@ -34,6 +42,8 @@ def session(cuda: bool, cpu: bool = True, on_trace_ready=None):
     runs as the session stops (writing a trace, say).  -> the profile."""
     from torch.profiler import ProfilerActivity, profile
 
+    if cuda:
+        os.environ.setdefault("TEARDOWN_CUPTI", "0")
     acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA] * cuda
     with profile(activities=acts, on_trace_ready=on_trace_ready) as prof:
         if cuda:
